@@ -1,0 +1,29 @@
+"""6x6 normal-equation solve (counterpart of
+``dvo_slam_tpu/ops/least_squares.py::solve``)."""
+
+from __future__ import annotations
+
+import torch
+
+_JITTER = 1e-8
+
+
+def solve(A, b, lm_lambda=0.0):
+    """Solve A dx = -b with optional Levenberg-Marquardt diagonal damping.
+
+    Jacobi scaling (1/sqrt(diag)) keeps the f32 Cholesky well conditioned.
+    A matrix that is not positive definite gives NaN, as JAX's
+    ``cho_factor`` does, so the tracker's isfinite guard sees the same
+    thing: ``cholesky_ex`` reports the failure in ``info`` instead of
+    raising, and no host sync is needed to act on it.
+    """
+    eye = torch.eye(6, dtype=A.dtype, device=A.device)
+    diag = torch.diagonal(A)
+    damped = A + lm_lambda * torch.diag(diag) + _JITTER * eye
+    s = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(damped), min=_JITTER))
+    As = damped * s[:, None] * s[None, :]
+    bs = b * s
+    L, info = torch.linalg.cholesky_ex(As)
+    dx = torch.cholesky_solve(-bs[:, None], L)[:, 0]
+    dx = torch.where(info == 0, dx, torch.full_like(dx, float("nan")))
+    return dx * s

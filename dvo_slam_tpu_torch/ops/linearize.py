@@ -1,0 +1,302 @@
+"""One IRLS linearization of the bivariate photometric + geometric error
+(counterpart of ``dvo_slam_tpu/ops/linearize.py``; reference
+computeResidualsSse + computeScaleSse/computeWeightsSse + the SSE 6x6 rank
+updates).
+
+warp -> project -> bilinear sample (the CUDA kernel, ops/sampler.py) ->
+bivariate residual -> t-distribution Sigma fixed point -> weights ->
+analytic Jacobian -> weighted 6x6 normal equations. Per-point quantities
+stay flat (N,) tensors and the Jacobian is 12 scalar planes, as in the JAX
+package; everything besides the sampler is plain tensor code on the
+device (a fused linearization kernel is later work). Invalid points are
+zeroed with ``torch.where`` before any sum (NaN * 0 = NaN).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from dvo_slam_tpu_torch.config import TrackerConfig
+from dvo_slam_tpu_torch.ops import pyramid as pyr
+from dvo_slam_tpu_torch.ops import robust, sampler
+
+_EPS = 1e-12
+
+
+class RefData(NamedTuple):
+    """Per-level reference-frame tensors, all (N,). The gradient planes are
+    set only for cfg.gradient_source == "reference"."""
+
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    i1: torch.Tensor
+    selected: torch.Tensor  # bool
+    gix: Optional[torch.Tensor] = None
+    giy: Optional[torch.Tensor] = None
+    gzx: Optional[torch.Tensor] = None
+    gzy: Optional[torch.Tensor] = None
+
+
+class Linearization(NamedTuple):
+    A: torch.Tensor  # (6, 6)
+    b: torch.Tensor  # (6,)
+    err_mean: torch.Tensor  # scalar acceptance metric
+    n_valid: torch.Tensor  # scalar, floored at 1 (safe divisor)
+    n_raw: torch.Tensor  # scalar, true valid count (0 possible)
+    sigma: torch.Tensor  # (2, 2)
+    log1p_sum: torch.Tensor  # sum over valid of log1p(maha/dof)
+    err_raw: torch.Tensor  # sum of w * maha (diagnostics)
+    # Points masked by the TPU sampler's row window: always 0 here (the
+    # gather kernel has no window); kept so callers see the same fields.
+    n_window_miss: float = 0.0
+
+
+def _where0(mask, x):
+    return torch.where(mask, x, torch.zeros_like(x))
+
+
+def prepare_reference(ref_slab, K, cfg: TrackerConfig) -> RefData:
+    """Back-project and select reference pixels (PointSelection)."""
+    _, H, W = ref_slab.shape
+    dtype, device = ref_slab.dtype, ref_slab.device
+    fx, fy, cx, cy = K.unbind()
+    v, u = torch.meshgrid(
+        torch.arange(H, dtype=dtype, device=device),
+        torch.arange(W, dtype=dtype, device=device),
+        indexing="ij",
+    )
+    u = u.reshape(-1)
+    v = v.reshape(-1)
+    z = ref_slab[pyr.CH_Z].reshape(-1)
+    i1 = ref_slab[pyr.CH_I].reshape(-1)
+    selected = torch.isfinite(z)
+    if cfg.intensity_grad_threshold > 0.0:
+        gi = torch.hypot(ref_slab[pyr.CH_IDX].reshape(-1),
+                         ref_slab[pyr.CH_IDY].reshape(-1))
+        selected &= gi >= cfg.intensity_grad_threshold
+    if cfg.depth_grad_threshold > 0.0:
+        gz = torch.hypot(ref_slab[pyr.CH_ZDX].reshape(-1),
+                         ref_slab[pyr.CH_ZDY].reshape(-1))
+        selected &= torch.isfinite(gz) & (gz >= cfg.depth_grad_threshold)
+    grads = {}
+    if cfg.gradient_source == "reference":
+        gix = ref_slab[pyr.CH_IDX].reshape(-1)
+        giy = ref_slab[pyr.CH_IDY].reshape(-1)
+        grads["gix"] = _where0(torch.isfinite(gix), gix)
+        grads["giy"] = _where0(torch.isfinite(giy), giy)
+        if cfg.use_depth:
+            # Reference-side depth gradients are constants, so their
+            # finiteness folds into point selection.
+            gzx = ref_slab[pyr.CH_ZDX].reshape(-1)
+            gzy = ref_slab[pyr.CH_ZDY].reshape(-1)
+            selected &= torch.isfinite(gzx) & torch.isfinite(gzy)
+            grads["gzx"] = _where0(torch.isfinite(gzx), gzx)
+            grads["gzy"] = _where0(torch.isfinite(gzy), gzy)
+    z_safe = torch.where(selected, z, torch.ones_like(z))
+    px = (u - cx) / fx * z_safe
+    py = (v - cy) / fy * z_safe
+    return RefData(px=px, py=py, pz=z_safe, i1=i1, selected=selected, **grads)
+
+
+def _tdist_scale(sII, sIZ, sZZ, vF, n, cfg, sigma_init, sigma_warm):
+    """Bivariate t-distribution scale fixed point on the residual moments.
+    Returns the Sigma entries (a, bq, c)."""
+    nu = cfg.tdist_dof
+    floor_II = cfg.min_intensity_sigma**2
+    floor_ZZ = cfg.min_depth_sigma**2
+    a = sII.sum() / n + floor_II
+    bq = sIZ.sum() / n
+    c = sZZ.sum() / n + floor_ZZ
+    n_fp = cfg.tdist_scale_iters
+    if sigma_init is not None and cfg.tdist_scale_warm_iters > 0:
+        # Warm start from the previous iteration's Sigma: the trip count
+        # depends on it, so this option costs one host sync.
+        if sigma_warm and bool(torch.isfinite(sigma_init).all()):
+            a = torch.clamp(sigma_init[0, 0], min=floor_II)
+            bq = sigma_init[0, 1]
+            c = torch.clamp(sigma_init[1, 1], min=floor_ZZ)
+            n_fp = cfg.tdist_scale_warm_iters
+    for _ in range(n_fp):
+        det = torch.clamp(a * c - bq * bq, min=_EPS)
+        p00, p01, p11 = c / det, -bq / det, a / det
+        maha = p00 * sII + 2.0 * p01 * sIZ + p11 * sZZ
+        w = (nu + 2.0) / (nu + maha) * vF
+        a = (w * sII).sum() / n + floor_II
+        bq = (w * sIZ).sum() / n
+        c = (w * sZZ).sum() / n + floor_ZZ
+    return a, bq, c
+
+
+def warp(ref: RefData, K, T):
+    """Transform the reference points by T (4, 4) and project them:
+    ``(X, Y, Z, 1/Z, u, v)``, all (N,)."""
+    fx, fy, cx, cy = K.unbind()
+    R, t = T[:3, :3], T[:3, 3]
+    px, py, pz = ref.px, ref.py, ref.pz
+    X = R[0, 0] * px + R[0, 1] * py + R[0, 2] * pz + t[0]
+    Y = R[1, 0] * px + R[1, 1] * py + R[1, 2] * pz + t[1]
+    Z = R[2, 0] * px + R[2, 1] * py + R[2, 2] * pz + t[2]
+    # Sign-preserving guard: never flip a behind-the-camera point forward.
+    zi = 1.0 / torch.where(Z.abs() < 1e-8,
+                           torch.where(Z < 0, -1e-8, 1e-8), Z)
+    return X, Y, Z, zi, fx * X * zi + cx, fy * Y * zi + cy
+
+
+def linearize(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
+              sigma_init=None, sigma_warm=False) -> Linearization:
+    """One IRLS linearization of the current slab against the reference
+    points at pose T (4, 4). See the module docstring.
+
+    ``sigma_init`` / ``sigma_warm``: with cfg.tdist_scale_warm_iters > 0,
+    the previous iteration's (2, 2) Sigma and a host bool (False on a
+    level's first iteration) that seed the fixed point.
+    """
+    C = cur_slab.shape[0]
+    dtype = cur_slab.dtype
+    fx, fy = K[0], K[1]
+    X, Y, Z, zi, u, v = warp(ref, K, T)
+
+    # --- bilinear sample (CUDA kernel on the device) ---
+    # "reference" gradient mode samples only [I] / [I, Z].
+    ref_grad = cfg.gradient_source == "reference"
+    n_smp = ((2 if cfg.use_depth else 1) if ref_grad else C)
+    smp, inb = sampler.sample_slab(cur_slab[:n_smp], u, v)
+    chans = smp.unbind(0)
+
+    i2 = chans[pyr.CH_I]
+    z2 = (chans[pyr.CH_Z] if cfg.use_depth or not ref_grad
+          else torch.zeros_like(i2))
+    if ref_grad:
+        gix, giy = ref.gix, ref.giy
+        zero_g = torch.zeros_like(i2)
+        gzx = ref.gzx if cfg.use_depth else zero_g
+        gzy = ref.gzy if cfg.use_depth else zero_g
+    else:
+        gix = chans[pyr.CH_IDX]
+        giy = chans[pyr.CH_IDY]
+        gzx = chans[pyr.CH_ZDX]
+        gzy = chans[pyr.CH_ZDY]
+
+    # --- residuals + validity ---
+    rI = i2 - ref.i1
+    rZ = z2 - Z
+    valid = ref.selected & inb & (Z > 1e-6) & torch.isfinite(rI)
+    if cfg.use_depth:
+        # Photometric-only tracking must not require finite current depth.
+        valid &= torch.isfinite(rZ) & torch.isfinite(gzx) & torch.isfinite(gzy)
+    vF = valid.to(dtype)
+    rI = _where0(valid, rI)
+    rZ = _where0(valid, rZ) if cfg.use_depth else torch.zeros_like(rI)
+    n_raw = vF.sum()
+    n = torch.clamp(n_raw, min=1.0)
+
+    # --- robust scale + weights (bivariate t-distribution default) ---
+    sII = rI * rI
+    sIZ = rI * rZ
+    sZZ = rZ * rZ
+    if cfg.use_weighting and cfg.scale_estimator == "tdist":
+        nu = cfg.tdist_dof
+        a, bq, c = _tdist_scale(sII, sIZ, sZZ, vF, n, cfg,
+                                sigma_init, sigma_warm)
+        det = torch.clamp(a * c - bq * bq, min=_EPS)
+        p00, p01, p11 = c / det, -bq / det, a / det
+        maha = p00 * sII + 2.0 * p01 * sIZ + p11 * sZZ
+        w = (nu + 2.0) / (nu + maha) * vF
+        log1p_sum = (torch.log1p(maha / nu) * vF).sum()
+        err_mean = 0.5 * torch.log(det) + (nu + 2.0) / 2.0 * log1p_sum / n
+    else:
+        if cfg.use_weighting:
+            scale_fn = robust.SCALE_FNS[cfg.scale_estimator]
+            s_i = torch.clamp(scale_fn(rI, valid), min=cfg.min_intensity_sigma)
+            s_z = torch.clamp(scale_fn(rZ, valid), min=cfg.min_depth_sigma)
+        else:
+            s_i = torch.ones((), dtype=dtype, device=rI.device)
+            s_z = torch.ones((), dtype=dtype, device=rI.device)
+        a, bq, c = s_i * s_i, torch.zeros_like(s_i), s_z * s_z
+        p00, p01, p11 = 1.0 / a, torch.zeros_like(s_i), 1.0 / c
+        maha = p00 * sII + p11 * sZZ
+        if cfg.use_weighting:
+            x = torch.sqrt(maha)
+            inf_fn = robust.INFLUENCE_FNS[cfg.influence]
+            if cfg.influence == "huber":
+                w = inf_fn(x, k=cfg.huber_k)
+            elif cfg.influence == "tukey":
+                w = inf_fn(x, b=cfg.tukey_b)
+            elif cfg.influence == "tdist":
+                w = inf_fn(x, dof=cfg.tdist_dof)
+            else:
+                w = inf_fn(x)
+            w = w * vF
+        else:
+            w = vF
+        log1p_sum = (torch.log1p(maha / cfg.tdist_dof) * vF).sum()
+        err_sum = (w * maha).sum()
+        if cfg.use_weighting:
+            err_mean = err_sum / n + torch.log(torch.clamp(a * c, min=_EPS))
+        else:
+            err_mean = err_sum / n
+
+    if not cfg.use_depth:
+        # Keep the depth channel inert: precision row/col zero.
+        p01 = torch.zeros_like(p01)
+        p11 = torch.zeros_like(p11)
+
+    # --- analytic Jacobian planes ---
+    # J_pi = [[A, 0, C], [0, B, D]]; dp'/dxi = [I3 | -hat(p')].
+    A_ = fx * zi
+    B_ = fy * zi
+    C_ = -fx * X * zi * zi
+    D_ = -fy * Y * zi * zi
+    zero = torch.zeros_like(A_)
+    Ju = (A_, zero, C_, C_ * Y, A_ * Z - C_ * X, -A_ * Y)
+    Jv = (zero, B_, D_, -B_ * Z + D_ * Y, -D_ * X, B_ * X)
+    # d p'_z / d xi = [0, 0, 1, Y, -X, 0]
+    Jg3 = (zero, zero, torch.ones_like(Z), Y, -X, zero)
+
+    gix = _where0(valid, gix)
+    giy = _where0(valid, giy)
+    gzx = _where0(valid, gzx)
+    gzy = _where0(valid, gzy)
+    JI = [gix * Ju[k] + giy * Jv[k] for k in range(6)]
+    if cfg.use_depth:
+        JZ = [_where0(valid, gzx * Ju[k] + gzy * Jv[k] - Jg3[k])
+              for k in range(6)]
+    else:
+        JZ = [zero] * 6
+
+    # --- weighted normal equations: one (6, 2N) x (2N, 6) product ---
+    wI = w * p00
+    wX = w * p01
+    wZ = w * p11
+    GI = [wI * JI[k] + wX * JZ[k] for k in range(6)]
+    GZ = [wX * JI[k] + wZ * JZ[k] for k in range(6)]
+    J6 = torch.stack([torch.cat([JI[k], JZ[k]]) for k in range(6)])
+    G6 = torch.stack([torch.cat([GI[k], GZ[k]]) for k in range(6)])
+    Amat = J6 @ G6.T
+    bvec = G6 @ torch.cat([rI, rZ])
+    err_raw = (w * maha).sum()
+
+    sigma = torch.stack([torch.stack([a, bq]), torch.stack([bq, c])])
+    return Linearization(
+        A=Amat, b=bvec, err_mean=err_mean, n_valid=n, n_raw=n_raw,
+        sigma=sigma, log1p_sum=log1p_sum, err_raw=err_raw,
+    )
+
+
+def tdist_loglik(lin: Linearization, cfg: TrackerConfig):
+    """Bivariate t log-likelihood from a Linearization (Result.LogLikelihood)."""
+    nu = cfg.tdist_dof
+    p = 2.0
+    det = torch.clamp(
+        lin.sigma[0, 0] * lin.sigma[1, 1] - lin.sigma[0, 1] * lin.sigma[1, 0],
+        min=_EPS,
+    )
+    lg = [torch.lgamma(torch.full((), x, dtype=det.dtype, device=det.device))
+          for x in ((nu + p) / 2.0, nu / 2.0)]
+    log_norm = (lg[0] - lg[1] - (p / 2.0) * math.log(nu * math.pi)
+                - 0.5 * torch.log(det))
+    return lin.n_valid * log_norm - (nu + p) / 2.0 * lin.log1p_sum
