@@ -2,10 +2,13 @@
 
 ``load()`` compiles every ``csrc/*.cu`` of this package with ``nvcc`` into
 one shared library with a plain C interface, at first use, and loads it
-with ctypes:
+with ctypes. Each source compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o libdvo_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu  (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o libdvo_kernels.so *.o
 
 The library goes to ``build/dvo_slam_tpu_torch/<hash>/libdvo_kernels.so``
 beside the package (``build/`` is git-ignored), keyed by a hash of the
@@ -28,8 +31,9 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "dvo_slam_tpu_torch"
 LIB_NAME = "libdvo_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LIB = None
 # Seconds the last build took in this process (None: library reused or not
@@ -68,23 +72,39 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise on the first that fails.
+    Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def _compile(out: Path):
     global BUILD_SECONDS, BUILD_LOG
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
+    # Per-process names: concurrent builds never share a file.
+    tag = f"{os.getpid()}.tmp"
+    nvcc = find_nvcc()
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in _sources()]
+    tmp = out.with_name(f"{out.name}.{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    # Atomic publish: concurrent processes each write their own temp file.
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(_sources(), objs)])
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *[str(o) for o in objs]]])
+    for o in objs:
+        o.unlink()
+    # Atomic publish.
     os.replace(tmp, out)
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
+    BUILD_LOG = log
 
 
 def load():
@@ -96,8 +116,18 @@ def load():
         if not path.is_file():
             _compile(path)
         lib = ctypes.CDLL(str(path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dvo_sample_slab.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
         lib.dvo_sample_slab.restype = ci
+        lib.dvo_linearize_layout.argtypes = [ci, vp]
+        lib.dvo_linearize_layout.restype = None
+        lib.dvo_linearize.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,  # reference points, N
+            vp, ci, ci, vp, vp, vp,  # slab, H, W, K, T, sigma_init
+            ci, ci, ci, cf, cf, cf,  # use_depth, ref_grad, warm, nu, floors
+            ci, ci, ci,  # scale_iters, warm_iters, steps
+            vp, vp, vp,  # scratch, out, stream
+        ]
+        lib.dvo_linearize.restype = ci
         _LIB = lib
     return _LIB

@@ -88,53 +88,54 @@ def entropy_ratio(h_cur: float, h_ref: float) -> float:
     return 1.0 - (h_cur - h_ref) / max(abs(h_ref), _ENTROPY_DENOM_FLOOR)
 
 
+# The accepted linearization's fields, carried as one (50,) vector so one
+# torch.where per iteration keeps them all: offsets of A (36), b (6),
+# err_mean, err_raw, sigma (4), n_raw and log1p_sum.
+_A, _B, _ERR, _ERR_RAW, _SIGMA, _N_RAW, _LOG1P = 0, 36, 42, 43, 44, 48, 49
+
+
+def _flat(lin):
+    return torch.cat([lin.A.reshape(36), lin.b, lin.err_mean.reshape(1),
+                      lin.err_raw.reshape(1), lin.sigma.reshape(4),
+                      lin.n_raw.reshape(1), lin.log1p_sum.reshape(1)])
+
+
 def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
     """IRLS loop for one pyramid level. Returns (T, Linearization of the
     last accepted evaluation, stats dict)."""
     dtype, dev = T_init.dtype, T_init.device
     use_lm = cfg.lm_lambda_init > 0.0
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-
-    def scalar(x):
-        # torch.full, not torch.tensor: no host-to-device copy and sync.
-        return torch.full((), x, dtype=dtype, device=dev)
+    if cfg.mu > 0.0:
+        eye6 = torch.eye(6, dtype=dtype, device=dev)
 
     T_cur = T_best = T_init
-    err_best = scalar(math.inf)
-    err_raw_best = scalar(0.0)
-    A_best = eye6
-    b_best = torch.zeros(6, dtype=dtype, device=dev)
-    sigma_best = torch.eye(2, dtype=dtype, device=dev)
-    n_valid_best = scalar(0.0)
-    log1p_best = scalar(0.0)
-    lam = scalar(cfg.lm_lambda_init if use_lm else 0.0)
-    if cfg.collect_stats:
-        I = cfg.max_iterations
-        it_valid = torch.zeros(I, dtype=dtype, device=dev)
-        it_error = torch.zeros(I, dtype=dtype, device=dev)
-        it_delta = torch.zeros(I, dtype=dtype, device=dev)
-        it_accept = torch.zeros(I, dtype=torch.bool, device=dev)
-        term = torch.full((), TERM_ITERATIONS, dtype=torch.int32, device=dev)
+    best = None  # _flat of the last accepted linearization
+    sigma_best = None
+    # torch.full, not torch.tensor: no host-to-device copy and sync.
+    lam = torch.full((), cfg.lm_lambda_init if use_lm else 0.0, dtype=dtype,
+                     device=dev)
+    # Per-iteration stats (valid, error, delta_norm, accepted), stacked and
+    # zero-padded to max_iterations after the loop.
+    per_iter = ([], [], [], [])
 
     k = 0
     while True:
         # Warm-start the scale fixed point from the last accepted Sigma.
         lin = lin_ops.linearize(ref_data, cur_slab, K, T_cur, cfg,
                                 sigma_init=sigma_best, sigma_warm=k > 0)
+        # Accepted state (reference Revertable<T>: keep best, revert else).
         if k == 0:
             accept = torch.ones((), dtype=torch.bool, device=dev)
+            T_base = T_cur
+            best = _flat(lin)
         else:
-            accept = lin.err_mean <= err_best
-
-        # Accepted state (reference Revertable<T>: keep best, revert else).
-        T_base = torch.where(accept, T_cur, T_best)
-        A_best = torch.where(accept, lin.A, A_best)
-        b_best = torch.where(accept, lin.b, b_best)
-        err_best = torch.where(accept, lin.err_mean, err_best)
-        err_raw_best = torch.where(accept, lin.err_raw, err_raw_best)
-        sigma_best = torch.where(accept, lin.sigma, sigma_best)
-        n_valid_best = torch.where(accept, lin.n_raw, n_valid_best)
-        log1p_best = torch.where(accept, lin.log1p_sum, log1p_best)
+            accept = lin.err_mean <= best[_ERR]
+            T_base = torch.where(accept, T_cur, T_best)
+            best = torch.where(accept, _flat(lin), best)
+        A_best = best[_A:_B].view(6, 6)
+        b_best = best[_B:_ERR]
+        sigma_best = best[_SIGMA:_N_RAW].view(2, 2)
+        n_valid_best = best[_N_RAW]
 
         if use_lm:
             lam = torch.where(
@@ -155,25 +156,17 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
             A_solve = A_best + cfg.mu * eye6
             b_solve = b_best + cfg.mu * xi_prior
         delta = least_squares.solve(A_solve, b_solve, lam)
-        delta = torch.where(torch.isfinite(delta).all(), delta,
-                            torch.zeros_like(delta))
+        # All finite <=> x * 0 == 0 everywhere (inf * 0 and NaN * 0 are NaN).
+        delta = torch.where((delta * 0.0 == 0.0).all(), delta, 0.0)
         T_next = se3.exp(delta) @ T_base
         delta_norm = torch.linalg.vector_norm(delta)
 
         converged = delta_norm < cfg.precision
         too_few = n_valid_best < 6
         if cfg.collect_stats:
-            it_valid[k] = lin.n_raw
-            it_error[k] = lin.err_mean
-            it_delta[k] = delta_norm
-            it_accept[k] = accept
-            # First matching reason wins (priority mirrors `done`).
-            term = torch.where(
-                rejected_stop, TERM_ERROR_INCREASED,
-                torch.where(too_few, TERM_TOO_FEW_CONSTRAINTS,
-                            torch.where(converged, TERM_INCREMENT,
-                                        TERM_ITERATIONS)),
-            ).to(torch.int32)
+            for acc, x in zip(per_iter, (lin.n_raw, lin.err_mean, delta_norm,
+                                         accept)):
+                acc.append(x)
         T_cur, T_best = T_next, T_base
         k += 1
         if k >= cfg.max_iterations:
@@ -181,17 +174,32 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
         if bool((rejected_stop | converged | too_few).item()):
             break
 
-    stats = {"iterations": k, "error": err_best}
+    stats = {"iterations": k, "error": best[_ERR]}
     if cfg.collect_stats:
-        stats["per_iter"] = (it_valid, it_error, it_delta, it_accept, term)
+        # The last iteration's reason; first matching wins (priority
+        # mirrors the stop test).
+        term = torch.where(
+            rejected_stop, TERM_ERROR_INCREASED,
+            torch.where(too_few, TERM_TOO_FEW_CONSTRAINTS,
+                        torch.where(converged, TERM_INCREMENT,
+                                    TERM_ITERATIONS)),
+        ).to(torch.int32)
+        pad = cfg.max_iterations - k
+        stats["per_iter"] = (
+            *(torch.nn.functional.pad(torch.stack(x), (0, pad))
+              for x in per_iter[:3]),
+            torch.cat([torch.stack(per_iter[3]),
+                       torch.zeros(pad, dtype=torch.bool, device=dev)]),
+            term,
+        )
     A_final = A_best
     if cfg.mu > 0.0:
         # Posterior information: data term + the prior's mu*I, added once.
         A_final = A_final + cfg.mu * eye6
     final = lin_ops.Linearization(
-        A=A_final, b=b_best, err_mean=err_best,
+        A=A_final, b=b_best, err_mean=best[_ERR],
         n_valid=torch.clamp(n_valid_best, min=1.0), n_raw=n_valid_best,
-        sigma=sigma_best, log1p_sum=log1p_best, err_raw=err_raw_best,
+        sigma=sigma_best, log1p_sum=best[_LOG1P], err_raw=best[_ERR_RAW],
     )
     return T_best, final, stats
 

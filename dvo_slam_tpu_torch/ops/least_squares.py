@@ -17,13 +17,14 @@ def solve(A, b, lm_lambda=0.0):
     thing: ``cholesky_ex`` reports the failure in ``info`` instead of
     raising, and no host sync is needed to act on it.
     """
-    eye = torch.eye(6, dtype=A.dtype, device=A.device)
     diag = torch.diagonal(A)
-    damped = A + lm_lambda * torch.diag(diag) + _JITTER * eye
-    s = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(damped), min=_JITTER))
+    # A + lm * diag(A) + jitter * I, written to the diagonal only.
+    damped = A.clone()
+    damped.diagonal().copy_(diag + lm_lambda * diag + _JITTER)
+    s = torch.sqrt(torch.clamp(torch.diagonal(damped), min=_JITTER)).reciprocal()
     As = damped * s[:, None] * s[None, :]
     bs = b * s
     L, info = torch.linalg.cholesky_ex(As)
     dx = torch.cholesky_solve(-bs[:, None], L)[:, 0]
-    dx = torch.where(info == 0, dx, torch.full_like(dx, float("nan")))
+    dx = torch.where(info == 0, dx, float("nan"))
     return dx * s

@@ -3,17 +3,36 @@
 computeResidualsSse + computeScaleSse/computeWeightsSse + the SSE 6x6 rank
 updates).
 
-warp -> project -> bilinear sample (the CUDA kernel, ops/sampler.py) ->
-bivariate residual -> t-distribution Sigma fixed point -> weights ->
-analytic Jacobian -> weighted 6x6 normal equations. Per-point quantities
-stay flat (N,) tensors and the Jacobian is 12 scalar planes, as in the JAX
-package; everything besides the sampler is plain tensor code on the
-device (a fused linearization kernel is later work). Invalid points are
-zeroed with ``torch.where`` before any sum (NaN * 0 = NaN).
+warp -> project -> bilinear sample -> bivariate residual -> t-distribution
+Sigma fixed point -> weights -> analytic Jacobian -> weighted 6x6 normal
+equations.
+
+``linearize`` dispatches on the current slab's device:
+
+- a CPU tensor goes to ``linearize_reference``, the plain PyTorch version:
+  per-point quantities stay flat (N,) tensors and the Jacobian is 12
+  scalar planes, as in the JAX package. Invalid points are zeroed with
+  ``torch.where`` before any sum (NaN * 0 = NaN). Its pieces are the plain
+  versions of the two kernels: ``residuals_reference`` (K1),
+  ``tdist_step_reference`` and ``normal_equations_reference`` (K2's two
+  modes).
+- a CUDA tensor goes to the two kernels of csrc/linearize.cu (K1, the
+  residual pass with the bilinear gather inside it; K2, the weighted
+  reduction, once per Sigma step and once for the normal equations), all
+  issued by one ctypes call with no host sync, when ``kernel_route(cfg)``:
+  the t-distribution branch (``use_weighting`` and ``scale_estimator ==
+  "tdist"``, the default), with either gradient source, ``use_depth`` on or
+  off and the Sigma warm start. The other scale estimators (``mad``,
+  ``normal``, ``unit``) and ``use_weighting=False`` run
+  ``linearize_reference`` on the card, gathering with the standalone
+  sampler kernel (``sampler.sample_slab``, csrc/sampler.cu): the config
+  alone picks that route. A failed build or launch raises; nothing falls
+  back to the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional
 
@@ -24,6 +43,15 @@ from dvo_slam_tpu_torch.ops import pyramid as pyr
 from dvo_slam_tpu_torch.ops import robust, sampler
 
 _EPS = 1e-12
+
+# Kernel launches since the last reset (plain integers; callers reset them
+# to 0 to count the launches of one run): K1 (residual pass) and K2
+# (weighted reduction, Sigma steps and normal equations).
+LAUNCHES_RESIDUAL = 0
+LAUNCHES_REDUCE = 0
+
+# Layout of the kernels' result vector (csrc/linearize.cu kOut*).
+_OUT_SIZE = 51
 
 
 class RefData(NamedTuple):
@@ -39,6 +67,26 @@ class RefData(NamedTuple):
     giy: Optional[torch.Tensor] = None
     gzx: Optional[torch.Tensor] = None
     gzy: Optional[torch.Tensor] = None
+
+
+class Residuals(NamedTuple):
+    """Per-point output of the residual pass, all (N,) except the counts.
+    Invalid points have rI = rZ = 0."""
+
+    X: torch.Tensor
+    Y: torch.Tensor
+    Z: torch.Tensor
+    zi: torch.Tensor
+    gix: torch.Tensor
+    giy: torch.Tensor
+    gzx: torch.Tensor
+    gzy: torch.Tensor
+    rI: torch.Tensor
+    rZ: torch.Tensor
+    valid: torch.Tensor  # bool
+    vF: torch.Tensor  # valid as the working dtype
+    n_raw: torch.Tensor  # scalar valid count
+    n: torch.Tensor  # n_raw floored at 1
 
 
 class Linearization(NamedTuple):
@@ -102,10 +150,31 @@ def prepare_reference(ref_slab, K, cfg: TrackerConfig) -> RefData:
     return RefData(px=px, py=py, pz=z_safe, i1=i1, selected=selected, **grads)
 
 
+def tdist_weights_reference(a, bq, c, sII, sIZ, sZZ, vF, cfg):
+    """t-distribution weights under Sigma = [[a, bq], [bq, c]]:
+    ``(det, p00, p01, p11, maha, w)``, w zero at invalid points."""
+    nu = cfg.tdist_dof
+    det = torch.clamp(a * c - bq * bq, min=_EPS)
+    p00, p01, p11 = c / det, -bq / det, a / det
+    maha = p00 * sII + 2.0 * p01 * sIZ + p11 * sZZ
+    w = (nu + 2.0) / (nu + maha) * vF
+    return det, p00, p01, p11, maha, w
+
+
+def tdist_step_reference(a, bq, c, sII, sIZ, sZZ, vF, n, cfg):
+    """One step of the bivariate t-distribution scale fixed point (the
+    plain version of K2's Sigma mode): the weighted moments under Sigma =
+    [[a, bq], [bq, c]]. Returns the next (a, bq, c)."""
+    w = tdist_weights_reference(a, bq, c, sII, sIZ, sZZ, vF, cfg)[5]
+    a = (w * sII).sum() / n + cfg.min_intensity_sigma**2
+    bq = (w * sIZ).sum() / n
+    c = (w * sZZ).sum() / n + cfg.min_depth_sigma**2
+    return a, bq, c
+
+
 def _tdist_scale(sII, sIZ, sZZ, vF, n, cfg, sigma_init, sigma_warm):
     """Bivariate t-distribution scale fixed point on the residual moments.
     Returns the Sigma entries (a, bq, c)."""
-    nu = cfg.tdist_dof
     floor_II = cfg.min_intensity_sigma**2
     floor_ZZ = cfg.min_depth_sigma**2
     a = sII.sum() / n + floor_II
@@ -114,20 +183,15 @@ def _tdist_scale(sII, sIZ, sZZ, vF, n, cfg, sigma_init, sigma_warm):
     n_fp = cfg.tdist_scale_iters
     if sigma_init is not None and cfg.tdist_scale_warm_iters > 0:
         # Warm start from the previous iteration's Sigma: the trip count
-        # depends on it, so this option costs one host sync.
+        # depends on it, so this option costs the plain version one host
+        # sync (the kernels decide it on the device).
         if sigma_warm and bool(torch.isfinite(sigma_init).all()):
             a = torch.clamp(sigma_init[0, 0], min=floor_II)
             bq = sigma_init[0, 1]
             c = torch.clamp(sigma_init[1, 1], min=floor_ZZ)
             n_fp = cfg.tdist_scale_warm_iters
     for _ in range(n_fp):
-        det = torch.clamp(a * c - bq * bq, min=_EPS)
-        p00, p01, p11 = c / det, -bq / det, a / det
-        maha = p00 * sII + 2.0 * p01 * sIZ + p11 * sZZ
-        w = (nu + 2.0) / (nu + maha) * vF
-        a = (w * sII).sum() / n + floor_II
-        bq = (w * sIZ).sum() / n
-        c = (w * sZZ).sum() / n + floor_ZZ
+        a, bq, c = tdist_step_reference(a, bq, c, sII, sIZ, sZZ, vF, n, cfg)
     return a, bq, c
 
 
@@ -146,25 +210,21 @@ def warp(ref: RefData, K, T):
     return X, Y, Z, zi, fx * X * zi + cx, fy * Y * zi + cy
 
 
-def linearize(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
-              sigma_init=None, sigma_warm=False) -> Linearization:
-    """One IRLS linearization of the current slab against the reference
-    points at pose T (4, 4). See the module docstring.
-
-    ``sigma_init`` / ``sigma_warm``: with cfg.tdist_scale_warm_iters > 0,
-    the previous iteration's (2, 2) Sigma and a host bool (False on a
-    level's first iteration) that seed the fixed point.
-    """
+def residuals_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
+                        sample=sampler.sample_slab_reference) -> Residuals:
+    """Warp, bilinear sample, bivariate residual and validity of every
+    reference point at pose T: the plain version of K1. ``sample`` is the
+    gather, ``(slab, u, v) -> (samples, inb)``: the plain sampler, or
+    ``sampler.sample_slab`` (its kernel on a CUDA slab)."""
     C = cur_slab.shape[0]
     dtype = cur_slab.dtype
-    fx, fy = K[0], K[1]
     X, Y, Z, zi, u, v = warp(ref, K, T)
 
-    # --- bilinear sample (CUDA kernel on the device) ---
+    # --- bilinear sample ---
     # "reference" gradient mode samples only [I] / [I, Z].
     ref_grad = cfg.gradient_source == "reference"
     n_smp = ((2 if cfg.use_depth else 1) if ref_grad else C)
-    smp, inb = sampler.sample_slab(cur_slab[:n_smp], u, v)
+    smp, inb = sample(cur_slab[:n_smp], u, v)
     chans = smp.unbind(0)
 
     i2 = chans[pyr.CH_I]
@@ -193,6 +253,198 @@ def linearize(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
     rZ = _where0(valid, rZ) if cfg.use_depth else torch.zeros_like(rI)
     n_raw = vF.sum()
     n = torch.clamp(n_raw, min=1.0)
+    return Residuals(X=X, Y=Y, Z=Z, zi=zi, gix=gix, giy=giy, gzx=gzx,
+                     gzy=gzy, rI=rI, rZ=rZ, valid=valid, vF=vF, n_raw=n_raw,
+                     n=n)
+
+
+def normal_equations_reference(res: Residuals, w, p00, p01, p11, K,
+                               cfg: TrackerConfig):
+    """Analytic Jacobian and the weighted 6x6 normal equations ``(A, b)``
+    (with the weights ``w``: the plain version of K2's normal-equations
+    mode)."""
+    fx, fy = K[0], K[1]
+    X, Y, Z, zi, valid = res.X, res.Y, res.Z, res.zi, res.valid
+    # J_pi = [[A, 0, C], [0, B, D]]; dp'/dxi = [I3 | -hat(p')].
+    A_ = fx * zi
+    B_ = fy * zi
+    C_ = -fx * X * zi * zi
+    D_ = -fy * Y * zi * zi
+    zero = torch.zeros_like(A_)
+    Ju = (A_, zero, C_, C_ * Y, A_ * Z - C_ * X, -A_ * Y)
+    Jv = (zero, B_, D_, -B_ * Z + D_ * Y, -D_ * X, B_ * X)
+    # d p'_z / d xi = [0, 0, 1, Y, -X, 0]
+    Jg3 = (zero, zero, torch.ones_like(Z), Y, -X, zero)
+
+    gix = _where0(valid, res.gix)
+    giy = _where0(valid, res.giy)
+    gzx = _where0(valid, res.gzx)
+    gzy = _where0(valid, res.gzy)
+    JI = [gix * Ju[k] + giy * Jv[k] for k in range(6)]
+    if cfg.use_depth:
+        JZ = [_where0(valid, gzx * Ju[k] + gzy * Jv[k] - Jg3[k])
+              for k in range(6)]
+    else:
+        JZ = [zero] * 6
+
+    # --- weighted normal equations: one (6, 2N) x (2N, 6) product ---
+    wI = w * p00
+    wX = w * p01
+    wZ = w * p11
+    GI = [wI * JI[k] + wX * JZ[k] for k in range(6)]
+    GZ = [wX * JI[k] + wZ * JZ[k] for k in range(6)]
+    J6 = torch.stack([torch.cat([JI[k], JZ[k]]) for k in range(6)])
+    G6 = torch.stack([torch.cat([GI[k], GZ[k]]) for k in range(6)])
+    return J6 @ G6.T, G6 @ torch.cat([res.rI, res.rZ])
+
+
+def kernel_route(cfg: TrackerConfig) -> bool:
+    """True where ``linearize`` on a CUDA tensor runs the kernels of
+    csrc/linearize.cu, False where it runs ``linearize_reference`` on the
+    card (the scale estimators other than the t-distribution)."""
+    return cfg.use_weighting and cfg.scale_estimator == "tdist"
+
+
+def linearize(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
+              sigma_init=None, sigma_warm=False) -> Linearization:
+    """One IRLS linearization of the current slab against the reference
+    points at pose T (4, 4); see the module docstring for the route each
+    device and config takes.
+
+    ``sigma_init`` / ``sigma_warm``: with cfg.tdist_scale_warm_iters > 0,
+    the previous iteration's (2, 2) Sigma and a host bool (False on a
+    level's first iteration) that seed the fixed point.
+    """
+    kind = cur_slab.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"linearize runs on cpu or cuda, not "
+                         f"{cur_slab.device}")
+    if kind == "cuda" and kernel_route(cfg):
+        return linearize_kernels(ref, cur_slab, K, T, cfg, sigma_init,
+                                 sigma_warm)
+    # Off the kernels' route a CUDA slab still gathers with the sampler
+    # kernel; a CPU slab takes the plain sampler.
+    return linearize_reference(ref, cur_slab, K, T, cfg, sigma_init,
+                               sigma_warm, sample=sampler.sample_slab)
+
+
+# Per-(device, stream, N) scratch of the kernels, zero-filled once and
+# reused: per-point rI, rZ, valid and the Jacobian inputs, per-block
+# partial sums, and the device state (Sigma, counts, the blocks' ticket).
+# Values: (uint8 tensor, byte offsets of rI, rZ and valid).
+_SCRATCH = {}
+
+
+def _scratch(lib, device, stream, N):
+    key = (device, stream, N)
+    hit = _SCRATCH.get(key)
+    if hit is None:
+        off = (ctypes.c_size_t * 4)()
+        lib.dvo_linearize_layout(N, off)
+        hit = (torch.zeros(off[3], dtype=torch.uint8, device=device),
+               tuple(off[:3]))
+        _SCRATCH[key] = hit
+    return hit
+
+
+def kernel_residuals(device, N):
+    """``(rI, rZ, valid)``, each (N,), that the last ``linearize_kernels``
+    call over N points on the current stream of ``device`` left in its
+    scratch (views: the next such call overwrites them). For comparing K1
+    with ``residuals_reference``."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+    buf, (o_ri, o_rz, o_valid) = _SCRATCH[(device, stream, N)]
+    return (buf[o_ri:o_ri + 4 * N].view(torch.float32),
+            buf[o_rz:o_rz + 4 * N].view(torch.float32),
+            buf[o_valid:o_valid + N].view(torch.bool))
+
+
+def _check(ref: RefData, cur_slab, K, T):
+    H, W = cur_slab.shape[1:]
+    if H < 2 or W < 2:
+        raise ValueError(f"want a slab of H, W >= 2, got {H}x{W}")
+    for name, t in (("cur_slab", cur_slab), ("K", K), ("T", T),
+                    ("ref.px", ref.px)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != cur_slab.device:
+            raise ValueError(f"{name} on {t.device}, slab on "
+                             f"{cur_slab.device}")
+    if not (cur_slab.is_contiguous() and ref.px.is_contiguous()):
+        raise ValueError("cur_slab and the reference points must be "
+                         "contiguous")
+
+
+def linearize_kernels(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
+                      sigma_init=None, sigma_warm=False) -> Linearization:
+    """``linearize`` on the card through csrc/linearize.cu, for the
+    t-distribution branch. One ctypes call issues K1, the Sigma steps and
+    the normal-equations pass on the current stream of the slab's device,
+    with no host sync."""
+    global LAUNCHES_RESIDUAL, LAUNCHES_REDUCE
+    from dvo_slam_tpu_torch import _build
+
+    if not kernel_route(cfg):
+        raise ValueError("the linearization kernels cover the "
+                         "t-distribution scale estimator only")
+    _check(ref, cur_slab, K, T)
+    C, H, W = cur_slab.shape
+    N = ref.px.shape[0]
+    ref_grad = cfg.gradient_source == "reference"
+    if C < ((2 if cfg.use_depth else 1) if ref_grad else 6):
+        raise ValueError(f"the slab has {C} channels, too few for {cfg}")
+    warm = (sigma_init is not None and cfg.tdist_scale_warm_iters > 0
+            and bool(sigma_warm))
+    steps = cfg.tdist_scale_iters
+    if warm:
+        # Both trip counts launch; each step past the one the device
+        # chose returns at once.
+        steps = max(steps, cfg.tdist_scale_warm_iters)
+        sigma_init = sigma_init.to(torch.float32).contiguous()
+    K = K.contiguous()
+    T = T.contiguous()
+    lib = _build.load()
+    out = torch.empty(_OUT_SIZE, dtype=torch.float32, device=cur_slab.device)
+    # The ctypes launch runs in the current CUDA context: make it the slab's.
+    with torch.cuda.device(cur_slab.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch = _scratch(lib, cur_slab.device, stream, N)[0]
+        rc = lib.dvo_linearize(
+            ref.px.data_ptr(), ref.py.data_ptr(), ref.pz.data_ptr(),
+            ref.i1.data_ptr(), ref.selected.data_ptr(),
+            ref.gix.data_ptr() if ref_grad else None,
+            ref.giy.data_ptr() if ref_grad else None,
+            ref.gzx.data_ptr() if ref_grad and cfg.use_depth else None,
+            ref.gzy.data_ptr() if ref_grad and cfg.use_depth else None,
+            N, cur_slab.data_ptr(), H, W, K.data_ptr(), T.data_ptr(),
+            sigma_init.data_ptr() if warm else None,
+            int(cfg.use_depth), int(ref_grad), int(warm), cfg.tdist_dof,
+            cfg.min_intensity_sigma**2, cfg.min_depth_sigma**2,
+            cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters, steps,
+            scratch.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"dvo_linearize launch failed: CUDA error {rc}")
+    LAUNCHES_RESIDUAL += 1
+    LAUNCHES_REDUCE += steps + 1
+    err_mean, n_valid, n_raw, *_, log1p_sum, err_raw = out[42:].unbind()
+    return Linearization(
+        A=out[:36].view(6, 6), b=out[36:42], err_mean=err_mean,
+        n_valid=n_valid, n_raw=n_raw, sigma=out[45:49].view(2, 2),
+        log1p_sum=log1p_sum, err_raw=err_raw,
+    )
+
+
+def linearize_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
+                        sigma_init=None, sigma_warm=False,
+                        sample=sampler.sample_slab_reference
+                        ) -> Linearization:
+    """``linearize`` in plain PyTorch, for every config, on any device;
+    ``sample`` as in ``residuals_reference``."""
+    dtype = cur_slab.dtype
+    res = residuals_reference(ref, cur_slab, K, T, cfg, sample)
+    rI, rZ, valid, vF, n = res.rI, res.rZ, res.valid, res.vF, res.n
 
     # --- robust scale + weights (bivariate t-distribution default) ---
     sII = rI * rI
@@ -202,10 +454,8 @@ def linearize(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
         nu = cfg.tdist_dof
         a, bq, c = _tdist_scale(sII, sIZ, sZZ, vF, n, cfg,
                                 sigma_init, sigma_warm)
-        det = torch.clamp(a * c - bq * bq, min=_EPS)
-        p00, p01, p11 = c / det, -bq / det, a / det
-        maha = p00 * sII + 2.0 * p01 * sIZ + p11 * sZZ
-        w = (nu + 2.0) / (nu + maha) * vF
+        det, p00, p01, p11, maha, w = tdist_weights_reference(
+            a, bq, c, sII, sIZ, sZZ, vF, cfg)
         log1p_sum = (torch.log1p(maha / nu) * vF).sum()
         err_mean = 0.5 * torch.log(det) + (nu + 2.0) / 2.0 * log1p_sum / n
     else:
@@ -245,44 +495,12 @@ def linearize(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
         p01 = torch.zeros_like(p01)
         p11 = torch.zeros_like(p11)
 
-    # --- analytic Jacobian planes ---
-    # J_pi = [[A, 0, C], [0, B, D]]; dp'/dxi = [I3 | -hat(p')].
-    A_ = fx * zi
-    B_ = fy * zi
-    C_ = -fx * X * zi * zi
-    D_ = -fy * Y * zi * zi
-    zero = torch.zeros_like(A_)
-    Ju = (A_, zero, C_, C_ * Y, A_ * Z - C_ * X, -A_ * Y)
-    Jv = (zero, B_, D_, -B_ * Z + D_ * Y, -D_ * X, B_ * X)
-    # d p'_z / d xi = [0, 0, 1, Y, -X, 0]
-    Jg3 = (zero, zero, torch.ones_like(Z), Y, -X, zero)
-
-    gix = _where0(valid, gix)
-    giy = _where0(valid, giy)
-    gzx = _where0(valid, gzx)
-    gzy = _where0(valid, gzy)
-    JI = [gix * Ju[k] + giy * Jv[k] for k in range(6)]
-    if cfg.use_depth:
-        JZ = [_where0(valid, gzx * Ju[k] + gzy * Jv[k] - Jg3[k])
-              for k in range(6)]
-    else:
-        JZ = [zero] * 6
-
-    # --- weighted normal equations: one (6, 2N) x (2N, 6) product ---
-    wI = w * p00
-    wX = w * p01
-    wZ = w * p11
-    GI = [wI * JI[k] + wX * JZ[k] for k in range(6)]
-    GZ = [wX * JI[k] + wZ * JZ[k] for k in range(6)]
-    J6 = torch.stack([torch.cat([JI[k], JZ[k]]) for k in range(6)])
-    G6 = torch.stack([torch.cat([GI[k], GZ[k]]) for k in range(6)])
-    Amat = J6 @ G6.T
-    bvec = G6 @ torch.cat([rI, rZ])
+    Amat, bvec = normal_equations_reference(res, w, p00, p01, p11, K, cfg)
     err_raw = (w * maha).sum()
 
     sigma = torch.stack([torch.stack([a, bq]), torch.stack([bq, c])])
     return Linearization(
-        A=Amat, b=bvec, err_mean=err_mean, n_valid=n, n_raw=n_raw,
+        A=Amat, b=bvec, err_mean=err_mean, n_valid=n, n_raw=res.n_raw,
         sigma=sigma, log1p_sum=log1p_sum, err_raw=err_raw,
     )
 

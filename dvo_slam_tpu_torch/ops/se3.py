@@ -12,17 +12,13 @@ import torch
 
 
 def hat(w):
-    """so(3) hat operator: (..., 3) -> (..., 3, 3)."""
-    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    """so(3) hat operator: (..., 3) -> (..., 3, 3). Three device ops (one
+    negation, one zero, one stack): it runs in every IRLS iteration."""
+    wx, wy, wz = w.unbind(-1)
+    nx, ny, nz = (-w).unbind(-1)
     z = torch.zeros_like(wx)
-    return torch.stack(
-        [
-            torch.stack([z, -wz, wy], dim=-1),
-            torch.stack([wz, z, -wx], dim=-1),
-            torch.stack([-wy, wx, z], dim=-1),
-        ],
-        dim=-2,
-    )
+    return torch.stack([z, nz, wy, wz, z, nx, ny, wx, z],
+                       dim=-1).reshape(*w.shape[:-1], 3, 3)
 
 
 def vee(W):
@@ -33,15 +29,16 @@ def vee(W):
 def _so3_coefficients(theta_sq):
     """Taylor-safe (sin t / t, (1-cos t)/t^2, (t - sin t)/t^3)."""
     small = theta_sq < 1e-8
-    safe_sq = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    safe_sq = torch.where(small, 1.0, theta_sq)
     safe_t = torch.sqrt(safe_sq)
-    a = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(safe_t) / safe_t)
+    sin_t = torch.sin(safe_t)
+    a = torch.where(small, 1.0 - theta_sq / 6.0, sin_t / safe_t)
     b = torch.where(small, 0.5 - theta_sq / 24.0,
                     (1.0 - torch.cos(safe_t)) / safe_sq)
     c = torch.where(
         small,
         1.0 / 6.0 - theta_sq / 120.0,
-        (safe_t - torch.sin(safe_t)) / (safe_sq * safe_t),
+        (safe_t - sin_t) / (safe_sq * safe_t),
     )
     return a, b, c
 
@@ -53,9 +50,9 @@ def _eye3_like(W):
 def _homogeneous(R, t):
     """(..., 3, 3), (..., 3) -> (..., 4, 4) with bottom row [0, 0, 0, 1]."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
-    return torch.cat([top, bottom], dim=-2)
+    out = torch.nn.functional.pad(top, (0, 0, 0, 1))
+    out[..., 3, 3] = 1.0
+    return out
 
 
 def exp(xi):

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and main path on a CUDA card.
+"""The port's CUDA kernels and main path on a CUDA card.
 
 These tests need an NVIDIA card (marker ``cuda``) and skip without one:
 a CUDA kernel has no CPU mode. This file imports no JAX, so it also runs
@@ -7,19 +7,27 @@ jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: the kernel is bit-identical to its plain version by
-construction (no FMA contraction) and is held to 1e-5 * max|slab|; the
-tracker on the card is held to the same tracker on the CPU at 1e-4 on
-the transformation (f32 reductions in another order).
+Tolerances: the sampler kernel is bit-identical to its plain version by
+construction (no FMA contraction) and is held to 1e-5 * max|slab|. The
+fused linearization (csrc/linearize.cu) against ``linearize_reference`` on
+the same card tensors: ``n_raw``, the per-point valid mask and rI, rZ
+exact (the residual pass repeats the plain arithmetic with _rn
+intrinsics); A and b within 1e-4 * max|.|; sigma, err_mean, log1p_sum and
+err_raw rtol 1e-4 (sums over <= 76 800 points in another order: the
+kernels sum in f64, the plain version in f32). The tracker on the card is
+held to the same tracker on the CPU at 1e-4 on the transformation (f32
+reductions in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
 from dvo_slam_tpu_torch import TrackerConfig
 from dvo_slam_tpu_torch.models import dense_tracker
-from dvo_slam_tpu_torch.ops import camera, pyramid, sampler
+from dvo_slam_tpu_torch.ops import camera, linearize, pyramid, sampler
 from dvo_slam_tpu_torch.utils import se3_np, synthetic
 
 pytestmark = pytest.mark.cuda
@@ -98,8 +106,9 @@ def test_kernel_on_a_card_that_is_not_current(cuda):
 
 
 def test_track_on_card_matches_cpu(cuda):
-    """The whole tracker on the card (kernel sampler) against the same
-    code on the CPU (plain sampler), at 80x60 with three levels."""
+    """The whole tracker on the card (fused linearization kernels) against
+    the same code on the CPU (plain version), at 80x60 with three
+    levels."""
     W, H = 80, 60
     K_t = (40.0, 40.0, (W - 1) / 2.0, (H - 1) / 2.0)
     cfg = TrackerConfig(num_levels=3, first_level=2, last_level=0)
@@ -114,11 +123,16 @@ def test_track_on_card_matches_cpu(cuda):
                                       torch.as_tensor(z, device=dev), 3)
                 for i, z in (ref, cur)]
         T0 = torch.eye(4, dtype=torch.float32, device=dev)
-        before = sampler.LAUNCHES
+        before = (sampler.LAUNCHES, linearize.LAUNCHES_RESIDUAL,
+                  linearize.LAUNCHES_REDUCE)
         res = dense_tracker.track(pyrs[0], pyrs[1], Ks, T0, cfg)
-        launched = sampler.LAUNCHES - before
-        assert launched == (int(res.iterations.sum()) if dev.type == "cuda"
-                            else 0)
+        iters = int(res.iterations.sum()) if dev.type == "cuda" else 0
+        # The main path runs the fused linearization, never the standalone
+        # sampler: K1 once and K2 (steps + 1) times per IRLS iteration.
+        assert (sampler.LAUNCHES - before[0],
+                linearize.LAUNCHES_RESIDUAL - before[1],
+                linearize.LAUNCHES_REDUCE - before[2]) == (
+                    0, iters, iters * (cfg.tdist_scale_iters + 1))
         results[dev.type] = res
     got, want = results["cuda"], results["cpu"]
     np.testing.assert_allclose(got.transformation.cpu().numpy(),
@@ -128,3 +142,175 @@ def test_track_on_card_matches_cpu(cuda):
     err = np.linalg.norm(se3_np.log(
         se3_np.inverse(got.transformation.cpu().double().numpy()) @ T_rel))
     assert err < 2e-3
+
+
+# ---- the fused linearization (csrc/linearize.cu) against its plain version
+
+W640, H640 = 640, 480
+K640 = (525.0, 525.0, (W640 - 1) / 2.0, (H640 - 1) / 2.0)
+FUSED_CONFIGS = {
+    "tdist": {},
+    "photometric": {"use_depth": False},
+    "reference_gradients": {"gradient_source": "reference"},
+    "tdist_warm": {"tdist_scale_warm_iters": 2},
+}
+
+
+@pytest.fixture(scope="module")
+def pair640():
+    """A noisy 640x480 pair of the synthetic orbit (numpy) and the
+    reference -> current pose, perturbed off the optimum."""
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    poses = synthetic.orbit_trajectory(24, radius=0.06)
+    rng = np.random.default_rng(0)
+    frames = [synthetic.add_sensor_noise(
+        *scene.render(np.asarray(K640), W640, H640, T), rng, dropout=0.02)
+        for T in poses[:2]]
+    T_rel = se3_np.inverse(poses[1]) @ poses[0]
+    T = T_rel @ se3_np.exp(np.array([2e-3, -1e-3, 1e-3, 1e-3, 2e-3, -1e-3]))
+    return frames, T.astype(np.float32)
+
+
+def _level_inputs(frames, T, cfg, level, dev):
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K640, device=dev),
+                                   cfg.num_levels)
+    ref_pyr, cur_pyr = (
+        pyramid.build_pyramid(torch.as_tensor(i, device=dev),
+                              torch.as_tensor(z, device=dev), cfg.num_levels)
+        for i, z in frames)
+    ref = linearize.prepare_reference(ref_pyr[level], Ks[level], cfg)
+    return ref, cur_pyr[level], Ks[level], torch.as_tensor(T, device=dev)
+
+
+SIGMA0 = [[40.0, 0.01], [0.01, 1e-3]]
+
+
+def _assert_fused_matches_plain(ref, slab, K, T, cfg, sigma_warm=True):
+    sigma0 = torch.tensor(SIGMA0, device=slab.device)
+    got = linearize.linearize_kernels(ref, slab, K, T, cfg,
+                                      sigma_init=sigma0,
+                                      sigma_warm=sigma_warm)
+    N = ref.px.numel()
+    rI, rZ, valid = (t.clone() for t in
+                     linearize.kernel_residuals(slab.device, N))
+    want = linearize.linearize_reference(ref, slab, K, T, cfg,
+                                         sigma_init=sigma0,
+                                         sigma_warm=sigma_warm)
+    res = linearize.residuals_reference(ref, slab, K, T, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(valid, res.valid)
+    assert torch.equal(rI, res.rI) and torch.equal(rZ, res.rZ)
+    assert float(got.n_raw) == float(want.n_raw) == float(valid.sum())
+    assert float(got.n_valid) == float(want.n_valid)
+    for field in ("A", "b"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert torch.isfinite(a).all(), field
+        scale = max(b.abs().max().item(), 1e-30)
+        assert (a - b).abs().max().item() <= 1e-4 * scale, field
+    assert torch.equal(got.A, got.A.T)
+    for field in ("sigma", "err_mean", "log1p_sum", "err_raw"):
+        np.testing.assert_allclose(getattr(got, field).cpu().numpy(),
+                                   getattr(want, field).cpu().numpy(),
+                                   rtol=1e-4, atol=1e-30, err_msg=field)
+    return got, want
+
+
+@pytest.mark.parametrize("level", [3, 2, 1])
+@pytest.mark.parametrize("name", sorted(FUSED_CONFIGS))
+def test_fused_linearize_matches_plain(cuda, pair640, name, level):
+    cfg = TrackerConfig(**FUSED_CONFIGS[name])
+    frames, T = pair640
+    ref, slab, K, Tt = _level_inputs(frames, T, cfg, level, cuda)
+    before = (linearize.LAUNCHES_RESIDUAL, linearize.LAUNCHES_REDUCE,
+              sampler.LAUNCHES)
+    got, _ = _assert_fused_matches_plain(ref, slab, K, Tt, cfg)
+    steps = max(cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters)
+    assert (linearize.LAUNCHES_RESIDUAL - before[0],
+            linearize.LAUNCHES_REDUCE - before[1],
+            sampler.LAUNCHES - before[2]) == (1, steps + 1, 0)
+    assert float(got.n_raw) > 0.5 * ref.px.numel()
+    if name == "tdist_warm":
+        # The cold start (sigma_warm False) too.
+        _assert_fused_matches_plain(ref, slab, K, Tt, cfg, sigma_warm=False)
+
+
+def test_fused_linearize_is_deterministic(cuda, pair640):
+    cfg = TrackerConfig()
+    frames, T = pair640
+    ref, slab, K, Tt = _level_inputs(frames, T, cfg, 1, cuda)
+    runs = [linearize.linearize(ref, slab, K, Tt, cfg) for _ in range(3)]
+    for other in runs[1:]:
+        for field, a, b in zip(runs[0]._fields, runs[0], other):
+            assert torch.equal(torch.as_tensor(a), torch.as_tensor(b)), field
+
+
+def test_fused_linearize_edge_cases(cuda, pair640):
+    """All-NaN current depth, no selected reference point, and points
+    behind the camera, each against the plain version."""
+    cfg = TrackerConfig()
+    (ref_f, cur_f), T = pair640
+    level = 2
+    nan_depth = np.full_like(cur_f[1], np.nan)
+    ref, slab, K, Tt = _level_inputs((ref_f, (cur_f[0], nan_depth)), T,
+                                     cfg, level, cuda)
+    got, _ = _assert_fused_matches_plain(ref, slab, K, Tt, cfg)
+    assert float(got.n_raw) == 0.0 and float(got.n_valid) == 1.0
+
+    ref, slab, K, Tt = _level_inputs(((ref_f[0], np.full_like(ref_f[1],
+                                                              np.nan)),
+                                      cur_f), T, cfg, level, cuda)
+    assert not bool(ref.selected.any())
+    got, _ = _assert_fused_matches_plain(ref, slab, K, Tt, cfg)
+    assert float(got.n_raw) == 0.0 and float(got.n_valid) == 1.0
+    assert not bool(got.A.any()) and not bool(got.b.any())
+
+    # Move the camera forward by the median depth: the nearer half of the
+    # points ends up behind it.
+    ref, slab, K, _ = _level_inputs((ref_f, cur_f), T, cfg, level, cuda)
+    T_behind = T.copy()
+    T_behind[2, 3] -= ref.pz[ref.selected].median().item()
+    Tt = torch.as_tensor(T_behind, device=cuda)
+    Z = linearize.warp(ref, K, Tt)[2]
+    assert bool(((Z < 0) & ref.selected).any())
+    assert bool(((Z > 0) & ref.selected).any())
+    _assert_fused_matches_plain(ref, slab, K, Tt, cfg)
+
+
+def test_fused_linearize_on_a_card_that_is_not_current(cuda, pair640):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    second = torch.device("cuda", 1)
+    cfg = TrackerConfig()
+    frames, T = pair640
+    ref, slab, K, Tt = _level_inputs(frames, T, cfg, 2, second)
+    with torch.cuda.device(cuda):
+        got = linearize.linearize(ref, slab, K, Tt, cfg)
+        assert torch.cuda.current_device() == cuda.index
+    want = linearize.linearize_reference(ref, slab, K, Tt, cfg)
+    torch.cuda.synchronize(second)
+    assert got.A.device == second
+    assert float(got.n_raw) == float(want.n_raw)
+    assert (got.A - want.A).abs().max().item() <= \
+        1e-4 * want.A.abs().max().item()
+
+
+def test_plain_only_config_stays_plain_on_the_card(cuda, pair640):
+    """Off the fused kernels' route the plain linearization still gathers
+    with the sampler kernel: one launch per call, no K1 or K2."""
+    cfg = dataclasses.replace(TrackerConfig(), scale_estimator="mad",
+                              influence="huber")
+    frames, T = pair640
+    ref, slab, K, Tt = _level_inputs(frames, T, cfg, 3, cuda)
+    before = (linearize.LAUNCHES_RESIDUAL, linearize.LAUNCHES_REDUCE,
+              sampler.LAUNCHES)
+    for calls in (1, 2):
+        got = linearize.linearize(ref, slab, K, Tt, cfg)
+        assert (linearize.LAUNCHES_RESIDUAL - before[0],
+                linearize.LAUNCHES_REDUCE - before[1],
+                sampler.LAUNCHES - before[2]) == (0, 0, calls)
+    want = linearize.linearize_reference(ref, slab, K, Tt, cfg)
+    assert sampler.LAUNCHES - before[2] == 2
+    for field, a, b in zip(got._fields, got, want):
+        np.testing.assert_allclose(torch.as_tensor(a).cpu().numpy(),
+                                   torch.as_tensor(b).cpu().numpy(),
+                                   rtol=1e-6, err_msg=field)
