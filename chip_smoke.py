@@ -33,18 +33,43 @@ fails. Phases:
      and read just after it: K1 launches must equal the IRLS iterations,
      K2 launches the iterations x (tdist_scale_iters + 1), and the
      standalone sampler's launches 0;
-  4. profile (last: the host timings above are all taken before any
-     profiler has run in the process): a few more frames of the main path
+  5. the SLAM path (KeyframeSlam, default TrackerConfig and SlamConfig,
+     loop closure on):
+     a. the batched kernels (one call over B rows: B = 2 against one
+        shared current slab, as the dual alignment; B = 8 against one slab
+        per row, as a validation batch) against the plain version row by
+        row at the three tracked levels: every row's valid mask, rI and rZ
+        exact, A and b within 1e-4 * max|.|, and every row bit-identical
+        to a B = 1 call on its inputs; one call per B by CUDA events;
+     b. JAX bench.py's slam-lc loop: the 8-frame 640x480 ring
+        (orbit_trajectory(9, radius=0.06)[:8], two_plane_scene
+        (sharpness=2.0)), force_keyframe() every 16 frames, 160 warm-up
+        frames on one instance, then 160 timed frames on a fresh one (the
+        launch counts reset just before and read just after): ms/frame,
+        keyframes and loop edges (must be >= 1), ATE of finish() against
+        the ring's ground truth (must be < 5 mm), K1 and K2 launches per
+        frame and per keyframe switch and by batch size, the LM iterations
+        each pose-graph solve ran, and two runs of the final graph solve
+        (must be bit-identical);
+  4. profile (after every host timing above: no profiler has run before
+     them in the process): a few more frames of the odometry main path
      under torch.profiler, split at K1's launches: the device's busy and
      idle share of the frame, its heaviest kernels, device records per
      IRLS iteration, and per tracked level each kernel's device time per
      call and the device busy time per IRLS iteration. Then, in one more
      profiler session, per level the device time per call (union of the
      device records over 10 calls) of every kernel, its plain version and
-     the library call, each run as a labelled segment of the session.
+     the library call, and of the batched kernels at B = 2 and 8 and their
+     plain versions row by row (K1, one Sigma step, the normal equations),
+     each run as a labelled segment of the session;
+  5c. last, a short profile of the SLAM path: a few more frames with one
+     forced keyframe switch, each frame a labelled segment: busy and idle
+     share, device records per lockstep IRLS iteration.
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The line before the last is a JSON object describing each kernel (the
+batched kernels have rows of their own, with the SLAM path's launches);
+the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.
 """
 
 import json
@@ -59,6 +84,11 @@ W, H = 640, 480
 # bench.py's intrinsics for 640x480.
 K_TUPLE = (525.0 * W / 640.0, 525.0 * H / 480.0, (W - 1) / 2.0, (H - 1) / 2.0)
 N_FRAMES, N_WARMUP = 24, 4
+# The SLAM path: JAX bench.py's slam-lc loop (its default is 400 frames;
+# 160 keeps the smoke inside its time limit).
+RING, SLAM_FRAMES, FORCE_EVERY = 8, 160, 16
+SLAM_PROFILED_FRAMES = 6
+BATCHES = {2: False, 8: True}  # B -> one current slab per row
 ATE_LIMIT_M = 5e-3
 TIMED_CALLS = 50
 PROFILED_CALLS = 10
@@ -275,8 +305,8 @@ def _check_fused(ref, slab, K, T, cfg):
     from dvo_slam_tpu_torch.ops import linearize
 
     sigma0 = torch.tensor([[40.0, 0.01], [0.01, 1e-3]], device=slab.device)
-    got = linearize.linearize_kernels(ref, slab, K, T, cfg, sigma_init=sigma0,
-                                      sigma_warm=True)
+    got = linearize.linearize(ref, slab, K, T, cfg, sigma_init=sigma0,
+                              sigma_warm=True)
     rI, rZ, valid = (t.clone() for t in
                      linearize.kernel_residuals(slab.device, ref.px.numel()))
     want = linearize.linearize_reference(ref, slab, K, T, cfg,
@@ -386,7 +416,7 @@ def phase_kernel_vs_plain(device):
               f"1e-4); max abs error over all outputs {abs_err:.3e}")
 
         def fused():
-            linearize.linearize_kernels(ref, slab, Ks[lvl], T, cfg)
+            linearize.linearize(ref, slab, Ks[lvl], T, cfg)
 
         def plain_lin():
             linearize.linearize_reference(ref, slab, Ks[lvl], T, cfg)
@@ -465,6 +495,340 @@ def phase_main_path(device):
     return launches, tracker, frames, iters.shape[0]
 
 
+def _batch_inputs(device, cfg, B, paired, level):
+    """B reference rows from the first B frames of the noisy orbit, each
+    at its own perturbed pose, against frame B (shared) or frames 1..B
+    (one per row); per-row Sigma seeds, row 1's NaN (that row's device
+    state takes the cold start)."""
+    import torch
+
+    from dvo_slam_tpu_torch.ops import camera, linearize, pyramid
+    from dvo_slam_tpu_torch.utils import se3_np, synthetic
+
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    poses = synthetic.orbit_trajectory(N_FRAMES, radius=0.06)
+    rng = np.random.default_rng(1)
+    frames = [synthetic.add_sensor_noise(
+        *scene.render(np.asarray(K_TUPLE), W, H, poses[k]), rng,
+        dropout=0.02) for k in range(B + 1)]
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K_TUPLE, device=device),
+                                   cfg.num_levels)
+    pyrs = [pyramid.build_pyramid(torch.as_tensor(i, device=device),
+                                  torch.as_tensor(z, device=device),
+                                  cfg.num_levels)[level] for i, z in frames]
+    cur = torch.stack(pyrs[1:B + 1]) if paired else pyrs[B]
+    T = np.stack([
+        (se3_np.inverse(poses[b + 1] if paired else poses[B]) @ poses[b])
+        @ se3_np.exp(rng.normal(scale=2e-3, size=6)) for b in range(B)])
+    T = torch.as_tensor(T, dtype=torch.float32, device=device)
+    sigma = torch.tensor([[[40.0 + b, 0.01], [0.01, 1e-3]]
+                          for b in range(B)], device=device)
+    sigma[1] = float("nan")
+    ref = linearize.prepare_reference(torch.stack(pyrs[:B]), Ks[level], cfg)
+    return ref, cur, Ks[level], T, sigma
+
+
+def _row(ref, b, keep=False):
+    """Row b of batched reference points: (N,) views, or (1, N)."""
+    from dvo_slam_tpu_torch.ops import linearize
+
+    s = slice(b, b + 1) if keep else b
+    return linearize.RefData(*(None if f is None else f[s] for f in ref))
+
+
+def _check_batched(ref, cur, K, T, sigma, cfg):
+    """The batched kernels against the plain version row by row, and each
+    row against a B = 1 call on its inputs. Returns (max |rI, rZ| error,
+    max abs error over A, b, sigma, err_mean, log1p_sum, err_raw, max A/b
+    error over max|.|)."""
+    import torch
+
+    from dvo_slam_tpu_torch.ops import linearize
+
+    B, N = ref.px.shape
+    got = linearize.linearize_kernels_batched(ref, cur, K, T, cfg, sigma,
+                                              True)
+    rI, rZ, valid = (t.clone() for t in
+                     linearize.kernel_residuals(cur.device, N, B))
+    r_err = abs_err = rel = 0.0
+    for b in range(B):
+        slab = cur[b] if cur.dim() == 4 else cur
+        res = linearize.residuals_reference(_row(ref, b), slab, K, T[b], cfg)
+        want = linearize.linearize_reference(_row(ref, b), slab, K, T[b],
+                                             cfg, sigma[b], True)
+        one = linearize.linearize_kernels_batched(
+            _row(ref, b, keep=True), slab, K, T[b:b + 1], cfg,
+            sigma[b:b + 1], True)
+        torch.cuda.synchronize()
+        if not torch.equal(valid[b], res.valid):
+            raise AssertionError(f"B={B} row {b}: valid mask differs")
+        err = max((rI[b] - res.rI).abs().max().item(),
+                  (rZ[b] - res.rZ).abs().max().item())
+        if err != 0.0:
+            raise AssertionError(f"B={B} row {b}: rI, rZ differ by {err}")
+        if float(got.n_raw[b]) != float(want.n_raw):
+            raise AssertionError(f"B={B} row {b}: n_raw differs")
+        for field in ("A", "b", "sigma", "err_mean", "log1p_sum", "err_raw"):
+            a, w = getattr(got, field)[b], getattr(want, field)
+            e = (a - w).abs().max().item()
+            scale = w.abs().max().item()
+            abs_err = max(abs_err, e)
+            if field in ("A", "b"):
+                rel = max(rel, e / max(scale, 1e-30))
+            if not e <= 1e-4 * scale:
+                raise AssertionError(f"B={B} row {b}: {field} error {e} > "
+                                     f"1e-4 * {scale}")
+        for field, x, y in zip(got._fields, got[:-1], one[:-1]):
+            if not torch.equal(x[b], y[0]):
+                raise AssertionError(f"B={B} row {b}: {field} differs from "
+                                     f"a B = 1 call")
+        r_err = max(r_err, err)
+    return r_err, abs_err, rel
+
+
+def phase_batched_vs_plain(device, cfg):
+    """5a: the batched kernels at B = 2 (shared slab) and 8 (paired)."""
+    from functools import partial
+
+    from dvo_slam_tpu_torch.ops import linearize
+
+    out = {}
+    for B, paired in BATCHES.items():
+        for lvl in cfg.tracked_levels:
+            ref, cur, K, T, sigma = _batch_inputs(device, cfg, B, paired, lvl)
+            r_err, abs_err, rel = _check_batched(ref, cur, K, T, sigma, cfg)
+            kernel = partial(linearize.linearize_kernels_batched, ref, cur,
+                             K, T, cfg)
+            plain = partial(linearize.linearize_batched_reference, ref, cur,
+                            K, T, cfg)
+            p_ms = _median_ms(plain, calls=10)
+            k_ms = _median_ms(kernel)
+            k_ms = min(k_ms, _median_ms(kernel))
+            p_ms = min(p_ms, _median_ms(plain, calls=10))
+            print(f"phase 5a batched linearize vs plain: B={B} "
+                  f"({'one slab per row' if paired else 'shared slab'}) "
+                  f"level {lvl}: every row's valid mask exact, max |rI, rZ| "
+                  f"error {r_err:.1e}, max A/b error / max|.| {rel:.3e} "
+                  f"(tol 1e-4), every row bit-identical to a B = 1 call; "
+                  f"per call (events, median) kernels {k_ms:.4f} ms, plain "
+                  f"row by row {p_ms:.4f} ms")
+            out[(B, lvl)] = {"ref": ref, "cur": cur, "K": K, "T": T,
+                             "r_err": r_err, "abs_err": abs_err,
+                             "N": ref.px.shape[1], "H": cur.shape[-2],
+                             "W": cur.shape[-1], "paired": paired}
+    return out
+
+
+def _ring():
+    from dvo_slam_tpu_torch.utils import synthetic
+
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    poses = synthetic.orbit_trajectory(RING + 1, radius=0.06)[:RING]
+    return synthetic.render_sequence(scene, np.asarray(K_TUPLE), W, H,
+                                     poses), poses
+
+
+def _slam_frames(slam, frames, n, t_base, on_frame=None):
+    """bench.py's slam-lc loop: the ring over and over, a forced keyframe
+    every FORCE_EVERY frames."""
+    for k in range(n):
+        i, z = frames[k % len(frames)]
+        if k > 0 and k % FORCE_EVERY == 0:
+            slam.force_keyframe()
+        before = len(slam.keyframes)
+        if on_frame is None:
+            slam.update(i, z, t_base + k / 30.0)
+        else:
+            on_frame(k, lambda: slam.update(i, z, t_base + k / 30.0),
+                     lambda: len(slam.keyframes) > before)
+
+
+def _host_timed(owner, names, spent):
+    """Wrap owner's methods so each call adds its host milliseconds to
+    spent[name]; returns a function that restores them."""
+    saved = {n: getattr(owner, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] = spent.get(name, 0.0) + 1e3 * (
+                    time.perf_counter() - t0)
+        return timed
+
+    for n, fn in saved.items():
+        setattr(owner, n, wrap(n, fn))
+    return lambda: [setattr(owner, n, fn) for n, fn in saved.items()]
+
+
+def _lm_counted(solves):
+    """Wrap pose_graph.optimize so each solve appends (LM iterations
+    asked, LM iterations run) to solves (_total_chi2 runs once per LM
+    iteration); returns a function that restores both."""
+    from dvo_slam_tpu_torch.models import pose_graph
+
+    optimize, total = pose_graph.optimize, pose_graph._total_chi2
+    ran = [0]
+
+    def counting_total(*args, **kwargs):
+        ran[0] += 1
+        return total(*args, **kwargs)
+
+    def counting_optimize(graph, iterations=20, **kwargs):
+        ran[0] = 0
+        out = optimize(graph, iterations=iterations, **kwargs)
+        solves.append((iterations, ran[0]))
+        return out
+
+    pose_graph._total_chi2 = counting_total
+    pose_graph.optimize = counting_optimize
+
+    def restore():
+        pose_graph._total_chi2 = total
+        pose_graph.optimize = optimize
+    return restore
+
+
+def _lm_summary(solves):
+    """'asked N: k solves, LM iterations run mean / min / max' per N."""
+    by = {}
+    for asked, ran in solves:
+        by.setdefault(asked, []).append(ran)
+    return "; ".join(f"asked {a}: {len(r)} solves, run {np.mean(r):.2f} "
+                     f"mean, {min(r)} min, {max(r)} max"
+                     for a, r in sorted(by.items()))
+
+
+def phase_slam(device):
+    """5b: KeyframeSlam over bench.py's slam-lc loop."""
+    import torch
+
+    from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig, TrackerConfig
+    from dvo_slam_tpu_torch.models import local_map, pose_graph
+    from dvo_slam_tpu_torch.ops import linearize, sampler
+    from dvo_slam_tpu_torch.utils import evaluate
+
+    cfg, slam_cfg = TrackerConfig(), SlamConfig()
+    frames, poses = _ring()
+    warm = KeyframeSlam(K_TUPLE, cfg, slam_cfg, enable_loop_closure=True,
+                        device=device)
+    warm.init()
+    _slam_frames(warm, frames, SLAM_FRAMES, 0.0)
+    warm.finish()
+    slam = KeyframeSlam(K_TUPLE, cfg, slam_cfg, enable_loop_closure=True,
+                        device=device)
+    slam.init()
+    frame_ms, per_frame = [], []
+
+    def timed(k, update, switched):
+        k1, k2 = linearize.LAUNCHES_RESIDUAL, linearize.LAUNCHES_REDUCE
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T_w = update()
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        if not np.isfinite(T_w).all():
+            raise AssertionError(f"SLAM frame {k}: non-finite pose")
+        per_frame.append((switched(), linearize.LAUNCHES_RESIDUAL - k1,
+                          linearize.LAUNCHES_REDUCE - k2))
+
+    # Host milliseconds spent in each part of a switch (queued work only:
+    # the drains include waiting for the device).
+    spent = {}
+    restore = [_host_timed(slam, ("_dispatch_loop_search", "_optimize",
+                                  "_drain_device_reads", "_sync_poses"),
+                           spent),
+               _host_timed(local_map.LocalMap, ("optimize_async",), spent)]
+    solves = []
+    restore.append(_lm_counted(solves))
+    sampler.LAUNCHES = 0
+    linearize.LAUNCHES_RESIDUAL = 0
+    linearize.LAUNCHES_REDUCE = 0
+    linearize.LAUNCHES_BY_BATCH.clear()
+    _slam_frames(slam, frames, SLAM_FRAMES, 100.0, timed)
+    launches = {"sample_slab": sampler.LAUNCHES,
+                "K1": linearize.LAUNCHES_RESIDUAL,
+                "K2": linearize.LAUNCHES_REDUCE,
+                "by B": dict(linearize.LAUNCHES_BY_BATCH)}
+    for undo in restore:
+        undo()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = slam.finish()
+    finish_ms = 1e3 * (time.perf_counter() - t0)
+    est = [T for _, T in traj]
+    gt = [poses[k % RING] for k in range(SLAM_FRAMES)]
+    ate = evaluate.ate_rmse(est, gt)
+    sw = [p for p in per_frame if p[0]]
+    plain = [p for p in per_frame if not p[0]]
+    ms = np.asarray(frame_ms)
+    sw_ms = [m for m, p in zip(frame_ms, per_frame) if p[0]]
+    pl_ms = [m for m, p in zip(frame_ms, per_frame) if not p[0]]
+    print(f"phase 5b SLAM path: {SLAM_FRAMES} frames {W}x{H} after "
+          f"{SLAM_FRAMES} warm-up frames on another instance: "
+          f"{ms.mean():.3f} ms/frame ({1e3 / ms.mean():.2f} fps; median "
+          f"{np.median(ms):.3f}, min {ms.min():.3f}, max {ms.max():.3f}); "
+          f"frames without a switch {np.mean(pl_ms):.3f} ms, with a "
+          f"switch {np.mean(sw_ms) if sw_ms else float('nan'):.3f} ms; "
+          f"finish() {finish_ms:.1f} ms; keyframes {len(slam.keyframes)}, "
+          f"loop edges accepted {slam.num_loop_edges}; ATE "
+          f"{1e3 * ate:.4f} mm")
+    print(f"phase 5b launches: K1 {launches['K1']} ({launches['K1'] / SLAM_FRAMES:.2f}"
+          f" per frame), K2 {launches['K2']} ({launches['K2'] / SLAM_FRAMES:.2f}"
+          f" per frame), standalone sampler {launches['sample_slab']}; "
+          f"launches by (kernel, batch size) "
+          f"{dict(sorted(launches['by B'].items()))}; per frame "
+          f"without a switch K1 {np.mean([p[1] for p in plain]):.2f}, K2 "
+          f"{np.mean([p[2] for p in plain]):.2f}; per switch frame "
+          f"({len(sw)}) K1 {np.mean([p[1] for p in sw]) if sw else 0:.2f}, "
+          f"K2 {np.mean([p[2] for p in sw]) if sw else 0:.2f}; validation "
+          f"cache {slam.validation_cache_stats}")
+    n_sw = max(len(sw), 1)
+    print("phase 5b host ms per switch frame (" + str(len(sw)) + " switches; "
+          "time spent in each call, summed, over the switch count): "
+          + ", ".join(f"{k} {v / n_sw:.3f}" for k, v in sorted(spent.items())))
+    print(f"phase 5b pose-graph LM solves in the timed frames (window "
+          f"solves ask {slam_cfg.local_map_iterations}, graph solves "
+          f"{slam_cfg.optimization_iterations}): {_lm_summary(solves)}")
+    if slam.num_loop_edges < 1:
+        raise AssertionError("the SLAM path accepted no loop edge")
+    if not ate < ATE_LIMIT_M:
+        raise AssertionError(f"SLAM ATE {ate} m >= {ATE_LIMIT_M} m")
+    if launches["K1"] == 0 or launches["sample_slab"] != 0:
+        raise AssertionError(f"SLAM path launches {launches}")
+    # The final graph solve, twice on the same graph: the same bits.
+    view = slam._solve_view()
+    runs, solve_ms, final_solves = [], [], []
+    undo = _lm_counted(final_solves)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(pose_graph.optimize(
+            view, iterations=slam_cfg.final_optimization_iterations,
+            use_robust=slam_cfg.use_robust_kernel,
+            cauchy_c=slam_cfg.cauchy_c, gnc_init=16.0, gnc_adaptive=True,
+            solver=slam._solver_for(view), device=device))
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        solve_ms.append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)))
+    undo()
+    same = (torch.equal(runs[0][0].poses, runs[1][0].poses)
+            and torch.equal(runs[0][1], runs[1][1])
+            and torch.equal(runs[0][2], runs[1][2]))
+    print(f"phase 5b final graph solve ({view.poses.shape[0]} vertices, "
+          f"{view.edge_i.shape[0]} edge slots, {slam._solver_for(view)}, "
+          f"at most {slam_cfg.final_optimization_iterations} LM iterations, "
+          f"ran {[r for _, r in final_solves]}): two runs bit-identical: "
+          f"{same}; host ms to its return / to its end: "
+          + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in solve_ms))
+    if not same:
+        raise AssertionError("two runs of the final graph solve differ")
+    return {"slam": slam, "frames": frames, "launches": launches,
+            "ms_frame": float(ms.mean()), "ate": ate}
+
+
 def phase_profile(tracker, frames, n=3):
     """n more frames of the main path (the orbit's first frames again,
     after its last) under torch.profiler. Each IRLS iteration launches K1
@@ -534,68 +898,127 @@ def phase_profile(tracker, frames, n=3):
     return out
 
 
-def phase_device_times(cfg, levels):
+_PLAIN_PARTS = ("K1 plain", "K2 step plain", "K2 normal plain")
+
+
+def _plain_parts(ref, slab, K, T, cfg):
+    """The plain versions of K1, of one K2 Sigma step and of K2's
+    normal-equations pass, bound to one pair's tensors (names as in
+    _PLAIN_PARTS), and the pair's valid count."""
+    import torch
+
+    from dvo_slam_tpu_torch.ops import linearize
+
+    res = linearize.residuals_reference(ref, slab, K, T, cfg)
+    sII, sIZ, sZZ = res.rI * res.rI, res.rI * res.rZ, res.rZ * res.rZ
+    a = sII.sum() / res.n + cfg.min_intensity_sigma**2
+    bq = sIZ.sum() / res.n
+    c = sZZ.sum() / res.n + cfg.min_depth_sigma**2
+
+    def k1_plain():
+        r = linearize.residuals_reference(ref, slab, K, T, cfg)
+        (r.rI * r.rI).sum(), (r.rI * r.rZ).sum(), (r.rZ * r.rZ).sum()
+
+    def k2_step_plain():
+        linearize.tdist_step_reference(a, bq, c, sII, sIZ, sZZ, res.vF,
+                                       res.n, cfg)
+
+    def k2_normal_plain():
+        det, p00, p01, p11, maha, w = linearize.tdist_weights_reference(
+            a, bq, c, sII, sIZ, sZZ, res.vF, cfg)
+        (torch.log1p(maha / cfg.tdist_dof) * res.vF).sum()
+        (w * maha).sum()
+        linearize.normal_equations_reference(res, w, p00, p01, p11, K, cfg)
+
+    return dict(zip(_PLAIN_PARTS, (k1_plain, k2_step_plain,
+                                   k2_normal_plain))), float(res.n_raw)
+
+
+def _each(fns):
+    for fn in fns:
+        fn()
+
+
+def phase_device_times(cfg, levels, batched):
     """Per level, device time per call (profiler) of every kernel, its
-    plain version and the library call, and the bounds. One profiler
+    plain version and the library call, and of the batched kernels at each
+    B and their plain versions row by row, and the bounds. One profiler
     session holds every level, each function a labelled segment."""
     from functools import partial
-
-    import torch
 
     from dvo_slam_tpu_torch.ops import linearize, sampler
 
     segments, n_valid = {}, {}
+    for (B, lvl), L in batched.items():
+        args = (L["ref"], L["cur"], L["K"], L["T"], cfg)
+        segments[f"smoke batched B{B} @{lvl}"] = partial(
+            linearize.linearize_kernels_batched, *args)
+        segments[f"smoke batched plain B{B} @{lvl}"] = partial(
+            linearize.linearize_batched_reference, *args)
+        rows = [_plain_parts(_row(L["ref"], b),
+                             L["cur"][b] if L["paired"] else L["cur"],
+                             L["K"], L["T"][b], cfg) for b in range(B)]
+        n_valid[(B, lvl)] = sum(n for _, n in rows)
+        for name in _PLAIN_PARTS:
+            segments[f"smoke batched {name} B{B} @{lvl}"] = partial(
+                _each, [parts[name] for parts, _ in rows])
     for lvl, L in levels.items():
         ref, slab, K, T, u, v = (L[k] for k in ("ref", "slab", "K", "T",
                                                 "u", "v"))
-        res = linearize.residuals_reference(ref, slab, K, T, cfg)
-        sII, sIZ, sZZ = res.rI * res.rI, res.rI * res.rZ, res.rZ * res.rZ
-        a = sII.sum() / res.n + cfg.min_intensity_sigma**2
-        bq = sIZ.sum() / res.n
-        c = sZZ.sum() / res.n + cfg.min_depth_sigma**2
-        n_valid[lvl] = float(res.n_raw)
-
-        # Each function is bound to this level's tensors by its defaults
-        # (it runs after the loop).
-        def k1_plain(ref=ref, slab=slab, K=K, T=T):
-            r = linearize.residuals_reference(ref, slab, K, T, cfg)
-            (r.rI * r.rI).sum(), (r.rI * r.rZ).sum(), (r.rZ * r.rZ).sum()
-
-        def k2_step_plain(a=a, bq=bq, c=c, sII=sII, sIZ=sIZ, sZZ=sZZ,
-                          res=res):
-            linearize.tdist_step_reference(a, bq, c, sII, sIZ, sZZ, res.vF,
-                                           res.n, cfg)
-
-        def k2_normal_plain(a=a, bq=bq, c=c, sII=sII, sIZ=sIZ, sZZ=sZZ,
-                            res=res, K=K):
-            det, p00, p01, p11, maha, w = linearize.tdist_weights_reference(
-                a, bq, c, sII, sIZ, sZZ, res.vF, cfg)
-            (torch.log1p(maha / cfg.tdist_dof) * res.vF).sum()
-            (w * maha).sum()
-            linearize.normal_equations_reference(res, w, p00, p01, p11, K,
-                                                 cfg)
-
+        parts, n_valid[lvl] = _plain_parts(ref, slab, K, T, cfg)
         for name, f in (
             ("sampler", partial(sampler.sample_slab, slab, u, v)),
             ("sampler plain", partial(sampler.sample_slab_reference, slab, u,
                                       v)),
             ("grid_sample", partial(_grid_sample, L["batch"], L["grid"])),
-            ("K1 plain", k1_plain),
-            ("K2 step plain", k2_step_plain),
-            ("K2 normal plain", k2_normal_plain),
+            *parts.items(),
             ("linearize plain", partial(linearize.linearize_reference, ref,
                                         slab, K, T, cfg)),
-            ("linearize", partial(linearize.linearize_kernels, ref, slab, K,
-                                  T, cfg)),
+            ("linearize", partial(linearize.linearize, ref, slab, K, T,
+                                  cfg)),
         ):
             segments[f"smoke {name} @{lvl}"] = f
     recs = _profile_segments(segments, "the per-level device times")
     out = {}
+    for (B, lvl), L in batched.items():
+        d = {"linearize": _busy_us(recs[f"smoke batched B{B} @{lvl}"])
+             / PROFILED_CALLS / 1e3,
+             "plain": _busy_us(recs[f"smoke batched plain B{B} @{lvl}"])
+             / PROFILED_CALLS / 1e3}
+        for name in _PLAIN_PARTS:
+            d[name] = _busy_us(recs[f"smoke batched {name} B{B} @{lvl}"]) \
+                / PROFILED_CALLS / 1e3
+        by = {}
+        for name, s, e in recs[f"smoke batched B{B} @{lvl}"]:
+            kind = _kernel_of(name)
+            if kind:
+                tot, cnt = by.get(kind, (0.0, 0))
+                by[kind] = (tot + e - s, cnt + 1)
+        for kind in ("K1", "K2 step", "K2 normal"):
+            tot, cnt = by[kind]
+            d[kind] = tot / cnt / 1e3
+        steps = cfg.tdist_scale_iters
+        d["K2"] = (by["K2 step"][0] + by["K2 normal"][0]) / (
+            by["K2 step"][1] + by["K2 normal"][1]) / 1e3
+        d["n_valid"] = n_valid[(B, lvl)]
+        d["bounds"] = _bounds_batched(cfg, L, B, d["n_valid"])
+        out[("batched", B, lvl)] = d
+        print(f"phase 5 device time per call (profiler, {PROFILED_CALLS} "
+              f"calls): B={B} level {lvl}: K1 {1e3 * d['K1']:.2f} us, K2 step "
+              f"{1e3 * d['K2 step']:.2f} us, K2 normal equations "
+              f"{1e3 * d['K2 normal']:.2f} us; whole batched linearization "
+              f"{1e3 * d['linearize']:.2f} us (plain row by row "
+              f"{1e3 * d['plain']:.2f}, {steps} Sigma steps); plain row by "
+              f"row: K1 {1e3 * d['K1 plain']:.2f} us, K2 step "
+              f"{1e3 * d['K2 step plain']:.2f} us, K2 normal equations "
+              f"{1e3 * d['K2 normal plain']:.2f} us; bounds " +
+              ", ".join(f"{k} {1e3 * ms:.4f} us ({by_})"
+                        for k, (ms, by_) in d["bounds"].items()))
     for lvl in levels:
         d = {"n_valid": n_valid[lvl]}
         for label, r in recs.items():
             name, at = label[len("smoke "):].rsplit(" @", 1)
-            if int(at) == lvl:
+            if int(at) == lvl and not name.startswith("batched"):
                 d[name] = _busy_us(r) / PROFILED_CALLS / 1e3
         # The fused linearization's kernels, per launch.
         by = {}
@@ -627,6 +1050,61 @@ def phase_device_times(cfg, levels):
     return out
 
 
+def phase_slam_profile(slam_out, n=SLAM_PROFILED_FRAMES):
+    """5c, last: n more frames of the SLAM path (the ring again, one of
+    them a forced keyframe switch) under torch.profiler, each frame a
+    labelled segment: busy and idle share, device records per frame and
+    per lockstep IRLS iteration (split at K1's launches) on frames without
+    a switch, and the switch frame's device busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    slam, frames = slam_out["slam"], slam_out["frames"]
+    switched = {}
+
+    def body():
+        t0 = time.perf_counter()
+        for k in range(n):
+            if k == n // 2:
+                slam.force_keyframe()
+            before = len(slam.keyframes)
+            with record_function(f"smoke slam frame {k}"):
+                slam.update(*frames[k % RING], 1000.0 + k / 30.0)
+                torch.cuda.synchronize()
+            switched[k] = len(slam.keyframes) > before
+        return 1e6 * (time.perf_counter() - t0)
+
+    wall_us, prof = _traced(body, "the SLAM path")
+    spans = {e.name: e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CPU
+             and e.name.startswith("smoke slam frame")}
+    # The device-side copies of the frame ranges are not device work.
+    recs = sorted((r for r in _device_intervals(prof) if r[0] not in spans),
+                  key=lambda r: r[1])
+    busy = _busy_us(recs)
+    plain_recs, plain_k1, sw_busy = 0, 0, []
+    for k in range(n):
+        span = spans[f"smoke slam frame {k}"]
+        mine = [r for r in recs if span.start <= r[1] <= span.end]
+        if switched[k]:
+            sw_busy.append(_busy_us(mine))
+        else:
+            plain_recs += len(mine)
+            plain_k1 += sum(_kernel_of(r[0]) == "K1" for r in mine)
+    n_plain = sum(not v for v in switched.values())
+    print(f"phase 5c SLAM profile: {n} frames ({n - n_plain} with a switch),"
+          f" wall {wall_us / 1e3 / n:.3f} ms/frame (profiler on), device "
+          f"busy {busy / 1e3 / n:.3f} ms/frame, idle share "
+          f"{1 - busy / wall_us:.4f}; frames without a switch: "
+          f"{plain_recs / max(n_plain, 1):.0f} device records per frame, "
+          f"{plain_recs / max(plain_k1, 1):.1f} per lockstep IRLS iteration "
+          f"(B = 2); switch frames: device busy "
+          f"{np.mean(sw_busy) / 1e3 if sw_busy else float('nan'):.3f} ms")
+    if not switched[n // 2]:
+        raise AssertionError("the forced keyframe switch did not happen")
+
+
 def _bounds(cfg, L, n_valid):
     """Per kernel at one level: (ms, "bytes" or "operations"), the least
     time the card could take. Bytes: each input read once, each output
@@ -656,8 +1134,34 @@ def _bounds(cfg, L, n_valid):
     return out
 
 
-def kernel_rows(cfg, levels, launches, main_trace, dev_times):
-    """The kernels' JSON rows, at the finest tracked level."""
+def _bounds_batched(cfg, L, B, n_valid):
+    """_bounds for a batch of B rows (n_valid summed over the rows): each
+    row's points and outputs, and the current slab once per distinct slab
+    (once if shared, B times if one per row)."""
+    N, HW = L["N"], L["H"] * L["W"]
+    slabs = B if L["paired"] else 1
+    steps = cfg.tdist_scale_iters
+    ne_bytes = B * (9 * N + 28 * N)
+    out = {
+        "K1": _bound_ms(B * (17 * N + 80 + 9 * N) + slabs * 24 * HW,
+                        B * K1_OPS[0] * N, K1_OPS[1] * n_valid),
+        "K2 step": _bound_ms(B * 9 * N, K2_STEP_OPS[0] * n_valid,
+                             K2_STEP_OPS[1] * n_valid),
+        "K2 normal": _bound_ms(ne_bytes, K2_NE_OPS[0] * n_valid,
+                               K2_NE_OPS[1] * n_valid),
+    }
+    out["K2"] = _bound_ms(
+        (steps * B * 9 * N + ne_bytes) / (steps + 1),
+        (steps * K2_STEP_OPS[0] + K2_NE_OPS[0]) * n_valid / (steps + 1),
+        (steps * K2_STEP_OPS[1] + K2_NE_OPS[1]) * n_valid / (steps + 1))
+    return out
+
+
+def kernel_rows(cfg, levels, launches, main_trace, dev_times, batched,
+                slam_launches):
+    """The kernels' JSON rows, at the finest tracked level: the odometry
+    path's (B = 1) and, for each batch size, the batched kernels' with the
+    SLAM path's launches at that B."""
     lvl = cfg.tracked_levels[-1]
     d = dev_times[lvl]
     bound = _bounds(cfg, levels[lvl], d["n_valid"])
@@ -685,6 +1189,30 @@ def kernel_rows(cfg, levels, launches, main_trace, dev_times):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b[0], "bound_by": b[1],
                      "library_ms": lib_ms})
+    by_b = slam_launches["by B"]
+    for B in BATCHES:
+        d = dev_times[("batched", B, lvl)]
+        L = batched[(B, lvl)]
+        # Plain row by row, per launch as the kernels' times are.
+        d_k2_plain = (steps * d["K2 step plain"] + d["K2 normal plain"]) \
+            / (steps + 1)
+        for name, src, replaces, n_launch, err, ms, plain_ms, b in (
+            (f"linearize_residual (K1), batched B={B}",
+             "dvo_slam_tpu_torch/csrc/linearize.cu",
+             "dvo_slam_tpu/ops/pallas/sampler.py:226",
+             by_b.get(("K1", B), 0), L["r_err"], d["K1"], d["K1 plain"],
+             d["bounds"]["K1"]),
+            (f"linearize_reduce (K2), batched B={B}",
+             "dvo_slam_tpu_torch/csrc/linearize.cu",
+             "dvo_slam_tpu/ops/linearize.py:416",
+             by_b.get(("K2", B), 0), L["abs_err"], d["K2"], d_k2_plain,
+             d["bounds"]["K2"]),
+        ):
+            rows.append({"name": name, "route": "cuda", "source": src,
+                         "replaces": replaces, "launches": n_launch,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b[0], "bound_by": b[1],
+                         "library_ms": None})
     return rows
 
 
@@ -697,11 +1225,16 @@ def main():
     device = torch.device("cuda", 0)
     phase_device()
     cfg, levels = phase_kernel_vs_plain(device)
+    batched = phase_batched_vs_plain(device, cfg)
     launches, tracker, frames, _ = phase_main_path(device)
+    slam_out = phase_slam(device)
+    # Profiles only from here on.
     main_trace = phase_profile(tracker, frames)
-    dev_times = phase_device_times(cfg, levels)
-    print(json.dumps({"kernels": kernel_rows(cfg, levels, launches,
-                                             main_trace, dev_times)}))
+    dev_times = phase_device_times(cfg, levels, batched)
+    phase_slam_profile(slam_out)
+    print(json.dumps({"kernels": kernel_rows(
+        cfg, levels, launches, main_trace, dev_times, batched,
+        slam_out["launches"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

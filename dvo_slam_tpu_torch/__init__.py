@@ -1,4 +1,4 @@
-"""dvo_slam_tpu_torch — the dense RGB-D odometry main path in PyTorch + CUDA.
+"""dvo_slam_tpu_torch — dense RGB-D odometry and keyframe SLAM in PyTorch + CUDA.
 
 A port of ``dvo_slam_tpu`` (JAX/XLA/Pallas on a TPU) to PyTorch on an
 NVIDIA Hopper GPU. The JAX package stays the reference: every module here
@@ -11,11 +11,13 @@ utilities it needs are copied into ``utils/``).
 
 Layering (same as the JAX package):
   ops/     — SE(3), camera, robust weighting, pyramids, the 6x6 solve,
-             the IRLS linearization and the bilinear slab sampler, whose
-             CUDA kernel lives in csrc/sampler.cu (built at first use by
-             _build.py).
-  models/  — the dense tracker (coarse-to-fine IRLS) and frame-to-frame
-             odometry.
+             the IRLS linearization (batched; CUDA kernels in
+             csrc/linearize.cu) and the bilinear slab sampler
+             (csrc/sampler.cu), built at first use by _build.py.
+  models/  — the dense tracker (coarse-to-fine IRLS, one pair or a batch
+             in lockstep), frame-to-frame odometry, and keyframe SLAM:
+             the pose graph, the local map, loop-closure validation and
+             the KeyframeSlam facade.
   utils/   — numpy-only host helpers: f64 SE(3), synthetic scenes, ATE/RPE.
   convert  — carries configs, pyramids and results across the two packages.
 
@@ -34,11 +36,12 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from dvo_slam_tpu_torch.config import TrackerConfig  # noqa: E402
+from dvo_slam_tpu_torch.config import SlamConfig, TrackerConfig  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = ["TrackerConfig", "OdometryTracker", "__version__"]
+__all__ = ["TrackerConfig", "SlamConfig", "OdometryTracker", "KeyframeSlam",
+           "__version__"]
 
 
 def __getattr__(name):
@@ -46,4 +49,8 @@ def __getattr__(name):
         from dvo_slam_tpu_torch.models.odometry import OdometryTracker
 
         return OdometryTracker
+    if name == "KeyframeSlam":
+        from dvo_slam_tpu_torch.models.keyframe_tracker import KeyframeSlam
+
+        return KeyframeSlam
     raise AttributeError(name)

@@ -119,11 +119,13 @@ def load():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dvo_sample_slab.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
         lib.dvo_sample_slab.restype = ci
-        lib.dvo_linearize_layout.argtypes = [ci, vp]
+        lib.dvo_linearize_layout.argtypes = [ci, ci, vp]
         lib.dvo_linearize_layout.restype = None
         lib.dvo_linearize.argtypes = [
+            ci,  # B
             vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,  # reference points, N
-            vp, ci, ci, vp, vp, vp,  # slab, H, W, K, T, sigma_init
+            vp, ctypes.c_int64, ci, ci,  # slab, slab_stride, H, W
+            vp, vp, vp,  # K, T, sigma_init
             ci, ci, ci, cf, cf, cf,  # use_depth, ref_grad, warm, nu, floors
             ci, ci, ci,  # scale_iters, warm_iters, steps
             vp, vp, vp,  # scratch, out, stream

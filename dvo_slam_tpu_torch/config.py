@@ -1,4 +1,7 @@
-"""Tracker configuration (counterpart of ``dvo_slam_tpu/config.py``).
+"""Tracker and SLAM configuration (counterpart of ``dvo_slam_tpu/config.py``).
+
+``SlamConfig`` keeps the JAX package's fields, defaults and meanings
+(reference: ``dvo_slam::Config``).
 
 ``TrackerConfig`` keeps the JAX package's field names, defaults and
 meanings (reference: ``DenseTracker::Config``), minus the knobs that only
@@ -108,3 +111,72 @@ class TrackerConfig:
     def tracked_levels(self) -> tuple:
         """Level indices tracked, coarse to fine."""
         return tuple(range(self.first_level, self.last_level - 1, -1))
+
+
+@dataclasses.dataclass(frozen=True)
+class SlamConfig:
+    """SLAM backend knobs (reference: dvo_slam::Config); see
+    ``dvo_slam_tpu.config.SlamConfig`` for the full rationale of each
+    default. The padded capacities are initial sizes: the graph doubles
+    when full."""
+
+    # --- keyframe selection (entropy ratio, IROS13 IV) ---
+    min_entropy_ratio: float = 0.9
+    # Fraction of selected points that produced valid constraints.
+    min_constraint_ratio: float = 0.2
+
+    # --- loop closure (reference KeyframeGraph + constraints/*) ---
+    new_constraint_search_radius: float = 5.0
+    # Skip candidates closer than this many keyframes in graph distance.
+    min_constraint_distance: int = 5
+    min_entropy_ratio_coarse: float = 0.6
+    min_entropy_ratio_fine: float = 0.75
+    # Forward-backward consistency: || log(T_fwd * T_bwd) || below this.
+    cross_validation_threshold: float = 0.10
+    # Reject a constraint further than this twist norm from its graph
+    # prediction (OdometryConstraintVoter).
+    odometry_constraint_threshold: float = 1.0
+    # Validation batches: padded to the power-of-two bucket of their count,
+    # floored at validation_batch and split above validation_batch_max.
+    validation_batch: int = 8
+    validation_batch_max: int = 32
+    # Cap on candidates per keyframe insertion (nearest first); 0 = all.
+    max_loop_candidates: int = 0
+
+    # Fuse the keyframe-relative estimate with the chained odometry
+    # estimate by information weighting.
+    fuse_odometry: bool = True
+
+    # --- windowed local-map optimization (reference LocalMap::optimize) ---
+    local_map_optimize: bool = True
+    local_map_iterations: int = 10
+    local_map_capacity: int = 64
+
+    # --- pose graph optimization (g2o replacement) ---
+    optimization_iterations: int = 20
+    final_optimization_iterations: int = 100
+    use_robust_kernel: bool = True
+    cauchy_c: float = 1.0
+    # Vertex count from which the block-Jacobi CG solver replaces the
+    # dense Cholesky.
+    graph_cg_threshold: int = 2048
+    # Past this many active vertices, plain switches solve every
+    # ceil(M / this)-th time (new loop edges always solve); 0 disables.
+    optimization_backoff_vertices: int = 128
+    remove_outliers: bool = True
+    outlier_weight_threshold: float = 0.1
+
+    # --- padded capacities (initial; doubled when full) ---
+    max_keyframes: int = 256
+    max_edges: int = 1024
+    # Keyframe pyramids kept on the device; older ones spill to host RAM
+    # and re-upload inside validation batches on candidacy.
+    resident_keyframes: int = 64
+    # LRU device cache of re-uploaded evicted validation candidates; 0
+    # disables.
+    validation_cache_slots: int = 48
+
+    # --- tracker configs used by the SLAM layer ---
+    coarse_first_level: int = 3
+    coarse_last_level: int = 3
+    coarse_max_iterations: int = 25

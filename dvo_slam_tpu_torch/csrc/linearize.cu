@@ -36,10 +36,21 @@
 // intrinsics in the plain version's order, so nvcc contracts nothing into
 // FMAs and rI, rZ and the valid mask equal the plain version's bit for bit.
 //
+// Batch. Both kernels take a batch of B independent problems, one per
+// blockIdx.y (the counterpart of the JAX package's vmap over the tracker:
+// dual alignment is B = 2, a loop-closure validation batch B = 8..32). Row
+// b reads its own reference points (b * N on), its own T and Sigma seed,
+// and its current slab at slab + b * slab_stride (stride 0: one current
+// frame shared by every row). Each row has its own State, partials and
+// ticket, so the last block of a row finalises that row alone, and a row's
+// arithmetic does not depend on B: row b of a batch gives the bits of a
+// B = 1 call on its inputs.
+//
 // Cross-block reduction: every block writes its partial sums to scratch;
-// the last block to finish (atomic ticket after __threadfence, ticket reset
-// for the next launch) sums them in a fixed order and finalises on the
-// device. No float atomics: the same inputs give the same bits every run.
+// the last block of its row to finish (atomic ticket after __threadfence,
+// ticket reset for the next launch) sums them in a fixed order and
+// finalises on the device. No float atomics: the same inputs give the same
+// bits every run.
 // Sums run in f64 from the per-point f32 products on: an f32 sum over
 // 76 800 terms of mixed sign loses several of its 24 bits, an f64 one
 // keeps the kernels' sums well below the f32 rounding of the result (so a
@@ -76,7 +87,8 @@ constexpr int kMaxSums = kNormalSums;
 constexpr int kJacPlanes = 7;         // X, Y, Z, gix, giy, gzx, gzy
 // Output vector layout (ops/linearize.py reads the same offsets).
 constexpr int kOutA = 0, kOutB = 36, kOutErrMean = 42, kOutN = 43,
-              kOutNRaw = 44, kOutSigma = 45, kOutLog1p = 49, kOutErrRaw = 50;
+              kOutNRaw = 44, kOutSigma = 45, kOutLog1p = 49, kOutErrRaw = 50,
+              kOutSize = 51;
 
 enum Mode { kScaleStep = 0, kNormalEquations = 1 };
 
@@ -99,24 +111,53 @@ struct Params {
   const float* rgzx;  // depth)
   const float* rgzy;
   int N;
-  const float* slab;  // (6, H, W) current pyramid level
+  const float* slab;  // (6, H, W) current pyramid level of row 0
+  int64_t slab_stride;  // floats from one row's slab to the next (0: shared)
   int H, W;
-  const float* K;           // (4,) fx, fy, cx, cy
-  const float* T;           // (4, 4) row-major
-  const float* sigma_init;  // (2, 2) or null
+  const float* K;           // (4,) fx, fy, cx, cy, shared by every row
+  const float* T;           // (B, 4, 4) row-major
+  const float* sigma_init;  // (B, 2, 2) or null
   int use_depth, ref_grad, warm;
   float nu, floor_ii, floor_zz;
   int scale_iters, warm_iters;
   // Scratch (one allocation, carved by the entry point).
-  State* state;
-  double* part;  // (kMaxSums, blocks)
-  int* part_n;   // (blocks,)
-  float* rI;
+  State* state;  // (B,)
+  double* part;  // (B, kMaxSums, blocks)
+  int* part_n;   // (B, blocks)
+  float* rI;     // (B, N)
   float* rZ;
   uint8_t* valid;
-  float* jac;    // (kJacPlanes, N)
-  float* out;    // Linearization vector
+  float* jac;    // (B, kJacPlanes, N)
+  float* out;    // (B, 51) Linearization vectors
 };
+
+// The parameters of this block's batch row: every per-row pointer moved to
+// row blockIdx.y. The kernels below then see a single problem.
+__device__ __forceinline__ Params row_params(const Params& p) {
+  const int64_t b = blockIdx.y, N = p.N, blocks = gridDim.x;
+  Params q = p;
+  q.px = p.px + b * N;
+  q.py = p.py + b * N;
+  q.pz = p.pz + b * N;
+  q.i1 = p.i1 + b * N;
+  q.selected = p.selected + b * N;
+  if (p.rgix) q.rgix = p.rgix + b * N;
+  if (p.rgiy) q.rgiy = p.rgiy + b * N;
+  if (p.rgzx) q.rgzx = p.rgzx + b * N;
+  if (p.rgzy) q.rgzy = p.rgzy + b * N;
+  q.slab = p.slab + b * p.slab_stride;
+  q.T = p.T + 16 * b;
+  if (p.sigma_init) q.sigma_init = p.sigma_init + 4 * b;
+  q.state = p.state + b;
+  q.part = p.part + b * kMaxSums * blocks;
+  q.part_n = p.part_n + b * blocks;
+  q.rI = p.rI + b * N;
+  q.rZ = p.rZ + b * N;
+  q.valid = p.valid + b * N;
+  q.jac = p.jac + b * kJacPlanes * N;
+  q.out = p.out + b * kOutSize;
+  return q;
+}
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -220,7 +261,7 @@ __device__ __forceinline__ void block_sum(T (&v)[M], T* smem, T* tot) {
   __syncthreads();
 }
 
-// In the last block: the grid's sums of M quantities from the (M, blocks)
+// In the last block of a row: the row's sums of M quantities from the (M, blocks)
 // partials, in a fixed order (thread t takes blocks t, t + 256, ...; then
 // block_sum). Partials are read through L2 (__ldcg): other SMs wrote them.
 template <typename T, int M>
@@ -240,8 +281,9 @@ __device__ __forceinline__ void store_partials(const T* tot, T* part) {
   if (threadIdx.x < M) part[threadIdx.x * gridDim.x + blockIdx.x] = tot[threadIdx.x];
 }
 
-// True in the last block of the launch to finish. Every block's partials
-// are visible device-wide before it takes its ticket.
+// True in the last block of this batch row to finish (the row's gridDim.x
+// blocks share its ticket). Every block's partials are visible device-wide
+// before it takes its ticket.
 __device__ __forceinline__ bool last_block(unsigned int* ticket) {
   __shared__ bool is_last;
   __threadfence();
@@ -275,7 +317,8 @@ __device__ __forceinline__ void tdist_weight(const Precision& P, float nu, float
   *w = mul(__frcp_rn(add(*maha, nu)), nu + 2.f);
 }
 
-__global__ void __launch_bounds__(kThreads) residual_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads) residual_kernel(Params batch) {
+  const Params p = row_params(batch);
   __shared__ double smem[kScaleSums * kWarps];
   __shared__ double tot[kScaleSums];
   __shared__ int smem_n[kWarps];
@@ -341,7 +384,8 @@ __global__ void __launch_bounds__(kThreads) residual_kernel(Params p) {
 }
 
 template <int kMode>
-__global__ void __launch_bounds__(kThreads) reduce_kernel(Params p, int step) {
+__global__ void __launch_bounds__(kThreads) reduce_kernel(Params batch, int step) {
+  const Params p = row_params(batch);
   constexpr int M = kMode == kScaleStep ? kScaleSums : kNormalSums;
   __shared__ double smem[M * kWarps];
   __shared__ double tot[M];
@@ -450,56 +494,61 @@ struct Layout {
   size_t state, part, part_n, rI, rZ, valid, jac, total;
 };
 
-Layout layout(int N) {
+Layout layout(int B, int N) {
   const size_t blocks = (N + kThreads - 1) / kThreads;
+  const size_t BN = (size_t)B * N;
   Layout l;
   size_t off = 0;
-  l.state = off;  off = align256(off + sizeof(State));
-  l.part = off;   off = align256(off + sizeof(double) * kMaxSums * blocks);
-  l.part_n = off; off = align256(off + sizeof(int) * blocks);
-  l.rI = off;     off = align256(off + sizeof(float) * (size_t)N);
-  l.rZ = off;     off = align256(off + sizeof(float) * (size_t)N);
-  l.valid = off;  off = align256(off + (size_t)N);
-  l.jac = off;    off = align256(off + sizeof(float) * kJacPlanes * (size_t)N);
+  l.state = off;  off = align256(off + sizeof(State) * B);
+  l.part = off;   off = align256(off + sizeof(double) * kMaxSums * blocks * B);
+  l.part_n = off; off = align256(off + sizeof(int) * blocks * B);
+  l.rI = off;     off = align256(off + sizeof(float) * BN);
+  l.rZ = off;     off = align256(off + sizeof(float) * BN);
+  l.valid = off;  off = align256(off + BN);
+  l.jac = off;    off = align256(off + sizeof(float) * kJacPlanes * BN);
   l.total = off;
   return l;
 }
 
 }  // namespace
 
-// Scratch layout for N points: off[0..2] = byte offsets of rI (f32), rZ
-// (f32) and valid (u8), each (N,), after the call that wrote them; off[3] =
-// total bytes. The caller allocates the scratch zero-filled once per
-// (stream, N) and passes it to every call on that stream: the last block of
-// each launch leaves the ticket at 0.
-extern "C" void dvo_linearize_layout(int N, size_t* off) {
-  const Layout l = layout(N);
+// Scratch layout for B rows of N points: off[0..2] = byte offsets of rI
+// (f32), rZ (f32) and valid (u8), each (B, N), after the call that wrote
+// them; off[3] = total bytes. The caller allocates the scratch zero-filled
+// once per (stream, B, N) and passes it to every call on that stream with
+// that B and N: the last block of each row leaves its ticket at 0.
+extern "C" void dvo_linearize_layout(int B, int N, size_t* off) {
+  const Layout l = layout(B, N);
   off[0] = l.rI;
   off[1] = l.rZ;
   off[2] = l.valid;
   off[3] = l.total;
 }
 
-// One linearization: K1, then `steps` K2 Sigma steps (each skips itself past
-// the device's step count), then K2 in normal-equations mode, all on
-// `stream`, with no host sync. Reference gradients (rgix..rgzy) are read
-// only with ref_grad (rgzx, rgzy only with use_depth too); sigma_init only
-// with warm. out: 51 floats, laid out as the kOut* offsets. Returns
-// cudaGetLastError() after the launches (0 = all launched).
+// B linearizations, one per batch row: K1, then `steps` K2 Sigma steps
+// (each row skips itself past its own step count), then K2 in
+// normal-equations mode, each launch over a (blocks, B) grid, all on
+// `stream`, with no host sync. The reference points (px..rgzy) are (B, N);
+// row b's slab starts at slab + b * slab_stride floats; T is (B, 4, 4),
+// sigma_init (B, 2, 2). Reference gradients (rgix..rgzy) are read only
+// with ref_grad (rgzx, rgzy only with use_depth too); sigma_init only with
+// warm. out: (B, 51) floats, each row laid out as the kOut* offsets.
+// Returns cudaGetLastError() after the launches (0 = all launched).
 extern "C" int dvo_linearize(
-    const float* px, const float* py, const float* pz, const float* i1,
-    const uint8_t* selected, const float* rgix, const float* rgiy,
-    const float* rgzx, const float* rgzy, int N, const float* slab, int H,
-    int W, const float* K, const float* T, const float* sigma_init,
+    int B, const float* px, const float* py, const float* pz,
+    const float* i1, const uint8_t* selected, const float* rgix,
+    const float* rgiy, const float* rgzx, const float* rgzy, int N,
+    const float* slab, int64_t slab_stride, int H, int W, const float* K,
+    const float* T, const float* sigma_init,
     int use_depth, int ref_grad, int warm, float nu, float floor_ii,
     float floor_zz, int scale_iters, int warm_iters, int steps,
     void* scratch, float* out, void* stream) {
-  const Layout l = layout(N);
+  const Layout l = layout(B, N);
   char* base = (char*)scratch;
   Params p;
   p.px = px; p.py = py; p.pz = pz; p.i1 = i1; p.selected = selected;
   p.rgix = rgix; p.rgiy = rgiy; p.rgzx = rgzx; p.rgzy = rgzy;
-  p.N = N; p.slab = slab; p.H = H; p.W = W;
+  p.N = N; p.slab = slab; p.slab_stride = slab_stride; p.H = H; p.W = W;
   p.K = K; p.T = T; p.sigma_init = sigma_init;
   p.use_depth = use_depth; p.ref_grad = ref_grad; p.warm = warm;
   p.nu = nu; p.floor_ii = floor_ii; p.floor_zz = floor_zz;
@@ -513,9 +562,9 @@ extern "C" int dvo_linearize(
   p.jac = (float*)(base + l.jac);
   p.out = out;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (N + kThreads - 1) / kThreads;
-  residual_kernel<<<blocks, kThreads, 0, s>>>(p);
-  for (int k = 0; k < steps; ++k) reduce_kernel<kScaleStep><<<blocks, kThreads, 0, s>>>(p, k);
-  reduce_kernel<kNormalEquations><<<blocks, kThreads, 0, s>>>(p, 0);
+  const dim3 grid((N + kThreads - 1) / kThreads, B);
+  residual_kernel<<<grid, kThreads, 0, s>>>(p);
+  for (int k = 0; k < steps; ++k) reduce_kernel<kScaleStep><<<grid, kThreads, 0, s>>>(p, k);
+  reduce_kernel<kNormalEquations><<<grid, kThreads, 0, s>>>(p, 0);
   return (int)cudaGetLastError();
 }

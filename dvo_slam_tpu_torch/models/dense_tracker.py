@@ -3,11 +3,14 @@
 DenseTracker::match).
 
 The JAX package runs each level's IRLS loop as a ``lax.while_loop`` on the
-device. Here it is a host loop over device tensors with the same carry
-semantics: every carried quantity is updated with ``torch.where`` on the
-device, and the loop reads one boolean back (``done.item()``) per
-iteration. Gauss-Newton rollback (lambda = 0: revert and stop) and
-adaptive Levenberg-Marquardt (lambda > 0) share that one path.
+device, and batches pairs with ``jax.vmap`` over it. Here it is one host
+loop per level over (B, ...) device tensors with the same carry semantics:
+every carried quantity is updated with ``torch.where`` on the device, every
+row is linearized in every iteration (one batched kernel call), a row whose
+stop test has fired keeps its carry frozen, and the loop reads the rows'
+done flags back once per iteration. ``track`` is that loop at B = 1.
+Gauss-Newton rollback (lambda = 0: revert and stop) and adaptive
+Levenberg-Marquardt (lambda > 0) share that one path.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ TERM_TOO_FEW_CONSTRAINTS = 3  # < 6 valid constraints
 
 class TrackStats(NamedTuple):
     """Per-iteration statistics, (num_tracked_levels, max_iterations) and
-    coarse level first; entries past iterations[level] are zero."""
+    coarse level first (a batch puts B in front); entries past
+    iterations[level] are zero."""
 
     valid: torch.Tensor  # valid constraint count at each evaluation
     error: torch.Tensor  # acceptance NLL of each evaluation
@@ -42,7 +46,8 @@ class TrackStats(NamedTuple):
 
 
 class TrackResult(NamedTuple):
-    """Equivalent of DenseTracker::Result."""
+    """Equivalent of DenseTracker::Result (a batch puts B in front of
+    every field)."""
 
     transformation: torch.Tensor  # (4, 4) ref-cam -> cur-cam
     information: torch.Tensor  # (6, 6) JtWJ at convergence
@@ -69,7 +74,8 @@ class TrackResult(NamedTuple):
 
 
 def pose_entropy(information):
-    """H = 0.5 * ln((2 pi e)^6 det(information^{-1})), from log|det|."""
+    """H = 0.5 * ln((2 pi e)^6 det(information^{-1})), from log|det|;
+    (..., 6, 6) -> (...)."""
     logdet = torch.linalg.slogdet(information).logabsdet
     return 0.5 * (6.0 * math.log(2.0 * math.pi * math.e) - logdet)
 
@@ -88,96 +94,131 @@ def entropy_ratio(h_cur: float, h_ref: float) -> float:
     return 1.0 - (h_cur - h_ref) / max(abs(h_ref), _ENTROPY_DENOM_FLOOR)
 
 
-# The accepted linearization's fields, carried as one (50,) vector so one
-# torch.where per iteration keeps them all: offsets of A (36), b (6),
+# The accepted linearization's fields, carried as one (B, 50) tensor so
+# one torch.where per iteration keeps them all: offsets of A (36), b (6),
 # err_mean, err_raw, sigma (4), n_raw and log1p_sum.
 _A, _B, _ERR, _ERR_RAW, _SIGMA, _N_RAW, _LOG1P = 0, 36, 42, 43, 44, 48, 49
 
 
 def _flat(lin):
-    return torch.cat([lin.A.reshape(36), lin.b, lin.err_mean.reshape(1),
-                      lin.err_raw.reshape(1), lin.sigma.reshape(4),
-                      lin.n_raw.reshape(1), lin.log1p_sum.reshape(1)])
+    B = lin.A.shape[0]
+    return torch.cat([lin.A.reshape(B, 36), lin.b, lin.err_mean[:, None],
+                      lin.err_raw[:, None], lin.sigma.reshape(B, 4),
+                      lin.n_raw[:, None], lin.log1p_sum[:, None]], dim=1)
 
 
 def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
-    """IRLS loop for one pyramid level. Returns (T, Linearization of the
+    """IRLS loop for one pyramid level over B rows in lockstep. ref_data
+    holds (B, N) points, cur_slab is (6, H, W) shared or (B, 6, H, W), and
+    T_init (B, 4, 4). Returns (T (B, 4, 4), Linearization of each row's
     last accepted evaluation, stats dict)."""
     dtype, dev = T_init.dtype, T_init.device
+    B = T_init.shape[0]
     use_lm = cfg.lm_lambda_init > 0.0
     if cfg.mu > 0.0:
         eye6 = torch.eye(6, dtype=dtype, device=dev)
 
     T_cur = T_best = T_init
-    best = None  # _flat of the last accepted linearization
+    best = None  # _flat of each row's last accepted linearization
     sigma_best = None
     # torch.full, not torch.tensor: no host-to-device copy and sync.
-    lam = torch.full((), cfg.lm_lambda_init if use_lm else 0.0, dtype=dtype,
+    lam = torch.full((B,), cfg.lm_lambda_init if use_lm else 0.0, dtype=dtype,
                      device=dev)
-    # Per-iteration stats (valid, error, delta_norm, accepted), stacked and
-    # zero-padded to max_iterations after the loop.
+    # Per-iteration stats (valid, error, delta_norm, accepted), each (B,),
+    # stacked and zero-padded to max_iterations after the loop.
     per_iter = ([], [], [], [])
+    # Host mirror of the rows' done flags (read once per iteration) and
+    # their iteration counts; `done` is the device copy that freezes rows.
+    done_host = np.zeros(B, bool)
+    iters = np.zeros(B, np.int64)
+    done = None
+    # Each row's stop reasons at its last iteration (rejected, too few,
+    # converged), for the termination codes built after the loop.
+    flags = None
 
     k = 0
     while True:
         # Warm-start the scale fixed point from the last accepted Sigma.
-        lin = lin_ops.linearize(ref_data, cur_slab, K, T_cur, cfg,
-                                sigma_init=sigma_best, sigma_warm=k > 0)
+        # Every row is linearized, the frozen ones too (vmap semantics).
+        lin = lin_ops.linearize_batched(ref_data, cur_slab, K, T_cur, cfg,
+                                        sigma_init=sigma_best,
+                                        sigma_warm=k > 0)
         # Accepted state (reference Revertable<T>: keep best, revert else).
         if k == 0:
-            accept = torch.ones((), dtype=torch.bool, device=dev)
+            accept = torch.ones(B, dtype=torch.bool, device=dev)
             T_base = T_cur
-            best = _flat(lin)
+            new_best = _flat(lin)
         else:
-            accept = lin.err_mean <= best[_ERR]
-            T_base = torch.where(accept, T_cur, T_best)
-            best = torch.where(accept, _flat(lin), best)
-        A_best = best[_A:_B].view(6, 6)
-        b_best = best[_B:_ERR]
-        sigma_best = best[_SIGMA:_N_RAW].view(2, 2)
-        n_valid_best = best[_N_RAW]
+            accept = lin.err_mean <= best[:, _ERR]
+            T_base = torch.where(accept[:, None, None], T_cur, T_best)
+            new_best = torch.where(accept[:, None], _flat(lin), best)
 
         if use_lm:
-            lam = torch.where(
+            new_lam = torch.where(
                 accept,
                 torch.clamp(lam * cfg.lm_lambda_down, min=1e-12),
                 torch.clamp(lam * cfg.lm_lambda_up, max=cfg.lm_lambda_max),
             )
-            rejected_stop = torch.zeros((), dtype=torch.bool, device=dev)
+            rejected_stop = torch.zeros(B, dtype=torch.bool, device=dev)
         else:
+            new_lam = lam
             # Pure GN: error increase => revert and stop.
             rejected_stop = ~accept
 
-        A_solve, b_solve = A_best, b_best
+        A_solve = new_best[:, _A:_B].view(B, 6, 6)
+        b_solve = new_best[:, _B:_ERR]
         if cfg.mu > 0.0:
             # Motion prior on the solve operands only; the carried A/b stay
             # the pure data term (else each rejection stacks another mu*I).
             xi_prior = se3.log(T_base @ se3.inverse(T_init))
-            A_solve = A_best + cfg.mu * eye6
-            b_solve = b_best + cfg.mu * xi_prior
-        delta = least_squares.solve(A_solve, b_solve, lam)
+            A_solve = A_solve + cfg.mu * eye6
+            b_solve = b_solve + cfg.mu * xi_prior
+        delta = least_squares.solve(A_solve, b_solve, new_lam)
         # All finite <=> x * 0 == 0 everywhere (inf * 0 and NaN * 0 are NaN).
-        delta = torch.where((delta * 0.0 == 0.0).all(), delta, 0.0)
+        delta = torch.where((delta * 0.0 == 0.0).all(-1, keepdim=True),
+                            delta, 0.0)
         T_next = se3.exp(delta) @ T_base
-        delta_norm = torch.linalg.vector_norm(delta)
+        delta_norm = torch.linalg.vector_norm(delta, dim=-1)
 
         converged = delta_norm < cfg.precision
-        too_few = n_valid_best < 6
+        too_few = new_best[:, _N_RAW] < 6
+        stop = rejected_stop | converged | too_few
+        stats = (lin.n_raw, lin.err_mean, delta_norm, accept)
+        new_flags = (rejected_stop, too_few, converged)
+        if done_host.any():
+            # Rows whose stop test fired earlier keep their carry: the new
+            # values are selected away, never used (vmap-of-while).
+            live = ~done
+            T_next = torch.where(live[:, None, None], T_next, T_cur)
+            T_base = torch.where(live[:, None, None], T_base, T_best)
+            new_best = torch.where(live[:, None], new_best, best)
+            new_lam = torch.where(live, new_lam, lam)
+            stop = stop | done
+            stats = tuple(torch.where(live, x, torch.zeros_like(x))
+                          for x in stats)
+            if cfg.collect_stats:
+                new_flags = tuple(torch.where(live, x, y)
+                                  for x, y in zip(new_flags, flags))
         if cfg.collect_stats:
-            for acc, x in zip(per_iter, (lin.n_raw, lin.err_mean, delta_norm,
-                                         accept)):
+            for acc, x in zip(per_iter, stats):
                 acc.append(x)
-        T_cur, T_best = T_next, T_base
+            flags = new_flags
+        T_cur, T_best, best, lam = T_next, T_base, new_best, new_lam
+        sigma_best = best[:, _SIGMA:_N_RAW].view(B, 2, 2)
+        iters += ~done_host
         k += 1
         if k >= cfg.max_iterations:
             break
-        if bool((rejected_stop | converged | too_few).item()):
+        done = stop
+        done_host = done.cpu().numpy()
+        if done_host.all():
             break
 
-    stats = {"iterations": k, "error": best[_ERR]}
+    stats = {"iterations": iters, "error": best[:, _ERR]}
     if cfg.collect_stats:
-        # The last iteration's reason; first matching wins (priority
-        # mirrors the stop test).
+        # Each row's last reason; first matching wins (priority mirrors
+        # the stop test).
+        rejected_stop, too_few, converged = flags
         term = torch.where(
             rejected_stop, TERM_ERROR_INCREASED,
             torch.where(too_few, TERM_TOO_FEW_CONSTRAINTS,
@@ -186,42 +227,48 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
         ).to(torch.int32)
         pad = cfg.max_iterations - k
         stats["per_iter"] = (
-            *(torch.nn.functional.pad(torch.stack(x), (0, pad))
+            *(torch.nn.functional.pad(torch.stack(x, dim=1), (0, pad))
               for x in per_iter[:3]),
-            torch.cat([torch.stack(per_iter[3]),
-                       torch.zeros(pad, dtype=torch.bool, device=dev)]),
+            torch.cat([torch.stack(per_iter[3], dim=1),
+                       torch.zeros((B, pad), dtype=torch.bool, device=dev)],
+                      dim=1),
             term,
         )
-    A_final = A_best
+    A_final = best[:, _A:_B].view(B, 6, 6)
     if cfg.mu > 0.0:
         # Posterior information: data term + the prior's mu*I, added once.
         A_final = A_final + cfg.mu * eye6
+    n_valid_best = best[:, _N_RAW]
     final = lin_ops.Linearization(
-        A=A_final, b=b_best, err_mean=best[_ERR],
+        A=A_final, b=best[:, _B:_ERR], err_mean=best[:, _ERR],
         n_valid=torch.clamp(n_valid_best, min=1.0), n_raw=n_valid_best,
-        sigma=sigma_best, log1p_sum=best[_LOG1P], err_raw=best[_ERR_RAW],
+        sigma=sigma_best, log1p_sum=best[:, _LOG1P],
+        err_raw=best[:, _ERR_RAW],
     )
     return T_best, final, stats
 
 
-def track(ref_pyr, cur_pyr, Ks, T_init, cfg: TrackerConfig) -> TrackResult:
-    """Align the current frame to the reference frame (DenseTracker::match).
+def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits,
+                  cfg: TrackerConfig) -> TrackResult:
+    """B reference pyramids tracked in one lockstep loop (the JAX
+    package's vmap over ``track``).
 
-    ref_pyr / cur_pyr: tuples of per-level (6, H, W) slabs (finest first)
-    from ops.pyramid.build_pyramid; Ks: tuple of per-level (4,)
-    intrinsics; T_init: (4, 4) f32 initial estimate (reference cam ->
-    current cam), all on one device.
-    """
-    T = T_init
-    dev, dtype = T_init.device, T_init.dtype
+    ref_pyrs: tuple of per-level (B, 6, H, W) slabs; cur_pyrs: per-level
+    (6, H, W) slabs shared by every row (SLAM's dual alignment: keyframe
+    and previous frame against the current frame) or (B, 6, H, W), one
+    current pyramid per row (loop-closure validation); T_inits: (B, 4, 4).
+    Every field of the result has a leading B."""
+    T = T_inits
+    dev, dtype = T_inits.device, T_inits.dtype
+    B = T_inits.shape[0]
     levels = cfg.tracked_levels  # coarse -> fine
-    level_data = {lvl: lin_ops.prepare_reference(ref_pyr[lvl], Ks[lvl], cfg)
+    level_data = {lvl: lin_ops.prepare_reference(ref_pyrs[lvl], Ks[lvl], cfg)
                   for lvl in levels}
 
     iters, errs, per_iter = [], [], []
     fin = None
     for lvl in levels:
-        T, fin, stats = _track_level(level_data[lvl], cur_pyr[lvl], Ks[lvl],
+        T, fin, stats = _track_level(level_data[lvl], cur_pyrs[lvl], Ks[lvl],
                                      T, cfg)
         iters.append(stats["iterations"])
         errs.append(stats["error"])
@@ -231,19 +278,19 @@ def track(ref_pyr, cur_pyr, Ks, T_init, cfg: TrackerConfig) -> TrackResult:
     # Information / log-likelihood come from the finest level's last
     # accepted linearization (T is that pose).
     loglik = lin_ops.tdist_loglik(fin, cfg)
-    n_selected = level_data[levels[-1]].selected.sum().to(dtype)
+    n_selected = level_data[levels[-1]].selected.sum(-1).to(dtype)
     information = fin.A
-    zero = torch.zeros((), dtype=dtype, device=dev)
+    zero = torch.zeros(B, dtype=dtype, device=dev)
 
     track_stats = None
     if cfg.collect_stats:
         track_stats = TrackStats(
-            valid=torch.stack([p[0] for p in per_iter]),
-            error=torch.stack([p[1] for p in per_iter]),
-            delta_norm=torch.stack([p[2] for p in per_iter]),
-            accepted=torch.stack([p[3] for p in per_iter]),
-            termination=torch.stack([p[4] for p in per_iter]),
-            window_miss=torch.zeros((len(levels), cfg.max_iterations),
+            valid=torch.stack([p[0] for p in per_iter], dim=1),
+            error=torch.stack([p[1] for p in per_iter], dim=1),
+            delta_norm=torch.stack([p[2] for p in per_iter], dim=1),
+            accepted=torch.stack([p[3] for p in per_iter], dim=1),
+            termination=torch.stack([p[4] for p in per_iter], dim=1),
+            window_miss=torch.zeros((B, len(levels), cfg.max_iterations),
                                     dtype=dtype, device=dev),
         )
 
@@ -256,9 +303,36 @@ def track(ref_pyr, cur_pyr, Ks, T_init, cfg: TrackerConfig) -> TrackResult:
         sigma=fin.sigma,
         valid_pixels=fin.n_raw,
         valid_ratio=fin.n_raw / torch.clamp(n_selected, min=1.0),
-        iterations=torch.tensor(iters, dtype=torch.int32, device=dev),
-        level_errors=torch.stack(errs),
+        iterations=torch.tensor(np.stack(iters, axis=1), dtype=torch.int32,
+                                device=dev),
+        level_errors=torch.stack(errs, dim=1),
         stats=track_stats,
         window_miss_frac=zero,
-        escalated=torch.zeros((), dtype=torch.bool, device=dev),
+        escalated=torch.zeros(B, dtype=torch.bool, device=dev),
     )
+
+
+def track(ref_pyr, cur_pyr, Ks, T_init, cfg: TrackerConfig) -> TrackResult:
+    """Align the current frame to the reference frame (DenseTracker::match).
+
+    ref_pyr / cur_pyr: tuples of per-level (6, H, W) slabs (finest first)
+    from ops.pyramid.build_pyramid; Ks: tuple of per-level (4,)
+    intrinsics; T_init: (4, 4) f32 initial estimate (reference cam ->
+    current cam), all on one device. The batched tracker at B = 1.
+    """
+    res = track_batched(tuple(lvl[None] for lvl in ref_pyr), cur_pyr, Ks,
+                        T_init[None], cfg)
+    return row(res, 0)
+
+
+# The JAX package's name for the form with one current pyramid per row;
+# track_batched takes both forms.
+track_pairs_batched = track_batched
+
+
+def row(res: TrackResult, b: int) -> TrackResult:
+    """Row b of a batched TrackResult (views)."""
+    stats = (None if res.stats is None
+             else TrackStats(*(x[b] for x in res.stats)))
+    return TrackResult(*(x[b] for x in res[:10]), stats,
+                       *(x[b] for x in res[11:]))

@@ -9,7 +9,9 @@ _JITTER = 1e-8
 
 
 def solve(A, b, lm_lambda=0.0):
-    """Solve A dx = -b with optional Levenberg-Marquardt diagonal damping.
+    """Solve A dx = -b with optional Levenberg-Marquardt diagonal damping,
+    over leading batch dimensions: A (..., 6, 6), b (..., 6), lm_lambda a
+    float or a (...) tensor.
 
     Jacobi scaling (1/sqrt(diag)) keeps the f32 Cholesky well conditioned.
     A matrix that is not positive definite gives NaN, as JAX's
@@ -17,14 +19,17 @@ def solve(A, b, lm_lambda=0.0):
     thing: ``cholesky_ex`` reports the failure in ``info`` instead of
     raising, and no host sync is needed to act on it.
     """
-    diag = torch.diagonal(A)
+    if isinstance(lm_lambda, torch.Tensor):
+        lm_lambda = lm_lambda[..., None]
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
     # A + lm * diag(A) + jitter * I, written to the diagonal only.
     damped = A.clone()
-    damped.diagonal().copy_(diag + lm_lambda * diag + _JITTER)
-    s = torch.sqrt(torch.clamp(torch.diagonal(damped), min=_JITTER)).reciprocal()
-    As = damped * s[:, None] * s[None, :]
+    damped.diagonal(dim1=-2, dim2=-1).copy_(diag + lm_lambda * diag + _JITTER)
+    s = torch.sqrt(torch.clamp(torch.diagonal(damped, dim1=-2, dim2=-1),
+                               min=_JITTER)).reciprocal()
+    As = damped * s[..., :, None] * s[..., None, :]
     bs = b * s
     L, info = torch.linalg.cholesky_ex(As)
-    dx = torch.cholesky_solve(-bs[:, None], L)[:, 0]
-    dx = torch.where(info == 0, dx, float("nan"))
+    dx = torch.cholesky_solve(-bs[..., None], L)[..., 0]
+    dx = torch.where(info[..., None] == 0, dx, float("nan"))
     return dx * s

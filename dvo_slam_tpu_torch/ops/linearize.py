@@ -7,7 +7,8 @@ warp -> project -> bilinear sample -> bivariate residual -> t-distribution
 Sigma fixed point -> weights -> analytic Jacobian -> weighted 6x6 normal
 equations.
 
-``linearize`` dispatches on the current slab's device:
+``linearize`` (one pair: ``linearize_batched`` at B = 1) dispatches on
+the current slab's device:
 
 - a CPU tensor goes to ``linearize_reference``, the plain PyTorch version:
   per-point quantities stay flat (N,) tensors and the Jacobian is 12
@@ -28,6 +29,13 @@ equations.
   sampler kernel (``sampler.sample_slab``, csrc/sampler.cu): the config
   alone picks that route. A failed build or launch raises; nothing falls
   back to the plain version.
+
+``linearize_batched`` takes a batch of B problems (the JAX package's vmap
+over the tracker): reference points (B, N), poses (B, 4, 4), Sigma seeds
+(B, 2, 2), and one current slab (6, H, W) shared by every row or one per
+row (B, 6, H, W). On the card it is one ctypes call whose launches cover
+the whole batch (csrc/linearize.cu, grid (blocks, B)). The plain version
+is ``linearize_batched_reference``: ``linearize_reference`` row by row.
 """
 
 from __future__ import annotations
@@ -46,17 +54,21 @@ _EPS = 1e-12
 
 # Kernel launches since the last reset (plain integers; callers reset them
 # to 0 to count the launches of one run): K1 (residual pass) and K2
-# (weighted reduction, Sigma steps and normal equations).
+# (weighted reduction, Sigma steps and normal equations), and both by
+# batch size, keyed ("K1", B) and ("K2", B) (callers clear it with the
+# counts).
 LAUNCHES_RESIDUAL = 0
 LAUNCHES_REDUCE = 0
+LAUNCHES_BY_BATCH = {}
 
 # Layout of the kernels' result vector (csrc/linearize.cu kOut*).
 _OUT_SIZE = 51
 
 
 class RefData(NamedTuple):
-    """Per-level reference-frame tensors, all (N,). The gradient planes are
-    set only for cfg.gradient_source == "reference"."""
+    """Per-level reference-frame tensors, all (N,), or (B, N) for a batch.
+    The gradient planes are set only for cfg.gradient_source ==
+    "reference"."""
 
     px: torch.Tensor
     py: torch.Tensor
@@ -108,8 +120,10 @@ def _where0(mask, x):
 
 
 def prepare_reference(ref_slab, K, cfg: TrackerConfig) -> RefData:
-    """Back-project and select reference pixels (PointSelection)."""
-    _, H, W = ref_slab.shape
+    """Back-project and select reference pixels (PointSelection).
+    ref_slab: (6, H, W), or (B, 6, H, W) for a batch of (B, N) points."""
+    H, W = ref_slab.shape[-2:]
+    lead = ref_slab.shape[:-3]
     dtype, device = ref_slab.dtype, ref_slab.device
     fx, fy, cx, cy = K.unbind()
     v, u = torch.meshgrid(
@@ -119,28 +133,32 @@ def prepare_reference(ref_slab, K, cfg: TrackerConfig) -> RefData:
     )
     u = u.reshape(-1)
     v = v.reshape(-1)
-    z = ref_slab[pyr.CH_Z].reshape(-1)
-    i1 = ref_slab[pyr.CH_I].reshape(-1)
+
+    def plane(ch):
+        # Contiguous (B, N): the kernels step from row to row by N (a copy
+        # for a batch; a view of one slab).
+        return ref_slab[..., ch, :, :].reshape(*lead, H * W).contiguous()
+
+    z = plane(pyr.CH_Z)
+    i1 = plane(pyr.CH_I)
     selected = torch.isfinite(z)
     if cfg.intensity_grad_threshold > 0.0:
-        gi = torch.hypot(ref_slab[pyr.CH_IDX].reshape(-1),
-                         ref_slab[pyr.CH_IDY].reshape(-1))
+        gi = torch.hypot(plane(pyr.CH_IDX), plane(pyr.CH_IDY))
         selected &= gi >= cfg.intensity_grad_threshold
     if cfg.depth_grad_threshold > 0.0:
-        gz = torch.hypot(ref_slab[pyr.CH_ZDX].reshape(-1),
-                         ref_slab[pyr.CH_ZDY].reshape(-1))
+        gz = torch.hypot(plane(pyr.CH_ZDX), plane(pyr.CH_ZDY))
         selected &= torch.isfinite(gz) & (gz >= cfg.depth_grad_threshold)
     grads = {}
     if cfg.gradient_source == "reference":
-        gix = ref_slab[pyr.CH_IDX].reshape(-1)
-        giy = ref_slab[pyr.CH_IDY].reshape(-1)
+        gix = plane(pyr.CH_IDX)
+        giy = plane(pyr.CH_IDY)
         grads["gix"] = _where0(torch.isfinite(gix), gix)
         grads["giy"] = _where0(torch.isfinite(giy), giy)
         if cfg.use_depth:
             # Reference-side depth gradients are constants, so their
             # finiteness folds into point selection.
-            gzx = ref_slab[pyr.CH_ZDX].reshape(-1)
-            gzy = ref_slab[pyr.CH_ZDY].reshape(-1)
+            gzx = plane(pyr.CH_ZDX)
+            gzy = plane(pyr.CH_ZDY)
             selected &= torch.isfinite(gzx) & torch.isfinite(gzy)
             grads["gzx"] = _where0(torch.isfinite(gzx), gzx)
             grads["gzy"] = _where0(torch.isfinite(gzy), gzy)
@@ -308,61 +326,100 @@ def kernel_route(cfg: TrackerConfig) -> bool:
 def linearize(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
               sigma_init=None, sigma_warm=False) -> Linearization:
     """One IRLS linearization of the current slab against the reference
-    points at pose T (4, 4); see the module docstring for the route each
-    device and config takes.
+    points at pose T (4, 4): ``linearize_batched`` at B = 1, returning
+    row 0; see the module docstring for the route each device and config
+    takes.
 
     ``sigma_init`` / ``sigma_warm``: with cfg.tdist_scale_warm_iters > 0,
     the previous iteration's (2, 2) Sigma and a host bool (False on a
     level's first iteration) that seed the fixed point.
     """
-    kind = cur_slab.device.type
-    if kind not in ("cpu", "cuda"):
+    one = linearize_batched(
+        RefData(*(None if f is None else f[None] for f in ref)), cur_slab, K,
+        T[None], cfg, None if sigma_init is None else sigma_init[None],
+        sigma_warm)
+    return Linearization(*(f[0] for f in one[:-1]))
+
+
+def linearize_batched(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
+                      sigma_init=None, sigma_warm=False) -> Linearization:
+    """B linearizations at once: ``ref`` holds (B, N) points, T is
+    (B, 4, 4), ``sigma_init`` (B, 2, 2), and ``cur_slab`` is one (6, H, W)
+    slab shared by every row or (B, 6, H, W), one per row. Returns a
+    Linearization whose every field has a leading B. Off the kernels'
+    route each row runs ``linearize_reference``; a CUDA slab still gathers
+    with the sampler kernel there, a CPU slab with the plain sampler."""
+    _check_device(cur_slab)
+    if cur_slab.device.type == "cuda" and kernel_route(cfg):
+        return linearize_kernels_batched(ref, cur_slab, K, T, cfg,
+                                         sigma_init, sigma_warm)
+    return linearize_batched_reference(ref, cur_slab, K, T, cfg, sigma_init,
+                                       sigma_warm, sample=sampler.sample_slab)
+
+
+def linearize_batched_reference(ref: RefData, cur_slab, K, T,
+                                cfg: TrackerConfig, sigma_init=None,
+                                sigma_warm=False,
+                                sample=sampler.sample_slab_reference
+                                ) -> Linearization:
+    """``linearize_batched`` in plain PyTorch: ``linearize_reference`` row
+    by row, stacked (the plain version of the batched kernels)."""
+    paired = cur_slab.dim() == 4
+    rows = [linearize_reference(
+        RefData(*(None if f is None else f[b] for f in ref)),
+        cur_slab[b] if paired else cur_slab, K, T[b], cfg,
+        None if sigma_init is None else sigma_init[b], sigma_warm,
+        sample=sample) for b in range(T.shape[0])]
+    return Linearization(*(torch.stack(f) for f in zip(*(r[:-1]
+                                                         for r in rows))))
+
+
+def _check_device(cur_slab):
+    if cur_slab.device.type not in ("cpu", "cuda"):
         raise ValueError(f"linearize runs on cpu or cuda, not "
                          f"{cur_slab.device}")
-    if kind == "cuda" and kernel_route(cfg):
-        return linearize_kernels(ref, cur_slab, K, T, cfg, sigma_init,
-                                 sigma_warm)
-    # Off the kernels' route a CUDA slab still gathers with the sampler
-    # kernel; a CPU slab takes the plain sampler.
-    return linearize_reference(ref, cur_slab, K, T, cfg, sigma_init,
-                               sigma_warm, sample=sampler.sample_slab)
 
 
-# Per-(device, stream, N) scratch of the kernels, zero-filled once and
+# Per-(device, stream, B, N) scratch of the kernels, zero-filled once and
 # reused: per-point rI, rZ, valid and the Jacobian inputs, per-block
-# partial sums, and the device state (Sigma, counts, the blocks' ticket).
-# Values: (uint8 tensor, byte offsets of rI, rZ and valid).
+# partial sums, and the device state (Sigma, counts, the blocks' ticket) of
+# every batch row. Values: (uint8 tensor, byte offsets of rI, rZ and
+# valid).
 _SCRATCH = {}
 
 
-def _scratch(lib, device, stream, N):
-    key = (device, stream, N)
+def _scratch(lib, device, stream, B, N):
+    key = (device, stream, B, N)
     hit = _SCRATCH.get(key)
     if hit is None:
         off = (ctypes.c_size_t * 4)()
-        lib.dvo_linearize_layout(N, off)
+        lib.dvo_linearize_layout(B, N, off)
         hit = (torch.zeros(off[3], dtype=torch.uint8, device=device),
                tuple(off[:3]))
         _SCRATCH[key] = hit
     return hit
 
 
-def kernel_residuals(device, N):
-    """``(rI, rZ, valid)``, each (N,), that the last ``linearize_kernels``
-    call over N points on the current stream of ``device`` left in its
-    scratch (views: the next such call overwrites them). For comparing K1
-    with ``residuals_reference``."""
+def kernel_residuals(device, N, B=None):
+    """``(rI, rZ, valid)`` that the last kernel call over B rows of N
+    points on the current stream of ``device`` left in its scratch: each
+    (B, N), or (N,) for B None (a single-pair ``linearize``).
+    Views: the next such call overwrites them. For comparing K1 with
+    ``residuals_reference``."""
     device = torch.device(device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-    buf, (o_ri, o_rz, o_valid) = _SCRATCH[(device, stream, N)]
-    return (buf[o_ri:o_ri + 4 * N].view(torch.float32),
-            buf[o_rz:o_rz + 4 * N].view(torch.float32),
-            buf[o_valid:o_valid + N].view(torch.bool))
+    rows = 1 if B is None else B
+    buf, (o_ri, o_rz, o_valid) = _SCRATCH[(device, stream, rows, N)]
+    n = rows * N
+    shape = (N,) if B is None else (B, N)
+    return (buf[o_ri:o_ri + 4 * n].view(torch.float32).view(shape),
+            buf[o_rz:o_rz + 4 * n].view(torch.float32).view(shape),
+            buf[o_valid:o_valid + n].view(torch.bool).view(shape))
 
 
 def _check(ref: RefData, cur_slab, K, T):
-    H, W = cur_slab.shape[1:]
+    H, W = cur_slab.shape[-2:]
     if H < 2 or W < 2:
         raise ValueError(f"want a slab of H, W >= 2, got {H}x{W}")
     for name, t in (("cur_slab", cur_slab), ("K", K), ("T", T),
@@ -372,17 +429,26 @@ def _check(ref: RefData, cur_slab, K, T):
         if t.device != cur_slab.device:
             raise ValueError(f"{name} on {t.device}, slab on "
                              f"{cur_slab.device}")
-    if not (cur_slab.is_contiguous() and ref.px.is_contiguous()):
-        raise ValueError("cur_slab and the reference points must be "
-                         "contiguous")
+    B = T.shape[0]
+    if T.shape != (B, 4, 4) or ref.px.dim() != 2 or ref.px.shape[0] != B:
+        raise ValueError(f"want T (B, 4, 4) and (B, N) reference points, got "
+                         f"{tuple(T.shape)} and {tuple(ref.px.shape)}")
+    if cur_slab.dim() == 4 and cur_slab.shape[0] != B:
+        raise ValueError(f"{cur_slab.shape[0]} current slabs for {B} rows")
+    if not all(f is None or f.is_contiguous() for f in ref):
+        raise ValueError("the reference points must be contiguous")
+    if not cur_slab.is_contiguous():
+        raise ValueError("cur_slab must be contiguous")
 
 
-def linearize_kernels(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
-                      sigma_init=None, sigma_warm=False) -> Linearization:
-    """``linearize`` on the card through csrc/linearize.cu, for the
-    t-distribution branch. One ctypes call issues K1, the Sigma steps and
-    the normal-equations pass on the current stream of the slab's device,
-    with no host sync."""
+def linearize_kernels_batched(ref: RefData, cur_slab, K, T,
+                              cfg: TrackerConfig, sigma_init=None,
+                              sigma_warm=False) -> Linearization:
+    """``linearize_batched`` on the card through csrc/linearize.cu, for
+    the t-distribution branch. One ctypes call issues K1, the Sigma steps
+    and the normal-equations pass for every row on the current stream of
+    the slab's device, with no host sync. ``sigma_warm`` is one host bool
+    for the whole batch (all rows enter a level together)."""
     global LAUNCHES_RESIDUAL, LAUNCHES_REDUCE
     from dvo_slam_tpu_torch import _build
 
@@ -390,8 +456,10 @@ def linearize_kernels(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
         raise ValueError("the linearization kernels cover the "
                          "t-distribution scale estimator only")
     _check(ref, cur_slab, K, T)
-    C, H, W = cur_slab.shape
-    N = ref.px.shape[0]
+    C, H, W = cur_slab.shape[-3:]
+    B, N = ref.px.shape
+    # Row b's slab starts b * stride floats in; 0 shares one slab.
+    stride = C * H * W if cur_slab.dim() == 4 else 0
     ref_grad = cfg.gradient_source == "reference"
     if C < ((2 if cfg.use_depth else 1) if ref_grad else 6):
         raise ValueError(f"the slab has {C} channels, too few for {cfg}")
@@ -399,26 +467,27 @@ def linearize_kernels(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
             and bool(sigma_warm))
     steps = cfg.tdist_scale_iters
     if warm:
-        # Both trip counts launch; each step past the one the device
-        # chose returns at once.
+        # Both trip counts launch; each step past the one a row's device
+        # state chose returns at once.
         steps = max(steps, cfg.tdist_scale_warm_iters)
         sigma_init = sigma_init.to(torch.float32).contiguous()
     K = K.contiguous()
     T = T.contiguous()
     lib = _build.load()
-    out = torch.empty(_OUT_SIZE, dtype=torch.float32, device=cur_slab.device)
+    out = torch.empty((B, _OUT_SIZE), dtype=torch.float32,
+                      device=cur_slab.device)
     # The ctypes launch runs in the current CUDA context: make it the slab's.
     with torch.cuda.device(cur_slab.device):
         stream = torch.cuda.current_stream().cuda_stream
-        scratch = _scratch(lib, cur_slab.device, stream, N)[0]
+        scratch = _scratch(lib, cur_slab.device, stream, B, N)[0]
         rc = lib.dvo_linearize(
-            ref.px.data_ptr(), ref.py.data_ptr(), ref.pz.data_ptr(),
+            B, ref.px.data_ptr(), ref.py.data_ptr(), ref.pz.data_ptr(),
             ref.i1.data_ptr(), ref.selected.data_ptr(),
             ref.gix.data_ptr() if ref_grad else None,
             ref.giy.data_ptr() if ref_grad else None,
             ref.gzx.data_ptr() if ref_grad and cfg.use_depth else None,
             ref.gzy.data_ptr() if ref_grad and cfg.use_depth else None,
-            N, cur_slab.data_ptr(), H, W, K.data_ptr(), T.data_ptr(),
+            N, cur_slab.data_ptr(), stride, H, W, K.data_ptr(), T.data_ptr(),
             sigma_init.data_ptr() if warm else None,
             int(cfg.use_depth), int(ref_grad), int(warm), cfg.tdist_dof,
             cfg.min_intensity_sigma**2, cfg.min_depth_sigma**2,
@@ -428,10 +497,13 @@ def linearize_kernels(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
         raise RuntimeError(f"dvo_linearize launch failed: CUDA error {rc}")
     LAUNCHES_RESIDUAL += 1
     LAUNCHES_REDUCE += steps + 1
-    err_mean, n_valid, n_raw, *_, log1p_sum, err_raw = out[42:].unbind()
+    LAUNCHES_BY_BATCH[("K1", B)] = LAUNCHES_BY_BATCH.get(("K1", B), 0) + 1
+    LAUNCHES_BY_BATCH[("K2", B)] = (LAUNCHES_BY_BATCH.get(("K2", B), 0)
+                                    + steps + 1)
+    err_mean, n_valid, n_raw, *_, log1p_sum, err_raw = out[:, 42:].unbind(-1)
     return Linearization(
-        A=out[:36].view(6, 6), b=out[36:42], err_mean=err_mean,
-        n_valid=n_valid, n_raw=n_raw, sigma=out[45:49].view(2, 2),
+        A=out[:, :36].view(B, 6, 6), b=out[:, 36:42], err_mean=err_mean,
+        n_valid=n_valid, n_raw=n_raw, sigma=out[:, 45:49].view(B, 2, 2),
         log1p_sum=log1p_sum, err_raw=err_raw,
     )
 
@@ -506,13 +578,13 @@ def linearize_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
 
 
 def tdist_loglik(lin: Linearization, cfg: TrackerConfig):
-    """Bivariate t log-likelihood from a Linearization (Result.LogLikelihood)."""
+    """Bivariate t log-likelihood from a Linearization (Result.LogLikelihood);
+    works on a batched one row by row."""
     nu = cfg.tdist_dof
     p = 2.0
-    det = torch.clamp(
-        lin.sigma[0, 0] * lin.sigma[1, 1] - lin.sigma[0, 1] * lin.sigma[1, 0],
-        min=_EPS,
-    )
+    s = lin.sigma
+    det = torch.clamp(s[..., 0, 0] * s[..., 1, 1] - s[..., 0, 1] * s[..., 1, 0],
+                      min=_EPS)
     lg = [torch.lgamma(torch.full((), x, dtype=det.dtype, device=det.device))
           for x in ((nu + p) / 2.0, nu / 2.0)]
     log_norm = (lg[0] - lg[1] - (p / 2.0) * math.log(nu * math.pi)

@@ -17,6 +17,13 @@ err_raw rtol 1e-4 (sums over <= 76 800 points in another order: the
 kernels sum in f64, the plain version in f32). The tracker on the card is
 held to the same tracker on the CPU at 1e-4 on the transformation (f32
 reductions in another order).
+
+The batched kernels (one call over B rows, shared or per-row current
+slabs): every row's rI, rZ and valid bit-identical to its plain version,
+A and b within 1e-4 * max|.|, and every row bit-identical to a B = 1 call
+on that row's inputs (a row's arithmetic does not depend on B), the B = 1
+call bit-identical to the single-pair entry point, and 20 repeated B = 8
+calls identical (each row has its own cross-block ticket).
 """
 
 import numpy as np
@@ -187,9 +194,8 @@ SIGMA0 = [[40.0, 0.01], [0.01, 1e-3]]
 
 def _assert_fused_matches_plain(ref, slab, K, T, cfg, sigma_warm=True):
     sigma0 = torch.tensor(SIGMA0, device=slab.device)
-    got = linearize.linearize_kernels(ref, slab, K, T, cfg,
-                                      sigma_init=sigma0,
-                                      sigma_warm=sigma_warm)
+    got = linearize.linearize(ref, slab, K, T, cfg, sigma_init=sigma0,
+                              sigma_warm=sigma_warm)
     N = ref.px.numel()
     rI, rZ, valid = (t.clone() for t in
                      linearize.kernel_residuals(slab.device, N))
@@ -314,3 +320,154 @@ def test_plain_only_config_stays_plain_on_the_card(cuda, pair640):
         np.testing.assert_allclose(torch.as_tensor(a).cpu().numpy(),
                                    torch.as_tensor(b).cpu().numpy(),
                                    rtol=1e-6, err_msg=field)
+
+
+# ---- the batched kernels (grid (blocks, B)) against their plain version
+
+def _batch_inputs(dev, B, paired, level=2):
+    """B reference rows from the first B frames of a noisy 640x480 orbit,
+    each at its own perturbed pose, and the current slab: frame B (shared)
+    or frames 1..B (one per row)."""
+    cfg = TrackerConfig()
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    poses = synthetic.orbit_trajectory(24, radius=0.06)
+    rng = np.random.default_rng(1)
+    frames = [synthetic.add_sensor_noise(
+        *scene.render(np.asarray(K640), W640, H640, poses[k]), rng,
+        dropout=0.02) for k in range(B + 1)]
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K640, device=dev),
+                                   cfg.num_levels)
+    pyrs = [pyramid.build_pyramid(torch.as_tensor(i, device=dev),
+                                  torch.as_tensor(z, device=dev),
+                                  cfg.num_levels)[level] for i, z in frames]
+    ref_slabs = torch.stack(pyrs[:B])
+    cur = torch.stack(pyrs[1:B + 1]) if paired else pyrs[B]
+    T = []
+    for b in range(B):
+        target = (se3_np.inverse(poses[b + 1]) if paired
+                  else se3_np.inverse(poses[B])) @ poses[b]
+        xi = rng.normal(scale=2e-3, size=6)
+        T.append(target @ se3_np.exp(xi))
+    T = torch.as_tensor(np.stack(T), dtype=torch.float32, device=dev)
+    # Per-row Sigma seeds; row 1's is NaN, so its device state takes the
+    # cold start while the others warm-start.
+    sigma = torch.tensor([[[40.0 + b, 0.01], [0.01, 1e-3]]
+                          for b in range(B)], device=dev)
+    if B > 1:
+        sigma[1] = float("nan")
+    ref = linearize.prepare_reference(ref_slabs, Ks[level], cfg)
+    return ref, cur, Ks[level], T, sigma
+
+
+def _row_ref(ref, b):
+    return linearize.RefData(*(None if f is None else f[b].contiguous()
+                               for f in ref))
+
+
+def _one_row(ref, cur, K, T, sigma, b, cfg, warm):
+    """A B = 1 kernel call on row b's inputs."""
+    slab = cur[b] if cur.dim() == 4 else cur
+    ref_b = linearize.RefData(*(None if f is None else f[b:b + 1]
+                                for f in ref))
+    return linearize.linearize_kernels_batched(
+        ref_b, slab, K, T[b:b + 1], cfg, sigma[b:b + 1], warm)
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["shared", "paired"])
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("name", ["tdist", "tdist_warm"])
+def test_batched_linearize_matches_plain(cuda, name, B, paired):
+    cfg = TrackerConfig(**FUSED_CONFIGS[name])
+    warm = True
+    ref, cur, K, T, sigma = _batch_inputs(cuda, B, paired)
+    N = ref.px.shape[1]
+    by_b = linearize.LAUNCHES_BY_BATCH
+    before = (linearize.LAUNCHES_RESIDUAL, linearize.LAUNCHES_REDUCE,
+              by_b.get(("K1", B), 0), by_b.get(("K2", B), 0))
+    got = linearize.linearize_batched(ref, cur, K, T, cfg, sigma, warm)
+    steps = max(cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters)
+    assert (linearize.LAUNCHES_RESIDUAL - before[0],
+            linearize.LAUNCHES_REDUCE - before[1],
+            by_b[("K1", B)] - before[2],
+            by_b[("K2", B)] - before[3]) == (1, steps + 1, 1, steps + 1)
+    rI, rZ, valid = (t.clone() for t in
+                     linearize.kernel_residuals(cuda, N, B))
+    assert got.A.shape == (B, 6, 6) and got.sigma.shape == (B, 2, 2)
+    for b in range(B):
+        slab = cur[b] if paired else cur
+        ref_b = _row_ref(ref, b)
+        res = linearize.residuals_reference(ref_b, slab, K, T[b], cfg)
+        want = linearize.linearize_reference(ref_b, slab, K, T[b], cfg,
+                                             sigma[b], warm)
+        assert torch.equal(valid[b], res.valid), b
+        assert torch.equal(rI[b], res.rI) and torch.equal(rZ[b], res.rZ), b
+        assert float(got.n_raw[b]) == float(want.n_raw) > 0.5 * N
+        for field in ("A", "b"):
+            a, w = getattr(got, field)[b], getattr(want, field)
+            scale = w.abs().max().item()
+            assert (a - w).abs().max().item() <= 1e-4 * scale, (field, b)
+        for field in ("sigma", "err_mean", "log1p_sum", "err_raw"):
+            np.testing.assert_allclose(
+                getattr(got, field)[b].cpu().numpy(),
+                getattr(want, field).cpu().numpy(), rtol=1e-4,
+                err_msg=f"{field} row {b}")
+        # A row's bits do not depend on the batch around it.
+        one = _one_row(ref, cur, K, T, sigma, b, cfg, warm)
+        for field, x, y in zip(got._fields, got[:-1], one[:-1]):
+            assert torch.equal(x[b], y[0]), (field, b)
+    if B == 1:
+        single = linearize.linearize(_row_ref(ref, 0), cur[0]
+                                     if paired else cur, K, T[0], cfg,
+                                     sigma[0], warm)
+        for field, x, y in zip(got._fields, got[:-1], single[:-1]):
+            assert torch.equal(x[0], y), field
+
+
+def test_batched_linearize_is_deterministic(cuda):
+    """20 repeated B = 8 calls: each row's last block must sum only its
+    own row's partials, under whatever launch order the card picks."""
+    cfg = TrackerConfig()
+    ref, cur, K, T, sigma = _batch_inputs(cuda, 8, paired=True)
+    first = linearize.linearize_batched(ref, cur, K, T, cfg, sigma, True)
+    first = [x.clone() for x in first[:-1]]
+    for _ in range(20):
+        again = linearize.linearize_batched(ref, cur, K, T, cfg, sigma, True)
+        for field, x, y in zip(again._fields, first, again[:-1]):
+            assert torch.equal(x, y), field
+
+
+def test_track_batched_on_card_matches_cpu(cuda):
+    """The batched tracker on the card (batched kernels) against the same
+    code on the CPU, with one row of all-NaN reference depth that stops
+    at its first iteration while the others go on."""
+    W, H = 80, 60
+    K_t = (40.0, 40.0, (W - 1) / 2.0, (H - 1) / 2.0)
+    cfg = TrackerConfig(num_levels=3, first_level=2, last_level=0)
+    scene = synthetic.two_plane_scene()
+    poses = synthetic.orbit_trajectory(6, radius=0.05)
+    frames = synthetic.render_sequence(scene, np.asarray(K_t), W, H, poses)
+    frames[2] = (frames[2][0], np.full_like(frames[2][1], np.nan))
+    results = {}
+    for dev in (torch.device("cpu"), cuda):
+        Ks = camera.pyramid_intrinsics(camera.intrinsics(*K_t, device=dev), 3)
+        pyrs = [pyramid.build_pyramid(torch.as_tensor(i, device=dev),
+                                      torch.as_tensor(z, device=dev), 3)
+                for i, z in frames]
+        refs = tuple(torch.stack([p[lvl] for p in pyrs[:4]])
+                     for lvl in range(3))
+        T0 = torch.eye(4, dtype=torch.float32, device=dev).repeat(4, 1, 1)
+        before = linearize.LAUNCHES_RESIDUAL
+        res = dense_tracker.track_batched(refs, pyrs[5], Ks, T0, cfg)
+        if dev.type == "cuda":
+            # One batched launch per lockstep iteration: the longest row's
+            # iteration count per level.
+            assert linearize.LAUNCHES_RESIDUAL - before == int(
+                res.iterations.max(dim=0).values.sum())
+        results[dev.type] = res
+    got, want = results["cuda"], results["cpu"]
+    np.testing.assert_allclose(got.transformation.cpu().numpy(),
+                               want.transformation.numpy(), atol=1e-4)
+    assert (got.iterations.cpu() - want.iterations).abs().max() <= 1
+    assert got.iterations[2].tolist() == [1, 1, 1]
+    assert float(got.valid_pixels[2]) == 0.0
+    assert not bool(got.is_nan().any())

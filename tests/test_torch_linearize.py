@@ -184,7 +184,9 @@ def test_kernels_refuse_plain_only_configs(frames):
                                    **CONFIGS["mad_huber"])
     rd, cur_slab, K, T = _port_inputs(frames, t_cfg)
     with pytest.raises(ValueError, match="t-distribution"):
-        t_linearize.linearize_kernels(rd, cur_slab, K, T, t_cfg)
+        t_linearize.linearize_kernels_batched(
+            t_linearize.RefData(*(None if f is None else f[None]
+                                  for f in rd)), cur_slab, K, T[None], t_cfg)
 
 
 def test_linearize_rejects_other_devices(frames):

@@ -1,4 +1,5 @@
-"""The port's numpy-only utility copies against their originals.
+"""The port's numpy-only utility copies against their originals, and the
+guard that the port imports nothing of JAX.
 
 dvo_slam_tpu_torch/utils holds copies of dvo_slam_tpu/utils/{se3_np,
 synthetic, evaluate}.py so that the port runs without JAX. Each copy must
@@ -6,7 +7,9 @@ stay the original: every function's source is compared verbatim, and the
 same seeds and renders give bit-identical outputs (tolerance: exact).
 """
 
+import ast
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -51,6 +54,58 @@ def test_copy_imports_no_jax():
         src = inspect.getsource(copy)
         assert "import jax" not in src
         assert "from dvo_slam_tpu." not in src and "import dvo_slam_tpu\n" not in src
+
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_SOURCES = sorted(
+    str(p.relative_to(ROOT))
+    for p in [*(ROOT / "dvo_slam_tpu_torch").rglob("*.py"),
+              ROOT / "chip_smoke.py"])
+
+
+def _imported(tree):
+    """Every module name an import statement of the tree names."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
+def test_port_imports_no_jax(path):
+    """No module of the port, and not chip_smoke.py, imports jax or the
+    JAX package, at any depth of the file (function-level imports
+    included)."""
+    src = (ROOT / path).read_text()
+    for name in _imported(ast.parse(src)):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "dvo_slam_tpu"), (path, name)
+    for needle in ("import jax", "importlib", "__import__"):
+        assert needle not in src, (path, needle)
+
+
+def test_port_sources_listed():
+    assert "chip_smoke.py" in PORT_SOURCES
+    for module in ("models/keyframe_tracker.py", "models/pose_graph.py",
+                   "models/local_map.py", "models/constraints.py",
+                   "ops/linearize.py", "utils/transfer.py"):
+        assert f"dvo_slam_tpu_torch/{module}" in PORT_SOURCES
+
+
+@pytest.mark.parametrize("entry", ["OdometryTracker", "KeyframeSlam",
+                                   "LocalMap", "optimize"])
+def test_entry_points_run_on_the_card_by_default(entry):
+    """Every entry point a user calls runs on the card unless the caller
+    asks for the CPU (the tests pass device="cpu")."""
+    from dvo_slam_tpu_torch.models import (keyframe_tracker, local_map,
+                                           odometry, pose_graph)
+
+    fn = {"OdometryTracker": odometry.OdometryTracker,
+          "KeyframeSlam": keyframe_tracker.KeyframeSlam,
+          "LocalMap": local_map.LocalMap,
+          "optimize": pose_graph.optimize}[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_se3_np_matches():
