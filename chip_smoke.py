@@ -51,6 +51,28 @@ fails. Phases:
         frame and per keyframe switch and by batch size, the LM iterations
         each pose-graph solve ran, and two runs of the final graph solve
         (must be bit-identical);
+  6. the offline surface over bench/accuracy.py's full-scale protocol
+     rendered with the freiburg-1 intrinsics (noisy 640x480 frames, two
+     laps of a 0.5 m orbit, cut from 240 frames to 160; written as a TUM
+     directory by the port's write_tum_dataset):
+     a. both PNG decoders on the first and last 3 frames (identical
+        arrays), decode ms/frame of each and of the native prefetch loader;
+     b. `cli benchmark --fr 1` (slam) and run_tum_dataset in keyframe mode:
+        fps, keyframes, loop edges, ATE, RPE; the protocol's gates (ATE(slam)
+        < 20 mm, >= 1 loop edge, ATE(slam) <= 0.7 ATE(keyframe)); K1/K2
+        launches by batch size, counted from 0 around the benchmark run;
+     c. `cli odometry` with a covariance file (one 37-field line a frame);
+     d. `python -m dvo_slam_tpu_torch.cli evaluate` in a subprocess: the
+        benchmark's ATE within 1e-6; `evaluate --rpe-seconds`;
+     e. keyframe mode through run_sequence's checkpoint_out and resume,
+        split at the middle frame, against 6b's uninterrupted keyframe
+        run: the same keyframes, trajectories within 1e-6 m;
+     f. `cli optimize-graph` on the benchmark's graph, and dense against
+        CG on a 2560-vertex noisy two-lap ring (past graph_cg_threshold),
+        5 LM steps without the robust kernel: ms and chi2 before and
+        after (finite, no worse);
+     g. `cli odometry --scale-estimator normal --influence huber` (24
+        frames): one standalone sampler launch per linearization, no K1;
   4. profile (after every host timing above: no profiler has run before
      them in the process): a few more frames of the odometry main path
      under torch.profiler, split at K1's launches: the device's busy and
@@ -62,9 +84,13 @@ fails. Phases:
      the library call, and of the batched kernels at B = 2 and 8 and their
      plain versions row by row (K1, one Sigma step, the normal equations),
      each run as a labelled segment of the session;
-  5c. last, a short profile of the SLAM path: a few more frames with one
+  5c. a short profile of the SLAM path: a few more frames with one
      forced keyframe switch, each frame a labelled segment: busy and idle
-     share, device records per lockstep IRLS iteration.
+     share, device records per lockstep IRLS iteration;
+  6h. last, a short profile of the offline cell: a fresh KeyframeSlam with
+     6b's configs tracks the sequence's first 12 frames, then its next 12
+     under the profiler: busy and idle share, K1 launches per frame,
+     device records and wall time per K1 launch.
 
 The line before the last is a JSON object describing each kernel (the
 batched kernels have rows of their own, with the SLAM path's launches);
@@ -104,6 +130,16 @@ K1_OPS = (88, 3)  # warp 18, 1/Z 1, projection 6, 6-channel lerp 58+4,
 #                   residuals 2, moments 3 (f32); moment sums (f64)
 K2_STEP_OPS = (18, 3)  # maha 9, weight 3, weighted moments 6; sums
 K2_NE_OPS = (210, 29)  # weight 12, Jacobian 62, A 63, b 18, rest; sums
+# The offline surface: bench/accuracy.py's full-scale protocol (its ATE
+# bound and seed), rendered with the freiburg-1 intrinsics, cut from 240
+# frames to 160 (the same two laps) to keep the phase near 150 s; a ring
+# graph past the pose graph's dense-to-CG switch (graph_cg_threshold =
+# 2048), solved for 5 LM steps (CG: ~3 000-4 600 host-synced CG steps
+# each).
+OFFLINE_FRAMES, OFFLINE_RADIUS, OFFLINE_SEED = 160, 0.5, 11
+OFFLINE_ATE_LIMIT_M = 0.02
+OFFLINE_GRAPH_VERTICES, OFFLINE_GRAPH_ITERATIONS = 2560, 5
+OFFLINE_PROFILED_FRAMES = 12
 CONFIGS = {
     "tdist": {},
     "photometric": {"use_depth": False},
@@ -1216,6 +1252,388 @@ def kernel_rows(cfg, levels, launches, main_trace, dev_times, batched,
     return rows
 
 
+def _render_offline(out_dir, frames, width, height):
+    """bench/accuracy.py's sequence, rendered with the freiburg-1
+    intrinsics (the CLI's --fr 1) and written through the port's
+    write_tum_dataset one frame at a time."""
+    from dvo_slam_tpu_torch.ops import camera
+    from dvo_slam_tpu_torch.utils import synthetic
+
+    K = np.asarray(camera.TUM_FR1)
+    rng = np.random.default_rng(OFFLINE_SEED)
+    scene = synthetic.two_plane_scene(sharpness=1.0)
+    poses = synthetic.orbit_trajectory(frames, radius=OFFLINE_RADIUS,
+                                       yaw_amplitude=0.6, cycles=2.0)
+
+    def stream():
+        for T_wc in poses:
+            i, z = scene.render(K, width, height, T_wc)
+            yield synthetic.add_sensor_noise(i, z, rng, intensity_std=10.0,
+                                             depth_rel_std=0.05,
+                                             dropout=0.25)
+
+    synthetic.write_tum_dataset(out_dir, stream(), poses)
+
+
+def _cli(args):
+    """cli.main(args) with its standard output captured: (rc, text)."""
+    import contextlib
+    import io
+
+    from dvo_slam_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    return rc, buf.getvalue()
+
+
+def _reset_launches():
+    from dvo_slam_tpu_torch.ops import linearize, sampler
+
+    sampler.LAUNCHES = 0
+    linearize.LAUNCHES_RESIDUAL = 0
+    linearize.LAUNCHES_REDUCE = 0
+    linearize.LAUNCHES_BY_BATCH.clear()
+
+
+def _launches():
+    from dvo_slam_tpu_torch.ops import linearize, sampler
+
+    return {"sample_slab": sampler.LAUNCHES,
+            "K1": linearize.LAUNCHES_RESIDUAL,
+            "K2": linearize.LAUNCHES_REDUCE,
+            "by B": dict(sorted(linearize.LAUNCHES_BY_BATCH.items()))}
+
+
+def _ring_graph(path, vertices):
+    """A noisy two-lap ring of `vertices` poses (radius 5 m) written as
+    .g2o: odometry edges with 1 cm / 0.005 rad noise chained into the
+    initial poses (drift), and an edge from every 8th vertex of the second
+    lap to the same place on the first."""
+    from dvo_slam_tpu_torch.models import pose_graph
+    from dvo_slam_tpu_torch.utils import g2o_io, se3_np
+
+    rng = np.random.default_rng(OFFLINE_SEED)
+    lap = vertices // 2
+    gt = []
+    for k in range(vertices):
+        a = 2 * np.pi * k / lap
+        gt.append(se3_np.exp(np.array([5 * np.sin(a), 5 * (1 - np.cos(a)),
+                                       0.2 * np.sin(2 * a), 0, 0, a])))
+    noise = np.array([0.01] * 3 + [0.005] * 3)
+    edges, T_est = [], [gt[0]]
+    for k in range(vertices - 1):
+        Z = (se3_np.inverse(gt[k]) @ gt[k + 1]
+             @ se3_np.exp(rng.normal(size=6) * noise))
+        edges.append((k, k + 1, Z, np.diag(1.0 / noise**2)))
+        T_est.append(T_est[-1] @ Z)
+    for k in range(lap, vertices, 8):
+        Z = (se3_np.inverse(gt[k]) @ gt[k - lap]
+             @ se3_np.exp(rng.normal(size=6) * noise))
+        edges.append((k, k - lap, Z, np.diag(1.0 / noise**2)))
+    g = pose_graph.empty_graph_host(vertices, len(edges))
+    g.poses[:] = np.stack(T_est)
+    for e, (i, j, Z, info) in enumerate(edges):
+        g.edge_i[e], g.edge_j[e] = i, j
+        g.measurements[e], g.information[e] = Z, info
+        g.edge_mask[e] = True
+    g = g._replace(num_vertices=np.asarray(vertices, np.int32),
+                   num_edges=np.asarray(len(edges), np.int32))
+    g2o_io.save_g2o(path, g)
+    return len(edges)
+
+
+def _initial_chi2(path, device, use_robust=True):
+    """chi2 of a .g2o file's graph as loaded (zero LM steps; Cauchy c = 1,
+    the CLI's default, unless use_robust is False)."""
+    from dvo_slam_tpu_torch.models import pose_graph
+    from dvo_slam_tpu_torch.utils import g2o_io
+
+    _, chi2, _ = pose_graph.optimize(g2o_io.load_g2o(path), iterations=0,
+                                     use_robust=use_robust, device=device)
+    return float(chi2)
+
+
+def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
+                  graph_vertices=OFFLINE_GRAPH_VERTICES):
+    """6: the offline surface over an on-disk TUM-layout sequence
+    (bench/accuracy.py's protocol with the freiburg-1 intrinsics): the
+    decoders, the CLI's benchmark / odometry / evaluate / optimize-graph
+    commands, keyframe odometry through the benchmark harness, checkpoint
+    resume, and the standalone sampler's route."""
+    import dataclasses
+    import itertools
+    import os
+    import tempfile
+
+    import torch
+
+    from dvo_slam_tpu_torch import benchmark, cli, native
+    from dvo_slam_tpu_torch.ops import camera, linearize
+    from dvo_slam_tpu_torch.utils import tum
+
+    dev = ["--device", str(device)]
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    with tempfile.TemporaryDirectory(prefix="dvo_offline_") as tmp:
+        seq = os.path.join(tmp, "seq")
+        t0 = time.perf_counter()
+        _render_offline(seq, frames, width, height)
+        print(f"phase 6 dataset: {frames} frames {width}x{height} rendered, "
+              f"noised and written as PNG in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # 6a: the decoders (the native one built, or reused, first: its
+        # g++ build is not decode time).
+        t0 = time.perf_counter()
+        built = not native.library_path().is_file()
+        native.load()
+        build_s = time.perf_counter() - t0
+        ds = tum.TumDataset(seq)
+        picks = [*range(3), *range(frames - 3, frames)]
+        ms = {}
+        for decoder in tum.DECODERS:
+            t0 = time.perf_counter()
+            got = [tum.load_image_pair(seq, ds.pairs[k][1], ds.pairs[k][3],
+                                       decoder) for k in picks]
+            ms[decoder] = (1e3 * (time.perf_counter() - t0) / len(picks), got)
+        for (i_a, z_a), (i_b, z_b) in zip(ms["native"][1], ms["numpy"][1]):
+            if not (np.array_equal(i_a, i_b)
+                    and np.array_equal(z_a, z_b, equal_nan=True)):
+                raise AssertionError("the native and numpy decoders differ")
+        t0 = time.perf_counter()
+        n_pref = sum(1 for _ in ds.prefetch_iter())
+        pref_ms = 1e3 * (time.perf_counter() - t0) / n_pref
+        print(f"phase 6a decoders: libdvo_native.so "
+              f"{'built' if built else 'reused'} in {build_s:.2f} s; frames "
+              f"{picks} identical from native and "
+              f"numpy; decode ms/frame (rgb + depth) native "
+              f"{ms['native'][0]:.2f}, numpy {ms['numpy'][0]:.2f}; native "
+              f"prefetch loader over {n_pref} frames {pref_ms:.2f} ms/frame")
+        if n_pref != frames:
+            raise AssertionError(f"prefetch gave {n_pref} of {frames} frames")
+
+        # 6b: `benchmark` (slam), then keyframe mode with the same configs.
+        traj = os.path.join(tmp, "slam.txt")
+        graph = os.path.join(tmp, "slam.g2o")
+        cov = os.path.join(tmp, "slam_cov.txt")
+        radius = f"{0.35 * OFFLINE_RADIUS:g}"
+        flags = ["--fr", "1", "--min-entropy-ratio", "0.96",
+                 "--search-radius", radius, "--min-constraint-distance", "3"]
+        _reset_launches()
+        rc, out = _cli(["benchmark", seq, *flags, "--trajectory-out", traj,
+                        "--graph-out", graph, "--covariance-out", cov, *dev])
+        launches = _launches()
+        if rc != 0:
+            raise AssertionError(f"benchmark exited {rc}")
+        slam = json.loads(out)
+        args = cli._parser().parse_args(["benchmark", seq, *flags])
+        tracker_cfg, slam_cfg = cli._tracker_cfg(args), cli._slam_cfg(args)
+        traj_kf = os.path.join(tmp, "keyframe.txt")
+        kf = benchmark.run_tum_dataset(seq, tracker_cfg, slam_cfg,
+                                       mode="keyframe",
+                                       intrinsics=camera.TUM_FR1,
+                                       trajectory_out=traj_kf, device=device)
+        for name, r in (("slam (cli benchmark)", slam),
+                        ("keyframe (run_tum_dataset)",
+                         dataclasses.asdict(kf))):
+            print(f"phase 6b {name}: {r['num_frames']} frames, "
+                  f"{r['fps']:.3f} fps ({r['elapsed_s']:.3f} s engine "
+                  f"time), keyframes {r['num_keyframes']}, loop edges "
+                  f"{r['num_loop_edges']}, ATE {1e3 * r['ate_rmse_m']:.4f} "
+                  f"mm, RPE {1e3 * r['rpe_trans_m']:.4f} mm / "
+                  f"{r['rpe_rot_rad']:.6f} rad")
+        print(f"phase 6b benchmark launches: K1 {launches['K1']}, K2 "
+              f"{launches['K2']}, standalone sampler "
+              f"{launches['sample_slab']}; by (kernel, batch size) "
+              f"{launches['by B']}")
+        ate_slam, ate_kf = slam["ate_rmse_m"], kf.ate_rmse_m
+        if not ate_slam < OFFLINE_ATE_LIMIT_M:
+            raise AssertionError(f"ATE(slam) {ate_slam} m >= "
+                                 f"{OFFLINE_ATE_LIMIT_M} m")
+        if slam["num_loop_edges"] < 1:
+            raise AssertionError("the benchmark accepted no loop edge")
+        if not ate_slam <= 0.7 * ate_kf:
+            raise AssertionError(f"ATE(slam) {ate_slam} > 0.7 x ATE"
+                                 f"(keyframe) {ate_kf}")
+        if (launches["K1"] == 0 or launches["K2"] == 0
+                or launches["sample_slab"] != 0):
+            raise AssertionError(f"benchmark launches {launches}")
+
+        # 6c: `odometry` with covariances.
+        cov_odo = os.path.join(tmp, "odo_cov.txt")
+        rc, out = _cli(["odometry", seq, "--fr", "1", "--covariance-out",
+                        cov_odo, *dev])
+        odo = json.loads(out)
+        rows = [line.split() for line in open(cov_odo)]
+        print(f"phase 6c odometry: {odo['num_frames']} frames, "
+              f"{odo['fps']:.3f} fps, ATE {1e3 * odo['ate_rmse_m']:.4f} mm; "
+              f"covariance file {len(rows)} lines of "
+              f"{sorted({len(r) for r in rows})} fields")
+        if rc != 0 or len(rows) != frames or any(len(r) != 37 for r in rows):
+            raise AssertionError("odometry or its covariance file is wrong")
+
+        # 6d: `evaluate` through the module entry point, in a subprocess,
+        # then with --rpe-seconds in this process.
+        gt_file = os.path.join(seq, "groundtruth.txt")
+        proc = subprocess.run(
+            [sys.executable, "-m", "dvo_slam_tpu_torch.cli", "evaluate", traj,
+             gt_file], capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise AssertionError(f"evaluate exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        rc, per_s = _cli(["evaluate", traj, gt_file, "--rpe-seconds"])
+        outs = [dict(line.split() for line in text.strip().splitlines())
+                for text in (proc.stdout, per_s)]
+        ate_eval = float(outs[0]["ate_rmse_m"])
+        print(f"phase 6d evaluate (python -m dvo_slam_tpu_torch.cli): "
+              f"{outs[0]}; with --rpe-seconds {outs[1]}; |ATE - benchmark's| "
+              f"{abs(ate_eval - ate_slam):.2e} m")
+        if not (rc == 0 and abs(ate_eval - ate_slam) <= 1e-6):
+            raise AssertionError(f"evaluate's ATE {ate_eval} != benchmark's "
+                                 f"{ate_slam}")
+
+        # 6e: keyframe mode through the harness's checkpoint_out / resume,
+        # split at the middle frame, against 6b's uninterrupted keyframe
+        # run (the same initial pose, from the ground truth).
+        half = frames // 2
+        ck = os.path.join(tmp, "state.npz")
+        traj_res = os.path.join(tmp, "resumed.txt")
+        kw = dict(groundtruth=ds.groundtruth_pose, mode="keyframe", warmup=0,
+                  device=device)
+        benchmark.run_sequence(itertools.islice(ds.prefetch_iter(), half),
+                               camera.TUM_FR1, tracker_cfg, slam_cfg,
+                               checkpoint_out=ck, **kw)
+        mb = os.path.getsize(ck) / 1e6
+        res = benchmark.run_sequence(
+            itertools.islice(ds.prefetch_iter(), half, None), camera.TUM_FR1,
+            tracker_cfg, slam_cfg, resume=ck, trajectory_out=traj_res, **kw)
+        ta, tb = tum.read_trajectory(traj_res), tum.read_trajectory(traj_kf)
+        diff = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(ta, tb))
+        same = open(traj_res).read() == open(traj_kf).read()
+        print(f"phase 6e checkpoint: {half} frames, save ({mb:.1f} MB), "
+              f"resume, {frames - half} more against the uninterrupted "
+              f"keyframe run: keyframes {res.num_keyframes} / "
+              f"{kf.num_keyframes}, trajectory files identical {same}, max "
+              f"|difference| {diff:.3e}")
+        if (len(ta) != len(tb) or len(ta) != frames
+                or res.num_keyframes != kf.num_keyframes
+                or not diff <= 1e-6):
+            raise AssertionError("the resumed run differs from the "
+                                 "uninterrupted one")
+
+        # 6f: `optimize-graph` on the benchmark's graph and on a large ring.
+        solved = os.path.join(tmp, "solved.g2o")
+        before = _initial_chi2(graph, device)
+        rc, out = _cli(["optimize-graph", graph, "--out", solved, *dev])
+        print(f"phase 6f optimize-graph on the benchmark's graph: chi2 "
+              f"before {before:.6g}; {out.strip()}")
+        ring = os.path.join(tmp, "ring.g2o")
+        n_edges = _ring_graph(ring, graph_vertices)
+        # Plain least squares: with the CLI's Cauchy c = 1 every noisy
+        # edge (chi2 ~ 6 at the truth) would weigh ~0.1 and the solve
+        # barely moves.
+        ring_before = _initial_chi2(ring, device, use_robust=False)
+        for solver in ("dense", "cg"):
+            sync()
+            t0 = time.perf_counter()
+            rc, out = _cli(["optimize-graph", ring, "--out", solved,
+                            "--solver", solver, "--iterations",
+                            str(OFFLINE_GRAPH_ITERATIONS),
+                            "--no-robust-kernel", *dev])
+            sync()
+            ms_solve = 1e3 * (time.perf_counter() - t0)
+            final = float(out.split()[-1])
+            print(f"phase 6f optimize-graph --solver {solver} "
+                  f"--no-robust-kernel on the "
+                  f"{graph_vertices}-vertex ring ({n_edges} edges, "
+                  f"{OFFLINE_GRAPH_ITERATIONS} LM iterations at most, "
+                  f"graph_cg_threshold {slam_cfg.graph_cg_threshold}): "
+                  f"{ms_solve:.1f} ms (load, solve, save), chi2 "
+                  f"{ring_before:.6g} -> {final:.6g}")
+            # (final is printed to 6 digits)
+            if rc != 0 or not (np.isfinite(final)
+                               and final <= ring_before * (1 + 1e-5)):
+                raise AssertionError(f"{solver} solve: chi2 {final}")
+
+        # 6g: a scale estimator off the kernels' route: the plain
+        # linearization with the standalone sampler kernel.
+        rows_seen = [0]
+        batched = linearize.linearize_batched
+
+        def counting(ref, cur_slab, K, T, *a, **kw):
+            rows_seen[0] += T.shape[0]
+            return batched(ref, cur_slab, K, T, *a, **kw)
+
+        linearize.linearize_batched = counting
+        _reset_launches()
+        try:
+            rc, out = _cli(["odometry", seq, "--fr", "1", "--max-frames",
+                            "24", "--scale-estimator", "normal",
+                            "--influence", "huber", *dev])
+        finally:
+            linearize.linearize_batched = batched
+        launches = _launches()
+        r = json.loads(out)
+        print(f"phase 6g odometry --scale-estimator normal --influence huber "
+              f"(24 frames): {r['fps']:.3f} fps, ATE "
+              f"{1e3 * r['ate_rmse_m']:.4f} mm; linearizations "
+              f"{rows_seen[0]}, standalone sampler launches "
+              f"{launches['sample_slab']}, K1 {launches['K1']}")
+        if not (rc == 0 and rows_seen[0] > 0
+                and launches["sample_slab"] == rows_seen[0]
+                and launches["K1"] == 0):
+            raise AssertionError(f"off-route launches {launches}, "
+                                 f"linearizations {rows_seen[0]}")
+        return {"frames": [ds[k] for k in range(2 * OFFLINE_PROFILED_FRAMES)],
+                "groundtruth": ds.groundtruth_pose,
+                "tracker_cfg": tracker_cfg, "slam_cfg": slam_cfg}
+
+
+def phase_offline_profile(offline, device, n=OFFLINE_PROFILED_FRAMES):
+    """6h, last: the offline cell's SLAM path under torch.profiler. A fresh
+    KeyframeSlam with the benchmark's configs (loop closure on) tracks the
+    sequence's first n frames unprofiled, then its next n in one profiler
+    session: busy and idle share, K1 launches (lockstep IRLS iterations,
+    the validation batches' included) per frame, device records and wall
+    time per K1 launch."""
+    import torch
+
+    from dvo_slam_tpu_torch import KeyframeSlam
+    from dvo_slam_tpu_torch.ops import camera
+
+    frames = offline["frames"]
+    slam = KeyframeSlam(camera.TUM_FR1, offline["tracker_cfg"],
+                        offline["slam_cfg"], enable_loop_closure=True,
+                        device=device)
+    slam.init(offline["groundtruth"](frames[0][0]))
+    for ts, intensity, depth in frames[:n]:
+        slam.update(intensity, depth, ts)
+
+    def body():
+        before = len(slam.keyframes)
+        t0 = time.perf_counter()
+        for ts, intensity, depth in frames[n:2 * n]:
+            slam.update(intensity, depth, ts)
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0), len(slam.keyframes) - before
+
+    (wall_us, switches), prof = _traced(body, "the offline cell")
+    recs = _device_intervals(prof)
+    busy = _busy_us(recs)
+    k1 = sum(_kernel_of(r[0]) == "K1" for r in recs)
+    print(f"phase 6h offline profile: {n} frames ({switches} keyframe "
+          f"switches), wall {wall_us / 1e3 / n:.3f} ms/frame (profiler on), "
+          f"device busy {busy / 1e3 / n:.3f} ms/frame, idle share "
+          f"{1 - busy / wall_us:.4f}; {k1 / n:.2f} K1 launches per frame, "
+          f"{len(recs) / max(k1, 1):.1f} device records and "
+          f"{wall_us / 1e3 / max(k1, 1):.3f} ms of wall time per K1 launch")
+    if k1 == 0:
+        raise AssertionError("the offline profile saw no K1 launch")
+
+
 def main():
     import torch
 
@@ -1228,10 +1646,14 @@ def main():
     batched = phase_batched_vs_plain(device, cfg)
     launches, tracker, frames, _ = phase_main_path(device)
     slam_out = phase_slam(device)
+    t0 = time.perf_counter()
+    offline = phase_offline(device)
+    print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
     # Profiles only from here on.
     main_trace = phase_profile(tracker, frames)
     dev_times = phase_device_times(cfg, levels, batched)
     phase_slam_profile(slam_out)
+    phase_offline_profile(offline, device)
     print(json.dumps({"kernels": kernel_rows(
         cfg, levels, launches, main_trace, dev_times, batched,
         slam_out["launches"])}))

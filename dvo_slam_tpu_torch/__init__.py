@@ -18,7 +18,13 @@ Layering (same as the JAX package):
              in lockstep), frame-to-frame odometry, and keyframe SLAM:
              the pose graph, the local map, loop-closure validation and
              the KeyframeSlam facade.
-  utils/   — numpy-only host helpers: f64 SE(3), synthetic scenes, ATE/RPE.
+  utils/   — host helpers: f64 SE(3), synthetic scenes, ATE/RPE, TUM
+             dataset IO with a numpy PNG codec, checkpoints, .g2o IO,
+             stopwatch / profiler trace / frame logger.
+  native/  — the C++ PNG decoder and prefetch thread (built with g++ at
+             first use, ctypes).
+  benchmark, cli — the offline harness and the command line
+             (``python -m dvo_slam_tpu_torch.cli``).
   convert  — carries configs, pyramids and results across the two packages.
 
 The tracker has no learnable parameters and takes no gradient: its

@@ -82,7 +82,8 @@ def _run_all(cmds):
     for cmd, p, log in zip(cmds, procs, logs):
         if p.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{log}")
+                f"{Path(cmd[0]).name} failed ({p.returncode}):\n"
+                f"{' '.join(cmd)}\n{log}")
     return "".join(logs)
 
 

@@ -57,7 +57,8 @@ def pyramid_from_numpy(levels, device):
     )
 
 
-def _to_numpy(x):
+def to_numpy(x):
+    """A tensor (any device) or array-like as a numpy array."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -65,10 +66,10 @@ def _to_numpy(x):
 
 def result_to_numpy(res: TrackResult) -> TrackResult:
     """A TrackResult with every tensor (stats included) as a numpy array."""
-    fields = {k: _to_numpy(v) for k, v in res._asdict().items()
+    fields = {k: to_numpy(v) for k, v in res._asdict().items()
               if k != "stats"}
     stats = (None if res.stats is None
-             else TrackStats(*[_to_numpy(x) for x in res.stats]))
+             else TrackStats(*[to_numpy(x) for x in res.stats]))
     return TrackResult(stats=stats, **fields)
 
 
@@ -97,4 +98,4 @@ def pose_graph_to_numpy(graph: PoseGraph) -> PoseGraph:
     """Any port PoseGraph (host arrays, or tensors from ``optimize``) as
     numpy arrays with the JAX PoseGraph's dtypes; pass the result to
     ``dvo_slam_tpu.models.pose_graph.PoseGraph(*...)``."""
-    return pose_graph_from_numpy(tuple(_to_numpy(x) for x in graph))
+    return pose_graph_from_numpy(tuple(to_numpy(x) for x in graph))

@@ -30,8 +30,9 @@ Host responsibilities (this file) are bookkeeping only: pose chains in
 f64 NumPy, keyframe records, edge lists. All dense math stays on the
 device (``device``, "cuda" unless the caller asks for "cpu").
 
-Not ported: the frame logger (``frame_logger`` must be None), graph
-export (``export_graph``), checkpointing.
+Around it: an optional per-frame logger (utils/stats.FrameLogger),
+``export_graph`` (.g2o, utils/g2o_io.py) and checkpoints
+(utils/checkpoint.py, the JAX package's .npz format).
 """
 
 from __future__ import annotations
@@ -129,8 +130,12 @@ class KeyframeSlam:
         collect_covariance: bool = False,
         device="cuda",
     ):
-        """frame_logger: must be None (the structured frame logger of the
-        JAX package is not ported yet).
+        """frame_logger: optional utils.stats.FrameLogger; when set, every
+        update() after the first appends a structured record with the
+        per-iteration tracking statistics (reference per-frame Stats +
+        ROS_INFO logs), the JAX package's record. The statistics ride the
+        frame's one device-to-host transfer; without a logger nothing more
+        is fetched.
 
         device: where tracking, validation and the solves run ("cuda" by
         default; "cpu" runs the plain versions of the kernels).
@@ -140,13 +145,10 @@ class KeyframeSlam:
         alignment — what the reference's keyframe-tracker node publishes
         as PoseWithCovarianceStamped). The information matrix is already
         part of each frame's fetch, so this costs one host inverse."""
-        if frame_logger is not None:
-            raise NotImplementedError(
-                "frame_logger is not ported yet (it needs utils/stats.py); "
-                "pass None")
         self.tracker_cfg = tracker_cfg
         self.slam_cfg = slam_cfg
         self.enable_loop_closure = enable_loop_closure
+        self.frame_logger = frame_logger
         self.collect_covariance = collect_covariance
         self.covariances: List[Tuple[float, np.ndarray]] = []
         self.device = torch.device(device)
@@ -300,6 +302,11 @@ class KeyframeSlam:
         # ONE device->host transfer for everything this frame needs.
         fetch = [res.transformation, res.is_nan(), res.entropy,
                  res.valid_ratio, res.information]
+        # The logger's statistics: iterations, then valid, error,
+        # delta_norm, accepted and termination of both rows.
+        extra = []
+        if self.frame_logger is not None and res.stats is not None:
+            extra = [res.iterations, *res.stats[:5]]
         # Piggyback the previous switch's in-flight validation results and
         # window refinement on this frame's transfer, and apply them here,
         # where the JAX package applies them.
@@ -307,13 +314,14 @@ class KeyframeSlam:
         pv = pend.tensors() if pend is not None else []
         pw = self._pending_window
         pwh = [pw["handle"]] if pw is not None else []
-        host = to_host(fetch + pv + pwh)
+        host = to_host(fetch + extra + pv + pwh)
         if pw is not None:
             self._collect_pending_window(host_poses=host[-1])
             host = host[:-1]
+        n_own = len(fetch) + len(extra)
         if pend is not None:
             self._collect_pending_validation(
-                host_results=pend.results_from(host[len(fetch):]))
+                host_results=pend.results_from(host[n_own:]))
         transforms, nans, entropies, valid_ratios, informations = \
             host[:len(fetch)]
         r_kf_T = np.asarray(transforms[0], np.float64)
@@ -341,6 +349,22 @@ class KeyframeSlam:
             or ratio < self.slam_cfg.min_entropy_ratio
         )
         self._force_next = False
+
+        if self.frame_logger is not None:
+            # The window-miss fields are the tracker's constants here (no
+            # sampler window to miss, no escalation).
+            rec = dict(
+                t=timestamp, frame=len(self.frames), keyframe=kf.idx,
+                entropy=kf_entropy, entropy_ratio=ratio,
+                valid_ratio=kf_valid_ratio, accepted=accept,
+                keyframe_switch=bool(switch), window_miss_frac=0.0,
+                escalated=False,
+            )
+            if extra:
+                iters_b, *stats_b = host[len(fetch):n_own]
+                rec["kf_track"] = _stats_record(stats_b, iters_b, 0)
+                rec["odo_track"] = _stats_record(stats_b, iters_b, 1)
+            self.frame_logger.log(**rec)
 
         if not switch:
             if np.isfinite(kf_entropy):
@@ -440,6 +464,14 @@ class KeyframeSlam:
             (f.timestamp, self._world_pose(f.keyframe_idx, f.T_kf_frame))
             for f in self.frames
         ]
+
+    def export_graph(self, path: str) -> None:
+        """Write the current (latest-solve) pose graph as .g2o — the
+        reference backend's interchange format (g2o_viewer etc.)."""
+        from dvo_slam_tpu_torch.utils import g2o_io
+
+        self._drain_device_reads()
+        g2o_io.save_g2o(path, self.graph)
 
     # ------------------------------------------------------------------
     # internals
@@ -913,6 +945,26 @@ class KeyframeSlam:
         no extra device dispatch."""
         self._sync_poses()
         self._mask_outlier_edges()
+
+
+def _stats_record(stats, iterations, b):
+    """Per-level per-iteration stats of batch row b as plain JSON types
+    (reference IterationStats granularity), trimmed to executed
+    iterations. stats: host (valid, error, delta_norm, accepted,
+    termination), each with a leading batch axis."""
+    valid, error, delta_norm, accepted, termination = stats
+    levels = []
+    for lvl in range(iterations.shape[1]):
+        n = int(iterations[b, lvl])
+        levels.append({
+            "iterations": n,
+            "termination": int(termination[b, lvl]),
+            "valid": valid[b, lvl][:n].tolist(),
+            "error": error[b, lvl][:n].tolist(),
+            "delta_norm": delta_norm[b, lvl][:n].tolist(),
+            "accepted": accepted[b, lvl][:n].tolist(),
+        })
+    return levels
 
 
 def fuse_relative_poses(T_a, info_a, T_b, info_b):

@@ -10,6 +10,11 @@ from __future__ import annotations
 
 import torch
 
+# TUM RGB-D calibrations at 640x480 (fx, fy, cx, cy): freiburg 1, 2, 3.
+TUM_FR1 = (517.3, 516.5, 318.6, 255.3)
+TUM_FR2 = (520.9, 521.0, 325.1, 249.7)
+TUM_FR3 = (535.4, 539.2, 320.1, 247.6)
+
 
 def intrinsics(fx, fy, cx, cy, device, dtype=torch.float32):
     return torch.tensor([fx, fy, cx, cy], dtype=dtype, device=device)

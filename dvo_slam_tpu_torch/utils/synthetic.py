@@ -15,9 +15,11 @@ World convention: camera-to-world poses T_wc; camera looks down +z; pixel
 Numpy-only copy of ``dvo_slam_tpu/utils/synthetic.py`` for the PyTorch
 port, which must run where JAX is not installed: importing anything
 from ``dvo_slam_tpu`` imports jax through its ``__init__``. The code
-below is the original minus ``write_tum_dataset`` (it needs the TUM IO
-module and OpenCV, which the port does not carry);
-tests/test_torch_utils.py holds it to the original function by function.
+below is the original, except that ``write_tum_dataset`` writes its PNGs
+through ``utils/png.py`` where the original uses OpenCV;
+tests/test_torch_utils.py holds every other function to the original's
+source, and tests/test_torch_tum.py holds the files written to the
+original's pixel for pixel.
 """
 
 from __future__ import annotations
@@ -174,4 +176,58 @@ def render_sequence(scene, K, width, height, poses):
     for T_wc in poses:
         frames.append(scene.render(K, width, height, T_wc))
     return frames
+
+
+def write_tum_dataset(out_dir, frames, poses, fps=30.0, depth_scale=5000.0):
+    """Write frames to disk in the standard TUM RGB-D layout.
+
+    Produces rgb/*.png (8-bit grayscale), depth/*.png (uint16,
+    meters * depth_scale, 0 = invalid — exactly the Kinect encoding the
+    reference's SurfacePyramid::convertRawDepthImage consumes), rgb.txt /
+    depth.txt / assoc.txt and groundtruth.txt, so the full from-disk
+    pipeline (PNG decode, depth conversion, association, ATE oracle) is
+    exercised end to end without the real dataset. `frames` may be any
+    iterable of (intensity, depth), consumed one frame at a time.
+
+    The JAX package's function, writing its PNGs with utils/png.py where
+    the original uses OpenCV: the same pixel values, the same files.
+    """
+    import os
+
+    from dvo_slam_tpu_torch.utils import png, tum
+
+    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+    rgb_lines, depth_lines, assoc_lines, stamps = [], [], [], []
+    for i, (intensity, depth) in enumerate(frames):
+        ts = i / fps
+        stamps.append(ts)
+        rgb_name = f"rgb/{ts:.6f}.png"
+        depth_name = f"depth/{ts:.6f}.png"
+        # round() before the integer casts: plain .astype FLOORS, a
+        # systematic -0.5 LSB bias (1 gray level / up to 0.1 mm depth) on
+        # every pixel of the "exact-geometry" dataset; rounding halves the
+        # quantization error and removes the bias.
+        png.write(
+            os.path.join(out_dir, rgb_name),
+            np.round(np.clip(intensity, 0, 255)).astype(np.uint8),
+        )
+        raw = np.where(np.isfinite(depth), depth * depth_scale, 0.0)
+        # Kinect/TUM convention: out-of-range depth is 0 (INVALID), never
+        # clipped to 65535 — that would decode as a false 13.1 m reading.
+        raw = np.where((raw < 0) | (raw > 65535), 0.0, raw)
+        png.write(
+            os.path.join(out_dir, depth_name),
+            np.round(raw).astype(np.uint16),
+        )
+        rgb_lines.append(f"{ts:.6f} {rgb_name}")
+        depth_lines.append(f"{ts:.6f} {depth_name}")
+        assoc_lines.append(f"{ts:.6f} {rgb_name} {ts:.6f} {depth_name}")
+    for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
+                        ("assoc.txt", assoc_lines)):
+        with open(os.path.join(out_dir, name), "w") as f:
+            f.write("# synthetic TUM-layout sequence\n")
+            f.write("\n".join(lines) + "\n")
+    tum.write_trajectory(os.path.join(out_dir, "groundtruth.txt"), stamps, poses)
+    return stamps
 

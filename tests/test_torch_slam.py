@@ -300,8 +300,19 @@ def test_eviction_and_growth_like_jax():
     assert evaluate.ate_rmse(t_traj, poses) < 5e-3
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="frame_logger"):
-        TKeyframeSlam(K_TUPLE, *_port_cfgs(SLAM), frame_logger=object(),
-                      device="cpu")
-    assert not hasattr(TKeyframeSlam, "export_graph")
+def test_unported_options_raise(tmp_path):
+    """Only the per-frame engine is ported: the chunked engine's
+    checkpoints and chunk sizes raise instead of running another engine."""
+    from dvo_slam_tpu_torch import benchmark
+    from dvo_slam_tpu_torch.utils import checkpoint
+
+    slam = TKeyframeSlam(K_TUPLE, *_port_cfgs(SLAM), device="cpu")
+    slam.init()
+    path = str(tmp_path / "state.npz")
+    checkpoint.save_slam(path, slam)
+    with pytest.raises(NotImplementedError, match="chunked"):
+        checkpoint.load_slam(path, K_TUPLE, *_port_cfgs(SLAM), chunked=True,
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="chunked"):
+        benchmark.run_synthetic(num_frames=2, width=W, height=H,
+                                chunk_size=2, device="cpu")

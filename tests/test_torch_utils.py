@@ -3,8 +3,9 @@ guard that the port imports nothing of JAX.
 
 dvo_slam_tpu_torch/utils holds copies of dvo_slam_tpu/utils/{se3_np,
 synthetic, evaluate}.py so that the port runs without JAX. Each copy must
-stay the original: every function's source is compared verbatim, and the
-same seeds and renders give bit-identical outputs (tolerance: exact).
+stay the original: every function's source is compared verbatim (but
+write_tum_dataset's, which writes through the port's PNG encoder), and
+the same seeds and renders give bit-identical outputs (tolerance: exact).
 """
 
 import ast
@@ -39,11 +40,11 @@ def test_copy_is_verbatim(name):
     orig, copy = PAIRS[name]
     o, c = _members(orig), _members(copy)
     assert c, f"{name}: copy defines nothing"
-    assert set(c) <= set(o), f"{name}: extra members {set(c) - set(o)}"
-    # write_tum_dataset (TUM IO + OpenCV) is the one member left out.
-    missing = set(o) - set(c)
-    assert missing <= {"write_tum_dataset"}, missing
-    for member in c:
+    assert set(c) == set(o), f"{name}: members differ {set(c) ^ set(o)}"
+    # write_tum_dataset writes its PNGs through utils/png.py where the
+    # original uses OpenCV; tests/test_torch_tum.py holds its files to the
+    # original's.
+    for member in set(c) - {"write_tum_dataset"}:
         assert inspect.getsource(c[member]) == inspect.getsource(o[member]), (
             f"{name}.{member} differs from the original"
         )
@@ -89,23 +90,43 @@ def test_port_sources_listed():
     assert "chip_smoke.py" in PORT_SOURCES
     for module in ("models/keyframe_tracker.py", "models/pose_graph.py",
                    "models/local_map.py", "models/constraints.py",
-                   "ops/linearize.py", "utils/transfer.py"):
+                   "ops/linearize.py", "utils/transfer.py", "benchmark.py",
+                   "cli.py", "native/__init__.py", "utils/png.py",
+                   "utils/tum.py", "utils/checkpoint.py"):
         assert f"dvo_slam_tpu_torch/{module}" in PORT_SOURCES
 
 
 @pytest.mark.parametrize("entry", ["OdometryTracker", "KeyframeSlam",
-                                   "LocalMap", "optimize"])
+                                   "LocalMap", "optimize", "run_sequence",
+                                   "run_tum_dataset", "run_synthetic",
+                                   "load_slam"])
 def test_entry_points_run_on_the_card_by_default(entry):
     """Every entry point a user calls runs on the card unless the caller
     asks for the CPU (the tests pass device="cpu")."""
+    from dvo_slam_tpu_torch import benchmark
     from dvo_slam_tpu_torch.models import (keyframe_tracker, local_map,
                                            odometry, pose_graph)
+    from dvo_slam_tpu_torch.utils import checkpoint
 
     fn = {"OdometryTracker": odometry.OdometryTracker,
           "KeyframeSlam": keyframe_tracker.KeyframeSlam,
           "LocalMap": local_map.LocalMap,
-          "optimize": pose_graph.optimize}[entry]
+          "optimize": pose_graph.optimize,
+          "run_sequence": benchmark.run_sequence,
+          "run_tum_dataset": benchmark.run_tum_dataset,
+          "run_synthetic": benchmark.run_synthetic,
+          "load_slam": checkpoint.load_slam}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_cli_runs_on_the_card_by_default():
+    """Every CLI command that tracks or solves takes --device, cuda by
+    default."""
+    from dvo_slam_tpu_torch import cli
+
+    for argv in (["benchmark", "d"], ["slam", "d"], ["odometry", "d"],
+                 ["synthetic"], ["optimize-graph", "g", "--out", "o"]):
+        assert cli._parser().parse_args(argv).device == "cuda", argv
 
 
 def test_se3_np_matches():
