@@ -6,7 +6,10 @@
 Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit (nvcc). It imports nothing of JAX or of dvo_slam_tpu and
 exits non-zero, printing no result, when there is no card or any phase
-fails. Phases:
+fails. The port's kernels: the standalone slab sampler (csrc/sampler.cu)
+and the cluster kernel of csrc/linearize.cu in its two modes, (a) one
+IRLS linearization per batch row and (b) a pyramid level's whole IRLS loop
+per batch row (the tracker's route on the card). Phases:
 
   1. device: the card's name and power limit (nvidia-smi), the build of
      the port's kernels from csrc/ (libdvo_kernels.so, one nvcc per
@@ -14,43 +17,49 @@ fails. Phases:
   2. kernels against plain, at the three tracked levels of a noisy
      640x480 synthetic pair (points warped by a perturbed ground-truth
      pose):
-     a. the standalone CUDA slab sampler (csrc/sampler.cu) against its
-        plain version: inb and NaN pattern identical, values within
-        1e-5 * max|slab|; kernel, plain and torch grid_sample (the
-        library yardstick, timed only) per call with CUDA events;
-     b. the fused linearization (csrc/linearize.cu, K1 + K2) against
-        linearize_reference on the same card tensors, for the configs
-        tdist (default), photometric, reference_gradients and tdist_warm:
-        n_raw, the valid mask and rI, rZ exact; A, b within 1e-4*max|.|;
-        sigma, err_mean, log1p_sum, err_raw rtol 1e-4;
-     c. one whole linearization per call with CUDA events (median of 50
-        after a warm-up; a call's time includes its host dispatch when
-        that is longer than its device work), fused beside plain;
+     a. the standalone sampler against its plain version: inb and NaN
+        pattern identical, values within 1e-5 * max|slab|; kernel, plain
+        and torch grid_sample (the library yardstick, timed only) per call
+        with CUDA events;
+     b. mode (a) against linearize_reference on the same card tensors,
+        for the configs tdist (default), photometric, reference_gradients
+        and tdist_warm: n_raw, the valid mask and rI, rZ exact; A, b
+        within 1e-4*max|.|; sigma, err_mean, log1p_sum, err_raw rtol 1e-4;
+     c. one linearization per call with CUDA events (median of 50 after a
+        warm-up; a call's time includes its host dispatch when that is
+        longer than its device work), mode (a) beside plain;
+     d. mode (b) against its plain version, the host loop over
+        linearize_batched_reference, per level at B = 1 on the noise-free
+        orbit pair (T within 1e-5; same decisions: iterations, termination
+        codes and valid counts equal, A within 1e-4*max|A|, b within a
+        step of precision, ||A^-1 db||; rows whose paths part must part at an
+        error or precision tie, and are listed) and on the noisy pair
+        (gates: T within 1e-3, final valid counts within 1 %); device us
+        per launch and per IRLS iteration (CUDA events), cluster sizes;
+  5a. the cluster kernel over a batch (B = 2 against one shared current
+     slab, as the dual alignment; B = 8 against one slab per row, as a
+     validation batch), noisy frames, per level: mode (a) against the plain
+     version row by row (every row's valid mask, rI and rZ exact, A and b
+     within 1e-4 * max|.|, every row bit-identical to a B = 1 call) and
+     mode (b) against the plain host loop (gates as 2d's noisy pair);
   3. main path: OdometryTracker.update over a 24-frame 640x480 synthetic
      orbit with the default TrackerConfig: ms/frame after 4 warm-up
      frames, mean IRLS iterations per level, ATE against the ground truth
      (must be < 5 mm) and the launch counts, reset just before the run
-     and read just after it: K1 launches must equal the IRLS iterations,
-     K2 launches the iterations x (tdist_scale_iters + 1), and the
-     standalone sampler's launches 0;
-  5. the SLAM path (KeyframeSlam, default TrackerConfig and SlamConfig,
-     loop closure on):
-     a. the batched kernels (one call over B rows: B = 2 against one
-        shared current slab, as the dual alignment; B = 8 against one slab
-        per row, as a validation batch) against the plain version row by
-        row at the three tracked levels: every row's valid mask, rI and rZ
-        exact, A and b within 1e-4 * max|.|, and every row bit-identical
-        to a B = 1 call on its inputs; one call per B by CUDA events;
-     b. JAX bench.py's slam-lc loop: the 8-frame 640x480 ring
-        (orbit_trajectory(9, radius=0.06)[:8], two_plane_scene
-        (sharpness=2.0)), force_keyframe() every 16 frames, 160 warm-up
-        frames on one instance, then 160 timed frames on a fresh one (the
-        launch counts reset just before and read just after): ms/frame,
-        keyframes and loop edges (must be >= 1), ATE of finish() against
-        the ring's ground truth (must be < 5 mm), K1 and K2 launches per
-        frame and per keyframe switch and by batch size, the LM iterations
-        each pose-graph solve ran, and two runs of the final graph solve
-        (must be bit-identical);
+     and read just after it: level-kernel launches must equal the tracked
+     levels (3 a tracked frame), mode (a) and standalone sampler launches
+     0;
+  5b. the SLAM path (KeyframeSlam, default TrackerConfig and SlamConfig,
+     loop closure on), JAX bench.py's slam-lc loop: the 8-frame 640x480
+     ring (orbit_trajectory(9, radius=0.06)[:8], two_plane_scene
+     (sharpness=2.0)), force_keyframe() every 16 frames, 160 warm-up
+     frames on one instance, then 160 timed frames on a fresh one (the
+     launch counts reset just before and read just after): ms/frame,
+     keyframes and loop edges (must be >= 1), ATE of finish() against the
+     ring's ground truth (must be < 5 mm), level-kernel launches per frame
+     and by batch size (mode (a) and the sampler: 0), the LM iterations
+     each pose-graph solve ran, and two runs of the final graph solve
+     (must be bit-identical);
   6. the offline surface over bench/accuracy.py's full-scale protocol
      rendered with the freiburg-1 intrinsics (noisy 640x480 frames, two
      laps of a 0.5 m orbit, cut from 240 frames to 160; written as a TUM
@@ -59,8 +68,9 @@ fails. Phases:
         arrays), decode ms/frame of each and of the native prefetch loader;
      b. `cli benchmark --fr 1` (slam) and run_tum_dataset in keyframe mode:
         fps, keyframes, loop edges, ATE, RPE; the protocol's gates (ATE(slam)
-        < 20 mm, >= 1 loop edge, ATE(slam) <= 0.7 ATE(keyframe)); K1/K2
-        launches by batch size, counted from 0 around the benchmark run;
+        < 20 mm, >= 1 loop edge, ATE(slam) <= 0.7 ATE(keyframe)); launches
+        by batch size, counted from 0 around the benchmark run (level
+        kernel > 0, mode (a) and sampler 0);
      c. `cli odometry` with a covariance file (one 37-field line a frame);
      d. `python -m dvo_slam_tpu_torch.cli evaluate` in a subprocess: the
         benchmark's ATE within 1e-6; `evaluate --rpe-seconds`;
@@ -72,32 +82,38 @@ fails. Phases:
         5 LM steps without the robust kernel: ms and chi2 before and
         after (finite, no worse);
      g. `cli odometry --scale-estimator normal --influence huber` (24
-        frames): one standalone sampler launch per linearization, no K1;
-  4. profile (after every host timing above: no profiler has run before
+        frames): one standalone sampler launch per linearization, no
+        cluster-kernel launch;
+  7. the three cells through the host loop (dense_tracker._track_level,
+     one mode (a) launch per lockstep iteration, called directly in
+     place of track_level) and through the level kernel, in turns (host,
+     kernel, kernel, host): odometry (24 frames), SLAM (96 frames after
+     32; both routes must give the same keyframes and graph edges, with a
+     loop edge), offline (run_sequence, 96 frames of phase 6's sequence);
+  4. profiles (after every host timing above: no profiler has run before
      them in the process): a few more frames of the odometry main path
-     under torch.profiler, split at K1's launches: the device's busy and
-     idle share of the frame, its heaviest kernels, device records per
-     IRLS iteration, and per tracked level each kernel's device time per
-     call and the device busy time per IRLS iteration. Then, in one more
-     profiler session, per level the device time per call (union of the
-     device records over 10 calls) of every kernel, its plain version and
-     the library call, and of the batched kernels at B = 2 and 8 and their
-     plain versions row by row (K1, one Sigma step, the normal equations),
-     each run as a labelled segment of the session;
-  5c. a short profile of the SLAM path: a few more frames with one
-     forced keyframe switch, each frame a labelled segment: busy and idle
-     share, device records per lockstep IRLS iteration;
-  6h. last, a short profile of the offline cell: a fresh KeyframeSlam with
-     6b's configs tracks the sequence's first 12 frames, then its next 12
-     under the profiler: busy and idle share, K1 launches per frame,
-     device records and wall time per K1 launch.
+     under torch.profiler through each route: busy and idle share, device
+     records per frame and per IRLS iteration, heaviest kernels, per level
+     the level kernel's device time per launch and per iteration. Then, in
+     one more profiler session, per level the device time per call (union
+     of the device records) of every kernel, its plain version and the
+     library call, at B = 1 and at 5a's batches, each function a labelled
+     segment;
+  5c. a short profile of the SLAM path through each route: a few more
+     frames with one forced keyframe switch, each frame a labelled
+     segment: busy and idle share, device records and launches per frame;
+  6h. last, a short profile of the offline cell through each route: a
+     fresh KeyframeSlam with 6b's configs tracks the sequence's first 12
+     frames, then its next 12 under the profiler: busy and idle share,
+     device records and launches per frame.
 
 The line before the last is a JSON object describing each kernel (the
-batched kernels have rows of their own, with the SLAM path's launches);
-the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": ...}}.
+cluster kernel's modes at B = 1, with the odometry path's launches, and
+at B = 2 and 8, with the SLAM path's); the last line is {"ok": true,
+"device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import json
 import re
 import subprocess
@@ -124,12 +140,12 @@ PROFILER_ATTEMPTS = 3
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_F64_S = 33.5e12
-# Operations per point, counted from the sources: f32 and f64.
+# Operations per point, counted from csrc/linearize.cu: f32 and f64.
 SAMPLER_F32_PER_CHANNEL = 9  # three lerps of sub, mul, add
-K1_OPS = (88, 3)  # warp 18, 1/Z 1, projection 6, 6-channel lerp 58+4,
-#                   residuals 2, moments 3 (f32); moment sums (f64)
-K2_STEP_OPS = (18, 3)  # maha 9, weight 3, weighted moments 6; sums
-K2_NE_OPS = (210, 29)  # weight 12, Jacobian 62, A 63, b 18, rest; sums
+RESIDUAL_OPS = (88, 4)  # warp 18, 1/Z 1, projection 6, 6-channel lerp
+#                         58+4, residuals 2, moments 3 (f32); sums (f64)
+STEP_OPS = (18, 3)  # maha 9, weight 3, weighted moments 6; sums
+NORMAL_OPS = (210, 29)  # weight 12, Jacobian 62, A 63, b 18, rest; sums
 # The offline surface: bench/accuracy.py's full-scale protocol (its ATE
 # bound and seed), rendered with the freiburg-1 intrinsics, cut from 240
 # frames to 160 (the same two laps) to keep the phase near 150 s; a ring
@@ -140,6 +156,10 @@ OFFLINE_FRAMES, OFFLINE_RADIUS, OFFLINE_SEED = 160, 0.5, 11
 OFFLINE_ATE_LIMIT_M = 0.02
 OFFLINE_GRAPH_VERTICES, OFFLINE_GRAPH_ITERATIONS = 2560, 5
 OFFLINE_PROFILED_FRAMES = 12
+# Phase 7: the cells again, through the host loop and the level kernel in
+# turns, each run shorter than its phase above.
+TURN_SLAM_WARMUP, TURN_SLAM_FRAMES = 32, 96
+TURN_OFFLINE_FRAMES = 96
 CONFIGS = {
     "tdist": {},
     "photometric": {"use_depth": False},
@@ -185,16 +205,14 @@ def _busy_us(intervals):
 
 
 def _kernel_of(name):
-    """Which of the port's kernels a device record is, or None. Names are
-    demangled ("reduce_kernel<1>") or not ("reduce_kernelILi1E")."""
-    if "sample_slab_kernel" in name:
-        return "sampler"
-    if "residual_kernel" in name:
-        return "K1"
-    if "reduce_kernel" in name:
-        for mode, what in ((0, "K2 step"), (1, "K2 normal")):
-            if f"<{mode}>" in name or f"ILi{mode}E" in name:
-                return what
+    """Which of the port's kernels a device record is, or None: the
+    standalone sampler, or the cluster kernel's mode (a) ("linearize") or
+    mode (b) ("track_level")."""
+    for kernel, what in (("sample_slab_kernel", "sampler"),
+                         ("track_level_kernel", "track_level"),
+                         ("linearize_kernel", "linearize")):
+        if kernel in name:
+            return what
     return None
 
 
@@ -222,9 +240,10 @@ def _traced(body, what):
                          f"{what} in {PROFILER_ATTEMPTS} attempts")
 
 
-def _profile_segments(segments, what, calls=PROFILED_CALLS):
-    """Device records of `calls` calls of each fn in segments (label ->
-    fn), after one warm-up call each, all in one profiler session. Each
+def _profile_segments(segments, what, calls=None):
+    """Device records of calls.get(label, PROFILED_CALLS) calls of each fn
+    in segments (label -> fn), after one warm-up call each, all in one
+    profiler session. Each
     segment runs inside a record_function range under its label and ends
     in a device sync inside it, so its device records start inside the
     range (host and device records share the profiler's clock). Returns
@@ -237,10 +256,12 @@ def _profile_segments(segments, what, calls=PROFILED_CALLS):
     for fn in segments.values():
         fn()
 
+    calls = calls or {}
+
     def body():
         for label, fn in segments.items():
             with record_function(label):
-                for _ in range(calls):
+                for _ in range(calls.get(label, PROFILED_CALLS)):
                     fn()
                 torch.cuda.synchronize()
 
@@ -296,16 +317,17 @@ def phase_device():
     print(f"phase 1 device: {_build.library_path().name} {built}")
     for line in _build.BUILD_LOG.splitlines():
         if "entry function" in line:
-            # '..13reduce_kernelILi1EE..' -> reduce_kernel<1>
-            m = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d)E)?",
-                          line.split("'")[1])
-            print(f"  ptxas: {m.group(1)}"
-                  + (f"<{m.group(2)}>" if m.group(2) else ""))
+            # '..18track_level_kernelENS_6ParamsE..' -> track_level_kernel
+            m = re.search(r"\d+([a-z_]+_kernel)", line.split("'")[1])
+            print(f"  ptxas: {m.group(1)}")
         elif "registers" in line or "spill" in line:
             print(f"    {line.replace('ptxas info    :', '').strip()}")
 
 
-def _noisy_pair(device, cfg):
+def _noisy_pair(device, cfg, noisy=True):
+    """Frames 0 and 1 of the orbit (with sensor noise and depth holes, or
+    noise-free), their pyramids and intrinsics, and the reference ->
+    current pose perturbed off the optimum."""
     import torch
 
     from dvo_slam_tpu_torch.ops import camera, pyramid
@@ -314,9 +336,10 @@ def _noisy_pair(device, cfg):
     scene = synthetic.two_plane_scene(sharpness=2.0)
     poses = synthetic.orbit_trajectory(N_FRAMES, radius=0.06)
     rng = np.random.default_rng(0)
-    frames = [synthetic.add_sensor_noise(
-        *scene.render(np.asarray(K_TUPLE), W, H, T), rng, dropout=0.02)
-        for T in poses[:2]]
+    frames = [scene.render(np.asarray(K_TUPLE), W, H, T) for T in poses[:2]]
+    if noisy:
+        frames = [synthetic.add_sensor_noise(i, z, rng, dropout=0.02)
+                  for i, z in frames]
     # Reference cam -> current cam, perturbed off the optimum.
     T_rel = se3_np.inverse(poses[1]) @ poses[0]
     T = torch.as_tensor(
@@ -333,8 +356,8 @@ def _noisy_pair(device, cfg):
 
 
 def _check_fused(ref, slab, K, T, cfg):
-    """The fused linearization against linearize_reference on the same
-    card tensors. Returns (max |rI, rZ| error, max abs error over A, b,
+    """Mode (a) (one linearization) against linearize_reference on the
+    same card tensors. Returns (max |rI, rZ| error, max abs error over A, b,
     sigma, err_mean, log1p_sum, err_raw, max A/b error over max|.|)."""
     import torch
 
@@ -350,7 +373,7 @@ def _check_fused(ref, slab, K, T, cfg):
     res = linearize.residuals_reference(ref, slab, K, T, cfg)
     torch.cuda.synchronize()
     if not torch.equal(valid, res.valid):
-        raise AssertionError("K1's valid mask differs from plain")
+        raise AssertionError("mode (a)'s valid mask differs from plain")
     if float(got.n_raw) != float(want.n_raw):
         raise AssertionError(f"n_raw {float(got.n_raw)} != plain "
                              f"{float(want.n_raw)}")
@@ -438,7 +461,7 @@ def phase_kernel_vs_plain(device):
               f"per call (events, median of {TIMED_CALLS}) kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms")
 
-        # The fused linearization, over the configs it covers.
+        # Mode (a), over the configs it covers.
         r_err, abs_err, rel = 0.0, 0.0, 0.0
         for name, fields in CONFIGS.items():
             c = dataclasses.replace(cfg, **fields)
@@ -446,7 +469,7 @@ def phase_kernel_vs_plain(device):
             e = _check_fused(ref_c, slab, Ks[lvl], T, c)
             r_err, abs_err, rel = (max(r_err, e[0]), max(abs_err, e[1]),
                                    max(rel, e[2]))
-        print(f"phase 2b fused linearize vs plain: level {lvl}, configs "
+        print(f"phase 2b linearize (mode a) vs plain: level {lvl}, configs "
               f"{list(CONFIGS)}: n_raw and valid mask exact, max |rI, rZ| "
               f"error {r_err:.1e}; max A/b error / max|.| {rel:.3e} (tol "
               f"1e-4); max abs error over all outputs {abs_err:.3e}")
@@ -462,7 +485,7 @@ def phase_kernel_vs_plain(device):
         f_ms = min(f_ms, _median_ms(fused))
         p_ms = min(p_ms, _median_ms(plain_lin, calls=20))
         print(f"phase 2c linearize per call (events, median): level {lvl}: "
-              f"fused {f_ms:.4f} ms, plain {p_ms:.4f} ms")
+              f"mode (a) {f_ms:.4f} ms, plain {p_ms:.4f} ms")
         levels[lvl] = {"N": n, "H": slab.shape[1], "W": slab.shape[2],
                        "sampler_err": err, "r_err": r_err,
                        "lin_abs_err": abs_err, "ref": ref, "slab": slab,
@@ -471,12 +494,151 @@ def phase_kernel_vs_plain(device):
     return cfg, levels
 
 
+def _events_us(fn, n=20, reps=5):
+    """Device microseconds per call of fn (one kernel launch each): n calls
+    back to back between two CUDA events, the median over reps runs (the
+    card's queue stays ahead of it when a launch outlasts its host
+    dispatch)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    runs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(1e3 * start.elapsed_time(end) / n)
+    return float(np.median(runs))
+
+
+def _parted(acc, acc_h, err, err_h, dn, dn_h, n, n_h, precision):
+    """Where two IRLS paths of one row part, and whether at a tie: None if
+    they take the same accept decisions and iteration count; else (k,
+    tie). At an accept decision k: a tie if the step's error is within
+    1e-5 (relative) of the best error before it on either side. At a stop
+    (same decisions, other counts): a tie if the last common increment
+    norm is within a factor 2 of the precision on either side."""
+    for k in range(min(n, n_h)):
+        if acc[k] != acc_h[k]:
+            j = max(i for i in range(k) if acc[i])
+            tie = any(abs(e[k] - e[j]) <= 1e-5 * abs(e[j])
+                      for e in (err, err_h))
+            return k, tie
+    if n == n_h:
+        return None
+    k = min(n, n_h) - 1
+    return k, any(0.5 * precision <= d[k] <= 2.0 * precision
+                  for d in (dn, dn_h))
+
+
+def _compare_level(got, want, cfg, what):
+    """The level kernel's (T, Linearization, stats) against the host
+    loop's on the same rows. T within 1e-5 on every row. A row whose two
+    paths take the same decisions: iterations, termination codes, valid
+    counts and accepted flags equal, the final A within 1e-4 * max|A|, b
+    (the gradient, f32 evaluation noise at the optimum) by the step it
+    asks for: ||A^-1 (b - b_host)|| <= cfg.precision. A row whose paths
+    part must part at a tie (_parted). Returns (max |dT|, max A error /
+    max|A|, parted rows as (row, iterations kernel / host, iteration
+    where they part))."""
+    (T, fin, st), (T_h, fin_h, st_h) = got, want
+    d_T = (T - T_h).abs().max().item()
+    if not d_T <= 1e-5:
+        raise AssertionError(f"{what}: |T - T_host| {d_T} > 1e-5")
+    host = [[x.cpu().numpy() for x in s["per_iter"]] + [
+        s["iterations"].cpu().numpy()] for s in (st, st_h)]
+    (valid, err, dn, acc, term, its), (valid_h, err_h, dn_h, acc_h, term_h,
+                                        its_h) = host
+    a_rel, parted = 0.0, []
+    for b in range(T.shape[0]):
+        n, n_h = int(its[b]), int(its_h[b])
+        part = _parted(acc[b], acc_h[b], err[b], err_h[b], dn[b], dn_h[b], n,
+                       n_h, cfg.precision)
+        if part is not None:
+            if not part[1]:
+                raise AssertionError(
+                    f"{what} row {b}: paths part at iteration {part[0]} "
+                    f"without a tie (iterations {n} / {n_h}, errors "
+                    f"{err[b][:n].tolist()} / {err_h[b][:n_h].tolist()})")
+            parted.append((b, f"{n}/{n_h}", part[0]))
+            continue
+        if term[b] != term_h[b] or not np.array_equal(valid[b], valid_h[b]):
+            raise AssertionError(f"{what} row {b}: termination or valid "
+                                 f"counts differ")
+        if float(fin_h.n_raw[b]) < 6:
+            continue  # too few constraints: no system to compare
+        A, A_h = (x.A[b].double().cpu().numpy() for x in (fin, fin_h))
+        e = np.abs(A - A_h).max() / max(np.abs(A_h).max(), 1e-30)
+        a_rel = max(a_rel, e)
+        step = np.linalg.norm(np.linalg.solve(
+            A_h, (fin.b[b] - fin_h.b[b]).double().cpu().numpy()))
+        if not (e <= 1e-4 and step <= cfg.precision):
+            raise AssertionError(f"{what} row {b}: final A error {e}, the "
+                                 f"gradients' steps {step} apart")
+    return d_T, a_rel, parted
+
+
+def phase_level_vs_plain(device, cfg):
+    """2d: the level kernel (mode b, one launch per level) against its
+    plain version, the host loop over linearize_batched_reference, at each
+    tracked level of the noise-free orbit pair (held by _compare_level)
+    and of the noisy pair (gates: T within 1e-3, final valid counts within
+    1 %), from the perturbed pose at B = 1; device time per launch and per
+    IRLS iteration by CUDA events, and each level's cluster size."""
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.ops import linearize
+
+    out = {}
+    for pair, noisy in (("orbit", False), ("noisy", True)):
+        ref_pyr, cur_pyr, Ks, T = _noisy_pair(device, cfg, noisy)
+        for lvl in cfg.tracked_levels:
+            ref = linearize.prepare_reference(ref_pyr[lvl][None], Ks[lvl],
+                                              cfg)
+            args = (ref, cur_pyr[lvl], Ks[lvl], T[None], cfg)
+            got = dense_tracker.track_level(*args)
+            want = dense_tracker._track_level(
+                *args, linearize=linearize.linearize_batched_reference)
+            its = (int(got[2]["iterations"][0]),
+                   int(want[2]["iterations"][0]))
+            if noisy:
+                d_T = (got[0] - want[0]).abs().max().item()
+                n_k, n_h = float(got[1].n_raw[0]), float(want[1].n_raw[0])
+                if not (d_T <= 1e-3 and abs(n_k - n_h) <= 0.01 * n_h):
+                    raise AssertionError(f"noisy pair level {lvl}: |dT| "
+                                         f"{d_T}, valid {n_k} / {n_h}")
+                check = (f"|dT| {d_T:.2e} (gate 1e-3), final valid {n_k:.0f}"
+                         f" / {n_h:.0f}")
+            else:
+                d_T, a_rel, parted = _compare_level(got, want, cfg,
+                                                    f"orbit level {lvl}")
+                check = (f"|dT| {d_T:.2e}, A error / max|A| {a_rel:.2e}, "
+                         f"paths parted at a tie: {parted or 'none'}")
+            us = _events_us(lambda: linearize.track_level_kernels(*args))
+            C, P, stored, smem = linearize.level_plan(device,
+                                                      ref.px.shape[1])
+            print(f"phase 2d track_level (mode b) vs host loop: {pair} "
+                  f"pair level {lvl}: iterations {its[0]} / {its[1]}, "
+                  f"termination {int(got[2]['per_iter'][4][0])} / "
+                  f"{int(want[2]['per_iter'][4][0])}; {check}; cluster of "
+                  f"{C} CTAs, {P} points each, "
+                  f"{'kept in' if stored else 'recomputed, not in'} shared "
+                  f"memory ({smem} B); device {us:.2f} us per launch, "
+                  f"{us / its[0]:.2f} us per iteration (events)")
+            out[(pair, lvl)] = {"us": us, "iterations": its[0], "C": C,
+                                "err": d_T}
+    return out
+
+
 def phase_main_path(device):
     import torch
 
     from dvo_slam_tpu_torch import TrackerConfig
     from dvo_slam_tpu_torch.models.odometry import OdometryTracker
-    from dvo_slam_tpu_torch.ops import linearize, sampler
     from dvo_slam_tpu_torch.utils import evaluate, synthetic
 
     cfg = TrackerConfig()
@@ -486,9 +648,7 @@ def phase_main_path(device):
                                        poses)
     tracker = OdometryTracker(K_TUPLE, cfg, device=device)
     iters, frame_ms = [], []
-    sampler.LAUNCHES = 0
-    linearize.LAUNCHES_RESIDUAL = 0
-    linearize.LAUNCHES_REDUCE = 0
+    _reset_launches()
     for k, (i, z) in enumerate(frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -501,34 +661,32 @@ def phase_main_path(device):
             if bool(res.is_nan().item()) or not np.isfinite(T_w).all():
                 raise AssertionError(f"frame {k}: tracking returned NaN")
             iters.append(res.iterations.cpu().numpy())
-    launches = {"sample_slab": sampler.LAUNCHES,
-                "K1": linearize.LAUNCHES_RESIDUAL,
-                "K2": linearize.LAUNCHES_REDUCE}
+    launches = _launches()
     ms_frame = float(np.mean(frame_ms))
     iters = np.stack(iters)
     n_it = int(iters.sum())
     est = [T for _, T in tracker.trajectory]
     ate = evaluate.ate_rmse(est, poses)
+    levels = len(cfg.tracked_levels) * iters.shape[0]
     print(f"phase 3 main path: {N_FRAMES} frames {W}x{H}, "
           f"{ms_frame:.3f} ms/frame ({1e3 / ms_frame:.2f} fps) after "
           f"{N_WARMUP} warm-up frames (per frame median "
           f"{np.median(frame_ms):.3f}, min {min(frame_ms):.3f}, max "
           f"{max(frame_ms):.3f} ms); mean iterations per level "
           f"{cfg.tracked_levels} = {iters.mean(axis=0).round(3).tolist()}; "
-          f"ATE {1e3 * ate:.4f} mm; launches K1 {launches['K1']}, K2 "
-          f"{launches['K2']}, standalone sampler {launches['sample_slab']} "
-          f"(IRLS iterations {n_it})")
+          f"ATE {1e3 * ate:.4f} mm; launches track_level "
+          f"{launches['track_level']} (tracked levels {levels}; IRLS "
+          f"iterations {n_it}), linearize {launches['linearize']}, "
+          f"standalone sampler {launches['sample_slab']}")
     if not ate < ATE_LIMIT_M:
         raise AssertionError(f"ATE {ate} m >= {ATE_LIMIT_M} m")
-    if not (n_it > 0 and launches["K1"] == n_it):
-        raise AssertionError(f"K1 launches {launches['K1']} != IRLS "
-                             f"iterations {n_it}")
-    if launches["K2"] != n_it * (cfg.tdist_scale_iters + 1):
-        raise AssertionError(f"K2 launches {launches['K2']} != {n_it} x "
-                             f"{cfg.tdist_scale_iters + 1}")
-    if launches["sample_slab"] != 0:
-        raise AssertionError("the main path launched the standalone sampler")
-    return launches, tracker, frames, iters.shape[0]
+    if not (n_it > 0 and launches["track_level"] == levels):
+        raise AssertionError(f"level-kernel launches "
+                             f"{launches['track_level']} != tracked levels "
+                             f"{levels}")
+    if launches["linearize"] != 0 or launches["sample_slab"] != 0:
+        raise AssertionError(f"the main path launched {launches}")
+    return launches, tracker, frames, iters
 
 
 def _batch_inputs(device, cfg, B, paired, level):
@@ -623,9 +781,14 @@ def _check_batched(ref, cur, K, T, sigma, cfg):
 
 
 def phase_batched_vs_plain(device, cfg):
-    """5a: the batched kernels at B = 2 (shared slab) and 8 (paired)."""
+    """5a: the cluster kernel over a batch, B = 2 (shared slab) and 8
+    (paired), on noisy frames: mode (a) against the plain version row by
+    row; mode (b) against the host loop over the plain version (gates: T
+    within 1e-3, final valid counts within 1 %), device time per launch by
+    CUDA events."""
     from functools import partial
 
+    from dvo_slam_tpu_torch.models import dense_tracker
     from dvo_slam_tpu_torch.ops import linearize
 
     out = {}
@@ -641,17 +804,36 @@ def phase_batched_vs_plain(device, cfg):
             k_ms = _median_ms(kernel)
             k_ms = min(k_ms, _median_ms(kernel))
             p_ms = min(p_ms, _median_ms(plain, calls=10))
-            print(f"phase 5a batched linearize vs plain: B={B} "
+            got = dense_tracker.track_level(ref, cur, K, T, cfg)
+            want = dense_tracker._track_level(
+                ref, cur, K, T, cfg,
+                linearize=linearize.linearize_batched_reference)
+            d_T = (got[0] - want[0]).abs().max().item()
+            d_n = ((got[1].n_raw - want[1].n_raw).abs()
+                   / want[1].n_raw.clamp(min=1.0)).max().item()
+            if not (d_T <= 1e-3 and d_n <= 0.01):
+                raise AssertionError(f"B={B} level {lvl}: track_level vs "
+                                     f"host loop |dT| {d_T}, valid {d_n}")
+            its = got[2]["iterations"]
+            level_us = _events_us(partial(linearize.track_level_kernels, ref,
+                                          cur, K, T, cfg))
+            print(f"phase 5a batch B={B} "
                   f"({'one slab per row' if paired else 'shared slab'}) "
-                  f"level {lvl}: every row's valid mask exact, max |rI, rZ| "
-                  f"error {r_err:.1e}, max A/b error / max|.| {rel:.3e} "
-                  f"(tol 1e-4), every row bit-identical to a B = 1 call; "
-                  f"per call (events, median) kernels {k_ms:.4f} ms, plain "
-                  f"row by row {p_ms:.4f} ms")
+                  f"level {lvl}: linearize (mode a): every row's valid mask "
+                  f"exact, max |rI, rZ| error {r_err:.1e}, max A/b error / "
+                  f"max|.| {rel:.3e} (tol 1e-4), every row bit-identical to "
+                  f"a B = 1 call; per call (events, median) {k_ms:.4f} ms, "
+                  f"plain row by row {p_ms:.4f} ms. track_level (mode b) vs "
+                  f"host loop: |dT| {d_T:.2e}, final valid counts within "
+                  f"{d_n:.2e}; iterations {its.tolist()} / "
+                  f"{want[2]['iterations'].tolist()}; device {level_us:.2f} us "
+                  f"per launch, {level_us / int(its.max()):.2f} us per "
+                  f"iteration of the longest row (events)")
             out[(B, lvl)] = {"ref": ref, "cur": cur, "K": K, "T": T,
                              "r_err": r_err, "abs_err": abs_err,
-                             "N": ref.px.shape[1], "H": cur.shape[-2],
-                             "W": cur.shape[-1], "paired": paired}
+                             "level_err": d_T, "N": ref.px.shape[1],
+                             "H": cur.shape[-2], "W": cur.shape[-1],
+                             "paired": paired}
     return out
 
 
@@ -743,7 +925,7 @@ def phase_slam(device):
 
     from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig, TrackerConfig
     from dvo_slam_tpu_torch.models import local_map, pose_graph
-    from dvo_slam_tpu_torch.ops import linearize, sampler
+    from dvo_slam_tpu_torch.ops import linearize
     from dvo_slam_tpu_torch.utils import evaluate
 
     cfg, slam_cfg = TrackerConfig(), SlamConfig()
@@ -759,7 +941,7 @@ def phase_slam(device):
     frame_ms, per_frame = [], []
 
     def timed(k, update, switched):
-        k1, k2 = linearize.LAUNCHES_RESIDUAL, linearize.LAUNCHES_REDUCE
+        tl, li = linearize.LAUNCHES_TRACK_LEVEL, linearize.LAUNCHES_LINEARIZE
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         T_w = update()
@@ -767,8 +949,8 @@ def phase_slam(device):
         frame_ms.append(1e3 * (time.perf_counter() - t0))
         if not np.isfinite(T_w).all():
             raise AssertionError(f"SLAM frame {k}: non-finite pose")
-        per_frame.append((switched(), linearize.LAUNCHES_RESIDUAL - k1,
-                          linearize.LAUNCHES_REDUCE - k2))
+        per_frame.append((switched(), linearize.LAUNCHES_TRACK_LEVEL - tl,
+                          linearize.LAUNCHES_LINEARIZE - li))
 
     # Host milliseconds spent in each part of a switch (queued work only:
     # the drains include waiting for the device).
@@ -779,15 +961,9 @@ def phase_slam(device):
                _host_timed(local_map.LocalMap, ("optimize_async",), spent)]
     solves = []
     restore.append(_lm_counted(solves))
-    sampler.LAUNCHES = 0
-    linearize.LAUNCHES_RESIDUAL = 0
-    linearize.LAUNCHES_REDUCE = 0
-    linearize.LAUNCHES_BY_BATCH.clear()
+    _reset_launches()
     _slam_frames(slam, frames, SLAM_FRAMES, 100.0, timed)
-    launches = {"sample_slab": sampler.LAUNCHES,
-                "K1": linearize.LAUNCHES_RESIDUAL,
-                "K2": linearize.LAUNCHES_REDUCE,
-                "by B": dict(linearize.LAUNCHES_BY_BATCH)}
+    launches = _launches()
     for undo in restore:
         undo()
     torch.cuda.synchronize()
@@ -811,16 +987,14 @@ def phase_slam(device):
           f"finish() {finish_ms:.1f} ms; keyframes {len(slam.keyframes)}, "
           f"loop edges accepted {slam.num_loop_edges}; ATE "
           f"{1e3 * ate:.4f} mm")
-    print(f"phase 5b launches: K1 {launches['K1']} ({launches['K1'] / SLAM_FRAMES:.2f}"
-          f" per frame), K2 {launches['K2']} ({launches['K2'] / SLAM_FRAMES:.2f}"
-          f" per frame), standalone sampler {launches['sample_slab']}; "
-          f"launches by (kernel, batch size) "
-          f"{dict(sorted(launches['by B'].items()))}; per frame "
-          f"without a switch K1 {np.mean([p[1] for p in plain]):.2f}, K2 "
-          f"{np.mean([p[2] for p in plain]):.2f}; per switch frame "
-          f"({len(sw)}) K1 {np.mean([p[1] for p in sw]) if sw else 0:.2f}, "
-          f"K2 {np.mean([p[2] for p in sw]) if sw else 0:.2f}; validation "
-          f"cache {slam.validation_cache_stats}")
+    print(f"phase 5b launches: track_level {launches['track_level']} "
+          f"({launches['track_level'] / SLAM_FRAMES:.2f} per frame), "
+          f"linearize {launches['linearize']}, standalone sampler "
+          f"{launches['sample_slab']}; launches by (kernel, batch size) "
+          f"{launches['by B']}; track_level per frame without a switch "
+          f"{np.mean([p[1] for p in plain]):.2f}, per switch frame "
+          f"({len(sw)}) {np.mean([p[1] for p in sw]) if sw else 0:.2f}; "
+          f"validation cache {slam.validation_cache_stats}")
     n_sw = max(len(sw), 1)
     print("phase 5b host ms per switch frame (" + str(len(sw)) + " switches; "
           "time spent in each call, summed, over the switch count): "
@@ -832,7 +1006,8 @@ def phase_slam(device):
         raise AssertionError("the SLAM path accepted no loop edge")
     if not ate < ATE_LIMIT_M:
         raise AssertionError(f"SLAM ATE {ate} m >= {ATE_LIMIT_M} m")
-    if launches["K1"] == 0 or launches["sample_slab"] != 0:
+    if (launches["track_level"] == 0 or launches["linearize"] != 0
+            or launches["sample_slab"] != 0):
         raise AssertionError(f"SLAM path launches {launches}")
     # The final graph solve, twice on the same graph: the same bits.
     view = slam._solve_view()
@@ -865,233 +1040,175 @@ def phase_slam(device):
             "ms_frame": float(ms.mean()), "ate": ate}
 
 
-def phase_profile(tracker, frames, n=3):
-    """n more frames of the main path (the orbit's first frames again,
-    after its last) under torch.profiler. Each IRLS iteration launches K1
-    once, so the records from one K1 launch up to the next belong to one
-    iteration (the last iteration of a level also carries the next
-    level's reference preparation, and of a frame the next frame's
-    pyramid). Returns per level (K1 us per call, K2 us per launch, K2
-    launches per iteration)."""
-    import torch
-
-    def body():
-        levels = []  # tracked level of each IRLS iteration, in launch order
-        t0 = time.perf_counter()
-        for k in range(n):
-            tracker.update(*frames[k], float(N_FRAMES + k))
-            its = tracker.last_result.iterations.cpu().tolist()
-            for lvl, it in zip(tracker.cfg.tracked_levels, its):
-                levels += [lvl] * it
-        torch.cuda.synchronize()
-        return levels, 1e6 * (time.perf_counter() - t0)
-
-    (levels, wall_us), prof = _traced(body, "the main path")
-    recs = sorted(_device_intervals(prof), key=lambda r: r[1])
-    busy = _busy_us(recs)
+def _top_records(recs, n, k=6):
+    """The k device-record names with the most device time: (us per frame,
+    calls per frame, name)."""
     by_name = {}
     for name, s, e in recs:
         tot, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + e - s, cnt + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    print(f"phase 4 profile: {n} frames, {len(levels)} IRLS iterations, wall "
-          f"{wall_us / 1e3 / n:.3f} ms/frame (profiler on), device busy "
-          f"{busy / 1e3 / n:.3f} ms/frame, idle share {1 - busy / wall_us:.4f}"
-          f"; {len(recs) / n:.0f} device records/frame, "
-          f"{len(recs) / len(levels):.1f} per IRLS iteration")
-    for name, (tot, cnt) in top:
-        print(f"  {tot / n:9.1f} us/frame {cnt / n:6.1f} calls/frame  "
-              f"{name[:90]}")
-    kinds = [_kernel_of(r[0]) for r in recs]
-    starts = [i for i, k in enumerate(kinds) if k and k.startswith("K1")]
-    if len(starts) != len(levels):
-        raise AssertionError(f"profiler saw {len(starts)} K1 launches, the "
-                             f"tracker made {len(levels)}")
-    if "sampler" in kinds:
-        raise AssertionError("the main path launched the standalone sampler")
-    per_level = {}
-    for j, (i, lvl) in enumerate(zip(starts, levels)):
-        stop = starts[j + 1] if j + 1 < len(starts) else len(recs)
-        k2 = [recs[m][2] - recs[m][1] for m in range(i, stop)
-              if kinds[m] and kinds[m].startswith("K2")]
-        acc = per_level.setdefault(lvl, [0.0, 0.0, 0, 0.0, 0, 0])
-        acc[0] += recs[i][2] - recs[i][1]
-        acc[1] += sum(k2)
-        acc[2] += len(k2)
-        acc[3] += _busy_us(recs[i:stop])
-        acc[4] += stop - i
-        acc[5] += 1
-    out = {}
-    for lvl in tracker.cfg.tracked_levels:
-        k1, k2, n_k2, it_us, n_rec, cnt = per_level[lvl]
-        out[lvl] = (k1 / cnt, k2 / n_k2, n_k2 / cnt)
-        print(f"phase 4 device time (profiler): level {lvl}, {cnt} "
-              f"iterations: K1 {k1 / cnt:.2f} us per call, K2 "
-              f"{k2 / n_k2:.2f} us per launch ({n_k2 / cnt:.1f} launches, "
-              f"{k2 / cnt:.2f} us per iteration); device busy "
-              f"{it_us / cnt / 1e3:.4f} ms and {n_rec / cnt:.1f} device "
-              f"records per IRLS iteration")
-    return out
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:k]
+    return [(tot / n, cnt / n, name) for name, (tot, cnt) in top]
 
 
-_PLAIN_PARTS = ("K1 plain", "K2 step plain", "K2 normal plain")
-
-
-def _plain_parts(ref, slab, K, T, cfg):
-    """The plain versions of K1, of one K2 Sigma step and of K2's
-    normal-equations pass, bound to one pair's tensors (names as in
-    _PLAIN_PARTS), and the pair's valid count."""
+def phase_profile(device, frames, host, n=3):
+    """4: frames 1..n of the odometry main path under torch.profiler, on a
+    fresh tracker given frame 0 unprofiled, through the level kernel or
+    (host) the host loop: wall and device busy per frame, idle share,
+    device records per frame and per IRLS iteration, the heaviest
+    records; through the kernel, each level's device time per launch and
+    per IRLS iteration. Returns the cell's numbers."""
     import torch
 
+    from dvo_slam_tpu_torch import TrackerConfig
+    from dvo_slam_tpu_torch.models.odometry import OdometryTracker
+
+    tracker = OdometryTracker(K_TUPLE, TrackerConfig(), device=device)
+    tracker.update(*frames[0], 0.0)
+
+    def body():
+        its = []
+        t0 = time.perf_counter()
+        for k in range(1, n + 1):
+            tracker.update(*frames[k], float(k))
+            its.append(tracker.last_result.iterations.cpu().tolist())
+        torch.cuda.synchronize()
+        return its, 1e6 * (time.perf_counter() - t0)
+
+    with _host_loop(host):
+        (its, wall_us), prof = _traced(body, "the main path")
+    recs = sorted(_device_intervals(prof), key=lambda r: r[1])
+    busy = _busy_us(recs)
+    n_it = sum(map(sum, its))
+    kinds = [_kernel_of(r[0]) for r in recs]
+    route = "host loop" if host else "level kernel"
+    print(f"phase 4 profile ({route}): {n} frames, {n_it} IRLS iterations, "
+          f"wall {wall_us / 1e3 / n:.3f} ms/frame (profiler on), device "
+          f"busy {busy / 1e3 / n:.3f} ms/frame, idle share "
+          f"{1 - busy / wall_us:.4f}; {len(recs) / n:.1f} device records per "
+          f"frame, {len(recs) / n_it:.1f} per IRLS iteration")
+    for us, calls, name in _top_records(recs, n):
+        print(f"  {us:9.1f} us/frame {calls:6.1f} calls/frame  {name[:90]}")
+    if "sampler" in kinds:
+        raise AssertionError("the main path launched the standalone sampler")
+    levels = tracker.cfg.tracked_levels
+    per_level = {}
+    if host:
+        if kinds.count("linearize") != n_it or "track_level" in kinds:
+            raise AssertionError("the host loop's launches do not match its "
+                                 "iterations")
+    else:
+        launches = [r for r, k in zip(recs, kinds) if k == "track_level"]
+        if len(launches) != n * len(levels) or "linearize" in kinds:
+            raise AssertionError(f"profiler saw {len(launches)} level-kernel "
+                                 f"launches for {n * len(levels)} levels")
+        for j, (_, s0, e0) in enumerate(launches):
+            acc = per_level.setdefault(levels[j % len(levels)], [0.0, 0, 0])
+            acc[0] += e0 - s0
+            acc[1] += 1
+            acc[2] += its[j // len(levels)][j % len(levels)]
+        for lvl, (us, cnt, it) in per_level.items():
+            print(f"phase 4 device time (profiler): level {lvl}, {cnt} "
+                  f"launches, {it} IRLS iterations: track_level "
+                  f"{us / cnt:.2f} us per launch, {us / it:.2f} us per "
+                  f"iteration")
+    return {"ms_frame": wall_us / 1e3 / n, "busy_ms": busy / 1e3 / n,
+            "idle": 1 - busy / wall_us, "records": len(recs) / n,
+            "per_level": per_level}
+
+
+def _level_args(L, B=None):
+    """A level's inputs as a batch (B None: phase 2's single pair as
+    B = 1)."""
     from dvo_slam_tpu_torch.ops import linearize
 
-    res = linearize.residuals_reference(ref, slab, K, T, cfg)
-    sII, sIZ, sZZ = res.rI * res.rI, res.rI * res.rZ, res.rZ * res.rZ
-    a = sII.sum() / res.n + cfg.min_intensity_sigma**2
-    bq = sIZ.sum() / res.n
-    c = sZZ.sum() / res.n + cfg.min_depth_sigma**2
-
-    def k1_plain():
-        r = linearize.residuals_reference(ref, slab, K, T, cfg)
-        (r.rI * r.rI).sum(), (r.rI * r.rZ).sum(), (r.rZ * r.rZ).sum()
-
-    def k2_step_plain():
-        linearize.tdist_step_reference(a, bq, c, sII, sIZ, sZZ, res.vF,
-                                       res.n, cfg)
-
-    def k2_normal_plain():
-        det, p00, p01, p11, maha, w = linearize.tdist_weights_reference(
-            a, bq, c, sII, sIZ, sZZ, res.vF, cfg)
-        (torch.log1p(maha / cfg.tdist_dof) * res.vF).sum()
-        (w * maha).sum()
-        linearize.normal_equations_reference(res, w, p00, p01, p11, K, cfg)
-
-    return dict(zip(_PLAIN_PARTS, (k1_plain, k2_step_plain,
-                                   k2_normal_plain))), float(res.n_raw)
-
-
-def _each(fns):
-    for fn in fns:
-        fn()
+    if B is None:
+        return (linearize.RefData(*(None if f is None else f[None]
+                                    for f in L["ref"])),
+                L["slab"], L["K"], L["T"][None])
+    return L["ref"], L["cur"], L["K"], L["T"]
 
 
 def phase_device_times(cfg, levels, batched):
-    """Per level, device time per call (profiler) of every kernel, its
-    plain version and the library call, and of the batched kernels at each
-    B and their plain versions row by row, and the bounds. One profiler
-    session holds every level, each function a labelled segment."""
+    """Per level, device time per call (profiler: the union of a call's
+    device records) of the standalone sampler, its plain version and the
+    library call, and of the cluster kernel's two modes and their plain
+    versions (mode (a): linearize_reference; mode (b): the host loop over
+    linearize_batched_reference), at B = 1 (phase 2's noisy pair) and at
+    the batches of phase 5a; with the iterations each mode (b) call takes
+    and the bounds. One profiler session holds every level, each function
+    a labelled segment."""
     from functools import partial
 
+    import torch
+
+    from dvo_slam_tpu_torch.models import dense_tracker
     from dvo_slam_tpu_torch.ops import linearize, sampler
 
-    segments, n_valid = {}, {}
-    for (B, lvl), L in batched.items():
-        args = (L["ref"], L["cur"], L["K"], L["T"], cfg)
-        segments[f"smoke batched B{B} @{lvl}"] = partial(
-            linearize.linearize_kernels_batched, *args)
-        segments[f"smoke batched plain B{B} @{lvl}"] = partial(
-            linearize.linearize_batched_reference, *args)
-        rows = [_plain_parts(_row(L["ref"], b),
-                             L["cur"][b] if L["paired"] else L["cur"],
-                             L["K"], L["T"][b], cfg) for b in range(B)]
-        n_valid[(B, lvl)] = sum(n for _, n in rows)
-        for name in _PLAIN_PARTS:
-            segments[f"smoke batched {name} B{B} @{lvl}"] = partial(
-                _each, [parts[name] for parts, _ in rows])
+    segments, calls, info = {}, {}, {}
+    cases = [(1, lvl, L) for lvl, L in levels.items()] + [
+        (B, lvl, L) for (B, lvl), L in batched.items()]
+    for B, lvl, L in cases:
+        args = _level_args(L, None if B == 1 else B)
+        _, fin, st = dense_tracker.track_level(*args, cfg)
+        info[(B, lvl)] = {"its": st["iterations"].tolist(),
+                          "n_valid": float(fin.n_raw.sum()),
+                          "paired": L.get("paired", False)}
+        tag = f"B{B} @{lvl}"
+        segments[f"smoke linearize {tag}"] = partial(
+            linearize.linearize_kernels_batched, *args, cfg)
+        segments[f"smoke linearize plain {tag}"] = partial(
+            linearize.linearize_batched_reference, *args, cfg)
+        segments[f"smoke track_level {tag}"] = partial(
+            linearize.track_level_kernels, *args, cfg)
+        segments[f"smoke track_level plain {tag}"] = partial(
+            dense_tracker._track_level, *args, cfg,
+            linearize=linearize.linearize_batched_reference)
+        calls[f"smoke track_level plain {tag}"] = 2
     for lvl, L in levels.items():
-        ref, slab, K, T, u, v = (L[k] for k in ("ref", "slab", "K", "T",
-                                                "u", "v"))
-        parts, n_valid[lvl] = _plain_parts(ref, slab, K, T, cfg)
-        for name, f in (
-            ("sampler", partial(sampler.sample_slab, slab, u, v)),
-            ("sampler plain", partial(sampler.sample_slab_reference, slab, u,
-                                      v)),
-            ("grid_sample", partial(_grid_sample, L["batch"], L["grid"])),
-            *parts.items(),
-            ("linearize plain", partial(linearize.linearize_reference, ref,
-                                        slab, K, T, cfg)),
-            ("linearize", partial(linearize.linearize, ref, slab, K, T,
-                                  cfg)),
-        ):
-            segments[f"smoke {name} @{lvl}"] = f
-    recs = _profile_segments(segments, "the per-level device times")
+        slab, u, v = L["slab"], L["u"], L["v"]
+        segments[f"smoke sampler B1 @{lvl}"] = partial(sampler.sample_slab,
+                                                       slab, u, v)
+        segments[f"smoke sampler plain B1 @{lvl}"] = partial(
+            sampler.sample_slab_reference, slab, u, v)
+        segments[f"smoke grid_sample B1 @{lvl}"] = partial(
+            _grid_sample, L["batch"], L["grid"])
+    recs = _profile_segments(segments, "the per-level device times", calls)
     out = {}
-    for (B, lvl), L in batched.items():
-        d = {"linearize": _busy_us(recs[f"smoke batched B{B} @{lvl}"])
-             / PROFILED_CALLS / 1e3,
-             "plain": _busy_us(recs[f"smoke batched plain B{B} @{lvl}"])
-             / PROFILED_CALLS / 1e3}
-        for name in _PLAIN_PARTS:
-            d[name] = _busy_us(recs[f"smoke batched {name} B{B} @{lvl}"]) \
-                / PROFILED_CALLS / 1e3
-        by = {}
-        for name, s, e in recs[f"smoke batched B{B} @{lvl}"]:
-            kind = _kernel_of(name)
-            if kind:
-                tot, cnt = by.get(kind, (0.0, 0))
-                by[kind] = (tot + e - s, cnt + 1)
-        for kind in ("K1", "K2 step", "K2 normal"):
-            tot, cnt = by[kind]
-            d[kind] = tot / cnt / 1e3
-        steps = cfg.tdist_scale_iters
-        d["K2"] = (by["K2 step"][0] + by["K2 normal"][0]) / (
-            by["K2 step"][1] + by["K2 normal"][1]) / 1e3
-        d["n_valid"] = n_valid[(B, lvl)]
-        d["bounds"] = _bounds_batched(cfg, L, B, d["n_valid"])
-        out[("batched", B, lvl)] = d
-        print(f"phase 5 device time per call (profiler, {PROFILED_CALLS} "
-              f"calls): B={B} level {lvl}: K1 {1e3 * d['K1']:.2f} us, K2 step "
-              f"{1e3 * d['K2 step']:.2f} us, K2 normal equations "
-              f"{1e3 * d['K2 normal']:.2f} us; whole batched linearization "
-              f"{1e3 * d['linearize']:.2f} us (plain row by row "
-              f"{1e3 * d['plain']:.2f}, {steps} Sigma steps); plain row by "
-              f"row: K1 {1e3 * d['K1 plain']:.2f} us, K2 step "
-              f"{1e3 * d['K2 step plain']:.2f} us, K2 normal equations "
-              f"{1e3 * d['K2 normal plain']:.2f} us; bounds " +
-              ", ".join(f"{k} {1e3 * ms:.4f} us ({by_})"
-                        for k, (ms, by_) in d["bounds"].items()))
-    for lvl in levels:
-        d = {"n_valid": n_valid[lvl]}
-        for label, r in recs.items():
-            name, at = label[len("smoke "):].rsplit(" @", 1)
-            if int(at) == lvl and not name.startswith("batched"):
-                d[name] = _busy_us(r) / PROFILED_CALLS / 1e3
-        # The fused linearization's kernels, per launch.
-        by = {}
-        for name, s, e in recs[f"smoke linearize @{lvl}"]:
-            kind = _kernel_of(name)
-            if kind:
-                tot, cnt = by.get(kind, (0.0, 0))
-                by[kind] = (tot + e - s, cnt + 1)
-        for kind in ("K1", "K2 step", "K2 normal"):
-            tot, cnt = by[kind]
-            d[kind] = tot / cnt / 1e3
-        out[lvl] = d
-        print(f"phase 4 device time per call (profiler, {PROFILED_CALLS} "
-              f"calls): level {lvl}: sample_slab {1e3 * d['sampler']:.2f} us "
-              f"(plain {1e3 * d['sampler plain']:.2f}, grid_sample "
-              f"{1e3 * d['grid_sample']:.2f}); K1 {1e3 * d['K1']:.2f} us "
-              f"(plain {1e3 * d['K1 plain']:.2f}); K2 step "
-              f"{1e3 * d['K2 step']:.2f} us (plain "
-              f"{1e3 * d['K2 step plain']:.2f}); K2 normal equations "
-              f"{1e3 * d['K2 normal']:.2f} us (plain "
-              f"{1e3 * d['K2 normal plain']:.2f}); whole linearization "
-              f"{1e3 * d['linearize']:.2f} us (plain "
-              f"{1e3 * d['linearize plain']:.2f})")
-        bounds = _bounds(cfg, levels[lvl], d["n_valid"])
-        print(f"phase 4 bounds: level {lvl} ({int(d['n_valid'])} valid "
-              f"points): " + ", ".join(
-                  f"{k} {1e3 * ms:.4f} us ({by})"
-                  for k, (ms, by) in bounds.items()))
+    for label, r in recs.items():
+        name, tag = label[len("smoke "):].rsplit(" B", 1)
+        B, lvl = (int(x) for x in tag.split(" @"))
+        d = out.setdefault((B, lvl), dict(info.get((B, lvl), {})))
+        d[name] = _busy_us(r) / calls.get(label, PROFILED_CALLS) / 1e3
+    for (B, lvl), d in sorted(out.items()):
+        L = levels[lvl] if B == 1 else batched[(B, lvl)]
+        d["bounds"] = _bounds(cfg, L, B, d)
+        its = d["its"]
+        line = (f"phase 4 device time per call (profiler, {PROFILED_CALLS} "
+                f"calls): B={B} level {lvl}: linearize (mode a) "
+                f"{1e3 * d['linearize']:.2f} us (plain "
+                f"{1e3 * d['linearize plain']:.2f}); track_level (mode b) "
+                f"{1e3 * d['track_level']:.2f} us per launch for "
+                f"{max(its)} iterations of the longest row, "
+                f"{1e3 * d['track_level'] / max(its):.2f} us per iteration "
+                f"(plain host loop {1e3 * d['track_level plain']:.2f} us of "
+                f"device busy per call)")
+        if B == 1:
+            line += (f"; sample_slab {1e3 * d['sampler']:.2f} us (plain "
+                     f"{1e3 * d['sampler plain']:.2f}, grid_sample "
+                     f"{1e3 * d['grid_sample']:.2f})")
+        print(line + "; bounds " + ", ".join(
+            f"{k} {1e3 * ms:.4f} us ({by})"
+            for k, (ms, by) in d["bounds"].items()))
     return out
 
 
-def phase_slam_profile(slam_out, n=SLAM_PROFILED_FRAMES):
-    """5c, last: n more frames of the SLAM path (the ring again, one of
-    them a forced keyframe switch) under torch.profiler, each frame a
-    labelled segment: busy and idle share, device records per frame and
-    per lockstep IRLS iteration (split at K1's launches) on frames without
-    a switch, and the switch frame's device busy time."""
+def phase_slam_profile(slam_out, host, n=SLAM_PROFILED_FRAMES):
+    """5c: n more frames of the SLAM path (the ring again, one of them a
+    forced keyframe switch) under torch.profiler, through the level kernel
+    or (host) the host loop, each frame a labelled segment: busy and idle
+    share, device records and launches per frame without a switch, the
+    switch frame's device busy time. Returns the cell's numbers."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import record_function
@@ -1111,7 +1228,8 @@ def phase_slam_profile(slam_out, n=SLAM_PROFILED_FRAMES):
             switched[k] = len(slam.keyframes) > before
         return 1e6 * (time.perf_counter() - t0)
 
-    wall_us, prof = _traced(body, "the SLAM path")
+    with _host_loop(host):
+        wall_us, prof = _traced(body, "the SLAM path")
     spans = {e.name: e.time_range for e in prof.events()
              if e.device_type == DeviceType.CPU
              and e.name.startswith("smoke slam frame")}
@@ -1119,7 +1237,8 @@ def phase_slam_profile(slam_out, n=SLAM_PROFILED_FRAMES):
     recs = sorted((r for r in _device_intervals(prof) if r[0] not in spans),
                   key=lambda r: r[1])
     busy = _busy_us(recs)
-    plain_recs, plain_k1, sw_busy = 0, 0, []
+    kind = "linearize" if host else "track_level"
+    plain_recs, plain_launch, sw_busy = 0, 0, []
     for k in range(n):
         span = spans[f"smoke slam frame {k}"]
         mine = [r for r in recs if span.start <= r[1] <= span.end]
@@ -1127,128 +1246,96 @@ def phase_slam_profile(slam_out, n=SLAM_PROFILED_FRAMES):
             sw_busy.append(_busy_us(mine))
         else:
             plain_recs += len(mine)
-            plain_k1 += sum(_kernel_of(r[0]) == "K1" for r in mine)
-    n_plain = sum(not v for v in switched.values())
-    print(f"phase 5c SLAM profile: {n} frames ({n - n_plain} with a switch),"
-          f" wall {wall_us / 1e3 / n:.3f} ms/frame (profiler on), device "
-          f"busy {busy / 1e3 / n:.3f} ms/frame, idle share "
-          f"{1 - busy / wall_us:.4f}; frames without a switch: "
-          f"{plain_recs / max(n_plain, 1):.0f} device records per frame, "
-          f"{plain_recs / max(plain_k1, 1):.1f} per lockstep IRLS iteration "
-          f"(B = 2); switch frames: device busy "
+            plain_launch += sum(_kernel_of(r[0]) == kind for r in mine)
+    n_plain = max(sum(not v for v in switched.values()), 1)
+    print(f"phase 5c SLAM profile ({'host loop' if host else 'level kernel'})"
+          f": {n} frames ({n - n_plain} with a switch), wall "
+          f"{wall_us / 1e3 / n:.3f} ms/frame (profiler on), device busy "
+          f"{busy / 1e3 / n:.3f} ms/frame, idle share {1 - busy / wall_us:.4f}"
+          f"; frames without a switch: {plain_recs / n_plain:.1f} device "
+          f"records and {plain_launch / n_plain:.2f} {kind} launches per "
+          f"frame; switch frames: device busy "
           f"{np.mean(sw_busy) / 1e3 if sw_busy else float('nan'):.3f} ms")
     if not switched[n // 2]:
         raise AssertionError("the forced keyframe switch did not happen")
+    if plain_launch == 0:
+        raise AssertionError(f"the SLAM profile saw no {kind} launch")
+    return {"ms_frame": wall_us / 1e3 / n, "idle": 1 - busy / wall_us,
+            "records": plain_recs / n_plain}
 
 
-def _bounds(cfg, L, n_valid):
-    """Per kernel at one level: (ms, "bytes" or "operations"), the least
-    time the card could take. Bytes: each input read once, each output
-    written once; operations: counted per point from the sources, the
-    normal equations' and Sigma steps' over the valid points only. K1 is
-    bound on what the residual pass needs (reference points, the slab
-    once, rI, rZ and valid out); the normal equations read rI, rZ, valid
-    and the 28 B per point of Jacobian inputs that K1 stores for them."""
+def _bounds(cfg, L, B, d):
+    """Per kernel at one level and batch: (ms, "bytes" or "operations"),
+    the least time the card could take. Bytes: each input read once, each
+    output written once: per linearization each row's reference points
+    (17 B a point) and the current slab (24 B a pixel; once per distinct
+    slab), mode (a)'s outputs (204 B a row and 9 B a point of rI, rZ,
+    valid); mode (b) repeats a linearization's reads once per iteration
+    this run's rows took. Operations: counted per point from the source,
+    the Sigma steps' and the normal equations' over the valid points only
+    (the final valid count standing for every iteration's)."""
     N, HW = L["N"], L["H"] * L["W"]
     steps = cfg.tdist_scale_iters
-    ne_bytes = 9 * N + 28 * N
+    its, n_valid = d["its"], d["n_valid"]
+    f32_row = RESIDUAL_OPS[0] * N
+    f32_valid = steps * STEP_OPS[0] + NORMAL_OPS[0]
+    f64_valid = RESIDUAL_OPS[1] + steps * STEP_OPS[1] + NORMAL_OPS[1]
+    slab_reads = sum(its) if d["paired"] else max(its)
     out = {
-        "sampler": _bound_ms(8 * N + 24 * HW + 24 * N + N,
-                             SAMPLER_F32_PER_CHANNEL * 6 * N, 0),
-        "K1": _bound_ms(17 * N + 24 * HW + 80 + 9 * N,
-                        K1_OPS[0] * N, K1_OPS[1] * n_valid),
-        "K2 step": _bound_ms(9 * N, K2_STEP_OPS[0] * n_valid,
-                             K2_STEP_OPS[1] * n_valid),
-        "K2 normal": _bound_ms(ne_bytes, K2_NE_OPS[0] * n_valid,
-                               K2_NE_OPS[1] * n_valid),
+        "linearize": _bound_ms(
+            B * (17 * N + 204 + 9 * N) + (B if d["paired"] else 1) * 24 * HW,
+            B * f32_row + f32_valid * n_valid, f64_valid * n_valid),
+        "track_level": _bound_ms(
+            sum(its) * 17 * N + slab_reads * 24 * HW,
+            sum(its) * f32_row + f32_valid * n_valid * sum(its) / B,
+            f64_valid * n_valid * sum(its) / B),
     }
-    # K2 as the mean over one linearization's launches.
-    out["K2"] = _bound_ms(
-        (steps * 9 * N + ne_bytes) / (steps + 1),
-        (steps * K2_STEP_OPS[0] + K2_NE_OPS[0]) * n_valid / (steps + 1),
-        (steps * K2_STEP_OPS[1] + K2_NE_OPS[1]) * n_valid / (steps + 1))
+    if B == 1:
+        out["sampler"] = _bound_ms(8 * N + 24 * HW + 24 * N + N,
+                                   SAMPLER_F32_PER_CHANNEL * 6 * N, 0)
     return out
 
 
-def _bounds_batched(cfg, L, B, n_valid):
-    """_bounds for a batch of B rows (n_valid summed over the rows): each
-    row's points and outputs, and the current slab once per distinct slab
-    (once if shared, B times if one per row)."""
-    N, HW = L["N"], L["H"] * L["W"]
-    slabs = B if L["paired"] else 1
-    steps = cfg.tdist_scale_iters
-    ne_bytes = B * (9 * N + 28 * N)
-    out = {
-        "K1": _bound_ms(B * (17 * N + 80 + 9 * N) + slabs * 24 * HW,
-                        B * K1_OPS[0] * N, K1_OPS[1] * n_valid),
-        "K2 step": _bound_ms(B * 9 * N, K2_STEP_OPS[0] * n_valid,
-                             K2_STEP_OPS[1] * n_valid),
-        "K2 normal": _bound_ms(ne_bytes, K2_NE_OPS[0] * n_valid,
-                               K2_NE_OPS[1] * n_valid),
-    }
-    out["K2"] = _bound_ms(
-        (steps * B * 9 * N + ne_bytes) / (steps + 1),
-        (steps * K2_STEP_OPS[0] + K2_NE_OPS[0]) * n_valid / (steps + 1),
-        (steps * K2_STEP_OPS[1] + K2_NE_OPS[1]) * n_valid / (steps + 1))
-    return out
-
-
-def kernel_rows(cfg, levels, launches, main_trace, dev_times, batched,
-                slam_launches):
-    """The kernels' JSON rows, at the finest tracked level: the odometry
-    path's (B = 1) and, for each batch size, the batched kernels' with the
-    SLAM path's launches at that B."""
+def kernel_rows(cfg, levels, launches, dev_times, slam_launches,
+                level_pairs, batched):
+    """The kernels' JSON rows at the finest tracked level: the standalone
+    sampler, and the cluster kernel's two modes at B = 1 (the odometry
+    main path's launches) and at the SLAM path's batch sizes (its
+    launches at that B)."""
     lvl = cfg.tracked_levels[-1]
-    d = dev_times[lvl]
-    bound = _bounds(cfg, levels[lvl], d["n_valid"])
-    steps = cfg.tdist_scale_iters
-    k1_ms, k2_ms, _ = (x / 1e3 for x in main_trace[lvl])
-    k2_plain = (steps * d["K2 step plain"] + d["K2 normal plain"]) \
-        / (steps + 1)
+    lin_err = max(max(x["r_err"], x["lin_abs_err"]) for x in levels.values())
+    level_err = max([v["err"] for v in level_pairs.values()]
+                    + [v["level_err"] for v in batched.values()])
     rows = []
-    for name, src, replaces, n_launch, err, ms, plain_ms, b, lib_ms in (
-        ("sample_slab", "dvo_slam_tpu_torch/csrc/sampler.cu",
-         "dvo_slam_tpu/ops/pallas/sampler.py:226", launches["sample_slab"],
-         max(x["sampler_err"] for x in levels.values()), d["sampler"],
-         d["sampler plain"], bound["sampler"], d["grid_sample"]),
-        ("linearize_residual (K1)", "dvo_slam_tpu_torch/csrc/linearize.cu",
-         "dvo_slam_tpu/ops/pallas/sampler.py:226", launches["K1"],
-         max(x["r_err"] for x in levels.values()), k1_ms, d["K1 plain"],
-         bound["K1"], None),
-        ("linearize_reduce (K2)", "dvo_slam_tpu_torch/csrc/linearize.cu",
-         "dvo_slam_tpu/ops/linearize.py:416", launches["K2"],
-         max(x["lin_abs_err"] for x in levels.values()), k2_ms, k2_plain,
-         bound["K2"], None),
-    ):
+
+    def row(name, src, replaces, n_launch, err, ms, plain_ms, bound, lib):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n_launch,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b[0], "bound_by": b[1],
-                     "library_ms": lib_ms})
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": lib})
+
+    d = dev_times[(1, lvl)]
+    row("sample_slab", "dvo_slam_tpu_torch/csrc/sampler.cu",
+        "dvo_slam_tpu/ops/pallas/sampler.py:226", launches["sample_slab"],
+        max(x["sampler_err"] for x in levels.values()), d["sampler"],
+        d["sampler plain"], d["bounds"]["sampler"], d["grid_sample"])
     by_b = slam_launches["by B"]
-    for B in BATCHES:
-        d = dev_times[("batched", B, lvl)]
-        L = batched[(B, lvl)]
-        # Plain row by row, per launch as the kernels' times are.
-        d_k2_plain = (steps * d["K2 step plain"] + d["K2 normal plain"]) \
-            / (steps + 1)
-        for name, src, replaces, n_launch, err, ms, plain_ms, b in (
-            (f"linearize_residual (K1), batched B={B}",
-             "dvo_slam_tpu_torch/csrc/linearize.cu",
-             "dvo_slam_tpu/ops/pallas/sampler.py:226",
-             by_b.get(("K1", B), 0), L["r_err"], d["K1"], d["K1 plain"],
-             d["bounds"]["K1"]),
-            (f"linearize_reduce (K2), batched B={B}",
-             "dvo_slam_tpu_torch/csrc/linearize.cu",
-             "dvo_slam_tpu/ops/linearize.py:416",
-             by_b.get(("K2", B), 0), L["abs_err"], d["K2"], d_k2_plain,
-             d["bounds"]["K2"]),
-        ):
-            rows.append({"name": name, "route": "cuda", "source": src,
-                         "replaces": replaces, "launches": n_launch,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b[0], "bound_by": b[1],
-                         "library_ms": None})
+    for B in (1, *BATCHES):
+        d = dev_times[(B, lvl)]
+        tag = "" if B == 1 else f", batched B={B}"
+        row(f"linearize (mode a){tag}", "dvo_slam_tpu_torch/csrc/linearize.cu",
+            "dvo_slam_tpu/ops/pallas/sampler.py:226",
+            launches["linearize"] if B == 1 else by_b.get(("linearize", B), 0),
+            lin_err, d["linearize"], d["linearize plain"],
+            d["bounds"]["linearize"], None)
+        row(f"track_level (mode b){tag}",
+            "dvo_slam_tpu_torch/csrc/linearize.cu",
+            "dvo_slam_tpu/ops/pallas/sampler.py:226",
+            launches["track_level"] if B == 1
+            else by_b.get(("track_level", B), 0),
+            level_err, d["track_level"], d["track_level plain"],
+            d["bounds"]["track_level"], None)
     return rows
 
 
@@ -1292,8 +1379,8 @@ def _reset_launches():
     from dvo_slam_tpu_torch.ops import linearize, sampler
 
     sampler.LAUNCHES = 0
-    linearize.LAUNCHES_RESIDUAL = 0
-    linearize.LAUNCHES_REDUCE = 0
+    linearize.LAUNCHES_LINEARIZE = 0
+    linearize.LAUNCHES_TRACK_LEVEL = 0
     linearize.LAUNCHES_BY_BATCH.clear()
 
 
@@ -1301,9 +1388,26 @@ def _launches():
     from dvo_slam_tpu_torch.ops import linearize, sampler
 
     return {"sample_slab": sampler.LAUNCHES,
-            "K1": linearize.LAUNCHES_RESIDUAL,
-            "K2": linearize.LAUNCHES_REDUCE,
+            "linearize": linearize.LAUNCHES_LINEARIZE,
+            "track_level": linearize.LAUNCHES_TRACK_LEVEL,
             "by B": dict(sorted(linearize.LAUNCHES_BY_BATCH.items()))}
+
+
+@contextlib.contextmanager
+def _host_loop(on=True):
+    """With on: the tracker runs each level as its host loop
+    (dense_tracker._track_level over linearize_batched, i.e. one mode (a)
+    launch per lockstep iteration), called directly in place of
+    track_level; otherwise as shipped (one level-kernel launch)."""
+    from dvo_slam_tpu_torch.models import dense_tracker
+
+    saved = dense_tracker.track_level
+    if on:
+        dense_tracker.track_level = dense_tracker._track_level
+    try:
+        yield
+    finally:
+        dense_tracker.track_level = saved
 
 
 def _ring_graph(path, vertices):
@@ -1444,10 +1548,10 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
                   f"{r['num_loop_edges']}, ATE {1e3 * r['ate_rmse_m']:.4f} "
                   f"mm, RPE {1e3 * r['rpe_trans_m']:.4f} mm / "
                   f"{r['rpe_rot_rad']:.6f} rad")
-        print(f"phase 6b benchmark launches: K1 {launches['K1']}, K2 "
-              f"{launches['K2']}, standalone sampler "
-              f"{launches['sample_slab']}; by (kernel, batch size) "
-              f"{launches['by B']}")
+        print(f"phase 6b benchmark launches: track_level "
+              f"{launches['track_level']}, linearize {launches['linearize']}, "
+              f"standalone sampler {launches['sample_slab']}; by (kernel, "
+              f"batch size) {launches['by B']}")
         ate_slam, ate_kf = slam["ate_rmse_m"], kf.ate_rmse_m
         if not ate_slam < OFFLINE_ATE_LIMIT_M:
             raise AssertionError(f"ATE(slam) {ate_slam} m >= "
@@ -1457,7 +1561,7 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
         if not ate_slam <= 0.7 * ate_kf:
             raise AssertionError(f"ATE(slam) {ate_slam} > 0.7 x ATE"
                                  f"(keyframe) {ate_kf}")
-        if (launches["K1"] == 0 or launches["K2"] == 0
+        if (launches["track_level"] == 0 or launches["linearize"] != 0
                 or launches["sample_slab"] != 0):
             raise AssertionError(f"benchmark launches {launches}")
 
@@ -1581,57 +1685,167 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
               f"(24 frames): {r['fps']:.3f} fps, ATE "
               f"{1e3 * r['ate_rmse_m']:.4f} mm; linearizations "
               f"{rows_seen[0]}, standalone sampler launches "
-              f"{launches['sample_slab']}, K1 {launches['K1']}")
+              f"{launches['sample_slab']}, linearize {launches['linearize']}, "
+              f"track_level {launches['track_level']}")
         if not (rc == 0 and rows_seen[0] > 0
                 and launches["sample_slab"] == rows_seen[0]
-                and launches["K1"] == 0):
+                and launches["linearize"] == 0
+                and launches["track_level"] == 0):
             raise AssertionError(f"off-route launches {launches}, "
                                  f"linearizations {rows_seen[0]}")
-        return {"frames": [ds[k] for k in range(2 * OFFLINE_PROFILED_FRAMES)],
+        return {"frames": [ds[k] for k in range(
+                    max(2 * OFFLINE_PROFILED_FRAMES, TURN_OFFLINE_FRAMES))],
                 "groundtruth": ds.groundtruth_pose,
                 "tracker_cfg": tracker_cfg, "slam_cfg": slam_cfg}
 
 
-def phase_offline_profile(offline, device, n=OFFLINE_PROFILED_FRAMES):
-    """6h, last: the offline cell's SLAM path under torch.profiler. A fresh
-    KeyframeSlam with the benchmark's configs (loop closure on) tracks the
-    sequence's first n frames unprofiled, then its next n in one profiler
-    session: busy and idle share, K1 launches (lockstep IRLS iterations,
-    the validation batches' included) per frame, device records and wall
-    time per K1 launch."""
+def phase_offline_profile(offline, device, host, n=OFFLINE_PROFILED_FRAMES):
+    """6h: the offline cell's SLAM path under torch.profiler, through the
+    level kernel or (host) the host loop. A fresh KeyframeSlam with the
+    benchmark's configs (loop closure on) tracks the sequence's first n
+    frames unprofiled, then its next n in one profiler session: busy and
+    idle share, device records per frame, and level-kernel launches (or,
+    through the host loop, mode (a) launches: lockstep IRLS iterations,
+    the validation batches' included) per frame. Returns the cell's
+    numbers."""
     import torch
 
     from dvo_slam_tpu_torch import KeyframeSlam
     from dvo_slam_tpu_torch.ops import camera
 
     frames = offline["frames"]
-    slam = KeyframeSlam(camera.TUM_FR1, offline["tracker_cfg"],
-                        offline["slam_cfg"], enable_loop_closure=True,
-                        device=device)
-    slam.init(offline["groundtruth"](frames[0][0]))
-    for ts, intensity, depth in frames[:n]:
-        slam.update(intensity, depth, ts)
-
-    def body():
-        before = len(slam.keyframes)
-        t0 = time.perf_counter()
-        for ts, intensity, depth in frames[n:2 * n]:
+    with _host_loop(host):
+        slam = KeyframeSlam(camera.TUM_FR1, offline["tracker_cfg"],
+                            offline["slam_cfg"], enable_loop_closure=True,
+                            device=device)
+        slam.init(offline["groundtruth"](frames[0][0]))
+        for ts, intensity, depth in frames[:n]:
             slam.update(intensity, depth, ts)
-        torch.cuda.synchronize()
-        return 1e6 * (time.perf_counter() - t0), len(slam.keyframes) - before
 
-    (wall_us, switches), prof = _traced(body, "the offline cell")
+        def body():
+            before = len(slam.keyframes)
+            t0 = time.perf_counter()
+            for ts, intensity, depth in frames[n:2 * n]:
+                slam.update(intensity, depth, ts)
+            torch.cuda.synchronize()
+            return (1e6 * (time.perf_counter() - t0),
+                    len(slam.keyframes) - before)
+
+        (wall_us, switches), prof = _traced(body, "the offline cell")
     recs = _device_intervals(prof)
     busy = _busy_us(recs)
-    k1 = sum(_kernel_of(r[0]) == "K1" for r in recs)
-    print(f"phase 6h offline profile: {n} frames ({switches} keyframe "
-          f"switches), wall {wall_us / 1e3 / n:.3f} ms/frame (profiler on), "
-          f"device busy {busy / 1e3 / n:.3f} ms/frame, idle share "
-          f"{1 - busy / wall_us:.4f}; {k1 / n:.2f} K1 launches per frame, "
-          f"{len(recs) / max(k1, 1):.1f} device records and "
-          f"{wall_us / 1e3 / max(k1, 1):.3f} ms of wall time per K1 launch")
-    if k1 == 0:
-        raise AssertionError("the offline profile saw no K1 launch")
+    kind = "linearize" if host else "track_level"
+    launched = sum(_kernel_of(r[0]) == kind for r in recs)
+    print(f"phase 6h offline profile ({'host loop' if host else 'level kernel'}"
+          f"): {n} frames ({switches} keyframe switches), wall "
+          f"{wall_us / 1e3 / n:.3f} ms/frame (profiler on), device busy "
+          f"{busy / 1e3 / n:.3f} ms/frame, idle share "
+          f"{1 - busy / wall_us:.4f}; {len(recs) / n:.1f} device records and "
+          f"{launched / n:.2f} {kind} launches per frame")
+    if launched == 0:
+        raise AssertionError(f"the offline profile saw no {kind} launch")
+    return {"ms_frame": wall_us / 1e3 / n, "idle": 1 - busy / wall_us,
+            "records": len(recs) / n}
+
+
+def _loop_graph(slam):
+    """A SLAM run's discrete result: keyframe indices, the graph's edges
+    (i, j, mask) and the loop-edge count."""
+    g = slam.graph
+    return ([kf.idx for kf in slam.keyframes],
+            [(int(g.edge_i[e]), int(g.edge_j[e]), bool(g.edge_mask[e]))
+             for e in range(int(g.num_edges))], slam.num_loop_edges)
+
+
+def phase_turns(device, odo_frames, slam_out, offline):
+    """7: the three cells timed through the host loop and through the
+    level kernel in one process, in turns (host, kernel, kernel, host):
+    odometry (a fresh OdometryTracker over phase 3's 24-frame orbit,
+    ms/frame after N_WARMUP frames; every (frame, level) whose iteration
+    count differs between the routes is listed), SLAM (a fresh
+    KeyframeSlam over the ring, TURN_SLAM_WARMUP frames, then
+    TURN_SLAM_FRAMES timed; the two routes must give the same keyframes
+    and graph edges), offline
+    (run_sequence in slam mode over the first TURN_OFFLINE_FRAMES frames
+    of phase 6's sequence: engine ms/frame)."""
+    import torch
+
+    from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig, TrackerConfig
+    from dvo_slam_tpu_torch import benchmark
+    from dvo_slam_tpu_torch.models.odometry import OdometryTracker
+    from dvo_slam_tpu_torch.ops import camera
+
+    graphs, odo_iters = {}, {}
+
+    def odometry(host):
+        tracker = OdometryTracker(K_TUPLE, TrackerConfig(), device=device)
+        ms, its = [], []
+        for k, (i, z) in enumerate(odo_frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracker.update(i, z, float(k))
+            torch.cuda.synchronize()
+            if k >= N_WARMUP:
+                ms.append(1e3 * (time.perf_counter() - t0))
+            if k > 0:
+                its.append(tracker.last_result.iterations.tolist())
+        odo_iters.setdefault(host, its)
+        return float(np.mean(ms))
+
+    def slam(host):
+        run = KeyframeSlam(K_TUPLE, TrackerConfig(), SlamConfig(),
+                           enable_loop_closure=True, device=device)
+        run.init()
+        _slam_frames(run, slam_out["frames"], TURN_SLAM_WARMUP, 0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _slam_frames(run, slam_out["frames"], TURN_SLAM_FRAMES,
+                     TURN_SLAM_WARMUP / 30.0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / TURN_SLAM_FRAMES
+        graphs.setdefault(host, _loop_graph(run))
+        return ms
+
+    def offline_cell(host):
+        res = benchmark.run_sequence(
+            iter(offline["frames"][:TURN_OFFLINE_FRAMES]), camera.TUM_FR1,
+            offline["tracker_cfg"], offline["slam_cfg"],
+            groundtruth=offline["groundtruth"], mode="slam", device=device)
+        return 1e3 / res.fps
+
+    out = {}
+    for cell, fn in (("odometry", odometry), ("slam", slam),
+                     ("offline", offline_cell)):
+        times = {True: [], False: []}
+        for host in (True, False, False, True):
+            with _host_loop(host):
+                times[host].append(fn(host))
+        out[cell] = times
+        h, k = times[True], times[False]
+        print(f"phase 7 {cell} cell in turns (host, kernel, kernel, host): "
+              f"host loop {h[0]:.3f}, {h[1]:.3f} ms/frame; level kernel "
+              f"{k[0]:.3f}, {k[1]:.3f} ms/frame; host / kernel "
+              f"{np.mean(h) / np.mean(k):.2f}x")
+    levels = TrackerConfig().tracked_levels
+    differ = [(k + 1, lvl, a, b)
+              for k, (its_h, its_k) in enumerate(zip(odo_iters[True],
+                                                     odo_iters[False]))
+              for lvl, a, b in zip(levels, its_k, its_h) if a != b]
+    print(f"phase 7 odometry iterations per (frame, level), level kernel "
+          f"against host loop: {len(differ)} of "
+          f"{len(odo_iters[True]) * len(levels)} differ"
+          + (": " + ", ".join(f"frame {k} level {lvl} {a} / {b}"
+                              for k, lvl, a, b in differ) if differ else ""))
+    kf_h, edges_h, loops_h = graphs[True]
+    kf_k, edges_k, loops_k = graphs[False]
+    print(f"phase 7 SLAM turns: keyframes {kf_k} through the level kernel, "
+          f"{'the same' if kf_k == kf_h else kf_h} through the host loop; "
+          f"graph edges {'identical' if edges_k == edges_h else 'differ'} "
+          f"({len(edges_k)} edges; loop edges {loops_k} / {loops_h})")
+    if kf_k != kf_h or edges_k != edges_h or loops_k < 1:
+        raise AssertionError(f"the SLAM turns part: keyframes {kf_k} / "
+                             f"{kf_h}, edges {edges_k} / {edges_h}")
+    return out
 
 
 def main():
@@ -1643,20 +1857,27 @@ def main():
     device = torch.device("cuda", 0)
     phase_device()
     cfg, levels = phase_kernel_vs_plain(device)
+    level_pairs = phase_level_vs_plain(device, cfg)
     batched = phase_batched_vs_plain(device, cfg)
-    launches, tracker, frames, _ = phase_main_path(device)
+    launches, _, frames, _ = phase_main_path(device)
     slam_out = phase_slam(device)
     t0 = time.perf_counter()
     offline = phase_offline(device)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_turns(device, frames, slam_out, offline)
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
     # Profiles only from here on.
-    main_trace = phase_profile(tracker, frames)
+    for host in (True, False):
+        phase_profile(device, frames, host)
     dev_times = phase_device_times(cfg, levels, batched)
-    phase_slam_profile(slam_out)
-    phase_offline_profile(offline, device)
+    for host in (True, False):
+        phase_slam_profile(slam_out, host)
+    for host in (True, False):
+        phase_offline_profile(offline, device, host)
     print(json.dumps({"kernels": kernel_rows(
-        cfg, levels, launches, main_trace, dev_times, batched,
-        slam_out["launches"])}))
+        cfg, levels, launches, dev_times, slam_out["launches"], level_pairs,
+        batched)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -11,11 +11,12 @@ utilities it needs are copied into ``utils/``).
 
 Layering (same as the JAX package):
   ops/     — SE(3), camera, robust weighting, pyramids, the 6x6 solve,
-             the IRLS linearization (batched; CUDA kernels in
-             csrc/linearize.cu) and the bilinear slab sampler
+             the IRLS linearization and a level's IRLS loop (batched;
+             the cluster kernel of csrc/linearize.cu) and the bilinear
+             slab sampler
              (csrc/sampler.cu), built at first use by _build.py.
-  models/  — the dense tracker (coarse-to-fine IRLS, one pair or a batch
-             in lockstep), frame-to-frame odometry, and keyframe SLAM:
+  models/  — the dense tracker (coarse-to-fine IRLS, one pair or a
+             batch), frame-to-frame odometry, and keyframe SLAM:
              the pose graph, the local map, loop-closure validation and
              the KeyframeSlam facade.
   utils/   — host helpers: f64 SE(3), synthetic scenes, ATE/RPE, TUM

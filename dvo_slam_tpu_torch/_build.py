@@ -120,17 +120,28 @@ def load():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dvo_sample_slab.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
         lib.dvo_sample_slab.restype = ci
-        lib.dvo_linearize_layout.argtypes = [ci, ci, vp]
-        lib.dvo_linearize_layout.restype = None
-        lib.dvo_linearize.argtypes = [
+        common = [
             ci,  # B
             vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,  # reference points, N
             vp, ctypes.c_int64, ci, ci,  # slab, slab_stride, H, W
-            vp, vp, vp,  # K, T, sigma_init
-            ci, ci, ci, cf, cf, cf,  # use_depth, ref_grad, warm, nu, floors
-            ci, ci, ci,  # scale_iters, warm_iters, steps
-            vp, vp, vp,  # scratch, out, stream
+            vp, vp,  # K, T
+            ci, ci, cf, cf, cf,  # use_depth, ref_grad, nu, floors
+            ci, ci,  # scale_iters, warm_iters
+        ]
+        lib.dvo_linearize.argtypes = [
+            *common, vp, ci, ci,  # sigma_init, warm, cluster size
+            vp, vp, vp, vp, vp,  # out, rI, rZ, valid, stream
         ]
         lib.dvo_linearize.restype = ci
+        lib.dvo_track_level.argtypes = [
+            *common, ci, cf,  # max_iterations, precision
+            cf, cf, cf, cf, ci,  # LM lambda init, up, down, max; cluster
+            vp, vp, vp,  # out, out_i, stream
+        ]
+        lib.dvo_track_level.restype = ci
+        lib.dvo_level_plan.argtypes = [ci, ci, vp]
+        lib.dvo_level_plan.restype = ci
+        lib.dvo_error_string.argtypes = [ci]
+        lib.dvo_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB

@@ -11,7 +11,7 @@ levels and re-voted.
 
 The reference validates proposals serially with a dedicated DenseTracker;
 here every stage is ONE batched tracker call over a padded candidate batch
-(models/dense_tracker.py's lockstep loop on the batched kernels), the
+(on the card one launch of the level kernel per level), the
 forward stage against the new keyframe shared by every row, the backward
 stage pairing the new keyframe with each candidate.
 """

@@ -3,14 +3,24 @@
 DenseTracker::match).
 
 The JAX package runs each level's IRLS loop as a ``lax.while_loop`` on the
-device, and batches pairs with ``jax.vmap`` over it. Here it is one host
-loop per level over (B, ...) device tensors with the same carry semantics:
-every carried quantity is updated with ``torch.where`` on the device, every
-row is linearized in every iteration (one batched kernel call), a row whose
-stop test has fired keeps its carry frozen, and the loop reads the rows'
-done flags back once per iteration. ``track`` is that loop at B = 1.
-Gauss-Newton rollback (lambda = 0: revert and stop) and adaptive
-Levenberg-Marquardt (lambda > 0) share that one path.
+device, and batches pairs with ``jax.vmap`` over it. ``track_level`` runs
+one level for B rows:
+
+- on a CUDA slab with ``linearize.level_route(cfg)`` (the t-distribution,
+  no motion prior): one launch of the cluster kernel's mode (b)
+  (csrc/linearize.cu), one cluster per row, the whole loop on the card
+  and no host sync (``_track_level_kernel``);
+- elsewhere: ``_track_level``, one host loop per level over (B, ...)
+  device tensors with the same carry semantics: every carried quantity is
+  updated with ``torch.where`` on the device, every row is linearized in
+  every iteration (one batched call), a row whose stop test has fired
+  keeps its carry frozen, and the loop reads the rows' done flags back
+  once per iteration. Over ``linearize_batched_reference`` it is the
+  plain version of mode (b).
+
+``track`` is ``track_batched`` at B = 1. Gauss-Newton rollback
+(lambda = 0: revert and stop) and adaptive Levenberg-Marquardt
+(lambda > 0) share both paths.
 """
 
 from __future__ import annotations
@@ -107,11 +117,56 @@ def _flat(lin):
                       lin.n_raw[:, None], lin.log1p_sum[:, None]], dim=1)
 
 
-def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
-    """IRLS loop for one pyramid level over B rows in lockstep. ref_data
-    holds (B, N) points, cur_slab is (6, H, W) shared or (B, 6, H, W), and
-    T_init (B, 4, 4). Returns (T (B, 4, 4), Linearization of each row's
-    last accepted evaluation, stats dict)."""
+def _final(best, cfg: TrackerConfig):
+    """The Linearization of each row's last accepted evaluation, from its
+    (B, 50) record."""
+    B = best.shape[0]
+    A_final = best[:, _A:_B].view(B, 6, 6)
+    if cfg.mu > 0.0:
+        # Posterior information: data term + the prior's mu*I, added once.
+        A_final = A_final + cfg.mu * torch.eye(6, dtype=best.dtype,
+                                               device=best.device)
+    n_valid_best = best[:, _N_RAW]
+    return lin_ops.Linearization(
+        A=A_final, b=best[:, _B:_ERR], err_mean=best[:, _ERR],
+        n_valid=torch.clamp(n_valid_best, min=1.0), n_raw=n_valid_best,
+        sigma=best[:, _SIGMA:_N_RAW].view(B, 2, 2),
+        log1p_sum=best[:, _LOG1P], err_raw=best[:, _ERR_RAW],
+    )
+
+
+def track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
+    """IRLS loop for one pyramid level over B rows. ref_data holds (B, N)
+    points, cur_slab is (6, H, W) shared or (B, 6, H, W), and T_init
+    (B, 4, 4). Returns (T (B, 4, 4), Linearization of each row's last
+    accepted evaluation, stats dict: "iterations" (B,) int32, "error" (B,)
+    and with cfg.collect_stats "per_iter" = (valid, error, delta_norm,
+    accepted, termination)). A CUDA slab on ``level_route(cfg)`` runs the
+    level kernel, anything else the host loop."""
+    if cur_slab.device.type == "cuda" and lin_ops.level_route(cfg):
+        return _track_level_kernel(ref_data, cur_slab, K, T_init, cfg)
+    return _track_level(ref_data, cur_slab, K, T_init, cfg)
+
+
+def _track_level_kernel(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
+    """``track_level`` as one launch of the cluster kernel's mode (b)."""
+    lvl = lin_ops.unpack_level(
+        *lin_ops.track_level_kernels(ref_data, cur_slab, K, T_init, cfg),
+        cfg.max_iterations)
+    stats = {"iterations": lvl.iterations, "error": lvl.best[:, _ERR]}
+    if cfg.collect_stats:
+        stats["per_iter"] = (lvl.valid, lvl.error, lvl.delta_norm,
+                             lvl.accepted, lvl.termination)
+    return lvl.T, _final(lvl.best, cfg), stats
+
+
+def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig,
+                 linearize=None):
+    """``track_level`` as a host loop over B rows in lockstep, one
+    ``linearize`` call per iteration (by default ``linearize_batched``,
+    looked up at the call; ``linearize_batched_reference`` for the plain
+    version of mode (b))."""
+    linearize = linearize or lin_ops.linearize_batched
     dtype, dev = T_init.dtype, T_init.device
     B = T_init.shape[0]
     use_lm = cfg.lm_lambda_init > 0.0
@@ -140,9 +195,8 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
     while True:
         # Warm-start the scale fixed point from the last accepted Sigma.
         # Every row is linearized, the frozen ones too (vmap semantics).
-        lin = lin_ops.linearize_batched(ref_data, cur_slab, K, T_cur, cfg,
-                                        sigma_init=sigma_best,
-                                        sigma_warm=k > 0)
+        lin = linearize(ref_data, cur_slab, K, T_cur, cfg,
+                        sigma_init=sigma_best, sigma_warm=k > 0)
         # Accepted state (reference Revertable<T>: keep best, revert else).
         if k == 0:
             accept = torch.ones(B, dtype=torch.bool, device=dev)
@@ -214,7 +268,8 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
         if done_host.all():
             break
 
-    stats = {"iterations": iters, "error": best[:, _ERR]}
+    stats = {"iterations": torch.tensor(iters, dtype=torch.int32, device=dev),
+             "error": best[:, _ERR]}
     if cfg.collect_stats:
         # Each row's last reason; first matching wins (priority mirrors
         # the stop test).
@@ -234,24 +289,13 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
                       dim=1),
             term,
         )
-    A_final = best[:, _A:_B].view(B, 6, 6)
-    if cfg.mu > 0.0:
-        # Posterior information: data term + the prior's mu*I, added once.
-        A_final = A_final + cfg.mu * eye6
-    n_valid_best = best[:, _N_RAW]
-    final = lin_ops.Linearization(
-        A=A_final, b=best[:, _B:_ERR], err_mean=best[:, _ERR],
-        n_valid=torch.clamp(n_valid_best, min=1.0), n_raw=n_valid_best,
-        sigma=sigma_best, log1p_sum=best[:, _LOG1P],
-        err_raw=best[:, _ERR_RAW],
-    )
-    return T_best, final, stats
+    return T_best, _final(best, cfg), stats
 
 
 def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits,
                   cfg: TrackerConfig) -> TrackResult:
-    """B reference pyramids tracked in one lockstep loop (the JAX
-    package's vmap over ``track``).
+    """B reference pyramids tracked together (the JAX package's vmap over
+    ``track``): one ``track_level`` per tracked level.
 
     ref_pyrs: tuple of per-level (B, 6, H, W) slabs; cur_pyrs: per-level
     (6, H, W) slabs shared by every row (SLAM's dual alignment: keyframe
@@ -268,8 +312,8 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits,
     iters, errs, per_iter = [], [], []
     fin = None
     for lvl in levels:
-        T, fin, stats = _track_level(level_data[lvl], cur_pyrs[lvl], Ks[lvl],
-                                     T, cfg)
+        T, fin, stats = track_level(level_data[lvl], cur_pyrs[lvl], Ks[lvl],
+                                    T, cfg)
         iters.append(stats["iterations"])
         errs.append(stats["error"])
         if cfg.collect_stats:
@@ -303,8 +347,7 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits,
         sigma=fin.sigma,
         valid_pixels=fin.n_raw,
         valid_ratio=fin.n_raw / torch.clamp(n_selected, min=1.0),
-        iterations=torch.tensor(np.stack(iters, axis=1), dtype=torch.int32,
-                                device=dev),
+        iterations=torch.stack(iters, dim=1),
         level_errors=torch.stack(errs, dim=1),
         stats=track_stats,
         window_miss_frac=zero,

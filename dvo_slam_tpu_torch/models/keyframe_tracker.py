@@ -7,8 +7,8 @@ finish), internally fusing:
 
   * LocalTracker (dvo_slam/src/local_tracker.cpp): the reference runs the
     current frame against the active keyframe AND the previous frame as two
-    TBB tasks; here it is ONE batched tracker call with batch dim 2 (the
-    batched kernels of csrc/linearize.cu, one lockstep IRLS loop).
+    TBB tasks; here it is ONE batched tracker call with batch dim 2 (on
+    the card one launch of csrc/linearize.cu's level kernel per level).
   * TrackingResultEvaluation: entropy-ratio keyframe selection
     (IROS13 §IV, SURVEY.md §4.5) with the first-frame-after-keyframe
     denominator (ratioWithFirst).

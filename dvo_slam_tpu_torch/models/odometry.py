@@ -108,8 +108,13 @@ class OdometryTracker:
             dtype=torch.float32, device=self.device)
         res = dense_tracker.track(self._prev_pyr, cur, self.Ks, T0, self.cfg)
         self.last_result = res
-        rel = res.transformation.to("cpu", torch.float64).numpy()
-        is_nan = bool(res.is_nan().item())
+        # The frame's one host sync: the pose and the log-likelihood that
+        # is_nan() reads, in one copy.
+        host = torch.cat([res.transformation.reshape(16),
+                          res.log_likelihood.reshape(1)]).to("cpu",
+                                                             torch.float64)
+        rel = host[:16].view(4, 4).numpy()
+        is_nan = not bool(torch.isfinite(host).all())
         if is_nan:
             # NaN guard: fall back to the constant-velocity increment.
             rel = self._last_rel.copy()

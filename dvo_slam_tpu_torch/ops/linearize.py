@@ -1,7 +1,8 @@
 """One IRLS linearization of the bivariate photometric + geometric error
 (counterpart of ``dvo_slam_tpu/ops/linearize.py``; reference
 computeResidualsSse + computeScaleSse/computeWeightsSse + the SSE 6x6 rank
-updates).
+updates), and the wrappers of the cluster kernel that runs it, or a whole
+pyramid level's IRLS loop, on the card.
 
 warp -> project -> bilinear sample -> bivariate residual -> t-distribution
 Sigma fixed point -> weights -> analytic Jacobian -> weighted 6x6 normal
@@ -13,29 +14,32 @@ the current slab's device:
 - a CPU tensor goes to ``linearize_reference``, the plain PyTorch version:
   per-point quantities stay flat (N,) tensors and the Jacobian is 12
   scalar planes, as in the JAX package. Invalid points are zeroed with
-  ``torch.where`` before any sum (NaN * 0 = NaN). Its pieces are the plain
-  versions of the two kernels: ``residuals_reference`` (K1),
-  ``tdist_step_reference`` and ``normal_equations_reference`` (K2's two
-  modes).
-- a CUDA tensor goes to the two kernels of csrc/linearize.cu (K1, the
-  residual pass with the bilinear gather inside it; K2, the weighted
-  reduction, once per Sigma step and once for the normal equations), all
-  issued by one ctypes call with no host sync, when ``kernel_route(cfg)``:
-  the t-distribution branch (``use_weighting`` and ``scale_estimator ==
-  "tdist"``, the default), with either gradient source, ``use_depth`` on or
-  off and the Sigma warm start. The other scale estimators (``mad``,
-  ``normal``, ``unit``) and ``use_weighting=False`` run
-  ``linearize_reference`` on the card, gathering with the standalone
-  sampler kernel (``sampler.sample_slab``, csrc/sampler.cu): the config
-  alone picks that route. A failed build or launch raises; nothing falls
-  back to the plain version.
+  ``torch.where`` before any sum (NaN * 0 = NaN). Its pieces are
+  ``residuals_reference`` (the residual pass), ``tdist_step_reference``
+  (one Sigma step) and ``normal_equations_reference``.
+- a CUDA tensor goes to mode (a) of csrc/linearize.cu, one launch of
+  thread-block clusters (one cluster per batch row: the residual pass with
+  the bilinear gather inside it, the Sigma steps and the normal equations,
+  the points kept in shared memory), with no host sync, when
+  ``kernel_route(cfg)``: the t-distribution branch (``use_weighting`` and
+  ``scale_estimator == "tdist"``, the default), with either gradient
+  source, ``use_depth`` on or off and the Sigma warm start. The other
+  scale estimators (``mad``, ``normal``, ``unit``) and
+  ``use_weighting=False`` run ``linearize_reference`` on the card,
+  gathering with the standalone sampler kernel (``sampler.sample_slab``,
+  csrc/sampler.cu): the config alone picks that route. A failed build or
+  launch raises; nothing falls back to the plain version.
+
+``track_level_kernels`` is mode (b) of the same kernel: a pyramid level's
+whole IRLS loop (models/dense_tracker.py's ``_track_level``) for B rows in
+one launch, for the configs ``level_route(cfg)`` accepts (those of
+``kernel_route`` without the motion prior, ``mu == 0``).
 
 ``linearize_batched`` takes a batch of B problems (the JAX package's vmap
 over the tracker): reference points (B, N), poses (B, 4, 4), Sigma seeds
 (B, 2, 2), and one current slab (6, H, W) shared by every row or one per
-row (B, 6, H, W). On the card it is one ctypes call whose launches cover
-the whole batch (csrc/linearize.cu, grid (blocks, B)). The plain version
-is ``linearize_batched_reference``: ``linearize_reference`` row by row.
+row (B, 6, H, W). Its plain version is ``linearize_batched_reference``:
+``linearize_reference`` row by row.
 """
 
 from __future__ import annotations
@@ -52,17 +56,23 @@ from dvo_slam_tpu_torch.ops import robust, sampler
 
 _EPS = 1e-12
 
-# Kernel launches since the last reset (plain integers; callers reset them
-# to 0 to count the launches of one run): K1 (residual pass) and K2
-# (weighted reduction, Sigma steps and normal equations), and both by
-# batch size, keyed ("K1", B) and ("K2", B) (callers clear it with the
-# counts).
-LAUNCHES_RESIDUAL = 0
-LAUNCHES_REDUCE = 0
+# Launches of csrc/linearize.cu since the last reset (plain integers;
+# callers reset them to 0 to count the launches of one run): mode (a)
+# (``linearize_kernels_batched``) and mode (b) (``track_level_kernels``),
+# and both by batch size, keyed ("linearize", B) and ("track_level", B)
+# (callers clear it with the counts).
+LAUNCHES_LINEARIZE = 0
+LAUNCHES_TRACK_LEVEL = 0
 LAUNCHES_BY_BATCH = {}
 
-# Layout of the kernels' result vector (csrc/linearize.cu kOut*).
+# Layouts of the kernel's outputs (csrc/linearize.cu kOut* and kLevel*):
+# mode (a)'s Linearization vector; mode (b)'s row: the pose (16), the
+# tracker's record of the last accepted linearization (50), then the
+# statistics (4, max_iterations).
 _OUT_SIZE = 51
+_LEVEL_T, _LEVEL_BEST, _LEVEL_STATS = 0, 16, 66
+# Clusters of at most 16 CTAs (a non-portable size on Hopper).
+_MAX_CLUSTER = 16
 
 
 class RefData(NamedTuple):
@@ -181,8 +191,8 @@ def tdist_weights_reference(a, bq, c, sII, sIZ, sZZ, vF, cfg):
 
 def tdist_step_reference(a, bq, c, sII, sIZ, sZZ, vF, n, cfg):
     """One step of the bivariate t-distribution scale fixed point (the
-    plain version of K2's Sigma mode): the weighted moments under Sigma =
-    [[a, bq], [bq, c]]. Returns the next (a, bq, c)."""
+    plain version of the kernel's Sigma step): the weighted moments under
+    Sigma = [[a, bq], [bq, c]]. Returns the next (a, bq, c)."""
     w = tdist_weights_reference(a, bq, c, sII, sIZ, sZZ, vF, cfg)[5]
     a = (w * sII).sum() / n + cfg.min_intensity_sigma**2
     bq = (w * sIZ).sum() / n
@@ -231,9 +241,10 @@ def warp(ref: RefData, K, T):
 def residuals_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
                         sample=sampler.sample_slab_reference) -> Residuals:
     """Warp, bilinear sample, bivariate residual and validity of every
-    reference point at pose T: the plain version of K1. ``sample`` is the
-    gather, ``(slab, u, v) -> (samples, inb)``: the plain sampler, or
-    ``sampler.sample_slab`` (its kernel on a CUDA slab)."""
+    reference point at pose T: the plain version of the kernel's residual
+    pass. ``sample`` is the gather, ``(slab, u, v) -> (samples, inb)``:
+    the plain sampler, or ``sampler.sample_slab`` (its kernel on a CUDA
+    slab)."""
     C = cur_slab.shape[0]
     dtype = cur_slab.dtype
     X, Y, Z, zi, u, v = warp(ref, K, T)
@@ -279,8 +290,8 @@ def residuals_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
 def normal_equations_reference(res: Residuals, w, p00, p01, p11, K,
                                cfg: TrackerConfig):
     """Analytic Jacobian and the weighted 6x6 normal equations ``(A, b)``
-    (with the weights ``w``: the plain version of K2's normal-equations
-    mode)."""
+    (with the weights ``w``: the plain version of the kernel's
+    normal-equations pass)."""
     fx, fy = K[0], K[1]
     X, Y, Z, zi, valid = res.X, res.Y, res.Z, res.zi, res.valid
     # J_pi = [[A, 0, C], [0, B, D]]; dp'/dxi = [I3 | -hat(p')].
@@ -317,10 +328,29 @@ def normal_equations_reference(res: Residuals, w, p00, p01, p11, K,
 
 
 def kernel_route(cfg: TrackerConfig) -> bool:
-    """True where ``linearize`` on a CUDA tensor runs the kernels of
+    """True where ``linearize`` on a CUDA tensor runs mode (a) of
     csrc/linearize.cu, False where it runs ``linearize_reference`` on the
     card (the scale estimators other than the t-distribution)."""
     return cfg.use_weighting and cfg.scale_estimator == "tdist"
+
+
+def level_route(cfg: TrackerConfig) -> bool:
+    """True where the tracker runs a level's IRLS loop on a CUDA tensor as
+    one launch of mode (b) (``track_level_kernels``): ``kernel_route``'s
+    configs without the motion prior (``mu == 0``; GN or LM, the Sigma warm
+    start, ``collect_stats`` on or off). Elsewhere the tracker runs its host
+    loop over ``linearize_batched``."""
+    return kernel_route(cfg) and cfg.mu == 0.0
+
+
+def cluster_size(N: int) -> int:
+    """CTAs per cluster (one cluster per batch row) for N reference points:
+    the smallest power of two C <= 16 with 300 C^2 >= N, so a CTA holds at
+    most 300 C points (4 at 80x60, 8 at 160x120, 16 at 320x240)."""
+    C = 1
+    while C < _MAX_CLUSTER and 300 * C * C < N:
+        C *= 2
+    return C
 
 
 def linearize(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
@@ -380,42 +410,24 @@ def _check_device(cur_slab):
                          f"{cur_slab.device}")
 
 
-# Per-(device, stream, B, N) scratch of the kernels, zero-filled once and
-# reused: per-point rI, rZ, valid and the Jacobian inputs, per-block
-# partial sums, and the device state (Sigma, counts, the blocks' ticket) of
-# every batch row. Values: (uint8 tensor, byte offsets of rI, rZ and
-# valid).
-_SCRATCH = {}
-
-
-def _scratch(lib, device, stream, B, N):
-    key = (device, stream, B, N)
-    hit = _SCRATCH.get(key)
-    if hit is None:
-        off = (ctypes.c_size_t * 4)()
-        lib.dvo_linearize_layout(B, N, off)
-        hit = (torch.zeros(off[3], dtype=torch.uint8, device=device),
-               tuple(off[:3]))
-        _SCRATCH[key] = hit
-    return hit
+# Per-(device, stream, B, N) copies of the last mode (a) call's residual
+# pass: (rI, rZ, valid), each (B, N), allocated once and reused.
+_RESIDUALS = {}
 
 
 def kernel_residuals(device, N, B=None):
-    """``(rI, rZ, valid)`` that the last kernel call over B rows of N
-    points on the current stream of ``device`` left in its scratch: each
-    (B, N), or (N,) for B None (a single-pair ``linearize``).
-    Views: the next such call overwrites them. For comparing K1 with
+    """``(rI, rZ, valid)`` of the residual pass of the last mode (a) call
+    over B rows of N points on the current stream of ``device``: each
+    (B, N), or (N,) for B None (a single-pair ``linearize``). Views: the
+    next such call overwrites them. For comparing the kernel with
     ``residuals_reference``."""
     device = torch.device(device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-    rows = 1 if B is None else B
-    buf, (o_ri, o_rz, o_valid) = _SCRATCH[(device, stream, rows, N)]
-    n = rows * N
-    shape = (N,) if B is None else (B, N)
-    return (buf[o_ri:o_ri + 4 * n].view(torch.float32).view(shape),
-            buf[o_rz:o_rz + 4 * n].view(torch.float32).view(shape),
-            buf[o_valid:o_valid + n].view(torch.bool).view(shape))
+    rI, rZ, valid = _RESIDUALS[(device, stream, 1 if B is None else B, N)]
+    if B is None:
+        return rI[0], rZ[0], valid[0]
+    return rI, rZ, valid
 
 
 def _check(ref: RefData, cur_slab, K, T):
@@ -441,71 +453,167 @@ def _check(ref: RefData, cur_slab, K, T):
         raise ValueError("cur_slab must be contiguous")
 
 
-def linearize_kernels_batched(ref: RefData, cur_slab, K, T,
-                              cfg: TrackerConfig, sigma_init=None,
-                              sigma_warm=False) -> Linearization:
-    """``linearize_batched`` on the card through csrc/linearize.cu, for
-    the t-distribution branch. One ctypes call issues K1, the Sigma steps
-    and the normal-equations pass for every row on the current stream of
-    the slab's device, with no host sync. ``sigma_warm`` is one host bool
-    for the whole batch (all rows enter a level together)."""
-    global LAUNCHES_RESIDUAL, LAUNCHES_REDUCE
-    from dvo_slam_tpu_torch import _build
-
+def _kernel_args(ref: RefData, cur_slab, K, T, cfg: TrackerConfig):
+    """The arguments the two entry points of csrc/linearize.cu share, from
+    B to warm_iters, after the checks."""
     if not kernel_route(cfg):
-        raise ValueError("the linearization kernels cover the "
+        raise ValueError("the linearization kernel covers the "
                          "t-distribution scale estimator only")
     _check(ref, cur_slab, K, T)
     C, H, W = cur_slab.shape[-3:]
     B, N = ref.px.shape
-    # Row b's slab starts b * stride floats in; 0 shares one slab.
-    stride = C * H * W if cur_slab.dim() == 4 else 0
     ref_grad = cfg.gradient_source == "reference"
     if C < ((2 if cfg.use_depth else 1) if ref_grad else 6):
         raise ValueError(f"the slab has {C} channels, too few for {cfg}")
-    warm = (sigma_init is not None and cfg.tdist_scale_warm_iters > 0
-            and bool(sigma_warm))
-    steps = cfg.tdist_scale_iters
-    if warm:
-        # Both trip counts launch; each step past the one a row's device
-        # state chose returns at once.
-        steps = max(steps, cfg.tdist_scale_warm_iters)
-        sigma_init = sigma_init.to(torch.float32).contiguous()
-    K = K.contiguous()
-    T = T.contiguous()
+    return (
+        B, ref.px.data_ptr(), ref.py.data_ptr(), ref.pz.data_ptr(),
+        ref.i1.data_ptr(), ref.selected.data_ptr(),
+        ref.gix.data_ptr() if ref_grad else None,
+        ref.giy.data_ptr() if ref_grad else None,
+        ref.gzx.data_ptr() if ref_grad and cfg.use_depth else None,
+        ref.gzy.data_ptr() if ref_grad and cfg.use_depth else None,
+        # Row b's slab starts b * stride floats in; 0 shares one slab.
+        N, cur_slab.data_ptr(), C * H * W if cur_slab.dim() == 4 else 0, H, W,
+        K.data_ptr(), T.data_ptr(), int(cfg.use_depth), int(ref_grad),
+        cfg.tdist_dof, cfg.min_intensity_sigma**2, cfg.min_depth_sigma**2,
+        cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters)
+
+
+def _launch(name, device, args):
+    """Call the entry point `name` of the kernel library with `args` and
+    the current stream of `device` (made the current device around the
+    call); raise with the CUDA error if it did not launch."""
+    from dvo_slam_tpu_torch import _build
+
     lib = _build.load()
-    out = torch.empty((B, _OUT_SIZE), dtype=torch.float32,
-                      device=cur_slab.device)
     # The ctypes launch runs in the current CUDA context: make it the slab's.
-    with torch.cuda.device(cur_slab.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        scratch = _scratch(lib, cur_slab.device, stream, B, N)[0]
-        rc = lib.dvo_linearize(
-            B, ref.px.data_ptr(), ref.py.data_ptr(), ref.pz.data_ptr(),
-            ref.i1.data_ptr(), ref.selected.data_ptr(),
-            ref.gix.data_ptr() if ref_grad else None,
-            ref.giy.data_ptr() if ref_grad else None,
-            ref.gzx.data_ptr() if ref_grad and cfg.use_depth else None,
-            ref.gzy.data_ptr() if ref_grad and cfg.use_depth else None,
-            N, cur_slab.data_ptr(), stride, H, W, K.data_ptr(), T.data_ptr(),
-            sigma_init.data_ptr() if warm else None,
-            int(cfg.use_depth), int(ref_grad), int(warm), cfg.tdist_dof,
-            cfg.min_intensity_sigma**2, cfg.min_depth_sigma**2,
-            cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters, steps,
-            scratch.data_ptr(), out.data_ptr(), stream)
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"dvo_linearize launch failed: CUDA error {rc}")
-    LAUNCHES_RESIDUAL += 1
-    LAUNCHES_REDUCE += steps + 1
-    LAUNCHES_BY_BATCH[("K1", B)] = LAUNCHES_BY_BATCH.get(("K1", B), 0) + 1
-    LAUNCHES_BY_BATCH[("K2", B)] = (LAUNCHES_BY_BATCH.get(("K2", B), 0)
-                                    + steps + 1)
+        raise RuntimeError(f"{name} failed: "
+                           f"{lib.dvo_error_string(rc).decode()} (CUDA "
+                           f"error {rc})")
+
+
+def level_plan(device, N):
+    """``(C, points per CTA, kept in shared memory, dynamic shared memory
+    bytes per CTA)`` of a launch over N points on ``device``."""
+    from dvo_slam_tpu_torch import _build
+
+    C = cluster_size(N)
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        rc = _build.load().dvo_level_plan(N, C, out)
+    if rc != 0:
+        raise RuntimeError(f"dvo_level_plan failed: CUDA error {rc}")
+    return C, out[0], bool(out[1]), out[2]
+
+
+def unpack_linearization(out) -> Linearization:
+    """The Linearization (fields with a leading B) in mode (a)'s (B, 51)
+    output: views, and the fields in the order of csrc/linearize.cu's
+    kOut* offsets."""
+    B = out.shape[0]
     err_mean, n_valid, n_raw, *_, log1p_sum, err_raw = out[:, 42:].unbind(-1)
     return Linearization(
         A=out[:, :36].view(B, 6, 6), b=out[:, 36:42], err_mean=err_mean,
         n_valid=n_valid, n_raw=n_raw, sigma=out[:, 45:49].view(B, 2, 2),
         log1p_sum=log1p_sum, err_raw=err_raw,
     )
+
+
+class LevelResult(NamedTuple):
+    """Mode (b)'s outputs for B rows (views of its two output tensors but
+    ``accepted``)."""
+
+    T: torch.Tensor  # (B, 4, 4) the level's pose (last accepted)
+    best: torch.Tensor  # (B, 50) the tracker's record of that linearization
+    valid: torch.Tensor  # (B, max_iterations) per-iteration statistics,
+    error: torch.Tensor  # zero past each row's last iteration
+    delta_norm: torch.Tensor
+    accepted: torch.Tensor  # bool
+    iterations: torch.Tensor  # (B,) int32
+    termination: torch.Tensor  # (B,) int32 TERM_* code
+
+
+def unpack_level(out, out_i, max_iterations) -> LevelResult:
+    """Mode (b)'s outputs from its (B, 66 + 4 max_iterations) float and
+    (B, 2) int32 tensors (csrc/linearize.cu's kLevel* offsets)."""
+    B = out.shape[0]
+    stats = out[:, _LEVEL_STATS:].view(B, 4, max_iterations)
+    return LevelResult(
+        T=out[:, _LEVEL_T:_LEVEL_BEST].view(B, 4, 4),
+        best=out[:, _LEVEL_BEST:_LEVEL_STATS], valid=stats[:, 0],
+        error=stats[:, 1], delta_norm=stats[:, 2], accepted=stats[:, 3] != 0,
+        iterations=out_i[:, 0], termination=out_i[:, 1])
+
+
+def linearize_kernels_batched(ref: RefData, cur_slab, K, T,
+                              cfg: TrackerConfig, sigma_init=None,
+                              sigma_warm=False) -> Linearization:
+    """``linearize_batched`` on the card through mode (a) of
+    csrc/linearize.cu, for the t-distribution branch: one launch of one
+    cluster per row on the current stream of the slab's device, with no
+    host sync. ``sigma_warm`` is one host bool for the whole batch (all
+    rows enter a level together)."""
+    global LAUNCHES_LINEARIZE
+    K, T = K.contiguous(), T.contiguous()
+    args = _kernel_args(ref, cur_slab, K, T, cfg)
+    B, N = ref.px.shape
+    warm = (sigma_init is not None and cfg.tdist_scale_warm_iters > 0
+            and bool(sigma_warm))
+    if warm:
+        sigma_init = sigma_init.to(torch.float32).contiguous()
+    dev = cur_slab.device
+    with torch.cuda.device(dev):
+        key = (dev, torch.cuda.current_stream().cuda_stream, B, N)
+    res = _RESIDUALS.get(key)
+    if res is None:
+        res = _RESIDUALS[key] = (
+            torch.empty((B, N), dtype=torch.float32, device=dev),
+            torch.empty((B, N), dtype=torch.float32, device=dev),
+            torch.empty((B, N), dtype=torch.bool, device=dev))
+    out = torch.empty((B, _OUT_SIZE), dtype=torch.float32, device=dev)
+    _launch("dvo_linearize", dev, (
+        *args, sigma_init.data_ptr() if warm else None, int(warm),
+        cluster_size(N), out.data_ptr(), *(t.data_ptr() for t in res)))
+    LAUNCHES_LINEARIZE += 1
+    LAUNCHES_BY_BATCH[("linearize", B)] = (
+        LAUNCHES_BY_BATCH.get(("linearize", B), 0) + 1)
+    return unpack_linearization(out)
+
+
+def track_level_kernels(ref: RefData, cur_slab, K, T_init,
+                        cfg: TrackerConfig):
+    """A pyramid level's IRLS loop for B rows on the card: mode (b) of
+    csrc/linearize.cu, one launch of one cluster per row on the current
+    stream of the slab's device, no host sync. Arguments as
+    ``linearize_batched`` (T_init (B, 4, 4)). Returns mode (b)'s raw
+    outputs ``(out (B, 66 + 4 max_iterations) f32, out_i (B, 2) int32)``
+    for ``unpack_level``."""
+    global LAUNCHES_TRACK_LEVEL
+    if not level_route(cfg):
+        raise ValueError("the level kernel covers level_route's configs "
+                         "only (the t-distribution, mu == 0)")
+    if cfg.max_iterations < 1:
+        raise ValueError("the level kernel needs max_iterations >= 1")
+    K, T_init = K.contiguous(), T_init.contiguous()
+    args = _kernel_args(ref, cur_slab, K, T_init, cfg)
+    B, N = ref.px.shape
+    dev = cur_slab.device
+    out = torch.empty((B, _LEVEL_STATS + 4 * cfg.max_iterations),
+                      dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    use_lm = cfg.lm_lambda_init > 0.0
+    _launch("dvo_track_level", dev, (
+        *args, cfg.max_iterations, cfg.precision,
+        cfg.lm_lambda_init if use_lm else 0.0, cfg.lm_lambda_up,
+        cfg.lm_lambda_down, cfg.lm_lambda_max, cluster_size(N),
+        out.data_ptr(), out_i.data_ptr()))
+    LAUNCHES_TRACK_LEVEL += 1
+    LAUNCHES_BY_BATCH[("track_level", B)] = (
+        LAUNCHES_BY_BATCH.get(("track_level", B), 0) + 1)
+    return out, out_i
 
 
 def linearize_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,

@@ -9,21 +9,40 @@ jax):
 
 Tolerances: the sampler kernel is bit-identical to its plain version by
 construction (no FMA contraction) and is held to 1e-5 * max|slab|. The
-fused linearization (csrc/linearize.cu) against ``linearize_reference`` on
-the same card tensors: ``n_raw``, the per-point valid mask and rI, rZ
-exact (the residual pass repeats the plain arithmetic with _rn
-intrinsics); A and b within 1e-4 * max|.|; sigma, err_mean, log1p_sum and
-err_raw rtol 1e-4 (sums over <= 76 800 points in another order: the
-kernels sum in f64, the plain version in f32). The tracker on the card is
-held to the same tracker on the CPU at 1e-4 on the transformation (f32
-reductions in another order).
+cluster kernel's mode (a) (csrc/linearize.cu, one linearization per row)
+against ``linearize_reference`` on the same card tensors: ``n_raw``, the
+per-point valid mask and rI, rZ exact (the residual pass repeats the plain
+arithmetic with _rn intrinsics); A and b within 1e-4 * max|.|; sigma,
+err_mean, log1p_sum and err_raw rtol 1e-4 (sums over <= 76 800 points in
+another order: the kernel sums in f64, the plain version in f32). The
+tracker on the card is held to the same tracker on the CPU at 1e-4 on the
+transformation (f32 reductions in another order).
 
-The batched kernels (one call over B rows, shared or per-row current
+Mode (a) over a batch (one launch over B rows, shared or per-row current
 slabs): every row's rI, rZ and valid bit-identical to its plain version,
 A and b within 1e-4 * max|.|, and every row bit-identical to a B = 1 call
 on that row's inputs (a row's arithmetic does not depend on B), the B = 1
 call bit-identical to the single-pair entry point, and 20 repeated B = 8
-calls identical (each row has its own cross-block ticket).
+calls identical (fixed-order cluster sums).
+
+Mode (b) (a level's whole IRLS loop in one launch) against its plain
+version, the host loop ``_track_level`` over
+``linearize_batched_reference``, on a noise-free 640x480 orbit: T within
+1e-5 on every row. A row on which both take the same accept decisions
+and iteration count: termination codes and valid counts equal, errors
+rtol 1e-4, increment norms within 1e-5, the final A within 1e-4 *
+max|A|; the final b, the gradient, by the step it asks for:
+||A^-1 (b - b_host)|| <= cfg.precision (at the optimum b is f32
+evaluation noise: residuals of ~1e-3 rounded to ~1e-5 each, so two poses
+1e-8 apart give gradients as far apart as the gradient itself, while
+the plain version's own b is ~1e-7 of a step from an f64 evaluation);
+and without the Sigma warm start the final A and b so close to the plain
+linearization at the kernel's own pose. Gauss-Newton stops where a step
+raises the error at the f32 noise floor, and the kernel's f64 sums and
+the plain version's f32 sums decide such a comparison differently: a
+row's paths may part at such a tie (the step's error within 1e-5 of the
+best, or an increment norm within a factor 2 of the precision), on at
+most one row or a quarter of a batch, and its pose still within 1e-5.
 """
 
 import numpy as np
@@ -113,7 +132,7 @@ def test_kernel_on_a_card_that_is_not_current(cuda):
 
 
 def test_track_on_card_matches_cpu(cuda):
-    """The whole tracker on the card (fused linearization kernels) against
+    """The whole tracker on the card (the level kernel) against
     the same code on the CPU (plain version), at 80x60 with three
     levels."""
     W, H = 80, 60
@@ -130,16 +149,15 @@ def test_track_on_card_matches_cpu(cuda):
                                       torch.as_tensor(z, device=dev), 3)
                 for i, z in (ref, cur)]
         T0 = torch.eye(4, dtype=torch.float32, device=dev)
-        before = (sampler.LAUNCHES, linearize.LAUNCHES_RESIDUAL,
-                  linearize.LAUNCHES_REDUCE)
+        before = (sampler.LAUNCHES, linearize.LAUNCHES_LINEARIZE,
+                  linearize.LAUNCHES_TRACK_LEVEL)
         res = dense_tracker.track(pyrs[0], pyrs[1], Ks, T0, cfg)
-        iters = int(res.iterations.sum()) if dev.type == "cuda" else 0
-        # The main path runs the fused linearization, never the standalone
-        # sampler: K1 once and K2 (steps + 1) times per IRLS iteration.
+        levels = len(cfg.tracked_levels) if dev.type == "cuda" else 0
+        # The main path runs one level-kernel launch per tracked level,
+        # never mode (a) alone or the standalone sampler.
         assert (sampler.LAUNCHES - before[0],
-                linearize.LAUNCHES_RESIDUAL - before[1],
-                linearize.LAUNCHES_REDUCE - before[2]) == (
-                    0, iters, iters * (cfg.tdist_scale_iters + 1))
+                linearize.LAUNCHES_LINEARIZE - before[1],
+                linearize.LAUNCHES_TRACK_LEVEL - before[2]) == (0, 0, levels)
         results[dev.type] = res
     got, want = results["cuda"], results["cpu"]
     np.testing.assert_allclose(got.transformation.cpu().numpy(),
@@ -151,7 +169,7 @@ def test_track_on_card_matches_cpu(cuda):
     assert err < 2e-3
 
 
-# ---- the fused linearization (csrc/linearize.cu) against its plain version
+# ---- mode (a) of csrc/linearize.cu (one linearization) against plain
 
 W640, H640 = 640, 480
 K640 = (525.0, 525.0, (W640 - 1) / 2.0, (H640 - 1) / 2.0)
@@ -227,13 +245,12 @@ def test_fused_linearize_matches_plain(cuda, pair640, name, level):
     cfg = TrackerConfig(**FUSED_CONFIGS[name])
     frames, T = pair640
     ref, slab, K, Tt = _level_inputs(frames, T, cfg, level, cuda)
-    before = (linearize.LAUNCHES_RESIDUAL, linearize.LAUNCHES_REDUCE,
+    before = (linearize.LAUNCHES_LINEARIZE, linearize.LAUNCHES_TRACK_LEVEL,
               sampler.LAUNCHES)
     got, _ = _assert_fused_matches_plain(ref, slab, K, Tt, cfg)
-    steps = max(cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters)
-    assert (linearize.LAUNCHES_RESIDUAL - before[0],
-            linearize.LAUNCHES_REDUCE - before[1],
-            sampler.LAUNCHES - before[2]) == (1, steps + 1, 0)
+    assert (linearize.LAUNCHES_LINEARIZE - before[0],
+            linearize.LAUNCHES_TRACK_LEVEL - before[1],
+            sampler.LAUNCHES - before[2]) == (1, 0, 0)
     assert float(got.n_raw) > 0.5 * ref.px.numel()
     if name == "tdist_warm":
         # The cold start (sigma_warm False) too.
@@ -301,18 +318,18 @@ def test_fused_linearize_on_a_card_that_is_not_current(cuda, pair640):
 
 
 def test_plain_only_config_stays_plain_on_the_card(cuda, pair640):
-    """Off the fused kernels' route the plain linearization still gathers
-    with the sampler kernel: one launch per call, no K1 or K2."""
+    """Off the cluster kernel's route the plain linearization still
+    gathers with the sampler kernel: one launch per call, no other."""
     cfg = dataclasses.replace(TrackerConfig(), scale_estimator="mad",
                               influence="huber")
     frames, T = pair640
     ref, slab, K, Tt = _level_inputs(frames, T, cfg, 3, cuda)
-    before = (linearize.LAUNCHES_RESIDUAL, linearize.LAUNCHES_REDUCE,
+    before = (linearize.LAUNCHES_LINEARIZE, linearize.LAUNCHES_TRACK_LEVEL,
               sampler.LAUNCHES)
     for calls in (1, 2):
         got = linearize.linearize(ref, slab, K, Tt, cfg)
-        assert (linearize.LAUNCHES_RESIDUAL - before[0],
-                linearize.LAUNCHES_REDUCE - before[1],
+        assert (linearize.LAUNCHES_LINEARIZE - before[0],
+                linearize.LAUNCHES_TRACK_LEVEL - before[1],
                 sampler.LAUNCHES - before[2]) == (0, 0, calls)
     want = linearize.linearize_reference(ref, slab, K, Tt, cfg)
     assert sampler.LAUNCHES - before[2] == 2
@@ -382,14 +399,10 @@ def test_batched_linearize_matches_plain(cuda, name, B, paired):
     ref, cur, K, T, sigma = _batch_inputs(cuda, B, paired)
     N = ref.px.shape[1]
     by_b = linearize.LAUNCHES_BY_BATCH
-    before = (linearize.LAUNCHES_RESIDUAL, linearize.LAUNCHES_REDUCE,
-              by_b.get(("K1", B), 0), by_b.get(("K2", B), 0))
+    before = (linearize.LAUNCHES_LINEARIZE, by_b.get(("linearize", B), 0))
     got = linearize.linearize_batched(ref, cur, K, T, cfg, sigma, warm)
-    steps = max(cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters)
-    assert (linearize.LAUNCHES_RESIDUAL - before[0],
-            linearize.LAUNCHES_REDUCE - before[1],
-            by_b[("K1", B)] - before[2],
-            by_b[("K2", B)] - before[3]) == (1, steps + 1, 1, steps + 1)
+    assert (linearize.LAUNCHES_LINEARIZE - before[0],
+            by_b[("linearize", B)] - before[1]) == (1, 1)
     rI, rZ, valid = (t.clone() for t in
                      linearize.kernel_residuals(cuda, N, B))
     assert got.A.shape == (B, 6, 6) and got.sigma.shape == (B, 2, 2)
@@ -424,8 +437,8 @@ def test_batched_linearize_matches_plain(cuda, name, B, paired):
 
 
 def test_batched_linearize_is_deterministic(cuda):
-    """20 repeated B = 8 calls: each row's last block must sum only its
-    own row's partials, under whatever launch order the card picks."""
+    """20 repeated B = 8 calls: each row's cluster sums in a fixed order,
+    under whatever order the card schedules the clusters in."""
     cfg = TrackerConfig()
     ref, cur, K, T, sigma = _batch_inputs(cuda, 8, paired=True)
     first = linearize.linearize_batched(ref, cur, K, T, cfg, sigma, True)
@@ -437,9 +450,9 @@ def test_batched_linearize_is_deterministic(cuda):
 
 
 def test_track_batched_on_card_matches_cpu(cuda):
-    """The batched tracker on the card (batched kernels) against the same
-    code on the CPU, with one row of all-NaN reference depth that stops
-    at its first iteration while the others go on."""
+    """The batched tracker on the card (the level kernel) against the
+    same code on the CPU, with one row of all-NaN reference depth that
+    stops at its first iteration while the others go on."""
     W, H = 80, 60
     K_t = (40.0, 40.0, (W - 1) / 2.0, (H - 1) / 2.0)
     cfg = TrackerConfig(num_levels=3, first_level=2, last_level=0)
@@ -456,13 +469,12 @@ def test_track_batched_on_card_matches_cpu(cuda):
         refs = tuple(torch.stack([p[lvl] for p in pyrs[:4]])
                      for lvl in range(3))
         T0 = torch.eye(4, dtype=torch.float32, device=dev).repeat(4, 1, 1)
-        before = linearize.LAUNCHES_RESIDUAL
+        before = linearize.LAUNCHES_BY_BATCH.get(("track_level", 4), 0)
         res = dense_tracker.track_batched(refs, pyrs[5], Ks, T0, cfg)
         if dev.type == "cuda":
-            # One batched launch per lockstep iteration: the longest row's
-            # iteration count per level.
-            assert linearize.LAUNCHES_RESIDUAL - before == int(
-                res.iterations.max(dim=0).values.sum())
+            # One launch over the 4 rows per tracked level.
+            assert linearize.LAUNCHES_BY_BATCH[("track_level", 4)] - before \
+                == len(cfg.tracked_levels)
         results[dev.type] = res
     got, want = results["cuda"], results["cpu"]
     np.testing.assert_allclose(got.transformation.cpu().numpy(),
@@ -471,3 +483,213 @@ def test_track_batched_on_card_matches_cpu(cuda):
     assert got.iterations[2].tolist() == [1, 1, 1]
     assert float(got.valid_pixels[2]) == 0.0
     assert not bool(got.is_nan().any())
+
+
+# ---- mode (b): a level's IRLS loop in one launch, against the host loop
+
+LEVEL_CONFIGS = {
+    "gn": {},
+    "gn_warm": {"tdist_scale_warm_iters": 2},
+    "lm": {"lm_lambda_init": 1e-4},
+    "lm_warm": {"lm_lambda_init": 1e-4, "tdist_scale_warm_iters": 2},
+}
+
+
+@pytest.fixture(scope="module")
+def orbit640():
+    """Nine noise-free 640x480 frames of the synthetic orbit and their
+    poses."""
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    poses = synthetic.orbit_trajectory(24, radius=0.06)[:9]
+    return synthetic.render_sequence(scene, np.asarray(K640), W640, H640,
+                                     poses), poses
+
+
+def _level_batch(orbit, dev, B, paired, level, cfg):
+    """B rows of the orbit at one level: references 0..B-1 against frame B
+    (shared) or frames 1..B (paired), each from a perturbed pose."""
+    frames, poses = orbit
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K640, device=dev),
+                                   cfg.num_levels)
+    pyrs = [pyramid.build_pyramid(torch.as_tensor(i, device=dev),
+                                  torch.as_tensor(z, device=dev),
+                                  cfg.num_levels)[level]
+            for i, z in frames[:B + 1]]
+    cur = torch.stack(pyrs[1:B + 1]) if paired else pyrs[B]
+    rng = np.random.default_rng(2)
+    T = np.stack([(se3_np.inverse(poses[b + 1] if paired else poses[B])
+                   @ poses[b]) @ se3_np.exp(rng.normal(scale=3e-3, size=6))
+                  for b in range(B)])
+    ref = linearize.prepare_reference(torch.stack(pyrs[:B]), Ks[level], cfg)
+    return ref, cur, Ks[level], torch.as_tensor(T, dtype=torch.float32,
+                                                device=dev)
+
+
+def _parted(acc, acc_h, err, err_h, dn, dn_h, n, n_h, precision):
+    """Where two IRLS paths of one row part, and whether at a tie: None if
+    they take the same accept decisions and iteration count; else (k,
+    tie). At an accept decision k: a tie if the step's error is within
+    1e-5 (relative) of the best error before it on either side. At a stop
+    (same decisions, other counts): a tie if the last common increment
+    norm is within a factor 2 of the precision on either side."""
+    for k in range(min(n, n_h)):
+        if acc[k] != acc_h[k]:
+            j = max(i for i in range(k) if acc[i])
+            return k, any(abs(e[k] - e[j]) <= 1e-5 * abs(e[j])
+                          for e in (err, err_h))
+    if n == n_h:
+        return None
+    k = min(n, n_h) - 1
+    return k, any(0.5 * precision <= d[k] <= 2.0 * precision
+                  for d in (dn, dn_h))
+
+
+def _step_apart(lin, lin_ref, b):
+    """Norm of the Gauss-Newton step by which row b's gradient differs
+    from the reference's, ||A_ref^-1 (b - b_ref)||. At the optimum b is
+    f32 evaluation noise (residuals of ~1e-3 rounded to ~1e-5 each): two
+    poses 1e-8 apart give gradients that differ as much as the gradient,
+    but the steps they ask for differ by ~1e-7, below the precision the
+    loop stops at."""
+    A = lin_ref.A[b].double().cpu().numpy()
+    d = (lin.b[b] - lin_ref.b[b]).double().cpu().numpy()
+    return float(np.linalg.norm(np.linalg.solve(A, d)))
+
+
+def _assert_level_matches_host_loop(ref, cur, K, T0, cfg):
+    """Mode (b) against the plain host loop on the same rows; returns the
+    kernel's stats and the rows whose paths part (at a tie)."""
+    before = (linearize.LAUNCHES_TRACK_LEVEL, linearize.LAUNCHES_LINEARIZE,
+              sampler.LAUNCHES)
+    T, fin, stats = dense_tracker.track_level(ref, cur, K, T0, cfg)
+    assert (linearize.LAUNCHES_TRACK_LEVEL - before[0],
+            linearize.LAUNCHES_LINEARIZE - before[1],
+            sampler.LAUNCHES - before[2]) == (1, 0, 0)
+    T_h, fin_h, stats_h = dense_tracker._track_level(
+        ref, cur, K, T0, cfg, linearize=linearize.linearize_batched_reference)
+    torch.cuda.synchronize()
+    assert (T - T_h).abs().max().item() <= 1e-5
+    (valid, err, dn, acc, term, its), (valid_h, err_h, dn_h, acc_h, term_h,
+                                        its_h) = (
+        [x.cpu().numpy() for x in (*s["per_iter"], s["iterations"])]
+        for s in (stats, stats_h))
+    if cfg.tdist_scale_warm_iters == 0:
+        # The record is the linearization at the level's pose (cold Sigma).
+        want = linearize.linearize_batched_reference(ref, cur, K, T, cfg)
+    parted = []
+    for b in range(T.shape[0]):
+        part = _parted(acc[b], acc_h[b], err[b], err_h[b], dn[b], dn_h[b],
+                       its[b], its_h[b], cfg.precision)
+        if part is not None:
+            assert part[1], (b, part, err[b], err_h[b])
+            parted.append(b)
+            continue
+        assert term[b] == term_h[b] and (valid[b] == valid_h[b]).all(), b
+        np.testing.assert_allclose(err[b], err_h[b], rtol=1e-4, atol=0.0)
+        np.testing.assert_allclose(dn[b], dn_h[b], rtol=0.0, atol=1e-5)
+        assert float(fin.n_raw[b]) == float(fin_h.n_raw[b])
+        if float(fin_h.n_raw[b]) < 6:
+            # Too few constraints: the record's A and b are (near) empty.
+            assert torch.equal(fin.A[b], fin_h.A[b]), b
+            assert torch.equal(fin.b[b], fin_h.b[b]), b
+            continue
+        A_h = fin_h.A[b].double().cpu().numpy()
+        scale = max(np.abs(A_h).max(), 1e-30)
+        assert np.abs(fin.A[b].double().cpu().numpy() - A_h).max() \
+            <= 1e-4 * scale, b
+        assert _step_apart(fin, fin_h, b) <= cfg.precision, b
+        if cfg.tdist_scale_warm_iters == 0:
+            assert float(fin.n_raw[b]) == float(want.n_raw[b])
+            a, w = fin.A[b], want.A[b]
+            assert (a - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+            assert _step_apart(fin, want, b) <= cfg.precision, b
+    return stats, parted
+
+
+@pytest.mark.parametrize("rows", ["B1", "B2_shared", "B2_paired",
+                                  "B8_shared", "B8_paired"])
+@pytest.mark.parametrize("level", [3, 2, 1])
+@pytest.mark.parametrize("name", sorted(LEVEL_CONFIGS))
+def test_track_level_kernel_matches_host_loop(cuda, orbit640, name, level,
+                                              rows):
+    cfg = TrackerConfig(**LEVEL_CONFIGS[name])
+    B, paired = int(rows[1]), rows.endswith("paired")
+    ref, cur, K, T0 = _level_batch(orbit640, cuda, B, paired, level, cfg)
+    stats, parted = _assert_level_matches_host_loop(ref, cur, K, T0, cfg)
+    assert (stats["iterations"] >= 2).all()
+    # At most one row or a quarter of the batch may part from the host
+    # loop's path, and only at a tie.
+    assert len(parted) <= max(1, B // 4), parted
+
+
+def test_track_level_kernel_without_shared_points(cuda, orbit640):
+    """Level 0 at 640x480 (307 200 points): the points do not fit in
+    shared memory, so every pass recomputes them; both modes still match
+    their plain versions."""
+    cfg = TrackerConfig(last_level=0, max_iterations=6)
+    ref, cur, K, T0 = _level_batch(orbit640, cuda, 1, False, 0, cfg)
+    C, P, stored, smem = linearize.level_plan(cuda, ref.px.shape[1])
+    assert (C, P, stored, smem) == (16, 19200, False, 0)
+    _assert_level_matches_host_loop(ref, cur, K, T0, cfg)
+    row = linearize.RefData(*(None if f is None else f[0] for f in ref))
+    _assert_fused_matches_plain(row, cur, K, T0[0], cfg)
+
+
+def test_track_level_kernel_is_deterministic(cuda, orbit640):
+    """20 repeated B = 8 level launches give the same bits."""
+    cfg = TrackerConfig(lm_lambda_init=1e-4)
+    ref, cur, K, T0 = _level_batch(orbit640, cuda, 8, True, 1, cfg)
+    first = [t.clone() for t in
+             linearize.track_level_kernels(ref, cur, K, T0, cfg)]
+    for _ in range(20):
+        again = linearize.track_level_kernels(ref, cur, K, T0, cfg)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_level_kernel_rows_stop_apart(cuda, orbit640):
+    """A row with all-NaN reference depth stops at its first iteration
+    with too few constraints, one launch for all rows; the others go on."""
+    cfg = TrackerConfig()
+    frames, poses = orbit640
+    nan_ref = [frames[0], (frames[1][0], np.full_like(frames[1][1], np.nan)),
+               *frames[2:]]
+    ref, cur, K, T0 = _level_batch((nan_ref, poses), cuda, 2, False, 2, cfg)
+    stats, _ = _assert_level_matches_host_loop(ref, cur, K, T0, cfg)
+    assert stats["iterations"].tolist()[1] == 1
+    assert int(stats["per_iter"][4][1]) == \
+        dense_tracker.TERM_TOO_FEW_CONSTRAINTS
+    assert int(stats["iterations"][0]) > 1
+
+
+def test_track_level_on_a_card_that_is_not_current(cuda, orbit640):
+    """Mode (b) on tensors on card 1 while card 0 is current: the cluster
+    attributes and the occupancy check are per card, and the launch runs
+    on the tensors' card and leaves the current card as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    second = torch.device("cuda", 1)
+    cfg = TrackerConfig()
+    ref, cur, K, T0 = _level_batch(orbit640, second, 2, False, 1, cfg)
+    with torch.cuda.device(cuda):
+        T, fin, stats = dense_tracker.track_level(ref, cur, K, T0, cfg)
+        assert torch.cuda.current_device() == cuda.index
+    T_h, _, stats_h = dense_tracker._track_level(
+        ref, cur, K, T0, cfg, linearize=linearize.linearize_batched_reference)
+    torch.cuda.synchronize(second)
+    assert T.device == second and fin.A.device == second
+    assert (T - T_h).abs().max().item() <= 1e-5
+    assert torch.equal(stats["iterations"], stats_h["iterations"])
+
+
+def test_refused_launch_raises(cuda, orbit640, monkeypatch):
+    """A launch the card refuses (here a cluster of 32 CTAs, past the
+    limit of 16) raises with the CUDA error; nothing falls back."""
+    cfg = TrackerConfig()
+    ref, cur, K, T0 = _level_batch(orbit640, cuda, 1, False, 3, cfg)
+    monkeypatch.setattr(linearize, "cluster_size", lambda N: 32)
+    before = linearize.LAUNCHES_TRACK_LEVEL
+    with pytest.raises(RuntimeError, match="dvo_track_level failed"):
+        dense_tracker.track_level(ref, cur, K, T0, cfg)
+    with pytest.raises(RuntimeError, match="dvo_linearize failed"):
+        linearize.linearize_batched(ref, cur, K, T0, cfg)
+    assert linearize.LAUNCHES_TRACK_LEVEL == before
