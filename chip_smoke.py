@@ -60,6 +60,15 @@ per batch row (the tracker's route on the card). Phases:
      and by batch size (mode (a) and the sampler: 0), the LM iterations
      each pose-graph solve ran, and two runs of the final graph solve
      (must be bit-identical);
+  5d. mode (b) at the validation batches B = 16 and 32 (up to
+     SlamConfig.validation_batch_max), one current slab per row of a noisy
+     640x480 orbit, per tracked level, against the plain host loop with
+     5a's gates; device us per launch;
+  5e. KeyframeSlam forced past resident_keyframes = 64 (a keyframe every
+     frame, 68 frames of the ring at 160x120, loop closure on): pyramids
+     evicted to pinned host memory and re-uploaded for validation; the run
+     must equal one whose budget holds every pyramid (keyframes, edges,
+     trajectory);
   6. the offline surface over bench/accuracy.py's full-scale protocol
      rendered with the freiburg-1 intrinsics (noisy 640x480 frames, two
      laps of a 0.5 m orbit, cut from 240 frames to 160; written as a TUM
@@ -90,6 +99,23 @@ per batch row (the tracker's route on the card). Phases:
      kernel, kernel, host): odometry (24 frames), SLAM (96 frames after
      32; both routes must give the same keyframes and graph edges, with a
      loop edge), offline (run_sequence, 96 frames of phase 6's sequence);
+  8. the chunked engine (ChunkedKeyframeSlam, default configs, loop
+     closure on) over 5b's loop in chunks of 16 with a depth-2
+     submit/collect pipeline, 160 warm-up frames then 160 timed: ms/frame,
+     submit host ms, keyframes, loop edges, ATE of finish() (< 5 mm),
+     level-kernel launches per frame by batch size; chunk 3's submit_chunk
+     under torch.cuda.set_sync_debug_mode("error") (must not raise);
+     against 5b's per-frame KeyframeSlam on the same frames: the same
+     keyframe timestamps and edge endpoints (outlier-pruning masks may
+     differ, see phase_chunked), trajectories within 1e-4 where the masks
+     agree;
+  9. the live node: node.serve on a unix socket in a thread and a client
+     streaming 96 ring frames at 640x480, as JAX bench.py's live modes do
+     (odometry and slam per frame, slam in chunks of 16 over the f32, raw
+     and raw12 wire encodings, and paced at 30 Hz with raw frames, per
+     frame and chunked): fps, pose latency p50 / p99 (send to arrival);
+     every session's finish() trajectory must equal the engine's direct
+     run on the same frames;
   4. profiles (after every host timing above: no profiler has run before
      them in the process): a few more frames of the odometry main path
      under torch.profiler through each route: busy and idle share, device
@@ -108,8 +134,9 @@ per batch row (the tracker's route on the card). Phases:
      device records and launches per frame.
 
 The line before the last is a JSON object describing each kernel (the
-cluster kernel's modes at B = 1, with the odometry path's launches, and
-at B = 2 and 8, with the SLAM path's); the last line is {"ok": true,
+cluster kernel's modes at B = 1, with the odometry path's launches, at
+B = 2 and 8, with the SLAM path's, and mode (b) at B = 2 with the chunked
+engine's); the last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -160,6 +187,21 @@ OFFLINE_PROFILED_FRAMES = 12
 # turns, each run shorter than its phase above.
 TURN_SLAM_WARMUP, TURN_SLAM_FRAMES = 32, 96
 TURN_OFFLINE_FRAMES = 96
+# 5d: validation batches past 5a's 8, up to SlamConfig.validation_batch_max.
+VALIDATION_BATCHES = (16, 32)
+# 5e: a keyframe every frame past SlamConfig.resident_keyframes (64), at
+# 160x120 (the eviction path does not depend on the width; the switch
+# frames' graph solves set the time).
+EVICT_FRAMES, EVICT_W, EVICT_H = 68, 160, 120
+# 8: the chunked engine, bench.py's --chunk default; chunk 3's submit runs
+# under set_sync_debug_mode("error").
+CHUNK, SYNC_CHUNK = 16, 3
+# 9: the live node, bench.py's live modes (its default is 400 frames).
+LIVE_FRAMES, LIVE_TIMEOUT_S = 96, 300.0
+LIVE_RUNS = (("odometry", 0, "f32", 0), ("slam", 0, "f32", 0),
+             ("slam", CHUNK, "f32", 0), ("slam", CHUNK, "raw", 0),
+             ("slam", CHUNK, "raw12", 0), ("slam", 0, "raw", 30),
+             ("slam", CHUNK, "raw", 30))
 CONFIGS = {
     "tdist": {},
     "photometric": {"use_depth": False},
@@ -1297,11 +1339,12 @@ def _bounds(cfg, L, B, d):
 
 
 def kernel_rows(cfg, levels, launches, dev_times, slam_launches,
-                level_pairs, batched):
+                level_pairs, batched, chunked_launches):
     """The kernels' JSON rows at the finest tracked level: the standalone
     sampler, and the cluster kernel's two modes at B = 1 (the odometry
-    main path's launches) and at the SLAM path's batch sizes (its
-    launches at that B)."""
+    main path's launches), at the SLAM path's batch sizes (its launches at
+    that B), and mode (b) at B = 2 on the chunked engine's scan (phase 8's
+    launches; the same launch as the SLAM path's B = 2 row, timed there)."""
     lvl = cfg.tracked_levels[-1]
     lin_err = max(max(x["r_err"], x["lin_abs_err"]) for x in levels.values())
     level_err = max([v["err"] for v in level_pairs.values()]
@@ -1336,6 +1379,13 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_launches,
             else by_b.get(("track_level", B), 0),
             level_err, d["track_level"], d["track_level plain"],
             d["bounds"]["track_level"], None)
+    d = dev_times[(2, lvl)]
+    row("track_level (mode b), batched B=2, chunked scan",
+        "dvo_slam_tpu_torch/csrc/linearize.cu",
+        "dvo_slam_tpu/ops/pallas/sampler.py:226",
+        chunked_launches["by B"].get(("track_level", 2), 0), level_err,
+        d["track_level"], d["track_level plain"], d["bounds"]["track_level"],
+        None)
     return rows
 
 
@@ -1848,6 +1898,384 @@ def phase_turns(device, odo_frames, slam_out, offline):
     return out
 
 
+def phase_validation_batches(device, cfg):
+    """5d: mode (b) at the validation batches past 5a's B = 8, up to
+    validation_batch_max = 32: B rows of a noisy 640x480 orbit, one current
+    slab per row, per tracked level, against the host loop over the plain
+    linearization with 5a's gates; device us per launch (CUDA events)."""
+    from functools import partial
+
+    import torch
+
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.ops import camera, linearize, pyramid
+    from dvo_slam_tpu_torch.utils import se3_np, synthetic
+
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K_TUPLE, device=device),
+                                   cfg.num_levels)
+    for B in VALIDATION_BATCHES:
+        poses = synthetic.orbit_trajectory(B + 1, radius=0.06)
+        rng = np.random.default_rng(5)
+        pyrs = [pyramid.build_pyramid(
+            *(torch.as_tensor(x, device=device)
+              for x in synthetic.add_sensor_noise(
+                  *scene.render(np.asarray(K_TUPLE), W, H, poses[k]), rng,
+                  dropout=0.02)), cfg.num_levels) for k in range(B + 1)]
+        T0 = torch.as_tensor(np.stack([
+            (se3_np.inverse(poses[b + 1]) @ poses[b])
+            @ se3_np.exp(rng.normal(scale=2e-3, size=6)) for b in range(B)]),
+            dtype=torch.float32, device=device)
+        for lvl in cfg.tracked_levels:
+            ref = linearize.prepare_reference(
+                torch.stack([p[lvl] for p in pyrs[:B]]), Ks[lvl], cfg)
+            cur = torch.stack([p[lvl] for p in pyrs[1:]])
+            key = ("track_level", B)
+            before = linearize.LAUNCHES_BY_BATCH.get(key, 0)
+            got = dense_tracker.track_level(ref, cur, Ks[lvl], T0, cfg)
+            if linearize.LAUNCHES_BY_BATCH.get(key, 0) - before != 1:
+                raise AssertionError(f"B={B}: not one level-kernel launch")
+            want = dense_tracker._track_level(
+                ref, cur, Ks[lvl], T0, cfg,
+                linearize=linearize.linearize_batched_reference)
+            d_T = (got[0] - want[0]).abs().max().item()
+            d_n = ((got[1].n_raw - want[1].n_raw).abs()
+                   / want[1].n_raw.clamp(min=1.0)).max().item()
+            us = _events_us(partial(linearize.track_level_kernels, ref, cur,
+                                    Ks[lvl], T0, cfg))
+            its = got[2]["iterations"]
+            print(f"phase 5d validation batch B={B} (one slab per row) level "
+                  f"{lvl}: track_level (mode b) vs host loop |dT| "
+                  f"{d_T:.2e} (tol 1e-3), final valid counts within "
+                  f"{d_n:.2e} (tol 1e-2); iterations {its.tolist()}; device "
+                  f"{us:.2f} us per launch (events), cluster size "
+                  f"{linearize.cluster_size(ref.px.shape[1])}")
+            if not (d_T <= 1e-3 and d_n <= 0.01):
+                raise AssertionError(f"B={B} level {lvl}: track_level vs "
+                                     f"host loop |dT| {d_T}, valid {d_n}")
+
+
+def phase_eviction(device):
+    """5e: KeyframeSlam forced past resident_keyframes = 64 (a keyframe
+    every frame, EVICT_FRAMES frames of the ring at EVICT_W x EVICT_H, loop
+    closure on): the oldest pyramids spill to pinned host memory and
+    re-upload for validation. The run must equal one whose budget holds
+    every pyramid: the same keyframes and edges, the same trajectory."""
+    import torch
+
+    from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig, TrackerConfig
+    from dvo_slam_tpu_torch.utils import synthetic
+
+    K = (525.0 * EVICT_W / 640.0, 525.0 * EVICT_H / 480.0,
+         (EVICT_W - 1) / 2.0, (EVICT_H - 1) / 2.0)
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    ring = synthetic.orbit_trajectory(RING + 1, radius=0.06)[:RING]
+    frames = synthetic.render_sequence(scene, np.asarray(K), EVICT_W, EVICT_H,
+                                       ring)
+    cfg = TrackerConfig(num_levels=3, first_level=2, last_level=0)
+    out = {}
+    for resident in (64, 256):
+        slam = KeyframeSlam(K, cfg, SlamConfig(resident_keyframes=resident),
+                            device=device)
+        slam.init()
+        t0 = time.perf_counter()
+        for k in range(EVICT_FRAMES):
+            if k > 0:
+                slam.force_keyframe()
+            slam.update(*frames[k % RING], k / 30.0)
+        traj = np.stack([T for _, T in slam.finish()])
+        torch.cuda.synchronize()
+        out[resident] = (slam, traj, time.perf_counter() - t0)
+    (small, traj_s, s_s), (large, traj_l, s_l) = out[64], out[256]
+    evicted = sum(not k.resident for k in small.keyframes)
+    diff = float(np.abs(traj_s - traj_l).max())
+    same = _loop_graph(small) == _loop_graph(large)
+    print(f"phase 5e eviction: {EVICT_FRAMES} keyframes at {EVICT_W}x"
+          f"{EVICT_H}, resident_keyframes 64: {evicted} pyramids evicted, "
+          f"validation cache {small.validation_cache_stats}; against "
+          f"resident_keyframes 256 (none evicted: "
+          f"{all(k.resident for k in large.keyframes)}): keyframes and edges "
+          f"{'identical' if same else 'differ'} (loop edges "
+          f"{small.num_loop_edges}), max trajectory difference {diff:.3e}; "
+          f"{s_s:.1f} s / {s_l:.1f} s")
+    if not (len(small.keyframes) == EVICT_FRAMES and evicted > 0 and same
+            and small.validation_cache_stats["misses"] > 0
+            and small.num_loop_edges >= 1 and diff <= 1e-6):
+        raise AssertionError("the evicting SLAM run differs from the "
+                             "resident one")
+
+
+def _chunks(frames, n, t_base):
+    """bench.py's slam-lc loop in chunks of CHUNK frames: the ring over and
+    over, timestamps t_base + k / 30."""
+    for c in range(n // CHUNK):
+        sel = [frames[(c * CHUNK + j) % len(frames)] for j in range(CHUNK)]
+        yield (c, np.stack([s[0] for s in sel]), np.stack([s[1] for s in sel]),
+               [t_base + (c * CHUNK + j) / 30.0 for j in range(CHUNK)])
+
+
+def phase_chunked(device, slam_out):
+    """8: ChunkedKeyframeSlam over 5b's loop (640x480, default configs,
+    loop closure on) in chunks of CHUNK frames, force_keyframe() before
+    every chunk but the first (5b's every FORCE_EVERY frames), with a
+    depth-2 submit/collect pipeline: SLAM_FRAMES warm-up frames on one
+    instance, then SLAM_FRAMES timed on a fresh one (the launch counts
+    reset just before and read just after). The submit of chunk SYNC_CHUNK
+    runs under torch.cuda.set_sync_debug_mode("error"). Against 5b's
+    per-frame KeyframeSlam over the same frames: the same keyframe
+    timestamps and graph edges, trajectories within 1e-4."""
+    import torch
+
+    from dvo_slam_tpu_torch import SlamConfig, TrackerConfig
+    from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
+    from dvo_slam_tpu_torch.utils import evaluate
+
+    frames = slam_out["frames"]
+    _, poses = _ring()
+
+    def run(t_base, timed):
+        slam = ChunkedKeyframeSlam(K_TUPLE, TrackerConfig(), SlamConfig(),
+                                   enable_loop_closure=True, device=device)
+        slam.init()
+        in_flight, submit_ms = 0, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c, ii, zz, ts in _chunks(frames, SLAM_FRAMES, t_base):
+            if c > 0:
+                slam.force_keyframe()
+            t_s = time.perf_counter()
+            if timed and c == SYNC_CHUNK:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    slam.submit_chunk(ii, zz, ts)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            else:
+                slam.submit_chunk(ii, zz, ts)
+            submit_ms.append(1e3 * (time.perf_counter() - t_s))
+            in_flight += 1
+            if in_flight == 2:
+                slam.collect_chunk()
+                in_flight -= 1
+        while in_flight:
+            slam.collect_chunk()
+            in_flight -= 1
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / SLAM_FRAMES
+        return slam, ms, submit_ms
+
+    run(0.0, False)
+    _reset_launches()
+    slam, ms, submit_ms = run(100.0, True)
+    launches = _launches()
+    traj = slam.finish()
+    est = [T for _, T in traj]
+    ate = evaluate.ate_rmse(est, [poses[k % RING] for k in range(SLAM_FRAMES)])
+    ref = slam_out["slam"]
+    ref_traj = ref.trajectory()
+    kf_t = [k.timestamp for k in slam.keyframes]
+    ref_kf_t = [k.timestamp for k in ref.keyframes]
+    edges, ref_edges = _loop_graph(slam)[1], _loop_graph(ref)[1]
+    diff = max(float(np.abs(a - b).max())
+               for (_, a), (_, b) in zip(traj, ref_traj))
+    by_b = {b: n / SLAM_FRAMES for (kind, b), n in launches["by B"].items()
+            if kind == "track_level"}
+    print(f"phase 8 chunked engine: {SLAM_FRAMES} frames {W}x{H} in chunks "
+          f"of {CHUNK} (depth-2 pipeline) after {SLAM_FRAMES} warm-up "
+          f"frames on another instance: {ms:.3f} ms/frame "
+          f"({1e3 / ms:.2f} fps; 5b per-frame {slam_out['ms_frame']:.3f}); "
+          f"submit_chunk host ms median {np.median(submit_ms):.3f}, max "
+          f"{max(submit_ms):.3f}; keyframes {len(slam.keyframes)}, loop "
+          f"edges {slam.num_loop_edges}; ATE of finish() {1e3 * ate:.4f} mm")
+    print(f"phase 8 launches: track_level {launches['track_level']} "
+          f"({launches['track_level'] / SLAM_FRAMES:.2f} per frame), per "
+          f"frame by batch size {by_b}, linearize {launches['linearize']}, "
+          f"standalone sampler {launches['sample_slab']}; chunk "
+          f"{SYNC_CHUNK}'s submit_chunk under set_sync_debug_mode(\"error\"):"
+          f" no synchronizing call")
+    # Outlier pruning judges the loop edges when a graph solve is applied:
+    # the per-frame engine applies it at the next frame, the chunked one at
+    # the next chunk's collect (as in the JAX package), so an edge's mask
+    # may differ; its endpoints may not.
+    ends = [e[:2] for e in edges] == [e[:2] for e in ref_edges]
+    masks = [e for e, r in zip(edges, ref_edges) if e[2] != r[2]]
+    print(f"phase 8 against 5b's per-frame KeyframeSlam on the same frames: "
+          f"keyframe timestamps {'identical' if kf_t == ref_kf_t else 'differ'}"
+          f" ({len(kf_t)} / {len(ref_kf_t)}), graph edges "
+          f"{'identical' if edges == ref_edges else 'differ'} ({len(edges)} "
+          f"edges; endpoints {'identical' if ends else 'differ'}, masks "
+          f"differ at {[e[:2] for e in masks]}), max trajectory difference "
+          f"{diff:.3e} (tol 1e-4 where the masks agree)")
+    if not ate < ATE_LIMIT_M:
+        raise AssertionError(f"chunked SLAM ATE {ate} m >= {ATE_LIMIT_M} m")
+    if slam.num_loop_edges < 1:
+        raise AssertionError("the chunked engine accepted no loop edge")
+    if kf_t != ref_kf_t or not ends or (not masks and not diff <= 1e-4):
+        raise AssertionError("the chunked and per-frame engines differ")
+    if (launches["track_level"] == 0 or launches["linearize"] != 0
+            or launches["sample_slab"] != 0):
+        raise AssertionError(f"chunked path launches {launches}")
+    return {"launches": launches, "ms_frame": ms}
+
+
+def _live_frames(frames, enc):
+    """The ring in a wire encoding: f32, raw (u8 + u16 ticks) or raw12 (u8
+    + 12-bit-packed ticks), as bench.py's live modes send it."""
+    from dvo_slam_tpu_torch.ops.pyramid import pack_depth12
+
+    if enc == "f32":
+        return frames
+    out = []
+    for ii, zz in frames:
+        raw_z = np.nan_to_num(zz * 5000.0, nan=0.0).astype(np.uint16)
+        out.append((np.clip(ii, 0, 255).astype(np.uint8),
+                    pack_depth12(raw_z) if enc == "raw12" else raw_z))
+    return out
+
+
+def _live_session(device, mode, chunk, send_frames, enc, rate):
+    """bench.py's _bench_live: serve() on a unix socket in a thread, a
+    client streams LIVE_FRAMES frames of the ring (paced at rate Hz, or
+    unpaced), one reader thread timestamps every pose message; latency =
+    arrival - send of the frame with the same timestamp. Returns (seconds
+    from the first send to the trajectory, pose messages, trajectory,
+    latencies)."""
+    import json as json_mod
+    import tempfile
+    import threading
+
+    from dvo_slam_tpu_torch import SlamConfig, TrackerConfig, node
+
+    path = tempfile.mktemp(suffix=".dvo.sock")
+    server = threading.Thread(target=node.serve, args=(path, K_TUPLE), kwargs=dict(
+        tracker_cfg=TrackerConfig(), slam_cfg=SlamConfig(), mode=mode,
+        unix=True, max_sessions=1, chunk=chunk, stall_timeout=60.0,
+        device=device), daemon=True)
+    server.start()
+    client = None
+    for _ in range(400):
+        try:
+            client = node.StreamClient.connect_unix(path)
+            break
+        except (FileNotFoundError, ConnectionRefusedError):
+            time.sleep(0.05)
+    if client is None:
+        raise AssertionError("the node did not come up")
+    client.sock.settimeout(LIVE_TIMEOUT_S)
+    recv = []
+
+    def reader():
+        while True:
+            line = client._rfile.readline()
+            if not line:
+                return
+            msg = json_mod.loads(line)
+            recv.append((time.perf_counter(), msg))
+            if "trajectory" in msg:
+                return
+
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    send_t = {}
+    period = 1.0 / rate if rate else 0.0
+    t0 = time.perf_counter()
+    for i in range(LIVE_FRAMES):
+        if period:
+            due = t0 + i * period
+            now = time.perf_counter()
+            if due > now:
+                time.sleep(due - now)
+        ii, zz = send_frames[i % len(send_frames)]
+        ts = 100.0 + i / 30.0
+        send_t[ts] = time.perf_counter()
+        client.send_frame_nowait(ts, ii, zz, enc=enc)
+    client.sock.sendall(b'{"cmd": "finish"}\n')
+    th.join(timeout=LIVE_TIMEOUT_S)
+    server.join(timeout=LIVE_TIMEOUT_S)
+    client.close()
+    if not recv or "trajectory" not in recv[-1][1] or server.is_alive():
+        raise AssertionError(f"live {mode} chunk {chunk} {enc}: no "
+                             "trajectory reply")
+    poses = [m for _, m in recv if "pose" in m]
+    lat = sorted(at - send_t[m["t"]] for at, m in recv if "pose" in m)
+    return recv[-1][0] - t0, poses, recv[-1][1]["trajectory"], lat
+
+
+def _direct(device, mode, chunk, send_frames):
+    """The node's engine run directly on the frames the session sent
+    (chunked: benchmark's depth-2 submit/collect loop, as the node runs
+    it): the trajectory, (t, 4x4) pairs."""
+    from dvo_slam_tpu_torch import SlamConfig, TrackerConfig, benchmark
+    from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
+    from dvo_slam_tpu_torch.models.keyframe_tracker import KeyframeSlam
+    from dvo_slam_tpu_torch.models.odometry import OdometryTracker
+
+    stream = [(100.0 + i / 30.0, *send_frames[i % len(send_frames)])
+              for i in range(LIVE_FRAMES)]
+    if mode == "odometry":
+        engine = OdometryTracker(K_TUPLE, TrackerConfig(), device=device)
+        engine.init()
+        for t, ii, zz in stream:
+            engine.update(ii, zz, t)
+        return engine.trajectory
+    cls = ChunkedKeyframeSlam if chunk else KeyframeSlam
+    engine = cls(K_TUPLE, TrackerConfig(), SlamConfig(),
+                 enable_loop_closure=(mode == "slam"), device=device)
+    engine.init()
+    if chunk:
+        benchmark._run_chunked(engine, iter(stream), chunk)
+    else:
+        for t, ii, zz in stream:
+            engine.update(ii, zz, t)
+    return engine.finish()
+
+
+def phase_live(device, slam_out):
+    """9: the live node (node.serve) over a unix socket, as JAX bench.py's
+    live modes drive it, LIVE_FRAMES frames of the 640x480 ring a session:
+    the runs of LIVE_RUNS (mode, chunk, wire encoding, rate; rate 0 =
+    unpaced), after one warm-up session. Each prints fps (first send to
+    the trajectory reply) and pose latency p50 / p99; each session's pose
+    messages (one a frame, in order) and finish() trajectory are checked,
+    the trajectory against the engine's direct run on the same frames
+    (within 1e-6)."""
+    from dvo_slam_tpu_torch.utils import evaluate
+
+    frames = slam_out["frames"]
+    _, poses = _ring()
+    gt = [poses[k % RING] for k in range(LIVE_FRAMES)]
+    _live_session(device, "slam", CHUNK, frames, "f32", 0)  # warm-up
+    out = {}
+    for mode, chunk, enc, rate in LIVE_RUNS:
+        send = _live_frames(frames, enc)
+        elapsed, msgs, traj, lat = _live_session(device, mode, chunk, send,
+                                                 enc, rate)
+        direct = _direct(device, mode, chunk, send)
+        ts = [100.0 + i / 30.0 for i in range(LIVE_FRAMES)]
+        est = [np.asarray(e["pose"]).reshape(4, 4) for e in traj]
+        diff = max(float(np.abs(a - np.asarray(b)).max())
+                   for a, (_, b) in zip(est, direct))
+        ate = evaluate.ate_rmse(est, gt)
+        p50, p99 = (1e3 * lat[len(lat) // 2],
+                    1e3 * lat[min(len(lat) - 1, int(len(lat) * 0.99))])
+        n_kf = sum(bool(m.get("keyframe")) for m in msgs)
+        print(f"phase 9 live {mode} chunk={chunk} enc={enc} "
+              f"rate={rate or 'unpaced'}: {LIVE_FRAMES / elapsed:.2f} fps "
+              f"({1e3 * elapsed / LIVE_FRAMES:.3f} ms/frame, first send to "
+              f"the trajectory); pose latency p50 {p50:.2f} ms, p99 "
+              f"{p99:.2f} ms; {len(msgs)} pose messages, {n_kf} keyframe "
+              f"flags; ATE {1e3 * ate:.4f} mm; finish() against the "
+              f"engine's direct run: max difference {diff:.3e}")
+        if ([m["t"] for m in msgs] != ts or [e["t"] for e in traj] != ts
+                or not diff <= 1e-6
+                or (mode != "odometry" and not ate < ATE_LIMIT_M)):
+            raise AssertionError(f"live {mode} chunk {chunk} {enc}: the "
+                                 "session's result is wrong")
+        out[(mode, chunk, enc, rate)] = {"fps": LIVE_FRAMES / elapsed,
+                                         "p50": p50, "p99": p99}
+    return out
+
+
 def main():
     import torch
 
@@ -1862,11 +2290,21 @@ def main():
     launches, _, frames, _ = phase_main_path(device)
     slam_out = phase_slam(device)
     t0 = time.perf_counter()
+    phase_validation_batches(device, cfg)
+    phase_eviction(device)
+    print(f"phases 5d-5e took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     offline = phase_offline(device)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_turns(device, frames, slam_out, offline)
     print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    chunked = phase_chunked(device, slam_out)
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_live(device, slam_out)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     # Profiles only from here on.
     for host in (True, False):
         phase_profile(device, frames, host)
@@ -1877,7 +2315,7 @@ def main():
         phase_offline_profile(offline, device, host)
     print(json.dumps({"kernels": kernel_rows(
         cfg, levels, launches, dev_times, slam_out["launches"], level_pairs,
-        batched)}))
+        batched, chunked["launches"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

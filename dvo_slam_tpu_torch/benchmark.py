@@ -8,7 +8,8 @@ against groundtruth and engine frames per second as the JAX package's
 ``BenchmarkResult`` JSON line. Also runs on the synthetic orbit.
 
 Everything runs on ``device`` ("cuda" unless the caller asks for "cpu").
-Only the per-frame engines are ported: ``chunk_size`` raises.
+``chunk_size`` runs the keyframe modes through the chunked engine
+(models/chunked_slam.py) with a depth-2 submit/collect pipeline.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional
 import numpy as np
 
 from dvo_slam_tpu_torch.config import SlamConfig, TrackerConfig
+from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
 from dvo_slam_tpu_torch.models.keyframe_tracker import KeyframeSlam
 from dvo_slam_tpu_torch.models.odometry import OdometryTracker
 from dvo_slam_tpu_torch.utils import checkpoint, evaluate, tum
@@ -66,11 +68,60 @@ def _relaxed_warm_cfg(slam_cfg: SlamConfig) -> SlamConfig:
     )
 
 
-def _check_chunk_size(chunk_size):
-    if chunk_size is not None:
-        raise NotImplementedError(
-            "chunk_size: the chunked engine (models/chunked_slam.py) is not "
-            "ported; ROADMAP lists it as A10")
+def _warm_chunked(head, K, tracker_cfg, slam_cfg, mode, chunk_size,
+                  device):
+    """The chunked engine's warm-up: a separate instance runs chunks of the
+    warm-up frames through the scan, two forced switches (window and graph
+    solves, the validation batch in slam mode) and the final solve."""
+    def chunk(n, t0):
+        sel = [head[i % len(head)] for i in range(n)]
+        return (np.stack([f[1] for f in sel]), np.stack([f[2] for f in sel]),
+                [t0 + i / 30.0 for i in range(n)])
+
+    warm = ChunkedKeyframeSlam(K, tracker_cfg, _relaxed_warm_cfg(slam_cfg),
+                               enable_loop_closure=(mode == "slam"),
+                               device=device)
+    warm.init()
+    warm.update_chunk(*chunk(1, 0.0))  # the init frame
+    warm.update_chunk(*chunk(chunk_size, 1.0))
+    for t0 in (2.0, 3.0):
+        warm.force_keyframe()
+        warm.update_chunk(*chunk(chunk_size, t0))
+    warm.finish()
+
+
+def _run_chunked(slam, stream, chunk_size):
+    """Feed the stream to the chunked engine in chunks of chunk_size with
+    a depth-2 submit/collect pipeline (chunk k+1 is submitted before chunk
+    k is collected). Returns (frames, engine seconds): each submit and
+    collect on the host clock, the stream's decode excluded."""
+    elapsed = 0.0
+    num_frames = 0
+    buf = []
+    in_flight = 0
+    for frame in itertools.chain(stream, [None]):
+        if frame is not None:
+            buf.append(frame)
+            if len(buf) < chunk_size:
+                continue
+        if not buf:
+            continue
+        t0 = time.perf_counter()
+        slam.submit_chunk(np.stack([f[1] for f in buf]),
+                          np.stack([f[2] for f in buf]),
+                          [f[0] for f in buf])
+        in_flight += 1
+        if in_flight == 2:
+            slam.collect_chunk()
+            in_flight -= 1
+        elapsed += time.perf_counter() - t0
+        num_frames += len(buf)
+        buf = []
+    t0 = time.perf_counter()
+    while in_flight:
+        slam.collect_chunk()
+        in_flight -= 1
+    return num_frames, elapsed + time.perf_counter() - t0
 
 
 def run_sequence(
@@ -122,11 +173,20 @@ def run_sequence(
     region. The sequence is consumed as a stream: only a 2-frame warm-up
     buffer is held.
 
-    chunk_size: not ported (raises NotImplementedError).
+    chunk_size: slam/keyframe modes — run the chunked engine
+    (models/chunked_slam.py: one chunk of frames issued with no host sync
+    between its frames, one read-back per chunk) with a depth-2
+    submit/collect pipeline. Checkpoints written here carry the scan
+    state and resume only with chunk_size set (and vice versa).
     """
-    _check_chunk_size(chunk_size)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "odometry" and chunk_size:
+        # The chunked front-end is a keyframe-SLAM engine: running the
+        # per-frame odometry here would report fps of a path never run.
+        raise ValueError(
+            "chunk_size applies to the keyframe engines (mode='slam'/"
+            "'keyframe'); plain odometry has no chunked path")
     it = iter(frame_iter)
     head = list(itertools.islice(it, 2))  # warm-up buffer
     if not head:
@@ -162,21 +222,26 @@ def run_sequence(
         if covariance_out:
             _write_covariances(covariance_out, odo.covariances)
     else:
+        engine = ChunkedKeyframeSlam if chunk_size else KeyframeSlam
         if resume:
             slam = checkpoint.load_slam(
                 resume, K, tracker_cfg, slam_cfg,
-                enable_loop_closure=(mode == "slam"), device=device,
+                enable_loop_closure=(mode == "slam"),
+                chunked=bool(chunk_size), device=device,
             )
             slam.collect_covariance = covariance_out is not None
         else:
-            slam = KeyframeSlam(
+            slam = engine(
                 K, tracker_cfg, slam_cfg,
                 enable_loop_closure=(mode == "slam"),
                 collect_covariance=covariance_out is not None,
                 device=device,
             )
             slam.init(t0_pose)
-        if warmup and len(head) >= 2:
+        if warmup and len(head) >= 2 and chunk_size:
+            _warm_chunked(head, K, tracker_cfg, slam_cfg, mode, chunk_size,
+                          device)
+        elif warmup and len(head) >= 2:
             warm = KeyframeSlam(K, tracker_cfg, _relaxed_warm_cfg(slam_cfg),
                                 enable_loop_closure=(mode == "slam"),
                                 device=device)
@@ -189,11 +254,14 @@ def run_sequence(
             warm.force_keyframe()
             warm.update(i1, d1, 3 / 30.0)  # 3rd keyframe: validation batch
             warm.finish()  # the final solve
-        for ts, intensity, depth in stream:
-            t_f = time.perf_counter()
-            slam.update(intensity, depth, ts)
-            elapsed += time.perf_counter() - t_f
-            num_frames += 1
+        if chunk_size:
+            num_frames, elapsed = _run_chunked(slam, stream, chunk_size)
+        else:
+            for ts, intensity, depth in stream:
+                t_f = time.perf_counter()
+                slam.update(intensity, depth, ts)
+                elapsed += time.perf_counter() - t_f
+                num_frames += 1
         if checkpoint_out:
             checkpoint.save_slam(checkpoint_out, slam)
         traj = slam.finish()
@@ -262,7 +330,6 @@ def run_tum_dataset(
     intrinsics default to ``camera.TUM_FR1``."""
     from dvo_slam_tpu_torch.ops import camera
 
-    _check_chunk_size(chunk_size)
     ds = tum.TumDataset(dataset_dir)
     K = intrinsics or camera.TUM_FR1
     n = len(ds) if max_frames is None else min(max_frames, len(ds))
@@ -272,7 +339,7 @@ def run_tum_dataset(
         groundtruth=gt, mode=mode, trajectory_out=trajectory_out,
         covariance_out=covariance_out,
         checkpoint_out=checkpoint_out, resume=resume,
-        graph_out=graph_out, device=device,
+        chunk_size=chunk_size, graph_out=graph_out, device=device,
     )
 
 
@@ -290,7 +357,6 @@ def run_synthetic(
     """Benchmark on the exact-geometry synthetic orbit sequence."""
     from dvo_slam_tpu_torch.utils import synthetic
 
-    _check_chunk_size(chunk_size)
     K = (width * 0.8, width * 0.8, (width - 1) / 2.0, (height - 1) / 2.0)
     scene = synthetic.two_plane_scene()
     poses = synthetic.orbit_trajectory(num_frames, radius=0.06)
@@ -300,5 +366,5 @@ def run_synthetic(
     return run_sequence(
         frame_iter, K, tracker_cfg, slam_cfg,
         groundtruth=poses, mode=mode, trajectory_out=trajectory_out,
-        device=device,
+        chunk_size=chunk_size, device=device,
     )

@@ -7,6 +7,10 @@ Replaces the reference's executable surface (SURVEY.md §3):
                        odometry, offline over a dataset)
   * `slam`           — dvo_ros/dvo_slam camera_keyframe_tracker
   * `synthetic`      — self-contained benchmark on rendered scenes
+  * `live`           — dvo_ros camera_keyframe_tracker / camera_tracker:
+                       the streaming node over a socket (node.py)
+  * `viz`            — the rviz stand-in: subscribe to a running `live`
+                       node's pose feed and render it
   * `evaluate`       — TUM evaluate_ate/evaluate_rpe equivalents
   * `optimize-graph` — the g2o CLI optimizer on a .g2o file
 
@@ -108,6 +112,12 @@ def _parser():
             p.add_argument("--resume", default=None,
                            help="resume from a checkpoint (.npz) and "
                                 "continue over the dataset frames")
+            p.add_argument("--chunk-size", type=int, default=None,
+                           help="chunked device-resident front-end: N "
+                                "frames issued with no host sync between "
+                                "them, one read-back per chunk (full "
+                                "feature parity incl. the windowed "
+                                "local-map solve)")
             p.add_argument("--graph-out", default=None,
                            help="write the final pose graph as .g2o "
                                 "(inspectable with g2o_viewer / the "
@@ -124,9 +134,65 @@ def _parser():
     p.add_argument("--mode", default="slam",
                    choices=["slam", "keyframe", "odometry"])
     p.add_argument("--trajectory-out", default=None)
+    p.add_argument("--chunk-size", type=int, default=None,
+                   help="run through the chunked device-resident front-end")
     _add_tracker_args(p)
     _add_slam_args(p)
     _add_device_arg(p)
+
+    p = sub.add_parser(
+        "live",
+        help="streaming SLAM/odometry node over a socket (dvo_ros "
+             "camera_keyframe_tracker / camera_tracker equivalent)",
+    )
+    p.add_argument("--tcp", type=int, default=None,
+                   help="TCP port to listen on")
+    p.add_argument("--unix", default=None, help="unix socket path to listen on")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--mode", default="slam",
+                   choices=["slam", "keyframe", "odometry"])
+    p.add_argument("--fr", type=int, default=1, choices=[1, 2, 3])
+    p.add_argument("--intrinsics", type=float, nargs=4, default=None,
+                   metavar=("FX", "FY", "CX", "CY"))
+    p.add_argument("--covariance", action="store_true",
+                   help="include per-frame 6x6 covariance in pose messages")
+    p.add_argument("--max-sessions", type=int, default=None)
+    p.add_argument("--viz-out", default=None,
+                   help="drive a live-updating visualizer in-process "
+                        "(trajectory.png/.txt re-rendered as frames arrive)")
+    p.add_argument("--publish-clouds", action="store_true",
+                   help="attach downsampled keyframe point clouds to the "
+                        "pose feed (remote `viz` renders the live map - "
+                        "the PCL point-cloud topic equivalent)")
+    p.add_argument("--chunk", type=int, default=0,
+                   help="latency/throughput knob: buffer N frames and run "
+                        "them through the chunked device-resident engine "
+                        "(pose messages arrive in bursts up to 2N frames "
+                        "late). 0 = per-frame")
+    p.add_argument("--stage-eager", action="store_true",
+                   help="chunked sessions upload each frame on arrival "
+                        "instead of one upload per chunk")
+    p.add_argument("--stall-timeout", type=float, default=60.0,
+                   help="publish a {\"event\": \"stall\"} pose-feed "
+                        "message when one engine call runs longer than "
+                        "this many seconds (warn-only; 0 disables; keep "
+                        "it above the first call's kernel build)")
+    _add_tracker_args(p)
+    _add_slam_args(p)
+    _add_device_arg(p)
+
+    p = sub.add_parser(
+        "viz",
+        help="live remote trajectory viewer (rviz equivalent): subscribe "
+             "to a running `live` node's pose feed",
+    )
+    p.add_argument("--tcp", type=int, default=None,
+                   help="TCP port of the node")
+    p.add_argument("--unix", default=None, help="unix socket path of the node")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--out", required=True, help="output directory")
+    p.add_argument("--snapshot-every", type=int, default=25)
+    p.add_argument("--max-poses", type=int, default=None)
 
     p = sub.add_parser("evaluate")
     p.add_argument("estimated", help="TUM-format trajectory file")
@@ -222,10 +288,59 @@ def _optimize_graph(args) -> int:
     return 0
 
 
+def _address(args):
+    if args.unix:
+        return args.unix, True
+    return (args.host, args.tcp or 7447), False
+
+
+def _viz(args) -> int:
+    from dvo_slam_tpu_torch import node
+    from dvo_slam_tpu_torch.utils.visualization import (
+        LiveTrajectoryVisualizer,
+    )
+
+    viz = LiveTrajectoryVisualizer(args.out,
+                                   snapshot_every=args.snapshot_every)
+    address, unix = _address(args)
+    n = node.view(address, viz, unix=unix, max_poses=args.max_poses)
+    print(f"viewed {n} poses -> {args.out}", file=sys.stderr)
+    return 0
+
+
+def _live(args, tracker_cfg, slam_cfg) -> int:
+    from dvo_slam_tpu_torch import node
+    from dvo_slam_tpu_torch.ops import camera
+
+    if args.intrinsics is not None:
+        K = tuple(args.intrinsics)
+    else:
+        K = {1: camera.TUM_FR1, 2: camera.TUM_FR2, 3: camera.TUM_FR3}[args.fr]
+    address, unix = _address(args)
+    viz = None
+    if args.viz_out:
+        from dvo_slam_tpu_torch.utils.visualization import (
+            LiveTrajectoryVisualizer,
+        )
+
+        viz = LiveTrajectoryVisualizer(args.viz_out)
+    print(f"listening on {address} mode={args.mode} device={args.device}",
+          file=sys.stderr)
+    node.serve(address, K, tracker_cfg, slam_cfg, mode=args.mode,
+               with_covariance=args.covariance, unix=unix,
+               max_sessions=args.max_sessions, visualizer=viz,
+               publish_clouds=args.publish_clouds, chunk=args.chunk,
+               stage_eagerly=args.stage_eager,
+               stall_timeout=args.stall_timeout, device=args.device)
+    return 0
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     if args.command == "evaluate":
         return _evaluate(args)
+    if args.command == "viz":
+        return _viz(args)
 
     import torch
 
@@ -242,11 +357,14 @@ def main(argv=None):
 
     tracker_cfg = _tracker_cfg(args)
     slam_cfg = _slam_cfg(args)
+    if args.command == "live":
+        return _live(args, tracker_cfg, slam_cfg)
     if args.command == "synthetic":
         res = benchmark.run_synthetic(
             num_frames=args.frames, width=args.width, height=args.height,
             tracker_cfg=tracker_cfg, slam_cfg=slam_cfg, mode=args.mode,
-            trajectory_out=args.trajectory_out, device=args.device,
+            trajectory_out=args.trajectory_out, chunk_size=args.chunk_size,
+            device=args.device,
         )
     else:
         K = {1: camera.TUM_FR1, 2: camera.TUM_FR2, 3: camera.TUM_FR3}[args.fr]
@@ -257,6 +375,7 @@ def main(argv=None):
             covariance_out=args.covariance_out,
             checkpoint_out=getattr(args, "checkpoint_out", None),
             resume=getattr(args, "resume", None),
+            chunk_size=getattr(args, "chunk_size", None),
             graph_out=getattr(args, "graph_out", None),
             device=args.device,
         )

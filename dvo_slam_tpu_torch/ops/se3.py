@@ -48,11 +48,12 @@ def _eye3_like(W):
 
 
 def _homogeneous(R, t):
-    """(..., 3, 3), (..., 3) -> (..., 4, 4) with bottom row [0, 0, 0, 1]."""
+    """(..., 3, 3), (..., 3) -> (..., 4, 4) with bottom row [0, 0, 0, 1].
+    The row is made on the device: writing a Python 1.0 into a CUDA tensor
+    copies it from the host, a synchronizing copy."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    out = torch.nn.functional.pad(top, (0, 0, 0, 1))
-    out[..., 3, 3] = 1.0
-    return out
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3]
+    return torch.cat([top, bottom.expand(*top.shape[:-2], 1, 4)], dim=-2)
 
 
 def exp(xi):

@@ -7,37 +7,39 @@ keyframe poses/metadata and pyramids, per-frame records, the pending
 local-map window, tracking state) saves to one .npz in the JAX package's
 format (version 3: the same keys, shapes and dtypes), so a file written by
 either package resumes in the other. Keyframe pyramids are (6, H, W) f32
-per level in both.
-
-Only the per-frame engine is ported: a checkpoint of the JAX package's
-chunked engine (``engine_chunked``), and ``chunked=True``, raise
-NotImplementedError (models/chunked_slam.py is not ported).
+per level in both. A chunked engine (models/chunked_slam.py) also saves
+its scan carry (``carry_*``), so a chunked checkpoint of either package
+resumes in the other's chunked engine.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _FORMAT_VERSION = 3
-_NOT_PORTED = ("the chunked engine (models/chunked_slam.py) is not ported; "
-               "ROADMAP lists it as A10")
+_CARRY_STATE = ("T_kf_prev", "last_odo", "H_first", "has_first")
 
 
 def save_slam(path: str, slam) -> None:
     """Serialize a models.keyframe_tracker.KeyframeSlam to .npz at exactly
     `path` (whatever its extension)."""
     from dvo_slam_tpu_torch.convert import to_numpy
+    from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
     from dvo_slam_tpu_torch.models.keyframe_tracker import KeyframeSlam
 
     if not isinstance(slam, KeyframeSlam):
         raise TypeError(f"save_slam takes a KeyframeSlam, got {type(slam)}")
+    chunked = isinstance(slam, ChunkedKeyframeSlam)
+    if chunked:
+        slam._drain_chunks()  # walk submitted chunks
     # Land every in-flight device result (window refinement, loop-closure
     # validation, async graph solve) in one combined transfer.
     slam._drain_device_reads()
     num_levels = slam.tracker_cfg.num_levels
     data = {
         "version": np.asarray(_FORMAT_VERSION),
-        "engine_chunked": np.asarray(False),
+        "engine_chunked": np.asarray(chunked),
         "num_levels": np.asarray(num_levels),
         "first_level": np.asarray(slam.tracker_cfg.first_level),
         "last_level": np.asarray(slam.tracker_cfg.last_level),
@@ -101,7 +103,17 @@ def save_slam(path: str, slam) -> None:
             )
         if slam._prev_pyr is not None:
             data[f"prev_pyr_{lvl}"] = to_numpy(slam._prev_pyr[lvl])
-    data["carry_present"] = np.asarray(False)
+    # Chunked engine: the device scan carry. carry_present is False for a
+    # chunked engine saved before its first chunk (engine identity is
+    # engine_chunked above).
+    carry = slam._carry if chunked else None
+    data["carry_present"] = np.asarray(carry is not None)
+    if carry is not None:
+        for lvl in range(num_levels):
+            data[f"carry_kf_{lvl}"] = to_numpy(carry["kf"][lvl])
+            data[f"carry_prev_{lvl}"] = to_numpy(carry["prev"][lvl])
+        for name in _CARRY_STATE:
+            data[f"carry_{name}"] = to_numpy(carry[name])
     # Through an open handle: np.savez_compressed(path_str) APPENDS ".npz"
     # to other extensions, so `--checkpoint-out state.ckpt` would write
     # state.ckpt.npz and a later `--resume state.ckpt` would not find it.
@@ -114,28 +126,26 @@ def load_slam(path: str, K, tracker_cfg=None, slam_cfg=None,
     """Restore a KeyframeSlam from .npz on `device`; returns a
     ready-to-update instance.
 
+    chunked=True restores a models.chunked_slam.ChunkedKeyframeSlam, from
+    a checkpoint written by a chunked engine (of either package).
+
     Raises ValueError when the configs cannot hold the checkpoint
     (different pyramid levels, a local-map window larger than
-    ``local_map_capacity``) and NotImplementedError for the chunked
-    engine."""
+    ``local_map_capacity``) or when ``chunked`` does not match the engine
+    that wrote it."""
     from dvo_slam_tpu_torch import convert
     from dvo_slam_tpu_torch.config import SlamConfig, TrackerConfig
+    from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
     from dvo_slam_tpu_torch.models.keyframe_tracker import (
         FrameRecord, Keyframe, KeyframeSlam,
     )
 
-    if chunked:
-        raise NotImplementedError(f"chunked=True: {_NOT_PORTED}")
     z = np.load(path, allow_pickle=False)
     if int(z["version"]) != _FORMAT_VERSION:
         raise ValueError(
             f"checkpoint format version {int(z['version'])} != "
             f"{_FORMAT_VERSION} (this reader)"
         )
-    if bool(z["engine_chunked"]):
-        raise NotImplementedError(
-            f"the checkpoint was written by the chunked engine: "
-            f"{_NOT_PORTED}")
     tracker_cfg = tracker_cfg or TrackerConfig()
     slam_cfg = slam_cfg or SlamConfig()
     for field in ("num_levels", "first_level", "last_level"):
@@ -158,8 +168,15 @@ def load_slam(path: str, K, tracker_cfg=None, slam_cfg=None,
             f"with local_map_capacity={slam_cfg.local_map_capacity}; pass "
             "a SlamConfig whose window can hold it"
         )
-    slam = KeyframeSlam(K, tracker_cfg, slam_cfg, enable_loop_closure,
-                        device=device)
+    if bool(z["engine_chunked"]) != bool(chunked):
+        raise ValueError(
+            "checkpoint was written by the "
+            + ("chunked" if bool(z["engine_chunked"]) else "per-frame")
+            + f" engine — load with chunked={bool(z['engine_chunked'])}"
+        )
+    engine = ChunkedKeyframeSlam if chunked else KeyframeSlam
+    slam = engine(K, tracker_cfg, slam_cfg, enable_loop_closure,
+                  device=device)
     slam.init(np.asarray(z["T0"], np.float64))
 
     n_kf = int(z["num_keyframes"])
@@ -219,5 +236,16 @@ def load_slam(path: str, K, tracker_cfg=None, slam_cfg=None,
     slam._last_odo = np.asarray(z["last_odo"], np.float64)
     slam._force_next = bool(z["force_next"])
     slam._initialized = bool(z["initialized"])
+    if chunked and bool(z["carry_present"]):
+        slam._carry = {
+            "kf": convert.pyramid_from_numpy(
+                [z[f"carry_kf_{lvl}"] for lvl in range(num_levels)],
+                slam.device),
+            "prev": convert.pyramid_from_numpy(
+                [z[f"carry_prev_{lvl}"] for lvl in range(num_levels)],
+                slam.device),
+            **{name: torch.as_tensor(z[f"carry_{name}"], device=slam.device)
+               for name in _CARRY_STATE},
+        }
     slam._evict_keyframe_pyramids()  # re-apply the residency budget
     return slam

@@ -194,10 +194,12 @@ def test_mismatches_raise(runs, tmp_path):
                                replace(TRACKER, num_levels=3)), device="cpu")
     with pytest.raises(ValueError, match="local_map_capacity"):
         _load_port(path, dataclasses.replace(SLAM, local_map_capacity=2))
-    with pytest.raises(NotImplementedError, match="chunked"):
+    # A per-frame checkpoint loaded as chunked, and a checkpoint of the
+    # JAX package's chunked engine loaded as per-frame: the JAX reader's
+    # engine-mismatch error.
+    with pytest.raises(ValueError, match="per-frame engine"):
         t_checkpoint.load_slam(path, K_TUPLE, *_cfgs(), chunked=True,
                                device="cpu")
-    # A checkpoint of the JAX package's chunked engine.
     from dvo_slam_tpu.models.chunked_slam import ChunkedKeyframeSlam
 
     chunked = ChunkedKeyframeSlam(K_TUPLE, TRACKER, SLAM,
@@ -205,5 +207,5 @@ def test_mismatches_raise(runs, tmp_path):
     chunked.init()
     chunked_path = str(tmp_path / "chunked.npz")
     checkpoint.save_slam(chunked_path, chunked)
-    with pytest.raises(NotImplementedError, match="chunked engine"):
+    with pytest.raises(ValueError, match="chunked engine"):
         _load_port(chunked_path)

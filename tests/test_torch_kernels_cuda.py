@@ -693,3 +693,160 @@ def test_refused_launch_raises(cuda, orbit640, monkeypatch):
     with pytest.raises(RuntimeError, match="dvo_linearize failed"):
         linearize.linearize_batched(ref, cur, K, T0, cfg)
     assert linearize.LAUNCHES_TRACK_LEVEL == before
+
+
+# --- the device-resident keyframe scan, the chunked engine, and two SLAM
+# paths the main path seldom reaches (validation batches of 16 and 32,
+# keyframe pyramids evicted past resident_keyframes) ---
+
+def _ring640(n):
+    """The first n frames of the 8-frame 640x480 ring of chip_smoke's SLAM
+    phase, repeated."""
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    poses = synthetic.orbit_trajectory(9, radius=0.06)[:8]
+    frames = synthetic.render_sequence(scene, np.asarray(K640), W640, H640,
+                                       poses)
+    return [frames[k % 8] for k in range(n)], [poses[k % 8] for k in range(n)]
+
+
+def test_keyframe_scan_on_card_matches_host_loop(cuda, monkeypatch):
+    """The scan on the card (one level-kernel launch per tracked level and
+    frame) against the same scan through the tracker's host loop over the
+    plain linearization: the same switch frames, poses within 1e-4."""
+    from functools import partial
+
+    from dvo_slam_tpu_torch import SlamConfig
+    from dvo_slam_tpu_torch.models import keyframe_scan
+
+    frames, _ = _ring640(12)
+    ii = torch.as_tensor(np.stack([f[0] for f in frames]), device=cuda)
+    zz = torch.as_tensor(np.stack([f[1] for f in frames]), device=cuda)
+    force = torch.zeros(12, dtype=torch.bool, device=cuda)
+    force[6] = True
+    K = camera.intrinsics(*K640, device=cuda)
+    cfg, slam_cfg = TrackerConfig(), SlamConfig()
+    before = linearize.LAUNCHES_TRACK_LEVEL
+    got = keyframe_scan.track_keyframe_sequence(ii, zz, K, cfg, slam_cfg,
+                                                force_keyframe=force)
+    assert linearize.LAUNCHES_TRACK_LEVEL - before == \
+        11 * len(cfg.tracked_levels)
+    monkeypatch.setattr(dense_tracker, "track_level", partial(
+        dense_tracker._track_level,
+        linearize=linearize.linearize_batched_reference))
+    want = keyframe_scan.track_keyframe_sequence(ii, zz, K, cfg, slam_cfg,
+                                                 force_keyframe=force)
+    assert torch.equal(got["switch"], want["switch"])
+    assert bool(got["switch"][5])
+    for key in ("rel_pose", "Z_switch"):
+        assert (got[key] - want[key]).abs().max().item() <= 1e-4, key
+
+
+def test_chunked_submit_issues_no_host_sync(cuda):
+    """After the engine's first chunk, submit_chunk issues a whole chunk
+    (uploads, scan, the copy of its outputs) with no synchronizing call:
+    torch.cuda.set_sync_debug_mode("error") raises on any."""
+    from dvo_slam_tpu_torch import SlamConfig
+    from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
+
+    frames, _ = _ring640(24)
+    slam = ChunkedKeyframeSlam(K640, TrackerConfig(), SlamConfig(),
+                               device=cuda)
+    slam.init()
+
+    def chunk(a, b):
+        return (np.stack([f[0] for f in frames[a:b]]),
+                np.stack([f[1] for f in frames[a:b]]),
+                [k / 30.0 for k in range(a, b)])
+
+    slam.update_chunk(*chunk(0, 8))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slam.force_keyframe()
+        slam.submit_chunk(*chunk(8, 16))
+        slam.submit_chunk(*chunk(16, 24))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(slam.collect_chunk()) == 8
+    assert len(slam.collect_chunk()) == 8
+    assert len(slam.keyframes) >= 2
+
+
+def _validation_batch(dev, B, level):
+    """A validation batch: B reference rows from B frames of a noisy
+    640x480 orbit against B current frames (one per row), from perturbed
+    poses."""
+    cfg = TrackerConfig()
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    poses = synthetic.orbit_trajectory(B + 1, radius=0.06)
+    rng = np.random.default_rng(5)
+    frames = [synthetic.add_sensor_noise(
+        *scene.render(np.asarray(K640), W640, H640, poses[k]), rng,
+        dropout=0.02) for k in range(B + 1)]
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K640, device=dev),
+                                   cfg.num_levels)
+    pyrs = [pyramid.build_pyramid(torch.as_tensor(i, device=dev),
+                                  torch.as_tensor(z, device=dev),
+                                  cfg.num_levels)[level] for i, z in frames]
+    T = np.stack([(se3_np.inverse(poses[b + 1]) @ poses[b])
+                  @ se3_np.exp(rng.normal(scale=2e-3, size=6))
+                  for b in range(B)])
+    ref = linearize.prepare_reference(torch.stack(pyrs[:B]), Ks[level], cfg)
+    return (cfg, ref, torch.stack(pyrs[1:]), Ks[level],
+            torch.as_tensor(T, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("level", [3, 2, 1])
+@pytest.mark.parametrize("B", [16, 32])
+def test_validation_batches_16_32_match_host_loop(cuda, B, level):
+    """Mode (b) at the validation batches past 8 (up to
+    validation_batch_max = 32), one current slab per row, noisy frames:
+    against the host loop over the plain linearization, with chip_smoke's
+    phase 5a gates (T within 1e-3, final valid counts within 1 %)."""
+    cfg, ref, cur, K, T0 = _validation_batch(cuda, B, level)
+    before = dict(linearize.LAUNCHES_BY_BATCH)
+    T, fin, _ = dense_tracker.track_level(ref, cur, K, T0, cfg)
+    key = ("track_level", B)
+    assert linearize.LAUNCHES_BY_BATCH[key] - before.get(key, 0) == 1
+    T_h, fin_h, _ = dense_tracker._track_level(
+        ref, cur, K, T0, cfg, linearize=linearize.linearize_batched_reference)
+    assert (T - T_h).abs().max().item() <= 1e-3
+    d_n = ((fin.n_raw - fin_h.n_raw).abs()
+           / fin_h.n_raw.clamp(min=1.0)).max().item()
+    assert d_n <= 0.01
+
+
+def test_slam_evicts_past_resident_keyframes(cuda):
+    """A KeyframeSlam run forced past 64 keyframes (resident_keyframes =
+    64): older pyramids spill to the host and re-upload for validation.
+    The run equals one whose budget holds every pyramid."""
+    from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig
+
+    W, H = 160, 120
+    K = (525.0 * W / 640.0, 525.0 * H / 480.0, (W - 1) / 2.0, (H - 1) / 2.0)
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    ring = synthetic.orbit_trajectory(9, radius=0.06)[:8]
+    frames = synthetic.render_sequence(scene, np.asarray(K), W, H, ring)
+    cfg = TrackerConfig(num_levels=3, first_level=2, last_level=0)
+
+    def run(resident):
+        slam = KeyframeSlam(K, cfg, SlamConfig(resident_keyframes=resident),
+                            device=cuda)
+        slam.init()
+        for k in range(72):
+            if k > 0:
+                slam.force_keyframe()
+            slam.update(*frames[k % 8], k / 30.0)
+        return slam, [T for _, T in slam.finish()]
+
+    small, traj_small = run(64)
+    large, traj_large = run(256)
+    assert len(small.keyframes) == 72
+    assert sum(not k.resident for k in small.keyframes) >= 8
+    assert all(k.resident for k in large.keyframes)
+    assert small.validation_cache_stats["misses"] > 0
+    edges = [[(int(s.graph.edge_i[e]), int(s.graph.edge_j[e]),
+               bool(s.graph.edge_mask[e]))
+              for e in range(int(s.graph.num_edges))] for s in (small, large)]
+    assert edges[0] == edges[1] and small.num_loop_edges >= 1
+    np.testing.assert_array_equal(np.stack(traj_small), np.stack(traj_large))

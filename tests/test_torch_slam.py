@@ -301,18 +301,19 @@ def test_eviction_and_growth_like_jax():
 
 
 def test_unported_options_raise(tmp_path):
-    """Only the per-frame engine is ported: the chunked engine's
-    checkpoints and chunk sizes raise instead of running another engine."""
-    from dvo_slam_tpu_torch import benchmark
+    """What the port does not run raises instead of running something
+    else: point compaction (point_budget_fraction > 0), and an engine
+    that does not match the checkpoint (a per-frame checkpoint loaded as
+    chunked)."""
     from dvo_slam_tpu_torch.utils import checkpoint
 
+    with pytest.raises(NotImplementedError):
+        convert.tracker_config_from_fields(dataclasses.asdict(
+            dataclasses.replace(TRACKER, point_budget_fraction=0.5)))
     slam = TKeyframeSlam(K_TUPLE, *_port_cfgs(SLAM), device="cpu")
     slam.init()
     path = str(tmp_path / "state.npz")
     checkpoint.save_slam(path, slam)
-    with pytest.raises(NotImplementedError, match="chunked"):
+    with pytest.raises(ValueError, match="per-frame"):
         checkpoint.load_slam(path, K_TUPLE, *_port_cfgs(SLAM), chunked=True,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="chunked"):
-        benchmark.run_synthetic(num_frames=2, width=W, height=H,
-                                chunk_size=2, device="cpu")
