@@ -80,6 +80,10 @@ per batch row (the tracker's route on the card). Phases:
         < 20 mm, >= 1 loop edge, ATE(slam) <= 0.7 ATE(keyframe)); launches
         by batch size, counted from 0 around the benchmark run (level
         kernel > 0, mode (a) and sampler 0);
+     i. the protocol's budget run: slam mode again at
+        point_budget_fraction 0.25 (point compaction): fps, keyframes, loop
+        edges, ATE beside 6b's, and gate_budget (ATE < 20 mm, >= 1 loop
+        edge, ATE <= 0.7 ATE(keyframe)); launches as 6b's;
      c. `cli odometry` with a covariance file (one 37-field line a frame);
      d. `python -m dvo_slam_tpu_torch.cli evaluate` in a subprocess: the
         benchmark's ATE within 1e-6; `evaluate --rpe-seconds`;
@@ -116,15 +120,41 @@ per batch row (the tracker's route on the card). Phases:
      frame and chunked): fps, pose latency p50 / p99 (send to arrival);
      every session's finish() trajectory must equal the engine's direct
      run on the same frames;
+  10. point compaction (ops/linearize.compact_reference) at
+     intensity_grad_threshold 1.0: odometry over phase 3's orbit on the
+     full grid and at budget 0.5 (ms/frame, ATE < 5 mm, one level-kernel
+     launch per tracked level); per tracked level at N = budget, mode (b)
+     against the plain host loop (2d's gates) at B = 1 and 2, mode (a)
+     against plain row by row (5a's), the level kernel's us per launch at
+     N = budget and on the full grid and whether the points are kept in
+     shared memory; compaction on the card bit-equal to the CPU's and
+     across runs;
+  11. parallel/ (torch.distributed) at 640x480 with the default config:
+     4 ranks over nccl with 4 cards or more, 2 with 2 or 3, or 2 ranks
+     sharing one card over gloo,
+     on the default (batch, pixel) mesh: sharded_track_pairs at B = 8, the
+     validation fleet at 8 candidates, the edge-sharded graph assembly at
+     SlamConfig's capacities, track_sequences_sharded over 8 ring
+     sequences; every rank's results equal, held to single-process runs
+     on the card (the level kernel, and the host loop over the plain
+     linearization); times, the backend and the standalone sampler's
+     launches per tracked pair on the pixel route; that sampler against
+     its plain version at a pixel shard's shape, its device time (CUDA
+     events) beside plain and grid_sample, its bound from the distinct
+     slab pixels the shard's points read;
+  12. device times by CUDA events (a spin kernel holds the card while the
+     host queues the calls, so a call shorter than its dispatch is timed
+     by the card): per level, every kernel, its plain version (the two
+     modes' plain versions sync, so theirs count host time) and the
+     library call, at B = 1 and at 5a's batches, with the bounds;
   4. profiles (after every host timing above: no profiler has run before
      them in the process): a few more frames of the odometry main path
      under torch.profiler through each route: busy and idle share, device
      records per frame and per IRLS iteration, heaviest kernels, per level
-     the level kernel's device time per launch and per iteration. Then, in
-     one more profiler session, per level the device time per call (union
-     of the device records) of every kernel, its plain version and the
-     library call, at B = 1 and at 5a's batches, each function a labelled
-     segment;
+     the level kernel's device time per launch and per iteration. Every
+     profiler session (here, 5c and 6h) must hold one device record for
+     each kernel launch the wrappers counted in it, or it is run again
+     (up to 3 times, then the phase fails);
   5c. a short profile of the SLAM path through each route: a few more
      frames with one forced keyframe switch, each frame a labelled
      segment: busy and idle share, device records and launches per frame;
@@ -135,12 +165,15 @@ per batch row (the tracker's route on the card). Phases:
 
 The line before the last is a JSON object describing each kernel (the
 cluster kernel's modes at B = 1, with the odometry path's launches, at
-B = 2 and 8, with the SLAM path's, and mode (b) at B = 2 with the chunked
-engine's); the last line is {"ok": true,
+B = 2 and 8, with the SLAM path's, mode (b) at B = 2 with the chunked
+engine's, at B = 16 and 32 (5d), and at N = budget with phase 10's
+compacted odometry launches; the standalone sampler on phase 11's
+pixel-sharded route); the last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -160,8 +193,10 @@ SLAM_PROFILED_FRAMES = 6
 BATCHES = {2: False, 8: True}  # B -> one current slab per row
 ATE_LIMIT_M = 5e-3
 TIMED_CALLS = 50
-PROFILED_CALLS = 10
 PROFILER_ATTEMPTS = 3
+# Cycles a second of torch.cuda._sleep's spin: the H100 SXM's top clock
+# (1.98 GHz) rounded up, so a spin lasts at least the time asked.
+SPIN_HZ = 2e9
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s; f32 FLOP/s outside the tensor
 # cores, and f64 at half that rate (34 TFLOP/s).
 PEAK_BYTES_S = 3.35e12
@@ -183,6 +218,8 @@ OFFLINE_FRAMES, OFFLINE_RADIUS, OFFLINE_SEED = 160, 0.5, 11
 OFFLINE_ATE_LIMIT_M = 0.02
 OFFLINE_GRAPH_VERTICES, OFFLINE_GRAPH_ITERATIONS = 2560, 5
 OFFLINE_PROFILED_FRAMES = 12
+# 6i: the protocol's budget run (bench/accuracy.py --point-budget 0.25).
+OFFLINE_BUDGET = 0.25
 # Phase 7: the cells again, through the host loop and the level kernel in
 # turns, each run shorter than its phase above.
 TURN_SLAM_WARMUP, TURN_SLAM_FRAMES = 32, 96
@@ -202,6 +239,11 @@ LIVE_RUNS = (("odometry", 0, "f32", 0), ("slam", 0, "f32", 0),
              ("slam", CHUNK, "f32", 0), ("slam", CHUNK, "raw", 0),
              ("slam", CHUNK, "raw12", 0), ("slam", 0, "raw", 30),
              ("slam", CHUNK, "raw", 30))
+# 10: compaction on the main path's orbit (phase 3's frames).
+COMPACT_THRESHOLD, COMPACT_BUDGET = 1.0, 0.5
+# 11: parallel/ at 640x480: pairs and fleet candidates, sequences of the
+# ring and their length; the world's timeout.
+PARALLEL_B, PARALLEL_T, PARALLEL_TIMEOUT_S = 8, 6, 400.0
 CONFIGS = {
     "tdist": {},
     "photometric": {"use_depth": False},
@@ -260,64 +302,37 @@ def _kernel_of(name):
 
 def _traced(body, what):
     """Run body() under torch.profiler; return (body's result, the
-    profiler). A session in which CUPTI delivered no device record at all
-    is run again, up to PROFILER_ATTEMPTS times, and said so (2 sessions
-    of ~340 did so in the smoke's runs so far); if every attempt is empty,
-    the phase fails."""
+    profiler). The session must hold one device record of each kernel for
+    every launch its wrapper counted during body(): a session on the card
+    now and then loses device records (all of them in 2 sessions of ~340
+    in the smoke's runs, some of them in others), and one that falls short
+    is run again, up to PROFILER_ATTEMPTS times, and said so; if every
+    attempt falls short, the phase fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    kernels = ("sample_slab", "linearize", "track_level")
     for attempt in range(1, PROFILER_ATTEMPTS + 1):
         torch.cuda.synchronize()
+        before = _launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             out = body()
             torch.cuda.synchronize()
-        if _device_intervals(prof):
+        after = _launches()
+        recs = _device_intervals(prof)
+        kinds = [_kernel_of(r[0]) for r in recs]
+        launched = {k: after[k] - before[k] for k in kernels}
+        recorded = {k: kinds.count("sampler" if k == "sample_slab" else k)
+                    for k in kernels}
+        if recs and recorded == launched:
             return out, prof
-        print(f"phase 4: the profiler recorded no device activity for "
+        print(f"phase 4: the profiler recorded {len(recs)} device records, "
+              f"kernel records {recorded} for launches {launched}, for "
               f"{what} (attempt {attempt} of {PROFILER_ATTEMPTS})")
         time.sleep(1.0)
-    raise AssertionError(f"the profiler recorded no device activity for "
-                         f"{what} in {PROFILER_ATTEMPTS} attempts")
-
-
-def _profile_segments(segments, what, calls=None):
-    """Device records of calls.get(label, PROFILED_CALLS) calls of each fn
-    in segments (label -> fn), after one warm-up call each, all in one
-    profiler session. Each
-    segment runs inside a record_function range under its label and ends
-    in a device sync inside it, so its device records start inside the
-    range (host and device records share the profiler's clock). Returns
-    label -> records; the device-side copies of the ranges themselves are
-    left out."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import record_function
-
-    for fn in segments.values():
-        fn()
-
-    calls = calls or {}
-
-    def body():
-        for label, fn in segments.items():
-            with record_function(label):
-                for _ in range(calls.get(label, PROFILED_CALLS)):
-                    fn()
-                torch.cuda.synchronize()
-
-    prof = _traced(body, what)[1]
-    spans = {e.name: e.time_range for e in prof.events()
-             if e.device_type == DeviceType.CPU and e.name in segments}
-    recs = [r for r in _device_intervals(prof) if r[0] not in segments]
-    out = {}
-    for label in segments:
-        span = spans[label]
-        out[label] = [r for r in recs if span.start <= r[1] <= span.end]
-        if not out[label]:
-            raise AssertionError(f"no device record in the segment {label}")
-    return out
+    raise AssertionError(f"the profiler lost device records of {what} in "
+                         f"{PROFILER_ATTEMPTS} attempts")
 
 
 def _bound_ms(bytes_moved, f32_ops, f64_ops):
@@ -537,18 +552,29 @@ def phase_kernel_vs_plain(device):
 
 
 def _events_us(fn, n=20, reps=5):
-    """Device microseconds per call of fn (one kernel launch each): n calls
-    back to back between two CUDA events, the median over reps runs (the
-    card's queue stays ahead of it when a launch outlasts its host
-    dispatch)."""
+    """Device microseconds per call of fn: n calls back to back between two
+    CUDA events, the median over reps runs. A spin kernel queued before the
+    first event holds the card while the host queues the n calls (for
+    twice the host time of one call times n, at most 0.1 s), so a call
+    that is shorter than its host dispatch is timed by the card, not by
+    the host; a call's time then includes the card's gap between two
+    launches (~1 us). A fn that syncs is timed with its host time: the
+    plain versions of the cluster kernel's two modes are."""
     import torch
 
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(SPIN_HZ * min(2.0 * n * host_s, 0.1))
     runs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         start.record()
         for _ in range(n):
             fn()
@@ -1172,69 +1198,59 @@ def _level_args(L, B=None):
 
 
 def phase_device_times(cfg, levels, batched):
-    """Per level, device time per call (profiler: the union of a call's
-    device records) of the standalone sampler, its plain version and the
-    library call, and of the cluster kernel's two modes and their plain
-    versions (mode (a): linearize_reference; mode (b): the host loop over
-    linearize_batched_reference), at B = 1 (phase 2's noisy pair) and at
-    the batches of phase 5a; with the iterations each mode (b) call takes
-    and the bounds. One profiler session holds every level, each function
-    a labelled segment."""
+    """12: per level, device time per call by CUDA events (``_events_us``) of
+    the standalone sampler, its plain version and the library call, and of
+    the cluster kernel's two modes and their plain versions (mode (a):
+    linearize_reference; mode (b): the host loop over
+    linearize_batched_reference; both sync, so their times count the
+    host's), at B = 1 (phase 2's noisy pair) and at the batches of phase
+    5a; with the iterations each mode (b) call takes and the bounds."""
     from functools import partial
-
-    import torch
 
     from dvo_slam_tpu_torch.models import dense_tracker
     from dvo_slam_tpu_torch.ops import linearize, sampler
 
-    segments, calls, info = {}, {}, {}
+    out = {}
     cases = [(1, lvl, L) for lvl, L in levels.items()] + [
         (B, lvl, L) for (B, lvl), L in batched.items()]
     for B, lvl, L in cases:
         args = _level_args(L, None if B == 1 else B)
         _, fin, st = dense_tracker.track_level(*args, cfg)
-        info[(B, lvl)] = {"its": st["iterations"].tolist(),
-                          "n_valid": float(fin.n_raw.sum()),
-                          "paired": L.get("paired", False)}
-        tag = f"B{B} @{lvl}"
-        segments[f"smoke linearize {tag}"] = partial(
-            linearize.linearize_kernels_batched, *args, cfg)
-        segments[f"smoke linearize plain {tag}"] = partial(
-            linearize.linearize_batched_reference, *args, cfg)
-        segments[f"smoke track_level {tag}"] = partial(
-            linearize.track_level_kernels, *args, cfg)
-        segments[f"smoke track_level plain {tag}"] = partial(
+        d = {"its": st["iterations"].tolist(),
+             "n_valid": float(fin.n_raw.sum()),
+             "paired": L.get("paired", False)}
+        d["linearize"] = _events_us(partial(
+            linearize.linearize_kernels_batched, *args, cfg)) / 1e3
+        d["linearize plain"] = _events_us(partial(
+            linearize.linearize_batched_reference, *args, cfg), n=5) / 1e3
+        d["track_level"] = _events_us(partial(
+            linearize.track_level_kernels, *args, cfg)) / 1e3
+        d["track_level plain"] = _events_us(partial(
             dense_tracker._track_level, *args, cfg,
-            linearize=linearize.linearize_batched_reference)
-        calls[f"smoke track_level plain {tag}"] = 2
-    for lvl, L in levels.items():
-        slab, u, v = L["slab"], L["u"], L["v"]
-        segments[f"smoke sampler B1 @{lvl}"] = partial(sampler.sample_slab,
-                                                       slab, u, v)
-        segments[f"smoke sampler plain B1 @{lvl}"] = partial(
-            sampler.sample_slab_reference, slab, u, v)
-        segments[f"smoke grid_sample B1 @{lvl}"] = partial(
-            _grid_sample, L["batch"], L["grid"])
-    recs = _profile_segments(segments, "the per-level device times", calls)
-    out = {}
-    for label, r in recs.items():
-        name, tag = label[len("smoke "):].rsplit(" B", 1)
-        B, lvl = (int(x) for x in tag.split(" @"))
-        d = out.setdefault((B, lvl), dict(info.get((B, lvl), {})))
-        d[name] = _busy_us(r) / calls.get(label, PROFILED_CALLS) / 1e3
-    for (B, lvl), d in sorted(out.items()):
-        L = levels[lvl] if B == 1 else batched[(B, lvl)]
+            linearize=linearize.linearize_batched_reference),
+            n=1, reps=3) / 1e3
+        if B == 1:
+            slab, u, v = L["slab"], L["u"], L["v"]
+            d["sampler"] = _events_us(partial(sampler.sample_slab, slab, u,
+                                              v)) / 1e3
+            d["sampler plain"] = _events_us(partial(
+                sampler.sample_slab_reference, slab, u, v), n=5) / 1e3
+            d["grid_sample"] = _events_us(partial(
+                _grid_sample, L["batch"], L["grid"])) / 1e3
         d["bounds"] = _bounds(cfg, L, B, d)
+        if B == 1:
+            d["bounds"]["sampler"] = _sampler_bound(slab, u, v)
+        out[(B, lvl)] = d
+    for (B, lvl), d in sorted(out.items()):
         its = d["its"]
-        line = (f"phase 4 device time per call (profiler, {PROFILED_CALLS} "
-                f"calls): B={B} level {lvl}: linearize (mode a) "
-                f"{1e3 * d['linearize']:.2f} us (plain "
-                f"{1e3 * d['linearize plain']:.2f}); track_level (mode b) "
-                f"{1e3 * d['track_level']:.2f} us per launch for "
+        line = (f"phase 12 device time per call (CUDA events): B={B} level "
+                f"{lvl}: linearize (mode a) {1e3 * d['linearize']:.2f} us "
+                f"(plain {1e3 * d['linearize plain']:.2f}); track_level "
+                f"(mode b) {1e3 * d['track_level']:.2f} us per launch for "
                 f"{max(its)} iterations of the longest row, "
                 f"{1e3 * d['track_level'] / max(its):.2f} us per iteration "
-                f"(plain host loop {1e3 * d['track_level plain']:.2f} us of "
-                f"device busy per call)")
+                f"(plain host loop {1e3 * d['track_level plain']:.2f} us "
+                f"per call, host time included)")
         if B == 1:
             line += (f"; sample_slab {1e3 * d['sampler']:.2f} us (plain "
                      f"{1e3 * d['sampler plain']:.2f}, grid_sample "
@@ -1332,19 +1348,45 @@ def _bounds(cfg, L, B, d):
             sum(its) * f32_row + f32_valid * n_valid * sum(its) / B,
             f64_valid * n_valid * sum(its) / B),
     }
-    if B == 1:
-        out["sampler"] = _bound_ms(8 * N + 24 * HW + 24 * N + N,
-                                   SAMPLER_F32_PER_CHANNEL * 6 * N, 0)
     return out
 
 
+def _sampler_bound(slab, u, v):
+    """The standalone sampler's bound at these inputs: u, v read (8 B a
+    point), the (6, N) output and the in-bounds mask written (25 B a
+    point), and of the slab only the distinct pixels that the points'
+    bilinear corners fall on (24 B a pixel); 9 f32 operations a channel
+    and point."""
+    import torch
+
+    H_, W_ = slab.shape[-2:]
+    fin = torch.isfinite(u) & torch.isfinite(v)
+    x0, y0 = u[fin].floor().long(), v[fin].floor().long()
+    corners = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            x, y = x0 + dx, y0 + dy
+            ok = (x >= 0) & (x < W_) & (y >= 0) & (y < H_)
+            corners.append((y * W_ + x)[ok])
+    pixels = torch.unique(torch.cat(corners)).numel()
+    N = u.numel()
+    return _bound_ms(8 * N + 24 * pixels + 24 * N + N,
+                     SAMPLER_F32_PER_CHANNEL * 6 * N, 0)
+
+
 def kernel_rows(cfg, levels, launches, dev_times, slam_launches,
-                level_pairs, batched, chunked_launches):
+                level_pairs, batched, chunked_launches, val_batches,
+                compaction, par):
     """The kernels' JSON rows at the finest tracked level: the standalone
     sampler, and the cluster kernel's two modes at B = 1 (the odometry
     main path's launches), at the SLAM path's batch sizes (its launches at
     that B), and mode (b) at B = 2 on the chunked engine's scan (phase 8's
-    launches; the same launch as the SLAM path's B = 2 row, timed there)."""
+    launches; the same launch as the SLAM path's B = 2 row, timed there),
+    timed in phase 12; mode (b) at the validation batches B = 16 and 32
+    (5d; the SLAM path's launches at that B), at N = budget (10b; phase
+    10a's compacted odometry run's launches), and the standalone sampler
+    on the pixel-sharded route (11; rank 0's launches in the sharded pairs
+    run). Every time by CUDA events."""
     lvl = cfg.tracked_levels[-1]
     lin_err = max(max(x["r_err"], x["lin_abs_err"]) for x in levels.values())
     level_err = max([v["err"] for v in level_pairs.values()]
@@ -1386,6 +1428,23 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_launches,
         chunked_launches["by B"].get(("track_level", 2), 0), level_err,
         d["track_level"], d["track_level plain"], d["bounds"]["track_level"],
         None)
+    for B in VALIDATION_BATCHES:
+        d = val_batches[(B, lvl)]
+        row(f"track_level (mode b), validation batch B={B}",
+            "dvo_slam_tpu_torch/csrc/linearize.cu",
+            "dvo_slam_tpu/ops/pallas/sampler.py:226",
+            by_b.get(("track_level", B), 0), d["err"], d["us"] / 1e3,
+            d["plain_ms"], d["bound"], None)
+    d = compaction[lvl]
+    row(f"track_level (mode b), compacted to N = budget "
+        f"({COMPACT_BUDGET:g})", "dvo_slam_tpu_torch/csrc/linearize.cu",
+        "dvo_slam_tpu/ops/pallas/sampler.py:226",
+        compaction["launches"]["track_level"], compaction["err"],
+        d["us"] / 1e3, d["plain_ms"], d["bound"], None)
+    row("sample_slab, pixel-sharded route (parallel/)",
+        "dvo_slam_tpu_torch/csrc/sampler.cu",
+        "dvo_slam_tpu/ops/pallas/sampler.py:226", par["launches"],
+        par["err"], par["ms"], par["plain_ms"], par["bound"], par["lib_ms"])
     return rows
 
 
@@ -1614,6 +1673,36 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
         if (launches["track_level"] == 0 or launches["linearize"] != 0
                 or launches["sample_slab"] != 0):
             raise AssertionError(f"benchmark launches {launches}")
+
+        # 6i: the protocol's budget run (bench/accuracy.py --point-budget):
+        # slam mode again with point compaction, beside 6b's runs.
+        _reset_launches()
+        budget = benchmark.run_tum_dataset(
+            seq, dataclasses.replace(tracker_cfg,
+                                     point_budget_fraction=OFFLINE_BUDGET),
+            slam_cfg, mode="slam", intrinsics=camera.TUM_FR1, device=device)
+        b_launches = _launches()
+        ate_b = budget.ate_rmse_m
+        gate_budget = bool(ate_b < OFFLINE_ATE_LIMIT_M
+                           and budget.num_loop_edges >= 1
+                           and ate_b <= 0.7 * ate_kf)
+        print(f"phase 6i slam at point_budget_fraction {OFFLINE_BUDGET}: "
+              f"{budget.num_frames} frames, {budget.fps:.3f} fps "
+              f"({budget.elapsed_s:.3f} s engine time; 6b's un-budgeted "
+              f"{slam['fps']:.3f}), keyframes {budget.num_keyframes}, loop "
+              f"edges {budget.num_loop_edges}, ATE {1e3 * ate_b:.4f} mm "
+              f"(6b {1e3 * ate_slam:.4f}, keyframe mode {1e3 * ate_kf:.4f}); "
+              f"gate_budget {gate_budget} (ATE < "
+              f"{1e3 * OFFLINE_ATE_LIMIT_M:g} mm, >= 1 loop edge, <= 0.7 x "
+              f"ATE(keyframe)); launches track_level "
+              f"{b_launches['track_level']}, linearize "
+              f"{b_launches['linearize']}, standalone sampler "
+              f"{b_launches['sample_slab']}")
+        if not gate_budget:
+            raise AssertionError("the budget run fails gate_budget")
+        if (b_launches["track_level"] == 0 or b_launches["linearize"] != 0
+                or b_launches["sample_slab"] != 0):
+            raise AssertionError(f"budget run launches {b_launches}")
 
         # 6c: `odometry` with covariances.
         cov_odo = os.path.join(tmp, "odo_cov.txt")
@@ -1902,7 +1991,9 @@ def phase_validation_batches(device, cfg):
     """5d: mode (b) at the validation batches past 5a's B = 8, up to
     validation_batch_max = 32: B rows of a noisy 640x480 orbit, one current
     slab per row, per tracked level, against the host loop over the plain
-    linearization with 5a's gates; device us per launch (CUDA events)."""
+    linearization with 5a's gates; device us per launch (CUDA events), the
+    host loop's ms (CUDA events around one call) and the bound. Returns
+    {(B, level): {"us", "plain_ms", "bound", "err"}}."""
     from functools import partial
 
     import torch
@@ -1914,6 +2005,7 @@ def phase_validation_batches(device, cfg):
     scene = synthetic.two_plane_scene(sharpness=2.0)
     Ks = camera.pyramid_intrinsics(camera.intrinsics(*K_TUPLE, device=device),
                                    cfg.num_levels)
+    out = {}
     for B in VALIDATION_BATCHES:
         poses = synthetic.orbit_trajectory(B + 1, radius=0.06)
         rng = np.random.default_rng(5)
@@ -1935,24 +2027,39 @@ def phase_validation_batches(device, cfg):
             got = dense_tracker.track_level(ref, cur, Ks[lvl], T0, cfg)
             if linearize.LAUNCHES_BY_BATCH.get(key, 0) - before != 1:
                 raise AssertionError(f"B={B}: not one level-kernel launch")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             want = dense_tracker._track_level(
                 ref, cur, Ks[lvl], T0, cfg,
                 linearize=linearize.linearize_batched_reference)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
             d_T = (got[0] - want[0]).abs().max().item()
             d_n = ((got[1].n_raw - want[1].n_raw).abs()
                    / want[1].n_raw.clamp(min=1.0)).max().item()
             us = _events_us(partial(linearize.track_level_kernels, ref, cur,
                                     Ks[lvl], T0, cfg))
             its = got[2]["iterations"]
+            L = {"N": ref.px.shape[1], "H": cur.shape[-2], "W": cur.shape[-1]}
+            bound = _bounds(cfg, L, B, {
+                "its": its.tolist(), "n_valid": float(got[1].n_raw.sum()),
+                "paired": True})["track_level"]
             print(f"phase 5d validation batch B={B} (one slab per row) level "
                   f"{lvl}: track_level (mode b) vs host loop |dT| "
                   f"{d_T:.2e} (tol 1e-3), final valid counts within "
                   f"{d_n:.2e} (tol 1e-2); iterations {its.tolist()}; device "
                   f"{us:.2f} us per launch (events), cluster size "
-                  f"{linearize.cluster_size(ref.px.shape[1])}")
+                  f"{linearize.cluster_size(ref.px.shape[1])}; host loop "
+                  f"over plain {plain_ms:.3f} ms (events, one call); bound "
+                  f"{1e3 * bound[0]:.4f} us ({bound[1]})")
             if not (d_T <= 1e-3 and d_n <= 0.01):
                 raise AssertionError(f"B={B} level {lvl}: track_level vs "
                                      f"host loop |dT| {d_T}, valid {d_n}")
+            out[(B, lvl)] = {"us": us, "plain_ms": plain_ms, "bound": bound,
+                             "err": d_T}
+    return out
 
 
 def phase_eviction(device):
@@ -2276,6 +2383,492 @@ def phase_live(device, slam_out):
     return out
 
 
+def phase_compaction(device, frames):
+    """10: point compaction on the card (TrackerConfig.point_budget_fraction;
+    ops/linearize.compact_reference), at intensity_grad_threshold
+    COMPACT_THRESHOLD:
+    a. odometry over phase 3's 24-frame orbit on the full grid and at
+       budget COMPACT_BUDGET, in turns (full, budget, budget, full), each
+       run on a fresh tracker: ms/frame, ATE (< 5 mm), launches per frame
+       (counts reset just before and read just after each run: track_level
+       one per tracked level, linearize and sampler 0);
+    b. per tracked level, the noise-free orbit pair at N = budget: mode (b)
+       against the host loop over the plain linearization at B = 1 and 2
+       (2d's _compare_level gates), mode (a) against the plain version row
+       by row (5a's _check_batched), the level kernel's us per launch at
+       N = budget and on the full grid (CUDA events), whether the points
+       are kept in shared memory (level_plan), the host loop's ms and the
+       bound;
+    c. compaction itself: each level's compacted points on the card equal,
+       bit for bit, the CPU's from the same slab, and five card runs equal.
+    Returns what the kernels line needs (its error: mode (b)'s largest
+    |T - T_host|, as the other mode (b) rows)."""
+    import dataclasses
+    from functools import partial
+
+    import torch
+
+    from dvo_slam_tpu_torch import TrackerConfig
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.models.odometry import OdometryTracker
+    from dvo_slam_tpu_torch.ops import linearize
+    from dvo_slam_tpu_torch.utils import evaluate, se3_np, synthetic
+
+    full_cfg = TrackerConfig(intensity_grad_threshold=COMPACT_THRESHOLD)
+    cfg = dataclasses.replace(full_cfg, point_budget_fraction=COMPACT_BUDGET)
+    poses = synthetic.orbit_trajectory(N_FRAMES, radius=0.06)
+    levels = len(cfg.tracked_levels) * (N_FRAMES - 1)
+    runs = {}
+    for name, c in (("full grid", full_cfg), ("budget", cfg), ("budget", cfg),
+                    ("full grid", full_cfg)):
+        tracker = OdometryTracker(K_TUPLE, c, device=device)
+        frame_ms = []
+        _reset_launches()
+        for k, (i, z) in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracker.update(i, z, float(k))
+            torch.cuda.synchronize()
+            if k >= N_WARMUP:
+                frame_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = _launches()
+        ate = evaluate.ate_rmse([T for _, T in tracker.trajectory], poses)
+        res = tracker.last_result
+        runs[name] = {"launches": launches}
+        print(f"phase 10a odometry, {name} (intensity_grad_threshold "
+              f"{COMPACT_THRESHOLD:g}, point_budget_fraction "
+              f"{c.point_budget_fraction:g}): {N_FRAMES} frames "
+              f"{W}x{H}, {np.mean(frame_ms):.3f} ms/frame after {N_WARMUP} "
+              f"warm-up frames; ATE {1e3 * ate:.4f} mm; last frame valid "
+              f"{float(res.valid_pixels):.0f}, valid ratio "
+              f"{float(res.valid_ratio):.4f}; launches per frame track_level "
+              f"{launches['track_level'] / (N_FRAMES - 1):.3f} "
+              f"({launches['track_level']} for {levels} tracked levels), "
+              f"linearize {launches['linearize']}, standalone sampler "
+              f"{launches['sample_slab']}")
+        if not ate < ATE_LIMIT_M:
+            raise AssertionError(f"{name}: ATE {ate} m >= {ATE_LIMIT_M} m")
+        if (launches["track_level"] != levels or launches["linearize"] != 0
+                or launches["sample_slab"] != 0):
+            raise AssertionError(f"{name}: launches {launches}")
+
+    ref_pyr, cur_pyr, Ks, T = _noisy_pair(device, cfg, noisy=False)
+    T2 = torch.stack([T, T @ torch.as_tensor(
+        se3_np.exp(np.array([-1e-3, 2e-3, -1e-3, 2e-3, -1e-3, 1e-3])),
+        dtype=torch.float32, device=device)])
+    out = {"launches": runs["budget"]["launches"], "err": 0.0}
+    for lvl in cfg.tracked_levels:
+        h, w = ref_pyr[lvl].shape[-2:]
+        for B in (1, 2):
+            ref = linearize.prepare_reference(
+                torch.stack([ref_pyr[lvl]] * B), Ks[lvl], cfg)
+            N = ref.px.shape[1]
+            if N != linearize.compact_budget(h * w, COMPACT_BUDGET, 128):
+                raise AssertionError(f"level {lvl}: {N} compacted slots")
+            args = (ref, cur_pyr[lvl], Ks[lvl], T2[:B].contiguous(), cfg)
+            before = linearize.LAUNCHES_TRACK_LEVEL
+            got = dense_tracker.track_level(*args)
+            if linearize.LAUNCHES_TRACK_LEVEL - before != 1:
+                raise AssertionError("not one level-kernel launch")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = dense_tracker._track_level(
+                *args, linearize=linearize.linearize_batched_reference)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            d_T, a_rel, parted = _compare_level(
+                got, want, cfg, f"budget level {lvl} B={B}")
+            sigma = torch.tensor([[40.0, 0.01], [0.01, 1e-3]],
+                                 device=device).expand(B, 2, 2).contiguous()
+            r_err, abs_err, rel = _check_batched(
+                ref, cur_pyr[lvl], Ks[lvl], T2[:B].contiguous(), sigma, cfg)
+            out["err"] = max(out["err"], d_T)
+            its = got[2]["iterations"].tolist()
+            line = (f"phase 10b level {lvl} B={B} at N = budget {N} of "
+                    f"{h * w} (selected {int(ref.selected.sum())}): "
+                    f"track_level (mode b) vs host loop |dT| {d_T:.2e}, A "
+                    f"error / max|A| {a_rel:.2e}, parted at a tie: "
+                    f"{parted or 'none'}; linearize (mode a) vs plain: rI, "
+                    f"rZ error {r_err:.1e}, A/b error / max|.| {rel:.2e}; "
+                    f"iterations {its}")
+            if B == 1:
+                us = _events_us(partial(linearize.track_level_kernels,
+                                        *args))
+                ref_f = linearize.prepare_reference(ref_pyr[lvl][None],
+                                                    Ks[lvl], full_cfg)
+                full_args = (ref_f, cur_pyr[lvl], Ks[lvl], T[None], full_cfg)
+                its_f = int(dense_tracker.track_level(*full_args)[2][
+                    "iterations"][0])
+                us_f = _events_us(partial(linearize.track_level_kernels,
+                                          *full_args))
+                C, P, kept, smem = linearize.level_plan(device, N)
+                C_f, P_f, kept_f, _ = linearize.level_plan(device, h * w)
+                bound = _bounds(cfg, {"N": N, "H": h, "W": w}, 1, {
+                    "its": its, "n_valid": float(got[1].n_raw.sum()),
+                    "paired": False})["track_level"]
+                line += (f"; device {us:.2f} us per launch ({us / its[0]:.2f}"
+                         f" per iteration; cluster of {C} CTAs, {P} points "
+                         f"each, {'kept in' if kept else 'not in'} shared "
+                         f"memory) against the full grid's {us_f:.2f} us "
+                         f"({its_f} iterations; {C_f} CTAs of {P_f} points, "
+                         f"{'kept' if kept_f else 'not kept'}); host loop "
+                         f"over plain {plain_ms:.3f} ms (events, one call); "
+                         f"bound {1e3 * bound[0]:.4f} us ({bound[1]})")
+                out[lvl] = {"us": us, "plain_ms": plain_ms, "bound": bound,
+                            "kept": kept}
+            print(line)
+
+        # c: compaction on the card against the CPU, and run to run.
+        slab = ref_pyr[lvl]
+        got = linearize.prepare_reference(slab, Ks[lvl], cfg)
+        want = linearize.prepare_reference(slab.cpu(), Ks[lvl].cpu(), cfg)
+        again = [linearize.prepare_reference(slab, Ks[lvl], cfg)
+                 for _ in range(5)]
+        for f, a, b in zip(got._fields, got, want):
+            if a is None:
+                continue
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"level {lvl}: compacted {f} on the "
+                                     "card differs from the CPU's")
+            if not all(torch.equal(a, getattr(x, f)) for x in again):
+                raise AssertionError(f"level {lvl}: compacted {f} differs "
+                                     "between runs")
+        print(f"phase 10c level {lvl}: compaction to {got.px.shape[0]} "
+              f"slots on the card equal to the CPU's bit for bit, and in 5 "
+              f"more runs")
+    return out
+
+
+def _parallel_rank(rank, world_size, device, inp):
+    """11, one rank: parallel/'s four workloads on a default mesh of the
+    world (pixel axis 2), each timed (host clock around work that ends in
+    a device sync, after one warm-up call of the tracker) with the launch
+    counts of its run. Returns numpy results, every one gathered whole."""
+    import torch
+    import torch.distributed as dist
+
+    from dvo_slam_tpu_torch import TrackerConfig, convert
+    from dvo_slam_tpu_torch.parallel import batch_slam, sharded
+
+    cfg = TrackerConfig()
+    mesh = sharded.make_mesh(world_size)
+    refs, curs, new, Ks, T0, Tf, seq_i, seq_z, K = _parallel_inputs(
+        inp, device)
+    g = {k: torch.as_tensor(v, device=device)
+         for k, v in inp["graph"].items()}
+    out = {"coordinate": tuple(mesh.get_coordinate()),
+           "backend": dist.get_backend(), "device": str(device)}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        _reset_launches()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name + " s"] = time.perf_counter() - t0
+        out[name + " launches"] = _launches()
+        return r
+
+    pairs = sharded.sharded_track_pairs(mesh, cfg)
+    local = (sharded.shard_pyramid(refs, mesh),
+             sharded.shard_pyramid(curs, mesh, pixel=False), Ks,
+             sharded.shard_rows(T0, mesh).contiguous())
+    pairs(*local)
+    res = timed("pairs", lambda: pairs(*local))
+    out["pairs"] = convert.result_to_numpy(sharded.gather_rows(res, mesh))
+    fleet = sharded.sharded_validation_fleet(mesh, cfg)
+    out["fleet"] = tuple(convert.result_to_numpy(r) for r in timed(
+        "fleet", lambda: fleet(refs, new, Ks, Tf)))
+    build = sharded.sharded_pose_graph_build(mesh)
+    H, gv = timed("graph", lambda: build(g["poses"], *(
+        sharded.shard_rows(g[k], mesh)
+        for k in ("ei", "ej", "Z", "info", "mask"))))
+    out["graph"] = (H.cpu().numpy(), gv.cpu().numpy())
+    out["sequences"] = {k: v.cpu().numpy() for k, v in timed(
+        "sequences", lambda: batch_slam.track_sequences_sharded(
+            mesh, seq_i, seq_z, K, cfg)).items()}
+    return out
+
+
+def _parallel_inputs(inp, device):
+    """The parallel phase's tensors on `device` from the ring's frames:
+    PARALLEL_B pairs (ring frame b against b + 1), the validation fleet's
+    candidates (ring frames 0..B-1) and new frame (a view beside the
+    ring's first: no candidate is the new frame itself), the initial
+    poses from the ground truth perturbed, and PARALLEL_B sequences of
+    PARALLEL_T frames (sequence s starts at ring frame s)."""
+    import torch
+
+    from dvo_slam_tpu_torch import TrackerConfig
+    from dvo_slam_tpu_torch.ops import camera, pyramid
+
+    L = TrackerConfig().num_levels
+    frames = inp["frames"]
+    pyrs = [pyramid.build_pyramid(torch.as_tensor(i, device=device),
+                                  torch.as_tensor(z, device=device), L)
+            for i, z in frames]
+    B, n = PARALLEL_B, len(frames)
+    refs = tuple(torch.stack([pyrs[b % n][lvl] for b in range(B)])
+                 for lvl in range(L))
+    curs = tuple(torch.stack([pyrs[(b + 1) % n][lvl] for b in range(B)])
+                 for lvl in range(L))
+    K = camera.intrinsics(*K_TUPLE, device=device)
+    Ks = camera.pyramid_intrinsics(K, L)
+    T0 = torch.as_tensor(inp["T0"], device=device)
+    Tf = torch.as_tensor(inp["Tf"], device=device)
+    seq_i = torch.stack([torch.stack([
+        torch.as_tensor(frames[(s + t) % n][0], device=device)
+        for t in range(PARALLEL_T)]) for s in range(B)])
+    seq_z = torch.stack([torch.stack([
+        torch.as_tensor(frames[(s + t) % n][1], device=device)
+        for t in range(PARALLEL_T)]) for s in range(B)])
+    new = pyramid.build_pyramid(torch.as_tensor(inp["new"][0], device=device),
+                                torch.as_tensor(inp["new"][1], device=device),
+                                L)
+    return refs, curs, new, Ks, T0, Tf, seq_i, seq_z, K
+
+
+def phase_parallel(device):
+    """11: parallel/ at 640x480 with the default TrackerConfig in a world of
+    4 ranks over nccl with 4 cards or more, 2 with 2 or 3 (an even world,
+    so the default mesh has a pixel axis), or, with one card, 2 ranks
+    sharing it over gloo (parallel.spawn picks and prints the backend), on
+    the default mesh (pixel axis 2, so the pixel route runs either way):
+    sharded_track_pairs at B = PARALLEL_B (ring frame b against b + 1), the
+    validation fleet at PARALLEL_B candidates (2 B rows), the edge-sharded
+    graph assembly at SlamConfig()'s capacities (256 vertices, 1 024 edges,
+    a noisy ring with loop edges), and track_sequences_sharded over
+    PARALLEL_B sequences of PARALLEL_T ring frames. Every rank must return
+    the same whole results, held to single-process runs on card 0: the
+    shipped route (the level kernel: T within 1e-4, valid counts within
+    0.1 %) and the host loop over the plain linearization (the pixel
+    route's arithmetic unsharded: T within 5e-5, valid counts within
+    0.1 %); the graph's H and g within 2e-3 and 1e-3 of its own
+    single-process build (the gauge block's diagonal excluded). Prints
+    each workload's time on rank 0 beside the single-process one and the
+    standalone sampler's launches per tracked pair on the pixel route, and
+    holds that sampler to its plain version at a pixel shard's shape.
+    Returns the kernels line's row inputs: that sampler's launches, error,
+    bound and device times (CUDA events)."""
+    import torch
+
+    from dvo_slam_tpu_torch import SlamConfig, TrackerConfig, convert
+    from dvo_slam_tpu_torch import parallel
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.models import pose_graph as pg
+    from dvo_slam_tpu_torch.ops import linearize, sampler, se3
+    from dvo_slam_tpu_torch.parallel import batch_slam
+    from dvo_slam_tpu_torch.utils import se3_np, synthetic
+
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= 4 else 2
+    frames, poses = _ring()
+    rng = np.random.default_rng(7)
+    n = len(frames)
+    T0 = np.stack([(se3_np.inverse(poses[(b + 1) % n]) @ poses[b % n])
+                   @ se3_np.exp(rng.normal(scale=2e-3, size=6))
+                   for b in range(PARALLEL_B)]).astype(np.float32)
+    T_new = poses[0] @ se3_np.exp(np.array([0.01, -0.01, 0.005, 0.01, -0.02,
+                                            0.01]))
+    new = synthetic.two_plane_scene(sharpness=2.0).render(
+        np.asarray(K_TUPLE), W, H, T_new)
+    Tf = np.stack([(se3_np.inverse(T_new) @ poses[b % n])
+                   @ se3_np.exp(rng.normal(scale=2e-3, size=6))
+                   for b in range(PARALLEL_B)]).astype(np.float32)
+    slam_cfg = SlamConfig()
+    M, E = slam_cfg.max_keyframes, slam_cfg.max_edges
+    verts = [se3_np.exp(np.concatenate([
+        0.5 * np.array([np.cos(a), np.sin(a), 0.0]), [0.0, 0.0, a]]))
+        for a in np.linspace(0.0, 2 * np.pi, M, endpoint=False)]
+    ei = np.concatenate([np.arange(M), rng.integers(0, M, E - M)])
+    ej = np.concatenate([(np.arange(M) + 1) % M,
+                         (ei[M:] + rng.integers(2, M - 1, E - M)) % M])
+    Z = np.stack([se3_np.inverse(verts[i]) @ verts[j]
+                  @ se3_np.exp(rng.normal(scale=0.01, size=6))
+                  for i, j in zip(ei, ej)])
+    poses_g = np.stack([v @ se3_np.exp(rng.normal(scale=0.02, size=6))
+                        for v in verts])
+    mask = np.ones(E, bool)
+    mask[rng.integers(0, E, 16)] = False
+    graph = {"poses": poses_g.astype(np.float32),
+             "ei": ei.astype(np.int64), "ej": ej.astype(np.int64),
+             "Z": Z.astype(np.float32),
+             "info": np.broadcast_to(np.eye(6, dtype=np.float32) * 100.0,
+                                     (E, 6, 6)).copy(),
+             "mask": mask}
+    inp = {"frames": frames, "new": new, "T0": T0, "Tf": Tf, "graph": graph}
+
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(_parallel_rank, world, "cuda", (inp,),
+                           timeout_s=PARALLEL_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    backend = r0["backend"]
+    shared = (f"{world} ranks sharing 1 card over {backend}" if cards == 1
+              else f"{world} ranks on {world} cards over {backend}")
+    for r in ranks[1:]:
+        for key in ("pairs", "fleet", "graph", "sequences"):
+            a_l, b_l = _leaves(r[key]), _leaves(r0[key])
+            if not all(np.array_equal(a, b, equal_nan=True)
+                       for a, b in zip(a_l, b_l)):
+                raise AssertionError(f"rank {r['coordinate']}: {key} differs"
+                                     " from rank 0's")
+
+    # The single-process references on card 0.
+    cfg = TrackerConfig()
+    refs, curs, new, Ks, T0_t, Tf_t, seq_i, seq_z, K = _parallel_inputs(
+        inp, device)
+    single = {}
+    for route in ("kernel", "host"):
+        with _host_loop(route == "host"), _plain_linearize(route == "host"):
+            dense_tracker.track_batched(refs, curs, Ks, T0_t, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pairs = dense_tracker.track_batched(refs, curs, Ks, T0_t, cfg)
+            torch.cuda.synchronize()
+            pairs_s = time.perf_counter() - t0
+            news = tuple(x.expand(PARALLEL_B, *x.shape).contiguous()
+                         for x in new)
+            fleet = (dense_tracker.track_batched(refs, news, Ks, Tf_t, cfg),
+                     dense_tracker.track_batched(
+                         news, refs, Ks, se3.inverse(Tf_t).contiguous(), cfg))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seqs = batch_slam.track_sequences_batched(seq_i, seq_z, K, cfg)
+            torch.cuda.synchronize()
+            seq_s = time.perf_counter() - t0
+        single[route] = {
+            "pairs": convert.result_to_numpy(pairs), "pairs s": pairs_s,
+            "fleet": tuple(convert.result_to_numpy(f) for f in fleet),
+            "sequences": {k: v.cpu().numpy() for k, v in seqs.items()},
+            "sequences s": seq_s}
+    gg = pg.PoseGraph(poses=graph["poses"], num_vertices=np.int32(M),
+                      edge_i=graph["ei"], edge_j=graph["ej"],
+                      measurements=graph["Z"], information=graph["info"],
+                      edge_mask=graph["mask"], num_edges=np.int32(E))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H1, g1, _, _ = pg._build_system(pg.to_device(gg, device),
+                                    pg._topology(gg, device), False, 1.0)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+
+    err = {}
+    for route, tol in (("kernel", 1e-4), ("host", 5e-5)):
+        s = single[route]
+        pairs_w = [(r0["pairs"], s["pairs"]),
+                   *zip(r0["fleet"], s["fleet"])]
+        d_T = max(float(np.abs(a.transformation - b.transformation).max())
+                  for a, b in pairs_w)
+        d_n = max(float((np.abs(a.valid_pixels - b.valid_pixels)
+                         / np.maximum(b.valid_pixels, 1.0)).max())
+                  for a, b in pairs_w)
+        d_seq = float(np.abs(r0["sequences"]["rel_poses"]
+                             - s["sequences"]["rel_poses"]).max())
+        err[route] = max(d_T, d_seq)
+        print(f"phase 11 parallel ({shared}) against the single-process "
+              f"{'level-kernel route' if route == 'kernel' else 'host loop over the plain linearization'}"
+              f": pairs and fleet |dT| {d_T:.2e}, valid counts within "
+              f"{d_n:.2e}; sequences |d rel_poses| {d_seq:.2e} (tol: poses "
+              f"{tol:g}, valid counts 1e-3 relative)")
+        if not (d_T <= tol and d_seq <= tol and d_n <= 1e-3):
+            raise AssertionError(f"parallel results against the {route} "
+                                 "route")
+    H_sh, g_sh = (np.array(x, np.float64) for x in r0["graph"])
+    H_1 = H1.double().cpu().numpy()
+    H_sh[:6, :6] = 0.0
+    H_1[:6, :6] = 0.0
+    d_H = float(np.abs(H_sh - H_1).max())
+    d_g = float(np.abs(g_sh - g1.double().cpu().numpy()).max())
+    la = r0["pairs launches"]
+    per_pair = la["sample_slab"] / PARALLEL_B
+    print(f"phase 11 parallel: {shared} ({world_s:.1f} s for the world, "
+          f"start-up included), mesh coordinates "
+          f"{[r['coordinate'] for r in ranks]}, devices "
+          f"{[r['device'] for r in ranks]}; rank 0 times: pairs B="
+          f"{PARALLEL_B} {1e3 * r0['pairs s']:.1f} ms (single process: level "
+          f"kernel {1e3 * single['kernel']['pairs s']:.1f}, host loop "
+          f"{1e3 * single['host']['pairs s']:.1f}), validation fleet "
+          f"{PARALLEL_B} candidates {1e3 * r0['fleet s']:.1f} ms, graph "
+          f"build {M} vertices {E} edges {1e3 * r0['graph s']:.1f} ms "
+          f"(single process {1e3 * graph_s:.1f}; |dH| {d_H:.2e}, |dg| "
+          f"{d_g:.2e}), sequences {PARALLEL_B} x {PARALLEL_T} frames "
+          f"{1e3 * r0['sequences s']:.1f} ms (single process: level kernel "
+          f"{1e3 * single['kernel']['sequences s']:.1f}); pixel route: "
+          f"standalone sampler launches per tracked pair {per_pair:.2f} "
+          f"({la['sample_slab']} on rank 0 for {PARALLEL_B} pairs), "
+          f"track_level {la['track_level']}, linearize {la['linearize']}")
+    if not (d_H <= 2e-3 and d_g <= 1e-3):
+        raise AssertionError(f"graph build |dH| {d_H}, |dg| {d_g}")
+    if (la["sample_slab"] == 0 or la["track_level"] != 0
+            or la["linearize"] != 0):
+        raise AssertionError(f"pixel route launches {la}")
+
+    # The standalone sampler at a pixel shard's shape (rank 0's rows of
+    # the finest tracked level, warped by pair 0's pose): kernel against
+    # plain, and timed beside plain and grid_sample.
+    lvl = cfg.tracked_levels[-1]
+    rows = refs[lvl].shape[-2] // 2
+    ref = linearize.prepare_reference(refs[lvl][0, :, :rows], Ks[lvl], cfg)
+    slab = curs[lvl][0]
+    u, v = linearize.warp(ref, Ks[lvl], T0_t[0])[4:]
+    got, inb = sampler.sample_slab(slab, u, v)
+    want, want_inb = sampler.sample_slab_reference(slab, u, v)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    s_err = (got[fin] - want[fin]).abs().max().item()
+    if not (torch.equal(inb, want_inb) and s_err <= 1e-5 * slab.nan_to_num(
+            posinf=0.0, neginf=0.0).abs().max().item()):
+        raise AssertionError(f"sampler at the shard's shape: error {s_err}")
+    grid = torch.stack([u * (2.0 / (slab.shape[2] - 1)) - 1.0,
+                        v * (2.0 / (slab.shape[1] - 1)) - 1.0],
+                       dim=-1)[None, None]
+    N = u.numel()
+    bound = _sampler_bound(slab, u, v)
+    ms, plain_ms, lib_ms = (_events_us(fn, n=n) / 1e3 for fn, n in (
+        (functools.partial(sampler.sample_slab, slab, u, v), 20),
+        (functools.partial(sampler.sample_slab_reference, slab, u, v), 5),
+        (functools.partial(_grid_sample, slab[None], grid), 20)))
+    print(f"phase 11 sample_slab at a pixel shard's shape (level {lvl}, "
+          f"{rows} of {refs[lvl].shape[-2]} rows, N={N}): max_abs_err "
+          f"{s_err:.3e}; device {1e3 * ms:.2f} us per call (CUDA events; "
+          f"plain {1e3 * plain_ms:.2f}, grid_sample {1e3 * lib_ms:.2f}); "
+          f"bound {1e3 * bound[0]:.4f} us ({bound[1]})")
+    return {"launches": la["sample_slab"], "err": s_err, "bound": bound,
+            "ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms}
+
+
+def _leaves(x):
+    if isinstance(x, np.ndarray):
+        return [x]
+    if isinstance(x, dict):
+        return [y for v in x.values() for y in _leaves(v)]
+    if isinstance(x, (tuple, list)):
+        return [y for v in x for y in _leaves(v)]
+    return [np.asarray(x)]
+
+
+@contextlib.contextmanager
+def _plain_linearize(on=True):
+    """With on: the tracker's host loop linearizes with the plain version
+    (linearize_batched_reference, gathering with the standalone sampler on
+    the card), the arithmetic of the pixel route in one process."""
+    from dvo_slam_tpu_torch.ops import linearize, sampler
+
+    saved = linearize.linearize_batched
+    if on:
+        linearize.linearize_batched = functools.partial(
+            linearize.linearize_batched_reference,
+            sample=sampler.sample_slab)
+    try:
+        yield
+    finally:
+        linearize.linearize_batched = saved
+
+
 def main():
     import torch
 
@@ -2290,7 +2883,7 @@ def main():
     launches, _, frames, _ = phase_main_path(device)
     slam_out = phase_slam(device)
     t0 = time.perf_counter()
-    phase_validation_batches(device, cfg)
+    val_batches = phase_validation_batches(device, cfg)
     phase_eviction(device)
     print(f"phases 5d-5e took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2305,17 +2898,25 @@ def main():
     t0 = time.perf_counter()
     phase_live(device, slam_out)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    compaction = phase_compaction(device, frames)
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    par = phase_parallel(device)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dev_times = phase_device_times(cfg, levels, batched)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
     # Profiles only from here on.
     for host in (True, False):
         phase_profile(device, frames, host)
-    dev_times = phase_device_times(cfg, levels, batched)
     for host in (True, False):
         phase_slam_profile(slam_out, host)
     for host in (True, False):
         phase_offline_profile(offline, device, host)
     print(json.dumps({"kernels": kernel_rows(
         cfg, levels, launches, dev_times, slam_out["launches"], level_pairs,
-        batched, chunked["launches"])}))
+        batched, chunked["launches"], val_batches, compaction, par)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

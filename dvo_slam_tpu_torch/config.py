@@ -72,7 +72,10 @@ class TrackerConfig:
     # reference frame's gradients at the selected pixels.
     gradient_source: str = "current"
 
-    # Point compaction is a later slice of the port: only 0 is accepted.
+    # >0: compact each tracked level's selected points to this fraction of
+    # the grid, rounded up to 128 slots (ops/linearize.compact_reference:
+    # row-major order, uniform decimation past the budget). 0 = the full
+    # grid with a selection mask.
     point_budget_fraction: float = 0.0
 
     # Levenberg-Marquardt damping; 0 = Gauss-Newton with rollback.
@@ -95,11 +98,6 @@ class TrackerConfig:
             raise ValueError(
                 "point_budget_fraction must be in [0, 1], got "
                 f"{self.point_budget_fraction}"
-            )
-        if self.point_budget_fraction > 0.0:
-            raise NotImplementedError(
-                "point compaction (point_budget_fraction > 0) is not ported "
-                "yet; use 0"
             )
         if not (0 <= self.last_level <= self.first_level < self.num_levels):
             raise ValueError(

@@ -36,8 +36,8 @@ def tracker_config_from_fields(fields: dict) -> TrackerConfig:
     ``TrackerConfig``.
 
     Drops the TPU-only knobs. Raises ValueError on a field the port does
-    not know, and NotImplementedError (from TrackerConfig) on values it
-    cannot honour yet, such as point_budget_fraction > 0.
+    not know, or on a value TrackerConfig refuses (such as
+    point_budget_fraction outside [0, 1]).
     """
     known = {f.name for f in dataclasses.fields(TrackerConfig)}
     kept = {k: v for k, v in fields.items() if k not in TPU_ONLY_FIELDS}

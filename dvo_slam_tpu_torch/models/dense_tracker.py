@@ -21,10 +21,23 @@ one level for B rows:
 ``track`` is ``track_batched`` at B = 1. Gauss-Newton rollback
 (lambda = 0: revert and stop) and adaptive Levenberg-Marquardt
 (lambda > 0) share both paths.
+
+Pixel sharding (parallel/sharded.py; the JAX package's ``axis_name``):
+with a ``pixel_group``, a ``torch.distributed`` process group whose ranks
+each hold a band of the reference rows, each rank prepares its rows at
+``row_offset = rank * rows``, and where ``linearize.pixel_route(group)``
+holds (more than one rank) every level runs the host loop over
+``linearize_batched_reference`` with each sum all-reduced over the group
+(on the card gathering through csrc/sampler.cu): neither kernel mode can
+reduce across processes inside a launch. Every branch of that loop (the
+accept test, the lambda update, the stop test and the termination code)
+reads only all-reduced values, so all ranks take the same path and the
+same collectives. The selected count is all-reduced too.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -32,7 +45,8 @@ import numpy as np
 import torch
 
 from dvo_slam_tpu_torch.config import TrackerConfig
-from dvo_slam_tpu_torch.ops import least_squares, linearize as lin_ops, se3
+from dvo_slam_tpu_torch.ops import least_squares, linearize as lin_ops
+from dvo_slam_tpu_torch.ops import sampler, se3
 
 # Termination reasons, per level (reference IterationStats/LevelStats).
 TERM_ITERATIONS = 0  # hit max_iterations
@@ -165,7 +179,8 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig,
     """``track_level`` as a host loop over B rows in lockstep, one
     ``linearize`` call per iteration (by default ``linearize_batched``,
     looked up at the call; ``linearize_batched_reference`` for the plain
-    version of mode (b))."""
+    version of mode (b), and on the pixel route with every sum all-reduced
+    over the pixel group)."""
     linearize = linearize or lin_ops.linearize_batched
     dtype, dev = T_init.dtype, T_init.device
     B = T_init.shape[0]
@@ -292,8 +307,8 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig,
     return T_best, _final(best, cfg), stats
 
 
-def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits,
-                  cfg: TrackerConfig) -> TrackResult:
+def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits, cfg: TrackerConfig,
+                  pixel_group=None) -> TrackResult:
     """B reference pyramids tracked together (the JAX package's vmap over
     ``track``): one ``track_level`` per tracked level.
 
@@ -301,19 +316,38 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits,
     (6, H, W) slabs shared by every row (SLAM's dual alignment: keyframe
     and previous frame against the current frame) or (B, 6, H, W), one
     current pyramid per row (loop-closure validation); T_inits: (B, 4, 4).
-    Every field of the result has a leading B."""
+    Every field of the result has a leading B.
+
+    pixel_group: a process group over which each ref_pyrs level holds
+    this rank's band of rows (rank r: rows [r h, (r + 1) h) of every
+    level, h the slab's height here), the current pyramids whole; every
+    rank gets the same result. None: whole reference slabs."""
     T = T_inits
     dev, dtype = T_inits.device, T_inits.dtype
     B = T_inits.shape[0]
     levels = cfg.tracked_levels  # coarse -> fine
-    level_data = {lvl: lin_ops.prepare_reference(ref_pyrs[lvl], Ks[lvl], cfg)
-                  for lvl in levels}
+    sharded = lin_ops.pixel_route(pixel_group)
+    rank = 0
+    if sharded:
+        import torch.distributed as dist
+
+        rank = dist.get_rank(pixel_group)
+    level_data = {lvl: lin_ops.prepare_reference(
+        ref_pyrs[lvl], Ks[lvl], cfg,
+        row_offset=rank * ref_pyrs[lvl].shape[-2]) for lvl in levels}
 
     iters, errs, per_iter = [], [], []
     fin = None
     for lvl in levels:
-        T, fin, stats = track_level(level_data[lvl], cur_pyrs[lvl], Ks[lvl],
-                                    T, cfg)
+        if sharded:
+            T, fin, stats = _track_level(
+                level_data[lvl], cur_pyrs[lvl], Ks[lvl], T, cfg,
+                linearize=functools.partial(
+                    lin_ops.linearize_batched_reference,
+                    sample=sampler.sample_slab, group=pixel_group))
+        else:
+            T, fin, stats = track_level(level_data[lvl], cur_pyrs[lvl],
+                                        Ks[lvl], T, cfg)
         iters.append(stats["iterations"])
         errs.append(stats["error"])
         if cfg.collect_stats:
@@ -323,6 +357,8 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits,
     # accepted linearization (T is that pose).
     loglik = lin_ops.tdist_loglik(fin, cfg)
     n_selected = level_data[levels[-1]].selected.sum(-1).to(dtype)
+    if sharded:
+        dist.all_reduce(n_selected, group=pixel_group)
     information = fin.A
     zero = torch.zeros(B, dtype=dtype, device=dev)
 
@@ -355,16 +391,18 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits,
     )
 
 
-def track(ref_pyr, cur_pyr, Ks, T_init, cfg: TrackerConfig) -> TrackResult:
+def track(ref_pyr, cur_pyr, Ks, T_init, cfg: TrackerConfig,
+          pixel_group=None) -> TrackResult:
     """Align the current frame to the reference frame (DenseTracker::match).
 
     ref_pyr / cur_pyr: tuples of per-level (6, H, W) slabs (finest first)
     from ops.pyramid.build_pyramid; Ks: tuple of per-level (4,)
     intrinsics; T_init: (4, 4) f32 initial estimate (reference cam ->
-    current cam), all on one device. The batched tracker at B = 1.
+    current cam), all on one device; pixel_group as in ``track_batched``.
+    The batched tracker at B = 1.
     """
     res = track_batched(tuple(lvl[None] for lvl in ref_pyr), cur_pyr, Ks,
-                        T_init[None], cfg)
+                        T_init[None], cfg, pixel_group)
     return row(res, 0)
 
 
@@ -373,8 +411,9 @@ def track(ref_pyr, cur_pyr, Ks, T_init, cfg: TrackerConfig) -> TrackResult:
 track_pairs_batched = track_batched
 
 
-def row(res: TrackResult, b: int) -> TrackResult:
-    """Row b of a batched TrackResult (views)."""
+def row(res: TrackResult, b) -> TrackResult:
+    """Row b (an index, or a slice of rows) of a batched TrackResult
+    (views)."""
     stats = (None if res.stats is None
              else TrackStats(*(x[b] for x in res.stats)))
     return TrackResult(*(x[b] for x in res[:10]), stats,

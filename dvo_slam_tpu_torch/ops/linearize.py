@@ -40,6 +40,15 @@ over the tracker): reference points (B, N), poses (B, 4, 4), Sigma seeds
 (B, 2, 2), and one current slab (6, H, W) shared by every row or one per
 row (B, 6, H, W). Its plain version is ``linearize_batched_reference``:
 ``linearize_reference`` row by row.
+
+``prepare_reference`` builds the reference points: the full grid with a
+selection mask, or, with ``cfg.point_budget_fraction > 0``, the selected
+points compacted to a fixed slot count (``compact_reference``); the
+kernels take either N. The plain linearization takes an optional
+``group``, a ``torch.distributed`` process group over which the points
+are sharded (pixel rows, parallel/sharded.py): every sum the JAX package
+``psum``s is all-reduced over it. ``pixel_route(group)`` says when the
+tracker takes that route.
 """
 
 from __future__ import annotations
@@ -129,9 +138,28 @@ def _where0(mask, x):
     return torch.where(mask, x, torch.zeros_like(x))
 
 
-def prepare_reference(ref_slab, K, cfg: TrackerConfig) -> RefData:
+def _sums(group, *xs):
+    """The sums of xs (0-d tensors each), all-reduced over the process
+    group ``group`` where it is not None (the JAX package's ``psum`` over
+    a pixel axis): one collective for all of them."""
+    if group is None:
+        return tuple(x.sum() for x in xs)
+    import torch.distributed as dist
+
+    out = torch.stack([x.sum() for x in xs])
+    dist.all_reduce(out, group=group)
+    return out.unbind()
+
+
+def prepare_reference(ref_slab, K, cfg: TrackerConfig,
+                      row_offset: int = 0) -> RefData:
     """Back-project and select reference pixels (PointSelection).
-    ref_slab: (6, H, W), or (B, 6, H, W) for a batch of (B, N) points."""
+    ref_slab: (6, H, W), or (B, 6, H, W) for a batch of (B, N) points.
+
+    ``row_offset``: the image row of the slab's first row (a pixel shard's
+    rows start there, models/dense_tracker.py). With
+    ``cfg.point_budget_fraction > 0`` the points are compacted to
+    ``compact_budget`` slots (the same budget for every row of a batch)."""
     H, W = ref_slab.shape[-2:]
     lead = ref_slab.shape[:-3]
     dtype, device = ref_slab.dtype, ref_slab.device
@@ -143,6 +171,8 @@ def prepare_reference(ref_slab, K, cfg: TrackerConfig) -> RefData:
     )
     u = u.reshape(-1)
     v = v.reshape(-1)
+    if row_offset:
+        v = v + row_offset
 
     def plane(ch):
         # Contiguous (B, N): the kernels step from row to row by N (a copy
@@ -175,7 +205,71 @@ def prepare_reference(ref_slab, K, cfg: TrackerConfig) -> RefData:
     z_safe = torch.where(selected, z, torch.ones_like(z))
     px = (u - cx) / fx * z_safe
     py = (v - cy) / fy * z_safe
-    return RefData(px=px, py=py, pz=z_safe, i1=i1, selected=selected, **grads)
+    ref = RefData(px=px, py=py, pz=z_safe, i1=i1, selected=selected, **grads)
+    if cfg.point_budget_fraction > 0.0:
+        ref = compact_reference(ref, compact_budget(
+            H * W, cfg.point_budget_fraction, _COMPACT_TILE_GATHER))
+    return ref
+
+
+# Points per slot tile under compaction: the JAX package's gather-path
+# tile (its Pallas path rounds to 2048; the port has only the gather).
+_COMPACT_TILE_GATHER = 128
+
+
+def compact_budget(n_points: int, frac: float, tile: int) -> int:
+    """Static slot count for compact_reference: round_up(frac * n) to a
+    tile multiple, at least one tile, never more than a tile-rounded n."""
+    want = max(math.ceil(frac * n_points), 1)
+    up = lambda x: ((x + tile - 1) // tile) * tile  # noqa: E731
+    return min(up(want), up(n_points))
+
+
+def compact_reference(ref: RefData, budget: int) -> RefData:
+    """Compact (N,) or (B, N) reference points to ``budget`` slots of
+    selected points (the reference's PointSelection keeps compacted arrays;
+    the full grid with a mask is the default): a stable stream compaction,
+    the JAX package's semantics exactly.
+
+    - count <= budget: the selected points, in row-major order.
+    - count > budget: uniform row-major decimation; slot j holds the first
+      selected point whose slot map ``rank * budget // count`` lands on j,
+      i.e. the point of rank ``ceil(j * count / budget)``.
+    - Slots past ``min(count, budget)`` replicate the last filled slot and
+      are unselected; with no point selected every field is 0.
+
+    The map is inverted and gathered: slot j computes the rank it takes
+    and finds that point with ``searchsorted`` on the cumulative ranks.
+    Nothing is scattered, so duplicate writes (nondeterministic in CUDA's
+    ``index_put_``) cannot occur and the result is the same bits on every
+    device and run. int64 throughout: ``j * count`` cannot overflow, so
+    the JAX package's split int32 arithmetic is not needed. ``count``
+    stays a device tensor (no host sync)."""
+    sel = ref.selected
+    ranks = torch.cumsum(sel, dim=-1)  # int64, (..., N)
+    count = ranks[..., -1:]  # (..., 1)
+    nfill = torch.clamp(count, max=budget)
+    slots = torch.arange(budget, device=sel.device)
+    # Slot j's rank, ceil(j * max(count, budget) / budget): j itself under
+    # budget, the decimation map's first writer over it. Tail slots take
+    # the last filled slot's point.
+    j = torch.minimum(slots, nfill - 1)
+    rank = (j * torch.clamp(count, min=budget) + (budget - 1)) // budget
+    # The first point whose cumulative rank passes `rank`: the point of
+    # that rank. count == 0 finds none (N), clamped and zeroed below.
+    idx = torch.clamp(torch.searchsorted(ranks, rank, right=True),
+                      max=sel.shape[-1] - 1)
+    fields = ref[:4] + ref[5:]  # all but `selected`
+    present = [k for k, f in enumerate(fields) if f is not None]
+    table = torch.stack([fields[k] for k in present])
+    out = torch.where(count > 0, torch.gather(
+        table, -1, idx.expand(table.shape[:-1] + idx.shape[-1:])), 0.0)
+    cols = dict(zip(present, out.unbind()))
+    return RefData(
+        px=cols[0], py=cols[1], pz=cols[2], i1=cols[3],
+        selected=slots < nfill, gix=cols.get(4), giy=cols.get(5),
+        gzx=cols.get(6), gzy=cols.get(7),
+    )
 
 
 def tdist_weights_reference(a, bq, c, sII, sIZ, sZZ, vF, cfg):
@@ -189,25 +283,30 @@ def tdist_weights_reference(a, bq, c, sII, sIZ, sZZ, vF, cfg):
     return det, p00, p01, p11, maha, w
 
 
-def tdist_step_reference(a, bq, c, sII, sIZ, sZZ, vF, n, cfg):
+def tdist_step_reference(a, bq, c, sII, sIZ, sZZ, vF, n, cfg, group=None):
     """One step of the bivariate t-distribution scale fixed point (the
     plain version of the kernel's Sigma step): the weighted moments under
-    Sigma = [[a, bq], [bq, c]]. Returns the next (a, bq, c)."""
+    Sigma = [[a, bq], [bq, c]], summed over ``group`` too where it is not
+    None. Returns the next (a, bq, c)."""
     w = tdist_weights_reference(a, bq, c, sII, sIZ, sZZ, vF, cfg)[5]
-    a = (w * sII).sum() / n + cfg.min_intensity_sigma**2
-    bq = (w * sIZ).sum() / n
-    c = (w * sZZ).sum() / n + cfg.min_depth_sigma**2
+    s_ii, s_iz, s_zz = _sums(group, w * sII, w * sIZ, w * sZZ)
+    a = s_ii / n + cfg.min_intensity_sigma**2
+    bq = s_iz / n
+    c = s_zz / n + cfg.min_depth_sigma**2
     return a, bq, c
 
 
-def _tdist_scale(sII, sIZ, sZZ, vF, n, cfg, sigma_init, sigma_warm):
-    """Bivariate t-distribution scale fixed point on the residual moments.
-    Returns the Sigma entries (a, bq, c)."""
+def _tdist_scale(sII, sIZ, sZZ, vF, n, cfg, sigma_init, sigma_warm,
+                 group=None):
+    """Bivariate t-distribution scale fixed point on the residual moments
+    (summed over ``group`` too where it is not None). Returns the Sigma
+    entries (a, bq, c)."""
     floor_II = cfg.min_intensity_sigma**2
     floor_ZZ = cfg.min_depth_sigma**2
-    a = sII.sum() / n + floor_II
-    bq = sIZ.sum() / n
-    c = sZZ.sum() / n + floor_ZZ
+    s_ii, s_iz, s_zz = _sums(group, sII, sIZ, sZZ)
+    a = s_ii / n + floor_II
+    bq = s_iz / n
+    c = s_zz / n + floor_ZZ
     n_fp = cfg.tdist_scale_iters
     if sigma_init is not None and cfg.tdist_scale_warm_iters > 0:
         # Warm start from the previous iteration's Sigma: the trip count
@@ -219,7 +318,8 @@ def _tdist_scale(sII, sIZ, sZZ, vF, n, cfg, sigma_init, sigma_warm):
             c = torch.clamp(sigma_init[1, 1], min=floor_ZZ)
             n_fp = cfg.tdist_scale_warm_iters
     for _ in range(n_fp):
-        a, bq, c = tdist_step_reference(a, bq, c, sII, sIZ, sZZ, vF, n, cfg)
+        a, bq, c = tdist_step_reference(a, bq, c, sII, sIZ, sZZ, vF, n, cfg,
+                                        group)
     return a, bq, c
 
 
@@ -239,12 +339,14 @@ def warp(ref: RefData, K, T):
 
 
 def residuals_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
-                        sample=sampler.sample_slab_reference) -> Residuals:
+                        sample=sampler.sample_slab_reference,
+                        group=None) -> Residuals:
     """Warp, bilinear sample, bivariate residual and validity of every
     reference point at pose T: the plain version of the kernel's residual
     pass. ``sample`` is the gather, ``(slab, u, v) -> (samples, inb)``:
     the plain sampler, or ``sampler.sample_slab`` (its kernel on a CUDA
-    slab)."""
+    slab). The valid count is summed over ``group`` too where it is not
+    None."""
     C = cur_slab.shape[0]
     dtype = cur_slab.dtype
     X, Y, Z, zi, u, v = warp(ref, K, T)
@@ -280,7 +382,7 @@ def residuals_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
     vF = valid.to(dtype)
     rI = _where0(valid, rI)
     rZ = _where0(valid, rZ) if cfg.use_depth else torch.zeros_like(rI)
-    n_raw = vF.sum()
+    (n_raw,) = _sums(group, vF)
     n = torch.clamp(n_raw, min=1.0)
     return Residuals(X=X, Y=Y, Z=Z, zi=zi, gix=gix, giy=giy, gzx=gzx,
                      gzy=gzy, rI=rI, rZ=rZ, valid=valid, vF=vF, n_raw=n_raw,
@@ -288,10 +390,11 @@ def residuals_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
 
 
 def normal_equations_reference(res: Residuals, w, p00, p01, p11, K,
-                               cfg: TrackerConfig):
+                               cfg: TrackerConfig, group=None):
     """Analytic Jacobian and the weighted 6x6 normal equations ``(A, b)``
     (with the weights ``w``: the plain version of the kernel's
-    normal-equations pass)."""
+    normal-equations pass), summed over ``group`` too where it is not
+    None."""
     fx, fy = K[0], K[1]
     X, Y, Z, zi, valid = res.X, res.Y, res.Z, res.zi, res.valid
     # J_pi = [[A, 0, C], [0, B, D]]; dp'/dxi = [I3 | -hat(p')].
@@ -324,7 +427,14 @@ def normal_equations_reference(res: Residuals, w, p00, p01, p11, K,
     GZ = [wX * JI[k] + wZ * JZ[k] for k in range(6)]
     J6 = torch.stack([torch.cat([JI[k], JZ[k]]) for k in range(6)])
     G6 = torch.stack([torch.cat([GI[k], GZ[k]]) for k in range(6)])
-    return J6 @ G6.T, G6 @ torch.cat([res.rI, res.rZ])
+    A, b = J6 @ G6.T, G6 @ torch.cat([res.rI, res.rZ])
+    if group is not None:
+        import torch.distributed as dist
+
+        Ab = torch.cat([A.reshape(36), b])
+        dist.all_reduce(Ab, group=group)
+        A, b = Ab[:36].view(6, 6), Ab[36:]
+    return A, b
 
 
 def kernel_route(cfg: TrackerConfig) -> bool:
@@ -332,6 +442,23 @@ def kernel_route(cfg: TrackerConfig) -> bool:
     csrc/linearize.cu, False where it runs ``linearize_reference`` on the
     card (the scale estimators other than the t-distribution)."""
     return cfg.use_weighting and cfg.scale_estimator == "tdist"
+
+
+def pixel_route(group) -> bool:
+    """True where the tracker runs a pixel-sharded level (reference rows
+    split over the ranks of the ``torch.distributed`` process group
+    ``group``): a group of more than one rank. There the tracker runs its
+    host loop over ``linearize_batched_reference`` with every sum
+    all-reduced over the group (on the card gathering with the standalone
+    sampler kernel), since neither mode of csrc/linearize.cu can reduce
+    across processes inside a launch. The group picks the route, as
+    ``mu > 0`` picks the host loop; a group of one rank, or None, leaves
+    the routes of ``kernel_route`` and ``level_route``."""
+    if group is None:
+        return False
+    import torch.distributed as dist
+
+    return dist.get_world_size(group) > 1
 
 
 def level_route(cfg: TrackerConfig) -> bool:
@@ -390,16 +517,17 @@ def linearize_batched(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
 def linearize_batched_reference(ref: RefData, cur_slab, K, T,
                                 cfg: TrackerConfig, sigma_init=None,
                                 sigma_warm=False,
-                                sample=sampler.sample_slab_reference
-                                ) -> Linearization:
+                                sample=sampler.sample_slab_reference,
+                                group=None) -> Linearization:
     """``linearize_batched`` in plain PyTorch: ``linearize_reference`` row
-    by row, stacked (the plain version of the batched kernels)."""
+    by row, stacked (the plain version of the batched kernels); ``group``
+    as in ``linearize_reference``."""
     paired = cur_slab.dim() == 4
     rows = [linearize_reference(
         RefData(*(None if f is None else f[b] for f in ref)),
         cur_slab[b] if paired else cur_slab, K, T[b], cfg,
         None if sigma_init is None else sigma_init[b], sigma_warm,
-        sample=sample) for b in range(T.shape[0])]
+        sample=sample, group=group) for b in range(T.shape[0])]
     return Linearization(*(torch.stack(f) for f in zip(*(r[:-1]
                                                          for r in rows))))
 
@@ -618,12 +746,21 @@ def track_level_kernels(ref: RefData, cur_slab, K, T_init,
 
 def linearize_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
                         sigma_init=None, sigma_warm=False,
-                        sample=sampler.sample_slab_reference
-                        ) -> Linearization:
+                        sample=sampler.sample_slab_reference,
+                        group=None) -> Linearization:
     """``linearize`` in plain PyTorch, for every config, on any device;
-    ``sample`` as in ``residuals_reference``."""
+    ``sample`` as in ``residuals_reference``.
+
+    ``group``: a ``torch.distributed`` process group over which the
+    reference points are sharded (pixel rows), or None. Every sum the JAX
+    package ``psum``s over its pixel axis (the valid count, the residual
+    moments and each Sigma step's, the log1p sum, A, b and err_raw) is
+    all-reduced over it, so every rank gets the same Linearization; the
+    robust scales of the other estimators stay per rank, as there. With
+    None nothing is reduced and the result is the same bits as
+    before."""
     dtype = cur_slab.dtype
-    res = residuals_reference(ref, cur_slab, K, T, cfg, sample)
+    res = residuals_reference(ref, cur_slab, K, T, cfg, sample, group)
     rI, rZ, valid, vF, n = res.rI, res.rZ, res.valid, res.vF, res.n
 
     # --- robust scale + weights (bivariate t-distribution default) ---
@@ -633,10 +770,11 @@ def linearize_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
     if cfg.use_weighting and cfg.scale_estimator == "tdist":
         nu = cfg.tdist_dof
         a, bq, c = _tdist_scale(sII, sIZ, sZZ, vF, n, cfg,
-                                sigma_init, sigma_warm)
+                                sigma_init, sigma_warm, group)
         det, p00, p01, p11, maha, w = tdist_weights_reference(
             a, bq, c, sII, sIZ, sZZ, vF, cfg)
-        log1p_sum = (torch.log1p(maha / nu) * vF).sum()
+        log1p_sum, err_raw = _sums(group, torch.log1p(maha / nu) * vF,
+                                   w * maha)
         err_mean = 0.5 * torch.log(det) + (nu + 2.0) / 2.0 * log1p_sum / n
     else:
         if cfg.use_weighting:
@@ -663,8 +801,9 @@ def linearize_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
             w = w * vF
         else:
             w = vF
-        log1p_sum = (torch.log1p(maha / cfg.tdist_dof) * vF).sum()
-        err_sum = (w * maha).sum()
+        log1p_sum, err_raw = _sums(
+            group, torch.log1p(maha / cfg.tdist_dof) * vF, w * maha)
+        err_sum = err_raw
         if cfg.use_weighting:
             err_mean = err_sum / n + torch.log(torch.clamp(a * c, min=_EPS))
         else:
@@ -675,8 +814,8 @@ def linearize_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
         p01 = torch.zeros_like(p01)
         p11 = torch.zeros_like(p11)
 
-    Amat, bvec = normal_equations_reference(res, w, p00, p01, p11, K, cfg)
-    err_raw = (w * maha).sum()
+    Amat, bvec = normal_equations_reference(res, w, p00, p01, p11, K, cfg,
+                                            group)
 
     sigma = torch.stack([torch.stack([a, bq]), torch.stack([bq, c])])
     return Linearization(

@@ -850,3 +850,129 @@ def test_slam_evicts_past_resident_keyframes(cuda):
               for e in range(int(s.graph.num_edges))] for s in (small, large)]
     assert edges[0] == edges[1] and small.num_loop_edges >= 1
     np.testing.assert_array_equal(np.stack(traj_small), np.stack(traj_large))
+
+
+# ---- point compaction (point_budget_fraction > 0) on the card
+
+BUDGET_CONFIG = {"intensity_grad_threshold": 1.0, "point_budget_fraction": 0.5}
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("level", [3, 2, 1])
+def test_track_level_kernel_at_budget_matches_host_loop(cuda, orbit640,
+                                                        level, B):
+    """Mode (b) over compacted points (N = the budget, past the selection
+    at this threshold, so decimated) against the plain host loop, with the
+    gates of the full grid's test."""
+    cfg = TrackerConfig(**BUDGET_CONFIG)
+    ref, cur, K, T0 = _level_batch(orbit640, cuda, B, False, level, cfg)
+    h, w = cur.shape[-2:]
+    assert ref.px.shape == (B, linearize.compact_budget(h * w, 0.5, 128))
+    assert bool(ref.selected.all())  # decimated: every slot a point
+    stats, parted = _assert_level_matches_host_loop(ref, cur, K, T0, cfg)
+    assert (stats["iterations"] >= 2).all()
+    assert len(parted) <= max(1, B // 4), parted
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("level", [3, 2, 1])
+def test_fused_linearize_at_budget_matches_plain(cuda, orbit640, level, B):
+    """Mode (a) over compacted points: each row against the plain version
+    (valid mask, rI and rZ exact; A and b within 1e-4 * max|.|), and the
+    host loop over mode (a) against the host loop over plain (T within
+    1e-5)."""
+    cfg = TrackerConfig(**BUDGET_CONFIG)
+    ref, cur, K, T = _level_batch(orbit640, cuda, B, False, level, cfg)
+    N = ref.px.shape[1]
+    got = linearize.linearize_batched(ref, cur, K, T, cfg)
+    rI, rZ, valid = (t.clone() for t in
+                     linearize.kernel_residuals(cuda, N, B))
+    for b in range(B):
+        row = _row_ref(ref, b)
+        res = linearize.residuals_reference(row, cur, K, T[b], cfg)
+        want = linearize.linearize_reference(row, cur, K, T[b], cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(valid[b], res.valid)
+        assert torch.equal(rI[b], res.rI) and torch.equal(rZ[b], res.rZ)
+        assert float(got.n_raw[b]) == float(want.n_raw) > 0.5 * N
+        for field in ("A", "b"):
+            a, w = getattr(got, field)[b], getattr(want, field)
+            assert (a - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    T_a = dense_tracker._track_level(ref, cur, K, T, cfg)[0]
+    T_h = dense_tracker._track_level(
+        ref, cur, K, T, cfg, linearize=linearize.linearize_batched_reference)[0]
+    assert (T_a - T_h).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("frac, thr", [(0.5, 1.0), (0.9, 3.0), (0.25, 0.0)])
+def test_compaction_on_card_equals_cpu(cuda, orbit640, frac, thr):
+    """prepare_reference's compaction on the card: the CPU's bits from the
+    same slab at every level, one pyramid and a batch of two, and the same
+    bits over repeated runs (no scatter: nothing depends on the order of
+    writes)."""
+    cfg = TrackerConfig(intensity_grad_threshold=thr,
+                        point_budget_fraction=frac)
+    frames, _ = orbit640
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K640, device=cuda),
+                                   cfg.num_levels)
+    pyrs = [pyramid.build_pyramid(torch.as_tensor(i, device=cuda),
+                                  torch.as_tensor(z, device=cuda),
+                                  cfg.num_levels) for i, z in frames[:2]]
+    for level in range(cfg.num_levels):
+        for slab in (pyrs[0][level], torch.stack([p[level] for p in pyrs])):
+            got = linearize.prepare_reference(slab, Ks[level], cfg)
+            want = linearize.prepare_reference(slab.cpu(), Ks[level].cpu(),
+                                               cfg)
+            again = [linearize.prepare_reference(slab, Ks[level], cfg)
+                     for _ in range(5)]
+            for f, a, w in zip(got._fields, got, want):
+                if a is None:
+                    continue
+                assert torch.equal(a.cpu(), w), (level, f)
+                assert all(torch.equal(a, getattr(x, f)) for x in again)
+
+
+def test_pixel_sharded_world_on_card_matches_single(cuda, orbit640):
+    """parallel/'s pixel route on the card: a 2-rank world (nccl with two
+    cards, the ranks sharing one card over gloo with one) tracks two
+    640x480 pairs with the reference rows split over the ranks, through
+    the host loop over the all-reduced plain linearization and the
+    standalone sampler kernel. Both ranks return the same poses: within
+    5e-5 of the single-process host loop over the plain linearization (the
+    same arithmetic, sums unsplit) and 1e-4 of the level kernel's, valid
+    counts within 1e-3 relative."""
+    import functools
+
+    import torch_sharded_cases as cases
+    from dvo_slam_tpu_torch import parallel
+
+    frames, poses = orbit640
+    rng = np.random.default_rng(3)
+    inp = {"frames": frames[:3], "K": K640, "T0": np.stack([
+        (se3_np.inverse(poses[b + 1]) @ poses[b])
+        @ se3_np.exp(rng.normal(scale=2e-3, size=6))
+        for b in range(2)]).astype(np.float32)}
+    ranks = parallel.spawn(cases.run_card_pixel, 2, "cuda", (inp,),
+                           timeout_s=300)
+    for r in ranks:
+        assert r["launches"]["sample_slab"] > 0, r["launches"]
+        assert r["launches"]["track_level"] == 0
+        np.testing.assert_array_equal(r["T"], ranks[0]["T"])
+    refs, curs, Ks, T0 = cases.card_pairs(inp, cuda)
+    cfg = TrackerConfig()
+    want = {"kernel": dense_tracker.track_batched(refs, curs, Ks, T0, cfg)}
+    plain = functools.partial(linearize.linearize_batched_reference,
+                              sample=sampler.sample_slab)
+    level = dense_tracker.track_level
+    dense_tracker.track_level = functools.partial(dense_tracker._track_level,
+                                                  linearize=plain)
+    try:
+        want["host"] = dense_tracker.track_batched(refs, curs, Ks, T0, cfg)
+    finally:
+        dense_tracker.track_level = level
+    for name, tol in (("host", 5e-5), ("kernel", 1e-4)):
+        w = want[name]
+        np.testing.assert_allclose(ranks[0]["T"],
+                                   w.transformation.cpu().numpy(), atol=tol)
+        np.testing.assert_allclose(ranks[0]["valid"],
+                                   w.valid_pixels.cpu().numpy(), rtol=1e-3)

@@ -308,7 +308,7 @@ def test_live_reconfigure_frozen_fields():
     for bad in ({"num_levels": 3}, {"slam": {"max_keyframes": 64}},
                 {"max_iterations": 40,
                  "slam": {"coarse_first_level": 0, "coarse_last_level": 1}},
-                {"point_budget_fraction": 0.5}):
+                {"point_budget_fraction": 1.5}):
         assert "error" in client.configure(**bad)
     check = client.configure()
     assert check["tracker"]["max_iterations"] == 12

@@ -302,14 +302,10 @@ def test_eviction_and_growth_like_jax():
 
 def test_unported_options_raise(tmp_path):
     """What the port does not run raises instead of running something
-    else: point compaction (point_budget_fraction > 0), and an engine
-    that does not match the checkpoint (a per-frame checkpoint loaded as
-    chunked)."""
+    else: an engine that does not match the checkpoint (a per-frame
+    checkpoint loaded as chunked, and a chunked one loaded per frame)."""
     from dvo_slam_tpu_torch.utils import checkpoint
 
-    with pytest.raises(NotImplementedError):
-        convert.tracker_config_from_fields(dataclasses.asdict(
-            dataclasses.replace(TRACKER, point_budget_fraction=0.5)))
     slam = TKeyframeSlam(K_TUPLE, *_port_cfgs(SLAM), device="cpu")
     slam.init()
     path = str(tmp_path / "state.npz")
@@ -317,3 +313,25 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(ValueError, match="per-frame"):
         checkpoint.load_slam(path, K_TUPLE, *_port_cfgs(SLAM), chunked=True,
                              device="cpu")
+    from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
+
+    chunked = ChunkedKeyframeSlam(K_TUPLE, *_port_cfgs(SLAM), device="cpu")
+    chunked.init()
+    path = str(tmp_path / "chunked.npz")
+    checkpoint.save_slam(path, chunked)
+    with pytest.raises(ValueError, match="chunked"):
+        checkpoint.load_slam(path, K_TUPLE, *_port_cfgs(SLAM), device="cpu")
+
+
+def test_budget_config_converts():
+    """point_budget_fraction > 0 runs in the port: a JAX TrackerConfig
+    with a budget converts with it, and the port's tracker takes it."""
+    cfg = convert.tracker_config_from_fields(dataclasses.asdict(
+        dataclasses.replace(TRACKER, point_budget_fraction=0.5)))
+    assert cfg.point_budget_fraction == 0.5
+    assert dataclasses.replace(cfg, point_budget_fraction=0.0) == \
+        _port_cfgs(SLAM)[0]
+    slam = TKeyframeSlam(K_TUPLE, cfg, _port_cfgs(SLAM)[1], device="cpu")
+    frames, poses = _frames(2, 0.06)
+    _drive(slam, frames, poses, lambda i: False)
+    assert slam.tracker_cfg.point_budget_fraction == 0.5

@@ -169,8 +169,11 @@ def test_config_conversion():
                                     lm_lambda_init=1e-3))
     assert t_cfg.lm_lambda_init == 1e-3
     assert not hasattr(t_cfg, "sampler_backend")
-    with pytest.raises(NotImplementedError):
-        _port_cfg(TrackerConfig(point_budget_fraction=0.5))
+    assert _port_cfg(TrackerConfig(
+        point_budget_fraction=0.5)).point_budget_fraction == 0.5
+    with pytest.raises(ValueError):
+        convert.tracker_config_from_fields(
+            {"point_budget_fraction": 1.5})
     with pytest.raises(ValueError):
         convert.tracker_config_from_fields({"not_a_knob": 1})
     levels = convert.pyramid_from_numpy(
