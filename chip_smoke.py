@@ -6,10 +6,12 @@
 Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit (nvcc). It imports nothing of JAX or of dvo_slam_tpu and
 exits non-zero, printing no result, when there is no card or any phase
-fails. The port's kernels: the standalone slab sampler (csrc/sampler.cu)
-and the cluster kernel of csrc/linearize.cu in its two modes, (a) one
+fails. The port's kernels: the standalone slab sampler (csrc/sampler.cu),
+the cluster kernel of csrc/linearize.cu in its two modes, (a) one
 IRLS linearization per batch row and (b) a pyramid level's whole IRLS loop
-per batch row (the tracker's route on the card). Phases:
+per batch row (the tracker's route on the card), and the pose-graph
+kernel (csrc/pose_graph.cu: a dense Levenberg-Marquardt solve of up to
+128 vertices per launch, the graph solves' route on the card). Phases:
 
   1. device: the card's name and power limit (nvidia-smi), the build of
      the port's kernels from csrc/ (libdvo_kernels.so, one nvcc per
@@ -57,9 +59,12 @@ per batch row (the tracker's route on the card). Phases:
      launch counts reset just before and read just after): ms/frame,
      keyframes and loop edges (must be >= 1), ATE of finish() against the
      ring's ground truth (must be < 5 mm), level-kernel launches per frame
-     and by batch size (mode (a) and the sampler: 0), the LM iterations
-     each pose-graph solve ran, and two runs of the final graph solve
-     (must be bit-identical);
+     and by batch size (mode (a) and the sampler: 0), the LM steps each
+     pose-graph solve ran (pose_graph.LAST_STEPS, read after the run),
+     the pose-graph kernel's launches (must be > 0, one per solve on its
+     route) and the host loop's LM steps (must be 0), the host ms per
+     switch of each part, and two runs of the final graph solve (must be
+     bit-identical);
   5d. mode (b) at the validation batches B = 16 and 32 (up to
      SlamConfig.validation_batch_max), one current slab per row of a noisy
      640x480 orbit, per tracked level, against the plain host loop with
@@ -68,7 +73,8 @@ per batch row (the tracker's route on the card). Phases:
      frame, 68 frames of the ring at 160x120, loop closure on): pyramids
      evicted to pinned host memory and re-uploaded for validation; the run
      must equal one whose budget holds every pyramid (keyframes, edges,
-     trajectory);
+     trajectory); its solves counted by vertex slots and route (graphs of
+     64 and 128 slots take the graph kernel's clusters);
   6. the offline surface over bench/accuracy.py's full-scale protocol
      rendered with the freiburg-1 intrinsics (noisy 640x480 frames, two
      laps of a 0.5 m orbit, cut from 240 frames to 160; written as a TUM
@@ -97,12 +103,29 @@ per batch row (the tracker's route on the card). Phases:
      g. `cli odometry --scale-estimator normal --influence huber` (24
         frames): one standalone sampler launch per linearization, no
         cluster-kernel launch;
+  5f. (after 6, whose graph it takes) the pose-graph kernel against the
+     plain host loop (optimize_reference, cuSOLVER's Cholesky) on the card:
+     the ring's final keyframe graph (M = 16), 5b's last window graph,
+     6b's benchmark graph (cropped to M = 32) and _ring_graph at 64 and
+     128 vertices (clusters of 4 and 16 CTAs): steps on each route, max
+     |dpose| (tol 1e-4), chi2 (rtol 1e-4), weights and chi2 against the
+     plain formula at the kernel's poses (1e-4), the same accept
+     decisions up to a parting at a tie (at the parting step neither
+     trial moves the chi2 by more than 1e-4 relative); the
+     kernel's device us per solve and per step (CUDA events), the host
+     loop's ms, cuSOLVER's cholesky_ex + cholesky_solve on the damped
+     system, the bound;
   7. the three cells through the host loop (dense_tracker._track_level,
      one mode (a) launch per lockstep iteration, called directly in
      place of track_level) and through the level kernel, in turns (host,
      kernel, kernel, host): odometry (24 frames), SLAM (96 frames after
      32; both routes must give the same keyframes and graph edges, with a
      loop edge), offline (run_sequence, 96 frames of phase 6's sequence);
+     then the SLAM and offline cells with the graph solves through the
+     host loop (optimize_reference in place of optimize) and through the
+     graph kernel, in turns: ms/frame, on the ring switch-frame and other
+     frames' ms and the host ms per switch of KeyframeSlam._optimize and
+     LocalMap.optimize_async;
   8. the chunked engine (ChunkedKeyframeSlam, default configs, loop
      closure on) over 5b's loop in chunks of 16 with a depth-2
      submit/collect pipeline, 160 warm-up frames then 160 timed: ms/frame,
@@ -168,7 +191,8 @@ cluster kernel's modes at B = 1, with the odometry path's launches, at
 B = 2 and 8, with the SLAM path's, mode (b) at B = 2 with the chunked
 engine's, at B = 16 and 32 (5d), and at N = budget with phase 10's
 compacted odometry launches; the standalone sampler on phase 11's
-pixel-sharded route); the last line is {"ok": true,
+pixel-sharded route; the pose-graph kernel on 5f's five graphs, with
+5b's, 6b's and 5e's launches); the last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -239,6 +263,15 @@ LIVE_RUNS = (("odometry", 0, "f32", 0), ("slam", 0, "f32", 0),
              ("slam", CHUNK, "f32", 0), ("slam", CHUNK, "raw", 0),
              ("slam", CHUNK, "raw12", 0), ("slam", 0, "raw", 30),
              ("slam", CHUNK, "raw", 30))
+# 5f: the graph kernel against the host loop; _ring_graph sizes that take
+# the kernel's cluster route.
+# Operations per LM step, counted from csrc/pose_graph.cu: per edge
+# (residual, chi2 and blocks in f32; the Jacobian in f64), per edge of a
+# residual-only pass (f32), per vertex (exp and the pose product, f32).
+GRAPH_RING_VERTICES = (64, 128)
+GRAPH_EDGE_OPS = (2110, 1070)
+GRAPH_RESIDUAL_OPS = 530
+GRAPH_VERTEX_OPS = 230
 # 10: compaction on the main path's orbit (phase 3's frames).
 COMPACT_THRESHOLD, COMPACT_BUDGET = 1.0, 0.5
 # 11: parallel/ at 640x480: pairs and fleet candidates, sequences of the
@@ -290,11 +323,12 @@ def _busy_us(intervals):
 
 def _kernel_of(name):
     """Which of the port's kernels a device record is, or None: the
-    standalone sampler, or the cluster kernel's mode (a) ("linearize") or
-    mode (b) ("track_level")."""
+    standalone sampler, the cluster kernel's mode (a) ("linearize") or
+    mode (b) ("track_level"), or the pose-graph kernel ("pose_graph")."""
     for kernel, what in (("sample_slab_kernel", "sampler"),
                          ("track_level_kernel", "track_level"),
-                         ("linearize_kernel", "linearize")):
+                         ("linearize_kernel", "linearize"),
+                         ("pose_graph_kernel", "pose_graph")):
         if kernel in name:
             return what
     return None
@@ -311,7 +345,7 @@ def _traced(body, what):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    kernels = ("sample_slab", "linearize", "track_level")
+    kernels = ("sample_slab", "linearize", "track_level", "pose_graph")
     for attempt in range(1, PROFILER_ATTEMPTS + 1):
         torch.cuda.synchronize()
         before = _launches()
@@ -949,23 +983,27 @@ def _host_timed(owner, names, spent):
     return lambda: [setattr(owner, n, fn) for n, fn in saved.items()]
 
 
-def _lm_counted(solves):
-    """Wrap pose_graph.optimize so each solve appends (LM iterations
-    asked, LM iterations run) to solves (_total_chi2 runs once per LM
-    iteration); returns a function that restores both."""
+def _lm_counted(solves, host_steps, copy=False):
+    """Wrap pose_graph.optimize so each solve appends (LM steps asked, its
+    LAST_STEPS tensor, the host graph, its keyword arguments) to solves
+    (the step counts are read after the run: reading one is a host sync),
+    and count the host loop's LM steps in host_steps[0] (_total_chi2 runs
+    once per step of optimize_reference, never on the kernel route);
+    returns a function that restores both. The engine's host graph is a
+    view of arrays it rewrites later: with copy, a copy of it is kept."""
     from dvo_slam_tpu_torch.models import pose_graph
 
     optimize, total = pose_graph.optimize, pose_graph._total_chi2
-    ran = [0]
 
     def counting_total(*args, **kwargs):
-        ran[0] += 1
+        host_steps[0] += 1
         return total(*args, **kwargs)
 
     def counting_optimize(graph, iterations=20, **kwargs):
-        ran[0] = 0
         out = optimize(graph, iterations=iterations, **kwargs)
-        solves.append((iterations, ran[0]))
+        if copy:
+            graph = type(graph)(*(np.array(x) for x in graph))
+        solves.append((iterations, pose_graph.LAST_STEPS, graph, kwargs))
         return out
 
     pose_graph._total_chi2 = counting_total
@@ -977,11 +1015,21 @@ def _lm_counted(solves):
     return restore
 
 
+def _graph_route(graph, kwargs):
+    """The route pose_graph.optimize takes for a solve of `graph` with
+    `kwargs`: "kernel" (one launch) or "host loop"."""
+    from dvo_slam_tpu_torch.models import pose_graph
+
+    return ("kernel" if pose_graph.graph_route(
+        kwargs.get("solver", "dense"), graph.poses.shape[0],
+        kwargs.get("device", "cuda")) else "host loop")
+
+
 def _lm_summary(solves):
-    """'asked N: k solves, LM iterations run mean / min / max' per N."""
+    """'asked N: k solves, LM steps run mean / min / max' per N."""
     by = {}
-    for asked, ran in solves:
-        by.setdefault(asked, []).append(ran)
+    for asked, ran, *_ in solves:
+        by.setdefault(asked, []).append(int(ran))
     return "; ".join(f"asked {a}: {len(r)} solves, run {np.mean(r):.2f} "
                      f"mean, {min(r)} min, {max(r)} max"
                      for a, r in sorted(by.items()))
@@ -1027,8 +1075,8 @@ def phase_slam(device):
                                   "_drain_device_reads", "_sync_poses"),
                            spent),
                _host_timed(local_map.LocalMap, ("optimize_async",), spent)]
-    solves = []
-    restore.append(_lm_counted(solves))
+    solves, host_steps = [], [0]
+    restore.append(_lm_counted(solves, host_steps))
     _reset_launches()
     _slam_frames(slam, frames, SLAM_FRAMES, 100.0, timed)
     launches = _launches()
@@ -1069,18 +1117,32 @@ def phase_slam(device):
           + ", ".join(f"{k} {v / n_sw:.3f}" for k, v in sorted(spent.items())))
     print(f"phase 5b pose-graph LM solves in the timed frames (window "
           f"solves ask {slam_cfg.local_map_iterations}, graph solves "
-          f"{slam_cfg.optimization_iterations}): {_lm_summary(solves)}")
+          f"{slam_cfg.optimization_iterations}; LAST_STEPS): "
+          f"{_lm_summary(solves)}; pose-graph kernel launches "
+          f"{launches['pose_graph']} ({launches['pose_graph'] / n_sw:.2f} "
+          f"per switch frame), routes "
+          f"{sorted({_graph_route(g, kw) for _, _, g, kw in solves})}, host "
+          f"loop LM steps {host_steps[0]}")
     if slam.num_loop_edges < 1:
         raise AssertionError("the SLAM path accepted no loop edge")
     if not ate < ATE_LIMIT_M:
         raise AssertionError(f"SLAM ATE {ate} m >= {ATE_LIMIT_M} m")
     if (launches["track_level"] == 0 or launches["linearize"] != 0
-            or launches["sample_slab"] != 0):
-        raise AssertionError(f"SLAM path launches {launches}")
+            or launches["sample_slab"] != 0 or launches["pose_graph"] == 0
+            or host_steps[0] != 0):
+        raise AssertionError(f"SLAM path launches {launches}, host loop LM "
+                             f"steps {host_steps[0]}")
+    window = [(g, dict(kw, iterations=it)) for it, _, g, kw in solves
+              if not kw.get("use_robust")]
+    on_kernel = [kw.get("use_robust", True) for _, _, g, kw in solves
+                 if _graph_route(g, kw) == "kernel"]
+    if len(on_kernel) != launches["pose_graph"]:
+        raise AssertionError(f"{len(on_kernel)} solves on the kernel's "
+                             f"route, {launches['pose_graph']} launches")
     # The final graph solve, twice on the same graph: the same bits.
     view = slam._solve_view()
     runs, solve_ms, final_solves = [], [], []
-    undo = _lm_counted(final_solves)
+    undo = _lm_counted(final_solves, [0])
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1098,14 +1160,17 @@ def phase_slam(device):
             and torch.equal(runs[0][2], runs[1][2]))
     print(f"phase 5b final graph solve ({view.poses.shape[0]} vertices, "
           f"{view.edge_i.shape[0]} edge slots, {slam._solver_for(view)}, "
-          f"at most {slam_cfg.final_optimization_iterations} LM iterations, "
-          f"ran {[r for _, r in final_solves]}): two runs bit-identical: "
+          f"at most {slam_cfg.final_optimization_iterations} LM steps, "
+          f"ran {[int(r) for _, r, *_ in final_solves]}): two runs "
+          f"bit-identical: "
           f"{same}; host ms to its return / to its end: "
           + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in solve_ms))
     if not same:
         raise AssertionError("two runs of the final graph solve differ")
     return {"slam": slam, "frames": frames, "launches": launches,
-            "ms_frame": float(ms.mean()), "ate": ate}
+            "ms_frame": float(ms.mean()), "ate": ate, "window": window[-1],
+            "graph_launches": {
+                "ring": sum(on_kernel), "window": on_kernel.count(False)}}
 
 
 def _top_records(recs, n, k=6):
@@ -1374,9 +1439,9 @@ def _sampler_bound(slab, u, v):
                      SAMPLER_F32_PER_CHANNEL * 6 * N, 0)
 
 
-def kernel_rows(cfg, levels, launches, dev_times, slam_launches,
+def kernel_rows(cfg, levels, launches, dev_times, slam_out,
                 level_pairs, batched, chunked_launches, val_batches,
-                compaction, par):
+                compaction, par, graph, offline):
     """The kernels' JSON rows at the finest tracked level: the standalone
     sampler, and the cluster kernel's two modes at B = 1 (the odometry
     main path's launches), at the SLAM path's batch sizes (its launches at
@@ -1386,7 +1451,12 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_launches,
     (5d; the SLAM path's launches at that B), at N = budget (10b; phase
     10a's compacted odometry run's launches), and the standalone sampler
     on the pixel-sharded route (11; rank 0's launches in the sharded pairs
-    run). Every time by CUDA events."""
+    run); the pose-graph kernel on the ring's final keyframe graph and
+    window graph (5b's graph and window solves' launches), on the offline
+    benchmark's graph (6b's launches) and on _ring_graph at 64 and 128
+    vertices (5e's launches at those sizes), timed in 5f. Every time by
+    CUDA events."""
+    slam_launches = slam_out["launches"]
     lvl = cfg.tracked_levels[-1]
     lin_err = max(max(x["r_err"], x["lin_abs_err"]) for x in levels.values())
     level_err = max([v["err"] for v in level_pairs.values()]
@@ -1445,6 +1515,23 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_launches,
         "dvo_slam_tpu_torch/csrc/sampler.cu",
         "dvo_slam_tpu/ops/pallas/sampler.py:226", par["launches"],
         par["err"], par["ms"], par["plain_ms"], par["bound"], par["lib_ms"])
+    # No Pallas kernel: the JAX package's LM while_loop, compiled by XLA.
+    for name, what, n_launch in (
+            ("ring", "SLAM ring keyframe graph",
+             slam_out["graph_launches"]["ring"]),
+            ("window", "SLAM ring window graph",
+             slam_out["graph_launches"]["window"]),
+            ("offline", "offline benchmark graph",
+             offline["launches"]["pose_graph"]),
+            *((f"evict{v}", "5e's last solve at this M",
+               slam_out["eviction"]["launches"][v])
+              for v in GRAPH_RING_VERTICES)):
+        d = graph[name]
+        row(f"pose_graph (one dense LM solve), {what}, M={d['M']}, "
+            f"cluster of {d['C']}",
+            "dvo_slam_tpu_torch/csrc/pose_graph.cu",
+            "dvo_slam_tpu/models/pose_graph.py:463", n_launch, d["err"],
+            d["us"] / 1e3, d["plain_ms"], d["bound"], None)
     return rows
 
 
@@ -1485,8 +1572,11 @@ def _cli(args):
 
 
 def _reset_launches():
+    from dvo_slam_tpu_torch.models import pose_graph
     from dvo_slam_tpu_torch.ops import linearize, sampler
 
+    pose_graph.LAUNCHES = 0
+    pose_graph.LAUNCHES_BY_M.clear()
     sampler.LAUNCHES = 0
     linearize.LAUNCHES_LINEARIZE = 0
     linearize.LAUNCHES_TRACK_LEVEL = 0
@@ -1494,11 +1584,13 @@ def _reset_launches():
 
 
 def _launches():
+    from dvo_slam_tpu_torch.models import pose_graph
     from dvo_slam_tpu_torch.ops import linearize, sampler
 
     return {"sample_slab": sampler.LAUNCHES,
             "linearize": linearize.LAUNCHES_LINEARIZE,
             "track_level": linearize.LAUNCHES_TRACK_LEVEL,
+            "pose_graph": pose_graph.LAUNCHES,
             "by B": dict(sorted(linearize.LAUNCHES_BY_BATCH.items()))}
 
 
@@ -1517,6 +1609,24 @@ def _host_loop(on=True):
         yield
     finally:
         dense_tracker.track_level = saved
+
+
+@contextlib.contextmanager
+def _host_graph(on=True):
+    """With on: every graph solve runs the plain host loop
+    (pose_graph.optimize_reference: ~200 eager ops and a host sync a LM
+    step), swapped in for pose_graph.optimize as _lm_counted swaps it;
+    otherwise as shipped (graph_route: one kernel launch a dense solve of
+    up to pose_graph.KERNEL_MAX_VERTICES (128) vertices)."""
+    from dvo_slam_tpu_torch.models import pose_graph
+
+    saved = pose_graph.optimize
+    if on:
+        pose_graph.optimize = pose_graph.optimize_reference
+    try:
+        yield
+    finally:
+        pose_graph.optimize = saved
 
 
 def _ring_graph(path, vertices):
@@ -1583,8 +1693,9 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
     import torch
 
     from dvo_slam_tpu_torch import benchmark, cli, native
+    from dvo_slam_tpu_torch.models import pose_graph
     from dvo_slam_tpu_torch.ops import camera, linearize
-    from dvo_slam_tpu_torch.utils import tum
+    from dvo_slam_tpu_torch.utils import g2o_io, tum
 
     dev = ["--device", str(device)]
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
@@ -1660,7 +1771,10 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
         print(f"phase 6b benchmark launches: track_level "
               f"{launches['track_level']}, linearize {launches['linearize']}, "
               f"standalone sampler {launches['sample_slab']}; by (kernel, "
-              f"batch size) {launches['by B']}")
+              f"batch size) {launches['by B']}; pose-graph kernel "
+              f"{launches['pose_graph']} "
+              f"({launches['pose_graph'] / slam['num_frames']:.3f} per "
+              f"frame)")
         ate_slam, ate_kf = slam["ate_rmse_m"], kf.ate_rmse_m
         if not ate_slam < OFFLINE_ATE_LIMIT_M:
             raise AssertionError(f"ATE(slam) {ate_slam} m >= "
@@ -1671,8 +1785,15 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
             raise AssertionError(f"ATE(slam) {ate_slam} > 0.7 x ATE"
                                  f"(keyframe) {ate_kf}")
         if (launches["track_level"] == 0 or launches["linearize"] != 0
-                or launches["sample_slab"] != 0):
+                or launches["sample_slab"] != 0
+                or launches["pose_graph"] == 0):
             raise AssertionError(f"benchmark launches {launches}")
+        bench_launches = launches
+        # The benchmark's graph, cropped as the engine crops it to solve.
+        saved = g2o_io.load_g2o(graph)
+        bench_graph = pose_graph.crop(
+            saved, pose_graph.bucket(int(saved.num_vertices), 16),
+            pose_graph.bucket(int(saved.num_edges), 64))
 
         # 6i: the protocol's budget run (bench/accuracy.py --point-budget):
         # slam mode again with point compaction, beside 6b's runs.
@@ -1835,7 +1956,238 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
         return {"frames": [ds[k] for k in range(
                     max(2 * OFFLINE_PROFILED_FRAMES, TURN_OFFLINE_FRAMES))],
                 "groundtruth": ds.groundtruth_pose,
-                "tracker_cfg": tracker_cfg, "slam_cfg": slam_cfg}
+                "tracker_cfg": tracker_cfg, "slam_cfg": slam_cfg,
+                "graph": bench_graph, "launches": bench_launches,
+                "frames_run": slam["num_frames"]}
+
+
+def _graph_parted(run, run_h):
+    """Where two LM runs of one graph part: None if they take the same
+    accept decisions and the same number of steps; else (p, tie): p the
+    first step whose accept decision differs, or the last step of the run
+    that stopped first; a tie if at step p neither run's trial moved the
+    chi2 by more than 1e-4 relative (atol 1e-6), the final chi2's
+    tolerance: the two routes' f32 factorizations give steps that differ
+    with the system's conditioning, and a decision on a trial within that
+    tolerance of the current chi2 is one the comparison cannot resolve."""
+    (steps, st), (steps_h, st_h) = run, run_h
+    n = min(steps, steps_h)
+    p = next((k for k in range(n) if st[k, 3] != st_h[k, 3]), None)
+    if p is None:
+        if steps == steps_h:
+            return None
+        p = n - 1
+    tie = p >= 0 and all(abs(s[p, 1] - s[p, 0]) <= 1e-4 * s[p, 0] + 1e-6
+                         for s in (st, st_h))
+    return p, tie
+
+
+def _graph_bound(graph, steps, iterations, gnc_adaptive):
+    """The graph kernel's bound for one solve: the packed upload (graph and
+    sum plans, padding included) read once, the outputs written once; the
+    operations of `steps` LM steps over the graph's nv real vertices and
+    ne edges of the mask (inactive slots are decoupled identity blocks
+    and masked edges add zero): per edge, per vertex, the assembly's
+    adds, n^3 / 3 for the factorization and 2 n^2 for the solves at
+    n = 6 nv, the adaptive start's and the final pass's residuals."""
+    from dvo_slam_tpu_torch.models import pose_graph
+
+    M, E = graph.poses.shape[0], graph.edge_i.shape[0]
+    nv, ne = int(graph.num_vertices), int(np.asarray(graph.edge_mask).sum())
+    n = 6 * nv
+    buf, _ = pose_graph._pack(graph)
+    step_f32 = (ne * (GRAPH_EDGE_OPS[0] + GRAPH_RESIDUAL_OPS)
+                + 18 * (4 * ne + nv) + 12 * ne + n**3 / 3 + 2 * n * n
+                + nv * GRAPH_VERTEX_OPS)
+    f32 = steps * step_f32 + (1 + int(gnc_adaptive)) * ne * GRAPH_RESIDUAL_OPS
+    return _bound_ms(4 * buf.size + 4 * (16 * M + 1 + E + 4 * iterations) + 4,
+                     f32, steps * ne * GRAPH_EDGE_OPS[1])
+
+
+def _graph_f64(graph, device, upload=None):
+    """A graph of tensors on `device` (uploaded by `upload`, by default
+    pose_graph.to_device) with f64 poses, measurements and information."""
+    from dvo_slam_tpu_torch.models import pose_graph
+
+    g = (upload or pose_graph.to_device)(graph, device)
+    return g._replace(poses=g.poses.double(),
+                      measurements=g.measurements.double(),
+                      information=g.information.double())
+
+
+def _graph_on_cpu(graph, kw):
+    """The host loop on the CPU in f32 and in f64 (to_device swapped for
+    _graph_f64, as _host_graph swaps optimize): ((steps, chi2) in f32,
+    (steps, chi2) in f64)."""
+    from dvo_slam_tpu_torch.models import pose_graph
+
+    out, upload = [], pose_graph.to_device
+    for f64 in (False, True):
+        if f64:
+            pose_graph.to_device = functools.partial(_graph_f64,
+                                                     upload=upload)
+        try:
+            _, chi2, _ = pose_graph.optimize_reference(graph, device="cpu",
+                                                       **kw)
+        finally:
+            pose_graph.to_device = upload
+        out.append((int(pose_graph.LAST_STEPS), float(chi2)))
+    return out
+
+
+def phase_graph(device, slam_out, offline):
+    """5f: the pose-graph kernel (csrc/pose_graph.cu, one launch a dense
+    solve) against the plain host loop (optimize_reference, cuSOLVER's
+    Cholesky) on the card, on the SLAM ring's final keyframe graph (as its
+    final solve), the last window graph of 5b's timed run, 6b's benchmark
+    graph (cropped as the engine crops it, as its final solve), 5e's last
+    solve at each of GRAPH_RING_VERTICES (as 5e ran it) and _ring_graph
+    at GRAPH_RING_VERTICES (as an interleaved graph solve):
+    steps on each route, max |dpose|, the chi2's relative difference, where
+    the two runs' decisions part (only at a tie: _graph_parted);
+    the kernel's device us per solve and per step (CUDA events behind a
+    spin kernel), the host loop's ms (host clock to a sync), cuSOLVER's
+    factor and solve (cholesky_ex + cholesky_solve) on the graph's damped
+    system at its first step (events), the bound. The f32 resolution of
+    each graph: the plain formula (_build_blocks) at the kernel's poses in
+    f32 against the same in f64. Where its own f32 error passes a
+    tolerance (weights or chi2, 1e-4), f32 cannot resolve that tolerance
+    on the graph, and the checks of the two routes against each other
+    that rest on it (weights, chi2, decisions) are printed, not held,
+    beside the host loop on the CPU in f32 and f64; the poses are held on
+    every graph, and every graph but 5e's must be resolved. Returns
+    {name: row numbers}."""
+    import functools
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dvo_slam_tpu_torch import SlamConfig
+    from dvo_slam_tpu_torch.models import pose_graph
+    from dvo_slam_tpu_torch.utils import g2o_io
+
+    def final_kw(slam_cfg):
+        return dict(iterations=slam_cfg.final_optimization_iterations,
+                    use_robust=slam_cfg.use_robust_kernel,
+                    cauchy_c=slam_cfg.cauchy_c, gnc_init=16.0,
+                    gnc_adaptive=True)
+
+    window, window_kw = slam_out["window"]
+    cases = [("ring", slam_out["slam"]._solve_view(),
+              final_kw(SlamConfig())),
+             ("window", window,
+              {k: v for k, v in window_kw.items() if k != "device"}),
+             ("offline", offline["graph"], final_kw(offline["slam_cfg"]))]
+    cases += [(f"evict{M}", *slam_out["eviction"]["graphs"][M])
+              for M in GRAPH_RING_VERTICES]
+    tmp = tempfile.mkdtemp(prefix="dvo_graph_")
+    for vertices in GRAPH_RING_VERTICES:
+        path = os.path.join(tmp, f"ring{vertices}.g2o")
+        n_edges = _ring_graph(path, vertices)
+        g = pose_graph.crop(g2o_io.load_g2o(path, max_vertices=vertices),
+                            vertices, pose_graph.bucket(n_edges, 64))
+        cases.append((f"ring{vertices}", g, dict(
+            final_kw(SlamConfig()),
+            iterations=SlamConfig().optimization_iterations)))
+    shutil.rmtree(tmp)
+    out = {}
+    for name, g, kw in cases:
+        M, E = g.poses.shape[0], g.edge_i.shape[0]
+        if _graph_route(g, {"device": device}) != "kernel":
+            raise AssertionError(f"5f {name}: M = {M} is off the kernel's "
+                                 f"route")
+        before = pose_graph.LAUNCHES
+        got = pose_graph.optimize(g, device=device, **kw)
+        run = (int(pose_graph.LAST_STEPS), pose_graph.LAST_STATS.cpu().numpy())
+        if pose_graph.LAUNCHES != before + 1:
+            raise AssertionError(f"5f {name}: not one kernel launch")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pose_graph.optimize_reference(g, device=device, **kw)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        run_h = (int(pose_graph.LAST_STEPS),
+                 pose_graph.LAST_STATS.cpu().numpy())
+        d_pose = (got[0].poses - want[0].poses).abs().max().item()
+        # The weights are far more sensitive to the poses than the poses'
+        # own tolerance (a loop edge's Cauchy weight moves ~1e-3 for a
+        # 2e-6 pose change): they are held to the plain formula at the
+        # kernel's own poses, and their route-to-route difference printed.
+        g_k = pose_graph.to_device(g, device)._replace(poses=got[0].poses)
+        _, _, chi2_at, w_at = pose_graph._build_blocks(
+            g_k, pose_graph._topology(g, device), kw.get("use_robust", True),
+            kw.get("cauchy_c", 1.0))
+        d_w = (got[2] - w_at).abs().max().item()
+        d_w_route = (got[2] - want[2]).abs().max().item()
+        d_chi2_at = abs(float(got[1]) - float(chi2_at)) / max(
+            abs(float(chi2_at)), 1e-30)
+        _, _, chi2_64, w_64 = pose_graph._build_blocks(
+            _graph_f64(g, device)._replace(poses=got[0].poses.double()),
+            pose_graph._topology(g, device), kw.get("use_robust", True),
+            kw.get("cauchy_c", 1.0))
+        res_w = (w_at.double() - w_64).abs().max().item()
+        res_c = abs(float(chi2_at) - float(chi2_64)) / float(chi2_64)
+        resolved = res_w <= 1e-4 and res_c <= 1e-4
+        c, c_h = float(got[1]), float(want[1])
+        d_chi2 = abs(c - c_h) / max(abs(c_h), 1e-30)
+        parted = _graph_parted(run, run_h)
+        # Past one CTA a solve takes 10-750 ms: fewer calls a run.
+        us = _events_us(functools.partial(pose_graph.optimize, g,
+                                          device=device, **kw),
+                        *((20, 5) if M <= 32 else (4, 3)))
+        # cuSOLVER on the first step's damped system (the plain loop's).
+        g0 = pose_graph.to_device(g, device)
+        topo = pose_graph._topology(g, device)
+        H, grad, _, _ = pose_graph._build_system(
+            g0, topo, kw.get("use_robust", True), kw.get("cauchy_c", 1.0))
+        damped = (H + 1e-6 * torch.diag(torch.diagonal(H))
+                  + pose_graph._JITTER * torch.eye(6 * M, device=device))
+        cusolver_us = _events_us(lambda: torch.cholesky_solve(
+            -grad[:, None], torch.linalg.cholesky_ex(damped)[0]))
+        bound = _graph_bound(g, run[0], kw["iterations"],
+                             kw.get("gnc_adaptive", False))
+        print(f"phase 5f pose graph, {name} graph (M = {M}, E = {E}, "
+              f"cluster of {pose_graph.kernel_plan(M)[1]} CTAs, "
+              f"{int(g.num_vertices)} vertices, {int(g.num_edges)} edges; "
+              f"{kw['iterations']} LM steps at most): steps kernel {run[0]}, "
+              f"host loop {run_h[0]}; "
+              + ("same decisions" if parted is None else
+                 f"decisions part at step {parted[0]} (chi2 moved by "
+                 f"{(run[1][parted[0], 1] - run[1][parted[0], 0]) / run[1][parted[0], 0]:.3e}"
+                 f" / {(run_h[1][parted[0], 1] - run_h[1][parted[0], 0]) / run_h[1][parted[0], 0]:.3e}"
+                 f" relative, step norms {run[1][parted[0], 2]:.3e} / "
+                 f"{run_h[1][parted[0], 2]:.3e}; tie {parted[1]})")
+              + f"; max |dpose| {d_pose:.3e} (tol 1e-4), chi2 {c:.7g} / "
+              f"{c_h:.7g} (rel {d_chi2:.3e}, tol 1e-4); at the kernel's "
+              f"poses the plain chi2 within {d_chi2_at:.3e} (tol 1e-4) and "
+              f"weights within {d_w:.3e} (tol 1e-4), weights route to route "
+              f"{d_w_route:.3e}; kernel {us:.2f} us per solve (events), "
+              f"{us / max(run[0], 1):.2f} per step; host loop "
+              f"{plain_ms:.3f} ms ({plain_ms / max(run_h[0], 1):.3f} per "
+              f"step); cholesky_ex + cholesky_solve on the damped "
+              f"{6 * M}x{6 * M} system {cusolver_us:.2f} us; bound "
+              f"{1e3 * bound[0]:.4f} us ({bound[1]}); f32 resolution at "
+              f"the kernel's poses (plain formula f32 against f64): weights "
+              f"{res_w:.3e}, chi2 {res_c:.3e}: "
+              + ("resolved" if resolved else
+                 "beyond f32, only the poses held; host loop on the CPU "
+                 + ", ".join(f"{t} {n} steps, chi2 {x:.7g}" for t, (n, x)
+                             in zip(("f32", "f64"), _graph_on_cpu(g, kw)))))
+        close = (d_w <= 1e-4 and d_chi2_at <= 1e-4
+                 and abs(c - c_h) <= 1e-4 * abs(c_h) + 1e-6
+                 and (parted is None or parted[1]))
+        if not (d_pose <= 1e-4 and (close or not resolved)):
+            raise AssertionError(f"5f {name}: the graph kernel disagrees "
+                                 f"with the host loop")
+        if not (resolved or name.startswith("evict")):
+            raise AssertionError(f"5f {name}: beyond f32 resolution")
+        out[name] = {"M": M, "C": pose_graph.kernel_plan(M)[1], "us": us,
+                     "plain_ms": plain_ms, "err": d_pose,
+                     "bound": bound, "steps": run[0],
+                     "cusolver_us": cusolver_us}
+    return out
 
 
 def phase_offline_profile(offline, device, host, n=OFFLINE_PROFILED_FRAMES):
@@ -1906,15 +2258,21 @@ def phase_turns(device, odo_frames, slam_out, offline):
     TURN_SLAM_FRAMES timed; the two routes must give the same keyframes
     and graph edges), offline
     (run_sequence in slam mode over the first TURN_OFFLINE_FRAMES frames
-    of phase 6's sequence: engine ms/frame)."""
+    of phase 6's sequence: engine ms/frame). Then the SLAM and offline
+    cells through the level kernel with every graph solve on the host loop
+    (optimize_reference swapped in for optimize) and as shipped (the graph
+    kernel), in turns (host loop, kernel, kernel, host loop): on the ring
+    per frame with and without a switch, and the host ms per switch of
+    KeyframeSlam._optimize and LocalMap.optimize_async."""
     import torch
 
     from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig, TrackerConfig
     from dvo_slam_tpu_torch import benchmark
+    from dvo_slam_tpu_torch.models import local_map
     from dvo_slam_tpu_torch.models.odometry import OdometryTracker
     from dvo_slam_tpu_torch.ops import camera
 
-    graphs, odo_iters = {}, {}
+    graphs, odo_iters, switches = {}, {}, {True: [], False: []}
 
     def odometry(host):
         tracker = OdometryTracker(K_TUPLE, TrackerConfig(), device=device)
@@ -1945,6 +2303,39 @@ def phase_turns(device, odo_frames, slam_out, offline):
         graphs.setdefault(host, _loop_graph(run))
         return ms
 
+    def slam_graph(host):
+        run = KeyframeSlam(K_TUPLE, TrackerConfig(), SlamConfig(),
+                           enable_loop_closure=True, device=device)
+        run.init()
+        _slam_frames(run, slam_out["frames"], TURN_SLAM_WARMUP, 0.0)
+        frame_ms, switched, spent = [], [], {}
+
+        def timed(k, update, sw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            update()
+            torch.cuda.synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            switched.append(sw())
+
+        restore = (_host_timed(run, ("_optimize",), spent),
+                   _host_timed(local_map.LocalMap, ("optimize_async",),
+                               spent))
+        try:
+            _slam_frames(run, slam_out["frames"], TURN_SLAM_FRAMES,
+                         TURN_SLAM_WARMUP / 30.0, timed)
+        finally:
+            for undo in restore:
+                undo()
+        n_sw = max(sum(switched), 1)
+        switches[host].append((
+            np.mean([m for m, s in zip(frame_ms, switched) if s]),
+            np.mean([m for m, s in zip(frame_ms, switched) if not s]),
+            spent.get("_optimize", 0.0) / n_sw,
+            spent.get("optimize_async", 0.0) / n_sw, sum(switched)))
+        graphs.setdefault(("graph", host), _loop_graph(run))
+        return float(np.mean(frame_ms))
+
     def offline_cell(host):
         res = benchmark.run_sequence(
             iter(offline["frames"][:TURN_OFFLINE_FRAMES]), camera.TUM_FR1,
@@ -1965,6 +2356,34 @@ def phase_turns(device, odo_frames, slam_out, offline):
               f"host loop {h[0]:.3f}, {h[1]:.3f} ms/frame; level kernel "
               f"{k[0]:.3f}, {k[1]:.3f} ms/frame; host / kernel "
               f"{np.mean(h) / np.mean(k):.2f}x")
+    for cell, fn in (("slam", slam_graph), ("offline", offline_cell)):
+        times = {True: [], False: []}
+        for host in (True, False, False, True):
+            with _host_graph(host):
+                times[host].append(fn(host))
+        out[cell + " graph"] = times
+        h, k = times[True], times[False]
+        print(f"phase 7 {cell} cell, graph solves in turns (host loop, "
+              f"graph kernel, graph kernel, host loop; the level kernel "
+              f"throughout): host loop {h[0]:.3f}, {h[1]:.3f} ms/frame; "
+              f"graph kernel {k[0]:.3f}, {k[1]:.3f} ms/frame; host / kernel "
+              f"{np.mean(h) / np.mean(k):.2f}x")
+    for host in (True, False):
+        print(f"phase 7 slam cell, graph solves through the "
+              f"{'host loop' if host else 'graph kernel'}: "
+              + "; ".join(f"{n} switches, switch frames {a:.3f} ms, other "
+                          f"frames {b:.3f} ms, host ms per switch: _optimize "
+                          f"{c:.3f}, optimize_async {d:.3f}"
+                          for a, b, c, d, n in switches[host]))
+    kf_g, edges_g, loops_g = graphs[("graph", False)]
+    kf_gh, edges_gh, loops_gh = graphs[("graph", True)]
+    print(f"phase 7 slam graph turns: keyframes "
+          f"{'the same' if kf_g == kf_gh else f'{kf_g} / {kf_gh}'} on both "
+          f"graph routes; graph edges "
+          f"{'identical' if edges_g == edges_gh else 'differ'} (loop edges "
+          f"{loops_g} through the kernel, {loops_gh} through the host loop)")
+    if min(loops_g, loops_gh) < 1:
+        raise AssertionError("the SLAM graph turns accepted no loop edge")
     levels = TrackerConfig().tracked_levels
     differ = [(k + 1, lvl, a, b)
               for k, (its_h, its_k) in enumerate(zip(odo_iters[True],
@@ -2067,10 +2486,16 @@ def phase_eviction(device):
     every frame, EVICT_FRAMES frames of the ring at EVICT_W x EVICT_H, loop
     closure on): the oldest pyramids spill to pinned host memory and
     re-upload for validation. The run must equal one whose budget holds
-    every pyramid: the same keyframes and edges, the same trajectory."""
+    every pyramid: the same keyframes and edges, the same trajectory. Its
+    graph and window solves reach M = 64 and 128 vertex slots: the first
+    run's graph-kernel launches by M (pose_graph.LAUNCHES_BY_M) must be
+    one per solve on the kernel's route. Returns {"launches": {M: n},
+    "graphs": {M: (the last such solve's host graph, its keyword
+    arguments)}} for GRAPH_RING_VERTICES."""
     import torch
 
     from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig, TrackerConfig
+    from dvo_slam_tpu_torch.models import pose_graph
     from dvo_slam_tpu_torch.utils import synthetic
 
     K = (525.0 * EVICT_W / 640.0, 525.0 * EVICT_H / 480.0,
@@ -2080,19 +2505,31 @@ def phase_eviction(device):
     frames = synthetic.render_sequence(scene, np.asarray(K), EVICT_W, EVICT_H,
                                        ring)
     cfg = TrackerConfig(num_levels=3, first_level=2, last_level=0)
-    out = {}
+    out, solves = {}, []
     for resident in (64, 256):
         slam = KeyframeSlam(K, cfg, SlamConfig(resident_keyframes=resident),
                             device=device)
         slam.init()
+        undo = _lm_counted(solves if resident == 64 else [], [0],
+                           copy=True)
+        _reset_launches()
         t0 = time.perf_counter()
-        for k in range(EVICT_FRAMES):
-            if k > 0:
-                slam.force_keyframe()
-            slam.update(*frames[k % RING], k / 30.0)
-        traj = np.stack([T for _, T in slam.finish()])
+        try:
+            for k in range(EVICT_FRAMES):
+                if k > 0:
+                    slam.force_keyframe()
+                slam.update(*frames[k % RING], k / 30.0)
+            traj = np.stack([T for _, T in slam.finish()])
+        finally:
+            undo()
         torch.cuda.synchronize()
         out[resident] = (slam, traj, time.perf_counter() - t0)
+        if resident == 64:
+            launched = dict(pose_graph.LAUNCHES_BY_M)
+    by_m = {}
+    for _, _, g, kw in solves:
+        key = (g.poses.shape[0], _graph_route(g, kw))
+        by_m[key] = by_m.get(key, 0) + 1
     (small, traj_s, s_s), (large, traj_l, s_l) = out[64], out[256]
     evicted = sum(not k.resident for k in small.keyframes)
     diff = float(np.abs(traj_s - traj_l).max())
@@ -2104,12 +2541,23 @@ def phase_eviction(device):
           f"{all(k.resident for k in large.keyframes)}): keyframes and edges "
           f"{'identical' if same else 'differ'} (loop edges "
           f"{small.num_loop_edges}), max trajectory difference {diff:.3e}; "
-          f"{s_s:.1f} s / {s_l:.1f} s")
+          f"{s_s:.1f} s / {s_l:.1f} s; graph and window solves of the "
+          f"first run by (vertex slots M, route): {dict(sorted(by_m.items()))}"
+          f", graph-kernel launches by M {dict(sorted(launched.items()))}")
     if not (len(small.keyframes) == EVICT_FRAMES and evicted > 0 and same
             and small.validation_cache_stats["misses"] > 0
             and small.num_loop_edges >= 1 and diff <= 1e-6):
         raise AssertionError("the evicting SLAM run differs from the "
                              "resident one")
+    on_kernel = {M: n for (M, route), n in by_m.items() if route == "kernel"}
+    if launched != on_kernel or not set(GRAPH_RING_VERTICES) <= set(launched):
+        raise AssertionError(f"5e graph-kernel launches by M {launched}, "
+                             f"solves on its route by M {on_kernel}")
+    graphs = {g.poses.shape[0]: (g, {k: v for k, v in kw.items()
+                                     if k != "device"} | {"iterations": it})
+              for it, _, g, kw in solves if _graph_route(g, kw) == "kernel"}
+    return {"launches": launched,
+            "graphs": {M: graphs[M] for M in GRAPH_RING_VERTICES}}
 
 
 def _chunks(frames, n, t_base):
@@ -2884,11 +3332,14 @@ def main():
     slam_out = phase_slam(device)
     t0 = time.perf_counter()
     val_batches = phase_validation_batches(device, cfg)
-    phase_eviction(device)
+    slam_out["eviction"] = phase_eviction(device)
     print(f"phases 5d-5e took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     offline = phase_offline(device)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    graph = phase_graph(device, slam_out, offline)
+    print(f"phase 5f took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_turns(device, frames, slam_out, offline)
     print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
@@ -2915,8 +3366,8 @@ def main():
     for host in (True, False):
         phase_offline_profile(offline, device, host)
     print(json.dumps({"kernels": kernel_rows(
-        cfg, levels, launches, dev_times, slam_out["launches"], level_pairs,
-        batched, chunked["launches"], val_batches, compaction, par)}))
+        cfg, levels, launches, dev_times, slam_out, level_pairs, batched,
+        chunked["launches"], val_batches, compaction, par, graph, offline)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

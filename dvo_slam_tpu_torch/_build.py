@@ -139,6 +139,17 @@ def load():
             vp, vp, vp,  # out, out_i, stream
         ]
         lib.dvo_track_level.restype = ci
+        cd = ctypes.c_double
+        lib.dvo_pose_graph.argtypes = [
+            vp, vp, vp, vp, vp, vp,  # poses, Z, info, mask, edge_i, edge_j
+            vp, vp, vp, vp,  # vertex and dense plans (offsets, indices)
+            ci, ci, ci, ci, ci,  # M, E, num_vertices, iterations, robust
+            cd, cd, cd, ci,  # cauchy_c, gnc_init, gnc_decay, gnc_adaptive
+            vp, vp, vp, vp, vp, vp, vp,  # scratch, poses, chi2, weights,
+        ]  # stats, steps, stream
+        lib.dvo_pose_graph.restype = ci
+        lib.dvo_pose_graph_plan.argtypes = [ci, vp]
+        lib.dvo_pose_graph_plan.restype = ci
         lib.dvo_level_plan.argtypes = [ci, ci, vp]
         lib.dvo_level_plan.restype = ci
         lib.dvo_error_string.argtypes = [ci]

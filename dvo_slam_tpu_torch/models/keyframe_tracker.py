@@ -799,9 +799,13 @@ class KeyframeSlam:
         """Run the device LM solve WITHOUT reading its outputs.
 
         The reference runs g2o on a background thread (keyframe_graph.cpp);
-        here the solve runs on the device (reading back only its per-step
-        stop flag), and its poses are materialized by _sync_poses() at the
-        next pose read.
+        here the solve runs on the device, and its poses are materialized
+        by _sync_poses() at the next pose read. On a CUDA device a dense
+        solve of up to pose_graph.KERNEL_MAX_VERTICES (128) vertices
+        (pose_graph.graph_route) is one launch of the graph kernel that
+        reads nothing back, so the solve stays asynchronous until that
+        read; other solves run the host loop, which reads its stop flag
+        back once per LM step.
         """
         self._switches_since_solve = 0
         self._loop_edges_since_solve = 0

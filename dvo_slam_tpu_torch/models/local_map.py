@@ -6,7 +6,10 @@ tracked frame, connected by keyframe->frame edges weighted with the dense
 tracker's information matrices and frame->frame odometry edges. The
 reference solves this mini-graph with g2o; here the window is solved by the
 same padded Levenberg-Marquardt used for the global graph
-(models/pose_graph.py), on the map's device.
+(models/pose_graph.py), on the map's device: on a CUDA device a window of
+up to pose_graph.KERNEL_MAX_VERTICES (128) vertex slots is one launch of
+the graph kernel, which reads nothing back until the caller fetches the
+poses.
 
 Division of labour with the orchestrator (models/keyframe_tracker.py):
 per-frame the current pose uses the cheap closed-form information fusion
@@ -93,9 +96,10 @@ class LocalMap:
         return self.refined_from(handle.cpu().numpy())
 
     def optimize_async(self, iterations: int = 10):
-        """Dispatch the window solve WITHOUT fetching; returns the (cap, 4, 4)
-        poses tensor on the map's device (or None when the window is
-        trivial). Pass the fetched array to refined_from."""
+        """Dispatch the window solve WITHOUT fetching (on a CUDA device one
+        graph-kernel launch, no host sync); returns the (cap, 4, 4) poses
+        tensor on the map's device (or None when the window is trivial).
+        Pass the fetched array to refined_from."""
         n = len(self.frame_indices)
         if n < 2:
             return None

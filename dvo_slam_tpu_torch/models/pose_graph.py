@@ -9,20 +9,30 @@ and a validity mask. Per-edge residual e = log(Z^{-1} T_i^{-1} T_j), exact
 edge Jacobians in closed form (the JAX package differentiates with
 ``jax.jacfwd``; tests hold the two together), the dense
 6M x 6M system solved by Cholesky or the matrix-free block-Jacobi CG, and
-the LM accept/reject loop with the adaptive GNC anneal. Everything runs in
-f32 with ``torch`` / ``torch.linalg`` on the graph's device: the JAX
-package runs this through XLA, not Pallas.
+the LM accept/reject loop with the adaptive GNC anneal, all in f32 (the
+edge Jacobian in f64). The JAX package runs this through XLA as one
+``jax.jit`` with a ``lax.while_loop`` over the LM steps, not Pallas.
 
-Two things differ from the JAX code, with the same results:
+Two routes (``graph_route``), picked by device, solver and size alone:
 
-- Sums with duplicate indices (the gradient, the block diagonal, the dense
-  H, the CG matvec) are gathers of a host-built plan followed by a sum over
-  a fixed axis, never ``index_add_``: CUDA's atomic scatter-add sums in no
-  fixed order, and two solves of one graph must give the same bits. The
-  plan depends only on the topology, which the caller holds on the host.
-- The LM loop is a host loop that reads its stop flag back once per
-  iteration and exits where the JAX ``while_loop`` does. The CG loop
-  checks its stop test on the host each step.
+- A dense solve of at most ``KERNEL_MAX_VERTICES`` (128) vertices on a
+  CUDA device runs as ONE launch of csrc/pose_graph.cu
+  (``optimize_kernel``; one CTA up to 32 vertices, a cluster of up to 16
+  past that, ``kernel_plan``): the whole LM loop on the card, as the JAX
+  ``while_loop`` runs it, with nothing read back to the host. A build or
+  launch error raises; nothing falls back.
+- Every other call (the CPU, ``solver="cg"``, a dense graph past the
+  kernel's limit) runs the plain host loop ``optimize_reference``, the
+  kernel's plain version: ``torch`` / ``torch.linalg`` ops, reading its
+  stop flag back once per LM step (and the CG loop its stop test once per
+  CG step) and exiting where the JAX ``while_loop`` does.
+
+Sums with duplicate indices (the gradient, the block diagonal, the dense
+H, the CG matvec) follow a host-built plan in a fixed order, never
+``index_add_``: CUDA's atomic scatter-add sums in no fixed order, and two
+solves of one graph must give the same bits. The plan depends only on the
+topology, which the caller holds on the host; the kernel takes the same
+plans as CSR lists.
 """
 
 from __future__ import annotations
@@ -36,6 +46,27 @@ from dvo_slam_tpu_torch.ops import se3
 
 _GAUGE_WEIGHT = 1e6
 _JITTER = 1e-6
+
+# The graph kernel (csrc/pose_graph.cu): a cluster of up to 16 CTAs holds
+# the damped 6M x 6M f32 system in shared memory, a slab of columns each,
+# which bounds M (dvo_pose_graph_plan; kernel_plan mirrors it).
+KERNEL_MAX_VERTICES = 128
+KERNEL_THREADS = 512
+_KERNEL_MAX_CLUSTER = 16
+_KERNEL_MAX_COLUMNS = 192  # columns a CTA holds
+_KERNEL_SMEM_BUDGET = 230_400  # dynamic shared memory bytes a CTA may ask
+_KERNEL_EDGE_FLOATS = 42  # per-edge scratch: P (36), gj (6)
+# Kernel launches made by optimize_kernel since the last reset (plain
+# integer; callers reset it to 0 to count the launches of one run), and
+# the same launches by vertex slots M (callers clear it).
+LAUNCHES = 0
+LAUNCHES_BY_M = {}
+# The last solve's LM step count, a 0-d int32 tensor on its device (the
+# kernel's output, or the host loop's count), and its per-step statistics,
+# (iterations, 4) f32: each step's chi2, trial chi2, step norm and accept
+# flag (1 or 0), zero past the last step. For tests and the smoke.
+LAST_STEPS = None
+LAST_STATS = None
 
 
 class PoseGraph(NamedTuple):
@@ -183,17 +214,33 @@ class _Topology(NamedTuple):
     dense: _Plan  # 4E + M blocks -> M * M (dense H)
 
 
-def _topology(graph: PoseGraph, device) -> _Topology:
+def _plan_targets(graph: PoseGraph):
+    """The target slots of the two sums of a host graph: the per-edge
+    gradients [gi; gj] into M vertices, and the blocks [Hii; Hjj; Hij;
+    Hij^T; extra] into the M * M blocks of the dense H."""
     M = graph.poses.shape[0]
     ei = np.asarray(graph.edge_i, np.int64)
     ej = np.asarray(graph.edge_j, np.int64)
     vid = np.arange(M)
-    return _Topology(
-        vertex=_plan(np.concatenate([ei, ej]), M, device),
-        dense=_plan(np.concatenate([ei * M + ei, ej * M + ej, ei * M + ej,
-                                    ej * M + ei, vid * M + vid]),
-                    M * M, device),
-    )
+    return (np.concatenate([ei, ej]),
+            np.concatenate([ei * M + ei, ej * M + ej, ei * M + ej,
+                            ej * M + ei, vid * M + vid]))
+
+
+def _topology(graph: PoseGraph, device) -> _Topology:
+    M = graph.poses.shape[0]
+    vertex, dense = _plan_targets(graph)
+    return _Topology(vertex=_plan(vertex, M, device),
+                     dense=_plan(dense, M * M, device))
+
+
+def _csr(targets: np.ndarray, size: int):
+    """A plan as CSR lists: slot s sums values idx[off[s]:off[s + 1]], in
+    increasing value index (the order of ``_plan``'s gather rows)."""
+    targets = np.asarray(targets, np.int64)
+    off = np.zeros(size + 1, np.int32)
+    np.cumsum(np.bincount(targets, minlength=size), out=off[1:])
+    return off, np.argsort(targets, kind="stable").astype(np.int32)
 
 
 # --------------------------------------------------------------- residuals
@@ -392,6 +439,39 @@ def _apply_delta(poses, delta, num_vertices):
     return se3.exp(d) @ poses
 
 
+def graph_route(solver: str, M: int, device) -> bool:
+    """True where ``optimize`` runs as one launch of csrc/pose_graph.cu: a
+    dense solve of at most ``KERNEL_MAX_VERTICES`` vertices on a CUDA
+    device. False: the plain host loop ``optimize_reference`` (the CPU,
+    ``solver="cg"``, or a dense graph past the kernel's limit)."""
+    return (torch.device(device).type == "cuda" and solver == "dense"
+            and 1 <= M <= KERNEL_MAX_VERTICES)
+
+
+def _kernel_shared_bytes(M: int, C: int) -> int:
+    n = 6 * M
+    w = -(-n // C)
+    return 4 * (n * (w + 1) + n + 32 * M + (2 * n if C > 1 else 0))
+
+
+def kernel_plan(M: int):
+    """``(largest M, CTAs per cluster, threads per CTA, dynamic shared
+    memory bytes per CTA)`` of the graph kernel at M vertices, as
+    csrc/pose_graph.cu's ``dvo_pose_graph_plan`` gives them. One cluster
+    per solve, of the fewest CTAs (a power of two up to 16) whose column
+    slabs fit: a CTA holds w = ceil(6M / C) <= 192 columns of the damped
+    system as 6M rows of w + 1 floats, the right-hand side, two copies of
+    the poses and, in a cluster, the pivot column and y (C = 1 up to
+    M = 32, 4 at 64, 16 at 128; 0 and 0 bytes past the limit)."""
+    C = 0
+    if 1 <= M <= KERNEL_MAX_VERTICES:
+        C = next((c for c in (1, 2, 4, 8, _KERNEL_MAX_CLUSTER)
+                  if -(-6 * M // c) <= _KERNEL_MAX_COLUMNS
+                  and _kernel_shared_bytes(M, c) <= _KERNEL_SMEM_BUDGET), 0)
+    return (KERNEL_MAX_VERTICES, C, KERNEL_THREADS,
+            _kernel_shared_bytes(M, C) if C else 0)
+
+
 def optimize(graph: PoseGraph, iterations: int = 20, use_robust: bool = True,
              cauchy_c: float = 1.0, gnc_init: float = 1.0,
              gnc_decay: float = 0.5, solver: str = "dense",
@@ -403,11 +483,118 @@ def optimize(graph: PoseGraph, iterations: int = 20, use_robust: bool = True,
     `device` (the card unless the caller asks for "cpu").
     solver: "dense" (6M x 6M Cholesky) or "cg" (block-Jacobi CG).
     Runs at most ``iterations`` LM steps and stops after the first step
-    that converges, as the JAX ``while_loop`` does: each step reads its
-    stop flag back to the host (one sync).
+    that converges, as the JAX ``while_loop`` does. ``graph_route`` picks
+    the route: one launch of the graph kernel, which reads nothing back
+    to the host (``optimize_kernel``), or the plain host loop, which reads
+    its stop flag back once per step (``optimize_reference``).
     Returns (optimized PoseGraph of tensors, final chi2, per-edge robust
     weights at the base cauchy_c), all on the device.
     """
+    kw = dict(iterations=iterations, use_robust=use_robust,
+              cauchy_c=cauchy_c, gnc_init=gnc_init, gnc_decay=gnc_decay,
+              gnc_adaptive=gnc_adaptive, device=device)
+    if graph_route(solver, graph.poses.shape[0], device):
+        return optimize_kernel(graph, **kw)
+    return optimize_reference(graph, solver=solver, **kw)
+
+
+def _pack(graph: PoseGraph):
+    """A host graph and its CSR sum plans as one f32 buffer, int32 arrays
+    stored bitwise: (buffer, {name: (offset, length, is_int32)})."""
+    M, E = graph.poses.shape[0], graph.edge_i.shape[0]
+    vertex, dense = _plan_targets(graph)
+    v_off, v_idx = _csr(vertex, M)
+    d_off, d_idx = _csr(dense, M * M)
+    f32 = (lambda x: np.asarray(x, np.float32).ravel())
+    i32 = (lambda x: np.asarray(x, np.int32).ravel().view(np.float32))
+    parts = {
+        "poses": f32(graph.poses), "Z": f32(graph.measurements),
+        "info": f32(graph.information), "mask": f32(graph.edge_mask),
+        "edge_i": i32(graph.edge_i), "edge_j": i32(graph.edge_j),
+        "v_off": i32(v_off), "v_idx": i32(v_idx),
+        "d_off": i32(d_off), "d_idx": i32(d_idx),
+    }
+    at, where = 0, {}
+    for name, x in parts.items():
+        where[name] = (at, x.size, name.startswith(("edge", "v_", "d_")))
+        at += x.size
+    return np.concatenate(list(parts.values())), where
+
+
+def optimize_kernel(graph: PoseGraph, iterations: int = 20,
+                    use_robust: bool = True, cauchy_c: float = 1.0,
+                    gnc_init: float = 1.0, gnc_decay: float = 0.5,
+                    gnc_adaptive: bool = False, device="cuda"):
+    """A dense ``optimize`` as one launch of csrc/pose_graph.cu on the
+    current stream of the CUDA `device`: the graph and its sum plans go up
+    in one non-blocking copy from pinned memory, and nothing is read back
+    (no host sync). Sets ``LAST_STEPS`` and ``LAST_STATS``."""
+    global LAUNCHES, LAST_STEPS, LAST_STATS
+    from dvo_slam_tpu_torch import _build
+
+    device = torch.device(device)
+    M, E = graph.poses.shape[0], graph.edge_i.shape[0]
+    if device.type != "cuda" or not 1 <= M <= KERNEL_MAX_VERTICES:
+        raise ValueError(f"the graph kernel takes 1 <= M <= "
+                         f"{KERNEL_MAX_VERTICES} vertices on a CUDA device, "
+                         f"not M = {M} on {device}")
+    if iterations < 0:
+        raise ValueError(f"iterations must be >= 0, got {iterations}")
+    lib = _build.load()
+    buf, where = _pack(graph)
+    host = torch.empty(buf.size, dtype=torch.float32, pin_memory=True)
+    host.numpy()[:] = buf
+    with torch.cuda.device(device):
+        dev = host.to(device, non_blocking=True)
+        ints = dev.view(torch.int32)
+        view = {k: (ints if is_int else dev)[a:a + n]
+                for k, (a, n, is_int) in where.items()}
+        scratch = torch.empty(max(E, 1) * _KERNEL_EDGE_FLOATS,
+                              dtype=torch.float32, device=device)
+        out = torch.empty(16 * M + 1 + E + 4 * iterations,
+                          dtype=torch.float32, device=device)
+        steps = torch.empty((), dtype=torch.int32, device=device)
+        rc = lib.dvo_pose_graph(
+            *(view[k].data_ptr() for k in ("poses", "Z", "info", "mask",
+                                            "edge_i", "edge_j", "v_off",
+                                            "v_idx", "d_off", "d_idx")),
+            M, E, int(graph.num_vertices), int(iterations), int(use_robust),
+            float(cauchy_c), float(gnc_init), float(gnc_decay),
+            int(gnc_adaptive), scratch.data_ptr(), out.data_ptr(),
+            out[16 * M:].data_ptr(), out[16 * M + 1:].data_ptr(),
+            out[16 * M + 1 + E:].data_ptr(), steps.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dvo_pose_graph failed: "
+                           f"{lib.dvo_error_string(rc).decode()} (CUDA "
+                           f"error {rc})")
+    LAUNCHES += 1
+    LAUNCHES_BY_M[M] = LAUNCHES_BY_M.get(M, 0) + 1
+    LAST_STEPS = steps
+    LAST_STATS = out[16 * M + 1 + E:].view(iterations, 4)
+    solved = PoseGraph(
+        poses=out[:16 * M].view(M, 4, 4),
+        num_vertices=int(graph.num_vertices),
+        edge_i=view["edge_i"].to(torch.int64),
+        edge_j=view["edge_j"].to(torch.int64),
+        measurements=view["Z"].view(E, 4, 4),
+        information=view["info"].view(E, 6, 6),
+        edge_mask=view["mask"] != 0,
+        num_edges=int(graph.num_edges),
+    )
+    return solved, out[16 * M], out[16 * M + 1:16 * M + 1 + E]
+
+
+def optimize_reference(graph: PoseGraph, iterations: int = 20,
+                       use_robust: bool = True, cauchy_c: float = 1.0,
+                       gnc_init: float = 1.0, gnc_decay: float = 0.5,
+                       solver: str = "dense", gnc_adaptive: bool = False,
+                       device="cuda"):
+    """``optimize`` as a host loop of ``torch`` ops on `device`, for every
+    solver and size: the graph kernel's plain version. Each LM step reads
+    its stop flag back to the host (one sync). Sets ``LAST_STEPS`` and
+    ``LAST_STATS``."""
+    global LAST_STEPS, LAST_STATS
     device = torch.device(device)
     g0 = to_device(graph, device)
     topo = _topology(graph, device)
@@ -426,6 +613,7 @@ def optimize(graph: PoseGraph, iterations: int = 20, use_robust: bool = True,
 
     g_cur = g0
     lam = torch.full((), 1e-6, dtype=dtype, device=device)
+    steps, stats = 0, []
     for k in range(iterations):
         anneal = torch.clamp(anneal0 * gnc_decay ** k, min=1.0)
         c_eff = cauchy_c * anneal
@@ -454,9 +642,16 @@ def optimize(graph: PoseGraph, iterations: int = 20, use_robust: bool = True,
         lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9,
                           1e6)
         step = torch.linalg.vector_norm(delta)
+        steps = k + 1
+        stats.append((chi2, chi2_new, step, accept))
         # Don't stop while the robust kernel is still annealing.
         if bool(accept & (step < 1e-8) & (anneal <= 1.0)):
             break
+    LAST_STEPS = torch.full((), steps, dtype=torch.int32, device=device)
+    LAST_STATS = torch.zeros((iterations, 4), dtype=dtype, device=device)
+    if stats:
+        LAST_STATS[:steps] = torch.stack(
+            [torch.stack(col).to(dtype) for col in zip(*stats)], dim=1)
     _, _, chi2, weights = _build_blocks(g_cur, topo, use_robust, cauchy_c)
     return g_cur, chi2, weights
 

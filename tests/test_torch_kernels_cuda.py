@@ -43,6 +43,29 @@ the plain version's f32 sums decide such a comparison differently: a
 row's paths may part at such a tie (the step's error within 1e-5 of the
 best, or an increment norm within a factor 2 of the precision), on at
 most one row or a quarter of a batch, and its pose still within 1e-5.
+
+The pose-graph kernel (csrc/pose_graph.cu, one launch per dense solve)
+against its plain version, the host loop ``optimize_reference`` on the
+same card (cuSOLVER's Cholesky): poses within 1e-4, the final chi2 within
+rtol 1e-4 (atol 1e-6: a consistent graph's chi2 is f32 rounding noise);
+the weights within 1e-4 of the plain formula's at the kernel's own poses
+(a loop edge's Cauchy weight moves ~1e-3 for a 2e-6 pose change, so the
+two routes' weights are not held to each other). The two factor and sum
+in different orders (the
+kernel's own Cholesky and fixed-order sums against cuSOLVER and torch's
+reductions), and their f32 steps differ with the system's conditioning:
+near the optimum the two routes' trials at one step move the chi2 by
+amounts up to ~7.5e-5 relative apart (seen on the card: a window graph
+whose trials at step 1 moved it by -1.3e-5 and +6.2e-5). Once a solve
+comes that close to its optimum, each accept test compares two chi2
+within that noise and the stop test (|delta| < 1e-8) a step norm at
+the f32 noise of the residuals (~1e-7), so the two routes may take
+different decisions there and stop at different steps. Both routes
+record each step's chi2, trial chi2, step norm and accept flag
+(LAST_STATS): the runs must take the same decisions up to their first
+parting step, and at that step neither run's trial may move the chi2 by
+more than 1e-4 relative (atol 1e-6), the final chi2's tolerance: a
+parting on a trial that moves it more fails the test.
 """
 
 import numpy as np
@@ -52,7 +75,7 @@ import torch
 import dataclasses
 
 from dvo_slam_tpu_torch import TrackerConfig
-from dvo_slam_tpu_torch.models import dense_tracker
+from dvo_slam_tpu_torch.models import dense_tracker, pose_graph
 from dvo_slam_tpu_torch.ops import camera, linearize, pyramid, sampler
 from dvo_slam_tpu_torch.utils import se3_np, synthetic
 
@@ -976,3 +999,252 @@ def test_pixel_sharded_world_on_card_matches_single(cuda, orbit640):
                                    w.transformation.cpu().numpy(), atol=tol)
         np.testing.assert_allclose(ranks[0]["valid"],
                                    w.valid_pixels.cpu().numpy(), rtol=1e-3)
+
+
+# --- the pose-graph kernel (csrc/pose_graph.cu) against the host loop ---
+
+def _chain_graph(n=8, drift=0.02, seed=0, max_v=16, max_e=32, loop=True):
+    """tests/test_pose_graph.py's drifted circle with one exact loop edge,
+    as a host (numpy) graph."""
+    rng = np.random.default_rng(seed)
+    gt = [se3_np.exp(np.array([np.sin(a), 1 - np.cos(a), 0.1 * np.sin(a),
+                               0, 0, 0.0]))
+          for a in 2 * np.pi * np.arange(n) / n]
+    g = pose_graph.empty_graph_host(max_v, max_e)
+    T_est, edges = [np.eye(4)], []
+    for k in range(n - 1):
+        Z = (se3_np.inverse(gt[k]) @ gt[k + 1]
+             @ se3_np.exp(rng.normal(scale=drift, size=6)))
+        T_est.append(T_est[-1] @ Z)
+        edges.append((k, k + 1, Z, np.eye(6) * 1e2))
+    if loop:
+        edges.append((n - 1, 0, se3_np.inverse(gt[-1]) @ gt[0],
+                      np.eye(6) * 1e4))
+    for k in range(n):
+        g.poses[k] = T_est[k] if k else np.eye(4)
+    return _with_edges(g, n, edges)
+
+
+def _with_edges(g, n, edges):
+    for e, (i, j, Z, info) in enumerate(edges):
+        g.edge_i[e], g.edge_j[e] = i, j
+        g.measurements[e], g.information[e] = Z, info
+        g.edge_mask[e] = True
+    return g._replace(num_vertices=np.asarray(n, np.int32),
+                      num_edges=np.asarray(len(edges), np.int32))
+
+
+def _noisy_ring(M, n, seed, slots=64):
+    """A seeded SLAM-like graph padded to M vertices and `slots` edges: n
+    keyframes on a 1 m ring, odometry edges with 5 mm / 0.01 rad noise
+    chained into the initial poses, loop edges from the last third back to
+    the first, and one false loop edge; information scaled as a tracker's
+    (1e4-1e6)."""
+    rng = np.random.default_rng(seed)
+    gt = [se3_np.exp(np.array([np.sin(a), 1 - np.cos(a), 0.05 * np.sin(2 * a),
+                               0.02 * np.sin(a), 0, a]))
+          for a in 2 * np.pi * np.arange(n) / n]
+    sigma = np.array([5e-3] * 3 + [1e-2] * 3)
+    info = np.diag(1.0 / sigma**2) * rng.uniform(0.5, 2.0)
+    edges, T_est = [], [gt[0]]
+    for k in range(n - 1):
+        Z = (se3_np.inverse(gt[k]) @ gt[k + 1]
+             @ se3_np.exp(rng.normal(size=6) * sigma))
+        edges.append((k, k + 1, Z, info))
+        T_est.append(T_est[-1] @ Z)
+    for k in range(2 * n // 3, n):
+        j = int(rng.integers(0, n // 3))
+        Z = (se3_np.inverse(gt[k]) @ gt[j]
+             @ se3_np.exp(rng.normal(size=6) * sigma))
+        edges.append((k, j, Z, info))
+    edges.append((n // 2, 1, se3_np.exp(np.array([0.4, -0.3, 0.2, 0.3, 0.1,
+                                                  -0.2])), info))
+    g = pose_graph.empty_graph_host(M, slots)
+    g.poses[:n] = np.stack(T_est)
+    return _with_edges(g, n, edges)
+
+
+def _kernel_and_plain(g, dev, **kw):
+    before = pose_graph.LAUNCHES
+    got = pose_graph.optimize(g, device=dev, **kw)
+    run = (int(pose_graph.LAST_STEPS), pose_graph.LAST_STATS.cpu().numpy())
+    assert pose_graph.LAUNCHES == before + 1
+    want = pose_graph.optimize_reference(g, device=dev, **kw)
+    return got, run, want, (int(pose_graph.LAST_STEPS),
+                            pose_graph.LAST_STATS.cpu().numpy())
+
+
+def _assert_graph_close(got, run, want, run_h, g, kw):
+    from chip_smoke import _graph_parted
+
+    (g_opt, chi2, w), (h_opt, h_chi2, h_w) = got, want
+    parted = _graph_parted(run, run_h)
+    assert parted is None or parted[1], (parted, run[0], run_h[0])
+    assert g_opt.poses.shape == h_opt.poses.shape
+    assert torch.isfinite(g_opt.poses).all()
+    assert (g_opt.poses - h_opt.poses).abs().max().item() <= 1e-4
+    np.testing.assert_allclose(float(chi2), float(h_chi2), rtol=1e-4,
+                               atol=1e-6)
+    dev = g_opt.poses.device
+    at = pose_graph.to_device(g, dev)._replace(poses=g_opt.poses)
+    _, _, chi2_at, w_at = pose_graph._build_blocks(
+        at, pose_graph._topology(g, dev), kw.get("use_robust", True),
+        kw.get("cauchy_c", 1.0))
+    assert (w - w_at).abs().max().item() <= 1e-4
+    np.testing.assert_allclose(float(chi2), float(chi2_at), rtol=1e-4,
+                               atol=1e-6)
+
+
+def _false_loop_graph():
+    g = _chain_graph(n=8, drift=0.01, max_e=32)
+    e = int(g.num_edges)
+    g.edge_i[e], g.edge_j[e] = 2, 6
+    g.measurements[e] = se3_np.exp(np.array([1.5, -1.0, 0.8, 0.5, -0.4, 0.9]))
+    g.information[e] = np.eye(6) * 1e4
+    g.edge_mask[e] = True
+    return g._replace(num_edges=np.asarray(e + 1, np.int32))
+
+
+def _not_pd_graph():
+    g = _chain_graph(n=8, drift=0.03)
+    g = g._replace(information=g.information.copy())
+    g.information[0] = -np.eye(6) * 1e2
+    return g
+
+
+def _high_information_graph():
+    g = _chain_graph(n=8, drift=0.05)
+    return g._replace(information=g.information * 1e4)
+
+
+GRAPH_CASES = {
+    "loop_closure": (lambda: _chain_graph(n=8, drift=0.03),
+                     dict(iterations=30, gnc_init=64.0)),
+    "consistent": (lambda: _chain_graph(n=6, drift=0.0),
+                   dict(iterations=10)),
+    "stops_early": (lambda: _chain_graph(n=6, drift=0.0),
+                    dict(iterations=50)),
+    "false_loop_edge": (_false_loop_graph,
+                        dict(iterations=30, use_robust=True)),
+    "gnc_fixed": (_high_information_graph,
+                  dict(iterations=30, gnc_init=16.0)),
+    "gnc_adaptive": (_high_information_graph,
+                     dict(iterations=30, gnc_init=16.0, gnc_adaptive=True)),
+    "not_pd_step_zeroed": (_not_pd_graph,
+                           dict(iterations=3, use_robust=False)),
+    "padded": (lambda: _chain_graph(n=6, drift=0.02, max_v=32, max_e=64),
+               dict(iterations=15)),
+    "zero_iterations": (lambda: _chain_graph(n=8, drift=0.03),
+                        dict(iterations=0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_pose_graph_kernel_matches_host_loop(cuda, case):
+    """tests/test_torch_pose_graph.py's graphs through one kernel launch
+    and through the plain host loop on the card."""
+    make, kw = GRAPH_CASES[case]
+    g = make()
+    got, run, want, run_h = _kernel_and_plain(g, cuda, **kw)
+    _assert_graph_close(got, run, want, run_h, g, kw)
+    steps = run[0]
+    if case == "stops_early":
+        assert 0 < steps < kw["iterations"]
+    if case == "zero_iterations":
+        assert steps == 0
+        assert torch.equal(got[0].poses.cpu(), torch.from_numpy(g.poses))
+    if case == "false_loop_edge":
+        w = got[2].cpu().numpy()
+        assert w[int(g.num_edges) - 1] < 0.05 and w[:7].min() > 0.3
+    if case == "gnc_adaptive":
+        assert float(got[2][int(g.num_edges) - 1]) > 0.5
+
+
+def test_pose_graph_kernel_padding_invariance(cuda):
+    small = _chain_graph(n=6, drift=0.02, max_v=8, max_e=16)
+    big = _chain_graph(n=6, drift=0.02, max_v=32, max_e=64)
+    a = pose_graph.optimize(small, iterations=15, device=cuda)[0].poses
+    b = pose_graph.optimize(big, iterations=15, device=cuda)[0].poses
+    assert (a[:6] - b[:6]).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("M, n", [(16, 10), (32, 19), (32, 32), (16, 4),
+                                  (48, 40), (64, 40), (64, 64), (128, 100)])
+@pytest.mark.parametrize("asked", [20, 100])
+def test_pose_graph_kernel_on_noisy_rings(cuda, M, n, asked):
+    """Seeded noisy rings at every M the route takes (one CTA up to 32,
+    clusters of 2, 4 and 16 CTAs at 48, 64 and 128), solved as the SLAM
+    engine solves its graph (Cauchy, adaptive GNC from 16): kernel
+    against the host loop: the same decisions up to a parting at a tie."""
+    g = _noisy_ring(M, n, seed=M + n, slots=max(64, 2 * M))
+    kw = dict(iterations=asked, use_robust=True, cauchy_c=1.0,
+              gnc_init=16.0, gnc_adaptive=True)
+    got, run, want, run_h = _kernel_and_plain(g, cuda, **kw)
+    _assert_graph_close(got, run, want, run_h, g, kw)
+
+
+@pytest.mark.parametrize("M, n", [(32, 19), (128, 100)])
+def test_pose_graph_kernel_is_deterministic(cuda, M, n):
+    g = _noisy_ring(M, n, seed=5, slots=max(64, 2 * M))
+    kw = dict(iterations=100, gnc_init=16.0, gnc_adaptive=True)
+    runs = [pose_graph.optimize(g, device=cuda, **kw) for _ in range(3)]
+    for r in runs[1:]:
+        assert torch.equal(r[0].poses, runs[0][0].poses)
+        assert torch.equal(r[1], runs[0][1]) and torch.equal(r[2], runs[0][2])
+
+
+def test_pose_graph_kernel_issues_no_host_sync(cuda):
+    """The kernel route uploads from pinned memory without blocking and
+    reads nothing back: set_sync_debug_mode("error") raises on any sync."""
+    g = _noisy_ring(16, 10, seed=1)
+    pose_graph.optimize(g, iterations=5, device=cuda)  # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pose_graph.optimize(g, iterations=20, gnc_init=16.0,
+                                  gnc_adaptive=True, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out[0].poses).all()
+
+
+def test_pose_graph_kernel_plan_matches_python(cuda):
+    """dvo_pose_graph_plan (the source) and kernel_plan (the route's
+    Python side) agree on the limit, the layout and the shared memory."""
+    import ctypes
+
+    from dvo_slam_tpu_torch import _build
+
+    lib = _build.load()
+    for M in (*range(1, 130), 256):
+        out = (ctypes.c_int * 4)()
+        assert lib.dvo_pose_graph_plan(M, out) == 0
+        assert tuple(out) == pose_graph.kernel_plan(M)
+
+
+def test_pose_graph_kernel_refused_launch_raises(cuda, monkeypatch):
+    """A solve the source refuses (here 256 vertices, past its limit,
+    with the wrapper's own check widened) raises with the CUDA error;
+    nothing falls back to the host loop."""
+    g = pose_graph.grow(_chain_graph(n=6), max_vertices=256)
+    monkeypatch.setattr(pose_graph, "KERNEL_MAX_VERTICES", 256)
+    before = pose_graph.LAUNCHES
+    with pytest.raises(RuntimeError, match="dvo_pose_graph failed"):
+        pose_graph.optimize(g, iterations=5, device=cuda)
+    assert pose_graph.LAUNCHES == before
+
+
+def test_pose_graph_kernel_on_a_card_that_is_not_current(cuda):
+    """A solve on card 1 while card 0 is current launches on card 1 and
+    leaves the current card as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    second = torch.device("cuda", 1)
+    g = _noisy_ring(64, 40, seed=7, slots=128)
+    kw = dict(iterations=20, gnc_init=16.0, gnc_adaptive=True)
+    with torch.cuda.device(cuda):
+        got = pose_graph.optimize(g, device=second, **kw)
+        assert torch.cuda.current_device() == cuda.index
+    want = pose_graph.optimize(g, device=cuda, **kw)
+    assert got[0].poses.device == second
+    assert torch.equal(got[0].poses.cpu(), want[0].poses.cpu())

@@ -265,3 +265,202 @@ def test_host_graph_helpers_like_jax():
     for x, y in zip(back, g):
         np.testing.assert_array_equal(x, y)
         assert x.dtype == np.asarray(y).dtype
+
+
+@pytest.mark.parametrize("solver, M, device, kernel", [
+    ("dense", 16, "cuda", True),
+    ("dense", 32, "cuda", True),
+    ("dense", 1, torch.device("cuda", 1), True),
+    ("dense", 64, "cuda", True),
+    ("dense", 128, "cuda", True),
+    ("dense", 129, "cuda", False),
+    ("dense", 256, "cuda", False),
+    ("dense", 2560, "cuda", False),
+    ("cg", 16, "cuda", False),
+    ("cg", 4096, "cuda", False),
+    ("dense", 16, "cpu", False),
+    ("cg", 16, "cpu", False),
+])
+def test_graph_route(solver, M, device, kernel):
+    """A dense solve of at most KERNEL_MAX_VERTICES vertices on a CUDA
+    device is one kernel launch; the CPU, CG and larger dense graphs take
+    the plain host loop. Decided by device, solver and size alone."""
+    assert t_pose_graph.graph_route(solver, M, device) is kernel
+
+
+def test_kernel_plan_sizes_shared_memory():
+    """One CTA of 512 threads up to 32 vertices, then clusters of 2 to 16
+    CTAs up to 128: a CTA holds at most 192 columns of the damped system
+    (6M rows of w + 1 floats), the right-hand side, two pose copies and,
+    in a cluster, the pivot column and y, within an H100 CTA's 232 448
+    bytes."""
+    def shared(M, C):
+        n = 6 * M
+        w = -(-n // C)
+        return 4 * (n * (w + 1) + n + 32 * M + (2 * n if C > 1 else 0))
+
+    assert t_pose_graph.kernel_plan(32) == (128, 1, 512, 153_088)
+    assert t_pose_graph.kernel_plan(16) == (128, 1, 512,
+                                            4 * (96 * 97 + 96 + 512))
+    assert t_pose_graph.kernel_plan(64) == (128, 4, 512, shared(64, 4))
+    assert t_pose_graph.kernel_plan(128) == (128, 16, 512, 176_128)
+    for M in range(1, 129):
+        limit, C, threads, nbytes = t_pose_graph.kernel_plan(M)
+        assert C in (1, 2, 4, 8, 16) and nbytes == shared(M, C)
+        assert -(-6 * M // C) <= 192 and nbytes <= 232_448 - 2_048
+        assert C == 1 or -(-6 * M // (C // 2)) > 192 or \
+            shared(M, C // 2) > 230_400
+    for M in (0, 129, 256):
+        assert t_pose_graph.kernel_plan(M)[1:] == (0, 512, 0)
+
+
+def test_optimize_kernel_refuses_cpu_and_large_graphs():
+    """The kernel route has no plain fallback: it refuses what it does not
+    take instead of running the host loop."""
+    g, _ = _chain_graph(n=6)
+    with pytest.raises(ValueError):
+        t_pose_graph.optimize_kernel(g, device="cpu")
+    big = t_pose_graph.grow(g, max_vertices=256)
+    with pytest.raises(ValueError):
+        t_pose_graph.optimize_kernel(big, device="cuda")
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_kernel_plans_sum_in_the_plain_order(padded):
+    """The kernel's CSR lists hold, slot by slot, the contributions the
+    plain loop's gather plans sum, in the same order; the packed upload
+    keeps every array (integers bitwise)."""
+    g, _ = _chain_graph(n=8, drift=0.03, max_v=32 if padded else 16,
+                        max_e=64 if padded else 32)
+    e = int(g.num_edges)
+    g.edge_i[e], g.edge_j[e] = 5, 2  # an edge against the chain's order
+    g.edge_mask[e] = True
+    topo = t_pose_graph._topology(g, "cpu")
+    targets = t_pose_graph._plan_targets(g)
+    M = g.poses.shape[0]
+    for plan, tgt, size in ((topo.vertex, targets[0], M),
+                            (topo.dense, targets[1], M * M)):
+        off, idx = t_pose_graph._csr(tgt, size)
+        K = tgt.shape[0]
+        rows = {int(k): [int(x) for x in r if x != K]
+                for k, r in zip(plan.keys, plan.gather)}
+        for s in range(size):
+            assert list(idx[off[s]:off[s + 1]]) == rows.get(s, [])
+    buf, where = t_pose_graph._pack(g)
+    for name, want in (("poses", g.poses), ("Z", g.measurements),
+                       ("info", g.information),
+                       ("mask", g.edge_mask.astype(np.float32))):
+        a, n, is_int = where[name]
+        assert not is_int
+        np.testing.assert_array_equal(buf[a:a + n], want.ravel())
+    for name, want in (("edge_i", g.edge_i), ("edge_j", g.edge_j)):
+        a, n, is_int = where[name]
+        assert is_int
+        np.testing.assert_array_equal(buf[a:a + n].view(np.int32), want)
+
+
+@pytest.mark.parametrize("case", ["consistent_dense", "consistent_cg",
+                                  "loop_closure", "zero_iterations"])
+def test_last_steps_counts_the_plain_loop(case, monkeypatch):
+    """LAST_STEPS after the plain loop is the number of LM steps it ran
+    (one _total_chi2 call a step) as a 0-d int32 tensor; where the loop
+    stops early, the JAX while_loop has stopped by that step too (asking
+    it for exactly that many steps gives the same result bit for bit)."""
+    if case.startswith("consistent"):
+        g, _ = _chain_graph(n=6, drift=0.0, loop=True)
+        kw = dict(iterations=50, solver=case.split("_")[1])
+    elif case == "loop_closure":
+        g, _ = _chain_graph(n=8, drift=0.03)
+        kw = dict(iterations=30, gnc_init=64.0)
+    else:
+        g, _ = _chain_graph(n=8, drift=0.03)
+        kw = dict(iterations=0)
+    ran = []
+    total = t_pose_graph._total_chi2
+
+    def counting(*args, **kwargs):
+        ran.append(1)
+        return total(*args, **kwargs)
+
+    monkeypatch.setattr(t_pose_graph, "_total_chi2", counting)
+    got = t_pose_graph.optimize(g, device="cpu", **kw)
+    steps = t_pose_graph.LAST_STEPS
+    assert steps.dtype == torch.int32 and steps.dim() == 0
+    assert int(steps) == len(ran) <= kw["iterations"]
+    if case.startswith("consistent"):
+        assert 0 < int(steps) < kw["iterations"]
+        want = pose_graph.optimize(_jax_graph(g), **kw)
+        stopped = pose_graph.optimize(_jax_graph(g),
+                                      **dict(kw, iterations=int(steps)))
+        for a, b in zip(want, stopped):
+            np.testing.assert_array_equal(np.asarray(getattr(a, "poses", a)),
+                                          np.asarray(getattr(b, "poses", b)))
+        _assert_close(got, want)
+    if case == "zero_iterations":
+        np.testing.assert_array_equal(got[0].poses.numpy(), g.poses)
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_last_stats_records_each_plain_step(solver):
+    """LAST_STATS after the plain loop: (iterations, 4) f32, one row a
+    step run (chi2, trial chi2, step norm, accept as 1 or 0) and zeros
+    past the last; an accepted trial never raises the chi2, and at a
+    constant Cauchy width the next step starts from the chi2 the accept
+    test left (the trial's if accepted, else the step's own)."""
+    g, _ = _chain_graph(n=8, drift=0.01)
+    got = t_pose_graph.optimize(g, iterations=30, solver=solver, device="cpu")
+    steps = int(t_pose_graph.LAST_STEPS)
+    st = t_pose_graph.LAST_STATS.numpy()
+    assert st.shape == (30, 4) and st.dtype == np.float32
+    assert 0 < steps < 30
+    assert not st[steps:].any()
+    chi2, trial, norm, accept = st[:steps].T
+    assert set(accept) <= {0.0, 1.0}
+    assert (trial[accept == 1] <= chi2[accept == 1]).all()
+    np.testing.assert_allclose(chi2[1:], np.where(accept[:-1] == 1,
+                                                  trial[:-1], chi2[:-1]),
+                               rtol=1e-5)
+    assert accept[-1] == 1 and norm[-1] < 1e-8
+    np.testing.assert_allclose(float(got[1]), trial[-1], rtol=1e-5)
+
+
+def test_cpu_route_counts_no_kernel_launch():
+    """The host loop leaves the graph kernel's launch counters alone."""
+    g, _ = _chain_graph(n=8, drift=0.03)
+    before = (t_pose_graph.LAUNCHES, dict(t_pose_graph.LAUNCHES_BY_M))
+    t_pose_graph.optimize(g, iterations=5, device="cpu")
+    assert (t_pose_graph.LAUNCHES, t_pose_graph.LAUNCHES_BY_M) == before
+
+
+def _stats_run(accept, trial_rel=(), steps=None):
+    """A (LAST_STEPS, LAST_STATS) pair of `len(accept)` steps at chi2 10,
+    trial chi2 10 (1 + trial_rel[k]) (-1e-2 where not given)."""
+    n = len(accept)
+    st = np.zeros((8, 4), np.float32)
+    rel = list(trial_rel) + [-1e-2] * (n - len(trial_rel))
+    for k in range(n):
+        st[k] = (10.0, 10.0 * (1 + rel[k]), 1e-3, accept[k])
+    return (n if steps is None else steps), st
+
+
+@pytest.mark.parametrize("runs, want", [
+    # the same decisions and step count: no parting
+    ((_stats_run([1, 1, 1]), _stats_run([1, 1, 1])), None),
+    # accept decisions part at step 1 on trials within 1e-4 of chi2: a tie
+    ((_stats_run([1, 1, 1], [-1e-2, -5e-5]),
+      _stats_run([1, 0, 1], [-1e-2, 6e-5])), (1, True)),
+    # they part at step 1 on a trial that moves chi2 by 1e-2: no tie
+    ((_stats_run([1, 1, 1], [-1e-2, -1e-2]),
+      _stats_run([1, 0, 1], [-1e-2, 1e-2])), (1, False)),
+    # the same decisions, one run stops a step early: its last step, a tie
+    ((_stats_run([1, 1, 1], [-1e-2, -1e-2, -2e-5]),
+      _stats_run([1, 1, 1, 1], [-1e-2, -1e-2, -3e-5])), (2, True)),
+])
+def test_graph_parted(runs, want):
+    """chip_smoke's _graph_parted, the rule the card tests and phase 5f
+    hold the graph kernel and the host loop to: where two LM runs' accept
+    decisions part, and whether both runs' trials there lie within the
+    final chi2's tolerance (1e-4 relative) of the current chi2."""
+    from chip_smoke import _graph_parted
+
+    assert _graph_parted(*runs) == want

@@ -154,5 +154,6 @@ def test_build_output_is_keyed_by_sources():
     assert path.parent.parent == _build.BUILD_ROOT
     assert path == _build.library_path()
     assert [s.name for s in _build._sources()] == ["linearize.cu",
+                                                   "pose_graph.cu",
                                                    "sampler.cu"]
 
