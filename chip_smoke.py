@@ -106,15 +106,18 @@ kernel (csrc/pose_graph.cu: a dense Levenberg-Marquardt solve of up to
   5f. (after 6, whose graph it takes) the pose-graph kernel against the
      plain host loop (optimize_reference, cuSOLVER's Cholesky) on the card:
      the ring's final keyframe graph (M = 16), 5b's last window graph,
-     6b's benchmark graph (cropped to M = 32) and _ring_graph at 64 and
-     128 vertices (clusters of 4 and 16 CTAs): steps on each route, max
-     |dpose| (tol 1e-4), chi2 (rtol 1e-4), weights and chi2 against the
-     plain formula at the kernel's poses (1e-4), the same accept
-     decisions up to a parting at a tie (at the parting step neither
-     trial moves the chi2 by more than 1e-4 relative); the
-     kernel's device us per solve and per step (CUDA events), the host
-     loop's ms, cuSOLVER's cholesky_ex + cholesky_solve on the damped
-     system, the bound;
+     6b's benchmark graph (cropped to M = 32), 5e's last solves at 64 and
+     128 slots and _ring_graph at 64 and 128 vertices (clusters of 4 and
+     16 CTAs): steps on each route, max |dpose| (tol 1e-4), chi2 (rtol
+     1e-4; in f64 at each route's own poses where the two routes' own
+     f32 errors add up past it), weights and chi2 against the plain
+     formula at the kernel's poses (1e-4), the same accept decisions up
+     to a parting at a tie (at the parting step neither trial moves the
+     chi2 by more than 1e-4 relative); the kernel's device us per solve
+     and per step (CUDA events) and per step by phase (the kernel's
+     phase-timing buffer) beside the first version's as recorded, the
+     host loop's ms, cuSOLVER's cholesky_ex + cholesky_solve on the
+     damped system, the bound;
   7. the three cells through the host loop (dense_tracker._track_level,
      one mode (a) launch per lockstep iteration, called directly in
      place of track_level) and through the level kernel, in turns (host,
@@ -2035,6 +2038,41 @@ def _graph_on_cpu(graph, kw):
     return out
 
 
+# The first version of the graph kernel (a column Cholesky with a barrier
+# a column, the sum plans walked per element of H, the solves in one warp
+# or CTA by CTA), on 5f's graphs: device us per LM step of each phase from
+# its phase stamps (pose_graph.PHASES) and, last, per LM step by CUDA
+# events, measured once on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
+GRAPH_FIRST_VERSION = {
+    "ring": (6.74, 37.38, 68.83, 38.52, 1.30, 2.26, 156.77),
+    "window": (6.33, 42.82, 200.56, 95.79, 1.76, 1.98, 351.94),
+    "offline": (6.81, 44.25, 200.41, 95.75, 1.89, 2.46, 352.95),
+    "evict64": (32.67, 428.30, 1262.74, 186.46, 2.04, 8.12, 1929.59),
+    "evict128": (34.83, 2889.08, 6830.72, 552.19, 2.12, 9.43, 10322.68),
+    "ring64": (11.36, 63.18, 1263.27, 201.61, 2.27, 4.57, 1548.58),
+    "ring128": (18.83, 116.24, 6830.94, 465.25, 3.30, 6.37, 7443.30),
+}
+_KERNEL_KEYS = ("iterations", "use_robust", "cauchy_c", "gnc_init",
+                "gnc_decay", "gnc_adaptive")
+
+
+def _graph_phases(g, kw, device):
+    """One more kernel solve of `g` with the phase-timing buffer: ({phase:
+    device us per LM step}, the launch's us, steps)."""
+    import torch
+
+    from dvo_slam_tpu_torch.models import pose_graph
+
+    buf = torch.zeros(4 + 7 * kw["iterations"], dtype=torch.int64,
+                      device=device)
+    pose_graph.optimize_kernel(g, device=device, timing=buf,
+                               **{k: v for k, v in kw.items()
+                                  if k in _KERNEL_KEYS})
+    steps = int(pose_graph.LAST_STEPS)
+    split, launch_us = pose_graph.phase_times(buf.cpu().numpy(), steps)
+    return split, launch_us, steps
+
+
 def phase_graph(device, slam_out, offline):
     """5f: the pose-graph kernel (csrc/pose_graph.cu, one launch a dense
     solve) against the plain host loop (optimize_reference, cuSOLVER's
@@ -2049,14 +2087,22 @@ def phase_graph(device, slam_out, offline):
     spin kernel), the host loop's ms (host clock to a sync), cuSOLVER's
     factor and solve (cholesky_ex + cholesky_solve) on the graph's damped
     system at its first step (events), the bound. The f32 resolution of
-    each graph: the plain formula (_build_blocks) at the kernel's poses in
-    f32 against the same in f64. Where its own f32 error passes a
-    tolerance (weights or chi2, 1e-4), f32 cannot resolve that tolerance
-    on the graph, and the checks of the two routes against each other
-    that rest on it (weights, chi2, decisions) are printed, not held,
-    beside the host loop on the CPU in f32 and f64; the poses are held on
-    every graph, and every graph but 5e's must be resolved. Returns
-    {name: row numbers}."""
+    each graph: the plain formula (_build_blocks) in f32 against the same
+    in f64, at the kernel's poses (weights and chi2) and at the host loop's
+    (chi2). Where the weights' own f32 error passes 1e-4, f32 cannot
+    resolve the comparison on the graph, and the checks of the two routes
+    against each other that rest on it (weights, chi2, decisions) are
+    printed, not held, beside the host loop on the CPU in f32 and f64; the
+    poses are held on every graph, and every graph but 5e's must resolve
+    its weights. Two routes' f32 chi2 differ by their own f32 errors as
+    well as by their poses: where those two errors add up past 1e-4 (a
+    solve that ends fitting f32 evaluation noise, as 5b's window graph
+    without the robust kernel does: its f64 loop converges in 2 steps, its
+    f32 steps after that move the f32 chi2 by ~1e-4-5e-4 and the poses by
+    ~1e-7), the two routes' chi2 are compared in f64 at their own poses
+    (1e-4), a rule still to be accepted, and the f32 comparison is printed
+    as met or missed, the record of the criterion; every other check
+    stands. Returns {name: row numbers}."""
     import functools
     import os
     import shutil
@@ -2129,9 +2175,23 @@ def phase_graph(device, slam_out, offline):
             kw.get("cauchy_c", 1.0))
         res_w = (w_at.double() - w_64).abs().max().item()
         res_c = abs(float(chi2_at) - float(chi2_64)) / float(chi2_64)
-        resolved = res_w <= 1e-4 and res_c <= 1e-4
+        # The same at the host loop's poses, in f32 and f64.
+        g_h = pose_graph.to_device(g, device)._replace(poses=want[0].poses)
+        _, _, chi2_at_h, _ = pose_graph._build_blocks(
+            g_h, pose_graph._topology(g, device), kw.get("use_robust", True),
+            kw.get("cauchy_c", 1.0))
+        _, _, chi2_64_h, _ = pose_graph._build_blocks(
+            _graph_f64(g, device)._replace(poses=want[0].poses.double()),
+            pose_graph._topology(g, device), kw.get("use_robust", True),
+            kw.get("cauchy_c", 1.0))
+        res_c_h = abs(float(chi2_at_h) - float(chi2_64_h)) / float(chi2_64_h)
+        chi2_resolved = res_c + res_c_h <= 1e-4
+        resolved = res_w <= 1e-4 and chi2_resolved
         c, c_h = float(got[1]), float(want[1])
         d_chi2 = abs(c - c_h) / max(abs(c_h), 1e-30)
+        f32_met = abs(c - c_h) <= 1e-4 * abs(c_h) + 1e-6
+        d_chi2_64 = (abs(float(chi2_64) - float(chi2_64_h))
+                     / max(abs(float(chi2_64_h)), 1e-30))
         parted = _graph_parted(run, run_h)
         # Past one CTA a solve takes 10-750 ms: fewer calls a run.
         us = _events_us(functools.partial(pose_graph.optimize, g,
@@ -2148,8 +2208,22 @@ def phase_graph(device, slam_out, offline):
             -grad[:, None], torch.linalg.cholesky_ex(damped)[0]))
         bound = _graph_bound(g, run[0], kw["iterations"],
                              kw.get("gnc_adaptive", False))
+        # The phase split, beside the first version's.
+        plan = pose_graph.kernel_plan(M, E)
+        split, launch_us, split_steps = _graph_phases(g, kw, device)
+        first = GRAPH_FIRST_VERSION.get(name)
+        print(f"phase 5f pose graph, {name} graph: per LM step, device us "
+              f"(the kernel's phase stamps; width {plan[4]}, {plan[1]} "
+              f"CTAs, {split_steps} steps, {launch_us:.2f} us the launch): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+              + f"; by events {us / max(run[0], 1):.2f}"
+              + ("" if first is None else
+                 "; the first version (column Cholesky, recorded): "
+                 + ", ".join(f"{k} {v:.2f}" for k, v in
+                             zip(pose_graph.PHASES, first))
+                 + f"; by events {first[-1]:.2f}"))
         print(f"phase 5f pose graph, {name} graph (M = {M}, E = {E}, "
-              f"cluster of {pose_graph.kernel_plan(M)[1]} CTAs, "
+              f"cluster of {plan[1]} CTAs, panel width {plan[4]}, "
               f"{int(g.num_vertices)} vertices, {int(g.num_edges)} edges; "
               f"{kw['iterations']} LM steps at most): steps kernel {run[0]}, "
               f"host loop {run_h[0]}; "
@@ -2160,7 +2234,8 @@ def phase_graph(device, slam_out, offline):
                  f" relative, step norms {run[1][parted[0], 2]:.3e} / "
                  f"{run_h[1][parted[0], 2]:.3e}; tie {parted[1]})")
               + f"; max |dpose| {d_pose:.3e} (tol 1e-4), chi2 {c:.7g} / "
-              f"{c_h:.7g} (rel {d_chi2:.3e}, tol 1e-4); at the kernel's "
+              f"{c_h:.7g} (rel {d_chi2:.3e}, tol 1e-4: "
+              f"{'met' if f32_met else 'missed'}); at the kernel's "
               f"poses the plain chi2 within {d_chi2_at:.3e} (tol 1e-4) and "
               f"weights within {d_w:.3e} (tol 1e-4), weights route to route "
               f"{d_w_route:.3e}; kernel {us:.2f} us per solve (events), "
@@ -2170,21 +2245,32 @@ def phase_graph(device, slam_out, offline):
               f"{6 * M}x{6 * M} system {cusolver_us:.2f} us; bound "
               f"{1e3 * bound[0]:.4f} us ({bound[1]}); f32 resolution at "
               f"the kernel's poses (plain formula f32 against f64): weights "
-              f"{res_w:.3e}, chi2 {res_c:.3e}: "
+              f"{res_w:.3e}, chi2 {res_c:.3e} (at the host loop's "
+              f"{res_c_h:.3e}): "
               + ("resolved" if resolved else
+                 f"chi2 beyond f32: the f32 chi2 comparison "
+                 f"{'met' if f32_met else 'missed'} (the criterion of "
+                 f"record), held instead in f64 at each route's own poses "
+                 f"(a rule still to be accepted): {float(chi2_64):.9g} / "
+                 f"{float(chi2_64_h):.9g} (rel {d_chi2_64:.3e}, tol 1e-4); "
+                 f"host loop on the CPU "
+                 + ", ".join(f"{t} {n} steps, chi2 {x:.7g}" for t, (n, x)
+                             in zip(("f32", "f64"), _graph_on_cpu(g, kw)))
+                 if res_w <= 1e-4 else
                  "beyond f32, only the poses held; host loop on the CPU "
                  + ", ".join(f"{t} {n} steps, chi2 {x:.7g}" for t, (n, x)
                              in zip(("f32", "f64"), _graph_on_cpu(g, kw)))))
         close = (d_w <= 1e-4 and d_chi2_at <= 1e-4
-                 and abs(c - c_h) <= 1e-4 * abs(c_h) + 1e-6
+                 and (f32_met if chi2_resolved else d_chi2_64 <= 1e-4)
                  and (parted is None or parted[1]))
-        if not (d_pose <= 1e-4 and (close or not resolved)):
+        if not (d_pose <= 1e-4 and (close or res_w > 1e-4)):
             raise AssertionError(f"5f {name}: the graph kernel disagrees "
                                  f"with the host loop")
-        if not (resolved or name.startswith("evict")):
+        if not (res_w <= 1e-4 or name.startswith("evict")):
             raise AssertionError(f"5f {name}: beyond f32 resolution")
-        out[name] = {"M": M, "C": pose_graph.kernel_plan(M)[1], "us": us,
+        out[name] = {"M": M, "C": plan[1], "us": us, "split": split,
                      "plain_ms": plain_ms, "err": d_pose,
+                     "f32_met": f32_met,
                      "bound": bound, "steps": run[0],
                      "cusolver_us": cusolver_us}
     return out

@@ -142,13 +142,14 @@ def load():
         cd = ctypes.c_double
         lib.dvo_pose_graph.argtypes = [
             vp, vp, vp, vp, vp, vp,  # poses, Z, info, mask, edge_i, edge_j
-            vp, vp, vp, vp,  # vertex and dense plans (offsets, indices)
+            vp, vp, vp,  # vertex plan (offsets, indices), dense plan indices
+            vp, vp,  # the dense plan's blocks (offsets, list)
             ci, ci, ci, ci, ci,  # M, E, num_vertices, iterations, robust
             cd, cd, cd, ci,  # cauchy_c, gnc_init, gnc_decay, gnc_adaptive
-            vp, vp, vp, vp, vp, vp, vp,  # scratch, poses, chi2, weights,
-        ]  # stats, steps, stream
+            vp, vp, vp, vp, vp, vp, vp, vp,  # scratch, poses, chi2, weights,
+        ]  # stats, steps, timing (or null), stream
         lib.dvo_pose_graph.restype = ci
-        lib.dvo_pose_graph_plan.argtypes = [ci, vp]
+        lib.dvo_pose_graph_plan.argtypes = [ci, ci, vp]
         lib.dvo_pose_graph_plan.restype = ci
         lib.dvo_level_plan.argtypes = [ci, ci, vp]
         lib.dvo_level_plan.restype = ci

@@ -18,45 +18,77 @@
 // the factorization in f32. Sums of a step's chi2 run in f64, rounded to
 // f32.
 //
+// What bounds it on this card: not bytes or flops (a solve at M = 32 reads
+// ~25 KB of graph and plans, and a step does ~2.6 MFLOP: < 0.1 us at 67
+// TFLOP/s) but serial latency: the n = 6M pivots of the factorization, the
+// n steps of the backward solve, and every barrier between their phases (a
+// cluster barrier past M = 32). The first version paid a barrier per
+// column (a cluster barrier and a column copy past M = 32), walked the sum
+// plans per element of H (and vertex 0's block held every padded edge
+// slot's zeros) and ran the solves in one warp; its own phase stamps put
+// 44-92 % of a step in the factorization, 6-27 % in the solves and 12-28 %
+// in the assembly, 1-4 % in the edge pass. This design pays a barrier per
+// panel of NB columns and keeps a panel's pivots inside one warp:
+//
 // Layout. One cluster of C CTAs of 512 threads per solve, M <= 128 vertices
-// (n = 6M <= 768): C is the fewest CTAs (a power of two) whose column slabs
-// fit, 1 up to M = 32, 4 at 64, 16 at 128 (a non-portable cluster size).
-// CTA r holds columns [r w, (r + 1) w) of the damped system, w = ceil(n / C)
-// <= 192, as n rows of w + 1 floats (at C = 1 the odd row stride keeps a
-// column's reads free of bank conflicts), beside the right-hand side, two
-// copies of the poses and, in a cluster, the pivot column and y: 153 088
-// bytes at M = 32, 161 792 at 64, 176 128 at 128 (dvo_pose_graph_plan;
-// models/pose_graph.py::kernel_plan mirrors it). Every CTA keeps the poses
-// and takes every decision; the edges are split over the CTAs, and their
-// sums meet through distributed shared memory, read in rank order.
-// Per-edge blocks (P = Jj^T W Jj, whence Hii = Hjj = P, Hij = -P, and gj =
-// -gi) go to a global scratch of E x 42 floats that stays in L2.
+// (n = 6M <= 768); one CTA up to M = 32, past that the fewest CTAs (a power
+// of two, at most 16: non-portable past 8) that hold at most kMaxColumns
+// columns each and fit. The lower triangle of the damped system, with -g
+// appended as row n, is cut into P = ceil(n / NB) panels of NB = 16
+// columns, dealt block-cyclically: panel p
+// lives on CTA p mod C as rows [p NB, n] of NB + 1 floats (the odd row
+// stride keeps a warp's column reads free of bank conflicts; the last float
+// of a diagonal-block row holds 1 / L_ii). Beside them: in a cluster, a
+// copy of the panel being applied; the right-hand side (rank 0's is the
+// backward solve's home, every CTA's its copy of delta); two copies of the
+// poses; and, on one CTA where they fit, the per-edge blocks
+// (dvo_pose_graph_plan; models/pose_graph.py::kernel_plan mirrors it).
+// Every CTA keeps the poses and takes every decision; the edges are split
+// over the CTAs.
+//
+// Per LM step:
+// - Edge pass, two stages. (A) a thread per edge: residual, chi2, weight
+//   and the f64 Jacobian's 18 distinct entries into the edge's slot; (B)
+//   seven lanes of a warp per edge, four edges a warp: lane q < 6 forms
+//   column q of P = Jj^T (w info) Jj (whence Hii = Hjj = P, Hij = -P), lane
+//   6 forms gj (gi = -gj), over the slot. The f64 chain stays one lane per
+//   edge: its 3x3 products have no lane-level parallelism that a shuffle
+//   would not cost more than it saves, and the edge pass was 1-4 % of a
+//   step.
+// - Assembly per 6x6 block: the host lists the non-empty blocks of the
+//   lower triangle by column vertex, over the unmasked edges (a masked
+//   edge's blocks are exact zeros); a warp per (panel, block) sums the
+//   block's contributions for the panel's columns, in the host plan's
+//   order, loading eight at a time.
+// - Right-looking panel Cholesky with a lookahead of one panel. Per panel:
+//   one warp factors the NB x NB diagonal block in registers (a lane holds
+//   a row; pivots go by __shfl_sync, the square roots wait until the end,
+//   no branch); all warps of the owner solve the rows below against it (a
+//   row a thread; row n gives the forward substitution's y for free); every
+//   CTA applies the panel to its own later panels as a rank-NB update of
+//   4x4 register tiles in f32 FMA on the CUDA cores (no tensor cores: TF32
+//   breaks SE(3) chains, and f64 would not be the reference's arithmetic).
+//   The owner of the next panel updates that panel first and factors it
+//   (on one CTA warp 0 factors while the other warps update the rest). One
+//   CTA: three barriers a panel. A cluster: one cluster barrier a panel,
+//   split into its arrive and wait: the owner publishes the factored panel
+//   to global memory (L2) and arrives, every CTA copies the rows it needs
+//   from there after the wait (fifteen CTAs pulling one panel over
+//   distributed shared memory took ~7 us a panel at M = 128) and reads the
+//   owner's pivot flag, so a failed pivot stops every CTA at the same
+//   panel.
+// - Blocked backward solve, one barrier (a cluster barrier) a panel: the
+//   owner sums the block's columns against the x below (a warp a column,
+//   fixed shuffle tree), then one warp solves the block in registers. The
+//   right-hand side lives on rank 0.
+// - exp(delta) a thread a vertex; the trial chi2 a thread an edge.
 //
 // Determinism. No float atomics: every sum into a slot of g or a block of H
 // runs over that slot's contributions in increasing index order, from the
 // host-built CSR plans (the order of models/pose_graph.py::_plan), and
 // every reduction over edges is a fixed per-thread order, a fixed
-// xor-shuffle tree and a fixed warp order. Two launches on the same inputs
-// give the same bits.
-//
-// Per step: one thread per edge builds its residual, weight, P and gj; one
-// thread per element of a CTA's lower-triangle columns sums H from the plan
-// and adds the damping; a right-looking column Cholesky with one barrier per
-// column (at C = 1 column k - 1 is scaled while column k updates the
-// trailing triangle; in a cluster every CTA first copies column k from its
-// owner and the barrier is the cluster's); the triangular solves in one warp
-// (C = 1) or CTA by CTA over their columns; one thread per vertex applies
-// exp(delta); one thread per edge takes the new chi2. Every CTA reads the
-// same sums, so the decisions (accept, lambda, stop) are every CTA's.
-//
-// What bounds it on this card: not bytes or flops (a solve at M = 32 reads
-// ~25 KB of graph and plans, and a step does ~2.6 MFLOP: < 0.1 us at 67
-// TFLOP/s) but the n serial
-// pivots of the factorization and the 2n serial steps of the solves, each a
-// barrier (a cluster barrier past M = 32) or a warp step apart, and one
-// cluster on 1 to 16 of the 132 SMs. The design removes the host from the
-// loop: one launch per solve instead of ~200 eager ops and a host sync per
-// LM step.
+// xor-shuffle tree and a fixed warp and rank order. Two launches on the
+// same inputs give the same bits.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -73,14 +105,21 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxVertices = 128;
+constexpr int kSingleCta = 32;                   // one CTA up to this M
+constexpr int kMaxColumns = 96;                  // columns a CTA of a cluster holds
+// Columns per panel. 32 was timed beside it on every graph phase 5f runs:
+// as fast at M = 32 and 64 (within 1-3 %), 14 % slower at M = 16 (a
+// 32-wide block's pivot chain costs more than the barriers it saves), and
+// past ~100 vertices its layout does not fit.
+constexpr int NB = 16;
+constexpr int LD = NB + 1;                       // a panel row's floats
 constexpr int kMaxCluster = 16;                  // non-portable past 8
-constexpr int kMaxColumns = 192;                 // columns a CTA holds
-constexpr int kColumnSlots = kMaxColumns / 32;   // a lane's columns per pivot
 constexpr size_t kSmemBudget = 230400;           // dynamic bytes a CTA may ask
 constexpr int kErrNoActiveCluster = 100001;      // as csrc/linearize.cu's
 constexpr int kEdgeFloats = 42;                  // P (36), gj (6)
 constexpr float kGaugeWeight = 1e6f;             // models/pose_graph.py _GAUGE_WEIGHT
 constexpr float kJitter = 1e-6f;                 // models/pose_graph.py _JITTER
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const float* poses;   // (M, 4, 4)
@@ -91,34 +130,97 @@ struct Params {
   const int* edge_j;    // (E,)
   const int* v_off;     // (M + 1,) vertex plan: 2E contributions
   const int* v_idx;     // (2E,) [gi of edge e | gj of edge e]
-  const int* d_off;     // (M M + 1,) dense plan: 4E + M blocks
-  const int* d_idx;     // (4E + M,) [Hii | Hjj | Hij | Hij^T | extra]
-  int M, E, nv, iterations, use_robust, gnc_adaptive, C;
+  const int* d_idx;     // (4E + M,) dense plan, coded (contribution())
+  const int* b_off;     // (M + 1,) non-empty lower blocks by column vertex
+  const int* b_list;    // (K, 4): row vertex a, column vertex b, d_idx range
+                        // (16-byte aligned)
+  int M, E, nv, iterations, use_robust, gnc_adaptive, C, staged;
   float cauchy_c, gnc_init;
   double cauchy_c64, gnc_decay;
-  float* scratch;       // (E, kEdgeFloats)
+  size_t panel_floats;  // rank 0's panels (the most any CTA holds)
+  float* scratch;       // (E, kEdgeFloats) unless staged in shared memory
+  float* bcast;         // C > 1: every panel once, rows [p NB, n), for the copies
   float* poses_out;     // (M, 4, 4)
   float* chi2_out;      // ()
   float* weights_out;   // (E,)
   float* stats_out;     // (iterations, 4) per step: chi2, chi2_new, |delta|, accept
   int* steps_out;       // ()
+  long long* timing;    // null, or (4 + 7 iterations,): phase stamps
 };
 
-// Dynamic shared memory per CTA: its w = ceil(n / C) columns as n rows of
-// w + 1 floats, the right-hand side, two pose copies and, in a cluster, the
-// pivot column and y.
-size_t shared_bytes(int M, int C) {
-  const size_t n = 6 * (size_t)M, w = (n + C - 1) / C;
-  return 4 * (n * (w + 1) + n + 32 * (size_t)M + (C > 1 ? 2 * n : 0));
+// The phase-timing buffer, when the caller passes one: %globaltimer (ns)
+// and clock64 at the start ([0], [1]) and the end ([2], [3]) of the
+// launch, and per LM step k, clock64 at [4 + 7k + j]: j = 0 the step's
+// start, then the ends of its edge pass, the assembly of g and H, the
+// factorization, the solves, exp(delta) and the trial chi2 with the
+// decisions. Thread 0 of rank 0 writes them, each after a barrier.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
-// CTAs per solve: the smallest power of two whose column slabs fit (at most
-// kMaxColumns columns and kSmemBudget bytes a CTA); 0 past the limit.
+__device__ __forceinline__ void stamp(const Params& p, int rank, int slot) {
+  if (p.timing != nullptr && rank == 0 && threadIdx.x == 0) p.timing[slot] = clock64();
+}
+
+// ------------------------------------------------------------ the layout
+
+// Floats of CTA `rank`'s panels: p = rank, rank + C, ... as rows
+// [p NB, n] of LD floats (row n carries the right-hand side).
+size_t panel_floats(int n, int C, int rank) {
+  size_t s = 0;
+  for (int p = rank; p * NB < n; p += C) s += (size_t)(n + 1 - p * NB) * LD;
+  return s;
+}
+
+// Dynamic shared memory per CTA without the per-edge blocks: rank 0's
+// panels (the most any CTA holds), in a cluster the copy of one panel (n
+// rows of LD), the right-hand side, two pose copies.
+size_t layout_bytes(int M, int C) {
+  const int n = 6 * M;
+  return 4 * (panel_floats(n, C, 0) + (C > 1 ? (size_t)n * LD : 0) + n +
+              32 * (size_t)M);
+}
+
+// CTAs per solve: one up to kSingleCta vertices; past that the fewest (a
+// power of two from kMinCluster up to kMaxCluster) that hold at most
+// kMaxColumns columns each (ceil(P / C) panels) and whose layout fits
+// kSmemBudget (every M up to kMaxVertices has one); 0 past the limit.
+constexpr int kMinCluster = 4;
+static_assert(((6 * (kSingleCta + 1) + NB - 1) / NB + 1) / 2 * NB > kMaxColumns,
+              "past kSingleCta two CTAs never hold the panels: clusters start at 4");
 int cluster_for(int M) {
   if (M < 1 || M > kMaxVertices) return 0;
-  for (int C = 1; C <= kMaxCluster; C *= 2)
-    if ((6 * M + C - 1) / C <= kMaxColumns && shared_bytes(M, C) <= kSmemBudget) return C;
+  if (M <= kSingleCta) return 1;
+  const int P = (6 * M + NB - 1) / NB;
+  for (int C = kMinCluster; C <= kMaxCluster; C *= 2)
+    if ((P + C - 1) / C * NB <= kMaxColumns && layout_bytes(M, C) <= kSmemBudget) return C;
   return 0;
+}
+
+// Global scratch floats: the per-edge blocks, and in a cluster the
+// broadcast buffer of every panel (as one CTA would hold them all).
+size_t scratch_floats(int M, int E, int C) {
+  return (size_t)kEdgeFloats * E + (C > 1 ? panel_floats(6 * M, 1, 0) : 0);
+}
+
+// One CTA stages the per-edge blocks in shared memory where they fit: a
+// step took 54.5 / 106.1 us at M = 16 / 32 (E = 64) staged and 57.0 /
+// 109.2 from global scratch (tests/torch_graph_kernel_ab.py, H100 80GB
+// HBM3 at 700 W).
+bool staged_for(int M, int E, int C) {
+  return C == 1 && layout_bytes(M, 1) + 4 * (size_t)kEdgeFloats * E <= kSmemBudget;
+}
+
+size_t shared_bytes(int M, int E, int C) {
+  return layout_bytes(M, C) + (staged_for(M, E, C) ? 4 * (size_t)kEdgeFloats * E : 0);
+}
+
+// Offset (floats) of local panel q (panel q C + rank) in a CTA's panels.
+__device__ __forceinline__ size_t panel_offset(int q, int rank, int C, int n) {
+  return (size_t)LD *
+         ((size_t)q * (n + 1) - (size_t)NB * ((size_t)C * q * (q - 1) / 2 + (size_t)rank * q));
 }
 
 // ------------------------------------------------------------ f32 SE(3)
@@ -276,8 +378,11 @@ __device__ void inverse4d(const double* T, double* out) {
   out[12] = 0.0; out[13] = 0.0; out[14] = 0.0; out[15] = 1.0;
 }
 
-// Jj (6, 6) row-major, f32, from e (f32) and T_i, Z.
-__device__ void edge_jacobian(const float* e, const float* Ti, const float* Z, float* Jf) {
+// Jj's 18 distinct f32 entries from e (f32) and T_i, Z: the top-left (and
+// bottom-right) block JR = J3i R and the top-right block TR = J3i tR - JQJ R,
+// each 3x3 row-major; the bottom-left block is zero.
+__device__ void edge_jacobian(const float* e, const float* Ti, const float* Z, float* JR,
+                              float* TR) {
   const double rho[3] = {(double)e[0], (double)e[1], (double)e[2]};
   const double phi[3] = {(double)e[3], (double)e[4], (double)e[5]};
   const double t2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2];
@@ -337,18 +442,16 @@ __device__ void edge_jacobian(const float* e, const float* Ti, const float* Z, f
   hat3d(tv, tx);
   mm3d(tx, R, tR);
   // Jj = Jl^{-1} Ad = [J3i R, J3i tR - JQJ R; 0, J3i R].
-  double JR[9], JtR[9], JQJR[9];
-  mm3d(J3i, R, JR);
+  double JRd[9], JtR[9], JQJR[9];
+  mm3d(J3i, R, JRd);
   mm3d(J3i, tR, JtR);
   mm3d(JQJ, R, JQJR);
 #pragma unroll
   for (int r = 0; r < 3; ++r)
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
-      Jf[6 * r + q] = (float)JR[3 * r + q];
-      Jf[6 * r + 3 + q] = (float)(JtR[3 * r + q] - JQJR[3 * r + q]);
-      Jf[6 * (r + 3) + q] = 0.f;
-      Jf[6 * (r + 3) + 3 + q] = (float)JR[3 * r + q];
+      JR[3 * r + q] = (float)JRd[3 * r + q];
+      TR[3 * r + q] = (float)(JtR[3 * r + q] - JQJR[3 * r + q]);
     }
 }
 
@@ -385,73 +488,124 @@ __device__ float block_max(float v, float* red) {
   return s;
 }
 
-// ------------------------------------------------------------ the kernel
+// ------------------------------------------------------------ the edge pass
 
 // The Cauchy IRLS weight 1 / (1 + chi2 / c^2), or 1 without the kernel.
 __device__ float robust_weight(const Params& p, float chi2, float c2) {
   return p.use_robust ? 1.f / (1.f + chi2 / c2) : 1.f;
 }
 
-// One edge of _build_blocks at poses `pose`: writes P and gj to the
-// scratch, returns w * chi2 (w the robust weight at c2 times the mask).
-__device__ float build_edge(const Params& p, const float* pose, int e, float c2) {
+// Stage A of edge e (one thread) at poses `pose`: its residual, chi2 and
+// weight (robust at c2, times the mask) and the f64 Jacobian, left in the
+// edge's slot for stage B as [JR (9) | TR (9) | e (6) | w]. A weight of 0
+// with a finite chi2 makes P and gj zero, so the Jacobian is skipped (a
+// masked or padded edge). Returns w * chi2.
+__device__ float edge_stage_a(const Params& p, const float* pose, int e, float c2,
+                              float* slot) {
   const float* Z = p.Z + 16 * e;
-  const float* info = p.info + 36 * e;
   const float* Ti = pose + 16 * p.edge_i[e];
   const float* Tj = pose + 16 * p.edge_j[e];
   float r[6];
-  const float chi2 = edge_chi2(Ti, Tj, Z, info, r);
+  const float chi2 = edge_chi2(Ti, Tj, Z, p.info + 36 * e, r);
   const float w = robust_weight(p, chi2, c2) * p.mask[e];
-  float J[36];
-  edge_jacobian(r, Ti, Z, J);
-  float* out = p.scratch + (size_t)kEdgeFloats * e;
-  // X = (w info) J; P = J^T X; gj = J^T ((w info) e).
-  float X[36], we[6];
+  float JR[9], TR[9];
+  if (w == 0.f && isfinite(chi2)) {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) JR[q] = TR[q] = 0.f;
+  } else {
+    edge_jacobian(r, Ti, Z, JR, TR);
+  }
+#pragma unroll
+  for (int q = 0; q < 9; ++q) {
+    slot[q] = JR[q];
+    slot[9 + q] = TR[q];
+  }
+#pragma unroll
+  for (int q = 0; q < 6; ++q) slot[18 + q] = r[q];
+  slot[24] = w;
+  return w * chi2;
+}
+
+// Stage B of edge e over seven lanes of one warp (every lane of the warp
+// calls it: a __syncwarp inside): lane q < 6 forms column q of P = J^T X
+// with X = (w info) J, lane 6 forms gj = J^T ((w info) e), from stage A's
+// slot, then overwrites the slot with [P (36, row-major) | gj (6)].
+__device__ void edge_stage_b(const Params& p, int e, int q, bool active, float* slot) {
+  float J[36], col[6], w = 0.f;
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        J[6 * k + a] = slot[3 * k + a];
+        J[6 * k + 3 + a] = slot[9 + 3 * k + a];
+        J[6 * (k + 3) + a] = 0.f;
+        J[6 * (k + 3) + 3 + a] = slot[3 * k + a];
+      }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {  // column q of J, or e (lane 6)
+      float v = slot[18 + k];
+#pragma unroll
+      for (int a = 0; a < 6; ++a)
+        if (q == a) v = J[6 * k + a];
+      col[k] = v;
+    }
+    w = slot[24];
+  }
+  __syncwarp();
+  if (!active) return;
+  const float* info = p.info + 36 * e;
+  float X[6];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    float x = 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) x += (w * info[6 * a + k]) * col[k];
+    X[a] = x;
+  }
 #pragma unroll
   for (int a = 0; a < 6; ++a) {
     float s = 0.f;
 #pragma unroll
-    for (int b = 0; b < 6; ++b) s += (w * info[6 * a + b]) * r[b];
-    we[a] = s;
-#pragma unroll
-    for (int q = 0; q < 6; ++q) {
-      float x = 0.f;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) x += (w * info[6 * a + k]) * J[6 * k + q];
-      X[6 * a + q] = x;
-    }
+    for (int k = 0; k < 6; ++k) s += J[6 * k + a] * X[k];
+    if (q < 6) slot[6 * a + q] = s;
+    else slot[36 + a] = s;
   }
-#pragma unroll
-  for (int a = 0; a < 6; ++a) {
-#pragma unroll
-    for (int q = 0; q < 6; ++q) {
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) s += J[6 * k + a] * X[6 * k + q];
-      out[6 * a + q] = s;
-    }
-    float g = 0.f;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) g += J[6 * k + a] * we[k];
-    out[36 + a] = g;
-  }
-  return w * chi2;
 }
 
-// Element (r, c) of dense-plan contribution `ci`.
-__device__ float contribution(const Params& p, int ci, int r, int c) {
-  const int E = p.E;
-  if (ci < 4 * E) {
-    const int kind = ci / E, e = ci - kind * E;
-    const float* P = p.scratch + (size_t)kEdgeFloats * e;
+// Element (r, c) of the dense-plan contribution coded `code` (the host's
+// encoding of the plan's index list: 4 e + kind for edge e's Hii, Hjj,
+// Hij, Hij^T; -1 - v for vertex v's gauge prior or inactive identity), the
+// edges' blocks at blk.
+__device__ float contribution(const Params& p, const float* blk, int code, int r, int c) {
+  if (code >= 0) {
+    const float* P = blk + (size_t)kEdgeFloats * (code >> 2);
+    const int kind = code & 3;
     if (kind < 2) return P[6 * r + c];     // Hii, Hjj
     if (kind == 2) return -P[6 * r + c];   // Hij
     return -P[6 * c + r];                  // Hij^T
   }
   if (r != c) return 0.f;
-  const int v = ci - 4 * E;  // gauge prior on vertex 0, identity if inactive
+  const int v = -1 - code;  // gauge prior on vertex 0, identity if inactive
   const float extra = v >= p.nv ? 1.f : 0.f;
   return v == 0 ? extra + kGaugeWeight : extra;
+}
+
+// Element (r, c) of a block of H: its contributions codes[0..count) summed
+// in list order, loaded eight at a time so that their latencies overlap.
+__device__ float block_element(const Params& p, const float* blk, const int* codes,
+                               int count, int r, int c) {
+  float h = 0.f;
+  for (int v0 = 0; v0 < count; v0 += 8) {
+    float x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x[j] = v0 + j < count ? contribution(p, blk, __ldg(codes + v0 + j), r, c) : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (v0 + j < count) h += x[j];
+  }
+  return h;
 }
 
 // Cluster-wide reductions: each CTA reduces its share, thread 0 puts it in
@@ -480,180 +634,243 @@ __device__ float cluster_max(float v, float* red, float* slot, int C) {
   return s;
 }
 
-// The right-looking column Cholesky of one CTA's n x n system (row stride
-// ld), one barrier per column: pass kk updates the trailing triangle by
-// column kk (scaled on the fly) and writes the final values of column
-// kk - 1, which no thread reads in that pass. False: a pivot <= 0 or NaN.
-__device__ bool factor_cta(float* A, int n, int ld) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float d_prev = 1.f, inv_prev = 1.f;
-  for (int kk = 0; kk < n; ++kk) {
-    const float d = A[kk * ld + kk];
-    if (kk > 0)
-      for (int i = kk - 1 + threadIdx.x; i < n; i += kThreads)
-        A[i * ld + kk - 1] = i == kk - 1 ? sqrtf(d_prev) : A[i * ld + kk - 1] * inv_prev;
-    if (!(d > 0.f)) return false;  // every thread reads the same pivot
-    const float inv = 1.f / sqrtf(d);
-    float lj[kColumnSlots];
-#pragma unroll
-    for (int t = 0; t < kColumnSlots; ++t) {
-      const int j = kk + 1 + lane + 32 * t;
-      lj[t] = j < n ? A[j * ld + kk] * inv : 0.f;
-    }
-    for (int i = kk + 1 + warp; i < n; i += kWarps) {
-      const float li = A[i * ld + kk] * inv;
-      float* row = A + i * ld;
-#pragma unroll
-      for (int t = 0; t < kColumnSlots; ++t) {
-        const int j = kk + 1 + lane + 32 * t;
-        if (j <= i) row[j] -= li * lj[t];
-      }
-    }
-    d_prev = d;
-    inv_prev = inv;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) A[(n - 1) * ld + n - 1] = sqrtf(d_prev);
-  return true;
+// ------------------------------------------------------ the panel Cholesky
+
+// 1 / x and 1 / sqrt(x) for x > 0 without the IEEE routines' branches
+// (which stop the compiler from overlapping a pivot's chain with the
+// shuffles around it): the MUFU estimate and one Newton step.
+__device__ __forceinline__ float recip(float x) {
+  const float r = __fdividef(1.f, x);
+  return fmaf(r, fmaf(-x, r, 1.f), r);
 }
 
-// The same factorization over a cluster: CTA `rank` holds columns [c0, c1)
-// (row stride ld). Pass kk copies column kk from its owner's shared memory
-// into `col`, updates this CTA's columns right of kk, and ends at a cluster
-// barrier; the owner of column kk - 1 writes its final values in pass kk.
-__device__ bool factor_cluster(float* A, float* col, int n, int ld, int w, int rank) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = rank * w, c1 = min(n, c0 + w);
-  float d_prev = 1.f, inv_prev = 1.f;
-  bool ok = true;
-  for (int kk = 0; kk < n; ++kk) {
-    if (kk > 0 && (kk - 1) / w == rank)
-      for (int i = kk - 1 + threadIdx.x; i < n; i += kThreads) {
-        float* a = A + i * ld + kk - 1 - c0;
-        *a = i == kk - 1 ? sqrtf(d_prev) : *a * inv_prev;
-      }
-    const int owner = kk / w;
-    const float* src = cluster.map_shared_rank(A, owner) + kk - owner * w;
-    for (int i = kk + threadIdx.x; i < n; i += kThreads) col[i] = src[i * ld];
-    __syncthreads();
-    const float d = col[kk];
-    if (!(d > 0.f)) {  // every CTA reads the same pivot
-      ok = false;
-      break;
-    }
-    const float inv = 1.f / sqrtf(d);
-    if (kk + 1 < c1) {
-      float lj[kColumnSlots];
-#pragma unroll
-      for (int t = 0; t < kColumnSlots; ++t) {
-        const int j = c0 + lane + 32 * t;
-        lj[t] = (j > kk && j < c1) ? col[j] * inv : 0.f;
-      }
-      for (int i = max(kk + 1, c0) + warp; i < n; i += kWarps) {
-        const float li = col[i] * inv;
-        float* row = A + i * ld - c0;
-#pragma unroll
-        for (int t = 0; t < kColumnSlots; ++t) {
-          const int j = c0 + lane + 32 * t;
-          if (j > kk && j <= i && j < c1) row[j] -= li * lj[t];
-        }
-      }
-    }
-    d_prev = d;
-    inv_prev = inv;
-    cluster.sync();
-  }
-  if (ok && (n - 1) / w == rank && threadIdx.x == 0)
-    A[(n - 1) * ld + n - 1 - c0] = sqrtf(d_prev);
-  cluster.sync();
-  return ok;
+__device__ __forceinline__ float rsqrt_nr(float x) {
+  const float y = rsqrtf(x);
+  return fmaf(y, fmaf(-0.5f * x * y, y, 0.5f), y);
 }
 
-// L y = b, then L^T x = y, one CTA: warp 0 runs both, column by column;
-// rhs holds b and ends holding x.
-__device__ void solve_cta(const float* A, float* rhs, int n, int ld) {
+// Cluster barrier halves: arrive (release this thread's writes) and wait
+// (acquire every thread's), so that a CTA can work between the two.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Factors the w x w diagonal block of a panel (its rows 0..w-1, row stride
+// NB + 1) in the calling warp: lane i holds row i in registers. Pivot k
+// goes to every lane by a shuffle, and each lane updates its row by the
+// unscaled column k, A_ij -= (A_ik / d_k) A_jk; the square roots and the
+// scaling L_ik = A_ik / sqrt(d_k) wait until every pivot is known, so a
+// pivot's chain is one shuffle, a reciprocal and one FMA. The body has no
+// branch (a branch would stop the compiler from overlapping one pivot's
+// chain with the shuffles around it; a lane or pivot past w works on
+// zeros), and a pivot <= 0 or NaN is only recorded: the values after it
+// are discarded. Writes L's lower triangle and 1 / L_ii in the row's last
+// float. False on every lane where a pivot failed (nothing written).
+__device__ bool factor_diag(float* A, int w) {
   const int lane = threadIdx.x & 31;
-  if (threadIdx.x >= 32) return;
-  for (int kk = 0; kk < n; ++kk) {
-    const float y = rhs[kk] / A[kk * ld + kk];
-    __syncwarp();
-    if (lane == 0) rhs[kk] = y;
-    for (int i = kk + 1 + lane; i < n; i += 32) rhs[i] -= A[i * ld + kk] * y;
-    __syncwarp();
+  float a[NB], d[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) a[j] = (lane < w && j <= lane) ? A[lane * LD + j] : 0.f;
+  bool bad = false;
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    const float dk = __shfl_sync(kFull, a[k], k);  // every lane the same pivot
+    bad |= k < w && !(dk > 0.f);
+    d[k] = k < w ? dk : 1.f;
+    const float u = a[k] * recip(d[k]);
+#pragma unroll
+    for (int j = k + 1; j < NB; ++j) {
+      const float ajk = __shfl_sync(kFull, a[k], j);
+      a[j] = lane >= j ? fmaf(-u, ajk, a[j]) : a[j];
+    }
   }
-  for (int kk = n - 1; kk >= 0; --kk) {
-    const float x = rhs[kk] / A[kk * ld + kk];
-    __syncwarp();
-    if (lane == 0) rhs[kk] = x;
-    for (int i = lane; i < kk; i += 32) rhs[i] -= A[kk * ld + i] * x;
-    __syncwarp();
+  if (!bad && lane < w) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float inv = rsqrt_nr(d[j]), s = d[j] * inv;
+      if (j < lane) A[lane * LD + j] = a[j] * inv;
+      if (j == lane) {
+        A[lane * LD + j] = s;
+        A[lane * LD + NB] = inv;
+      }
+    }
+  }
+  return !bad;
+}
+
+// The rows of a panel below its w x w diagonal block (rows w..rows-1 of A;
+// row n, the right-hand side, is among them, so the forward substitution
+// L y = b rides along: y is row n of L) against the factored block, a row
+// a thread in registers: L21 = A21 L11^{-T}, column by column as the
+// column factorization scales and updates them. Only the last panel is
+// ragged (w < NB), and then row n is its only row below.
+template <bool kRagged>
+__device__ void solve_rows(float* A, int w, int rows) {
+  for (int i = w + (int)threadIdx.x; i < rows; i += kThreads) {
+    float x[NB];
+#pragma unroll
+    for (int c = 0; c < NB; ++c) x[c] = (!kRagged || c < w) ? A[i * LD + c] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      if (!kRagged || c < w) {
+        x[c] *= A[c * LD + NB];
+#pragma unroll
+        for (int j = c + 1; j < NB; ++j)
+          if (!kRagged || j < w) x[j] -= x[c] * A[j * LD + c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      if (!kRagged || c < w) A[i * LD + c] = x[c];
   }
 }
 
-// The same solves over a cluster, CTA by CTA over their columns: the
-// forward sweep in rank order (each CTA takes b and the y so far from the
-// one before it), the backward sweep in reverse rank order (x_k = (y_k -
-// L[k+1:, k] . x[k+1:]) / L_kk, one warp, a fixed shuffle tree), then every
-// CTA takes x from rank 0. rhs holds b on rank 0 and ends holding x on
-// every CTA; ysol is scratch.
-__device__ void solve_cluster(const float* A, float* rhs, float* ysol, int n, int ld,
-                              int w, int rank, int C) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int c0 = rank * w, c1 = min(n, c0 + w);
-  for (int r = 0; r < C; ++r) {
-    if (rank == r) {
-      if (r > 0) {
-        const float* pb = cluster.map_shared_rank(rhs, r - 1);
-        const float* py = cluster.map_shared_rank(ysol, r - 1);
-        for (int i = tid; i < n; i += kThreads)
-          if (i < c0) ysol[i] = py[i]; else rhs[i] = pb[i];
-        __syncthreads();
-      }
-      for (int kk = c0; kk < c1; ++kk) {
-        const float y = rhs[kk] / A[kk * ld + kk - c0];
-        if (tid == 0) ysol[kk] = y;
-        for (int i = kk + 1 + tid; i < n; i += kThreads) rhs[i] -= A[i * ld + kk - c0] * y;
-        __syncthreads();
-      }
-    }
-    cluster.sync();
-  }
-  for (int r = C - 1; r >= 0; --r) {
-    if (rank == r) {
-      if (r < C - 1) {
-        const float* py = cluster.map_shared_rank(ysol, C - 1);
-        const float* px = cluster.map_shared_rank(rhs, r + 1);
-        for (int i = tid; i < n; i += kThreads)
-          if (i >= c1) rhs[i] = px[i]; else if (i >= c0) ysol[i] = py[i];
-        __syncthreads();
-      }
-      if (tid < 32)
-        for (int kk = c1 - 1; kk >= c0; --kk) {
-          float s = 0.f;
-          for (int i = kk + 1 + lane; i < n; i += 32) s += A[i * ld + kk - c0] * rhs[i];
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-          const float x = (ysol[kk] - s) / A[kk * ld + kk - c0];
-          __syncwarp();
-          if (lane == 0) rhs[kk] = x;
-          __syncwarp();
-        }
-    }
-    cluster.sync();
-  }
-  if (rank != 0) {
-    const float* px = cluster.map_shared_rank(rhs, 0);
-    for (int i = tid; i < n; i += kThreads) rhs[i] = px[i];
-  }
-  cluster.sync();  // rank 0's x is read before any CTA changes it
+__device__ void solve_panel(float* A, int w, int rows) {
+  if (w == NB) solve_rows<false>(A, NB, rows);
+  else solve_rows<true>(A, w, rows);
 }
+
+// This CTA's local panels q0 <= q < q1 (all right of panel pp), updated by
+// pp's columns: A[R][c] -= sum_m L[R][m] L[c][m] for every row R from the
+// panel's first column on, row n included, a 4x4 register tile a thread;
+// vt: the calling thread's index among the nt threads taking part (rows
+// and columns past the end clamped on load and not stored). L: panel pp's rows from k0, row stride NB + 1 (the owner's own
+// panel or this CTA's copy of it); only the last panel is ragged, so L has
+// NB columns.
+__device__ void update_trailing(float* panels, const float* L, int pp, int q0, int q1, int n,
+                                int rank, int C, int vt, int nt) {
+  const int k0 = pp * NB;
+  int total = 0;
+  for (int q = q0; q < q1; ++q) {
+    const int c0 = (q * C + rank) * NB;
+    total += ((n + 4 - c0) / 4) * ((min(NB, n - c0) + 3) / 4);
+  }
+  for (int t = vt; t < total; t += nt) {
+    int q = q0, u = t, c0 = 0, wc = 0, nct = 0;
+    for (;; ++q) {
+      c0 = (q * C + rank) * NB;
+      wc = min(NB, n - c0);
+      nct = (wc + 3) / 4;
+      const int cnt = ((n + 4 - c0) / 4) * nct;
+      if (u < cnt) break;
+      u -= cnt;
+    }
+    const int R0 = c0 + 4 * (u / nct), j0 = 4 * (u % nct);
+    float* A = panels + panel_offset(q, rank, C, n);
+    const float* La[4];
+    const float* Lb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      La[i] = L + (size_t)(min(R0 + i, n) - k0) * LD;
+      Lb[i] = L + (size_t)(c0 + min(j0 + i, wc - 1) - k0) * LD;
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[i][j] = A[(size_t)(min(R0 + i, n) - c0) * LD + min(j0 + j, wc - 1)];
+#pragma unroll
+    for (int m = 0; m < NB; ++m) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = La[i][m];
+        b[i] = Lb[i][m];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] -= a[i] * b[j];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (R0 + i <= n && j0 + j < wc) A[(size_t)(R0 + i - c0) * LD + j0 + j] = acc[i][j];
+  }
+}
+
+// Factors panel pp on its owner: warp 0 its diagonal block, then every
+// thread the rows below; `*fail` (shared) set for every thread to read.
+__device__ void factor_panel(float* A, int pp, int n, int* fail) {
+  const int k0 = pp * NB;
+  if (threadIdx.x < 32) {
+    const bool f = factor_diag(A, min(NB, n - k0));
+    if (threadIdx.x == 0) *fail = f ? 0 : 1;
+  }
+  __syncthreads();
+  if (!*fail) solve_panel(A, min(NB, n - k0), n + 1 - k0);
+  __syncthreads();
+}
+
+// Offset (floats) of panel pp's rows in the global broadcast buffer, which
+// holds every panel as rows [p NB, n] of NB + 1 floats, in panel order.
+__device__ __forceinline__ size_t bcast_offset(int pp, int n) {
+  return (size_t)LD * ((size_t)pp * (n + 1) - (size_t)NB * pp * (pp - 1) / 2);
+}
+
+// The owner's factored panel pp, rows below its diagonal block (the rows
+// other CTAs read), to its place in the global broadcast buffer.
+__device__ void publish_panel(const float* A, float* bcast, int pp, int n) {
+  const int k0 = pp * NB;
+  float* dst = bcast + bcast_offset(pp, n);
+  for (int i = NB * LD + (int)threadIdx.x; i < (n + 1 - k0) * LD; i += kThreads) dst[i] = A[i];
+}
+
+// -------------------------------------------------------- blocked solves
+
+// Backward block of L^T x = y on the owner of panel pp (A: its rows from
+// k0, w columns): the sums
+// s_c = sum_{R below} L[R][c] x_R (a warp a column, lanes over R, a fixed
+// shuffle tree; x below is final, read from `home` or, copied first, from
+// `xloc`), then warp 0 solves the diagonal block in registers (lane j holds
+// column j of L11 and y_j - s_j; x_c goes to the lanes above by a shuffle,
+// with no branch)
+// and writes x to `home`.
+__device__ void backward_block(const float* A, float* home, float* xloc, float* sums, int k0,
+                               int w, int n, bool copy) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int below = k0 + w;
+  const float* x = home;
+  if (copy) {
+    for (int i = below + (int)threadIdx.x; i < n; i += kThreads) xloc[i] = home[i];
+    __syncthreads();
+    x = xloc;
+  }
+  for (int c = warp; c < w; c += kWarps) {
+    float s = 0.f;
+    for (int R = below + lane; R < n; R += 32) s += A[(size_t)(R - k0) * LD + c] * x[R];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+    if (lane == 0) sums[c] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float col[NB];
+#pragma unroll
+    for (int c = 0; c < NB; ++c) col[c] = (c < w && c > lane) ? A[c * LD + lane] : 0.f;
+    const float inv = lane < w ? A[lane * LD + NB] : 0.f;
+    float z = lane < w ? home[k0 + lane] - sums[lane] : 0.f;
+#pragma unroll
+    for (int c = NB - 1; c >= 0; --c) {  // no branch: past w, z, inv, col are 0
+      const float xc = __shfl_sync(kFull, z * inv, c);
+      z = lane < c ? fmaf(-col[c], xc, z) : lane == c ? xc : z;
+    }
+    if (lane < w) home[k0 + lane] = z;
+  }
+}
+
+// ------------------------------------------------------------ the kernel
 
 // One launch = one solve: a cluster of C CTAs (C = 1 up to M = 32). Every
 // CTA keeps the poses and takes every decision; the edges are split over
-// the CTAs and their sums meet through distributed shared memory; CTA r
-// holds columns [r w, (r + 1) w) of the system.
+// the CTAs in contiguous ranges, and panel p of the system lives on CTA
+// p mod C.
 __global__ void __launch_bounds__(kThreads, 1) pose_graph_kernel(Params p) {
   extern __shared__ float smem[];
   __shared__ double red[kWarps];
@@ -661,27 +878,36 @@ __global__ void __launch_bounds__(kThreads, 1) pose_graph_kernel(Params p) {
   __shared__ double s_sum[3];  // this CTA's share: step, trial and final chi2
   __shared__ float s_max;      // this CTA's share of the adaptive start
   __shared__ float s_step;
+  __shared__ int s_fail;       // the pivot flag of the panel this CTA factored last
+  __shared__ float s_vec[NB];  // the sums of a backward block
   cg::cluster_group cluster = cg::this_cluster();
   const int C = p.C, rank = C > 1 ? (int)cluster.block_rank() : 0;
-  const int M = p.M, E = p.E, n = 6 * M;
-  const int w = (n + C - 1) / C, c0 = rank * w, c1 = min(n, c0 + w), ld = w + 1;
-  float* A = smem;            // rows 0..n-1 of columns [c0, c1): the damped
-  float* rhs = A + n * ld;    // system, then its factor; -g, then delta
-  float* pose = rhs + n;      // (M, 16) current poses
+  const int M = p.M, E = p.E, n = 6 * M, P = (n + NB - 1) / NB;
+  float* panels = smem;                       // this CTA's panels
+  float* buf = panels + p.panel_floats;       // C > 1: a copy of the panel applied
+  float* rhs = buf + (C > 1 ? (size_t)n * LD : 0);  // y, then delta (rank 0: home)
+  float* pose = rhs + n;                      // (M, 16) current poses
   float* trial = pose + 16 * M;
-  float* col = trial + 16 * M;  // C > 1: the pivot column, then y
-  float* ysol = col + n;
+  float* blk = p.staged ? trial + 16 * M : p.scratch;  // (E, 42) per-edge slots
+  float* home = C > 1 ? cluster.map_shared_rank(rhs, 0) : rhs;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int e0 = rank * kThreads + tid, de = C * kThreads;  // this thread's edges
+  const int Ec = (E + C - 1) / C, e_lo = min(E, rank * Ec), e_hi = min(E, e_lo + Ec);
+  size_t own_floats = 0;
+  for (int pp = rank; pp < P; pp += C) own_floats += (size_t)(n + 1 - pp * NB) * LD;
+  auto own_panel = [&](int pp) { return panels + panel_offset(pp / C, rank, C, n); };
 
   for (int q = tid; q < 16 * M; q += kThreads) pose[q] = p.poses[q];
   __syncthreads();
+  if (p.timing != nullptr && rank == 0 && tid == 0) {
+    p.timing[0] = (long long)global_ns();
+    p.timing[1] = clock64();
+  }
 
   // Adaptive GNC start: anneal0 = max(gnc_init, sqrt(max(max chi2, 1)) / c).
   float anneal0 = p.gnc_init;
   if (p.gnc_adaptive) {
     float mx = -INFINITY;
-    for (int e = e0; e < E; e += de) {
+    for (int e = e_lo + tid; e < e_hi; e += kThreads) {
       float r[6];
       mx = nan_max(mx, edge_chi2(pose + 16 * p.edge_i[e], pose + 16 * p.edge_j[e],
                                  p.Z + 16 * e, p.info + 36 * e, r) * p.mask[e]);
@@ -698,62 +924,200 @@ __global__ void __launch_bounds__(kThreads, 1) pose_graph_kernel(Params p) {
     anneal = isnan(anneal) ? anneal : fmaxf(anneal, 1.f);
     const float c_eff = p.cauchy_c * anneal;
     const float c2 = c_eff * c_eff;
+    stamp(p, rank, 4 + 7 * k);
 
-    // Per-edge blocks and the chi2 at the current poses; the barriers of
-    // the sum publish the scratch to every CTA.
+    // Edge pass: stage A a thread an edge, stage B seven lanes an edge; the
+    // barriers of the sum publish the slots to every CTA.
     double part = 0.0;
-    for (int e = e0; e < E; e += de) part += build_edge(p, pose, e, c2);
+    for (int e = e_lo + tid; e < e_hi; e += kThreads)
+      part += edge_stage_a(p, pose, e, c2, blk + (size_t)kEdgeFloats * e);
+    __syncthreads();
+    for (int g = warp; 4 * g < e_hi - e_lo; g += kWarps) {
+      const int e = e_lo + 4 * g + (lane >> 3), q = lane & 7;
+      edge_stage_b(p, e, q, e < e_hi && q < 7, blk + (size_t)kEdgeFloats * e);
+    }
     const float chi2 = (float)cluster_sum(part, red, &s_sum[0], C);
+    stamp(p, rank, 4 + 7 * k + 1);
 
-    // rhs = -g (rank 0); this CTA's columns of the damped lower triangle
-    // H + lam diag(H) + jitter I.
-    if (rank == 0)
-      for (int q = tid; q < n; q += kThreads) {
+    // This CTA's panels: the damped lower triangle H + lam diag(H) +
+    // jitter I, a warp per (panel, block) item, a lane per element in the
+    // panel's columns and the lower triangle (a diagonal block's 21 in one
+    // pass); row n: -g, a thread per column.
+    for (size_t i = tid; i < own_floats; i += kThreads) panels[i] = 0.f;
+    __syncthreads();
+    for (int pp = rank; pp < P; pp += C) {
+      const int c0 = pp * NB;
+      float* A = own_panel(pp) + (size_t)(n - c0) * LD;
+      for (int q = c0 + tid; q < min(n, c0 + NB); q += kThreads) {
         const int v = q / 6, r = q - 6 * v;
+        const int u0 = __ldg(p.v_off + v), u1 = __ldg(p.v_off + v + 1);
         float g = 0.f;
-        for (int u = p.v_off[v]; u < p.v_off[v + 1]; ++u) {
-          const int ci = p.v_idx[u];
-          g += ci < E ? -p.scratch[(size_t)kEdgeFloats * ci + 36 + r]
-                      : p.scratch[(size_t)kEdgeFloats * (ci - E) + 36 + r];
+        for (int u = u0; u < u1; u += 8) {
+          float x[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int ci = u + j < u1 ? __ldg(p.v_idx + u + j) : E;
+            x[j] = u + j < u1 ? (ci < E ? -blk[(size_t)kEdgeFloats * ci + 36 + r]
+                                        : blk[(size_t)kEdgeFloats * (ci - E) + 36 + r])
+                              : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (u + j < u1) g += x[j];
         }
-        rhs[q] = -g;
-      }
-    for (int R = warp; R < n; R += kWarps) {
-      const int a = R / 6, r = R - 6 * a;
-      for (int Cc = c0 + lane; Cc <= R && Cc < c1; Cc += 32) {
-        const int b = Cc / 6, c = Cc - 6 * b;
-        const int slot = a * M + b;
-        float h = 0.f;
-        for (int u = p.d_off[slot]; u < p.d_off[slot + 1]; ++u)
-          h += contribution(p, p.d_idx[u], r, c);
-        A[R * ld + Cc - c0] = R == Cc ? (h + lam * h) + kJitter : h;
+        A[q - c0] = -g;
       }
     }
-    if (C > 1) cluster.sync(); else __syncthreads();
-
-    // The factorization and both solves; a failed factorization or a
-    // non-finite step gives delta = 0.
-    const bool ok = C == 1 ? factor_cta(A, n, ld) : factor_cluster(A, col, n, ld, w, rank);
+    {
+      int items = 0;
+      for (int pp = rank; pp < P; pp += C)
+        items += __ldg(p.b_off + (min(n, pp * NB + NB) - 1) / 6 + 1) -
+                 __ldg(p.b_off + pp * NB / 6);
+      for (int t = warp; t < items; t += kWarps) {
+        int pp = rank, u = t;
+        for (;; pp += C) {
+          const int lo = __ldg(p.b_off + pp * NB / 6);
+          const int cnt = __ldg(p.b_off + (min(n, pp * NB + NB) - 1) / 6 + 1) - lo;
+          if (u < cnt) {
+            u += lo;
+            break;
+          }
+          u -= cnt;
+        }
+        const int c0 = pp * NB, c1 = min(n, c0 + NB);
+        const int4 it = __ldg(reinterpret_cast<const int4*>(p.b_list) + u);
+        const int a = it.x, b = it.y;
+        float* A = own_panel(pp);
+        for (int el = lane; el < (a == b ? 21 : 36); el += 32) {
+          int r, c;
+          if (a == b) {  // the lower triangle's el-th element, row by row
+            r = 0;
+            while ((r + 1) * (r + 2) / 2 <= el) ++r;
+            c = el - r * (r + 1) / 2;
+          } else {
+            r = el / 6;
+            c = el - 6 * r;
+          }
+          const int R = 6 * a + r, Cg = 6 * b + c;
+          if (Cg < c0 || Cg >= c1) continue;
+          const float h = block_element(p, blk, p.d_idx + it.z, it.w - it.z, r, c);
+          A[(size_t)(R - c0) * LD + Cg - c0] = R == Cg ? (h + lam * h) + kJitter : h;
+        }
+      }
+    }
     __syncthreads();
+    stamp(p, rank, 4 + 7 * k + 2);
+
+    // The panel factorization, right-looking with a lookahead of one
+    // panel: the owner of panel pp + 1 first applies panel pp to it and
+    // factors it, then applies pp to the rest of its panels (on one CTA
+    // warp 0 factors while the other warps update). In a cluster a
+    // factored panel goes to global memory (L2) once and every CTA copies
+    // the rows it needs from there, between one cluster barrier's arrive
+    // and its wait per panel; a failed pivot stops every CTA at the same
+    // panel (each reads the owner's flag after the panel's barrier).
+    bool ok = true;
+    if (rank == 0) {
+      factor_panel(panels, 0, n, &s_fail);
+      if (C > 1) publish_panel(panels, p.bcast, 0, n);
+    }
+    if (C > 1) cluster_arrive();
+    for (int pp = 0; pp < P; ++pp) {
+      const int k0 = pp * NB, owner = pp % C, nx = pp + 1;
+      if (C > 1) cluster_wait(); else __syncthreads();
+      if (C > 1 ? *cluster.map_shared_rank(&s_fail, owner) : s_fail) {
+        ok = false;
+        break;
+      }
+      const int q0 = rank > pp ? 0 : (pp - rank) / C + 1;  // this CTA's panels after pp
+      const int q1 = (P - 1 - rank) / C + 1;
+      const int first = (q0 * C + rank) * NB;  // their first column
+      const float* L = own_panel(pp);
+      if (rank != owner && first < n) {  // rows [first, n] of pp, from L2
+        const float* src = p.bcast + bcast_offset(pp, n) + (size_t)(first - k0) * LD;
+        float* dst = buf + (size_t)(first - k0) * LD;
+        const int count = (n + 1 - first) * LD;
+        for (int i = tid; i < count; i += 8 * kThreads) {
+          float v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[j] = i + j * kThreads < count ? __ldcg(src + i + j * kThreads) : 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (i + j * kThreads < count) dst[i + j * kThreads] = v[j];
+        }
+        __syncthreads();
+        L = buf;
+      }
+      if (nx < P && nx % C == rank) {  // the lookahead: panel nx is q0
+        update_trailing(panels, L, pp, q0, q0 + 1, n, rank, C, tid, kThreads);
+        __syncthreads();
+        float* A = own_panel(nx);
+        if (C == 1) {
+          // Warp 0 has its scheduler to itself (warps 4, 8 and 12, which
+          // share it, wait): the pivot chain is latency, and the update's
+          // warps would take its instruction slots.
+          if (warp == 0) {
+            const bool f = factor_diag(A, min(NB, n - nx * NB));
+            if (lane == 0) s_fail = f ? 0 : 1;
+          } else if (warp % 4) {
+            update_trailing(panels, L, pp, q0 + 1, q1, n, rank, C,
+                            (warp - warp / 4 - 1) * 32 + lane, kThreads / 4 * 3);
+          }
+          __syncthreads();
+          if (!s_fail) solve_panel(A, min(NB, n - nx * NB), n + 1 - nx * NB);
+        } else {
+          factor_panel(A, nx, n, &s_fail);
+          publish_panel(A, p.bcast, nx, n);
+          cluster_arrive();
+          update_trailing(panels, L, pp, q0 + 1, q1, n, rank, C, tid, kThreads);
+        }
+      } else {
+        if (C > 1 && nx < P) cluster_arrive();
+        update_trailing(panels, L, pp, q0, q1, n, rank, C, tid, kThreads);
+      }
+      __syncthreads();
+    }
+    __syncthreads();
+    stamp(p, rank, 4 + 7 * k + 3);
+
+    // y = L^{-1} (-g) is row n of the factored panels: each CTA puts its
+    // columns' y at home on rank 0; then the blocked backward solve on the
+    // panels' owners. A failed factorization or a non-finite step gives
+    // delta = 0.
     if (ok) {
-      if (C == 1) solve_cta(A, rhs, n, ld);
-      else solve_cluster(A, rhs, ysol, n, ld, w, rank, C);
+      for (int pp = rank; pp < P; pp += C) {
+        const int c0 = pp * NB;
+        const float* A = own_panel(pp) + (size_t)(n - c0) * LD;
+        for (int q = c0 + tid; q < min(n, c0 + NB); q += kThreads) home[q] = A[q - c0];
+      }
+      if (C > 1) cluster.sync(); else __syncthreads();
+      for (int pp = P - 1; pp >= 0; --pp) {
+        if (pp % C == rank)
+          backward_block(own_panel(pp), home, rhs, s_vec, pp * NB, min(NB, n - pp * NB), n,
+                         rank != 0);
+        if (C > 1) cluster.sync(); else __syncthreads();
+      }
+      if (rank != 0)
+        for (int i = tid; i < n; i += kThreads) rhs[i] = home[i];
+      if (C > 1) cluster.sync();  // rank 0's delta is read before rank 0 zeroes it
     }
     __syncthreads();
     if (warp == 0) {
       bool bad = !ok;
       for (int i = lane; i < n; i += 32) bad |= !isfinite(rhs[i]);
-      bad = __any_sync(0xffffffffu, bad);
+      bad = __any_sync(kFull, bad);
       double ss = 0.0;
       for (int i = lane; i < n; i += 32) {
         if (bad) rhs[i] = 0.f;
         ss += (double)rhs[i] * rhs[i];
       }
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(kFull, ss, o);
       if (lane == 0) s_step = (float)sqrt(ss);
     }
     __syncthreads();
+    stamp(p, rank, 4 + 7 * k + 4);
 
     // exp(delta) on the active vertices (every CTA, the same bits).
     if (tid < M) {
@@ -769,10 +1133,11 @@ __global__ void __launch_bounds__(kThreads, 1) pose_graph_kernel(Params p) {
       }
     }
     __syncthreads();
+    stamp(p, rank, 4 + 7 * k + 5);
 
     // chi2 at the trial poses (residuals only).
     part = 0.0;
-    for (int e = e0; e < E; e += de) {
+    for (int e = e_lo + tid; e < e_hi; e += kThreads) {
       float r[6];
       const float c = edge_chi2(trial + 16 * p.edge_i[e], trial + 16 * p.edge_j[e],
                                 p.Z + 16 * e, p.info + 36 * e, r);
@@ -793,15 +1158,16 @@ __global__ void __launch_bounds__(kThreads, 1) pose_graph_kernel(Params p) {
       st[2] = s_step;
       st[3] = accept ? 1.f : 0.f;
     }
-    ++k;
     __syncthreads();
+    stamp(p, rank, 4 + 7 * k + 6);
+    ++k;
     if (done) break;
   }
 
   // Final chi2 and per-edge weights at the base Cauchy width.
   const float c2 = (float)(p.cauchy_c64 * p.cauchy_c64);
   double part = 0.0;
-  for (int e = e0; e < E; e += de) {
+  for (int e = e_lo + tid; e < e_hi; e += kThreads) {
     float r[6];
     const float c = edge_chi2(pose + 16 * p.edge_i[e], pose + 16 * p.edge_j[e],
                               p.Z + 16 * e, p.info + 36 * e, r);
@@ -816,6 +1182,10 @@ __global__ void __launch_bounds__(kThreads, 1) pose_graph_kernel(Params p) {
     if (tid == 0) {
       *p.chi2_out = chi2;
       *p.steps_out = k;
+      if (p.timing != nullptr) {
+        p.timing[2] = (long long)global_ns();
+        p.timing[3] = clock64();
+      }
     }
   }
   if (C > 1) cluster.sync();  // no CTA leaves while another may read its share
@@ -858,32 +1228,39 @@ int prepare(int dev, cudaLaunchConfig_t* cfg, int C) {
 
 }  // namespace
 
-// What a solve over M vertices uses: out[0] the largest M the kernel
-// takes, out[1] CTAs per cluster (0 past the limit), out[2] threads per
-// CTA, out[3] dynamic shared memory bytes per CTA at M (0 past the limit).
-// Returns 0.
-extern "C" int dvo_pose_graph_plan(int M, int* out) {
+// What a solve over M vertices and E edge slots uses: out[0] the largest M
+// the kernel takes, out[1] CTAs per cluster (0 past the limit), out[2]
+// threads per CTA, out[3] dynamic shared memory bytes per CTA (0 past the
+// limit), out[4] the panel width, out[5] 1 where the per-edge blocks are
+// staged in shared memory, out[6] the global scratch floats the launch
+// needs. Returns 0.
+extern "C" int dvo_pose_graph_plan(int M, int E, int* out) {
   const int C = cluster_for(M);
   out[0] = kMaxVertices;
   out[1] = C;
   out[2] = kThreads;
-  out[3] = C ? (int)shared_bytes(M, C) : 0;
+  out[3] = C ? (int)shared_bytes(M, E, C) : 0;
+  out[4] = NB;
+  out[5] = C ? (int)staged_for(M, E, C) : 0;
+  out[6] = C ? (int)scratch_floats(M, E, C) : 0;
   return 0;
 }
 
 // One dense LM solve (models/pose_graph.py::optimize_reference's
 // semantics) in one launch of one cluster on `stream`, no host sync.
-// Inputs as Params; scratch: E * 42 floats. Outputs: poses_out (M, 4, 4),
-// chi2_out, weights_out (E,), stats_out (iterations, 4: each step's chi2,
-// trial chi2, step norm and accept flag, zero past the last step) and
-// steps_out (the LM steps run). Returns a CUDA error code (0: launched).
+// Inputs as Params; scratch: the plan's out[6] floats; timing: null, or
+// 4 + 7 iterations int64 (phase stamps).
+// Outputs: poses_out (M, 4, 4), chi2_out, weights_out (E,), stats_out
+// (iterations, 4: each step's chi2, trial chi2, step norm and accept flag,
+// zero past the last step) and steps_out (the LM steps run). Returns a
+// CUDA error code (0: launched).
 extern "C" int dvo_pose_graph(
     const float* poses, const float* Z, const float* info, const float* mask,
     const int* edge_i, const int* edge_j, const int* v_off, const int* v_idx,
-    const int* d_off, const int* d_idx, int M, int E, int nv, int iterations,
-    int use_robust, double cauchy_c, double gnc_init, double gnc_decay,
+    const int* d_idx, const int* b_off, const int* b_list, int M, int E, int nv,
+    int iterations, int use_robust, double cauchy_c, double gnc_init, double gnc_decay,
     int gnc_adaptive, float* scratch, float* poses_out, float* chi2_out,
-    float* weights_out, float* stats_out, int* steps_out, void* stream) {
+    float* weights_out, float* stats_out, int* steps_out, long long* timing, void* stream) {
   const int C = cluster_for(M);
   if (C == 0 || E < 0 || iterations < 0) return (int)cudaErrorInvalidValue;
   int dev;
@@ -891,14 +1268,19 @@ extern "C" int dvo_pose_graph(
   if (e != cudaSuccess) return (int)e;
   Params p;
   p.poses = poses; p.Z = Z; p.info = info; p.mask = mask;
-  p.edge_i = edge_i; p.edge_j = edge_j;
-  p.v_off = v_off; p.v_idx = v_idx; p.d_off = d_off; p.d_idx = d_idx;
+  p.edge_i = edge_i; p.edge_j = edge_j; p.v_off = v_off; p.v_idx = v_idx;
+  p.d_idx = d_idx; p.b_off = b_off; p.b_list = b_list;
   p.M = M; p.E = E; p.nv = nv; p.iterations = iterations; p.C = C;
+  p.staged = staged_for(M, E, C) ? 1 : 0;
   p.use_robust = use_robust; p.gnc_adaptive = gnc_adaptive;
   p.cauchy_c = (float)cauchy_c; p.gnc_init = (float)gnc_init;
   p.cauchy_c64 = cauchy_c; p.gnc_decay = gnc_decay;
-  p.scratch = scratch; p.poses_out = poses_out; p.chi2_out = chi2_out;
+  p.panel_floats = panel_floats(6 * M, C, 0);
+  p.scratch = scratch;
+  p.bcast = C > 1 ? scratch + (size_t)kEdgeFloats * E : nullptr;
+  p.poses_out = poses_out; p.chi2_out = chi2_out;
   p.weights_out = weights_out; p.stats_out = stats_out; p.steps_out = steps_out;
+  p.timing = timing;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -907,7 +1289,7 @@ extern "C" int dvo_pose_graph(
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(C, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = shared_bytes(M, C);
+  cfg.dynamicSmemBytes = shared_bytes(M, E, C);
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;

@@ -48,14 +48,17 @@ _GAUGE_WEIGHT = 1e6
 _JITTER = 1e-6
 
 # The graph kernel (csrc/pose_graph.cu): a cluster of up to 16 CTAs holds
-# the damped 6M x 6M f32 system in shared memory, a slab of columns each,
-# which bounds M (dvo_pose_graph_plan; kernel_plan mirrors it).
+# the damped 6M x 6M f32 system's lower triangle in shared memory, in panels
+# of 16 columns dealt block-cyclically over the CTAs, which bounds M
+# (dvo_pose_graph_plan; kernel_plan mirrors it).
 KERNEL_MAX_VERTICES = 128
 KERNEL_THREADS = 512
+KERNEL_PANEL_WIDTH = 16
+_KERNEL_SINGLE_CTA = 32  # one CTA up to this M
 _KERNEL_MAX_CLUSTER = 16
-_KERNEL_MAX_COLUMNS = 192  # columns a CTA holds
+_KERNEL_MAX_COLUMNS = 96  # columns a CTA of a cluster holds
 _KERNEL_SMEM_BUDGET = 230_400  # dynamic shared memory bytes a CTA may ask
-_KERNEL_EDGE_FLOATS = 42  # per-edge scratch: P (36), gj (6)
+_KERNEL_EDGE_FLOATS = 42  # per-edge slot: P (36), gj (6)
 # Kernel launches made by optimize_kernel since the last reset (plain
 # integer; callers reset it to 0 to count the launches of one run), and
 # the same launches by vertex slots M (callers clear it).
@@ -234,13 +237,17 @@ def _topology(graph: PoseGraph, device) -> _Topology:
                      dense=_plan(dense, M * M, device))
 
 
-def _csr(targets: np.ndarray, size: int):
+def _csr(targets: np.ndarray, size: int, keep=None):
     """A plan as CSR lists: slot s sums values idx[off[s]:off[s + 1]], in
-    increasing value index (the order of ``_plan``'s gather rows)."""
+    increasing value index (the order of ``_plan``'s gather rows); with
+    `keep` (bool per value), only the kept values."""
     targets = np.asarray(targets, np.int64)
+    idx = np.argsort(targets, kind="stable")
+    if keep is not None:
+        idx = idx[np.asarray(keep, bool)[idx]]
     off = np.zeros(size + 1, np.int32)
-    np.cumsum(np.bincount(targets, minlength=size), out=off[1:])
-    return off, np.argsort(targets, kind="stable").astype(np.int32)
+    np.cumsum(np.bincount(targets[idx], minlength=size), out=off[1:])
+    return off, idx.astype(np.int32)
 
 
 # --------------------------------------------------------------- residuals
@@ -448,28 +455,56 @@ def graph_route(solver: str, M: int, device) -> bool:
             and 1 <= M <= KERNEL_MAX_VERTICES)
 
 
-def _kernel_shared_bytes(M: int, C: int) -> int:
+def _panel_floats(n: int, C: int, rank: int) -> int:
+    """Floats of CTA `rank`'s panels: p = rank, rank + C, ... as rows
+    [p nb, n] of nb + 1 floats (nb the panel width; row n carries the
+    right-hand side)."""
+    nb = KERNEL_PANEL_WIDTH
+    return sum((n + 1 - p * nb) * (nb + 1)
+               for p in range(rank, -(-n // nb), C))
+
+
+def _kernel_layout_bytes(M: int, C: int) -> int:
     n = 6 * M
-    w = -(-n // C)
-    return 4 * (n * (w + 1) + n + 32 * M + (2 * n if C > 1 else 0))
+    return 4 * (_panel_floats(n, C, 0)
+                + (n * (KERNEL_PANEL_WIDTH + 1) if C > 1 else 0) + n + 32 * M)
 
 
-def kernel_plan(M: int):
+def kernel_plan(M: int, E: int = 0):
     """``(largest M, CTAs per cluster, threads per CTA, dynamic shared
-    memory bytes per CTA)`` of the graph kernel at M vertices, as
-    csrc/pose_graph.cu's ``dvo_pose_graph_plan`` gives them. One cluster
-    per solve, of the fewest CTAs (a power of two up to 16) whose column
-    slabs fit: a CTA holds w = ceil(6M / C) <= 192 columns of the damped
-    system as 6M rows of w + 1 floats, the right-hand side, two copies of
-    the poses and, in a cluster, the pivot column and y (C = 1 up to
-    M = 32, 4 at 64, 16 at 128; 0 and 0 bytes past the limit)."""
+    memory bytes per CTA, panel width, per-edge blocks staged in shared
+    memory, global scratch floats)`` of the graph kernel at M vertices and
+    E edge slots, as csrc/pose_graph.cu's ``dvo_pose_graph_plan`` gives
+    them. The damped system's lower triangle and the right-hand side's
+    row are cut into panels of nb = 16 columns; panel p lives on CTA p mod
+    C as rows [p nb, 6M] of nb + 1 floats. A CTA holds its panels, in a
+    cluster a copy of one panel (6M rows of nb + 1), the right-hand side
+    and two pose copies; one CTA up to M = 32, past that the fewest CTAs (a
+    power of two from 4 up to 16: two never hold 33 vertices' panels) that
+    hold at most 96 columns each and fit the budget. One CTA also stages
+    the E per-edge blocks (42 floats each) where they fit (an LM step
+    3-5 % faster at M = 16 and 32 than from global scratch on an H100).
+    C = 0 and 0 bytes past the limit. The global scratch
+    holds the per-edge blocks and, in a cluster, every factored panel once
+    (the other CTAs copy it from there)."""
+    nb = KERNEL_PANEL_WIDTH
     C = 0
-    if 1 <= M <= KERNEL_MAX_VERTICES:
-        C = next((c for c in (1, 2, 4, 8, _KERNEL_MAX_CLUSTER)
-                  if -(-6 * M // c) <= _KERNEL_MAX_COLUMNS
-                  and _kernel_shared_bytes(M, c) <= _KERNEL_SMEM_BUDGET), 0)
+    if 1 <= M <= _KERNEL_SINGLE_CTA:
+        C = 1
+    elif _KERNEL_SINGLE_CTA < M <= KERNEL_MAX_VERTICES:
+        P = -(-6 * M // nb)
+        C = next((c for c in (4, 8, _KERNEL_MAX_CLUSTER)
+                  if -(-P // c) * nb <= _KERNEL_MAX_COLUMNS
+                  and _kernel_layout_bytes(M, c) <= _KERNEL_SMEM_BUDGET), 0)
+    if not C:
+        return (KERNEL_MAX_VERTICES, 0, KERNEL_THREADS, 0, nb, 0, 0)
+    nbytes = _kernel_layout_bytes(M, C)
+    staged = (C == 1 and nbytes + 4 * _KERNEL_EDGE_FLOATS * E
+              <= _KERNEL_SMEM_BUDGET)
     return (KERNEL_MAX_VERTICES, C, KERNEL_THREADS,
-            _kernel_shared_bytes(M, C) if C else 0)
+            nbytes + (4 * _KERNEL_EDGE_FLOATS * E if staged else 0), nb,
+            int(staged), _KERNEL_EDGE_FLOATS * E
+            + (_panel_floats(6 * M, 1, 0) if C > 1 else 0))
 
 
 def optimize(graph: PoseGraph, iterations: int = 20, use_robust: bool = True,
@@ -498,13 +533,45 @@ def optimize(graph: PoseGraph, iterations: int = 20, use_robust: bool = True,
     return optimize_reference(graph, solver=solver, **kw)
 
 
+def _blocks(d_off: np.ndarray, M: int):
+    """The non-empty blocks of the dense plan's lower triangle (row vertex
+    a >= column vertex b), ordered by b then a, as (K, 4) int32 rows (a, b,
+    first, end: the block's range of the plan's index list) and the (M + 1,)
+    offsets of each column vertex's rows."""
+    slot = np.arange(M * M)
+    a, b = slot // M, slot % M
+    sel = np.nonzero((d_off[1:] > d_off[:-1]) & (a >= b))[0]
+    sel = sel[np.argsort(b[sel] * M + a[sel], kind="stable")]
+    rows = np.stack([a[sel], b[sel], d_off[sel], d_off[sel + 1]], axis=1)
+    return (np.searchsorted(b[sel], np.arange(M + 1)).astype(np.int32),
+            rows.astype(np.int32))
+
+
+def _codes(d_idx: np.ndarray, E: int) -> np.ndarray:
+    """The dense plan's index list as the kernel reads it: contribution ci
+    of edge e = ci mod E and kind ci // E (Hii, Hjj, Hij, Hij^T) as 4 e +
+    kind, vertex v's extra block (ci = 4E + v) as -1 - v."""
+    ci = np.asarray(d_idx, np.int64)
+    kind, e = np.divmod(ci, max(E, 1))
+    return np.where(ci < 4 * E, 4 * e + kind,
+                    -1 - (ci - 4 * E)).astype(np.int32)
+
+
 def _pack(graph: PoseGraph):
-    """A host graph and its CSR sum plans as one f32 buffer, int32 arrays
-    stored bitwise: (buffer, {name: (offset, length, is_int32)})."""
+    """A host graph, its CSR sum plans over the unmasked edges and the
+    dense plan's block list as one f32 buffer, int32 arrays stored
+    bitwise, the block list at a 16-byte boundary: (buffer, {name:
+    (offset, length, is_int32)})."""
     M, E = graph.poses.shape[0], graph.edge_i.shape[0]
     vertex, dense = _plan_targets(graph)
-    v_off, v_idx = _csr(vertex, M)
-    d_off, d_idx = _csr(dense, M * M)
+    # A masked edge's blocks and gradient are exact zeros (weight 0), so
+    # the kernel's plans leave them out (a padded graph's masked edges all
+    # sit on vertex 0).
+    on = np.asarray(graph.edge_mask, bool)
+    v_off, v_idx = _csr(vertex, M, np.tile(on, 2))
+    d_off, d_idx = _csr(dense, M * M,
+                        np.concatenate([np.tile(on, 4), np.ones(M, bool)]))
+    b_off, b_list = _blocks(d_off, M)
     f32 = (lambda x: np.asarray(x, np.float32).ravel())
     i32 = (lambda x: np.asarray(x, np.int32).ravel().view(np.float32))
     parts = {
@@ -512,11 +579,15 @@ def _pack(graph: PoseGraph):
         "info": f32(graph.information), "mask": f32(graph.edge_mask),
         "edge_i": i32(graph.edge_i), "edge_j": i32(graph.edge_j),
         "v_off": i32(v_off), "v_idx": i32(v_idx),
-        "d_off": i32(d_off), "d_idx": i32(d_idx),
+        "d_idx": i32(_codes(d_idx, E)), "b_off": i32(b_off),
     }
+    at = sum(x.size for x in parts.values())
+    parts["pad"] = np.zeros(-at % 4, np.float32)
+    parts["b_list"] = i32(b_list)
     at, where = 0, {}
     for name, x in parts.items():
-        where[name] = (at, x.size, name.startswith(("edge", "v_", "d_")))
+        where[name] = (at, x.size, name.startswith(("edge", "v_", "d_",
+                                                     "b_")))
         at += x.size
     return np.concatenate(list(parts.values())), where
 
@@ -524,11 +595,15 @@ def _pack(graph: PoseGraph):
 def optimize_kernel(graph: PoseGraph, iterations: int = 20,
                     use_robust: bool = True, cauchy_c: float = 1.0,
                     gnc_init: float = 1.0, gnc_decay: float = 0.5,
-                    gnc_adaptive: bool = False, device="cuda"):
+                    gnc_adaptive: bool = False, device="cuda", timing=None):
     """A dense ``optimize`` as one launch of csrc/pose_graph.cu on the
     current stream of the CUDA `device`: the graph and its sum plans go up
     in one non-blocking copy from pinned memory, and nothing is read back
-    (no host sync). Sets ``LAST_STEPS`` and ``LAST_STATS``."""
+    (no host sync). Sets ``LAST_STEPS`` and ``LAST_STATS``.
+
+    timing: None (the main path), or an int64 tensor of ``4 + 7 *
+    iterations`` elements on `device` that the kernel fills with its phase
+    stamps (``phase_times`` reads them)."""
     global LAUNCHES, LAST_STEPS, LAST_STATS
     from dvo_slam_tpu_torch import _build
 
@@ -540,6 +615,12 @@ def optimize_kernel(graph: PoseGraph, iterations: int = 20,
                          f"not M = {M} on {device}")
     if iterations < 0:
         raise ValueError(f"iterations must be >= 0, got {iterations}")
+    if timing is not None and (not timing.is_cuda
+                               or timing.dtype != torch.int64
+                               or timing.numel() < 4 + 7 * iterations
+                               or not timing.is_contiguous()):
+        raise ValueError(f"timing must be a contiguous int64 tensor of at "
+                         f"least {4 + 7 * iterations} elements on {device}")
     lib = _build.load()
     buf, where = _pack(graph)
     host = torch.empty(buf.size, dtype=torch.float32, pin_memory=True)
@@ -549,7 +630,7 @@ def optimize_kernel(graph: PoseGraph, iterations: int = 20,
         ints = dev.view(torch.int32)
         view = {k: (ints if is_int else dev)[a:a + n]
                 for k, (a, n, is_int) in where.items()}
-        scratch = torch.empty(max(E, 1) * _KERNEL_EDGE_FLOATS,
+        scratch = torch.empty(max(kernel_plan(M, E)[6], 1),
                               dtype=torch.float32, device=device)
         out = torch.empty(16 * M + 1 + E + 4 * iterations,
                           dtype=torch.float32, device=device)
@@ -557,12 +638,14 @@ def optimize_kernel(graph: PoseGraph, iterations: int = 20,
         rc = lib.dvo_pose_graph(
             *(view[k].data_ptr() for k in ("poses", "Z", "info", "mask",
                                             "edge_i", "edge_j", "v_off",
-                                            "v_idx", "d_off", "d_idx")),
+                                            "v_idx", "d_idx", "b_off",
+                                            "b_list")),
             M, E, int(graph.num_vertices), int(iterations), int(use_robust),
             float(cauchy_c), float(gnc_init), float(gnc_decay),
             int(gnc_adaptive), scratch.data_ptr(), out.data_ptr(),
             out[16 * M:].data_ptr(), out[16 * M + 1:].data_ptr(),
             out[16 * M + 1 + E:].data_ptr(), steps.data_ptr(),
+            None if timing is None else timing.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dvo_pose_graph failed: "
@@ -583,6 +666,24 @@ def optimize_kernel(graph: PoseGraph, iterations: int = 20,
         num_edges=int(graph.num_edges),
     )
     return solved, out[16 * M], out[16 * M + 1:16 * M + 1 + E]
+
+
+PHASES = ("edge pass", "assembly", "factorization", "solves", "exp(delta)",
+          "trial chi2")
+
+
+def phase_times(timing, steps: int):
+    """The graph kernel's phase split of one solve from its filled
+    ``timing`` buffer (host numpy int64) and the steps it ran: ({phase:
+    device us per LM step}, the launch's device us from its first stamp to
+    its last). clock64 stamps are converted to time by the launch's own
+    %globaltimer span."""
+    t = np.asarray(timing, np.int64)
+    ns_per_clock = (t[2] - t[0]) / max(int(t[3] - t[1]), 1)
+    stamps = t[4:4 + 7 * steps].reshape(steps, 7).astype(np.float64)
+    per_step = (np.diff(stamps, axis=1).sum(0) * ns_per_clock / 1e3
+                / max(steps, 1))
+    return dict(zip(PHASES, per_step.tolist())), (t[2] - t[0]) / 1e3
 
 
 def optimize_reference(graph: PoseGraph, iterations: int = 20,

@@ -31,6 +31,9 @@ tests/test_torch_cli.py holds the CLI and the on-disk accuracy gates.
 
 import dataclasses
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -131,12 +134,49 @@ def test_run_synthetic_like_jax(mode):
     _assert_result_like(got, want)
 
 
+# XLA's CPU runtime runs its Eigen operations on a thread pool, and with
+# the pool on the JAX run of the scenario below moves by ~1e-6 from run
+# to run, now and then across a keyframe or loop-closure
+# decision: jumps of 1.1e-2 and 3.4e-2 in 22 runs, past ATOL, while the
+# port's trajectory kept the same bits in every run
+# (tests/torch_benchmark_spread.py, several processes side by side). With
+# the pool off the JAX trajectory kept the same bits in 10 runs under
+# load, so the JAX side of test_run_tum_dataset_like_jax runs in a child
+# process with it off (the flag is read when XLA starts, once a process).
+XLA_ONE_THREAD = "--xla_cpu_multi_thread_eigen=false"
+_CHILD = """
+import sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import test_torch_benchmark as T
+print(T._watched(lambda: T.benchmark.run_tum_dataset(
+    sys.argv[1], T.TRACKER, T.SLAM, mode=sys.argv[2],
+    intrinsics=T.K_TUPLE, trajectory_out=sys.argv[3])).to_json())
+"""
+
+
+def _jax_tum_reference(seq_dir, mode, trajectory_out):
+    """The JAX package's run_tum_dataset on seq_dir, watched as _watched
+    watches it, in a child process with XLA's Eigen thread pool off: its
+    BenchmarkResult."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = [os.path.dirname(here), here, os.environ.get("PYTHONPATH", "")]
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(filter(None, path)),
+               XLA_FLAGS=f"{os.environ.get('XLA_FLAGS', '')} "
+                         f"{XLA_ONE_THREAD}".strip())
+    out = subprocess.run([sys.executable, "-c", _CHILD, seq_dir, mode,
+                          trajectory_out], env=env, capture_output=True,
+                         text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return benchmark.BenchmarkResult(
+        **json.loads(out.stdout.strip().splitlines()[-1]))
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_run_tum_dataset_like_jax(seq_dir, tmp_path, mode):
     want_traj, got_traj = str(tmp_path / "j.txt"), str(tmp_path / "t.txt")
-    want = _watched(lambda: benchmark.run_tum_dataset(
-        seq_dir, TRACKER, SLAM, mode=mode, intrinsics=K_TUPLE,
-        trajectory_out=want_traj))
+    want = _jax_tum_reference(seq_dir, mode, want_traj)
     got = t_benchmark.run_tum_dataset(seq_dir, *_cfgs(), mode=mode,
                                       intrinsics=K_TUPLE,
                                       trajectory_out=got_traj, device="cpu")

@@ -1112,6 +1112,17 @@ def _not_pd_graph():
     return g
 
 
+def _not_pd_graph_at(M, n, v, seed=3):
+    """_noisy_ring with the odometry edge (v, v + 1)'s information negated
+    and scaled by 10: vertex v's diagonal block of H turns negative
+    definite and no column before it changes, so the factorization's
+    first failed pivot is column 6 v."""
+    g = _noisy_ring(M, n, seed, slots=max(64, 2 * M))
+    g = g._replace(information=g.information.copy())
+    g.information[v] = -10.0 * g.information[v]
+    return g
+
+
 def _high_information_graph():
     g = _chain_graph(n=8, drift=0.05)
     return g._replace(information=g.information * 1e4)
@@ -1169,16 +1180,90 @@ def test_pose_graph_kernel_padding_invariance(cuda):
 
 
 @pytest.mark.parametrize("M, n", [(16, 10), (32, 19), (32, 32), (16, 4),
-                                  (48, 40), (64, 40), (64, 64), (128, 100)])
+                                  (48, 40), (64, 40), (64, 64), (128, 100),
+                                  (17, 12), (33, 25), (65, 50), (100, 80),
+                                  (127, 120)])
 @pytest.mark.parametrize("asked", [20, 100])
 def test_pose_graph_kernel_on_noisy_rings(cuda, M, n, asked):
     """Seeded noisy rings at every M the route takes (one CTA up to 32,
-    clusters of 2, 4 and 16 CTAs at 48, 64 and 128), solved as the SLAM
-    engine solves its graph (Cauchy, adaptive GNC from 16): kernel
-    against the host loop: the same decisions up to a parting at a tie."""
+    clusters of 4 CTAs at 33-64, 8 at 65-100 and 16 at 127-128; n = 6M at
+    17, 33, 65, 100 and 127 no multiple of the panel width, so the last
+    panel is ragged), solved as the SLAM engine solves its graph (Cauchy,
+    adaptive GNC from 16): kernel against the host loop: the same
+    decisions up to a parting at a tie."""
     g = _noisy_ring(M, n, seed=M + n, slots=max(64, 2 * M))
     kw = dict(iterations=asked, use_robust=True, cauchy_c=1.0,
               gnc_init=16.0, gnc_adaptive=True)
+    got, run, want, run_h = _kernel_and_plain(g, cuda, **kw)
+    _assert_graph_close(got, run, want, run_h, g, kw)
+
+
+@pytest.mark.parametrize("M, n, v, C", [
+    (32, 20, 3, 1),     # column 18: inside panel 1, one CTA
+    (64, 40, 8, 4),     # column 48: the first column of panel 3, on CTA 3
+    (128, 100, 48, 16),  # column 288: the first column of panel 18, CTA 2
+])
+def test_pose_graph_kernel_stops_at_a_failed_pivot(cuda, M, n, v, C):
+    """A graph whose first failed pivot is column 6 v, inside a panel or
+    at a panel's first column past a cluster boundary (the panel before it
+    on another CTA): every CTA stops at that pivot and the step is zeroed
+    (step norm 0, the poses unchanged), as on the host loop (cuSOLVER's
+    info != 0)."""
+    g = _not_pd_graph_at(M, n, v)
+    kw = dict(iterations=3, use_robust=False)
+    assert pose_graph.kernel_plan(M, g.edge_i.shape[0])[1] == C
+    got, run, want, run_h = _kernel_and_plain(g, cuda, **kw)
+    assert run[1][0, 2] == 0 and run_h[1][0, 2] == 0
+    assert torch.equal(got[0].poses.cpu(), torch.from_numpy(g.poses))
+    _assert_graph_close(got, run, want, run_h, g, kw)
+
+
+def _overflowing_gradient_graph(M, n, seed=4):
+    """_noisy_ring plus an edge 0 -> 1 with a 2 m translation residual and
+    translation information 2e38 (rotation 0): its block of H stays finite
+    (~2e38) and every pivot passes, but its gradient, 4e38, overflows f32,
+    so the factorization succeeds and the step is not finite."""
+    g = _noisy_ring(M, n, seed, slots=max(64, 2 * M))
+    e = int(g.num_edges)
+    g.edge_i[e], g.edge_j[e] = 0, 1
+    g.measurements[e] = (se3_np.inverse(g.poses[0]) @ g.poses[1]
+                         @ se3_np.exp(np.array([-2.0, 0, 0, 0, 0, 0])))
+    g.information[e] = np.diag([2e38] * 3 + [0.0] * 3)
+    g.edge_mask[e] = True
+    return g._replace(num_edges=np.asarray(e + 1, np.int32))
+
+
+@pytest.mark.parametrize("M, n, C", [(64, 40, 4), (128, 100, 16)])
+def test_pose_graph_kernel_zeroes_a_non_finite_step(cuda, M, n, C):
+    """A step that is not finite after a factorization that succeeded, in
+    a cluster: every CTA zeroes it (step norm 0, the poses unchanged, one
+    step: the zero step is accepted at the same infinite chi2 and stops
+    the loop), as on the host loop (info 0, then the step zeroed)."""
+    g = _overflowing_gradient_graph(M, n)
+    kw = dict(iterations=3, use_robust=False)
+    assert pose_graph.kernel_plan(M, g.edge_i.shape[0])[1] == C
+    got, run, want, run_h = _kernel_and_plain(g, cuda, **kw)
+    assert run[0] == run_h[0] == 1
+    assert run[1][0, 2] == 0 and run_h[1][0, 2] == 0
+    assert torch.equal(got[0].poses.cpu(), torch.from_numpy(g.poses))
+    _assert_graph_close(got, run, want, run_h, g, kw)
+
+
+def test_pose_graph_kernel_past_the_staging_limit(cuda):
+    """One CTA whose per-edge blocks do not fit beside its panels (M = 32,
+    1 024 edge slots, 832 fit) keeps them in global scratch: a noisy ring
+    whose 32 edges are each repeated 27 times (864 real edges; the repeats
+    sum in the plans' order), solved as the SLAM engine solves its graph,
+    against the host loop."""
+    g = _noisy_ring(32, 24, seed=11, slots=1024)
+    ne = int(g.num_edges)
+    edges = [(int(g.edge_i[e]), int(g.edge_j[e]), g.measurements[e],
+              g.information[e]) for e in range(ne)] * 27
+    g = _with_edges(g, int(g.num_vertices), edges)
+    assert pose_graph.kernel_plan(32, 1024)[1] == 1
+    assert pose_graph.kernel_plan(32, 1024)[5] == 0  # not staged
+    kw = dict(iterations=100, use_robust=True, cauchy_c=1.0, gnc_init=16.0,
+              gnc_adaptive=True)
     got, run, want, run_h = _kernel_and_plain(g, cuda, **kw)
     _assert_graph_close(got, run, want, run_h, g, kw)
 
@@ -1210,16 +1295,18 @@ def test_pose_graph_kernel_issues_no_host_sync(cuda):
 
 def test_pose_graph_kernel_plan_matches_python(cuda):
     """dvo_pose_graph_plan (the source) and kernel_plan (the route's
-    Python side) agree on the limit, the layout and the shared memory."""
+    Python side) agree on the limit, the CTAs, the panel width, the shared
+    memory, where the per-edge blocks live and the global scratch."""
     import ctypes
 
     from dvo_slam_tpu_torch import _build
 
     lib = _build.load()
     for M in (*range(1, 130), 256):
-        out = (ctypes.c_int * 4)()
-        assert lib.dvo_pose_graph_plan(M, out) == 0
-        assert tuple(out) == pose_graph.kernel_plan(M)
+        for E in (0, 64, 4096):
+            out = (ctypes.c_int * 7)()
+            assert lib.dvo_pose_graph_plan(M, E, out) == 0
+            assert tuple(out) == pose_graph.kernel_plan(M, E)
 
 
 def test_pose_graph_kernel_refused_launch_raises(cuda, monkeypatch):

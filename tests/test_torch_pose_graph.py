@@ -288,30 +288,112 @@ def test_graph_route(solver, M, device, kernel):
     assert t_pose_graph.graph_route(solver, M, device) is kernel
 
 
-def test_kernel_plan_sizes_shared_memory():
-    """One CTA of 512 threads up to 32 vertices, then clusters of 2 to 16
-    CTAs up to 128: a CTA holds at most 192 columns of the damped system
-    (6M rows of w + 1 floats), the right-hand side, two pose copies and,
-    in a cluster, the pivot column and y, within an H100 CTA's 232 448
-    bytes."""
-    def shared(M, C):
-        n = 6 * M
-        w = -(-n // C)
-        return 4 * (n * (w + 1) + n + 32 * M + (2 * n if C > 1 else 0))
+NB = 16  # the kernel's panel width
 
-    assert t_pose_graph.kernel_plan(32) == (128, 1, 512, 153_088)
-    assert t_pose_graph.kernel_plan(16) == (128, 1, 512,
-                                            4 * (96 * 97 + 96 + 512))
-    assert t_pose_graph.kernel_plan(64) == (128, 4, 512, shared(64, 4))
-    assert t_pose_graph.kernel_plan(128) == (128, 16, 512, 176_128)
+
+def _panel_rows(n, C, rank):
+    """Rows CTA `rank` of C holds: its panels p = rank, rank + C, ... of
+    NB columns, each rows [p NB, n) of the lower triangle and row n, the
+    right-hand side."""
+    return sum(n + 1 - p * NB for p in range(-(-n // NB)) if p % C == rank)
+
+
+def _layout(M, C):
+    n = 6 * M
+    return 4 * (_panel_rows(n, C, 0) * (NB + 1)
+                + (n * (NB + 1) if C > 1 else 0) + n + 32 * M)
+
+
+def _scratch(M, E, C):
+    """Global scratch floats: the per-edge blocks and, in a cluster, every
+    panel once (the broadcast the CTAs copy from)."""
+    return 42 * E + (_panel_rows(6 * M, 1, 0) * (NB + 1) if C > 1 else 0)
+
+
+def test_kernel_plan_sizes_shared_memory():
+    """One CTA of 512 threads up to 32 vertices, then clusters of 4 to 16
+    CTAs up to 128: a CTA holds its panels of the damped system's lower
+    triangle (rows from the panel's first column on and the right-hand
+    side's row, NB + 1 floats a row), in a cluster a copy of one panel, the
+    right-hand side and two pose copies, and one CTA also the per-edge
+    blocks where they fit, within an H100 CTA's 232 448 bytes; every M up
+    to 128 has a layout."""
+    assert t_pose_graph.kernel_plan(32, 64) == (
+        128, 1, 512, _layout(32, 1) + 4 * 42 * 64, NB, 1, _scratch(32, 64, 1))
+    assert t_pose_graph.kernel_plan(16, 64) == (
+        128, 1, 512, _layout(16, 1) + 4 * 42 * 64, NB, 1, _scratch(16, 64, 1))
+    assert t_pose_graph.kernel_plan(64, 128) == (
+        128, 4, 512, _layout(64, 4), NB, 0, _scratch(64, 128, 4))
+    assert t_pose_graph.kernel_plan(128, 4096) == (
+        128, 16, 512, 176_332, NB, 0, _scratch(128, 4096, 16))
+    # 4 096 edges do not fit beside one CTA's panels: global scratch.
+    assert t_pose_graph.kernel_plan(32, 4096)[3:6] == (_layout(32, 1), NB, 0)
     for M in range(1, 129):
-        limit, C, threads, nbytes = t_pose_graph.kernel_plan(M)
-        assert C in (1, 2, 4, 8, 16) and nbytes == shared(M, C)
-        assert -(-6 * M // C) <= 192 and nbytes <= 232_448 - 2_048
-        assert C == 1 or -(-6 * M // (C // 2)) > 192 or \
-            shared(M, C // 2) > 230_400
+        limit, C, threads, nbytes, width, staged, scratch = \
+            t_pose_graph.kernel_plan(M)
+        assert (limit, threads, width, staged) == (128, 512, NB, int(C == 1))
+        assert nbytes == _layout(M, C) <= 230_400 <= 232_448 - 2_048
+        assert scratch == _scratch(M, 0, C)
+        assert C == 1 if M <= 32 else C in (4, 8, 16)
+        P = -(-6 * M // NB)
+        assert C == 1 or -(-P // C) * NB <= 96
+        assert C <= 2 or -(-P // (C // 2)) * NB > 96 or \
+            _layout(M, C // 2) > 230_400
     for M in (0, 129, 256):
-        assert t_pose_graph.kernel_plan(M)[1:] == (0, 512, 0)
+        assert t_pose_graph.kernel_plan(M)[1:4] == (0, 512, 0)
+
+
+@pytest.mark.parametrize("M", [17, 33, 65, 100, 127])
+def test_kernel_plan_deals_panels_block_cyclically(M):
+    """Panel p (columns [p NB, (p + 1) NB), the last one ragged: 6M is no
+    multiple of NB at these M) lives on CTA p mod C: the ranks' panels
+    cover the lower triangle and the right-hand side's row once, rank 0
+    holds the most, and its bytes are the plan's."""
+    _, C, _, nbytes, width, _, _ = t_pose_graph.kernel_plan(M)
+    n = 6 * M
+    assert width == NB and C >= 1 and n % NB
+    rows = [t_pose_graph._panel_floats(n, C, r) // (NB + 1) for r in range(C)]
+    assert rows == [_panel_rows(n, C, r) for r in range(C)]
+    assert sum(rows) == sum(n + 1 - p * NB for p in range(-(-n // NB)))
+    assert max(rows) == rows[0]
+    assert nbytes == _layout(M, C)
+
+
+def test_kernel_pack_plans_skip_masked_edges():
+    """The kernel's plans: the plain loop's, minus the masked edges'
+    contributions (exact zeros: weight 0), in the plain order; the dense
+    list coded as the kernel reads it (4 e + kind, -1 - v for a vertex's
+    extra block); the non-empty lower blocks listed by column vertex."""
+    g, _ = _chain_graph(n=8, drift=0.03, max_v=16, max_e=32)
+    M, E = g.poses.shape[0], g.edge_i.shape[0]
+    buf, where = t_pose_graph._pack(g)
+    get = (lambda k: buf[where[k][0]:where[k][0] + where[k][1]].view(
+        np.int32))
+    mask = np.asarray(g.edge_mask, bool)
+    vertex, dense = t_pose_graph._plan_targets(g)
+    v_off, v_idx = t_pose_graph._csr(vertex, M)
+    d_off, d_idx = t_pose_graph._csr(dense, M * M)
+    kv_off, kv_idx = get("v_off"), get("v_idx")
+    for v in range(M):
+        plain = [c for c in v_idx[v_off[v]:v_off[v + 1]] if mask[c % E]]
+        assert list(kv_idx[kv_off[v]:kv_off[v + 1]]) == plain
+    codes, b_off = get("d_idx"), get("b_off")
+    blocks = get("b_list").reshape(-1, 4)
+    assert where["b_list"][0] % 4 == 0
+    assert [tuple(r[:2]) for r in blocks] == sorted(
+        {(s // M, s % M) for s in range(M * M)
+         if s // M >= s % M and any(c >= 4 * E or mask[c % E]
+                                    for c in d_idx[d_off[s]:d_off[s + 1]])},
+        key=lambda ab: (ab[1], ab[0]))
+    for a, b, u0, u1 in blocks:
+        s = a * M + b
+        plain = [c for c in d_idx[d_off[s]:d_off[s + 1]]
+                 if c >= 4 * E or mask[c % E]]
+        want = [4 * (c % E) + c // E if c < 4 * E else -1 - (c - 4 * E)
+                for c in plain]
+        assert list(codes[u0:u1]) == want
+        assert b_off[b] <= list(blocks[:, 1]).index(b) < b_off[b + 1]
+    assert b_off[M] == len(blocks)
 
 
 def test_optimize_kernel_refuses_cpu_and_large_graphs():
