@@ -9,9 +9,12 @@ exits non-zero, printing no result, when there is no card or any phase
 fails. The port's kernels: the standalone slab sampler (csrc/sampler.cu),
 the cluster kernel of csrc/linearize.cu in its two modes, (a) one
 IRLS linearization per batch row and (b) a pyramid level's whole IRLS loop
-per batch row (the tracker's route on the card), and the pose-graph
-kernel (csrc/pose_graph.cu: a dense Levenberg-Marquardt solve of up to
-128 vertices per launch, the graph solves' route on the card). Phases:
+per batch row (the tracker's route on the card; on the kernel front it
+reads the reference points from the reference slabs and writes the track
+result), the pose-graph kernel (csrc/pose_graph.cu: a dense
+Levenberg-Marquardt solve of up to 128 vertices per launch, the graph
+solves' route on the card) and the pyramid kernel (csrc/pyramid.cu:
+every level of a frame's pyramid in one launch). Phases:
 
   1. device: the card's name and power limit (nvidia-smi), the build of
      the port's kernels from csrc/ (libdvo_kernels.so, one nvcc per
@@ -49,8 +52,19 @@ kernel (csrc/pose_graph.cu: a dense Levenberg-Marquardt solve of up to
      frames, mean IRLS iterations per level, ATE against the ground truth
      (must be < 5 mm) and the launch counts, reset just before the run
      and read just after it: level-kernel launches must equal the tracked
-     levels (3 a tracked frame), mode (a) and standalone sampler launches
-     0;
+     levels (3 a tracked frame), pyramid launches the frames (one a
+     frame), mode (a) and standalone sampler launches and prepare_reference
+     calls 0;
+  3a. the front against its plain versions: the pyramid kernel against
+     build_pyramid_reference bit for bit (640x480 f32, u8 + u16 and
+     u8 + packed-12 inputs, 642x482 at 4 and 5 levels, 2 % depth
+     dropout) and timed beside the plain chain; the level kernel's slab
+     route against its RefData route bit for bit in both modes (FRONT_CONFIGS:
+     CONFIGS and the gradient thresholds; B = 1, 2 by row pointers, 8;
+     every tracked level), mode (b) at B = 1 timed on both routes; the
+     kernel front's TrackResult against the eager front's (every field bit
+     for bit but the log-likelihood, LOGLIK_RTOL, and the entropy,
+     ENTROPY_ATOL);
   5b. the SLAM path (KeyframeSlam, default TrackerConfig and SlamConfig,
      loop closure on), JAX bench.py's slam-lc loop: the 8-frame 640x480
      ring (orbit_trajectory(9, radius=0.06)[:8], two_plane_scene
@@ -128,7 +142,12 @@ kernel (csrc/pose_graph.cu: a dense Levenberg-Marquardt solve of up to
      host loop (optimize_reference in place of optimize) and through the
      graph kernel, in turns: ms/frame, on the ring switch-frame and other
      frames' ms and the host ms per switch of KeyframeSlam._optimize and
-     LocalMap.optimize_async;
+     LocalMap.optimize_async; then the three cells through the eager front
+     (_eager_front: the plain pyramid, prepare_reference and the eager
+     assembly around the level kernel) and the kernel front, in turns
+     (eager, kernel, kernel, eager): ms/frame; the same odometry
+     iterations, SLAM keyframes and graph edges, and offline keyframes and
+     loop edges on both;
   8. the chunked engine (ChunkedKeyframeSlam, default configs, loop
      closure on) over 5b's loop in chunks of 16 with a depth-2
      submit/collect pipeline, 160 warm-up frames then 160 timed: ms/frame,
@@ -176,26 +195,32 @@ kernel (csrc/pose_graph.cu: a dense Levenberg-Marquardt solve of up to
   4. profiles (after every host timing above: no profiler has run before
      them in the process): a few more frames of the odometry main path
      under torch.profiler through each route: busy and idle share, device
-     records per frame and per IRLS iteration, heaviest kernels, per level
+     records per frame and per IRLS iteration and by layer of the front
+     (FRONT_LAYERS; on the kernel front at most MAX_RECORDS_FRAME a frame,
+     of them at most MAX_FRONT_RECORDS_FRAME of the pyramid, the
+     reference points and the assembly), heaviest kernels, per level
      the level kernel's device time per launch and per iteration. Every
      profiler session (here, 5c and 6h) must hold one device record for
      each kernel launch the wrappers counted in it, or it is run again
      (up to 3 times, then the phase fails);
   5c. a short profile of the SLAM path through each route: a few more
      frames with one forced keyframe switch, each frame a labelled
-     segment: busy and idle share, device records and launches per frame;
+     segment: busy and idle share, device records and launches per frame
+     (by layer on frames without a switch);
   6h. last, a short profile of the offline cell through each route: a
      fresh KeyframeSlam with 6b's configs tracks the sequence's first 12
      frames, then its next 12 under the profiler: busy and idle share,
-     device records and launches per frame.
+     device records and launches per frame (by layer).
 
 The line before the last is a JSON object describing each kernel (the
 cluster kernel's modes at B = 1, with the odometry path's launches, at
 B = 2 and 8, with the SLAM path's, mode (b) at B = 2 with the chunked
 engine's, at B = 16 and 32 (5d), and at N = budget with phase 10's
-compacted odometry launches; the standalone sampler on phase 11's
-pixel-sharded route; the pose-graph kernel on 5f's five graphs, with
-5b's, 6b's and 5e's launches); the last line is {"ok": true,
+compacted odometry launches, and mode (b) on the slab route with phase
+3's launches; the standalone sampler on phase 11's pixel-sharded route;
+the pose-graph kernel on 5f's five graphs, with 5b's, 6b's and 5e's
+launches; the pyramid kernel at 640x480, f32 and raw inputs, with phase
+3's launches); the last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -219,6 +244,9 @@ RING, SLAM_FRAMES, FORCE_EVERY = 8, 160, 16
 SLAM_PROFILED_FRAMES = 6
 BATCHES = {2: False, 8: True}  # B -> one current slab per row
 ATE_LIMIT_M = 5e-3
+# Phase 4 on the kernel front: device records a frame, and those of the
+# pyramid, the reference points and the result's assembly among them.
+MAX_RECORDS_FRAME, MAX_FRONT_RECORDS_FRAME = 16, 4
 TIMED_CALLS = 50
 PROFILER_ATTEMPTS = 3
 # Cycles a second of torch.cuda._sleep's spin: the H100 SXM's top clock
@@ -243,6 +271,11 @@ NORMAL_OPS = (210, 29)  # weight 12, Jacobian 62, A 63, b 18, rest; sums
 # each).
 OFFLINE_FRAMES, OFFLINE_RADIUS, OFFLINE_SEED = 160, 0.5, 11
 OFFLINE_ATE_LIMIT_M = 0.02
+# The CLI flags of the offline cell's `benchmark` run (bench/accuracy.py's
+# protocol with the freiburg-1 intrinsics).
+OFFLINE_FLAGS = ["--fr", "1", "--min-entropy-ratio", "0.96",
+                 "--search-radius", f"{0.35 * OFFLINE_RADIUS:g}",
+                 "--min-constraint-distance", "3"]
 OFFLINE_GRAPH_VERTICES, OFFLINE_GRAPH_ITERATIONS = 2560, 5
 OFFLINE_PROFILED_FRAMES = 12
 # 6i: the protocol's budget run (bench/accuracy.py --point-budget 0.25).
@@ -305,13 +338,104 @@ def _median_ms(fn, calls=TIMED_CALLS, warmup=5):
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+# The host ranges a frame's device records are counted by (phases 4, 5c
+# and 6h, tests/torch_front_records.py): each wraps a function of the
+# port (its module, of ops.pyramid, ops.linearize and
+# models.dense_tracker, and its name), looked up while the ranges are on
+# (a name a tree of the port lacks is skipped), in a torch.profiler range
+# "front <layer>". A record falls in the innermost range whose host span holds
+# the runtime call that launched it; "assembly" is what track_batched
+# launches outside the others. Records outside every range are host <->
+# device copies or other work.
+FRONT_LAYERS = (
+    ("pyramid", "build_pyramid", "pyramid"),
+    ("linearize", "prepare_reference", "reference"),
+    ("dense_tracker", "track_level", "levels"),
+    ("linearize", "track_level_kernels", "levels"),
+    ("linearize", "linearize_batched", "levels"),
+    ("dense_tracker", "track_batched", "assembly"),
+)
+LAYER_ORDER = ("pyramid", "reference", "levels", "assembly", "copies",
+               "other")
+# Names of the profiler's own device-side copies of host ranges: not
+# device work.
+_RANGE_PREFIXES = ("front ", "smoke ")
+
+
+@contextlib.contextmanager
+def _front_ranges():
+    """FRONT_LAYERS' ranges around the port's functions while on."""
+    from torch.profiler import record_function
+
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.ops import linearize, pyramid
+
+    modules = {"pyramid": pyramid, "linearize": linearize,
+               "dense_tracker": dense_tracker}
+    saved = []
+    for mod_name, name, layer in FRONT_LAYERS:
+        mod = modules[mod_name]
+        fn = getattr(mod, name, None)
+        if fn is None:
+            continue
+
+        def ranged(*args, _fn=fn, _label=f"front {layer}", **kwargs):
+            with record_function(_label):
+                return _fn(*args, **kwargs)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, ranged)
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
 def _device_intervals(prof):
     """(name, start_us, end_us) of every device-side record (kernels,
     copies, fills) in a profiler run."""
     from torch.autograd import DeviceType
 
     return [(e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events() if e.device_type == DeviceType.CUDA]
+            for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(_RANGE_PREFIXES)]
+
+
+def _records_by_layer(prof, window=None):
+    """{layer: device records} of a profiler run under _front_ranges, the
+    layers of LAYER_ORDER; with window (start_us, end_us) only records
+    launched inside that host span. A record is placed by the runtime
+    call that launched it (the same correlation id)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ranges = sorted(((e.time_range.start, e.time_range.end, e.name[6:])
+                     for e in events if e.device_type == DeviceType.CPU
+                     and e.name.startswith("front ")),
+                    key=lambda r: r[1] - r[0])
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith("cu") and e.id}
+    counts = dict.fromkeys(LAYER_ORDER, 0)
+    for e in events:
+        if (e.device_type != DeviceType.CUDA
+                or e.name.startswith(_RANGE_PREFIXES)):
+            continue
+        t = launched.get(e.id)
+        if window is not None and (t is None
+                                   or not window[0] <= t <= window[1]):
+            continue
+        layer = next((r[2] for r in ranges
+                      if t is not None and r[0] <= t <= r[1]), None)
+        if layer is None:
+            layer = "copies" if "memcpy" in e.name.lower() else "other"
+        counts[layer] += 1
+    return counts
+
+
+def _layer_line(counts, n):
+    return ", ".join(f"{k} {counts[k] / n:.1f}" for k in LAYER_ORDER)
 
 
 def _busy_us(intervals):
@@ -327,11 +451,13 @@ def _busy_us(intervals):
 def _kernel_of(name):
     """Which of the port's kernels a device record is, or None: the
     standalone sampler, the cluster kernel's mode (a) ("linearize") or
-    mode (b) ("track_level"), or the pose-graph kernel ("pose_graph")."""
+    mode (b) ("track_level"), the pose-graph kernel ("pose_graph") or the
+    pyramid kernel ("pyramid")."""
     for kernel, what in (("sample_slab_kernel", "sampler"),
                          ("track_level_kernel", "track_level"),
                          ("linearize_kernel", "linearize"),
-                         ("pose_graph_kernel", "pose_graph")):
+                         ("pose_graph_kernel", "pose_graph"),
+                         ("pyramid_kernel", "pyramid")):
         if kernel in name:
             return what
     return None
@@ -348,7 +474,8 @@ def _traced(body, what):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    kernels = ("sample_slab", "linearize", "track_level", "pose_graph")
+    kernels = ("sample_slab", "linearize", "track_level", "pose_graph",
+               "pyramid")
     for attempt in range(1, PROFILER_ATTEMPTS + 1):
         torch.cuda.synchronize()
         before = _launches()
@@ -366,10 +493,33 @@ def _traced(body, what):
             return out, prof
         print(f"phase 4: the profiler recorded {len(recs)} device records, "
               f"kernel records {recorded} for launches {launched}, for "
-              f"{what} (attempt {attempt} of {PROFILER_ATTEMPTS})")
+              f"{what} (attempt {attempt} of {PROFILER_ATTEMPTS}); "
+              f"{_unrecorded_launches(prof)}")
         time.sleep(1.0)
     raise AssertionError(f"the profiler lost device records of {what} in "
                          f"{PROFILER_ATTEMPTS} attempts")
+
+
+def _unrecorded_launches(prof):
+    """The kernel launches of a profiler session (runtime calls with
+    "Launch" in their name) whose correlation id has no device record:
+    their names, the front range holding each and its start (us into the
+    session)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    recorded = {e.id for e in events if e.device_type == DeviceType.CUDA}
+    ranges = [e for e in events if e.device_type == DeviceType.CPU
+              and e.name.startswith("front ")]
+    lost = []
+    for e in events:
+        if (e.device_type == DeviceType.CPU and "Launch" in e.name
+                and e.id not in recorded):
+            t = e.time_range.start
+            held = [r.name for r in ranges
+                    if r.time_range.start <= t <= r.time_range.end]
+            lost.append(f"{e.name} id {e.id} at {t:.0f} us in {held}")
+    return f"launches without a device record: {lost or 'none'}"
 
 
 def _bound_ms(bytes_moved, f32_ops, f64_ops):
@@ -739,6 +889,282 @@ def phase_level_vs_plain(device, cfg):
     return out
 
 
+def _same_bits(a, b):
+    """The count of entries of two float tensors whose bits differ (NaN
+    against NaN counts as equal, whatever its payload)."""
+    import torch
+
+    an, bn = torch.isnan(a), torch.isnan(b)
+    bits = (a.contiguous().view(torch.int32)
+            != b.contiguous().view(torch.int32)) & ~(an & bn)
+    return int(bits.sum().item())
+
+
+# 3a: the level kernel's slab route against its RefData route in CONFIGS
+# and with the selection's gradient thresholds on.
+FRONT_CONFIGS = {**CONFIGS, "thresholds": {"intensity_grad_threshold": 1.0,
+                                           "depth_grad_threshold": 0.005}}
+FRONT_BATCHES = (1, 2, 8)
+# 3a: the eager assembly's own f32 error bounds the kernel's f64 fields:
+# the log-likelihood (relative) and the entropy (absolute; f32 slogdet).
+LOGLIK_RTOL, ENTROPY_ATOL = 1e-5, 1e-3
+
+
+def _front_frames(device, n, num_levels):
+    """The first n frames of the noisy orbit (sensor noise, 2 % depth
+    dropout) as kernel-built pyramids, the per-level intrinsics and the
+    ground-truth poses."""
+    import torch
+
+    from dvo_slam_tpu_torch.ops import camera, pyramid
+    from dvo_slam_tpu_torch.utils import synthetic
+
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    poses = synthetic.orbit_trajectory(N_FRAMES, radius=0.06)
+    rng = np.random.default_rng(1)
+    pyrs = [pyramid.build_pyramid(*(torch.as_tensor(x, device=device)
+                                    for x in synthetic.add_sensor_noise(
+                                        *scene.render(np.asarray(K_TUPLE), W,
+                                                      H, poses[k]), rng,
+                                        dropout=0.02)), num_levels)
+            for k in range(n)]
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K_TUPLE, device=device),
+                                   num_levels)
+    return pyrs, Ks, poses
+
+
+def phase_front(device):
+    """3a: the frame's front on the card against its plain versions.
+    The pyramid kernel against build_pyramid_reference, bit for bit, at
+    640x480 for f32, u8 + u16 and u8 + packed-12 inputs and at 642x482
+    (4 and 5 levels), on depth with 2 % dropout; its device us a call
+    (events) beside the plain chain's device us (events) and host ms,
+    and its bound. The level kernel's slab route (RefSlabs: a stacked
+    tensor at B = 1 and 8, row pointers at B = 2) against its RefData
+    route (prepare_reference), bit for bit, per tracked level, for
+    FRONT_CONFIGS and B = 1, 2, 8: mode (a)'s Linearization and rI, rZ,
+    valid; mode (b)'s whole output rows (pose, record, statistics, the
+    selected count) and iterations; mode (b)'s us a launch at B = 1 on
+    both routes, with the slab route's bound (this launch's iterations
+    and valid points, _slab_ref_bytes) and its plain version's time
+    (_slab_route_plain) on the same inputs. The kernel front's TrackResult against the eager
+    front's (track_batched under _eager_front) at B = 1, 2, 8: every
+    field bit for bit but the log-likelihood (rtol LOGLIK_RTOL) and the
+    entropy (atol ENTROPY_ATOL). Returns the pyramid row's numbers and
+    the per-level launch times."""
+    import dataclasses
+
+    import torch
+
+    from dvo_slam_tpu_torch import TrackerConfig
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.ops import linearize, pyramid
+    from dvo_slam_tpu_torch.utils import se3_np, synthetic
+
+    t_phase = time.perf_counter()
+    base = TrackerConfig()
+    L = base.num_levels
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    rng = np.random.default_rng(2)
+    pyr_rows, timed = [], {}
+    for w, h in ((W, H), (W + 2, H + 2)):
+        i, z = synthetic.add_sensor_noise(
+            *scene.render(np.asarray(K_TUPLE), w, h, np.eye(4)), rng,
+            dropout=0.02)
+        i8 = np.clip(np.round(i), 0, 255).astype(np.uint8)
+        z16 = np.where(np.isfinite(z), np.round(z * 5000.0),
+                       0).astype(np.uint16)
+        for enc, a, b in (("f32", i, z), ("u8+u16", i8, z16),
+                          ("u8+packed12", i8, pyramid.pack_depth12(z16))):
+            ti, tz = (torch.as_tensor(x, device=device) for x in (a, b))
+            for levels in ((L,) if w == W else (L, L + 1)):
+                got = pyramid.build_pyramid_kernel(ti, tz, levels)
+                want = pyramid.build_pyramid_reference(ti, tz, levels)
+                torch.cuda.synchronize()
+                bad = [_same_bits(g, x) for g, x in zip(got, want)]
+                nan = float(torch.isnan(want[0][pyramid.CH_Z]).float()
+                            .mean())
+                pyr_rows.append((f"{w}x{h} {enc} {levels} levels", bad, nan))
+                if any(bad) or [g.shape for g in got] != [
+                        x.shape for x in want]:
+                    raise AssertionError(f"pyramid kernel at {w}x{h} {enc} "
+                                         f"{levels} levels: {bad} entries "
+                                         f"differ from the plain version")
+            if w == W and enc != "u8+packed12":
+                shapes = pyramid.level_shapes(h, w, L)
+                nbytes = (ti.numel() * ti.element_size()
+                          + tz.numel() * tz.element_size()
+                          + 4 * pyramid.NUM_CHANNELS
+                          * sum(a * b for a, b in shapes))
+                plain = functools.partial(pyramid.build_pyramid_reference,
+                                          ti, tz, L)
+                host = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    plain()
+                    torch.cuda.synchronize()
+                    host.append(1e3 * (time.perf_counter() - t0))
+                timed[enc] = {
+                    "us": _events_us(functools.partial(
+                        pyramid.build_pyramid_kernel, ti, tz, L)),
+                    "plain_us": _events_us(plain, n=5),
+                    "plain_host_ms": float(np.median(host)),
+                    "bound": _bound_ms(nbytes, 0, 0)}
+    print("phase 3a pyramid kernel against build_pyramid_reference, bit "
+          "for bit (entries that differ per level; NaN share of level-0 "
+          "depth): " + "; ".join(f"{name} {bad} ({nan:.3f})"
+                                 for name, bad, nan in pyr_rows))
+    for enc, t in timed.items():
+        print(f"phase 3a pyramid {W}x{H} {enc} {L} levels: kernel "
+              f"{t['us']:.2f} us a call (CUDA events); plain chain device "
+              f"{t['plain_us']:.2f} us, host {t['plain_host_ms']:.3f} ms a "
+              f"call; bound {1e3 * t['bound'][0]:.3f} us ({t['bound'][1]})")
+
+    pyrs, Ks, poses = _front_frames(device, max(FRONT_BATCHES) + 1, L)
+    launch_us = {}
+    for name, over in FRONT_CONFIGS.items():
+        cfg = dataclasses.replace(base, **over)
+        for lvl in cfg.tracked_levels:
+            K = Ks[lvl]
+            for B in FRONT_BATCHES:
+                paired = B == max(FRONT_BATCHES)
+                stacked = torch.stack([p[lvl] for p in pyrs[:B]])
+                rows = (tuple(p[lvl] for p in pyrs[:B]) if B == 2
+                        else stacked)
+                cur = (torch.stack([p[lvl] for p in pyrs[1:B + 1]])
+                       if paired else pyrs[B][lvl])
+                T = torch.as_tensor(np.stack([
+                    (se3_np.inverse(poses[b + 1] if paired else poses[B])
+                     @ poses[b]) @ se3_np.exp(rng.normal(scale=2e-3,
+                                                         size=6))
+                    for b in range(B)]), dtype=torch.float32, device=device)
+                sigma = torch.tensor([[[40.0 + b, 0.01], [0.01, 1e-3]]
+                                      for b in range(B)], device=device)
+                ref = linearize.prepare_reference(stacked, K, cfg)
+                slabs = linearize.RefSlabs(rows)
+                N = ref.px.shape[1]
+                outs = []
+                for r in (slabs, ref):
+                    lin = linearize.linearize_kernels_batched(
+                        r, cur, K, T, cfg, sigma, True)
+                    res = tuple(t.clone() for t in
+                                linearize.kernel_residuals(device, N, B))
+                    lvl_out = linearize.track_level_kernels(r, cur, K, T,
+                                                            cfg)
+                    outs.append((lin, res, lvl_out))
+                torch.cuda.synchronize()
+                (lin_s, res_s, (o_s, oi_s)), (lin_r, res_r, (o_r, oi_r)) = \
+                    outs
+                bad = {f: _same_bits(a, b) for f, a, b in
+                       zip(lin_s._fields, lin_s[:-1], lin_r[:-1])}
+                bad.update({f: _same_bits(a.float(), b.float()) for f, a, b
+                            in zip(("rI", "rZ", "valid"), res_s, res_r)})
+                bad["mode (b) rows"] = _same_bits(o_s, o_r)
+                bad["mode (b) counts"] = int((oi_s != oi_r).sum().item())
+                if any(bad.values()):
+                    raise AssertionError(
+                        f"slab route against RefData route, {name}, level "
+                        f"{lvl}, B={B}: entries that differ {bad}")
+                if name == "tdist" and B == 1:
+                    t = {route: _events_us(functools.partial(
+                        linearize.track_level_kernels, r, cur, K, T, cfg))
+                        for route, r in (("slab", slabs), ("RefData", ref))}
+                    # The slab route's bound and plain version from this
+                    # launch: its iterations and valid points, the
+                    # reference planes it reads.
+                    t["its"] = int(oi_s[0, 0])
+                    h, w = stacked.shape[-2:]
+                    t["bound"] = _bounds(
+                        cfg, {"N": N, "H": h, "W": w}, 1,
+                        {"its": [t["its"]], "paired": False,
+                         "n_valid": float(o_s[0, linearize._LEVEL_BEST
+                                              + dense_tracker._N_RAW])},
+                        ref_bytes=_slab_ref_bytes(cfg))["track_level"]
+                    t["plain_ms"] = _events_us(functools.partial(
+                        _slab_route_plain, stacked, cur, K, T, cfg),
+                        n=1, reps=3) / 1e3
+                    launch_us[lvl] = t
+    print(f"phase 3a level kernel, slab route against RefData route: "
+          f"bit for bit in modes (a) and (b) (Linearization, rI, rZ, valid; "
+          f"pose, record, statistics, selected count, iterations) for "
+          f"{list(FRONT_CONFIGS)}, levels {base.tracked_levels}, "
+          f"B = {FRONT_BATCHES} (B = 2 by row pointers)")
+    print("phase 3a mode (b) at B = 1, us a launch (CUDA events): "
+          + "; ".join(f"level {lvl} slab route {t['slab']:.2f} for "
+                      f"{t['its']} iterations (bound "
+                      f"{1e3 * t['bound'][0]:.4f} us, {t['bound'][1]}; "
+                      f"plain: prepare_reference and the host loop "
+                      f"{1e3 * t['plain_ms']:.2f} us, host time included), "
+                      f"RefData route {t['RefData']:.2f} (the reference "
+                      f"points prepared beforehand)"
+                      for lvl, t in launch_us.items()))
+
+    worst = {"loglik": 0.0, "entropy": 0.0}
+    for name in ("tdist", "thresholds"):
+        cfg = dataclasses.replace(base, **FRONT_CONFIGS[name])
+        for B in FRONT_BATCHES:
+            paired = B == max(FRONT_BATCHES)
+            refs = tuple(torch.stack([p[lvl] for p in pyrs[:B]])
+                         if B != 2 else tuple(p[lvl] for p in pyrs[:B])
+                         for lvl in range(L))
+            curs = (tuple(torch.stack([p[lvl] for p in pyrs[1:B + 1]])
+                          for lvl in range(L)) if paired else pyrs[B])
+            T = torch.eye(4, device=device).expand(B, 4, 4)
+            got = dense_tracker.track_batched(refs, curs, Ks, T, cfg)
+            with _eager_front():
+                want = dense_tracker.track_batched(refs, curs, Ks, T, cfg)
+            torch.cuda.synchronize()
+            bad = {}
+            for field, a, b in zip(got._fields, got, want):
+                if field == "stats":
+                    for f, x, y in zip(a._fields, a, b):
+                        bad[f] = _same_bits(x.float(), y.float())
+                elif field not in ("log_likelihood", "entropy"):
+                    bad[field] = _same_bits(torch.as_tensor(a).float(),
+                                            torch.as_tensor(b).float())
+            ll = ((got.log_likelihood - want.log_likelihood).abs()
+                  / want.log_likelihood.abs()).max().item()
+            en = (got.entropy - want.entropy).abs().max().item()
+            worst = {"loglik": max(worst["loglik"], ll),
+                     "entropy": max(worst["entropy"], en)}
+            if any(bad.values()) or not (ll <= LOGLIK_RTOL
+                                         and en <= ENTROPY_ATOL):
+                raise AssertionError(
+                    f"kernel front against eager front, {name}, B={B}: "
+                    f"entries that differ {bad}; log-likelihood rel {ll:.2e}"
+                    f" (tol {LOGLIK_RTOL:g}), entropy {en:.2e} (tol "
+                    f"{ENTROPY_ATOL:g})")
+    print(f"phase 3a kernel front against eager front (track_batched, "
+          f"B = {FRONT_BATCHES}, tdist and thresholds): every field bit for "
+          f"bit but log-likelihood (max rel {worst['loglik']:.2e}, tol "
+          f"{LOGLIK_RTOL:g}) and entropy (max abs {worst['entropy']:.2e}, "
+          f"tol {ENTROPY_ATOL:g}); phase 3a took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"pyramid": timed, "launch_us": launch_us}
+
+
+def _slab_ref_bytes(cfg):
+    """Bytes a point of the reference slab that the slab route reads: I
+    and Z, Ix and Iy for the intensity threshold or reference gradients,
+    Zx and Zy for the depth threshold or reference depth gradients."""
+    ref_grad = cfg.gradient_source == "reference"
+    return 4 * (2 + 2 * (cfg.intensity_grad_threshold > 0 or ref_grad)
+                + 2 * (cfg.depth_grad_threshold > 0
+                       or (ref_grad and cfg.use_depth)))
+
+
+def _slab_route_plain(ref_slab, cur, K, T, cfg):
+    """The slab route's plain version: prepare_reference, then the host
+    loop over the plain linearization."""
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.ops import linearize
+
+    return dense_tracker._track_level(
+        linearize.prepare_reference(ref_slab, K, cfg), cur, K, T, cfg,
+        linearize=linearize.linearize_batched_reference)
+
+
 def phase_main_path(device):
     import torch
 
@@ -782,9 +1208,17 @@ def phase_main_path(device):
           f"ATE {1e3 * ate:.4f} mm; launches track_level "
           f"{launches['track_level']} (tracked levels {levels}; IRLS "
           f"iterations {n_it}), linearize {launches['linearize']}, "
-          f"standalone sampler {launches['sample_slab']}")
+          f"standalone sampler {launches['sample_slab']}, pyramid "
+          f"{launches['pyramid']} ({N_FRAMES} frames); prepare_reference "
+          f"calls {launches['prepare_reference']}")
     if not ate < ATE_LIMIT_M:
         raise AssertionError(f"ATE {ate} m >= {ATE_LIMIT_M} m")
+    if (launches["pyramid"] != N_FRAMES
+            or launches["prepare_reference"] != 0):
+        raise AssertionError(f"the front: {launches['pyramid']} pyramid "
+                             f"launches for {N_FRAMES} frames, "
+                             f"{launches['prepare_reference']} "
+                             "prepare_reference calls")
     if not (n_it > 0 and launches["track_level"] == levels):
         raise AssertionError(f"level-kernel launches "
                              f"{launches['track_level']} != tracked levels "
@@ -1187,13 +1621,15 @@ def _top_records(recs, n, k=6):
     return [(tot / n, cnt / n, name) for name, (tot, cnt) in top]
 
 
-def phase_profile(device, frames, host, n=3):
+def phase_profile(device, frames, host, n=3, limits=True):
     """4: frames 1..n of the odometry main path under torch.profiler, on a
     fresh tracker given frame 0 unprofiled, through the level kernel or
     (host) the host loop: wall and device busy per frame, idle share,
     device records per frame and per IRLS iteration, the heaviest
     records; through the kernel, each level's device time per launch and
-    per IRLS iteration. Returns the cell's numbers."""
+    per IRLS iteration. With limits, the kernel front must keep to
+    MAX_RECORDS_FRAME and MAX_FRONT_RECORDS_FRAME. Returns the cell's
+    numbers."""
     import torch
 
     from dvo_slam_tpu_torch import TrackerConfig
@@ -1211,22 +1647,32 @@ def phase_profile(device, frames, host, n=3):
         torch.cuda.synchronize()
         return its, 1e6 * (time.perf_counter() - t0)
 
-    with _host_loop(host):
+    with _host_loop(host), _front_ranges():
         (its, wall_us), prof = _traced(body, "the main path")
     recs = sorted(_device_intervals(prof), key=lambda r: r[1])
     busy = _busy_us(recs)
     n_it = sum(map(sum, its))
     kinds = [_kernel_of(r[0]) for r in recs]
     route = "host loop" if host else "level kernel"
+    layers = _records_by_layer(prof)
     print(f"phase 4 profile ({route}): {n} frames, {n_it} IRLS iterations, "
           f"wall {wall_us / 1e3 / n:.3f} ms/frame (profiler on), device "
           f"busy {busy / 1e3 / n:.3f} ms/frame, idle share "
           f"{1 - busy / wall_us:.4f}; {len(recs) / n:.1f} device records per "
-          f"frame, {len(recs) / n_it:.1f} per IRLS iteration")
+          f"frame, {len(recs) / n_it:.1f} per IRLS iteration; per frame by "
+          f"layer: {_layer_line(layers, n)}")
     for us, calls, name in _top_records(recs, n):
         print(f"  {us:9.1f} us/frame {calls:6.1f} calls/frame  {name[:90]}")
     if "sampler" in kinds:
         raise AssertionError("the main path launched the standalone sampler")
+    front = sum(layers[k] for k in ("pyramid", "reference", "assembly"))
+    if limits and not host and (len(recs) > MAX_RECORDS_FRAME * n
+                     or front > MAX_FRONT_RECORDS_FRAME * n):
+        raise AssertionError(f"the kernel front: {len(recs) / n:.1f} device "
+                             f"records a frame (limit {MAX_RECORDS_FRAME}), "
+                             f"{front / n:.1f} of them pyramid, reference "
+                             f"and assembly (limit "
+                             f"{MAX_FRONT_RECORDS_FRAME})")
     levels = tracker.cfg.tracked_levels
     per_level = {}
     if host:
@@ -1250,7 +1696,8 @@ def phase_profile(device, frames, host, n=3):
                   f"iteration")
     return {"ms_frame": wall_us / 1e3 / n, "busy_ms": busy / 1e3 / n,
             "idle": 1 - busy / wall_us, "records": len(recs) / n,
-            "per_level": per_level}
+            "per_level": per_level,
+            "layers": {k: v / n for k, v in layers.items()}}
 
 
 def _level_args(L, B=None):
@@ -1354,7 +1801,7 @@ def phase_slam_profile(slam_out, host, n=SLAM_PROFILED_FRAMES):
             switched[k] = len(slam.keyframes) > before
         return 1e6 * (time.perf_counter() - t0)
 
-    with _host_loop(host):
+    with _host_loop(host), _front_ranges():
         wall_us, prof = _traced(body, "the SLAM path")
     spans = {e.name: e.time_range for e in prof.events()
              if e.device_type == DeviceType.CPU
@@ -1365,6 +1812,7 @@ def phase_slam_profile(slam_out, host, n=SLAM_PROFILED_FRAMES):
     busy = _busy_us(recs)
     kind = "linearize" if host else "track_level"
     plain_recs, plain_launch, sw_busy = 0, 0, []
+    layers = dict.fromkeys(LAYER_ORDER, 0)
     for k in range(n):
         span = spans[f"smoke slam frame {k}"]
         mine = [r for r in recs if span.start <= r[1] <= span.end]
@@ -1373,6 +1821,9 @@ def phase_slam_profile(slam_out, host, n=SLAM_PROFILED_FRAMES):
         else:
             plain_recs += len(mine)
             plain_launch += sum(_kernel_of(r[0]) == kind for r in mine)
+            for layer, c in _records_by_layer(
+                    prof, (span.start, span.end)).items():
+                layers[layer] += c
     n_plain = max(sum(not v for v in switched.values()), 1)
     print(f"phase 5c SLAM profile ({'host loop' if host else 'level kernel'})"
           f": {n} frames ({n - n_plain} with a switch), wall "
@@ -1380,21 +1831,25 @@ def phase_slam_profile(slam_out, host, n=SLAM_PROFILED_FRAMES):
           f"{busy / 1e3 / n:.3f} ms/frame, idle share {1 - busy / wall_us:.4f}"
           f"; frames without a switch: {plain_recs / n_plain:.1f} device "
           f"records and {plain_launch / n_plain:.2f} {kind} launches per "
-          f"frame; switch frames: device busy "
+          f"frame (by layer: {_layer_line(layers, n_plain)}); switch "
+          f"frames: device busy "
           f"{np.mean(sw_busy) / 1e3 if sw_busy else float('nan'):.3f} ms")
     if not switched[n // 2]:
         raise AssertionError("the forced keyframe switch did not happen")
     if plain_launch == 0:
         raise AssertionError(f"the SLAM profile saw no {kind} launch")
     return {"ms_frame": wall_us / 1e3 / n, "idle": 1 - busy / wall_us,
-            "records": plain_recs / n_plain}
+            "records": plain_recs / n_plain,
+            "layers": {k: v / n_plain for k, v in layers.items()}}
 
 
-def _bounds(cfg, L, B, d):
+def _bounds(cfg, L, B, d, ref_bytes=17):
     """Per kernel at one level and batch: (ms, "bytes" or "operations"),
     the least time the card could take. Bytes: each input read once, each
     output written once: per linearization each row's reference points
-    (17 B a point) and the current slab (24 B a pixel; once per distinct
+    (ref_bytes a point: RefData's px, py, pz, i1 and selected, 17 B; the
+    slab route's planes, _slab_ref_bytes) and the current slab (24 B a
+    pixel; once per distinct
     slab), mode (a)'s outputs (204 B a row and 9 B a point of rI, rZ,
     valid); mode (b) repeats a linearization's reads once per iteration
     this run's rows took. Operations: counted per point from the source,
@@ -1409,10 +1864,11 @@ def _bounds(cfg, L, B, d):
     slab_reads = sum(its) if d["paired"] else max(its)
     out = {
         "linearize": _bound_ms(
-            B * (17 * N + 204 + 9 * N) + (B if d["paired"] else 1) * 24 * HW,
+            B * (ref_bytes * N + 204 + 9 * N)
+            + (B if d["paired"] else 1) * 24 * HW,
             B * f32_row + f32_valid * n_valid, f64_valid * n_valid),
         "track_level": _bound_ms(
-            sum(its) * 17 * N + slab_reads * 24 * HW,
+            sum(its) * ref_bytes * N + slab_reads * 24 * HW,
             sum(its) * f32_row + f32_valid * n_valid * sum(its) / B,
             f64_valid * n_valid * sum(its) / B),
     }
@@ -1444,7 +1900,7 @@ def _sampler_bound(slab, u, v):
 
 def kernel_rows(cfg, levels, launches, dev_times, slam_out,
                 level_pairs, batched, chunked_launches, val_batches,
-                compaction, par, graph, offline):
+                compaction, par, graph, offline, front):
     """The kernels' JSON rows at the finest tracked level: the standalone
     sampler, and the cluster kernel's two modes at B = 1 (the odometry
     main path's launches), at the SLAM path's batch sizes (its launches at
@@ -1457,8 +1913,12 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
     run); the pose-graph kernel on the ring's final keyframe graph and
     window graph (5b's graph and window solves' launches), on the offline
     benchmark's graph (6b's launches) and on _ring_graph at 64 and 128
-    vertices (5e's launches at those sizes), timed in 5f. Every time by
-    CUDA events."""
+    vertices (5e's launches at those sizes), timed in 5f; the pyramid
+    kernel at 640x480 (f32 and raw u8 + u16 inputs; phase 3's launches,
+    one a frame; its plain version's host ms a call) and mode (b) at B = 1
+    on the slab route (phase 3's launches), timed in 3a with its bound
+    and plain version from 3a's own launch. Every kernel time by CUDA
+    events."""
     slam_launches = slam_out["launches"]
     lvl = cfg.tracked_levels[-1]
     lin_err = max(max(x["r_err"], x["lin_abs_err"]) for x in levels.values())
@@ -1494,6 +1954,18 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
             else by_b.get(("track_level", B), 0),
             level_err, d["track_level"], d["track_level plain"],
             d["bounds"]["track_level"], None)
+    t = front["launch_us"][lvl]
+    row("track_level (mode b), slab route (the kernel front)",
+        "dvo_slam_tpu_torch/csrc/linearize.cu",
+        "dvo_slam_tpu/ops/pallas/sampler.py:226", launches["track_level"],
+        0.0, t["slab"] / 1e3, t["plain_ms"], t["bound"], None)
+    # No Pallas kernel: the frame's pyramid, which XLA fused; no single
+    # PyTorch call computes it.
+    for enc, t in front["pyramid"].items():
+        row(f"pyramid (every level, one launch), {W}x{H} {enc}",
+            "dvo_slam_tpu_torch/csrc/pyramid.cu",
+            "dvo_slam_tpu/ops/pyramid.py:87", launches["pyramid"], 0.0,
+            t["us"] / 1e3, t["plain_host_ms"], t["bound"], None)
     d = dev_times[(2, lvl)]
     row("track_level (mode b), batched B=2, chunked scan",
         "dvo_slam_tpu_torch/csrc/linearize.cu",
@@ -1576,7 +2048,7 @@ def _cli(args):
 
 def _reset_launches():
     from dvo_slam_tpu_torch.models import pose_graph
-    from dvo_slam_tpu_torch.ops import linearize, sampler
+    from dvo_slam_tpu_torch.ops import linearize, pyramid, sampler
 
     pose_graph.LAUNCHES = 0
     pose_graph.LAUNCHES_BY_M.clear()
@@ -1584,34 +2056,69 @@ def _reset_launches():
     linearize.LAUNCHES_LINEARIZE = 0
     linearize.LAUNCHES_TRACK_LEVEL = 0
     linearize.LAUNCHES_BY_BATCH.clear()
+    linearize.PREPARE_REFERENCE_CALLS = 0
+    pyramid.LAUNCHES_PYRAMID = 0
 
 
 def _launches():
+    """The kernels' launch counts, and the prepare_reference calls (no
+    launch: the eager front's reference points)."""
     from dvo_slam_tpu_torch.models import pose_graph
-    from dvo_slam_tpu_torch.ops import linearize, sampler
+    from dvo_slam_tpu_torch.ops import linearize, pyramid, sampler
 
     return {"sample_slab": sampler.LAUNCHES,
             "linearize": linearize.LAUNCHES_LINEARIZE,
             "track_level": linearize.LAUNCHES_TRACK_LEVEL,
             "pose_graph": pose_graph.LAUNCHES,
+            "pyramid": getattr(pyramid, "LAUNCHES_PYRAMID", 0),
+            "prepare_reference": getattr(linearize,
+                                         "PREPARE_REFERENCE_CALLS", 0),
             "by B": dict(sorted(linearize.LAUNCHES_BY_BATCH.items()))}
 
 
 @contextlib.contextmanager
 def _host_loop(on=True):
-    """With on: the tracker runs each level as its host loop
+    """With on: the tracker runs the eager front (_eager_front's
+    track_batched) with each level as its host loop
     (dense_tracker._track_level over linearize_batched, i.e. one mode (a)
     launch per lockstep iteration), called directly in place of
-    track_level; otherwise as shipped (one level-kernel launch)."""
+    track_level; otherwise as shipped (the kernel front: one level-kernel
+    launch a level)."""
     from dvo_slam_tpu_torch.models import dense_tracker
 
-    saved = dense_tracker.track_level
-    if on:
-        dense_tracker.track_level = dense_tracker._track_level
+    if not on:
+        yield
+        return
+    saved = dense_tracker.track_level, dense_tracker.front_route
+    dense_tracker.track_level = dense_tracker._track_level
+    dense_tracker.front_route = lambda *args, **kwargs: False
     try:
         yield
     finally:
-        dense_tracker.track_level = saved
+        dense_tracker.track_level, dense_tracker.front_route = saved
+
+
+@contextlib.contextmanager
+def _eager_front(on=True):
+    """With on: a frame's front as eager PyTorch, the kernel front's plain
+    versions (the pyramid by build_pyramid_reference, the reference points
+    by prepare_reference a level, the result assembled by eager ops
+    around one level-kernel launch a level); otherwise as shipped (one
+    pyramid launch, the level launches on the slab route writing the
+    result)."""
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.ops import pyramid
+
+    if not on:
+        yield
+        return
+    saved = pyramid.build_pyramid, dense_tracker.front_route
+    pyramid.build_pyramid = pyramid.build_pyramid_reference
+    dense_tracker.front_route = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        pyramid.build_pyramid, dense_tracker.front_route = saved
 
 
 @contextlib.contextmanager
@@ -1745,9 +2252,7 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
         traj = os.path.join(tmp, "slam.txt")
         graph = os.path.join(tmp, "slam.g2o")
         cov = os.path.join(tmp, "slam_cov.txt")
-        radius = f"{0.35 * OFFLINE_RADIUS:g}"
-        flags = ["--fr", "1", "--min-entropy-ratio", "0.96",
-                 "--search-radius", radius, "--min-constraint-distance", "3"]
+        flags = OFFLINE_FLAGS
         _reset_launches()
         rc, out = _cli(["benchmark", seq, *flags, "--trajectory-out", traj,
                         "--graph-out", graph, "--covariance-out", cov, *dev])
@@ -2308,9 +2813,11 @@ def phase_offline_profile(offline, device, host, n=OFFLINE_PROFILED_FRAMES):
             return (1e6 * (time.perf_counter() - t0),
                     len(slam.keyframes) - before)
 
-        (wall_us, switches), prof = _traced(body, "the offline cell")
+        with _front_ranges():
+            (wall_us, switches), prof = _traced(body, "the offline cell")
     recs = _device_intervals(prof)
     busy = _busy_us(recs)
+    layers = _records_by_layer(prof)
     kind = "linearize" if host else "track_level"
     launched = sum(_kernel_of(r[0]) == kind for r in recs)
     print(f"phase 6h offline profile ({'host loop' if host else 'level kernel'}"
@@ -2318,11 +2825,13 @@ def phase_offline_profile(offline, device, host, n=OFFLINE_PROFILED_FRAMES):
           f"{wall_us / 1e3 / n:.3f} ms/frame (profiler on), device busy "
           f"{busy / 1e3 / n:.3f} ms/frame, idle share "
           f"{1 - busy / wall_us:.4f}; {len(recs) / n:.1f} device records and "
-          f"{launched / n:.2f} {kind} launches per frame")
+          f"{launched / n:.2f} {kind} launches per frame (by layer: "
+          f"{_layer_line(layers, n)})")
     if launched == 0:
         raise AssertionError(f"the offline profile saw no {kind} launch")
     return {"ms_frame": wall_us / 1e3 / n, "idle": 1 - busy / wall_us,
-            "records": len(recs) / n}
+            "records": len(recs) / n,
+            "layers": {k: v / n for k, v in layers.items()}}
 
 
 def _loop_graph(slam):
@@ -2427,6 +2936,8 @@ def phase_turns(device, odo_frames, slam_out, offline):
             iter(offline["frames"][:TURN_OFFLINE_FRAMES]), camera.TUM_FR1,
             offline["tracker_cfg"], offline["slam_cfg"],
             groundtruth=offline["groundtruth"], mode="slam", device=device)
+        graphs.setdefault(("offline", host), (res.num_keyframes,
+                                              res.num_loop_edges))
         return 1e3 / res.fps
 
     out = {}
@@ -2461,6 +2972,40 @@ def phase_turns(device, odo_frames, slam_out, offline):
                           f"frames {b:.3f} ms, host ms per switch: _optimize "
                           f"{c:.3f}, optimize_async {d:.3f}"
                           for a, b, c, d, n in switches[host]))
+    # The eager front (the plain versions) against the kernel front, the
+    # level kernel and the graph kernel throughout.
+    for cell, fn in (("odometry", odometry), ("slam", slam),
+                     ("offline", offline_cell)):
+        times = {True: [], False: []}
+        for eager in (True, False, False, True):
+            with _eager_front(eager):
+                times[eager].append(fn(("front", eager)))
+        out[cell + " front"] = times
+        e, k = times[True], times[False]
+        print(f"phase 7 {cell} cell, the front in turns (eager, kernel, "
+              f"kernel, eager): eager front {e[0]:.3f}, {e[1]:.3f} "
+              f"ms/frame; kernel front {k[0]:.3f}, {k[1]:.3f} ms/frame; "
+              f"eager / kernel {np.mean(e) / np.mean(k):.2f}x")
+    levels = TrackerConfig().tracked_levels
+    its_e, its_k = odo_iters[("front", True)], odo_iters[("front", False)]
+    n_diff = sum(a != b for x, y in zip(its_e, its_k)
+                 for a, b in zip(x, y))
+    kf_e, edges_e, loops_e = graphs[("front", True)]
+    kf_f, edges_f, loops_f = graphs[("front", False)]
+    off_e, off_k = graphs[("offline", ("front", True))], \
+        graphs[("offline", ("front", False))]
+    print(f"phase 7 front turns: odometry iterations per (frame, level) "
+          f"{n_diff} of {len(its_k) * len(levels)} differ; SLAM keyframes "
+          f"{'the same' if kf_e == kf_f else f'{kf_f} / {kf_e}'}, graph "
+          f"edges {'identical' if edges_e == edges_f else 'differ'} (loop "
+          f"edges {loops_f} kernel front, {loops_e} eager front); offline "
+          f"keyframes and loop edges {off_k} kernel front, {off_e} eager "
+          f"front")
+    if (kf_e != kf_f or edges_e != edges_f or loops_f < 1
+            or off_e != off_k):
+        raise AssertionError(f"the front turns part: SLAM keyframes {kf_f} "
+                             f"/ {kf_e}, edges {edges_f} / {edges_e}; "
+                             f"offline {off_k} / {off_e}")
     kf_g, edges_g, loops_g = graphs[("graph", False)]
     kf_gh, edges_gh, loops_gh = graphs[("graph", True)]
     print(f"phase 7 slam graph turns: keyframes "
@@ -2470,7 +3015,6 @@ def phase_turns(device, odo_frames, slam_out, offline):
           f"{loops_g} through the kernel, {loops_gh} through the host loop)")
     if min(loops_g, loops_gh) < 1:
         raise AssertionError("the SLAM graph turns accepted no loop edge")
-    levels = TrackerConfig().tracked_levels
     differ = [(k + 1, lvl, a, b)
               for k, (its_h, its_k) in enumerate(zip(odo_iters[True],
                                                      odo_iters[False]))
@@ -2979,11 +3523,15 @@ def phase_compaction(device, frames):
               f"{launches['track_level'] / (N_FRAMES - 1):.3f} "
               f"({launches['track_level']} for {levels} tracked levels), "
               f"linearize {launches['linearize']}, standalone sampler "
-              f"{launches['sample_slab']}")
+              f"{launches['sample_slab']}; prepare_reference calls "
+              f"{launches['prepare_reference']} (the eager front's, under "
+              f"compaction)")
         if not ate < ATE_LIMIT_M:
             raise AssertionError(f"{name}: ATE {ate} m >= {ATE_LIMIT_M} m")
         if (launches["track_level"] != levels or launches["linearize"] != 0
-                or launches["sample_slab"] != 0):
+                or launches["sample_slab"] != 0
+                or (launches["prepare_reference"] == 0)
+                != (c.point_budget_fraction == 0.0)):
             raise AssertionError(f"{name}: launches {launches}")
 
     ref_pyr, cur_pyr, Ks, T = _noisy_pair(device, cfg, noisy=False)
@@ -3415,6 +3963,7 @@ def main():
     level_pairs = phase_level_vs_plain(device, cfg)
     batched = phase_batched_vs_plain(device, cfg)
     launches, _, frames, _ = phase_main_path(device)
+    front = phase_front(device)
     slam_out = phase_slam(device)
     t0 = time.perf_counter()
     val_batches = phase_validation_batches(device, cfg)
@@ -3445,15 +3994,19 @@ def main():
     dev_times = phase_device_times(cfg, levels, batched)
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
     # Profiles only from here on.
-    for host in (True, False):
+    # The level kernel's sessions first: a session after the host loop's
+    # (~58 000 device records in 6h's) lost one device record in three
+    # attempts in a row.
+    for host in (False, True):
         phase_profile(device, frames, host)
-    for host in (True, False):
+    for host in (False, True):
         phase_slam_profile(slam_out, host)
-    for host in (True, False):
+    for host in (False, True):
         phase_offline_profile(offline, device, host)
     print(json.dumps({"kernels": kernel_rows(
         cfg, levels, launches, dev_times, slam_out, level_pairs, batched,
-        chunked["launches"], val_batches, compaction, par, graph, offline)}))
+        chunked["launches"], val_batches, compaction, par, graph, offline,
+        front)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -120,23 +120,24 @@ def load():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dvo_sample_slab.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
         lib.dvo_sample_slab.restype = ci
-        common = [
+        i64 = ctypes.c_int64
+        refs = [
             ci,  # B
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,  # reference points, N
-            vp, ctypes.c_int64, ci, ci,  # slab, slab_stride, H, W
-            vp, vp,  # K, T
-            ci, ci, cf, cf, cf,  # use_depth, ref_grad, nu, floors
-            ci, ci,  # scale_iters, warm_iters
+            vp, vp, vp, vp, vp, vp, vp, vp, vp,  # reference points (or null)
+            vp, i64, ci, cf, cf,  # slab route: rows, stride, table, thresholds
+            ci, vp, i64, ci, ci, vp,  # N, slab, slab_stride, H, W, K
         ]
+        scale = [ci, ci, cf, cf, cf, ci, ci]  # use_depth .. warm_iters
         lib.dvo_linearize.argtypes = [
-            *common, vp, ci, ci,  # sigma_init, warm, cluster size
+            *refs, vp, *scale, vp, ci, ci,  # T, ..., sigma_init, warm, C
             vp, vp, vp, vp, vp,  # out, rI, rZ, valid, stream
         ]
         lib.dvo_linearize.restype = ci
         lib.dvo_track_level.argtypes = [
-            *common, ci, cf,  # max_iterations, precision
+            *refs, vp, i64, *scale, ci, cf,  # T_init, stride, ..., precision
             cf, cf, cf, cf, ci,  # LM lambda init, up, down, max; cluster
-            vp, vp, vp,  # out, out_i, stream
+            vp, i64, vp, i64,  # out, its row stride, out_i, its row stride
+            ctypes.c_double, vp,  # loglik constant, stream
         ]
         lib.dvo_track_level.restype = ci
         cd = ctypes.c_double
@@ -155,5 +156,27 @@ def load():
         lib.dvo_level_plan.restype = ci
         lib.dvo_error_string.argtypes = [ci]
         lib.dvo_error_string.restype = ctypes.c_char_p
+        lib.dvo_pyramid.argtypes = [
+            vp, ci, vp, ci,  # intensity, i_u8, depth, depth encoding
+            ci, ci, ci, cf, cf,  # H, W, num_levels, the raw scales
+            vp, vp,  # out, stream
+        ]
+        lib.dvo_pyramid.restype = ci
         _LIB = lib
     return _LIB
+
+
+def launch(name, device, args):
+    """Call the entry point `name` of the kernel library with `args` and
+    the current stream of `device` (made the current device around the
+    call, so the ctypes launch runs in its context); raise with the CUDA
+    error if it did not launch."""
+    import torch
+
+    lib = load()
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: "
+                           f"{lib.dvo_error_string(rc).decode()} (CUDA "
+                           f"error {rc})")

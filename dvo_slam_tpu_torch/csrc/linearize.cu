@@ -22,7 +22,25 @@
 //       up to max_iterations linearizations and solves in one launch;
 //       writes the level's pose, the last accepted linearization (the
 //       tracker's 50-float record, kBest*), the per-iteration statistics,
-//       the iteration count and the termination code.
+//       the level's count of selected points, the iteration count and the
+//       termination code, into the level's slot of one output buffer of
+//       all tracked levels (row strides from the caller), and the track
+//       result's log-likelihood, pose entropy and valid ratio from its
+//       accepted record (what models/dense_tracker.py's eager assembly
+//       computes from the finest level's).
+//
+// The reference points. Either read from RefData's (B, N) arrays
+// (ops/linearize.py::prepare_reference, the route of compaction, the
+// pixel shards and the plain versions), or computed in the residual pass
+// from the reference level's (6, H, W) slab itself (the slab route: row
+// b's slab by one of up to 32 row pointers in the parameters, or by a
+// stride): back-projection, the selection (finite depth, the gradient
+// thresholds through hypotf as torch.hypot calls it, the isfinite folds)
+// and the reference gradients, in prepare_reference's order with the _rn
+// intrinsics, so both routes give the same bits. That removes the front's
+// 16 eager ops a tracked level and its (B, N) copies; the dvo_slam_tpu
+// counterpart is dvo_slam_tpu/ops/linearize.py::prepare_reference (:77),
+// which XLA fused into the frame's program.
 //
 // Layout. One cluster of C CTAs per batch row (grid (C, B), cluster (C, 1,
 // 1); C from ops/linearize.py::cluster_size, up to 16, which is a
@@ -77,7 +95,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 16;
 constexpr float kEps = 1e-12f;     // ops/linearize.py _EPS
 constexpr float kJitter = 1e-8f;   // ops/least_squares.py _JITTER
-constexpr int kMomentSums = 4;     // rI^2, rI rZ, rZ^2, valid count
+constexpr int kMomentSums = 5;     // rI^2, rI rZ, rZ^2, valid, selected
 constexpr int kScaleSums = 3;      // weighted moments of one Sigma step
 constexpr int kNormalSums = 29;    // A (upper, 21), b (6), err_raw, log1p_sum
 constexpr int kPointFloats = 9;    // rI, rZ, X, Y, Z, gix, giy, gzx, gzy
@@ -91,9 +109,17 @@ constexpr int kOutA = 0, kOutB = 36, kOutErrMean = 42, kOutN = 43,
 // (models/dense_tracker.py _flat).
 constexpr int kBestA = 0, kBestB = 36, kBestErr = 42, kBestErrRaw = 43,
               kBestSigma = 44, kBestNRaw = 48, kBestLog1p = 49, kBestSize = 50;
-// Mode (b)'s row: pose (16), record (50), then the statistics (4,
-// max_iterations): valid, error, delta_norm, accepted (0 or 1).
-constexpr int kLevelT = 0, kLevelBest = 16, kLevelStats = 66;
+// Mode (b)'s row: pose (16), the log-likelihood of the level's record
+// (right after the pose, so that one view holds both), record (50), then
+// the statistics (5, max_iterations): valid, error, delta_norm, accepted
+// (0 or 1) and zeros (the TPU sampler's window misses), then kExtraSize
+// floats at kLevelStats + 5 max_iterations: the level's selected count,
+// entropy and valid ratio.
+constexpr int kLevelT = 0, kLevelLoglik = 16, kLevelBest = 17, kLevelStats = 67,
+              kStatPlanes = 5;
+constexpr int kExtraSelected = 0, kExtraEntropy = 1, kExtraRatio = 2, kExtraSize = 3;
+// Reference slabs by row pointer (SlamConfig.validation_batch_max).
+constexpr int kMaxRefRows = 32;
 // Termination codes (models/dense_tracker.py TERM_*).
 constexpr int kTermIterations = 0, kTermIncrement = 1, kTermErrorIncreased = 2,
               kTermTooFew = 3;
@@ -111,12 +137,21 @@ struct Params {
   const float* rgiy;  // is "reference" (rgzx, rgzy: also null without
   const float* rgzx;  // depth)
   const float* rgzy;
+  // The slab route: row b's (6, H, W) reference slab is ref_rows[b]
+  // (ref_table) or ref_rows[0] + b * ref_stride floats; a null ref_rows[0]
+  // reads the arrays above. igt, dgt: the gradient thresholds of the
+  // selection (cfg.intensity_grad_threshold, depth_grad_threshold).
+  const float* ref_rows[kMaxRefRows];
+  int64_t ref_stride;
+  int ref_table;
+  float igt, dgt;
   int N;
   const float* slab;    // (6, H, W) current pyramid level of row 0
   int64_t slab_stride;  // floats from one row's slab to the next (0: shared)
   int H, W;
   const float* K;           // (4,) fx, fy, cx, cy, shared by every row
   const float* T;           // (B, 4, 4) row-major: the pose (a), T_init (b)
+  int64_t T_stride;         // floats from one row's T to the next
   const float* sigma_init;  // (B, 2, 2) or null; mode (a) with warm only
   int use_depth, ref_grad, warm;
   float nu, floor_ii, floor_zz;
@@ -124,22 +159,27 @@ struct Params {
   // Mode (b): the IRLS loop.
   int max_iterations;
   float precision, lm_init, lm_up, lm_down, lm_max;
+  // Mode (b): lgamma((nu + 2) / 2) - lgamma(nu / 2) - log(nu pi), for the
+  // log-likelihood.
+  double loglik_const;
   // Points per CTA, and whether they are kept in shared memory.
   int P, stored;
-  // Outputs. (a): out (B, 51), rI / rZ / valid (B, N). (b): out (B,
-  // kLevelStats + 4 * max_iterations), out_i (B, 2) iterations and
-  // termination.
+  // Outputs. (a): out (B, 51), rI / rZ / valid (B, N). (b): row b's
+  // kLevelStats + 5 * max_iterations + kExtraSize floats at out + b *
+  // out_stride, its iterations and termination at out_i + b * out_i_stride.
   float* out;
   int* out_i;
+  int64_t out_stride, out_i_stride;
   float* rI;
   float* rZ;
   uint8_t* valid;
 };
 
-// One batch row's reference points and current slab.
+// One batch row's reference points (or reference slab) and current slab.
 struct Row {
   const float *px, *py, *pz, *i1, *rgix, *rgiy, *rgzx, *rgzy;
   const uint8_t* selected;
+  const float* ref;  // the slab route's reference slab, else null
   const float* slab;
 };
 
@@ -155,6 +195,8 @@ __device__ __forceinline__ Row row_of(const Params& p, int b) {
   r.rgiy = p.rgiy ? p.rgiy + o : nullptr;
   r.rgzx = p.rgzx ? p.rgzx + o : nullptr;
   r.rgzy = p.rgzy ? p.rgzy + o : nullptr;
+  r.ref = p.ref_table ? p.ref_rows[b]
+                      : (p.ref_rows[0] ? p.ref_rows[0] + b * p.ref_stride : nullptr);
   r.slab = p.slab + b * p.slab_stride;
   return r;
 }
@@ -170,6 +212,7 @@ struct Shared {
   float best[kBestSize];
   float lin[kOutSize];  // the last linearization
   float a, bq, c, n, n_raw;  // Sigma entries, valid count floored and raw
+  float n_sel;               // selected reference points
   float lam;
   int n_fp, done, term;
 };
@@ -187,15 +230,75 @@ __device__ __forceinline__ float guarded_inv(float Z) {
 
 struct Point {
   float X, Y, Z, gix, giy, gzx, gzy, rI, rZ;
-  bool valid;
+  bool valid, selected;
 };
+
+// Reference point i: from RefData's arrays, or from the reference slab in
+// the order of ops/linearize.py::prepare_reference (the reference gradients
+// only with ref_grad, the depth ones only with use_depth too).
+struct RefPoint {
+  float px, py, pz, i1, gix, giy, gzx, gzy;
+  bool selected;
+};
+
+__device__ __forceinline__ float finite_or0(float x) { return isfinite(x) ? x : 0.f; }
+
+__device__ __forceinline__ RefPoint ref_point(const Params& p, const Row& r, int i) {
+  RefPoint q;
+  q.gix = q.giy = q.gzx = q.gzy = 0.f;
+  if (!r.ref) {
+    q.px = __ldg(r.px + i);
+    q.py = __ldg(r.py + i);
+    q.pz = __ldg(r.pz + i);
+    q.i1 = __ldg(r.i1 + i);
+    q.selected = r.selected[i];
+    if (p.ref_grad) {
+      q.gix = __ldg(r.rgix + i);
+      q.giy = __ldg(r.rgiy + i);
+      if (p.use_depth) {
+        q.gzx = __ldg(r.rgzx + i);
+        q.gzy = __ldg(r.rgzy + i);
+      }
+    }
+    return q;
+  }
+  const int64_t plane = (int64_t)p.H * p.W;
+  const float* s = r.ref + i;
+  const float z = __ldg(s + plane);
+  const float ix = __ldg(s + 2 * plane), iy = __ldg(s + 3 * plane);
+  const float zx = __ldg(s + 4 * plane), zy = __ldg(s + 5 * plane);
+  bool sel = isfinite(z);
+  if (p.igt > 0.f) sel = sel && (hypotf(ix, iy) >= p.igt);
+  if (p.dgt > 0.f) {
+    const float gz = hypotf(zx, zy);
+    sel = sel && isfinite(gz) && (gz >= p.dgt);
+  }
+  if (p.ref_grad) {
+    q.gix = finite_or0(ix);
+    q.giy = finite_or0(iy);
+    if (p.use_depth) {
+      sel = sel && isfinite(zx) && isfinite(zy);
+      q.gzx = finite_or0(zx);
+      q.gzy = finite_or0(zy);
+    }
+  }
+  const float zs = sel ? z : 1.f;
+  const int v = i / p.W, u = i - v * p.W;
+  q.px = mul(__fdiv_rn(sub((float)u, __ldg(p.K + 2)), __ldg(p.K + 0)), zs);
+  q.py = mul(__fdiv_rn(sub((float)v, __ldg(p.K + 3)), __ldg(p.K + 1)), zs);
+  q.pz = zs;
+  q.i1 = __ldg(s);
+  q.selected = sel;
+  return q;
+}
 
 // Warp, project, sample and residual of reference point i at pose T, in the
 // order of ops/linearize.py::residuals_reference (and ops/sampler.py's plain
 // sample).
 __device__ __forceinline__ Point residual(const Params& p, const Row& r,
                                           const float* T, int i) {
-  const float px = __ldg(r.px + i), py = __ldg(r.py + i), pz = __ldg(r.pz + i);
+  const RefPoint rp = ref_point(p, r, i);
+  const float px = rp.px, py = rp.py, pz = rp.pz;
   Point q;
   q.X = add(add(add(mul(T[0], px), mul(T[1], py)), mul(T[2], pz)), T[3]);
   q.Y = add(add(add(mul(T[4], px), mul(T[5], py)), mul(T[6], pz)), T[7]);
@@ -233,19 +336,20 @@ __device__ __forceinline__ Point residual(const Params& p, const Row& r,
   const float i2 = s[0];
   const float z2 = (p.use_depth || !p.ref_grad) ? s[1] : 0.f;
   if (p.ref_grad) {
-    q.gix = __ldg(r.rgix + i);
-    q.giy = __ldg(r.rgiy + i);
-    q.gzx = p.use_depth ? __ldg(r.rgzx + i) : 0.f;
-    q.gzy = p.use_depth ? __ldg(r.rgzy + i) : 0.f;
+    q.gix = rp.gix;
+    q.giy = rp.giy;
+    q.gzx = rp.gzx;
+    q.gzy = rp.gzy;
   } else {
     q.gix = s[2];
     q.giy = s[3];
     q.gzx = s[4];
     q.gzy = s[5];
   }
-  const float rI = sub(i2, __ldg(r.i1 + i));
+  const float rI = sub(i2, rp.i1);
   const float rZ = sub(z2, q.Z);
-  bool valid = r.selected[i] && inb && (q.Z > 1e-6f) && isfinite(rI);
+  q.selected = rp.selected;
+  bool valid = rp.selected && inb && (q.Z > 1e-6f) && isfinite(rI);
   if (p.use_depth) valid = valid && isfinite(rZ) && isfinite(q.gzx) && isfinite(q.gzy);
   q.valid = valid;
   q.rI = valid ? rI : 0.f;
@@ -282,6 +386,7 @@ __device__ __forceinline__ Point load_point(const Params& p, const Row& r,
                                             int j, int i) {
   if (!p.stored) return residual(p, r, sh.T, i);
   Point q;
+  q.selected = false;  // read by the residual pass only
   q.rI = s.at(0, j);
   q.rZ = s.at(1, j);
   q.valid = s.valid[j];
@@ -369,7 +474,7 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
 
   // Residual pass: every point of the slice, and the residual moments.
   {
-    double m[kMomentSums] = {0.0, 0.0, 0.0, 0.0};
+    double m[kMomentSums] = {0.0, 0.0, 0.0, 0.0, 0.0};
     for (int j = threadIdx.x; j < n_mine; j += kThreads) {
       const int i = base + j;
       const Point q = residual(p, r, sh.T, i);
@@ -385,9 +490,11 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
         m[2] += (double)mul(q.rZ, q.rZ);
         m[3] += 1.0;
       }
+      if (q.selected) m[4] += 1.0;
     }
     cluster_sum<kMomentSums>(m, sh, parity, C);
     if (threadIdx.x == 0) {
+      sh.n_sel = (float)sh.tot[4];
       const float n_raw = (float)sh.tot[3];
       const float n = fmaxf(n_raw, 1.f);
       float a = add(__fdiv_rn((float)sh.tot[0], n), p.floor_ii);
@@ -642,6 +749,60 @@ __device__ void irls_step(const Params& p, Shared& sh, int k, float* stats) {
   sh.lam = lam;
 }
 
+// log|det A| of a 6x6 matrix: LU with partial pivoting in f64 (-inf where
+// a pivot is 0, NaN where A is not finite).
+__device__ double logabsdet6(const float* A) {
+  double M[36];
+  bool finite = true;
+  for (int k = 0; k < 36; ++k) {
+    M[k] = (double)A[k];
+    finite = finite && isfinite(A[k]);
+  }
+  if (!finite) return __longlong_as_double(0x7ff8000000000000ll);
+  double logdet = 0.0;
+  for (int j = 0; j < 6; ++j) {
+    int piv = j;
+    for (int i = j + 1; i < 6; ++i)
+      if (fabs(M[6 * i + j]) > fabs(M[6 * piv + j])) piv = i;
+    if (M[6 * piv + j] == 0.0) return -INFINITY;
+    if (piv != j)
+      for (int k = 0; k < 6; ++k) {
+        const double t = M[6 * j + k];
+        M[6 * j + k] = M[6 * piv + k];
+        M[6 * piv + k] = t;
+      }
+    const double d = M[7 * j];
+    logdet += log(fabs(d));
+    for (int i = j + 1; i < 6; ++i) {
+      const double f = M[6 * i + j] / d;
+      for (int k = j + 1; k < 6; ++k) M[6 * i + k] -= f * M[6 * j + k];
+    }
+  }
+  return logdet;
+}
+
+// The selected count and the track result's fields the eager assembly
+// derives from the finest level's accepted record
+// (models/dense_tracker.py), here for each level's: the bivariate t
+// log-likelihood (ops/linearize.py::tdist_loglik), the pose entropy
+// 0.5 (6 ln(2 pi e) - ln|det A|) (dense_tracker.pose_entropy) and the
+// valid ratio n_raw / max(selected, 1). In f64 from the f32 record; the
+// tests hold them to the eager f32 values within stated tolerances.
+__device__ void track_result(const Params& p, const float* best, float n_sel,
+                             float* loglik, float* extra) {
+  const float n_raw = best[kBestNRaw];
+  extra[kExtraSelected] = n_sel;
+  const double det = fmax((double)sub(mul(best[kBestSigma], best[kBestSigma + 3]),
+                                      mul(best[kBestSigma + 1], best[kBestSigma + 2])),
+                          (double)kEps);
+  const double log_norm = p.loglik_const - 0.5 * log(det);
+  *loglik = (float)((double)fmaxf(n_raw, 1.f) * log_norm -
+                    0.5 * ((double)p.nu + 2.0) * (double)best[kBestLog1p]);
+  const double two_pi_e = 17.079468445347132;  // 2 pi e
+  extra[kExtraEntropy] = (float)(0.5 * (6.0 * log(two_pi_e) - logabsdet6(best + kBestA)));
+  extra[kExtraRatio] = __fdiv_rn(n_raw, fmaxf(n_sel, 1.f));
+}
+
 __device__ __forceinline__ Points points_of(const Params& p, float4* dyn) {
   Points s;
   s.f = reinterpret_cast<float*>(dyn);
@@ -657,7 +818,7 @@ __global__ void __launch_bounds__(kThreads, 1) linearize_kernel(Params p) {
   const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
   const int b = blockIdx.y;
   const Row r = row_of(p, b);
-  if (threadIdx.x < 16) sh.T[threadIdx.x] = p.T[16 * b + threadIdx.x];
+  if (threadIdx.x < 16) sh.T[threadIdx.x] = p.T[b * p.T_stride + threadIdx.x];
   __syncthreads();
   int parity = 0;
   linearize_row(p, r, sh, points_of(p, dyn_smem), b, rank, C, parity,
@@ -676,10 +837,10 @@ __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
   const Row r = row_of(p, b);
   const Points s = points_of(p, dyn_smem);
   const int M = p.max_iterations;
-  float* o = p.out + (int64_t)b * (kLevelStats + 4 * M);
+  float* o = p.out + b * p.out_stride;
   if (threadIdx.x < 16) {
-    sh.T[threadIdx.x] = p.T[16 * b + threadIdx.x];
-    sh.Tbest[threadIdx.x] = p.T[16 * b + threadIdx.x];
+    sh.T[threadIdx.x] = p.T[b * p.T_stride + threadIdx.x];
+    sh.Tbest[threadIdx.x] = p.T[b * p.T_stride + threadIdx.x];
   }
   if (threadIdx.x < kBestSize) sh.best[threadIdx.x] = 0.f;
   if (threadIdx.x == 0) {
@@ -703,12 +864,14 @@ __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
   if (rank == 0) {
     if (threadIdx.x < 16) o[kLevelT + threadIdx.x] = sh.Tbest[threadIdx.x];
     if (threadIdx.x < kBestSize) o[kLevelBest + threadIdx.x] = sh.best[threadIdx.x];
-    // Statistics past the last iteration are zero.
-    for (int q = threadIdx.x; q < 4 * M; q += kThreads)
-      if (q % M >= k) o[kLevelStats + q] = 0.f;
+    // Statistics past the last iteration are zero, the window misses too.
+    for (int q = threadIdx.x; q < kStatPlanes * M; q += kThreads)
+      if (q >= 4 * M || q % M >= k) o[kLevelStats + q] = 0.f;
+    float* extra = o + kLevelStats + kStatPlanes * M;
     if (threadIdx.x == 0) {
-      p.out_i[2 * b] = k;
-      p.out_i[2 * b + 1] = sh.term;
+      p.out_i[b * p.out_i_stride] = k;
+      p.out_i[b * p.out_i_stride + 1] = sh.term;
+      track_result(p, sh.best, sh.n_sel, o + kLevelLoglik, extra);
     }
   }
   cluster.sync();  // no CTA leaves while another may read its shared memory
@@ -803,19 +966,32 @@ int launch(Kernel kernel, Params& p, int B, int C, void* stream) {
 
 Params params(const float* px, const float* py, const float* pz, const float* i1,
               const uint8_t* selected, const float* rgix, const float* rgiy,
-              const float* rgzx, const float* rgzy, int N, const float* slab,
-              int64_t slab_stride, int H, int W, const float* K, const float* T,
-              int use_depth, int ref_grad, float nu, float floor_ii, float floor_zz,
-              int scale_iters, int warm_iters) {
+              const float* rgzx, const float* rgzy, const float* const* ref_rows,
+              int64_t ref_stride, int ref_table, float igt, float dgt, int B, int N,
+              const float* slab, int64_t slab_stride, int H, int W, const float* K,
+              const float* T, int64_t T_stride, int use_depth, int ref_grad, float nu,
+              float floor_ii, float floor_zz, int scale_iters, int warm_iters) {
   Params p = {};
   p.px = px; p.py = py; p.pz = pz; p.i1 = i1; p.selected = selected;
   p.rgix = rgix; p.rgiy = rgiy; p.rgzx = rgzx; p.rgzy = rgzy;
+  if (ref_rows) {
+    const int n = ref_table ? (B < kMaxRefRows ? B : kMaxRefRows) : 1;
+    for (int b = 0; b < n; ++b) p.ref_rows[b] = ref_rows[b];
+  }
+  p.ref_stride = ref_stride; p.ref_table = ref_table; p.igt = igt; p.dgt = dgt;
   p.N = N; p.slab = slab; p.slab_stride = slab_stride; p.H = H; p.W = W;
-  p.K = K; p.T = T;
+  p.K = K; p.T = T; p.T_stride = T_stride;
   p.use_depth = use_depth; p.ref_grad = ref_grad;
   p.nu = nu; p.floor_ii = floor_ii; p.floor_zz = floor_zz;
   p.scale_iters = scale_iters; p.warm_iters = warm_iters;
   return p;
+}
+
+// The reference arguments are valid: the arrays, or a slab route whose
+// points are the slab's pixels (table mode for at most kMaxRefRows rows).
+bool refs_ok(const float* const* ref_rows, int ref_table, int B, int N, int H, int W) {
+  if (!ref_rows) return true;
+  return ref_rows[0] && N == H * W && (!ref_table || B <= kMaxRefRows);
 }
 
 }  // namespace
@@ -842,23 +1018,30 @@ extern "C" const char* dvo_error_string(int code) {
 
 // Mode (a): B linearizations, one per batch row, in one launch of clusters
 // of C CTAs on `stream`, no host sync. The reference points (px..rgzy) are
-// (B, N); row b's slab starts at slab + b * slab_stride floats; T is (B, 4,
-// 4), sigma_init (B, 2, 2) (read only with warm). Reference gradients
-// (rgix..rgzy) are read only with ref_grad (rgzx, rgzy only with use_depth
-// too). out: (B, 51) floats, each row laid out as the kOut* offsets; rI,
-// rZ, valid: (B, N), the residual pass's values. Returns a CUDA error code
-// (0: launched).
+// (B, N); or, where ref_rows is not null, the slab route: row b's (6, H, W)
+// reference slab is ref_rows[b] (ref_table; B <= 32) or ref_rows[0] + b *
+// ref_stride floats, its H W pixels the N points, selected with the
+// gradient thresholds igt and dgt. Row b's current slab starts at slab + b *
+// slab_stride floats; T is (B, 4, 4), sigma_init (B, 2, 2) (read only with
+// warm). Reference gradients (rgix..rgzy) are read only with ref_grad
+// (rgzx, rgzy only with use_depth too). out: (B, 51) floats, each row laid
+// out as the kOut* offsets; rI, rZ, valid: (B, N), the residual pass's
+// values. Returns a CUDA error code (0: launched).
 extern "C" int dvo_linearize(
     int B, const float* px, const float* py, const float* pz, const float* i1,
     const uint8_t* selected, const float* rgix, const float* rgiy,
-    const float* rgzx, const float* rgzy, int N, const float* slab,
-    int64_t slab_stride, int H, int W, const float* K, const float* T,
-    int use_depth, int ref_grad, float nu, float floor_ii, float floor_zz,
-    int scale_iters, int warm_iters, const float* sigma_init, int warm, int C,
-    float* out, float* rI, float* rZ, uint8_t* valid, void* stream) {
-  Params p = params(px, py, pz, i1, selected, rgix, rgiy, rgzx, rgzy, N, slab,
-                    slab_stride, H, W, K, T, use_depth, ref_grad, nu, floor_ii,
-                    floor_zz, scale_iters, warm_iters);
+    const float* rgzx, const float* rgzy, const float* const* ref_rows,
+    int64_t ref_stride, int ref_table, float igt, float dgt, int N,
+    const float* slab, int64_t slab_stride, int H, int W, const float* K,
+    const float* T, int use_depth, int ref_grad, float nu, float floor_ii,
+    float floor_zz, int scale_iters, int warm_iters, const float* sigma_init,
+    int warm, int C, float* out, float* rI, float* rZ, uint8_t* valid,
+    void* stream) {
+  if (!refs_ok(ref_rows, ref_table, B, N, H, W)) return (int)cudaErrorInvalidValue;
+  Params p = params(px, py, pz, i1, selected, rgix, rgiy, rgzx, rgzy, ref_rows,
+                    ref_stride, ref_table, igt, dgt, B, N, slab, slab_stride, H, W,
+                    K, T, 16, use_depth, ref_grad, nu, floor_ii, floor_zz,
+                    scale_iters, warm_iters);
   p.sigma_init = sigma_init;
   p.warm = warm;
   p.out = out;
@@ -869,24 +1052,31 @@ extern "C" int dvo_linearize(
 }
 
 // Mode (b): one pyramid level's IRLS loop for B rows in one launch, from
-// T_init (B, 4, 4) (the other inputs as dvo_linearize's). LM when lm_init >
-// 0, else Gauss-Newton with rollback; the Sigma warm start from the last
-// accepted Sigma after the first iteration when warm_iters > 0. out: (B,
-// 66 + 4 * max_iterations) floats as the kLevel* offsets; out_i: (B, 2)
-// iterations and termination code. Returns a CUDA error code (0: launched).
+// T_init (row b's at T_init + b * T_stride floats; the other inputs as
+// dvo_linearize's). LM when lm_init > 0, else Gauss-Newton with rollback;
+// the Sigma warm start from the last accepted Sigma after the first
+// iteration when warm_iters > 0. out: row b's 67 + 5 * max_iterations + 3
+// floats at out + b * out_stride, as the kLevel* and kExtra* offsets
+// (loglik_const as Params');
+// out_i: row b's iterations and termination code at out_i + b *
+// out_i_stride. Returns a CUDA error code (0: launched).
 extern "C" int dvo_track_level(
     int B, const float* px, const float* py, const float* pz, const float* i1,
     const uint8_t* selected, const float* rgix, const float* rgiy,
-    const float* rgzx, const float* rgzy, int N, const float* slab,
-    int64_t slab_stride, int H, int W, const float* K, const float* T_init,
-    int use_depth, int ref_grad, float nu, float floor_ii, float floor_zz,
-    int scale_iters, int warm_iters, int max_iterations, float precision,
-    float lm_init, float lm_up, float lm_down, float lm_max, int C, float* out,
-    int* out_i, void* stream) {
-  if (max_iterations < 1) return (int)cudaErrorInvalidValue;
-  Params p = params(px, py, pz, i1, selected, rgix, rgiy, rgzx, rgzy, N, slab,
-                    slab_stride, H, W, K, T_init, use_depth, ref_grad, nu,
-                    floor_ii, floor_zz, scale_iters, warm_iters);
+    const float* rgzx, const float* rgzy, const float* const* ref_rows,
+    int64_t ref_stride, int ref_table, float igt, float dgt, int N,
+    const float* slab, int64_t slab_stride, int H, int W, const float* K,
+    const float* T_init, int64_t T_stride, int use_depth, int ref_grad, float nu,
+    float floor_ii, float floor_zz, int scale_iters, int warm_iters,
+    int max_iterations, float precision, float lm_init, float lm_up, float lm_down,
+    float lm_max, int C, float* out, int64_t out_stride, int* out_i,
+    int64_t out_i_stride, double loglik_const, void* stream) {
+  if (max_iterations < 1 || !refs_ok(ref_rows, ref_table, B, N, H, W))
+    return (int)cudaErrorInvalidValue;
+  Params p = params(px, py, pz, i1, selected, rgix, rgiy, rgzx, rgzy, ref_rows,
+                    ref_stride, ref_table, igt, dgt, B, N, slab, slab_stride, H, W,
+                    K, T_init, T_stride, use_depth, ref_grad, nu, floor_ii,
+                    floor_zz, scale_iters, warm_iters);
   p.max_iterations = max_iterations;
   p.precision = precision;
   p.lm_init = lm_init;
@@ -894,6 +1084,9 @@ extern "C" int dvo_track_level(
   p.lm_down = lm_down;
   p.lm_max = lm_max;
   p.out = out;
+  p.out_stride = out_stride;
   p.out_i = out_i;
+  p.out_i_stride = out_i_stride;
+  p.loglik_const = loglik_const;
   return launch(track_level_kernel, p, B, C, stream);
 }

@@ -18,6 +18,20 @@ one level for B rows:
   once per iteration. Over ``linearize_batched_reference`` it is the
   plain version of mode (b).
 
+``track_batched`` runs a frame's front one of two ways:
+
+- on a CUDA slab with ``front_route`` (``level_route`` and
+  ``linearize.slab_route``: no compaction, no pixel shards), the kernel
+  front (``_track_batched_kernels``): one level-kernel launch a tracked
+  level reading each row's reference points from its slab (no
+  ``prepare_reference``), every launch writing its level's slot of one
+  output buffer with its record's log-likelihood, entropy and valid
+  ratio (the finest level's are the result's); the TrackResult's fields
+  are views of that buffer;
+- elsewhere the eager front: ``prepare_reference`` a level, ``track_level``
+  a level, and the result assembled with eager ops (``tdist_loglik``,
+  ``pose_entropy``, stacks). It is the kernel front's plain version.
+
 ``track`` is ``track_batched`` at B = 1. Gauss-Newton rollback
 (lambda = 0: revert and stop) and adaptive Levenberg-Marquardt
 (lambda > 0) share both paths.
@@ -307,21 +321,36 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig,
     return T_best, _final(best, cfg), stats
 
 
+def front_route(cfg: TrackerConfig, device, pixel_group=None) -> bool:
+    """True where ``track_batched`` runs the kernel front on ``device``: a
+    CUDA device, ``level_route(cfg)``, ``slab_route(cfg)`` and no pixel
+    route. Looked up at the call (a caller may swap in the eager front)."""
+    return (torch.device(device).type == "cuda"
+            and lin_ops.level_route(cfg) and lin_ops.slab_route(cfg)
+            and not lin_ops.pixel_route(pixel_group))
+
+
 def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits, cfg: TrackerConfig,
                   pixel_group=None) -> TrackResult:
     """B reference pyramids tracked together (the JAX package's vmap over
-    ``track``): one ``track_level`` per tracked level.
+    ``track``): the kernel front where ``front_route``, else the eager
+    front (one ``track_level`` per tracked level); see the module
+    docstring.
 
-    ref_pyrs: tuple of per-level (B, 6, H, W) slabs; cur_pyrs: per-level
-    (6, H, W) slabs shared by every row (SLAM's dual alignment: keyframe
-    and previous frame against the current frame) or (B, 6, H, W), one
-    current pyramid per row (loop-closure validation); T_inits: (B, 4, 4).
-    Every field of the result has a leading B.
+    ref_pyrs: per level a (B, 6, H, W) tensor of reference slabs or a
+    sequence of B (6, H, W) slabs (None for untracked levels); cur_pyrs:
+    per-level (6, H, W) slabs shared by every row (SLAM's dual alignment:
+    keyframe and previous frame against the current frame) or
+    (B, 6, H, W), one current pyramid per row (loop-closure validation);
+    T_inits: (B, 4, 4). Every field of the result has a leading B.
 
     pixel_group: a process group over which each ref_pyrs level holds
     this rank's band of rows (rank r: rows [r h, (r + 1) h) of every
     level, h the slab's height here), the current pyramids whole; every
     rank gets the same result. None: whole reference slabs."""
+    if front_route(cfg, cur_pyrs[cfg.tracked_levels[0]].device,
+                   pixel_group):
+        return _track_batched_kernels(ref_pyrs, cur_pyrs, Ks, T_inits, cfg)
     T = T_inits
     dev, dtype = T_inits.device, T_inits.dtype
     B = T_inits.shape[0]
@@ -332,9 +361,11 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits, cfg: TrackerConfig,
         import torch.distributed as dist
 
         rank = dist.get_rank(pixel_group)
-    level_data = {lvl: lin_ops.prepare_reference(
-        ref_pyrs[lvl], Ks[lvl], cfg,
-        row_offset=rank * ref_pyrs[lvl].shape[-2]) for lvl in levels}
+    level_data = {}
+    for lvl in levels:
+        slabs = lin_ops.RefSlabs(ref_pyrs[lvl]).stacked()
+        level_data[lvl] = lin_ops.prepare_reference(
+            slabs, Ks[lvl], cfg, row_offset=rank * slabs.shape[-2])
 
     iters, errs, per_iter = [], [], []
     fin = None
@@ -354,8 +385,10 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits, cfg: TrackerConfig,
             per_iter.append(stats["per_iter"])
 
     # Information / log-likelihood come from the finest level's last
-    # accepted linearization (T is that pose).
-    loglik = lin_ops.tdist_loglik(fin, cfg)
+    # accepted linearization (T is that pose); the log-likelihood right
+    # after the pose, as the kernel front's rows hold it.
+    pose_ll = torch.cat([T.reshape(B, 16),
+                         lin_ops.tdist_loglik(fin, cfg)[:, None]], dim=1)
     n_selected = level_data[levels[-1]].selected.sum(-1).to(dtype)
     if sharded:
         dist.all_reduce(n_selected, group=pixel_group)
@@ -375,9 +408,9 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits, cfg: TrackerConfig,
         )
 
     return TrackResult(
-        transformation=T,
+        transformation=pose_ll[:, :16].unflatten(-1, (4, 4)),
         information=information,
-        log_likelihood=loglik,
+        log_likelihood=pose_ll[:, 16],
         entropy=pose_entropy(information),
         error=fin.err_mean,
         sigma=fin.sigma,
@@ -389,6 +422,72 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits, cfg: TrackerConfig,
         window_miss_frac=zero,
         escalated=torch.zeros(B, dtype=torch.bool, device=dev),
     )
+
+
+def _track_batched_kernels(ref_pyrs, cur_pyrs, Ks, T_inits,
+                           cfg: TrackerConfig) -> TrackResult:
+    """``track_batched``'s kernel front: one mode (b) launch a tracked
+    level on the slab route, coarse to fine, each writing its level's
+    slot of one (B, levels, level_row_size) output (and (B, levels, 2)
+    iteration and termination counts), each starting from the level
+    above's pose in that buffer; the finest level's log-likelihood (right
+    after its pose) and extras are the result's log-likelihood, entropy
+    and valid ratio. Every field of the result is a view of the two
+    buffers but the accepted flags and ``escalated``."""
+    levels = cfg.tracked_levels
+    B, M = T_inits.shape[0], cfg.max_iterations
+    dev = cur_pyrs[levels[0]].device
+    out = torch.empty((B, len(levels), lin_ops.level_row_size(M)),
+                      dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, len(levels), 2), dtype=torch.int32, device=dev)
+    T = T_inits
+    for j, lvl in enumerate(levels):
+        lin_ops.track_level_kernels(
+            lin_ops.RefSlabs(ref_pyrs[lvl]), cur_pyrs[lvl], Ks[lvl], T, cfg,
+            out=out[:, j], out_i=out_i[:, j])
+        T = out[:, j, lin_ops._LEVEL_T:lin_ops._LEVEL_LOGLIK].unflatten(
+            -1, (4, 4))
+    st = lin_ops._LEVEL_STATS
+    stats = out[..., st:st + lin_ops._STAT_PLANES * M].unflatten(
+        -1, (lin_ops._STAT_PLANES, M))
+    best = out[..., lin_ops._LEVEL_BEST:st]
+    extra = out[:, -1, st + lin_ops._STAT_PLANES * M:]
+    track_stats = None
+    if cfg.collect_stats:
+        track_stats = TrackStats(
+            valid=stats[..., 0, :], error=stats[..., 1, :],
+            delta_norm=stats[..., 2, :], accepted=stats[..., 3, :] != 0,
+            termination=out_i[..., 1], window_miss=stats[..., 4, :])
+    fin = best[:, -1]
+    return TrackResult(
+        transformation=T,
+        information=fin[:, _A:_B].unflatten(-1, (6, 6)),
+        log_likelihood=out[:, -1, lin_ops._LEVEL_LOGLIK],
+        entropy=extra[:, lin_ops._EXTRA_ENTROPY],
+        error=fin[:, _ERR],
+        sigma=fin[:, _SIGMA:_N_RAW].unflatten(-1, (2, 2)),
+        valid_pixels=fin[:, _N_RAW],
+        valid_ratio=extra[:, lin_ops._EXTRA_RATIO],
+        iterations=out_i[..., 0],
+        level_errors=best[..., _ERR],
+        stats=track_stats,
+        # The window misses' zero plane of the finest level.
+        window_miss_frac=stats[:, -1, 4, 0],
+        escalated=torch.zeros(B, dtype=torch.bool, device=dev),
+    )
+
+
+def pose_and_loglik(res: TrackResult):
+    """A single pair's pose (16 entries) and log-likelihood (the 17th) as
+    one view, for one host copy: both fronts keep a row's log-likelihood
+    right after its pose (csrc/linearize.cu's row on the kernel front, a
+    (B, 17) buffer on the eager front)."""
+    T, ll = res.transformation, res.log_likelihood
+    if not (T.is_contiguous() and ll.storage_offset() == T.storage_offset()
+            + 16 and T.untyped_storage().data_ptr()
+            == ll.untyped_storage().data_ptr()):
+        raise ValueError("the log-likelihood does not follow the pose")
+    return T.as_strided((17,), (1,))
 
 
 def track(ref_pyr, cur_pyr, Ks, T_init, cfg: TrackerConfig,

@@ -112,7 +112,7 @@ def _step(carry, intensity, depth, force, Ks, cfg: TrackerConfig,
     cur = pyramid.build_pyramid(intensity, depth, cfg.num_levels)
     tracked = set(cfg.tracked_levels)
     refs = tuple(
-        torch.stack([kf_l, prev_l]) if lvl in tracked else None
+        (kf_l, prev_l) if lvl in tracked else None
         for lvl, (kf_l, prev_l) in enumerate(zip(carry["kf"], carry["prev"]))
     )
     odo_init = carry["last_odo"] if cfg.use_initial_estimate else eye

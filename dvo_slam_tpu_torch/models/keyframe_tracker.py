@@ -73,11 +73,12 @@ def _slam_frame_step(intensity, depth, kf_pyr, prev_pyr, inits, Ks,
                      cfg: TrackerConfig):
     """One frame's device work: pyramid build + dual alignment (keyframe
     and previous frame against the new frame, one batched tracker call of
-    B = 2). Only the tracked levels of the two references are stacked."""
+    B = 2). The two references' tracked levels go as pairs of slabs (row
+    pointers on the kernel front; the eager front stacks them)."""
     pyr = pyramid.build_pyramid(intensity, depth, cfg.num_levels)
     tracked = set(cfg.tracked_levels)
     refs = tuple(
-        torch.stack([kf_lvl, prev_lvl]) if lvl in tracked else None
+        (kf_lvl, prev_lvl) if lvl in tracked else None
         for lvl, (kf_lvl, prev_lvl) in enumerate(zip(kf_pyr, prev_pyr))
     )
     res = dense_tracker.track_batched(refs, pyr, Ks, inits, cfg)

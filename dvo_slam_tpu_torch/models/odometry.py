@@ -109,12 +109,12 @@ class OdometryTracker:
         res = dense_tracker.track(self._prev_pyr, cur, self.Ks, T0, self.cfg)
         self.last_result = res
         # The frame's one host sync: the pose and the log-likelihood that
-        # is_nan() reads, in one copy.
-        host = torch.cat([res.transformation.reshape(16),
-                          res.log_likelihood.reshape(1)]).to("cpu",
-                                                             torch.float64)
+        # is_nan() reads, one view of the result (no cat), widened on the
+        # host.
+        host = dense_tracker.pose_and_loglik(res).cpu().to(torch.float64)
         rel = host[:16].view(4, 4).numpy()
-        is_nan = not bool(torch.isfinite(host).all())
+        is_nan = not bool(torch.isfinite(host[:16]).all()
+                          and torch.isfinite(host[-1]))
         if is_nan:
             # NaN guard: fall back to the constant-velocity increment.
             rel = self._last_rel.copy()

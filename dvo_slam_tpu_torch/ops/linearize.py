@@ -44,7 +44,12 @@ row (B, 6, H, W). Its plain version is ``linearize_batched_reference``:
 ``prepare_reference`` builds the reference points: the full grid with a
 selection mask, or, with ``cfg.point_budget_fraction > 0``, the selected
 points compacted to a fixed slot count (``compact_reference``); the
-kernels take either N. The plain linearization takes an optional
+kernels take either N. The kernels also take the reference level's slabs
+themselves (``RefSlabs``, the slab route, where ``slab_route(cfg)``: no
+compaction) and compute each point in the residual pass with
+``prepare_reference``'s arithmetic, the same bits; ``prepare_reference``
+is the plain version of that route (``reference_points``) and the route
+of compaction, the pixel shards and the plain linearization. The plain linearization takes an optional
 ``group``, a ``torch.distributed`` process group over which the points
 are sharded (pixel rows, parallel/sharded.py): every sum the JAX package
 ``psum``s is all-reduced over it. ``pixel_route(group)`` says when the
@@ -59,6 +64,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from dvo_slam_tpu_torch import _build
 from dvo_slam_tpu_torch.config import TrackerConfig
 from dvo_slam_tpu_torch.ops import pyramid as pyr
 from dvo_slam_tpu_torch.ops import robust, sampler
@@ -73,15 +79,33 @@ _EPS = 1e-12
 LAUNCHES_LINEARIZE = 0
 LAUNCHES_TRACK_LEVEL = 0
 LAUNCHES_BY_BATCH = {}
+# Calls of prepare_reference since the last reset (a plain integer): the
+# slab route makes none.
+PREPARE_REFERENCE_CALLS = 0
 
-# Layouts of the kernel's outputs (csrc/linearize.cu kOut* and kLevel*):
-# mode (a)'s Linearization vector; mode (b)'s row: the pose (16), the
-# tracker's record of the last accepted linearization (50), then the
-# statistics (4, max_iterations).
+# Layouts of the kernel's outputs (csrc/linearize.cu kOut*, kLevel* and
+# kExtra*): mode (a)'s Linearization vector; mode (b)'s row: the pose (16),
+# the log-likelihood of the level's record (right after the pose: one view
+# holds both, ``dense_tracker.pose_and_loglik``), the tracker's record of
+# the last accepted linearization (50), the statistics (5,
+# max_iterations: valid, error, delta_norm, accepted, and zeros for the
+# TPU sampler's window misses), then the extras: the level's selected
+# count and the track result's entropy and valid ratio from the level's
+# record (the finest level's are the result's).
 _OUT_SIZE = 51
-_LEVEL_T, _LEVEL_BEST, _LEVEL_STATS = 0, 16, 66
+_LEVEL_T, _LEVEL_LOGLIK, _LEVEL_BEST, _LEVEL_STATS = 0, 16, 17, 67
+_STAT_PLANES = 5
+_EXTRA_SELECTED, _EXTRA_ENTROPY, _EXTRA_RATIO = 0, 1, 2
+_EXTRA_SIZE = 3
 # Clusters of at most 16 CTAs (a non-portable size on Hopper).
 _MAX_CLUSTER = 16
+# Reference slabs passed by row pointer (csrc/linearize.cu kMaxRefRows).
+_MAX_REF_ROWS = 32
+
+
+def level_row_size(max_iterations: int) -> int:
+    """Floats of one row of mode (b)'s output."""
+    return _LEVEL_STATS + _STAT_PLANES * max_iterations + _EXTRA_SIZE
 
 
 class RefData(NamedTuple):
@@ -98,6 +122,31 @@ class RefData(NamedTuple):
     giy: Optional[torch.Tensor] = None
     gzx: Optional[torch.Tensor] = None
     gzy: Optional[torch.Tensor] = None
+
+
+class RefSlabs(NamedTuple):
+    """A level's reference as its (6, H, W) slabs, for the slab route: the
+    kernels compute each point (back-projection, selection, reference
+    gradients) from the slab, as ``prepare_reference`` does. ``rows``: a
+    (B, 6, H, W) tensor whose rows are contiguous (row b at a stride, 0
+    repeating one slab), or a sequence of B (6, H, W) contiguous tensors
+    (at most 32: row pointers, no stack)."""
+
+    rows: object
+
+    def stacked(self):
+        """The rows as one (B, 6, H, W) tensor (a stack of a sequence)."""
+        r = self.rows
+        return r if isinstance(r, torch.Tensor) else torch.stack(list(r))
+
+
+def reference_points(ref, K, cfg: TrackerConfig) -> RefData:
+    """A level's reference as (B, N) points: ``ref`` itself, or
+    ``prepare_reference`` of a RefSlabs' rows (the slab route's plain
+    version)."""
+    if isinstance(ref, RefSlabs):
+        return prepare_reference(ref.stacked(), K, cfg)
+    return ref
 
 
 class Residuals(NamedTuple):
@@ -160,6 +209,8 @@ def prepare_reference(ref_slab, K, cfg: TrackerConfig,
     rows start there, models/dense_tracker.py). With
     ``cfg.point_budget_fraction > 0`` the points are compacted to
     ``compact_budget`` slots (the same budget for every row of a batch)."""
+    global PREPARE_REFERENCE_CALLS
+    PREPARE_REFERENCE_CALLS += 1
     H, W = ref_slab.shape[-2:]
     lead = ref_slab.shape[:-3]
     dtype, device = ref_slab.dtype, ref_slab.device
@@ -444,6 +495,13 @@ def kernel_route(cfg: TrackerConfig) -> bool:
     return cfg.use_weighting and cfg.scale_estimator == "tdist"
 
 
+def slab_route(cfg: TrackerConfig) -> bool:
+    """True where the kernels may take a level's reference as its slabs
+    (``RefSlabs``): ``kernel_route``'s configs without point compaction
+    (compacted points need ``prepare_reference``'s gather)."""
+    return kernel_route(cfg) and cfg.point_budget_fraction == 0.0
+
+
 def pixel_route(group) -> bool:
     """True where the tracker runs a pixel-sharded level (reference rows
     split over the ranks of the ``torch.distributed`` process group
@@ -505,7 +563,8 @@ def linearize_batched(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
     slab shared by every row or (B, 6, H, W), one per row. Returns a
     Linearization whose every field has a leading B. Off the kernels'
     route each row runs ``linearize_reference``; a CUDA slab still gathers
-    with the sampler kernel there, a CPU slab with the plain sampler."""
+    with the sampler kernel there, a CPU slab with the plain sampler.
+    ``ref`` may be ``RefSlabs`` on ``slab_route(cfg)``."""
     _check_device(cur_slab)
     if cur_slab.device.type == "cuda" and kernel_route(cfg):
         return linearize_kernels_batched(ref, cur_slab, K, T, cfg,
@@ -522,6 +581,7 @@ def linearize_batched_reference(ref: RefData, cur_slab, K, T,
     """``linearize_batched`` in plain PyTorch: ``linearize_reference`` row
     by row, stacked (the plain version of the batched kernels); ``group``
     as in ``linearize_reference``."""
+    ref = reference_points(ref, K, cfg)
     paired = cur_slab.dim() == 4
     rows = [linearize_reference(
         RefData(*(None if f is None else f[b] for f in ref)),
@@ -558,76 +618,102 @@ def kernel_residuals(device, N, B=None):
     return rI, rZ, valid
 
 
-def _check(ref: RefData, cur_slab, K, T):
+def _check(ref, cur_slab, K, T):
+    """Raise on inputs the kernels do not take; returns (B, N)."""
     H, W = cur_slab.shape[-2:]
     if H < 2 or W < 2:
         raise ValueError(f"want a slab of H, W >= 2, got {H}x{W}")
-    for name, t in (("cur_slab", cur_slab), ("K", K), ("T", T),
-                    ("ref.px", ref.px)):
+    B = T.shape[0]
+    if isinstance(ref, RefSlabs):
+        rows = (list(ref.rows) if not isinstance(ref.rows, torch.Tensor)
+                else [ref.rows[b] for b in range(ref.rows.shape[0])])
+        if isinstance(ref.rows, torch.Tensor) and ref.rows.dim() != 4:
+            raise ValueError("want (B, 6, H, W) reference slabs")
+        if len(rows) != B or (not isinstance(ref.rows, torch.Tensor)
+                              and B > _MAX_REF_ROWS):
+            raise ValueError(f"{len(rows)} reference slabs for {B} rows (a "
+                             f"sequence takes at most {_MAX_REF_ROWS})")
+        for r in rows:
+            if tuple(r.shape) != (pyr.NUM_CHANNELS, H, W) or (
+                    not r.is_contiguous()):
+                raise ValueError(f"want contiguous ({pyr.NUM_CHANNELS}, {H}, "
+                                 f"{W}) reference slabs, got "
+                                 f"{tuple(r.shape)}")
+        named = [("reference slab", r) for r in rows]
+        N = H * W
+    else:
+        named = [("ref.px", ref.px)]
+        if ref.px.dim() != 2 or ref.px.shape[0] != B:
+            raise ValueError(f"want (B, N) reference points for {B} rows, got "
+                             f"{tuple(ref.px.shape)}")
+        if not all(f is None or f.is_contiguous() for f in ref):
+            raise ValueError("the reference points must be contiguous")
+        N = ref.px.shape[1]
+    for name, t in (("cur_slab", cur_slab), ("K", K), ("T", T), *named):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != cur_slab.device:
             raise ValueError(f"{name} on {t.device}, slab on "
                              f"{cur_slab.device}")
-    B = T.shape[0]
-    if T.shape != (B, 4, 4) or ref.px.dim() != 2 or ref.px.shape[0] != B:
-        raise ValueError(f"want T (B, 4, 4) and (B, N) reference points, got "
-                         f"{tuple(T.shape)} and {tuple(ref.px.shape)}")
+    if T.shape != (B, 4, 4) or T[0].stride() != (4, 1):
+        raise ValueError(f"want T (B, 4, 4), each row contiguous, got "
+                         f"{tuple(T.shape)}")
     if cur_slab.dim() == 4 and cur_slab.shape[0] != B:
         raise ValueError(f"{cur_slab.shape[0]} current slabs for {B} rows")
-    if not all(f is None or f.is_contiguous() for f in ref):
-        raise ValueError("the reference points must be contiguous")
     if not cur_slab.is_contiguous():
         raise ValueError("cur_slab must be contiguous")
+    return B, N
 
 
-def _kernel_args(ref: RefData, cur_slab, K, T, cfg: TrackerConfig):
-    """The arguments the two entry points of csrc/linearize.cu share, from
-    B to warm_iters, after the checks."""
+def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig):
+    """The arguments of the two entry points of csrc/linearize.cu after
+    the checks: ``(B, N, refs, scale, table)``, refs from B to K, scale
+    from use_depth to warm_iters (T goes between them), and the ctypes
+    array of the slab route's row pointers, which must live until the
+    launch."""
     if not kernel_route(cfg):
         raise ValueError("the linearization kernel covers the "
                          "t-distribution scale estimator only")
-    _check(ref, cur_slab, K, T)
+    B, N = _check(ref, cur_slab, K, T)
     C, H, W = cur_slab.shape[-3:]
-    B, N = ref.px.shape
     ref_grad = cfg.gradient_source == "reference"
     if C < ((2 if cfg.use_depth else 1) if ref_grad else 6):
         raise ValueError(f"the slab has {C} channels, too few for {cfg}")
-    return (
-        B, ref.px.data_ptr(), ref.py.data_ptr(), ref.pz.data_ptr(),
-        ref.i1.data_ptr(), ref.selected.data_ptr(),
-        ref.gix.data_ptr() if ref_grad else None,
-        ref.giy.data_ptr() if ref_grad else None,
-        ref.gzx.data_ptr() if ref_grad and cfg.use_depth else None,
-        ref.gzy.data_ptr() if ref_grad and cfg.use_depth else None,
-        # Row b's slab starts b * stride floats in; 0 shares one slab.
-        N, cur_slab.data_ptr(), C * H * W if cur_slab.dim() == 4 else 0, H, W,
-        K.data_ptr(), T.data_ptr(), int(cfg.use_depth), int(ref_grad),
-        cfg.tdist_dof, cfg.min_intensity_sigma**2, cfg.min_depth_sigma**2,
-        cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters)
-
-
-def _launch(name, device, args):
-    """Call the entry point `name` of the kernel library with `args` and
-    the current stream of `device` (made the current device around the
-    call); raise with the CUDA error if it did not launch."""
-    from dvo_slam_tpu_torch import _build
-
-    lib = _build.load()
-    # The ctypes launch runs in the current CUDA context: make it the slab's.
-    with torch.cuda.device(device):
-        rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} failed: "
-                           f"{lib.dvo_error_string(rc).decode()} (CUDA "
-                           f"error {rc})")
+    if isinstance(ref, RefSlabs):
+        if not slab_route(cfg):
+            raise ValueError("the slab route does not take point compaction")
+        if isinstance(ref.rows, torch.Tensor):
+            table = (ctypes.c_void_p * 1)(ref.rows.data_ptr())
+            stride, by_table = ref.rows.stride(0), 0
+        else:
+            table = (ctypes.c_void_p * B)(*(r.data_ptr() for r in ref.rows))
+            stride, by_table = 0, 1
+        points = (None,) * 9 + (table, stride, by_table,
+                                cfg.intensity_grad_threshold,
+                                cfg.depth_grad_threshold)
+    else:
+        table = None
+        points = (
+            ref.px.data_ptr(), ref.py.data_ptr(), ref.pz.data_ptr(),
+            ref.i1.data_ptr(), ref.selected.data_ptr(),
+            ref.gix.data_ptr() if ref_grad else None,
+            ref.giy.data_ptr() if ref_grad else None,
+            ref.gzx.data_ptr() if ref_grad and cfg.use_depth else None,
+            ref.gzy.data_ptr() if ref_grad and cfg.use_depth else None,
+            None, 0, 0, 0.0, 0.0)
+    refs = (B, *points,
+            # Row b's slab starts b * stride floats in; 0 shares one slab.
+            N, cur_slab.data_ptr(), C * H * W if cur_slab.dim() == 4 else 0,
+            H, W, K.data_ptr())
+    scale = (int(cfg.use_depth), int(ref_grad), cfg.tdist_dof,
+             cfg.min_intensity_sigma**2, cfg.min_depth_sigma**2,
+             cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters)
+    return B, N, refs, scale, table
 
 
 def level_plan(device, N):
     """``(C, points per CTA, kept in shared memory, dynamic shared memory
     bytes per CTA)`` of a launch over N points on ``device``."""
-    from dvo_slam_tpu_torch import _build
-
     C = cluster_size(N)
     out = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
@@ -665,29 +751,40 @@ class LevelResult(NamedTuple):
 
 
 def unpack_level(out, out_i, max_iterations) -> LevelResult:
-    """Mode (b)'s outputs from its (B, 66 + 4 max_iterations) float and
-    (B, 2) int32 tensors (csrc/linearize.cu's kLevel* offsets)."""
-    B = out.shape[0]
-    stats = out[:, _LEVEL_STATS:].view(B, 4, max_iterations)
+    """Mode (b)'s outputs from its (..., level_row_size) float and (..., 2)
+    int32 tensors (csrc/linearize.cu's kLevel* offsets; the statistics'
+    first four planes)."""
+    M = max_iterations
+    stats = out[..., _LEVEL_STATS:_LEVEL_STATS + 4 * M].unflatten(-1, (4, M))
     return LevelResult(
-        T=out[:, _LEVEL_T:_LEVEL_BEST].view(B, 4, 4),
-        best=out[:, _LEVEL_BEST:_LEVEL_STATS], valid=stats[:, 0],
-        error=stats[:, 1], delta_norm=stats[:, 2], accepted=stats[:, 3] != 0,
-        iterations=out_i[:, 0], termination=out_i[:, 1])
+        T=out[..., _LEVEL_T:_LEVEL_LOGLIK].unflatten(-1, (4, 4)),
+        best=out[..., _LEVEL_BEST:_LEVEL_STATS], valid=stats[..., 0, :],
+        error=stats[..., 1, :], delta_norm=stats[..., 2, :],
+        accepted=stats[..., 3, :] != 0, iterations=out_i[..., 0],
+        termination=out_i[..., 1])
 
 
-def linearize_kernels_batched(ref: RefData, cur_slab, K, T,
-                              cfg: TrackerConfig, sigma_init=None,
+def _rows_of(T):
+    """T (B, 4, 4) with contiguous rows, and its row stride in floats (a
+    strided view, such as the last level's poses in mode (b)'s output,
+    is passed as it is)."""
+    if T.stride()[1:] != (4, 1):
+        T = T.contiguous()
+    return T, T.stride(0)
+
+
+def linearize_kernels_batched(ref, cur_slab, K, T, cfg: TrackerConfig,
+                              sigma_init=None,
                               sigma_warm=False) -> Linearization:
     """``linearize_batched`` on the card through mode (a) of
     csrc/linearize.cu, for the t-distribution branch: one launch of one
     cluster per row on the current stream of the slab's device, with no
-    host sync. ``sigma_warm`` is one host bool for the whole batch (all
-    rows enter a level together)."""
+    host sync. ``ref``: RefData, or RefSlabs (the slab route).
+    ``sigma_warm`` is one host bool for the whole batch (all rows enter a
+    level together)."""
     global LAUNCHES_LINEARIZE
     K, T = K.contiguous(), T.contiguous()
-    args = _kernel_args(ref, cur_slab, K, T, cfg)
-    B, N = ref.px.shape
+    B, N, refs, scale, _table = _kernel_args(ref, cur_slab, K, T, cfg)
     warm = (sigma_init is not None and cfg.tdist_scale_warm_iters > 0
             and bool(sigma_warm))
     if warm:
@@ -702,8 +799,9 @@ def linearize_kernels_batched(ref: RefData, cur_slab, K, T,
             torch.empty((B, N), dtype=torch.float32, device=dev),
             torch.empty((B, N), dtype=torch.bool, device=dev))
     out = torch.empty((B, _OUT_SIZE), dtype=torch.float32, device=dev)
-    _launch("dvo_linearize", dev, (
-        *args, sigma_init.data_ptr() if warm else None, int(warm),
+    _build.launch("dvo_linearize", dev, (
+        *refs, T.data_ptr(), *scale,
+        sigma_init.data_ptr() if warm else None, int(warm),
         cluster_size(N), out.data_ptr(), *(t.data_ptr() for t in res)))
     LAUNCHES_LINEARIZE += 1
     LAUNCHES_BY_BATCH[("linearize", B)] = (
@@ -711,33 +809,54 @@ def linearize_kernels_batched(ref: RefData, cur_slab, K, T,
     return unpack_linearization(out)
 
 
-def track_level_kernels(ref: RefData, cur_slab, K, T_init,
-                        cfg: TrackerConfig):
+def loglik_constant(nu: float) -> float:
+    """lgamma((nu + 2) / 2) - lgamma(nu / 2) - log(nu pi): the part of the
+    bivariate t log-likelihood's normaliser that depends on the degrees of
+    freedom only (``tdist_loglik``), in f64 on the host."""
+    return (math.lgamma((nu + 2.0) / 2.0) - math.lgamma(nu / 2.0)
+            - math.log(nu * math.pi))
+
+
+def track_level_kernels(ref, cur_slab, K, T_init, cfg: TrackerConfig,
+                        out=None, out_i=None):
     """A pyramid level's IRLS loop for B rows on the card: mode (b) of
     csrc/linearize.cu, one launch of one cluster per row on the current
     stream of the slab's device, no host sync. Arguments as
-    ``linearize_batched`` (T_init (B, 4, 4)). Returns mode (b)'s raw
-    outputs ``(out (B, 66 + 4 max_iterations) f32, out_i (B, 2) int32)``
-    for ``unpack_level``."""
+    ``linearize_batched`` (``ref`` RefData or RefSlabs; T_init (B, 4, 4),
+    its rows contiguous, at any row stride). Writes, and returns, mode
+    (b)'s raw outputs ``(out (B, level_row_size) f32, out_i (B, 2) int32)``
+    for ``unpack_level``: new tensors, or the given ones (views whose rows
+    are contiguous, at any row stride: a level's slot in a buffer of all
+    levels). Each row holds the log-likelihood of the level's record at
+    ``_LEVEL_LOGLIK`` and ends with the extras (``_EXTRA_*``): the
+    selected count and the entropy and valid ratio of that record."""
     global LAUNCHES_TRACK_LEVEL
     if not level_route(cfg):
         raise ValueError("the level kernel covers level_route's configs "
                          "only (the t-distribution, mu == 0)")
     if cfg.max_iterations < 1:
         raise ValueError("the level kernel needs max_iterations >= 1")
-    K, T_init = K.contiguous(), T_init.contiguous()
-    args = _kernel_args(ref, cur_slab, K, T_init, cfg)
-    B, N = ref.px.shape
+    K = K.contiguous()
+    T_init, T_stride = _rows_of(T_init)
+    B, N, refs, scale, _table = _kernel_args(ref, cur_slab, K, T_init, cfg)
     dev = cur_slab.device
-    out = torch.empty((B, _LEVEL_STATS + 4 * cfg.max_iterations),
-                      dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    S = level_row_size(cfg.max_iterations)
+    if out is None:
+        out = torch.empty((B, S), dtype=torch.float32, device=dev)
+        out_i = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    for t, size, dtype in ((out, S, torch.float32), (out_i, 2, torch.int32)):
+        if (t.shape != (B, size) or t.stride(1) != 1 or t.dtype != dtype
+                or t.device != dev):
+            raise ValueError(f"want a ({B}, {size}) {dtype} output with "
+                             f"contiguous rows on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     use_lm = cfg.lm_lambda_init > 0.0
-    _launch("dvo_track_level", dev, (
-        *args, cfg.max_iterations, cfg.precision,
-        cfg.lm_lambda_init if use_lm else 0.0, cfg.lm_lambda_up,
-        cfg.lm_lambda_down, cfg.lm_lambda_max, cluster_size(N),
-        out.data_ptr(), out_i.data_ptr()))
+    _build.launch("dvo_track_level", dev, (
+        *refs, T_init.data_ptr(), T_stride, *scale, cfg.max_iterations,
+        cfg.precision, cfg.lm_lambda_init if use_lm else 0.0,
+        cfg.lm_lambda_up, cfg.lm_lambda_down, cfg.lm_lambda_max,
+        cluster_size(N), out.data_ptr(), out.stride(0), out_i.data_ptr(),
+        out_i.stride(0), loglik_constant(cfg.tdist_dof)))
     LAUNCHES_TRACK_LEVEL += 1
     LAUNCHES_BY_BATCH[("track_level", B)] = (
         LAUNCHES_BY_BATCH.get(("track_level", B), 0) + 1)

@@ -94,16 +94,19 @@ def _watched(fn, slam_cfg=SLAM):
     return out
 
 
-def _assert_result_like(got, want):
-    assert got.num_frames == want.num_frames
-    assert got.num_keyframes == want.num_keyframes
-    assert got.num_loop_edges == want.num_loop_edges
+def _assert_result_like(got, want, why=""):
+    """``why``: what the runs' comparison shows, put in every failure's
+    message."""
+    assert got.num_frames == want.num_frames, why
+    assert got.num_keyframes == want.num_keyframes, why
+    assert got.num_loop_edges == want.num_loop_edges, why
     for field, atol in (("ate_rmse_m", ATOL), ("rpe_trans_m", ATOL),
                         ("rpe_rot_rad", RPE_ROT_ATOL)):
         a, b = getattr(got, field), getattr(want, field)
-        assert (a is None) == (b is None), field
+        assert (a is None) == (b is None), f"{field}; {why}"
         if a is not None:
-            np.testing.assert_allclose(a, b, atol=atol, err_msg=field)
+            np.testing.assert_allclose(a, b, atol=atol,
+                                       err_msg=f"{field}; {why}")
     assert got.fps > 0 and got.elapsed_s > 0
     assert set(json.loads(got.to_json())) == set(json.loads(want.to_json()))
 
@@ -180,13 +183,28 @@ def test_run_tum_dataset_like_jax(seq_dir, tmp_path, mode):
     got = t_benchmark.run_tum_dataset(seq_dir, *_cfgs(), mode=mode,
                                       intrinsics=K_TUPLE,
                                       trajectory_out=got_traj, device="cpu")
-    _assert_result_like(got, want)
-    if mode == "slam":
-        assert got.num_keyframes >= 3 and got.num_loop_edges >= 1
     a, b = tum.read_trajectory(got_traj), tum.read_trajectory(want_traj)
-    assert [t for t, _ in a] == [t for t, _ in b] and len(a) == 16
+    why = _parting([T for _, T in a], [T for _, T in b], got, want)
+    _assert_result_like(got, want, why)
+    if mode == "slam":
+        assert got.num_keyframes >= 3 and got.num_loop_edges >= 1, why
+    assert [t for t, _ in a] == [t for t, _ in b] and len(a) == 16, why
     for (_, Ta), (_, Tb) in zip(a, b):
-        np.testing.assert_allclose(Ta, Tb, atol=ATOL)
+        np.testing.assert_allclose(Ta, Tb, atol=ATOL, err_msg=why)
+
+
+def _parting(port, jax, got, want):
+    """Where a port run and a JAX run part, for a failure's message: the
+    largest entry deviation of their poses, its frame, and each side's
+    keyframe and loop-edge counts."""
+    dev = [float(np.abs(np.asarray(a) - np.asarray(b)).max())
+           for a, b in zip(port, jax)]
+    k = int(np.argmax(dev)) if dev else -1
+    return (f"largest pose deviation {max(dev, default=float('nan')):.3e} "
+            f"at frame {k} (atol {ATOL:g}; {len(port)} / {len(jax)} poses);"
+            f" keyframes port {got.num_keyframes}, JAX {want.num_keyframes};"
+            f" loop edges port {got.num_loop_edges}, JAX "
+            f"{want.num_loop_edges}")
 
 
 FLOAT_FIELDS = ("t", "entropy", "entropy_ratio", "valid_ratio",

@@ -301,12 +301,21 @@ def test_keyframe_slam_at_budget_like_jax():
         convert.slam_config_from_fields(dataclasses.asdict(SLAM)),
         enable_loop_closure=True, device="cpu")
     _, t_traj = _drive(t_slam, frames, poses, _every_second)
+    # What the runs show, in every failure's message: the largest pose
+    # deviation, its frame, each side's keyframes and loop edges.
+    dev = [float(np.abs(np.asarray(a) - np.asarray(b)).max())
+           for a, b in zip(t_traj, j_traj)]
+    why = (f"largest pose deviation {max(dev):.3e} at frame "
+           f"{int(np.argmax(dev))} (atol {TRAJ_ATOL:g}); keyframes port "
+           f"{[k.idx for k in t_slam.keyframes]}, JAX "
+           f"{[k.idx for k in j_slam.keyframes]}; loop edges port "
+           f"{t_slam.num_loop_edges}, JAX {j_slam.num_loop_edges}")
     assert ([k.idx for k in t_slam.keyframes]
-            == [k.idx for k in j_slam.keyframes])
-    assert _edges(t_slam) == _edges(j_slam)
-    assert t_slam.num_loop_edges == j_slam.num_loop_edges >= 1
+            == [k.idx for k in j_slam.keyframes]), why
+    assert _edges(t_slam) == _edges(j_slam), why
+    assert t_slam.num_loop_edges == j_slam.num_loop_edges >= 1, why
     for a, b in zip(t_traj, j_traj):
-        np.testing.assert_allclose(a, b, atol=TRAJ_ATOL)
+        np.testing.assert_allclose(a, b, atol=TRAJ_ATOL, err_msg=why)
     assert evaluate.ate_rmse(t_traj, poses) < 5e-3
 
 

@@ -1,0 +1,391 @@
+"""The frame's front of the port on the CPU: the pyramid, the reference
+points the level kernel's slab route mirrors, and the track result the
+level launches write, against the JAX package and against the port's own
+eager front.
+
+Small sizes (80x60 and 82x61), inputs from numpy seeds. Tolerances:
+prepare_reference against the JAX package rtol 1e-6 on the point
+coordinates (the same f32 operations in the same order; XLA may fold
+a division into a product with the reciprocal) and the selection, the
+intensities and the gradients exact; the assembled TrackResult of the
+port's plain route against the JAX ``track`` as tests/test_torch_tracker.py
+holds it (f32 IRLS on both sides, reductions in another order): the
+transformation atol 1e-4, iterations per level within 1, valid pixels
+within 2, log-likelihood, entropy, valid ratio and the levels' errors
+rtol 1e-3. The kernel front's assembly (the views of the level launches'
+output) against the eager front on the same rows exactly: its launches
+are stood in for by the host loop packed in the kernel's layout, so both
+compute the same numbers.
+"""
+
+import dataclasses
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dvo_slam_tpu.config import TrackerConfig
+from dvo_slam_tpu.models import dense_tracker
+from dvo_slam_tpu.ops import camera, linearize, pyramid
+from dvo_slam_tpu.utils import se3_np, synthetic
+from dvo_slam_tpu_torch import convert
+from dvo_slam_tpu_torch.models import dense_tracker as t_dense_tracker
+from dvo_slam_tpu_torch.ops import camera as t_camera
+from dvo_slam_tpu_torch.ops import linearize as t_linearize
+from dvo_slam_tpu_torch.ops import pyramid as t_pyramid
+
+W, H = 80, 60
+K_TUPLE = (40.0, 41.0, (W - 1) / 2, (H - 1) / 2)
+CONFIGS = {
+    "tdist": {},
+    "photometric": {"use_depth": False},
+    "reference_gradients": {"gradient_source": "reference"},
+    "tdist_warm": {"tdist_scale_warm_iters": 2},
+}
+THRESHOLDS = {"off": {}, "on": {"intensity_grad_threshold": 2.0,
+                                "depth_grad_threshold": 0.01}}
+CFG4 = TrackerConfig(num_levels=4, first_level=3, last_level=0)
+SRC = Path(t_linearize.__file__).parents[1] / "csrc"
+
+
+def _port_cfg(cfg):
+    return convert.tracker_config_from_fields(dataclasses.asdict(cfg))
+
+
+@pytest.fixture(scope="module")
+def frames():
+    """Four noisy 80x60 frames of the orbit (3 % depth dropout) and their
+    poses."""
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    poses = synthetic.orbit_trajectory(8, radius=0.05)
+    rng = np.random.default_rng(7)
+    return [synthetic.add_sensor_noise(
+        *scene.render(np.asarray(K_TUPLE), W, H, T), rng, dropout=0.03)
+        for T in poses[:4]], poses
+
+
+def _port_pyramids(frames, levels):
+    return [t_pyramid.build_pyramid(torch.from_numpy(i), torch.from_numpy(z),
+                                    levels) for i, z in frames]
+
+
+@pytest.mark.parametrize("thresholds", sorted(THRESHOLDS))
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_prepare_reference_like_jax(frames, name, thresholds):
+    """prepare_reference, the per-point computation the level kernel's
+    slab route repeats, over the rows of a batch against the JAX
+    package's, row by row."""
+    cfg = TrackerConfig(**CONFIGS[name], **THRESHOLDS[thresholds])
+    imgs, _ = frames
+    K = camera.intrinsics(*K_TUPLE)
+    t_K = t_camera.intrinsics(*K_TUPLE, device="cpu")
+    rows = torch.stack([p[0] for p in _port_pyramids(imgs[:3], 1)])
+    got = t_linearize.prepare_reference(rows, t_K, _port_cfg(cfg))
+    for b, (i, z) in enumerate(imgs[:3]):
+        slab = pyramid.build_pyramid(jnp.asarray(i), jnp.asarray(z), 1)[0]
+        want = linearize.prepare_reference(slab, K, cfg)
+        for field in want._fields:
+            w = getattr(want, field)
+            g = getattr(got, field)
+            if w is None:
+                assert g is None, field
+                continue
+            w, g = np.asarray(w), g[b].numpy()
+            if field in ("px", "py", "pz"):
+                np.testing.assert_allclose(g, w, rtol=1e-6, atol=0.0,
+                                           err_msg=field)
+            else:
+                np.testing.assert_array_equal(g, w, err_msg=field)
+        if thresholds == "on":
+            n = int(got.selected[b].sum())
+            assert 0 < n < H * W
+
+
+def _jax_track(pair, cfg):
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K_TUPLE),
+                                   cfg.num_levels)
+    pyr = [pyramid.build_pyramid(jnp.asarray(i), jnp.asarray(z),
+                                 cfg.num_levels) for i, z in pair]
+    return dense_tracker.track_jit(pyr[0], pyr[1], Ks,
+                                   jnp.eye(4, dtype=jnp.float32), cfg)
+
+
+def test_track_result_like_jax():
+    """The TrackResult the port's plain route assembles (loglik, entropy,
+    valid ratio, iterations, the levels' errors, the per-iteration
+    statistics) against the JAX ``track`` at 80x60 with 4 levels, every
+    level tracked."""
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    xi = np.array([0.01, -0.008, 0.006, 0.004, -0.003, 0.005])
+    pair = [scene.render(np.asarray(K_TUPLE), W, H, T)
+            for T in (np.eye(4), se3_np.inverse(se3_np.exp(xi)))]
+    want = _jax_track(pair, CFG4)
+    cfg = _port_cfg(CFG4)
+    t_Ks = t_camera.pyramid_intrinsics(
+        t_camera.intrinsics(*K_TUPLE, device="cpu"), cfg.num_levels)
+    pyrs = _port_pyramids(pair, cfg.num_levels)
+    got = convert.result_to_numpy(t_dense_tracker.track(
+        pyrs[0], pyrs[1], t_Ks, torch.eye(4), cfg))
+    np.testing.assert_allclose(got.transformation,
+                               np.asarray(want.transformation), atol=1e-4)
+    its, its_w = got.iterations, np.asarray(want.iterations)
+    assert its.shape == (4,) and np.abs(its - its_w).max() <= 1
+    assert abs(float(got.valid_pixels) - float(want.valid_pixels)) <= 2
+    for field in ("log_likelihood", "entropy", "valid_ratio"):
+        np.testing.assert_allclose(getattr(got, field),
+                                   np.asarray(getattr(want, field)),
+                                   rtol=1e-3, err_msg=field)
+    same = its == its_w
+    np.testing.assert_allclose(got.level_errors[same],
+                               np.asarray(want.level_errors)[same], rtol=1e-3)
+    s, ws = got.stats, want.stats
+    assert s.valid.shape == (4, cfg.max_iterations)
+    for lvl in np.flatnonzero(same):
+        n = its[lvl]
+        assert int(s.termination[lvl]) == int(ws.termination[lvl])
+        np.testing.assert_array_equal(s.accepted[lvl],
+                                      np.asarray(ws.accepted[lvl]))
+        assert np.abs(s.valid[lvl, :n]
+                      - np.asarray(ws.valid[lvl, :n])).max() <= 2
+        assert not s.valid[lvl, n:].any()
+    np.testing.assert_array_equal(s.window_miss, 0.0)
+
+
+def test_build_pyramid_on_cpu_never_reaches_the_kernel(frames, monkeypatch):
+    """CPU tensors take the plain version, for every input encoding, and
+    never the kernel's wrapper."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the kernel's wrapper was called")
+
+    monkeypatch.setattr(t_pyramid, "build_pyramid_kernel", refuse)
+    before = t_pyramid.LAUNCHES_PYRAMID
+    i, z = frames[0][0]
+    i8 = np.clip(np.round(i), 0, 255).astype(np.uint8)
+    z16 = np.where(np.isfinite(z), np.round(z * 5000), 0).astype(np.uint16)
+    for a, b in ((i, z), (i8, z16), (i8, t_pyramid.pack_depth12(z16))):
+        got = t_pyramid.build_pyramid(torch.from_numpy(a), torch.from_numpy(b),
+                                      4)
+        want = t_pyramid.build_pyramid_reference(torch.from_numpy(a),
+                                                 torch.from_numpy(b), 4)
+        for g, w in zip(got, want):
+            assert torch.equal(g.nan_to_num(-7.0), w.nan_to_num(-7.0))
+    assert t_pyramid.LAUNCHES_PYRAMID == before
+
+
+@pytest.mark.parametrize("case", ["f64 intensity", "u16 depth shape",
+                                  "i32 depth", "packed odd width",
+                                  "levels", "not on a card"])
+def test_build_pyramid_kernel_rejects(case):
+    """What the pyramid kernel does not take raises in its wrapper, before
+    any launch (here, without a card, the input checks themselves)."""
+    i = torch.rand(H, W) * 255
+    z = torch.rand(H, W) + 0.5
+    levels, err = 4, TypeError
+    if case == "f64 intensity":
+        i = i.double()
+    elif case == "u16 depth shape":
+        z = (z * 5000).to(torch.uint16)[:, :-1]
+    elif case == "i32 depth":
+        z = (z * 5000).to(torch.int32)
+    elif case == "packed odd width":
+        i = i[:, :-1]
+        z = torch.zeros(H, 3 * ((W - 1) // 2), dtype=torch.uint8)
+    elif case == "levels":
+        levels, err = 7, ValueError
+    else:
+        err = ValueError
+    with pytest.raises(err):
+        t_pyramid.build_pyramid_kernel(i, z, levels)
+
+
+@pytest.mark.parametrize("size", [(80, 60), (82, 61), (81, 47)])
+def test_level_shapes(size):
+    w, h = size
+    got = t_pyramid.build_pyramid(torch.rand(h, w), torch.rand(h, w), 5)
+    assert [tuple(x.shape[1:]) for x in got] == t_pyramid.level_shapes(h, w,
+                                                                        5)
+
+
+def test_front_route():
+    """The kernel front: a CUDA device, the level kernel's configs, no
+    compaction (decided from the config and device alone)."""
+    cfg = _port_cfg(TrackerConfig())
+    route = t_dense_tracker.front_route
+    assert route(cfg, "cuda") and route(cfg, torch.device("cuda", 1))
+    assert not route(cfg, "cpu")
+    for over in ({"scale_estimator": "mad"}, {"use_weighting": False},
+                 {"mu": 0.1}, {"point_budget_fraction": 0.5}):
+        assert not route(dataclasses.replace(cfg, **over), "cuda"), over
+    assert route(dataclasses.replace(cfg, intensity_grad_threshold=1.0),
+                 "cuda")
+
+
+def test_slab_route_kernel_args(frames):
+    """The slab route's launch arguments (built without a launch): a
+    stacked tensor by its row stride (0 for one slab repeated), a sequence
+    by row pointers; the gradient thresholds from the config; and what it
+    refuses."""
+    cfg = _port_cfg(dataclasses.replace(CFG4, intensity_grad_threshold=1.5,
+                                        depth_grad_threshold=0.02))
+    pyrs = _port_pyramids(frames[0][:3], 2)
+    K = t_camera.intrinsics(*K_TUPLE, device="cpu")
+    cur = pyrs[2][0]
+    stacked = torch.stack([pyrs[0][0], pyrs[1][0]])
+    T = torch.eye(4).expand(2, 4, 4)
+    for rows, table, stride in (
+            (stacked, 0, 6 * H * W), (pyrs[0][0].expand(2, 6, H, W), 0, 0),
+            ((pyrs[0][0], pyrs[1][0]), 1, 0)):
+        B, N, refs, _, ptrs = t_linearize._kernel_args(
+            t_linearize.RefSlabs(rows), cur, K, T, cfg)
+        assert (B, N) == (2, H * W) and refs[1:10] == (None,) * 9
+        assert refs[11:15] == (stride, table, 1.5, 0.02)
+        first = (rows[0] if table else rows).data_ptr()
+        assert ptrs[0] == first
+        if table:
+            assert ptrs[1] == rows[1].data_ptr()
+    bad = [
+        (tuple([pyrs[0][0]] * 33), torch.eye(4).expand(33, 4, 4), cfg),
+        (stacked[:, :, :-1], T, cfg),
+        (stacked[:, :4], T, cfg),
+        ((pyrs[0][0],), T, cfg),
+        (stacked, T, dataclasses.replace(cfg, point_budget_fraction=0.5)),
+    ]
+    for rows, T_b, c in bad:
+        with pytest.raises(ValueError):
+            t_linearize._kernel_args(t_linearize.RefSlabs(rows), cur, K, T_b,
+                                     c)
+
+
+def _stand_in_level_kernels(ref, cur, K, T, cfg, out=None, out_i=None):
+    """track_level_kernels on the CPU: the host loop over the plain
+    linearization, packed in mode (b)'s row layout, and the extras
+    computed by the eager assembly's functions."""
+    rd = t_linearize.reference_points(ref, K, cfg)
+    T_b, fin, st = t_dense_tracker._track_level(
+        rd, cur, K, T, cfg, linearize=t_linearize.linearize_batched_reference)
+    B, M = T_b.shape[0], cfg.max_iterations
+    valid, error, delta, accepted, term = st["per_iter"]
+    best = torch.cat([fin.A.reshape(B, 36), fin.b, fin.err_mean[:, None],
+                      fin.err_raw[:, None], fin.sigma.reshape(B, 4),
+                      fin.n_raw[:, None], fin.log1p_sum[:, None]], dim=1)
+    n_sel = rd.selected.sum(-1).float()
+    extras = torch.stack([
+        n_sel, t_dense_tracker.pose_entropy(fin.A),
+        fin.n_raw / torch.clamp(n_sel, min=1.0)], dim=1)
+    out[:] = torch.cat([T_b.reshape(B, 16),
+                        t_linearize.tdist_loglik(fin, cfg)[:, None], best,
+                        valid, error, delta, accepted.float(),
+                        torch.zeros(B, M), extras], dim=1)
+    out_i[:] = torch.stack([st["iterations"], term], dim=1)
+    return out, out_i
+
+
+@pytest.mark.parametrize("rows", ["B1", "B2_pointers", "B3_paired"])
+def test_kernel_front_assembly(frames, monkeypatch, rows):
+    """The kernel front's TrackResult (every field a view of the level
+    launches' output, each level starting from the pose the level above
+    wrote) against the eager front on the same rows, with the launches
+    stood in for on the CPU: every field equal."""
+    cfg = _port_cfg(dataclasses.replace(CFG4, max_iterations=6))
+    imgs, _ = frames
+    pyrs = _port_pyramids(imgs, cfg.num_levels)
+    B = int(rows[1])
+    Ks = t_camera.pyramid_intrinsics(
+        t_camera.intrinsics(*K_TUPLE, device="cpu"), cfg.num_levels)
+    refs = tuple((tuple(p[lvl] for p in pyrs[:B]) if rows == "B2_pointers"
+                  else torch.stack([p[lvl] for p in pyrs[:B]]))
+                 for lvl in range(cfg.num_levels))
+    curs = (tuple(torch.stack([p[lvl] for p in pyrs[1:B + 1]])
+                  for lvl in range(cfg.num_levels))
+            if rows.endswith("paired") else pyrs[3])
+    T0 = torch.eye(4).expand(B, 4, 4)
+    want = t_dense_tracker.track_batched(refs, curs, Ks, T0, cfg)
+    monkeypatch.setattr(t_linearize, "track_level_kernels",
+                        _stand_in_level_kernels)
+    got = t_dense_tracker._track_batched_kernels(refs, curs, Ks, T0, cfg)
+    for field, a, b in zip(got._fields, got, want):
+        if field == "stats":
+            for f, x, y in zip(a._fields, a, b):
+                assert x.dtype == y.dtype and torch.equal(x, y), f
+        else:
+            a, b = torch.as_tensor(a), torch.as_tensor(b)
+            assert a.shape == b.shape and a.dtype == b.dtype, field
+            assert torch.equal(a.nan_to_num(-7.0), b.nan_to_num(-7.0)), field
+    one = t_dense_tracker.row(got, 0)
+    both = t_dense_tracker.pose_and_loglik(one)
+    assert both.untyped_storage().data_ptr() == \
+        got.transformation.untyped_storage().data_ptr()
+    assert torch.equal(both[:16], one.transformation.reshape(16))
+    assert torch.equal(both[-1], one.log_likelihood)
+    eager = t_dense_tracker.pose_and_loglik(t_dense_tracker.row(want, 0))
+    assert eager.shape == both.shape == (17,)
+    assert torch.equal(eager, both)
+
+
+def _constants(path, names):
+    text = path.read_text()
+    got = {}
+    for name in names:
+        m = re.search(rf"\b{name} = (\d+)", text)
+        assert m, name
+        got[name] = int(m.group(1))
+    return got
+
+
+def test_kernel_sources_front_layout_match_python():
+    """The output layout and limits csrc/linearize.cu and csrc/pyramid.cu
+    use are the ones the wrappers read and check."""
+    lin = _constants(SRC / "linearize.cu", [
+        "kLevelLoglik", "kLevelStats", "kStatPlanes", "kExtraSelected",
+        "kExtraEntropy", "kExtraRatio", "kExtraSize", "kMaxRefRows"])
+    L = t_linearize
+    assert list(lin.values()) == [
+        L._LEVEL_LOGLIK, L._LEVEL_STATS, L._STAT_PLANES, L._EXTRA_SELECTED,
+        L._EXTRA_ENTROPY, L._EXTRA_RATIO, L._EXTRA_SIZE, L._MAX_REF_ROWS]
+    assert L.level_row_size(7) == 67 + 5 * 7 + 3
+    pyr = _constants(SRC / "pyramid.cu", ["kDepthF32", "kDepthU16",
+                                          "kDepthPacked12", "kMaxLevels"])
+    P = t_pyramid
+    assert list(pyr.values()) == [P._DEPTH_F32, P._DEPTH_U16,
+                                  P._DEPTH_PACKED12, P._MAX_LEVELS]
+
+
+def test_loglik_constant():
+    """The host constant of the kernel's log-likelihood is tdist_loglik's
+    normaliser without its Sigma term."""
+    cfg = _port_cfg(TrackerConfig())
+    sigma = torch.eye(2)  # det 1: log_norm is the constant itself
+    lin = t_linearize.Linearization(
+        A=torch.eye(6), b=torch.zeros(6), err_mean=torch.tensor(0.0),
+        n_valid=torch.tensor(1.0), n_raw=torch.tensor(1.0), sigma=sigma,
+        log1p_sum=torch.tensor(0.0), err_raw=torch.tensor(0.0))
+    np.testing.assert_allclose(float(t_linearize.tdist_loglik(lin, cfg)),
+                               t_linearize.loglik_constant(cfg.tdist_dof),
+                               rtol=1e-6)
+
+
+def test_pose_and_loglik_needs_them_side_by_side():
+    """``pose_and_loglik`` is one view of a pose and the log-likelihood
+    stored right after it; a result holding them apart raises."""
+    pose_ll = torch.arange(2 * 17, dtype=torch.float32).view(2, 17)
+    T, ll = pose_ll[:, :16].unflatten(-1, (4, 4)), pose_ll[:, 16]
+    res = t_dense_tracker.TrackResult(
+        transformation=T[1], information=torch.eye(6),
+        log_likelihood=ll[1], entropy=torch.tensor(0.0),
+        error=torch.tensor(0.0), sigma=torch.eye(2),
+        valid_pixels=torch.tensor(1.0), valid_ratio=torch.tensor(1.0),
+        iterations=torch.zeros(4, dtype=torch.int32),
+        level_errors=torch.zeros(4), stats=None,
+        window_miss_frac=torch.tensor(0.0), escalated=torch.tensor(False))
+    both = t_dense_tracker.pose_and_loglik(res)
+    assert torch.equal(both, pose_ll[1])
+    assert both.data_ptr() == pose_ll[1].data_ptr()
+    with pytest.raises(ValueError):
+        t_dense_tracker.pose_and_loglik(res._replace(
+            log_likelihood=ll[1].clone()))
+    with pytest.raises(ValueError):
+        t_dense_tracker.pose_and_loglik(res._replace(
+            log_likelihood=ll[0]))

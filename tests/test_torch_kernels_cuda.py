@@ -753,6 +753,9 @@ def test_keyframe_scan_on_card_matches_host_loop(cuda, monkeypatch):
                                                 force_keyframe=force)
     assert linearize.LAUNCHES_TRACK_LEVEL - before == \
         11 * len(cfg.tracked_levels)
+    # The eager front around the host loop over the plain linearization.
+    monkeypatch.setattr(dense_tracker, "front_route",
+                        lambda *args, **kwargs: False)
     monkeypatch.setattr(dense_tracker, "track_level", partial(
         dense_tracker._track_level,
         linearize=linearize.linearize_batched_reference))
@@ -986,13 +989,14 @@ def test_pixel_sharded_world_on_card_matches_single(cuda, orbit640):
     want = {"kernel": dense_tracker.track_batched(refs, curs, Ks, T0, cfg)}
     plain = functools.partial(linearize.linearize_batched_reference,
                               sample=sampler.sample_slab)
-    level = dense_tracker.track_level
+    level, front = dense_tracker.track_level, dense_tracker.front_route
     dense_tracker.track_level = functools.partial(dense_tracker._track_level,
                                                   linearize=plain)
+    dense_tracker.front_route = lambda *args, **kwargs: False
     try:
         want["host"] = dense_tracker.track_batched(refs, curs, Ks, T0, cfg)
     finally:
-        dense_tracker.track_level = level
+        dense_tracker.track_level, dense_tracker.front_route = level, front
     for name, tol in (("host", 5e-5), ("kernel", 1e-4)):
         w = want[name]
         np.testing.assert_allclose(ranks[0]["T"],
@@ -1335,3 +1339,262 @@ def test_pose_graph_kernel_on_a_card_that_is_not_current(cuda):
     want = pose_graph.optimize(g, device=cuda, **kw)
     assert got[0].poses.device == second
     assert torch.equal(got[0].poses.cpu(), want[0].poses.cpu())
+
+
+# ---- the frame's front: csrc/pyramid.cu, the level kernel's slab route,
+# and the track result written by the level launches
+
+def _bit_diff(a, b):
+    """Entries of two float tensors whose bits differ (NaN against NaN,
+    whatever the payload, counts as equal)."""
+    an, bn = torch.isnan(a), torch.isnan(b)
+    return int(((a.contiguous().view(torch.int32)
+                 != b.contiguous().view(torch.int32)) & ~(an & bn)).sum())
+
+
+def _front_inputs(w, h, encoding, seed=5):
+    """A noisy frame of the orbit (2 % depth dropout) at w x h in one of
+    the inputs build_pyramid takes."""
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    K = (525.0 * w / 640.0, 525.0 * h / 480.0, (w - 1) / 2.0, (h - 1) / 2.0)
+    i, z = synthetic.add_sensor_noise(
+        *scene.render(np.asarray(K), w, h, np.eye(4)),
+        np.random.default_rng(seed), dropout=0.02)
+    if encoding == "f32":
+        return i, z
+    i8 = np.clip(np.round(i), 0, 255).astype(np.uint8)
+    z16 = np.where(np.isfinite(z), np.round(z * 5000.0), 0).astype(np.uint16)
+    if encoding == "u8+u16":
+        return i8, z16
+    return i8, pyramid.pack_depth12(z16)
+
+
+@pytest.mark.parametrize("levels", [4, 5])
+@pytest.mark.parametrize("size", [(640, 480), (642, 482), (82, 61)])
+@pytest.mark.parametrize("encoding", ["f32", "u8+u16", "u8+packed12",
+                                      "u8+f32"])
+def test_pyramid_kernel_matches_plain(cuda, encoding, size, levels):
+    """Every level's slab bit for bit against build_pyramid_reference on
+    the same card tensors (odd sizes drop a trailing row or column at each
+    downsample; NaN depth propagates into the gradients); one launch."""
+    w, h = size
+    if encoding == "u8+packed12" and w % 2:
+        pytest.skip("12-bit packing needs an even width")
+    if encoding == "u8+f32":
+        i, z = _front_inputs(w, h, "u8+u16")[0], _front_inputs(w, h, "f32")[1]
+    else:
+        i, z = _front_inputs(w, h, encoding)
+    ti, tz = torch.as_tensor(i, device=cuda), torch.as_tensor(z, device=cuda)
+    before = pyramid.LAUNCHES_PYRAMID
+    got = pyramid.build_pyramid(ti, tz, levels)
+    assert pyramid.LAUNCHES_PYRAMID - before == 1
+    want = pyramid.build_pyramid_reference(ti, tz, levels)
+    assert [g.shape for g in got] == [x.shape for x in want]
+    assert bool(torch.isnan(want[0][pyramid.CH_Z]).any())
+    for lvl, (g, x) in enumerate(zip(got, want)):
+        assert g.is_contiguous() and g.device == cuda
+        assert _bit_diff(g, x) == 0, lvl
+
+
+@pytest.mark.parametrize("case", ["f64 intensity", "i16 intensity",
+                                  "i32 depth", "depth shape",
+                                  "packed odd width", "3-d intensity",
+                                  "7 levels", "too many levels",
+                                  "depth on cpu"])
+def test_pyramid_kernel_rejects(cuda, case):
+    """An input the kernel does not take raises; nothing falls back to the
+    plain version and nothing launches."""
+    w, h = 64, 48
+    i = torch.rand(h, w, device=cuda) * 255
+    z = torch.rand(h, w, device=cuda) + 0.5
+    levels = 4
+    if case == "f64 intensity":
+        i = i.double()
+    elif case == "i16 intensity":
+        i = i.to(torch.int16)
+    elif case == "i32 depth":
+        z = (z * 5000).to(torch.int32)
+    elif case == "depth shape":
+        z = z[:, :-1]
+    elif case == "packed odd width":
+        i = i[:, :-1]
+        z = torch.zeros(h, 3 * ((w - 1) // 2), dtype=torch.uint8, device=cuda)
+    elif case == "3-d intensity":
+        i = i[None]
+    elif case == "7 levels":
+        levels = 7
+    elif case == "too many levels":
+        i, z = i[:4, :4], z[:4, :4]
+    elif case == "depth on cpu":
+        z = z.cpu()
+    before = pyramid.LAUNCHES_PYRAMID
+    with pytest.raises((TypeError, ValueError)):
+        pyramid.build_pyramid(i, z, levels)
+    assert pyramid.LAUNCHES_PYRAMID == before
+
+
+@pytest.fixture(scope="module")
+def noisy9():
+    """Nine noisy 640x480 frames of the orbit (2 % depth dropout) and
+    their poses."""
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    poses = synthetic.orbit_trajectory(24, radius=0.06)[:9]
+    rng = np.random.default_rng(3)
+    return [synthetic.add_sensor_noise(
+        *scene.render(np.asarray(K640), W640, H640, T), rng, dropout=0.02)
+        for T in poses], poses
+
+
+FRONT_CONFIGS = {**FUSED_CONFIGS,
+                 "thresholds": {"intensity_grad_threshold": 1.0,
+                                "depth_grad_threshold": 0.005}}
+
+
+def _front_batch(noisy, dev, B, level, cfg):
+    """B reference slabs of the noisy orbit at one level (as a stacked
+    tensor, or by row pointers at B = 2), the current slab (shared, or one
+    a row at B = 8), K, perturbed poses and Sigma seeds."""
+    frames, poses = noisy
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K640, device=dev),
+                                   cfg.num_levels)
+    pyrs = [pyramid.build_pyramid(torch.as_tensor(i, device=dev),
+                                  torch.as_tensor(z, device=dev),
+                                  cfg.num_levels)[level]
+            for i, z in frames[:B + 1]]
+    paired = B == 8
+    cur = torch.stack(pyrs[1:B + 1]) if paired else pyrs[B]
+    rng = np.random.default_rng(4)
+    T = np.stack([(se3_np.inverse(poses[b + 1] if paired else poses[B])
+                   @ poses[b]) @ se3_np.exp(rng.normal(scale=2e-3, size=6))
+                  for b in range(B)])
+    rows = tuple(pyrs[:B]) if B == 2 else torch.stack(pyrs[:B])
+    sigma = torch.tensor([[[40.0 + b, 0.01], [0.01, 1e-3]]
+                          for b in range(B)], device=dev)
+    return (rows, torch.stack(pyrs[:B]), cur, Ks[level],
+            torch.as_tensor(T, dtype=torch.float32, device=dev), sigma)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("level", [3, 1, 0])
+@pytest.mark.parametrize("name", sorted(FRONT_CONFIGS))
+def test_slab_route_matches_refdata_route(cuda, noisy9, name, level, B):
+    """Both modes of the level kernel reading the reference points from
+    the slabs (RefSlabs) give the bits of the same kernel reading them
+    from prepare_reference's RefData: mode (a)'s Linearization and rI,
+    rZ, valid; mode (b)'s whole output rows (pose, record, statistics,
+    the selected count) and iterations. Level 0 (640x480) keeps no point
+    in shared memory: every pass recomputes its points from the slab.
+    The slab route makes no prepare_reference call."""
+    cfg = dataclasses.replace(TrackerConfig(), **FRONT_CONFIGS[name])
+    rows, stacked, cur, K, T, sigma = _front_batch(noisy9, cuda, B, level,
+                                                   cfg)
+    ref = linearize.prepare_reference(stacked, K, cfg)
+    N = ref.px.shape[1]
+    got = []
+    for r in (linearize.RefSlabs(rows), ref):
+        calls = linearize.PREPARE_REFERENCE_CALLS
+        lin = linearize.linearize_kernels_batched(r, cur, K, T, cfg, sigma,
+                                                  True)
+        res = [t.clone() for t in linearize.kernel_residuals(cuda, N, B)]
+        out, out_i = linearize.track_level_kernels(r, cur, K, T, cfg)
+        assert linearize.PREPARE_REFERENCE_CALLS == calls
+        got.append((lin, res, out, out_i))
+    (lin_s, res_s, o_s, oi_s), (lin_r, res_r, o_r, oi_r) = got
+    for field, a, b in zip(lin_s._fields, lin_s[:-1], lin_r[:-1]):
+        assert _bit_diff(a, b) == 0, field
+    for field, a, b in zip(("rI", "rZ", "valid"), res_s, res_r):
+        assert torch.equal(a, b), field
+    assert _bit_diff(o_s, o_r) == 0
+    assert torch.equal(oi_s, oi_r)
+    sel = o_s[:, linearize._LEVEL_STATS + linearize._STAT_PLANES
+              * cfg.max_iterations + linearize._EXTRA_SELECTED]
+    assert torch.equal(sel, ref.selected.sum(-1).float())
+
+
+def test_slab_route_rejects_bad_references(cuda, noisy9):
+    """A reference the slab route does not take raises before a launch:
+    more row pointers than the kernel holds, slabs of another level's
+    shape, point compaction."""
+    cfg = TrackerConfig()
+    rows, stacked, cur, K, T, _ = _front_batch(noisy9, cuda, 2, 3, cfg)
+    before = linearize.LAUNCHES_TRACK_LEVEL
+    many = tuple([rows[0]] * 33)
+    with pytest.raises(ValueError):
+        linearize.track_level_kernels(linearize.RefSlabs(many), cur, K,
+                                      T[:1].expand(33, 4, 4), cfg)
+    with pytest.raises(ValueError):
+        linearize.track_level_kernels(
+            linearize.RefSlabs(stacked[:, :, :-1]), cur, K, T, cfg)
+    with pytest.raises(ValueError):
+        linearize.track_level_kernels(
+            linearize.RefSlabs(rows), cur, K, T,
+            dataclasses.replace(cfg, point_budget_fraction=0.5))
+    assert linearize.LAUNCHES_TRACK_LEVEL == before
+
+
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("name", ["tdist", "thresholds", "reference_gradients"])
+def test_kernel_front_matches_eager_front(cuda, noisy9, name, B):
+    """track_batched's kernel front (slab route, the result written by the
+    level launches) against its eager front on the same pyramids: every
+    field bit for bit but the log-likelihood (rtol 1e-5: the eager f32
+    normaliser) and the entropy (atol 1e-3: the eager f32 slogdet against
+    the kernel's f64 LU); one launch a tracked level, no
+    prepare_reference call."""
+    cfg = dataclasses.replace(TrackerConfig(), **FRONT_CONFIGS[name])
+    frames, _ = noisy9
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*K640, device=cuda),
+                                   cfg.num_levels)
+    pyrs = [pyramid.build_pyramid(torch.as_tensor(i, device=cuda),
+                                  torch.as_tensor(z, device=cuda),
+                                  cfg.num_levels) for i, z in frames]
+    refs = tuple(tuple(p[lvl] for p in pyrs[:B]) if B == 2
+                 else torch.stack([p[lvl] for p in pyrs[:B]])
+                 for lvl in range(cfg.num_levels))
+    curs = (tuple(torch.stack([p[lvl] for p in pyrs[1:B + 1]])
+                  for lvl in range(cfg.num_levels)) if B == 8 else pyrs[B])
+    T0 = torch.eye(4, device=cuda).expand(B, 4, 4)
+    calls = linearize.PREPARE_REFERENCE_CALLS
+    launches = linearize.LAUNCHES_TRACK_LEVEL
+    got = dense_tracker.track_batched(refs, curs, Ks, T0, cfg)
+    assert linearize.PREPARE_REFERENCE_CALLS == calls
+    assert linearize.LAUNCHES_TRACK_LEVEL - launches == len(
+        cfg.tracked_levels)
+    front = dense_tracker.front_route
+    dense_tracker.front_route = lambda *args, **kwargs: False
+    try:
+        want = dense_tracker.track_batched(refs, curs, Ks, T0, cfg)
+    finally:
+        dense_tracker.front_route = front
+    assert linearize.PREPARE_REFERENCE_CALLS - calls == len(
+        cfg.tracked_levels)
+    for field, a, b in zip(got._fields, got, want):
+        if field == "stats":
+            for f, x, y in zip(a._fields, a, b):
+                assert x.dtype == y.dtype and x.shape == y.shape, f
+                assert _bit_diff(x.float(), y.float()) == 0, f
+        elif field == "log_likelihood":
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0.0)
+        elif field == "entropy":
+            torch.testing.assert_close(a, b, rtol=0.0, atol=1e-3)
+        else:
+            assert a.dtype == b.dtype and a.shape == b.shape, field
+            assert _bit_diff(a.float(), b.float()) == 0, field
+
+
+def test_odometry_front_copies_one_view(cuda, noisy9):
+    """OdometryTracker.update's one host copy is a view of the level
+    launches' output (no cat) on the kernel front, and gives the pose and
+    log-likelihood of the result."""
+    frames, _ = noisy9
+    from dvo_slam_tpu_torch.models.odometry import OdometryTracker
+
+    tracker = OdometryTracker(K640, TrackerConfig(), device=cuda)
+    for k, (i, z) in enumerate(frames[:3]):
+        tracker.update(i, z, float(k))
+    res = tracker.last_result
+    both = dense_tracker.pose_and_loglik(res)
+    assert both.untyped_storage().data_ptr() == \
+        res.transformation.untyped_storage().data_ptr()
+    assert torch.equal(both[:16], res.transformation.reshape(16))
+    assert torch.equal(both[-1], res.log_likelihood)

@@ -220,18 +220,23 @@ def test_track_level_on_cpu_is_the_plain_host_loop(frames):
 
 # ---- the kernel's output layouts, unpacked by the Python side
 
-def _pack_level(T, fin, stats, max_iterations):
+def _pack_level(T, fin, stats, max_iterations, fill=7.0):
     """A host loop's result in mode (b)'s output layout (the inverse of
-    ``unpack_level``): what the kernel writes for the same rows."""
-    B = T.shape[0]
+    ``unpack_level``): what the kernel writes for the same rows, at
+    ``level_row_size``, with the fields ``unpack_level`` does not read
+    (the log-likelihood after the pose, the window misses' zero plane and
+    the extras) set to ``fill``."""
+    B, M = T.shape[0], max_iterations
     valid, error, delta, accepted, term = stats["per_iter"]
     best = torch.cat([fin.A.reshape(B, 36), fin.b, fin.err_mean[:, None],
                       fin.err_raw[:, None], fin.sigma.reshape(B, 4),
                       fin.n_raw[:, None], fin.log1p_sum[:, None]], dim=1)
-    out = torch.cat([T.reshape(B, 16), best,
+    out = torch.cat([T.reshape(B, 16), torch.full((B, 1), fill), best,
                      torch.stack([valid, error, delta, accepted.float()],
-                                 dim=1).reshape(B, 4 * max_iterations)],
+                                 dim=1).reshape(B, 4 * M),
+                     torch.full((B, M + t_linearize._EXTRA_SIZE), fill)],
                     dim=1)
+    assert out.shape == (B, t_linearize.level_row_size(M))
     out_i = torch.stack([stats["iterations"], term], dim=1).to(torch.int32)
     return out, out_i
 
@@ -243,7 +248,7 @@ def test_level_output_unpacks_to_the_host_loops_result(level_pair,
     layout (a stand-in for the launch), it returns them exactly."""
     B, cfg, (T, fin, stats), _, inputs = level_pair
     packed = _pack_level(T, fin, stats, cfg.max_iterations)
-    assert packed[0].shape == (B, 66 + 4 * cfg.max_iterations)
+    assert packed[0].shape == (B, 70 + 5 * cfg.max_iterations)
     monkeypatch.setattr(t_linearize, "track_level_kernels",
                         lambda *args: packed)
     T_k, fin_k, stats_k = t_dense_tracker._track_level_kernel(*inputs, cfg)
@@ -271,22 +276,34 @@ def test_unpack_linearization_layout():
 
 
 def test_unpack_level_layout():
+    """``unpack_level`` reads the pose, the record and the first four
+    statistics planes of a row of ``level_row_size`` floats, and ignores
+    the log-likelihood after the pose, the window misses' plane and the
+    extras."""
     B, M = 2, 5
-    out = torch.arange(B * (66 + 4 * M), dtype=torch.float32).view(B, -1)
-    out[:, 66 + 3 * M:] = torch.tensor([1.0, 0.0, 1.0, 0.0, 0.0])
+    S = t_linearize.level_row_size(M)
+    assert S == 70 + 5 * M
+    out = torch.arange(B * S, dtype=torch.float32).view(B, S)
+    out[:, 67 + 3 * M:67 + 4 * M] = torch.tensor([1.0, 0.0, 1.0, 0.0, 0.0])
     out_i = torch.tensor([[4, 1], [1, 3]], dtype=torch.int32)
     lvl = t_linearize.unpack_level(out, out_i, M)
     for b in range(B):
         o = out[b]
         assert torch.equal(lvl.T[b], o[:16].view(4, 4))
-        assert torch.equal(lvl.best[b], o[16:66])
-        assert torch.equal(lvl.valid[b], o[66:66 + M])
-        assert torch.equal(lvl.error[b], o[66 + M:66 + 2 * M])
-        assert torch.equal(lvl.delta_norm[b], o[66 + 2 * M:66 + 3 * M])
+        assert torch.equal(lvl.best[b], o[17:67])
+        assert torch.equal(lvl.valid[b], o[67:67 + M])
+        assert torch.equal(lvl.error[b], o[67 + M:67 + 2 * M])
+        assert torch.equal(lvl.delta_norm[b], o[67 + 2 * M:67 + 3 * M])
     assert lvl.accepted.dtype == torch.bool
     assert lvl.accepted.tolist() == [[True, False, True, False, False]] * 2
     assert lvl.iterations.tolist() == [4, 1]
     assert lvl.termination.tolist() == [1, 3]
+    unread = out.clone()
+    unread[:, 16] = float("nan")
+    unread[:, 67 + 4 * M:] = float("nan")
+    again = t_linearize.unpack_level(unread, out_i, M)
+    for a, b in zip(again, lvl):
+        assert torch.equal(a, b)
 
 
 def _constants(text, names):
@@ -313,8 +330,10 @@ def test_kernel_source_layout_matches_python():
     d = t_dense_tracker
     assert list(best.values()) == [d._A, d._B, d._ERR, d._ERR_RAW, d._SIGMA,
                                    d._N_RAW, d._LOG1P, 50]
-    level = _constants(src, ["kLevelT", "kLevelBest", "kLevelStats"])
+    level = _constants(src, ["kLevelT", "kLevelLoglik", "kLevelBest",
+                             "kLevelStats"])
     assert list(level.values()) == [t_linearize._LEVEL_T,
+                                    t_linearize._LEVEL_LOGLIK,
                                     t_linearize._LEVEL_BEST,
                                     t_linearize._LEVEL_STATS]
     term = _constants(src, ["kTermIterations", "kTermIncrement",

@@ -182,6 +182,20 @@ def test_build_pyramid_raw_u8_u16():
     _compare_pyramids(want, got)
 
 
+@pytest.mark.parametrize("encoding", ["u8+u16", "u8+packed12"])
+def test_build_pyramid_raw_odd_size(encoding):
+    """Four levels of raw inputs at an odd height (a trailing row dropped
+    at each downsample), as the pyramid kernel's plain version takes
+    them."""
+    i8, z16 = _raw(W=82, H=61)
+    z = pyramid.pack_depth12(z16) if encoding == "u8+packed12" else z16
+    want = pyramid.build_pyramid(jnp.asarray(i8), jnp.asarray(z), 4)
+    got = t_pyramid.build_pyramid(torch.from_numpy(i8), torch.from_numpy(z),
+                                  4)
+    _compare_pyramids(want, got)
+    assert got[3].shape[1:] == (61 // 8, 82 // 8)
+
+
 def test_build_pyramid_packed12():
     i8, z16 = _raw()
     packed = pyramid.pack_depth12(z16)

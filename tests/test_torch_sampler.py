@@ -155,5 +155,6 @@ def test_build_output_is_keyed_by_sources():
     assert path == _build.library_path()
     assert [s.name for s in _build._sources()] == ["linearize.cu",
                                                    "pose_graph.cu",
+                                                   "pyramid.cu",
                                                    "sampler.cu"]
 
