@@ -22,10 +22,10 @@ every level of a frame's pyramid in one launch). Phases:
   2. kernels against plain, at the three tracked levels of a noisy
      640x480 synthetic pair (points warped by a perturbed ground-truth
      pose):
-     a. the standalone sampler against its plain version: inb and NaN
-        pattern identical, values within 1e-5 * max|slab|; kernel, plain
-        and torch grid_sample (the library yardstick, timed only) per call
-        with CUDA events;
+     a. the standalone sampler against its plain version: inb, NaN
+        pattern and every sample's bits identical; kernel, plain and torch
+        grid_sample (the library yardstick, timed only) per call with CUDA
+        events;
      b. mode (a) against linearize_reference on the same card tensors,
         for the configs tdist (default), photometric, reference_gradients
         and tdist_warm: n_raw, the valid mask and rI, rZ exact; A, b
@@ -57,8 +57,9 @@ every level of a frame's pyramid in one launch). Phases:
      calls 0;
   3a. the front against its plain versions: the pyramid kernel against
      build_pyramid_reference bit for bit (640x480 f32, u8 + u16 and
-     u8 + packed-12 inputs, 642x482 at 4 and 5 levels, 2 % depth
-     dropout) and timed beside the plain chain; the level kernel's slab
+     u8 + packed-12 inputs, the TMA fill; 642x482 at 4 and 5 levels, the
+     scalar fill; 2 % depth dropout) and timed beside the plain chain, with
+     its phase split (the kernel's phase stamps); the level kernel's slab
      route against its RefData route bit for bit in both modes (FRONT_CONFIGS:
      CONFIGS and the gradient thresholds; B = 1, 2 by row pointers, 8;
      every tracked level), mode (b) at B = 1 timed on both routes; the
@@ -184,14 +185,16 @@ every level of a frame's pyramid in one launch). Phases:
      on the card (the level kernel, and the host loop over the plain
      linearization); times, the backend and the standalone sampler's
      launches per tracked pair on the pixel route; that sampler against
-     its plain version at a pixel shard's shape, its device time (CUDA
-     events) beside plain and grid_sample, its bound from the distinct
-     slab pixels the shard's points read;
+     its plain version bit for bit at a pixel shard's shape, its device
+     time (CUDA events) beside plain and grid_sample, its bound from the
+     distinct slab pixels the shard's points read;
   12. device times by CUDA events (a spin kernel holds the card while the
      host queues the calls, so a call shorter than its dispatch is timed
      by the card): per level, every kernel, its plain version (the two
      modes' plain versions sync, so theirs count host time) and the
-     library call, at B = 1 and at 5a's batches, with the bounds;
+     library call, at B = 1 and at 5a's batches, with the bounds; the
+     launch floor (an empty kernel's time a call) beside the sampler's and
+     the pyramid's times and bounds;
   4. profiles (after every host timing above: no profiler has run before
      them in the process): a few more frames of the odometry main path
      under torch.profiler through each route: busy and idle share, device
@@ -669,10 +672,11 @@ def phase_kernel_vs_plain(device):
             raise AssertionError(f"level {lvl}: NaN pattern differs")
         fin = torch.isfinite(want)
         err = (out[fin] - want[fin]).abs().max().item()
-        tol = 1e-5 * slab.nan_to_num(posinf=0.0, neginf=0.0).abs().max().item()
-        if not err <= tol:
-            raise AssertionError(f"level {lvl}: max |kernel - plain| {err} "
-                                 f"> {tol}")
+        bad = _same_bits(out, want)
+        if bad:
+            raise AssertionError(f"level {lvl}: {bad} samples differ from "
+                                 f"plain in their bits (max |kernel - "
+                                 f"plain| {err})")
         # The library yardstick, timed only (the port never calls it):
         # grid_sample's normalised coordinates (align_corners=True) put -1
         # and +1 on the centres of the first and last pixels. It differs
@@ -701,7 +705,8 @@ def phase_kernel_vs_plain(device):
         n = u.numel()
         print(f"phase 2a sample_slab vs plain: level {lvl} "
               f"({slab.shape[2]}x{slab.shape[1]}, N={n}, "
-              f"inb {int(inb.sum())}): max_abs_err {err:.3e} (tol {tol:.3e}); "
+              f"inb {int(inb.sum())}): bit for bit, inb and NaN pattern "
+              f"equal (max_abs_err {err:.3e}); "
               f"per call (events, median of {TIMED_CALLS}) kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms")
 
@@ -936,10 +941,12 @@ def _front_frames(device, n, num_levels):
 def phase_front(device):
     """3a: the frame's front on the card against its plain versions.
     The pyramid kernel against build_pyramid_reference, bit for bit, at
-    640x480 for f32, u8 + u16 and u8 + packed-12 inputs and at 642x482
-    (4 and 5 levels), on depth with 2 % dropout; its device us a call
-    (events) beside the plain chain's device us (events) and host ms,
-    and its bound. The level kernel's slab route (RefSlabs: a stacked
+    640x480 for f32, u8 + u16 and u8 + packed-12 inputs (the TMA fill) and
+    at 642x482 (4 and 5 levels; the scalar fill), on depth with 2 %
+    dropout; its device us a call (events) beside the plain chain's device
+    us (events) and host ms, its bound, and its phase split (the median of
+    three launches' phase stamps, ops/pyramid.phase_times). The level
+    kernel's slab route (RefSlabs: a stacked
     tensor at B = 1 and 8, row pointers at B = 2) against its RefData
     route (prepare_reference), bit for bit, per tracked level, for
     FRONT_CONFIGS and B = 1, 2, 8: mode (a)'s Linearization and rI, rZ,
@@ -1005,12 +1012,23 @@ def phase_front(device):
                     plain()
                     torch.cuda.synchronize()
                     host.append(1e3 * (time.perf_counter() - t0))
+                splits = []
+                for _ in range(3):
+                    buf = pyramid.timing_buffer(h, w, device)
+                    pyramid.build_pyramid_kernel(ti, tz, L, timing=buf)
+                    torch.cuda.synchronize()
+                    splits.append(pyramid.phase_times(buf.cpu().numpy(), L))
                 timed[enc] = {
                     "us": _events_us(functools.partial(
                         pyramid.build_pyramid_kernel, ti, tz, L)),
                     "plain_us": _events_us(plain, n=5),
                     "plain_host_ms": float(np.median(host)),
-                    "bound": _bound_ms(nbytes, 0, 0)}
+                    "bound": _bound_ms(nbytes, 0, 0),
+                    "tma": pyramid.tma_fill(ti, tz),
+                    "phases": {k: float(np.median([x[0][k] for x in splits]))
+                               for k in splits[0][0]},
+                    "span_us": float(np.median([x[1] for x in splits])),
+                    "cta_us": float(np.median([x[2] for x in splits]))}
     print("phase 3a pyramid kernel against build_pyramid_reference, bit "
           "for bit (entries that differ per level; NaN share of level-0 "
           "depth): " + "; ".join(f"{name} {bad} ({nan:.3f})"
@@ -1020,6 +1038,12 @@ def phase_front(device):
               f"{t['us']:.2f} us a call (CUDA events); plain chain device "
               f"{t['plain_us']:.2f} us, host {t['plain_host_ms']:.3f} ms a "
               f"call; bound {1e3 * t['bound'][0]:.3f} us ({t['bound'][1]})")
+        print(f"phase 3a pyramid {W}x{H} {enc} phase split (the kernel's "
+              f"stamps, {'TMA' if t['tma'] else 'scalar'} fill; us a CTA, "
+              f"median of 3 launches): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in t["phases"].items())
+              + f"; a CTA {t['cta_us']:.3f} us, the launch's span "
+              f"{t['span_us']:.3f} us")
 
     pyrs, Ks, poses = _front_frames(device, max(FRONT_BATCHES) + 1, L)
     launch_us = {}
@@ -1712,7 +1736,7 @@ def _level_args(L, B=None):
     return L["ref"], L["cur"], L["K"], L["T"]
 
 
-def phase_device_times(cfg, levels, batched):
+def phase_device_times(cfg, levels, batched, front):
     """12: per level, device time per call by CUDA events (``_events_us``) of
     the standalone sampler, its plain version and the library call, and of
     the cluster kernel's two modes and their plain versions (mode (a):
@@ -1722,10 +1746,13 @@ def phase_device_times(cfg, levels, batched):
     5a; with the iterations each mode (b) call takes and the bounds."""
     from functools import partial
 
+    from dvo_slam_tpu_torch import _build
     from dvo_slam_tpu_torch.models import dense_tracker
     from dvo_slam_tpu_torch.ops import linearize, sampler
 
     out = {}
+    device = next(iter(levels.values()))["slab"].device
+    floor_us = _events_us(partial(_build.empty_launch, device))
     cases = [(1, lvl, L) for lvl, L in levels.items()] + [
         (B, lvl, L) for (B, lvl), L in batched.items()]
     for B, lvl, L in cases:
@@ -1773,6 +1800,14 @@ def phase_device_times(cfg, levels, batched):
         print(line + "; bounds " + ", ".join(
             f"{k} {1e3 * ms:.4f} us ({by})"
             for k, (ms, by) in d["bounds"].items()))
+    print(f"phase 12 launch floor: an empty kernel {floor_us:.2f} us a call "
+          f"(CUDA events, as every time above), beside the sampler "
+          + ", ".join(f"level {lvl} {1e3 * d['sampler']:.2f} us (bound "
+                      f"{1e3 * d['bounds']['sampler'][0]:.4f})"
+                      for lvl, d in ((k, out[(1, k)]) for k in sorted(levels)))
+          + " and the pyramid " + ", ".join(
+              f"{enc} {t['us']:.2f} us (bound {1e3 * t['bound'][0]:.3f})"
+              for enc, t in front["pyramid"].items()))
     return out
 
 
@@ -3902,9 +3937,10 @@ def phase_parallel(device):
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
     s_err = (got[fin] - want[fin]).abs().max().item()
-    if not (torch.equal(inb, want_inb) and s_err <= 1e-5 * slab.nan_to_num(
-            posinf=0.0, neginf=0.0).abs().max().item()):
-        raise AssertionError(f"sampler at the shard's shape: error {s_err}")
+    if not (torch.equal(inb, want_inb) and _same_bits(got, want) == 0):
+        raise AssertionError(f"sampler at the shard's shape: "
+                             f"{_same_bits(got, want)} samples differ in "
+                             f"their bits (max error {s_err})")
     grid = torch.stack([u * (2.0 / (slab.shape[2] - 1)) - 1.0,
                         v * (2.0 / (slab.shape[1] - 1)) - 1.0],
                        dim=-1)[None, None]
@@ -3915,9 +3951,9 @@ def phase_parallel(device):
         (functools.partial(sampler.sample_slab_reference, slab, u, v), 5),
         (functools.partial(_grid_sample, slab[None], grid), 20)))
     print(f"phase 11 sample_slab at a pixel shard's shape (level {lvl}, "
-          f"{rows} of {refs[lvl].shape[-2]} rows, N={N}): max_abs_err "
-          f"{s_err:.3e}; device {1e3 * ms:.2f} us per call (CUDA events; "
-          f"plain {1e3 * plain_ms:.2f}, grid_sample {1e3 * lib_ms:.2f}); "
+          f"{rows} of {refs[lvl].shape[-2]} rows, N={N}): bit for bit "
+          f"(max_abs_err {s_err:.3e}); device {1e3 * ms:.2f} us per call "
+          f"(CUDA events; plain {1e3 * plain_ms:.2f}, grid_sample {1e3 * lib_ms:.2f}); "
           f"bound {1e3 * bound[0]:.4f} us ({bound[1]})")
     return {"launches": la["sample_slab"], "err": s_err, "bound": bound,
             "ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms}
@@ -3991,7 +4027,7 @@ def main():
     par = phase_parallel(device)
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    dev_times = phase_device_times(cfg, levels, batched)
+    dev_times = phase_device_times(cfg, levels, batched, front)
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
     # Profiles only from here on.
     # The level kernel's sessions first: a session after the host loop's

@@ -20,6 +20,7 @@ imported on machines without a GPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -108,6 +109,55 @@ def _compile(out: Path):
     BUILD_LOG = log
 
 
+def _entry_points():
+    """Every C entry point of the library: {name: (argument types, result
+    type)} in ctypes, as ``load`` declares them (a pointer, the stream
+    included, is c_void_p, or ctypes would pass it as a 32-bit int)."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64, cd = ctypes.c_int64, ctypes.c_double
+    refs = [
+        ci,  # B
+        vp, vp, vp, vp, vp, vp, vp, vp, vp,  # reference points (or null)
+        vp, i64, ci, cf, cf,  # slab route: rows, stride, table, thresholds
+        ci, vp, i64, ci, ci, vp,  # N, slab, slab_stride, H, W, K
+    ]
+    scale = [ci, ci, cf, cf, cf, ci, ci]  # use_depth .. warm_iters
+    return {
+        "dvo_sample_slab": ([
+            vp, ci, ci, ci,  # slab, C, H, W
+            vp, vp, ci, vp, vp,  # u, v, N, out, inb
+            ci, vp,  # threads a block, stream
+        ], ci),
+        "dvo_empty": ([vp], ci),  # stream
+        "dvo_linearize": ([
+            *refs, vp, *scale, vp, ci, ci,  # T, ..., sigma_init, warm, C
+            vp, vp, vp, vp, vp,  # out, rI, rZ, valid, stream
+        ], ci),
+        "dvo_track_level": ([
+            *refs, vp, i64, *scale, ci, cf,  # T_init, stride, ..., precision
+            cf, cf, cf, cf, ci,  # LM lambda init, up, down, max; cluster
+            vp, i64, vp, i64,  # out, its row stride, out_i, its row stride
+            cd, vp,  # loglik constant, stream
+        ], ci),
+        "dvo_pose_graph": ([
+            vp, vp, vp, vp, vp, vp,  # poses, Z, info, mask, edge_i, edge_j
+            vp, vp, vp,  # vertex plan (offsets, indices), dense plan indices
+            vp, vp,  # the dense plan's blocks (offsets, list)
+            ci, ci, ci, ci, ci,  # M, E, num_vertices, iterations, robust
+            cd, cd, cd, ci,  # cauchy_c, gnc_init, gnc_decay, gnc_adaptive
+            vp, vp, vp, vp, vp, vp, vp, vp,  # scratch, poses, chi2, weights,
+        ], ci),  # stats, steps, timing (or null), stream
+        "dvo_pose_graph_plan": ([ci, ci, vp], ci),
+        "dvo_level_plan": ([ci, ci, vp], ci),
+        "dvo_error_string": ([ci], ctypes.c_char_p),
+        "dvo_pyramid": ([
+            vp, ci, vp, ci,  # intensity, i_u8, depth, depth encoding
+            ci, ci, ci, cf, cf,  # H, W, num_levels, the raw scales
+            vp, ci, ci, vp, vp,  # out, tile rows, fill path, timing, stream
+        ], ci),
+    }
+
+
 def load():
     """The loaded kernel library (built on first use), with its C entry
     points' argtypes declared."""
@@ -117,53 +167,27 @@ def load():
         if not path.is_file():
             _compile(path)
         lib = ctypes.CDLL(str(path))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dvo_sample_slab.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
-        lib.dvo_sample_slab.restype = ci
-        i64 = ctypes.c_int64
-        refs = [
-            ci,  # B
-            vp, vp, vp, vp, vp, vp, vp, vp, vp,  # reference points (or null)
-            vp, i64, ci, cf, cf,  # slab route: rows, stride, table, thresholds
-            ci, vp, i64, ci, ci, vp,  # N, slab, slab_stride, H, W, K
-        ]
-        scale = [ci, ci, cf, cf, cf, ci, ci]  # use_depth .. warm_iters
-        lib.dvo_linearize.argtypes = [
-            *refs, vp, *scale, vp, ci, ci,  # T, ..., sigma_init, warm, C
-            vp, vp, vp, vp, vp,  # out, rI, rZ, valid, stream
-        ]
-        lib.dvo_linearize.restype = ci
-        lib.dvo_track_level.argtypes = [
-            *refs, vp, i64, *scale, ci, cf,  # T_init, stride, ..., precision
-            cf, cf, cf, cf, ci,  # LM lambda init, up, down, max; cluster
-            vp, i64, vp, i64,  # out, its row stride, out_i, its row stride
-            ctypes.c_double, vp,  # loglik constant, stream
-        ]
-        lib.dvo_track_level.restype = ci
-        cd = ctypes.c_double
-        lib.dvo_pose_graph.argtypes = [
-            vp, vp, vp, vp, vp, vp,  # poses, Z, info, mask, edge_i, edge_j
-            vp, vp, vp,  # vertex plan (offsets, indices), dense plan indices
-            vp, vp,  # the dense plan's blocks (offsets, list)
-            ci, ci, ci, ci, ci,  # M, E, num_vertices, iterations, robust
-            cd, cd, cd, ci,  # cauchy_c, gnc_init, gnc_decay, gnc_adaptive
-            vp, vp, vp, vp, vp, vp, vp, vp,  # scratch, poses, chi2, weights,
-        ]  # stats, steps, timing (or null), stream
-        lib.dvo_pose_graph.restype = ci
-        lib.dvo_pose_graph_plan.argtypes = [ci, ci, vp]
-        lib.dvo_pose_graph_plan.restype = ci
-        lib.dvo_level_plan.argtypes = [ci, ci, vp]
-        lib.dvo_level_plan.restype = ci
-        lib.dvo_error_string.argtypes = [ci]
-        lib.dvo_error_string.restype = ctypes.c_char_p
-        lib.dvo_pyramid.argtypes = [
-            vp, ci, vp, ci,  # intensity, i_u8, depth, depth encoding
-            ci, ci, ci, cf, cf,  # H, W, num_levels, the raw scales
-            vp, vp,  # out, stream
-        ]
-        lib.dvo_pyramid.restype = ci
+        for name, (args, res) in _entry_points().items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """Streaming multiprocessors of CUDA card `index` (the kernels' grids
+    are sized by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def empty_launch(device):
+    """One launch of an empty kernel (csrc/sampler.cu ``dvo_empty``) on
+    the current stream of `device`: the launch floor that a kernel's time
+    on a stream of launches includes."""
+    launch("dvo_empty", device, ())
 
 
 def launch(name, device, args):

@@ -18,25 +18,46 @@
 //   top = s00 + fu*(s01-s00), bot = s10 + fu*(s11-s10), out = top + fv*(bot-top)
 // NaNs in the slab propagate into out; the caller turns them into invalid
 // points. The arithmetic uses the _rn intrinsics so nvcc does not contract
-// it into FMAs: the result is then bit-identical to the plain PyTorch
-// version (ops/sampler.py::sample_slab_reference) on the same card.
+// it into FMAs: the result is bit-identical to the plain PyTorch version
+// (ops/sampler.py::sample_slab_reference) on the same card, NaNs included.
 //
-// What bounds it on this card: gather latency. The level-1 slab
-// (6 x 320 x 240 x 4 B ~ 1.8 MB) stays in the 50 MB L2; each point reads
-// 4 corners x C channels (96 B at C = 6) through L1/L2, reads 8 B of u, v
-// and writes 4*C + 1 B. Design: one thread per point, 256 threads a block,
-// read-only (__ldg) corner loads, channel-major (C, N) output so the
-// stores of a warp are coalesced. Faster layouts (point-major (H, W, 8)
-// for two 16 B corner loads, or fusing the sample into the residual pass)
-// are later work.
+// What bounds it on this card: latency. The slabs (1.8 MB at level 1) sit
+// in the 50 MB L2; a point reads 8 B of u, v, gathers 4 corners x C
+// channels (96 B at C = 6) and writes 4 C + 1 B, so the bytes bound is
+// 0.08-1.3 us at levels 3-1 of 640x480, under the card's launch floor
+// (~1.8 us for an empty kernel on a stream of launches, chip_smoke.py
+// phase 12). What is left above the floor is rounds of memory latency.
+//
+// Design. An earlier version looped over a runtime C; its SASS (cuobjdump)
+// unrolled the loop by four and issued each channel's four corner loads
+// after the previous channel's lerps, and channels 5 and 6 in a remainder
+// loop: at C = 6 some five rounds of L2 latency after the u, v loads,
+// where one does. It also ran 256-thread blocks: 19 blocks on 132 SMs at
+// level 3. This version:
+//  * is a template on C (1..6), fully unrolled, every corner load written
+//    ahead of the first lerp: at C <= 4 the SASS issues them all before
+//    it; at C = 5 and 6 ptxas, holding the kernel to 32 registers, still
+//    interleaves some with the lerps (~3 rounds, not 5);
+//  * takes its block size from the caller (ops/sampler.py::block_threads:
+//    256 threads, halved down to 64 while the grid gives the card's SMs
+//    fewer than two blocks each), so levels 3 and 2 spread over the SMs;
+//  * keeps one point a thread: the SASS shows the rounds came from the
+//    channel loop, not from too few points in flight (level 1: 300 blocks
+//    of 256), and the stores stay channel-major (C, N), coalesced a warp.
+// The slab stays channel-major (C, H, W): the pyramid writes it and the
+// level kernel reads it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void __launch_bounds__(256)
-sample_slab_kernel(const float* __restrict__ slab, int C, int H, int W,
+constexpr int kMaxChannels = 6;
+constexpr int kMinThreads = 64, kMaxThreads = 256;
+
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads)
+sample_slab_kernel(const float* __restrict__ slab, int H, int W,
                    const float* __restrict__ u, const float* __restrict__ v,
                    int N, float* __restrict__ out, uint8_t* __restrict__ inb) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -47,38 +68,70 @@ sample_slab_kernel(const float* __restrict__ slab, int C, int H, int W,
   const float v0f = floorf(vv);
   const float wmax = (float)(W - 2);
   const float hmax = (float)(H - 2);
-  inb[i] = (u0f >= 0.f) && (v0f >= 0.f) && (u0f <= wmax) && (v0f <= hmax);
   // Clamp in float BEFORE the int cast: (int)NaN and (int)1e9f are
   // undefined. A NaN or -huge coordinate fails ">= 0" and lands on 0, a
   // +huge one on the last valid corner, so every load stays in bounds.
   const float x0f = (u0f >= 0.f) ? fminf(u0f, wmax) : 0.f;
   const float y0f = (v0f >= 0.f) ? fminf(v0f, hmax) : 0.f;
-  const float fu = __fsub_rn(uu, x0f);
-  const float fv = __fsub_rn(vv, y0f);
   const int64_t plane = (int64_t)H * W;
   const float* p = slab + (int64_t)y0f * W + (int64_t)x0f;
-  for (int c = 0; c < C; ++c, p += plane) {
-    const float s00 = __ldg(p);
-    const float s01 = __ldg(p + 1);
-    const float s10 = __ldg(p + W);
-    const float s11 = __ldg(p + W + 1);
-    const float top = __fadd_rn(s00, __fmul_rn(fu, __fsub_rn(s01, s00)));
-    const float bot = __fadd_rn(s10, __fmul_rn(fu, __fsub_rn(s11, s10)));
+  float s[C][4];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    s[c][0] = __ldg(p + c * plane);
+    s[c][1] = __ldg(p + c * plane + 1);
+    s[c][2] = __ldg(p + c * plane + W);
+    s[c][3] = __ldg(p + c * plane + W + 1);
+  }
+  inb[i] = (u0f >= 0.f) && (v0f >= 0.f) && (u0f <= wmax) && (v0f <= hmax);
+  const float fu = __fsub_rn(uu, x0f);
+  const float fv = __fsub_rn(vv, y0f);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float top = __fadd_rn(s[c][0], __fmul_rn(fu, __fsub_rn(s[c][1], s[c][0])));
+    const float bot = __fadd_rn(s[c][2], __fmul_rn(fu, __fsub_rn(s[c][3], s[c][2])));
     out[(int64_t)c * N + i] = __fadd_rn(top, __fmul_rn(fv, __fsub_rn(bot, top)));
   }
 }
 
+template <int C>
+void launch(const float* slab, int H, int W, const float* u, const float* v, int N,
+            float* out, uint8_t* inb, int threads, cudaStream_t stream) {
+  sample_slab_kernel<C><<<(N + threads - 1) / threads, threads, 0, stream>>>(
+      slab, H, W, u, v, N, out, inb);
+}
+
+// Does nothing: the launch floor that chip_smoke.py times beside the
+// sampler and the pyramid (a call's device time on a stream of them).
+__global__ void empty_kernel() {}
+
 }  // namespace
 
-// slab: (>= C, H, W) f32 contiguous; u, v: (N,) f32; out: (C, N) f32;
-// inb: (N,) uint8. Launches on `stream` and does not synchronize. Returns
+// slab: (>= C, H, W) f32 contiguous, 1 <= C <= 6; u, v: (N,) f32, N >= 1;
+// out: (C, N) f32; inb: (N,) uint8; threads: the block size, a power of
+// two in 64..256. Launches on `stream` and does not synchronize. Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int dvo_sample_slab(const float* slab, int C, int H, int W,
                                const float* u, const float* v, int N,
-                               float* out, uint8_t* inb, void* stream) {
-  const int threads = 256;
-  const int blocks = (N + threads - 1) / threads;
-  sample_slab_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      slab, C, H, W, u, v, N, out, inb);
+                               float* out, uint8_t* inb, int threads,
+                               void* stream) {
+  if (C < 1 || C > kMaxChannels || threads < kMinThreads || threads > kMaxThreads ||
+      (threads & (threads - 1)) || N < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (C) {
+    case 1: launch<1>(slab, H, W, u, v, N, out, inb, threads, s); break;
+    case 2: launch<2>(slab, H, W, u, v, N, out, inb, threads, s); break;
+    case 3: launch<3>(slab, H, W, u, v, N, out, inb, threads, s); break;
+    case 4: launch<4>(slab, H, W, u, v, N, out, inb, threads, s); break;
+    case 5: launch<5>(slab, H, W, u, v, N, out, inb, threads, s); break;
+    default: launch<6>(slab, H, W, u, v, N, out, inb, threads, s); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// One launch of an empty kernel on `stream` (the launch floor).
+extern "C" int dvo_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,8 @@ raises; nothing falls back to the plain version.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -33,6 +35,20 @@ LAUNCHES_PYRAMID = 0
 # limit (kMaxLevels).
 _DEPTH_F32, _DEPTH_U16, _DEPTH_PACKED12 = 0, 1, 2
 _MAX_LEVELS = 6
+# The kernel's level-0 tile: kTile columns by one of _TILE_ROWS rows
+# (kTile, kTallTile; the tall tile up to _TALL_LEVELS levels), its
+# level-0 fill paths (kFill*) and its phase-timing buffer's int64 stamps a
+# CTA (kTimingSlots).
+_TILE = 32
+_TILE_ROWS = (32, 40)
+_TALL_LEVELS = 4
+_FILL_SCALAR, _FILL_TMA = 0, 1
+_TIMING_SLOTS = 24
+# Names of the spans between a CTA's phase stamps, in order (csrc/
+# pyramid.cu, "The phase-timing buffer"); level l's three follow the
+# level-0 fill's two.
+_FILL_PHASES = ("level-0 fill", "level-0 conversion and barrier")
+_LEVEL_PHASES = ("downsample", "store", "barrier")
 
 
 def _pool2x2_sum(x):
@@ -101,7 +117,73 @@ def level_shapes(H, W, num_levels):
     return [(H >> lvl, W >> lvl) for lvl in range(num_levels)]
 
 
-def build_pyramid_kernel(intensity, depth, num_levels):
+@functools.lru_cache(maxsize=None)
+def tile_rows(H, W, num_levels, sms):
+    """The pyramid kernel's tile rows for an H x W frame on a card of `sms`
+    SMs: of 32 and 40 (40 up to four levels, whose tiles halve evenly),
+    the one that gives the busiest SM the fewest level-0 rows, halos
+    included; 32 on a tie. Every CTA is resident at once, so the launch
+    lasts as long as the busiest SM's CTAs: at 640x480 32-row tiles put 3
+    of 300 CTAs on some SMs, 40-row tiles at most 2 of 240."""
+    h = 1 << (num_levels - 1)
+
+    def busiest(rows):
+        gx, gy = kernel_grid(H, W, rows)
+        return -(-gx * gy // sms) * (rows + 2 * h), rows
+
+    return min((r for r in _TILE_ROWS
+                if r == _TILE or num_levels <= _TALL_LEVELS), key=busiest)
+
+
+def kernel_grid(H, W, rows):
+    """The pyramid kernel's CTAs along x and y: one a 32-column tile of
+    `rows` rows of level 0."""
+    return -(-W // _TILE), -(-H // rows)
+
+
+def tma_fill(intensity, depth):
+    """Whether the pyramid kernel brings level 0 in by TMA: both inputs'
+    base addresses 16-B aligned and their rows a multiple of 16 B, as a
+    tensor map needs (640x480 in every encoding). Otherwise (642x482,
+    82x61, a view at an odd offset) it takes the scalar fill; the kernel
+    refuses TMA on anything else."""
+    return (intensity.data_ptr() % 16 == 0 and depth.data_ptr() % 16 == 0
+            and intensity.shape[-1] * intensity.element_size() % 16 == 0
+            and depth.shape[-1] * depth.element_size() % 16 == 0)
+
+
+def timing_buffer(H, W, device):
+    """A zeroed phase-timing buffer for ``build_pyramid_kernel(...,
+    timing=)``: (CTAs, _TIMING_SLOTS) int64, a row for every CTA of the
+    smallest tiles (a launch of taller tiles leaves the last rows 0)."""
+    gx, gy = kernel_grid(H, W, _TILE)
+    return torch.zeros((gx * gy, _TIMING_SLOTS), dtype=torch.int64,
+                       device=device)
+
+
+def phase_times(timing, num_levels):
+    """The pyramid kernel's phase split from a filled timing buffer (host
+    numpy int64, (CTAs, _TIMING_SLOTS)): ({phase: mean device us a CTA},
+    the launch's device us from its first CTA's start to its last CTA's
+    end, the mean us a CTA). Each CTA's thread 0 stamps clock64 at its
+    phase boundaries and %globaltimer at its start and end; clock64 is
+    converted by the CTAs' summed %globaltimer spans."""
+    t = np.asarray(timing, np.int64)
+    t = t[t[:, 1] != 0]  # the CTAs the launch had
+    last = 5 + 3 * (num_levels - 1) + 2
+    clocks = t[:, 2:last + 1].astype(np.float64)
+    ns_per_clock = (t[:, 1] - t[:, 0]).sum() / max(
+        (clocks[:, -1] - clocks[:, 0]).sum(), 1.0)
+    spans = np.diff(clocks, axis=1).mean(0) * ns_per_clock / 1e3
+    names = list(_FILL_PHASES) + [f"level {lvl} {what}"
+                                  for lvl in range(num_levels)
+                                  for what in _LEVEL_PHASES]
+    return (dict(zip(names, spans.tolist())),
+            float(t[:, 1].max() - t[:, 0].min()) / 1e3,
+            float((t[:, 1] - t[:, 0]).mean()) / 1e3)
+
+
+def build_pyramid_kernel(intensity, depth, num_levels, timing=None):
     """``build_pyramid`` on the card: one launch of csrc/pyramid.cu on the
     current stream of the inputs' device, no host sync. Takes intensity
     f32 or uint8 (H, W) and depth f32 or uint16 (H, W) or 12-bit-packed
@@ -140,7 +222,10 @@ def build_pyramid_kernel(intensity, depth, num_levels):
         intensity.data_ptr(), int(intensity.dtype == torch.uint8),
         depth.data_ptr(), kind, H, W, num_levels,
         float(np.float32(1.0) / np.float32(_RAW_SCALE)),
-        float(np.float32(PACK12_TICK / _RAW_SCALE)), out.data_ptr()))
+        float(np.float32(PACK12_TICK / _RAW_SCALE)), out.data_ptr(),
+        tile_rows(H, W, num_levels, _build.sm_count(dev.index)),
+        _FILL_TMA if tma_fill(intensity, depth) else _FILL_SCALAR,
+        None if timing is None else timing.data_ptr()))
     LAUNCHES_PYRAMID += 1
     levels, off = [], 0
     for h, w in shapes:

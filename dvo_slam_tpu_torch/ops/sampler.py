@@ -19,6 +19,21 @@ from dvo_slam_tpu_torch.ops.pyramid import NUM_CHANNELS
 # Kernel launches made by sample_slab since the last reset (plain integer;
 # callers reset it to 0 to count the launches of one run).
 LAUNCHES = 0
+# The kernel's block sizes (csrc/sampler.cu kMinThreads, kMaxThreads) and
+# the blocks a streaming multiprocessor the choice aims for.
+_MIN_THREADS, _MAX_THREADS = 64, 256
+_BLOCKS_PER_SM = 2
+
+
+def block_threads(N, sms):
+    """The sampler kernel's threads a block for N points on a card of
+    `sms` streaming multiprocessors: 256, halved down to 64 while the grid
+    would give the SMs fewer than two blocks each (640x480's levels 3 / 2 /
+    1 on an H100's 132 SMs: 64 / 64 / 256)."""
+    threads = _MAX_THREADS
+    while threads > _MIN_THREADS and -(-N // threads) < _BLOCKS_PER_SM * sms:
+        threads //= 2
+    return threads
 
 
 def sample_slab_reference(slab, u, v):
@@ -92,14 +107,9 @@ def sample_slab(slab, u, v):
     N = u.shape[0]
     out = torch.empty((C, N), dtype=torch.float32, device=slab.device)
     inb = torch.empty((N,), dtype=torch.uint8, device=slab.device)
-    lib = _build.load()
-    # The ctypes launch runs in the current CUDA context: make it the slab's.
-    with torch.cuda.device(slab.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dvo_sample_slab(slab.data_ptr(), C, H, W, u.data_ptr(),
-                                 v.data_ptr(), N, out.data_ptr(),
-                                 inb.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"dvo_sample_slab launch failed: CUDA error {rc}")
+    threads = block_threads(N, _build.sm_count(slab.device.index))
+    _build.launch("dvo_sample_slab", slab.device, (
+        slab.data_ptr(), C, H, W, u.data_ptr(), v.data_ptr(), N,
+        out.data_ptr(), inb.data_ptr(), threads))
     LAUNCHES += 1
     return out, inb.view(torch.bool)

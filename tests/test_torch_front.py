@@ -389,3 +389,108 @@ def test_pose_and_loglik_needs_them_side_by_side():
     with pytest.raises(ValueError):
         t_dense_tracker.pose_and_loglik(res._replace(
             log_likelihood=ll[0]))
+
+
+def _frame_inputs(w, h, encoding):
+    """Zeroed CPU inputs of a w x h frame in one of the kernel's
+    encodings ("...@1": a contiguous view at one element's offset into a
+    larger buffer)."""
+    enc, _, shift = encoding.partition("@")
+    i_t, z_t = {"f32": (torch.float32, torch.float32),
+                "u8+u16": (torch.uint8, torch.uint16),
+                "u8+packed12": (torch.uint8, torch.uint8)}[enc]
+    zw = 3 * (w // 2) if enc == "u8+packed12" else w
+    k = int(shift or 0)
+    i = torch.zeros(h * w + k, dtype=i_t)[k:].view(h, w)
+    z = torch.zeros(h * zw + k, dtype=z_t)[k:].view(h, zw)
+    return i, z
+
+
+@pytest.mark.parametrize("size, encoding, tma", [
+    ((640, 480), "f32", True), ((640, 480), "u8+u16", True),
+    ((640, 480), "u8+packed12", True), ((640, 470), "f32", True),
+    ((642, 482), "f32", False), ((642, 482), "u8+u16", False),
+    ((642, 482), "u8+packed12", False), ((82, 61), "f32", False),
+    ((82, 61), "u8+u16", False), ((640, 480), "f32@1", False),
+    ((640, 480), "u8+u16@1", False), ((640, 480), "u8+packed12@1", False)])
+def test_tma_fill_predicate(size, encoding, tma):
+    """The pyramid kernel's level-0 fill path: TMA where both inputs start
+    16-B aligned with rows of a 16-B multiple (640 wide in every
+    encoding), the scalar fill otherwise (642 and 82 wide: f32 rows of
+    2 568 and 328 B, u16 of 1 284, packed of 963; a view at an odd offset)."""
+    i, z = _frame_inputs(*size, encoding)
+    assert i.is_contiguous() and z.is_contiguous()
+    assert t_pyramid.tma_fill(i, z) is tma
+
+
+@pytest.mark.parametrize("rows", [32, 40])
+@pytest.mark.parametrize("size", [(640, 480), (642, 482), (82, 61), (32, 32)])
+def test_kernel_grid(size, rows):
+    """One CTA a 32-column tile of `rows` rows of level 0, the ragged edge
+    included; the timing buffer has a row for each CTA of the smallest
+    tiles."""
+    w, h = size
+    gx, gy = t_pyramid.kernel_grid(h, w, rows)
+    assert (gx - 1) * 32 < w <= gx * 32 and (gy - 1) * rows < h <= gy * rows
+    buf = t_pyramid.timing_buffer(h, w, "cpu")
+    assert buf.shape[1] == t_pyramid._TIMING_SLOTS and buf.shape[0] >= gx * gy
+
+
+@pytest.mark.parametrize("size, levels, sms, want", [
+    ((640, 480), 4, 132, 40), ((640, 480), 1, 132, 40),
+    ((640, 480), 5, 132, 32), ((640, 480), 6, 132, 32),
+    ((640, 470), 4, 132, 40), ((642, 482), 4, 132, 32),
+    ((82, 61), 4, 132, 32), ((80, 60), 3, 132, 32),
+    ((640, 480), 4, 16, 40), ((640, 480), 4, 300, 32)])
+def test_tile_rows(size, levels, sms, want):
+    """The pyramid kernel's tile rows: 40 where it leaves the busiest SM
+    fewer level-0 rows (640x480 on 132 SMs: 300 CTAs of 32 rows put 3 on
+    some SMs, 240 of 40 at most 2), 32 past four levels and on a tie."""
+    w, h = size
+    got = t_pyramid.tile_rows(h, w, levels, sms)
+    assert got == want and got in t_pyramid._TILE_ROWS
+    assert got % (1 << (levels - 1)) == 0
+
+
+@pytest.mark.parametrize("levels", [1, 4, 6])
+def test_phase_times(levels):
+    """The pyramid kernel's phase split from its stamps: clock64 spans
+    converted by the CTAs' %globaltimer spans, one name a span, the
+    launch from the first CTA's start to the last CTA's end."""
+    rng = np.random.default_rng(levels)
+    ctas, n = 6, 3 + 3 * levels
+    # Two more rows than the launch had CTAs: left 0, and left out.
+    buf = np.zeros((ctas + 2, t_pyramid._TIMING_SLOTS), np.int64)
+    steps = rng.integers(10, 1000, size=(ctas, n - 1))
+    start = rng.integers(0, 5000, size=ctas)
+    run = buf[:ctas]
+    run[:, 2] = 10**9 + start
+    run[:, 3:2 + n] = run[:, 2:3] + np.cumsum(steps, axis=1)
+    # 2 clocks a nanosecond: the CTAs' globaltimer spans are half theirs.
+    run[:, 0] = 7000 + start
+    run[:, 1] = run[:, 0] + steps.sum(1) // 2
+    phases, span, cta = t_pyramid.phase_times(buf, levels)
+    buf = run
+    assert list(phases) == ["level-0 fill", "level-0 conversion and barrier",
+                            *(f"level {lvl} {what}" for lvl in range(levels)
+                              for what in ("downsample", "store", "barrier"))]
+    ns = steps.sum(1).sum() / (buf[:, 1] - buf[:, 0]).sum()
+    np.testing.assert_allclose(list(phases.values()),
+                               steps.mean(0) / ns / 1e3, rtol=1e-12)
+    assert span == (buf[:, 1].max() - buf[:, 0].min()) / 1e3
+    assert cta == pytest.approx((buf[:, 1] - buf[:, 0]).mean() / 1e3)
+
+
+def test_kernel_sources_pyramid_launch_match_python():
+    """The tiles, fill paths and timing slots csrc/pyramid.cu uses are the
+    ones the wrapper sizes its grid and buffers by and passes."""
+    got = _constants(SRC / "pyramid.cu", ["kTile", "kTallTile", "kFillScalar",
+                                          "kFillTma", "kTimingSlots"])
+    P = t_pyramid
+    assert list(got.values()) == [P._TILE, max(P._TILE_ROWS), P._FILL_SCALAR,
+                                  P._FILL_TMA, P._TIMING_SLOTS]
+    assert min(P._TILE_ROWS) == P._TILE
+    assert "num_levels > 4" in (SRC / "pyramid.cu").read_text()
+    assert P._TALL_LEVELS == 4
+    # Stamps 0..4, then three a level: six levels fit.
+    assert 5 + 3 * P._MAX_LEVELS <= P._TIMING_SLOTS

@@ -8,7 +8,8 @@ jax):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: the sampler kernel is bit-identical to its plain version by
-construction (no FMA contraction) and is held to 1e-5 * max|slab|. The
+construction (no FMA contraction) and is held to it bit for bit, the NaN
+pattern and the in-bounds mask included. The
 cluster kernel's mode (a) (csrc/linearize.cu, one linearization per row)
 against ``linearize_reference`` on the same card tensors: ``n_raw``, the
 per-point valid mask and rI, rZ exact (the residual pass repeats the plain
@@ -113,24 +114,54 @@ def _points(h, w, max_shift=6.0):
             np.concatenate([v, sv]).astype(np.float32))
 
 
+def _assert_sampler_matches_plain(slab, u, v, channels):
+    """One launch of the sampler kernel on the first `channels` planes,
+    bit for bit against its plain version (NaN pattern and inb too)."""
+    before = sampler.LAUNCHES
+    out, inb = sampler.sample_slab(slab[:channels], u, v)
+    torch.cuda.synchronize()
+    assert sampler.LAUNCHES == before + 1
+    want, want_inb = sampler.sample_slab_reference(slab[:channels], u, v)
+    assert out.shape == (channels, u.numel()) and inb.dtype == torch.bool
+    assert torch.equal(inb, want_inb)
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert _bit_diff(out, want) == 0
+
+
 @pytest.mark.parametrize("level_hw", [(60, 80), (120, 160), (240, 320)])
 def test_kernel_matches_plain(cuda, level_hw):
-    """At the 640x480 tracked-level shapes, for 6, 2 and 1 channels."""
+    """At the 640x480 tracked-level shapes, for C = 1 to 6: bit for bit."""
     h, w = level_hw
     slab = torch.from_numpy(_slab(4, (6, h, w), n_nan=50)).to(cuda)
     u, v = (torch.from_numpy(a).to(cuda) for a in _points(h, w))
-    scale = slab.nan_to_num().abs().max().item()
-    for channels in (6, 2, 1):
-        before = sampler.LAUNCHES
-        out, inb = sampler.sample_slab(slab[:channels], u, v)
-        torch.cuda.synchronize()
-        assert sampler.LAUNCHES == before + 1
-        want, want_inb = sampler.sample_slab_reference(slab[:channels], u, v)
-        assert out.shape == (channels, u.numel()) and inb.dtype == torch.bool
-        assert torch.equal(inb, want_inb)
-        assert torch.equal(torch.isnan(out), torch.isnan(want))
-        fin = torch.isfinite(want)
-        assert (out[fin] - want[fin]).abs().max().item() <= 1e-5 * scale
+    for channels in range(1, 7):
+        _assert_sampler_matches_plain(slab, u, v, channels)
+
+
+def test_kernel_matches_plain_at_a_pixel_shard(cuda):
+    """Phase 11's shape: half of level 1's rows (38 400 points) warped into
+    the whole 320x240 slab; bit for bit for C = 1 to 6."""
+    h, w = 240, 320
+    slab = torch.from_numpy(_slab(6, (6, h, w), n_nan=50)).to(cuda)
+    u, v = (torch.from_numpy(a[:h // 2 * w]).to(cuda)
+            for a in _points(h, w))
+    assert u.numel() == 38400
+    for channels in range(1, 7):
+        _assert_sampler_matches_plain(slab, u, v, channels)
+
+
+@pytest.mark.parametrize("threads", [64, 128, 256])
+@pytest.mark.parametrize("n", [1, 255, 257])
+def test_kernel_partial_blocks(cuda, monkeypatch, n, threads):
+    """A last block that is partly past N at each block size the wrapper
+    may pick (forced here), for C = 1 to 6: bit for bit."""
+    h, w = 60, 80
+    slab = torch.from_numpy(_slab(7, (6, h, w), n_nan=20)).to(cuda)
+    u, v = (torch.from_numpy(np.resize(a[::-1], n).copy()).to(cuda)
+            for a in _points(h, w))
+    monkeypatch.setattr(sampler, "block_threads", lambda N, sms: threads)
+    for channels in range(1, 7):
+        _assert_sampler_matches_plain(slab, u, v, channels)
 
 
 def test_kernel_on_a_card_that_is_not_current(cuda):
@@ -142,7 +173,6 @@ def test_kernel_on_a_card_that_is_not_current(cuda):
     h, w = 120, 160
     slab = torch.from_numpy(_slab(5, (6, h, w), n_nan=20)).to(second)
     u, v = (torch.from_numpy(a).to(second) for a in _points(h, w))
-    scale = slab.nan_to_num().abs().max().item()
     with torch.cuda.device(cuda):
         out, inb = sampler.sample_slab(slab, u, v)
         assert torch.cuda.current_device() == cuda.index
@@ -150,8 +180,7 @@ def test_kernel_on_a_card_that_is_not_current(cuda):
     want, want_inb = sampler.sample_slab_reference(slab, u, v)
     assert out.device == second and torch.equal(inb, want_inb)
     assert torch.equal(torch.isnan(out), torch.isnan(want))
-    fin = torch.isfinite(want)
-    assert (out[fin] - want[fin]).abs().max().item() <= 1e-5 * scale
+    assert _bit_diff(out, want) == 0
 
 
 def test_track_on_card_matches_cpu(cuda):
@@ -1369,14 +1398,29 @@ def _front_inputs(w, h, encoding, seed=5):
     return i8, pyramid.pack_depth12(z16)
 
 
-@pytest.mark.parametrize("levels", [4, 5])
-@pytest.mark.parametrize("size", [(640, 480), (642, 482), (82, 61)])
+def _assert_pyramid_matches_plain(ti, tz, levels):
+    before = pyramid.LAUNCHES_PYRAMID
+    got = pyramid.build_pyramid(ti, tz, levels)
+    assert pyramid.LAUNCHES_PYRAMID - before == 1
+    want = pyramid.build_pyramid_reference(ti, tz, levels)
+    assert [g.shape for g in got] == [x.shape for x in want]
+    assert bool(torch.isnan(want[0][pyramid.CH_Z]).any())
+    for lvl, (g, x) in enumerate(zip(got, want)):
+        assert g.is_contiguous() and g.device == ti.device
+        assert _bit_diff(g, x) == 0, lvl
+
+
+@pytest.mark.parametrize("levels", [1, 4, 5, 6])
+@pytest.mark.parametrize("size", [(640, 480), (640, 470), (642, 482),
+                                  (82, 61)])
 @pytest.mark.parametrize("encoding", ["f32", "u8+u16", "u8+packed12",
                                       "u8+f32"])
 def test_pyramid_kernel_matches_plain(cuda, encoding, size, levels):
     """Every level's slab bit for bit against build_pyramid_reference on
     the same card tensors (odd sizes drop a trailing row or column at each
-    downsample; NaN depth propagates into the gradients); one launch."""
+    downsample; NaN depth propagates into the gradients); one launch. 640
+    wide takes the TMA fill (640x470: rows aligned, the height not a
+    multiple of the 32-pixel tile), 642 and 82 the scalar fill."""
     w, h = size
     if encoding == "u8+packed12" and w % 2:
         pytest.skip("12-bit packing needs an even width")
@@ -1385,15 +1429,45 @@ def test_pyramid_kernel_matches_plain(cuda, encoding, size, levels):
     else:
         i, z = _front_inputs(w, h, encoding)
     ti, tz = torch.as_tensor(i, device=cuda), torch.as_tensor(z, device=cuda)
-    before = pyramid.LAUNCHES_PYRAMID
-    got = pyramid.build_pyramid(ti, tz, levels)
-    assert pyramid.LAUNCHES_PYRAMID - before == 1
-    want = pyramid.build_pyramid_reference(ti, tz, levels)
-    assert [g.shape for g in got] == [x.shape for x in want]
-    assert bool(torch.isnan(want[0][pyramid.CH_Z]).any())
-    for lvl, (g, x) in enumerate(zip(got, want)):
-        assert g.is_contiguous() and g.device == cuda
-        assert _bit_diff(g, x) == 0, lvl
+    assert pyramid.tma_fill(ti, tz) is (w == 640)
+    _assert_pyramid_matches_plain(ti, tz, levels)
+
+
+@pytest.mark.parametrize("levels", [1, 4, 6])
+@pytest.mark.parametrize("encoding", ["f32", "u8+u16", "u8+packed12"])
+def test_pyramid_kernel_misaligned_input(cuda, encoding, levels):
+    """Contiguous 640x480 inputs whose base is one element into a larger
+    buffer (not 16-B aligned) take the scalar fill; bit for bit."""
+    w, h = 640, 480
+    i, z = _front_inputs(w, h, encoding)
+    ti, tz = (torch.empty(a.size + 1, dtype=t.dtype, device=cuda)[1:]
+              .view(t.shape).copy_(t) for a, t in (
+                  (a, torch.as_tensor(a, device=cuda)) for a in (i, z)))
+    assert ti.is_contiguous() and tz.is_contiguous()
+    assert not pyramid.tma_fill(ti, tz)
+    _assert_pyramid_matches_plain(ti, tz, levels)
+
+
+def test_pyramid_kernel_phase_stamps(cuda):
+    """The timing entry point (a phase-timing buffer) writes the same
+    slabs, one launch, and stamps every CTA in order."""
+    i, z = _front_inputs(640, 480, "u8+u16")
+    ti, tz = torch.as_tensor(i, device=cuda), torch.as_tensor(z, device=cuda)
+    buf = pyramid.timing_buffer(480, 640, cuda)
+    got = pyramid.build_pyramid_kernel(ti, tz, 4, timing=buf)
+    want = pyramid.build_pyramid_kernel(ti, tz, 4)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert _bit_diff(g, x) == 0
+    stamps = buf.cpu().numpy()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gx, gy = pyramid.kernel_grid(480, 640, pyramid.tile_rows(480, 640, 4, sms))
+    assert (stamps[gx * gy:] == 0).all()
+    stamps = stamps[:gx * gy]
+    assert (stamps[:, 1] >= stamps[:, 0]).all() and (stamps[:, 0] > 0).all()
+    assert (np.diff(stamps[:, 2:5 + 3 * 3 + 3], axis=1) >= 0).all()
+    phases, span, cta = pyramid.phase_times(stamps, 4)
+    assert 0 < cta <= span and all(t >= 0 for t in phases.values())
 
 
 @pytest.mark.parametrize("case", ["f64 intensity", "i16 intensity",

@@ -13,6 +13,9 @@
 The kernel itself runs only on a CUDA card: tests/test_torch_kernels_cuda.py.
 """
 
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,7 @@ from dvo_slam_tpu.ops import linearize as lin_ops
 from dvo_slam_tpu.ops.pallas import sampler as pallas_sampler
 from dvo_slam_tpu_torch import _build
 from dvo_slam_tpu_torch.ops import sampler
+from dvo_slam_tpu_torch.ops.pyramid import NUM_CHANNELS
 
 H, W, C = 32, 128, 6
 
@@ -158,3 +162,66 @@ def test_build_output_is_keyed_by_sources():
                                                    "pyramid.cu",
                                                    "sampler.cu"]
 
+
+
+@pytest.mark.parametrize("N, sms, want", [
+    (1, 132, 64), (4800, 132, 64), (19200, 132, 64), (38400, 132, 128),
+    (67328, 132, 128), (67329, 132, 256), (76800, 132, 256),
+    (4800, 16, 128), (76800, 16, 256)])
+def test_block_threads(N, sms, want):
+    """The sampler kernel's block size from N: 256, halved down to 64
+    while the grid gives the SMs fewer than two blocks each (640x480's
+    levels 3 / 2 / 1 at 4 800 / 19 200 / 76 800 points, a pixel shard of
+    level 1 at 38 400)."""
+    got = sampler.block_threads(N, sms)
+    assert got == want
+    assert sampler._MIN_THREADS <= got <= sampler._MAX_THREADS
+    assert got & (got - 1) == 0
+
+
+def _source_constants(path, names):
+    text = path.read_text()
+    got = {}
+    for name in names:
+        m = re.search(rf"\b{name} = (\d+)", text)
+        assert m, name
+        got[name] = int(m.group(1))
+    return got
+
+
+def test_kernel_source_sampler_constants_match_python():
+    """The channel limit and block sizes csrc/sampler.cu checks are the
+    ones the wrapper checks and picks from."""
+    got = _source_constants(_build.CSRC / "sampler.cu", [
+        "kMaxChannels", "kMinThreads", "kMaxThreads"])
+    assert list(got.values()) == [NUM_CHANNELS, sampler._MIN_THREADS,
+                                  sampler._MAX_THREADS]
+
+
+def _ctypes_of(param):
+    """The ctypes type a C parameter or result type is passed as."""
+    if "*" in param:
+        return ctypes.c_char_p if "char" in param else ctypes.c_void_p
+    for word, t in (("double", ctypes.c_double), ("float", ctypes.c_float),
+                    ("int64_t", ctypes.c_int64), ("int", ctypes.c_int)):
+        if word in param:
+            return t
+    raise AssertionError(f"no ctypes type for {param!r}")
+
+
+_SIGNATURES = dict(
+    (name, (res, params)) for res, name, params in re.findall(
+        r'extern "C" ((?:const )?\w+\*?) (dvo_\w+)\(([^)]*)\)',
+        "".join(p.read_text() for p in _build._sources())))
+
+
+@pytest.mark.parametrize("name", sorted(_build._entry_points()))
+def test_entry_point_argtypes_match_the_sources(name):
+    """Every argtypes list load() declares has the C signature's arity and
+    types (a pointer or the stream as c_void_p), and every extern "C"
+    function of csrc/ has one."""
+    assert sorted(_SIGNATURES) == sorted(_build._entry_points())
+    res, params = _SIGNATURES[name]
+    args, restype = _build._entry_points()[name]
+    assert args == [_ctypes_of(p) for p in params.split(",")]
+    assert restype == _ctypes_of(res)

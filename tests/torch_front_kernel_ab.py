@@ -1,0 +1,223 @@
+"""The pyramid kernel (csrc/pyramid.cu) and the standalone slab sampler
+(csrc/sampler.cu) of one or more source trees, timed on the same seeded
+inputs in one run on one card.
+
+    python3 tests/torch_front_kernel_ab.py TREE [TREE ...] [--rounds 4]
+        [--phases] [--sass]
+
+A TREE is the root of a checkout of this repository: ``.``, or a ``git
+archive`` of another commit unpacked into a directory that .gitignore
+lists. Each round times the trees in turn, each in a child process that
+imports that tree's dvo_slam_tpu_torch and chip_smoke (and builds that
+tree's kernels under its own build/), and every other round takes them in
+reverse order (A B, B A, ...), so a drift of the card's clock falls on
+both. The child times, by chip_smoke._events_us (CUDA events behind a spin
+kernel): the pyramid at 640x480 with 4 levels for f32 and u8 + u16 inputs
+(phase 3a's noisy frame), and its wrapper's host time a call; the sampler on phase 2a's noisy pair at the
+tracked levels 3, 2 and 1 and at phase 11's pixel-shard shape (the first
+half of level 1's rows), beside torch's grid_sample; and, where the tree
+has it, an empty kernel (the launch floor).
+
+--phases: where the tree's build_pyramid_kernel takes ``timing=``, the
+pyramid kernel's phase split (ops/pyramid.phase_times: mean us a CTA per
+phase, the launch's span) for both encodings. --sass [DIR]: the SASS of
+every sample_slab_kernel of the tree's library (cuobjdump), written to
+DIR/<tree>.sass (default build/front_ab), and per function the order of
+its global loads, stores and float operations, compressed. Prints the card's
+name and power limit, a line per tree and round, then per case each
+tree's median us. Needs a card. Not a test: pytest does not collect it.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+_CHILD = r"""
+import functools, inspect, json, re, subprocess, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+import chip_smoke as s
+from dvo_slam_tpu_torch import TrackerConfig, _build
+from dvo_slam_tpu_torch.ops import linearize, pyramid, sampler
+from dvo_slam_tpu_torch.utils import synthetic
+
+phases, sass, tag = sys.argv[1] == "1", sys.argv[2] == "1", sys.argv[3]
+dev = torch.device("cuda", 0)
+lib = _build.load()
+out = {}
+
+# The pyramid: phase 3a's noisy 640x480 frame.
+scene = synthetic.two_plane_scene(sharpness=2.0)
+i, z = synthetic.add_sensor_noise(
+    *scene.render(np.asarray(s.K_TUPLE), s.W, s.H, np.eye(4)),
+    np.random.default_rng(2), dropout=0.02)
+i8 = np.clip(np.round(i), 0, 255).astype(np.uint8)
+z16 = np.where(np.isfinite(z), np.round(z * 5000.0), 0).astype(np.uint16)
+timed_ok = "timing" in inspect.signature(
+    pyramid.build_pyramid_kernel).parameters
+for enc, a, b in (("f32", i, z), ("u8+u16", i8, z16)):
+    ti, tz = (torch.as_tensor(x, device=dev) for x in (a, b))
+    got = pyramid.build_pyramid_kernel(ti, tz, 4)
+    want = pyramid.build_pyramid_reference(ti, tz, 4)
+    torch.cuda.synchronize()
+    bad = [s._same_bits(g, w) for g, w in zip(got, want)]
+    if any(bad):
+        sys.exit(f"pyramid {enc}: entries that differ {bad}")
+    out[f"pyramid {enc}"] = s._events_us(
+        functools.partial(pyramid.build_pyramid_kernel, ti, tz, 4))
+    # The wrapper's host time a call: 200 calls queued without a sync
+    # (the card runs each in a few us, so the host sets the pace); where
+    # the tree has two fill paths, also with the scalar fill forced.
+    fills = {"": None}
+    if hasattr(pyramid, "tma_fill"):
+        fills[", scalar fill"] = lambda i, z: False
+    for tag, forced in fills.items():
+        saved = getattr(pyramid, "tma_fill", None)
+        if forced is not None:
+            pyramid.tma_fill = forced
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            pyramid.build_pyramid_kernel(ti, tz, 4)
+        out[f"pyramid {enc} host{tag}"] = (
+            (time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+        if forced is not None:
+            pyramid.tma_fill = saved
+    if phases and timed_ok:
+        splits = []
+        for _ in range(5):
+            buf = pyramid.timing_buffer(s.H, s.W, dev)
+            pyramid.build_pyramid_kernel(ti, tz, 4, timing=buf)
+            torch.cuda.synchronize()
+            splits.append(pyramid.phase_times(buf.cpu().numpy(), 4))
+        names = list(splits[0][0])
+        # The last launch's CTAs: start skew, and mean us a CTA by how many
+        # CTAs shared its SM (the stamp row's last slot).
+        st = buf.cpu().numpy()
+        st = st[st[:, 1] != 0]  # the CTAs the launch had
+        share = np.bincount(st[:, -1])[st[:, -1]]
+        print(json.dumps({"phases": enc, "us_a_cta": {
+            k: float(np.median([x[0][k] for x in splits])) for k in names},
+            "span_us": float(np.median([x[1] for x in splits])),
+            "cta_us": float(np.median([x[2] for x in splits])),
+            "ctas": int(st.shape[0]),
+            "start_skew_us": float(st[:, 0].max() - st[:, 0].min()) / 1e3,
+            "cta_us_by_sm_share": {int(k): float(
+                (st[share == k, 1] - st[share == k, 0]).mean()) / 1e3
+                for k in np.unique(share)}}), flush=True)
+
+# The sampler: phase 2a's noisy pair, levels 3, 2, 1; phase 11's shard.
+cfg = TrackerConfig()
+ref_pyr, cur_pyr, Ks, T = s._noisy_pair(dev, cfg)
+cases = {}
+for lvl in cfg.tracked_levels:
+    ref = linearize.prepare_reference(ref_pyr[lvl], Ks[lvl], cfg)
+    cases[f"level {lvl}"] = (cur_pyr[lvl],
+                             *linearize.warp(ref, Ks[lvl], T)[4:])
+lvl = cfg.tracked_levels[-1]
+rows = ref_pyr[lvl].shape[-2] // 2
+ref = linearize.prepare_reference(ref_pyr[lvl][:, :rows], Ks[lvl], cfg)
+cases["pixel shard"] = (cur_pyr[lvl], *linearize.warp(ref, Ks[lvl], T)[4:])
+for name, (slab, u, v) in cases.items():
+    for C in (6, 1):
+        got, inb = sampler.sample_slab(slab[:C], u, v)
+        want, want_inb = sampler.sample_slab_reference(slab[:C], u, v)
+        torch.cuda.synchronize()
+        if not (torch.equal(inb, want_inb) and s._same_bits(got, want) == 0):
+            sys.exit(f"sampler {name} C={C}: differs from plain")
+    grid = torch.stack([u * (2.0 / (slab.shape[2] - 1)) - 1.0,
+                        v * (2.0 / (slab.shape[1] - 1)) - 1.0],
+                       dim=-1)[None, None]
+    out[f"sampler {name} (N={u.numel()})"] = s._events_us(
+        functools.partial(sampler.sample_slab, slab, u, v))
+    out[f"grid_sample {name}"] = s._events_us(
+        functools.partial(s._grid_sample, slab[None], grid))
+if hasattr(_build, "empty_launch"):
+    out["empty kernel"] = s._events_us(
+        functools.partial(_build.empty_launch, dev))
+
+if sass:
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    dest = Path(sys.argv[4])
+    dest.mkdir(parents=True, exist_ok=True)
+    blocks = re.split(r"\n(?=\s*Function : )", text)
+    keep = [b for b in blocks if "sample_slab_kernel" in b.split("\n")[0]]
+    (dest / f"{tag}.sass").write_text("\n".join(keep))
+    for b in keep:
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?P\d\s+)?([A-Z][A-Z0-9_]*)"
+                         r"(?:\.[A-Z0-9_.]+)?", b)
+        kinds = [("LDG" if o.startswith("LDG") else "STG" if o.startswith(
+            "STG") else "F" if o in ("FADD", "FMUL", "FFMA") else "BRA"
+            if o == "BRA" else None) for o in ops]
+        seq = []
+        for k in kinds:
+            if k is None:
+                continue
+            if seq and seq[-1][0] == k:
+                seq[-1][1] += 1
+            else:
+                seq.append([k, 1])
+        print(json.dumps({"sass": b.split("\n")[0].strip(),
+                          "instructions": len(ops),
+                          "order": " ".join(f"{k}x{n}" for k, n in seq)}),
+              flush=True)
+print(json.dumps({"us": out}), flush=True)
+"""
+
+
+def _run(tree, phases, sass):
+    root = os.path.abspath(tree)
+    env = dict(os.environ, PYTHONPATH=root)
+    tag = os.path.basename(root.rstrip("/")) or "tree"
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD, str(int(phases)), str(int(bool(sass))),
+         tag, os.path.abspath(sass or ".")], cwd=root, env=env,
+        capture_output=True, text=True)
+    if out.returncode:
+        sys.exit(f"{tree}: exit {out.returncode}\n{out.stdout[-4000:]}\n"
+                 f"{out.stderr[-4000:]}")
+    rows = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    for r in rows:
+        if "us" not in r:
+            print(f"{tree}: {json.dumps(r)}", flush=True)
+    return next(r["us"] for r in rows if "us" in r)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--sass", nargs="?", const="build/front_ab",
+                    metavar="DIR")
+    args = ap.parse_args()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(card.stdout.strip().splitlines()[0] if card.returncode == 0
+          else "nvidia-smi: not available", flush=True)
+    times = {}
+    for r in range(args.rounds):
+        for tree in (args.trees if r % 2 == 0 else args.trees[::-1]):
+            first = r == 0
+            us = _run(tree, args.phases and first, args.sass if first else None)
+            for case, t in us.items():
+                times.setdefault(case, {}).setdefault(tree, []).append(t)
+            print(f"round {r} {tree}: " + ", ".join(
+                f"{case} {t:.2f}" for case, t in us.items()), flush=True)
+    for case, by_tree in times.items():
+        print(f"{case}: device us a call, median over rounds: " + ", ".join(
+            f"{tree} {statistics.median(ts):.2f}"
+            for tree, ts in by_tree.items()), flush=True)
+
+
+if __name__ == "__main__":
+    main()

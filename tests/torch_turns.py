@@ -5,12 +5,13 @@
 Each directory holds a checkout of the repository (unpacked with ``git
 archive``) with its own chip_smoke.py. Each turn is a fresh process in one
 checkout on card 0: chip_smoke's phase 3 (odometry over the 24-frame
-640x480 orbit, ms/frame after 4 warm-up frames), then phase 6b's `cli
+640x480 orbit, ms/frame after 4 warm-up frames) and phase 5b (KeyframeSlam
+over the ring, ms/frame of the 160 timed frames), then phase 6b's `cli
 benchmark --fr 1` over the offline sequence twice (engine fps). The
 offline sequence is rendered once, by CHANGE_DIR's chip_smoke, into a
 temporary directory. Prints a line per turn and, last, one JSON object:
-per checkout, each turn's ms/frame and fps. Needs a CUDA card; not a
-test: pytest does not collect it.
+per checkout, each turn's ms/frame (phases 3 and 5b) and fps. Needs a
+CUDA card; not a test: pytest does not collect it.
 """
 
 import json
@@ -33,9 +34,11 @@ _build.load()
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     s.phase_main_path(dev)
-line = next(x for x in buf.getvalue().splitlines()
-            if x.startswith("phase 3 main path"))
-ms = float(re.search(r"([0-9.]+) ms/frame", line).group(1))
+    s.phase_slam(dev)
+ms, slam_ms = (
+    float(re.search(r"([0-9.]+) ms/frame", next(
+        x for x in buf.getvalue().splitlines() if x.startswith(head))).group(1))
+    for head in ("phase 3 main path", "phase 5b SLAM path"))
 flags = ["--fr", "1", "--min-entropy-ratio", "0.96", "--search-radius",
          f"{0.35 * s.OFFLINE_RADIUS:g}", "--min-constraint-distance", "3",
          "--device", str(dev)]
@@ -45,7 +48,7 @@ for _ in range(2):
     if rc != 0:
         sys.exit(f"benchmark exited {rc}")
     fps.append(json.loads(out)["fps"])
-print(json.dumps({"ms_frame": ms, "fps": fps}))
+print(json.dumps({"ms_frame": ms, "slam_ms_frame": slam_ms, "fps": fps}))
 """
 
 
@@ -74,7 +77,8 @@ def main():
             got = turn(checkout, seq)
             out[checkout].append(got)
             print(f"turn {k + 1} {os.path.basename(checkout)}: phase 3 "
-                  f"{got['ms_frame']:.3f} ms/frame, 6b fps "
+                  f"{got['ms_frame']:.3f} ms/frame, 5b "
+                  f"{got['slam_ms_frame']:.3f} ms/frame, 6b fps "
                   f"{', '.join(f'{x:.3f}' for x in got['fps'])}", flush=True)
     print(json.dumps({os.path.basename(k): v for k, v in out.items()}))
 
