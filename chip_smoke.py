@@ -13,8 +13,10 @@ per batch row (the tracker's route on the card; on the kernel front it
 reads the reference points from the reference slabs and writes the track
 result), the pose-graph kernel (csrc/pose_graph.cu: a dense
 Levenberg-Marquardt solve of up to 128 vertices per launch, the graph
-solves' route on the card) and the pyramid kernel (csrc/pyramid.cu:
-every level of a frame's pyramid in one launch). Phases:
+solves' route on the card), the pyramid kernel (csrc/pyramid.cu:
+every level of a frame's pyramid in one launch) and the chunked keyframe
+scan's step (csrc/keyframe_scan.cu: a frame's keyframe decisions, one
+launch a frame after its level launches). Phases:
 
   1. device: the card's name and power limit (nvidia-smi), the build of
      the port's kernels from csrc/ (libdvo_kernels.so, one nvcc per
@@ -149,11 +151,19 @@ every level of a frame's pyramid in one launch). Phases:
      (eager, kernel, kernel, eager): ms/frame; the same odometry
      iterations, SLAM keyframes and graph edges, and offline keyframes and
      loop edges on both;
+  8a. the scan step (csrc/keyframe_scan.cu) against its plain version
+     (ops/scan_step.py scan_step_plain, scan_step_reference on the same
+     buffers) on every decision's cases (STEP_CASES) and 64 random
+     frames, with and without the statistics: the decisions and copied
+     fields bit for bit, the poses within STEP_POSE_ATOL; its device us
+     by CUDA events beside the plain version's, its bound;
   8. the chunked engine (ChunkedKeyframeSlam, default configs, loop
      closure on) over 5b's loop in chunks of 16 with a depth-2
      submit/collect pipeline, 160 warm-up frames then 160 timed: ms/frame,
      submit host ms, keyframes, loop edges, ATE of finish() (< 5 mm),
-     level-kernel launches per frame by batch size; chunk 3's submit_chunk
+     level-kernel launches per frame by batch size, and the launches
+     inside submit_chunk per scanned frame by kernel (must be pyramid 1,
+     track_level 3, scan_step 1, nothing else); chunk 3's submit_chunk
      under torch.cuda.set_sync_debug_mode("error") (must not raise);
      against 5b's per-frame KeyframeSlam on the same frames: the same
      keyframe timestamps and edge endpoints (outlier-pruning masks may
@@ -210,10 +220,14 @@ every level of a frame's pyramid in one launch). Phases:
      frames with one forced keyframe switch, each frame a labelled
      segment: busy and idle share, device records and launches per frame
      (by layer on frames without a switch);
-  6h. last, a short profile of the offline cell through each route: a
+  6h. a short profile of the offline cell through each route: a
      fresh KeyframeSlam with 6b's configs tracks the sequence's first 12
      frames, then its next 12 under the profiler: busy and idle share,
-     device records and launches per frame (by layer).
+     device records and launches per frame (by layer);
+  8p. last, the chunked scan under the profiler: two chunks' submit_chunk
+     on a fresh engine, the device records they launch per frame by kind
+     (the five kernels a frame and the chunks' copies; anything else
+     fails).
 
 The line before the last is a JSON object describing each kernel (the
 cluster kernel's modes at B = 1, with the odometry path's launches, at
@@ -223,7 +237,8 @@ compacted odometry launches, and mode (b) on the slab route with phase
 3's launches; the standalone sampler on phase 11's pixel-sharded route;
 the pose-graph kernel on 5f's five graphs, with 5b's, 6b's and 5e's
 launches; the pyramid kernel at 640x480, f32 and raw inputs, with phase
-3's launches); the last line is {"ok": true,
+3's launches; the scan step, with phase 8's launches); the last line is
+{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -296,6 +311,9 @@ EVICT_FRAMES, EVICT_W, EVICT_H = 68, 160, 120
 # 8: the chunked engine, bench.py's --chunk default; chunk 3's submit runs
 # under set_sync_debug_mode("error").
 CHUNK, SYNC_CHUNK = 16, 3
+# The chunked scan's launches a frame on the kernel route (phase 8, 8p).
+SCAN_LAUNCHES = {"pyramid": 1.0, "track_level": 3.0, "scan_step": 1.0,
+                 "linearize": 0.0, "sample_slab": 0.0, "pose_graph": 0.0}
 # 9: the live node, bench.py's live modes (its default is 400 frames).
 LIVE_FRAMES, LIVE_TIMEOUT_S = 96, 300.0
 LIVE_RUNS = (("odometry", 0, "f32", 0), ("slam", 0, "f32", 0),
@@ -454,9 +472,10 @@ def _busy_us(intervals):
 def _kernel_of(name):
     """Which of the port's kernels a device record is, or None: the
     standalone sampler, the cluster kernel's mode (a) ("linearize") or
-    mode (b) ("track_level"), the pose-graph kernel ("pose_graph") or the
-    pyramid kernel ("pyramid")."""
+    mode (b) ("track_level"), the pose-graph kernel ("pose_graph"), the
+    pyramid kernel ("pyramid") or the scan step ("scan_step")."""
     for kernel, what in (("sample_slab_kernel", "sampler"),
+                         ("scan_step_kernel", "scan_step"),
                          ("track_level_kernel", "track_level"),
                          ("linearize_kernel", "linearize"),
                          ("pose_graph_kernel", "pose_graph"),
@@ -478,7 +497,7 @@ def _traced(body, what):
     from torch.profiler import ProfilerActivity, profile
 
     kernels = ("sample_slab", "linearize", "track_level", "pose_graph",
-               "pyramid")
+               "pyramid", "scan_step")
     for attempt in range(1, PROFILER_ATTEMPTS + 1):
         torch.cuda.synchronize()
         before = _launches()
@@ -1935,7 +1954,7 @@ def _sampler_bound(slab, u, v):
 
 def kernel_rows(cfg, levels, launches, dev_times, slam_out,
                 level_pairs, batched, chunked_launches, val_batches,
-                compaction, par, graph, offline, front):
+                compaction, par, graph, offline, front, scan):
     """The kernels' JSON rows at the finest tracked level: the standalone
     sampler, and the cluster kernel's two modes at B = 1 (the odometry
     main path's launches), at the SLAM path's batch sizes (its launches at
@@ -1952,7 +1971,8 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
     kernel at 640x480 (f32 and raw u8 + u16 inputs; phase 3's launches,
     one a frame; its plain version's host ms a call) and mode (b) at B = 1
     on the slab route (phase 3's launches), timed in 3a with its bound
-    and plain version from 3a's own launch. Every kernel time by CUDA
+    and plain version from 3a's own launch; the scan step (phase 8's
+    launches), timed in 8a with its bound. Every kernel time by CUDA
     events."""
     slam_launches = slam_out["launches"]
     lvl = cfg.tracked_levels[-1]
@@ -2042,6 +2062,13 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
             "dvo_slam_tpu_torch/csrc/pose_graph.cu",
             "dvo_slam_tpu/models/pose_graph.py:463", n_launch, d["err"],
             d["us"] / 1e3, d["plain_ms"], d["bound"], None)
+    # No Pallas kernel: the JAX package's scan step after the tracker,
+    # compiled by XLA inside lax.scan; no PyTorch call computes it.
+    row("scan_step (the chunked keyframe scan's decisions, one launch a "
+        "frame)", "dvo_slam_tpu_torch/csrc/keyframe_scan.cu",
+        "dvo_slam_tpu/models/keyframe_scan.py:100",
+        chunked_launches["scan_step"], scan["err"], scan["us"] / 1e3,
+        scan["plain_ms"], scan["bound"], None)
     return rows
 
 
@@ -2083,8 +2110,9 @@ def _cli(args):
 
 def _reset_launches():
     from dvo_slam_tpu_torch.models import pose_graph
-    from dvo_slam_tpu_torch.ops import linearize, pyramid, sampler
+    from dvo_slam_tpu_torch.ops import linearize, pyramid, sampler, scan_step
 
+    scan_step.LAUNCHES_SCAN_STEP = 0
     pose_graph.LAUNCHES = 0
     pose_graph.LAUNCHES_BY_M.clear()
     sampler.LAUNCHES = 0
@@ -2099,9 +2127,10 @@ def _launches():
     """The kernels' launch counts, and the prepare_reference calls (no
     launch: the eager front's reference points)."""
     from dvo_slam_tpu_torch.models import pose_graph
-    from dvo_slam_tpu_torch.ops import linearize, pyramid, sampler
+    from dvo_slam_tpu_torch.ops import linearize, pyramid, sampler, scan_step
 
     return {"sample_slab": sampler.LAUNCHES,
+            "scan_step": scan_step.LAUNCHES_SCAN_STEP,
             "linearize": linearize.LAUNCHES_LINEARIZE,
             "track_level": linearize.LAUNCHES_TRACK_LEVEL,
             "pose_graph": pose_graph.LAUNCHES,
@@ -3225,6 +3254,254 @@ def phase_eviction(device):
             "graphs": {M: graphs[M] for M in GRAPH_RING_VERTICES}}
 
 
+# The scan step's cases (8a; tests/test_torch_kernels_cuda.py takes them
+# too): each decision's branches, and random rows.
+STEP_CASES = ("accepted", "no_history", "kf_nan", "odo_nan", "both_nan",
+              "forced", "low_valid_ratio", "low_entropy_ratio",
+              "inf_entropy_with_history", "nan_entropy_without_history",
+              "signs_rising", "signs_falling", "singular_information",
+              "fuse_off")
+STEP_RANDOM = 64
+# The scan step's f32 operations a frame: the fusion's inverse, two 4x4
+# products, SE(3) log, a 6x6 elimination and exp, T_alt, the ratio and
+# the selects (about 1 100); and the poses' tolerance against its plain
+# version (the decisions and copied fields: bit for bit).
+SCAN_STEP_OPS = 1100
+STEP_POSE_ATOL = 1e-5
+
+
+def _step_inputs(case, cfg, device, seed):
+    """A frame's buffers for the scan step (ops/scan_step.py scan_step) in
+    one case: the two level rows of every tracked level (random
+    statistics, the finest level's pose, log-likelihood, information,
+    entropy and valid ratio set), their iterations, the carry slot and
+    pointer table before the frame, force, the frame's slabs (small
+    tensors: only their addresses are used), the scan config. "random"
+    cases draw every decision's inputs, NaNs included."""
+    import dataclasses
+
+    import torch
+
+    from dvo_slam_tpu_torch.models import keyframe_scan
+    from dvo_slam_tpu_torch.ops import linearize, scan_step
+    from dvo_slam_tpu_torch.utils import se3_np
+
+    rng = np.random.default_rng(seed)
+    L, M = len(cfg.tracked_levels), cfg.max_iterations
+    S = linearize.level_row_size(M)
+    lev = (rng.normal(size=(2, L, S)) * 10).astype(np.float32)
+    st = linearize._LEVEL_STATS
+    lev[..., st + 3 * M:st + 4 * M] = rng.random((2, L, M)) < 0.7
+    lev_i = np.stack([rng.integers(1, M + 1, (2, L)),
+                      rng.integers(0, 4, (2, L))], axis=-1).astype(np.int32)
+    T = np.stack([se3_np.exp(rng.normal(scale=0.02, size=6))
+                  for _ in range(2)]).astype(np.float32)
+    A = rng.normal(size=(2, 6, 6))
+    info = (np.einsum("bij,bkj->bik", A, A) * 1e3
+            + 10 * np.eye(6)).astype(np.float32)
+    ll = np.float32([-1e4, -2e4])
+    h, vr = np.float32([-20.0, -19.0]), np.float32([0.8, 0.7])
+    T_kf_prev, last_odo = (se3_np.exp(rng.normal(scale=0.01, size=6))
+                           .astype(np.float32) for _ in range(2))
+    H_first, has_first, force, fuse = -20.5, True, False, True
+    if case == "random":
+        h = rng.normal(scale=20.0, size=2).astype(np.float32)
+        H_first = float(h[0] * rng.uniform(0.8, 1.2))
+        vr = rng.uniform(0.0, 1.0, 2).astype(np.float32)
+        has_first = bool(rng.random() < 0.7)
+        force = bool(rng.random() < 0.1)
+        for b in range(2):
+            if rng.random() < 0.15:
+                T[b, rng.integers(3), rng.integers(4)] = np.nan
+            if rng.random() < 0.1:
+                ll[b] = np.inf
+        if rng.random() < 0.1:
+            h[0] = np.nan
+    elif case == "no_history":
+        has_first, H_first = False, 0.0
+    elif case in ("kf_nan", "both_nan"):
+        T[0, 1, 2] = np.nan
+    if case in ("odo_nan", "both_nan"):
+        ll[1] = np.inf
+    elif case == "forced":
+        force = True
+    elif case == "low_valid_ratio":
+        vr[0] = 0.1
+    elif case == "low_entropy_ratio":
+        h[0] = -10.0
+    elif case == "inf_entropy_with_history":
+        h[0] = np.inf
+    elif case == "nan_entropy_without_history":
+        h[0], has_first, H_first = np.nan, False, 0.0
+    elif case == "signs_rising":
+        H_first, h[0] = 0.4, -0.3
+    elif case == "signs_falling":
+        H_first, h[0] = -0.4, 0.3
+    elif case == "singular_information":
+        info[:, 5, :] = 0.0
+        info[:, :, 5] = 0.0
+    elif case == "fuse_off":
+        fuse = False
+    fin = lev[:, -1]
+    fin[:, linearize._LEVEL_T:linearize._LEVEL_LOGLIK] = T.reshape(2, 16)
+    fin[:, linearize._LEVEL_LOGLIK] = ll
+    fin[:, linearize._LEVEL_BEST:linearize._LEVEL_BEST + 36] = \
+        info.reshape(2, 36)
+    extra = st + linearize._STAT_PLANES * M
+    fin[:, extra + linearize._EXTRA_ENTROPY] = h
+    fin[:, extra + linearize._EXTRA_RATIO] = vr
+    dev = torch.device(device)
+    carry = {"T_kf_prev": torch.as_tensor(T_kf_prev, device=dev),
+             "last_odo": torch.as_tensor(last_odo, device=dev),
+             "H_first": torch.tensor(H_first, dtype=torch.float32,
+                                     device=dev),
+             "has_first": torch.tensor(has_first, device=dev)}
+    slabs = [torch.zeros(6, 2, 2, device=dev) for _ in range(2 * L)]
+    table = torch.tensor([[slabs[j].data_ptr(), slabs[L + j].data_ptr()]
+                          for j in range(L)], dtype=torch.int64, device=dev)
+    scan_cfg = keyframe_scan.ScanConfig(
+        0.2, 0.9, fuse, bool(cfg.collect_stats))
+    return {"lev": torch.as_tensor(lev, device=dev),
+            "lev_i": torch.as_tensor(lev_i, device=dev),
+            "state_in": scan_step.state_of(carry, cfg.use_initial_estimate),
+            "table_in": table,
+            "force": torch.tensor(force, device=dev),
+            "cur": tuple(torch.zeros(6, 2, 2, device=dev)
+                         for _ in range(L)),
+            "scan_cfg": scan_cfg}
+
+
+def _run_step(step, inp, cfg):
+    """One scan step (the kernel or its plain version) on a case's inputs
+    into new outputs: (packed row, carry slot, table)."""
+    import torch
+
+    from dvo_slam_tpu_torch.ops import scan_step
+
+    L = len(cfg.tracked_levels)
+    layout = scan_step.output_layout(
+        L, cfg.max_iterations,
+        bool(cfg.collect_stats and inp["scan_cfg"].with_stats))
+    dev = inp["lev"].device
+    out = (torch.full((scan_step.row_width(layout),), 7.0, device=dev),
+           torch.full((scan_step.STATE_SIZE,), 7.0, device=dev),
+           torch.full((L, 2), 7, dtype=torch.int64, device=dev))
+    step(inp["lev"], inp["lev_i"], inp["state_in"], inp["table_in"],
+         inp["force"], inp["cur"], *out, cfg, inp["scan_cfg"])
+    return out, layout
+
+
+def _step_differences(got, want, layout):
+    """Where a scan step's outputs part from its plain version's: (list of
+    what differs beyond the rules, the largest pose difference). The
+    decisions and every copied field bit for bit; the poses (rel_pose,
+    the carry's T_kf_prev, Z_switch where it is the chained odometry)
+    within STEP_POSE_ATOL; the table equal."""
+    import torch
+
+    from dvo_slam_tpu_torch.ops import scan_step
+
+    (row, state, table), (row_p, state_p, table_p) = got, want
+    bad, err = [], 0.0
+
+    def bits_differ(a, b):
+        nan = torch.isnan(a) & torch.isnan(b)
+        return bool(((a.view(torch.int32) != b.view(torch.int32))
+                     & ~nan).any())
+
+    def pose_err(a, b):
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return float("inf")
+        return float((a - b).nan_to_num(0.0).abs().max())
+
+    views = scan_step.field_views(row[None], layout)
+    want_views = scan_step.field_views(row_p[None], layout)
+    for f in layout:
+        a = row[f.offset:f.offset + int(np.prod(f.shape, dtype=np.int64))]
+        b = row_p[f.offset:f.offset + a.numel()]
+        if f.name == "rel_pose" or (
+                f.name == "Z_switch" and not bool(views["accept"][0])
+                and not bool(views["is_nan"][0, 1])):
+            e = pose_err(a, b)
+            err = max(err, e)
+            if not e <= STEP_POSE_ATOL:
+                bad.append(f"{f.name} {e:.3e}")
+        elif bits_differ(a, b):
+            bad.append(f.name)
+    for name in ("switch", "accept", "is_nan"):
+        if not torch.equal(views[name], want_views[name]):
+            bad.append(f"decision {name}")
+    T, T_p = state[:16], state_p[:16]
+    e = pose_err(T, T_p)
+    err = max(err, e)
+    if not e <= STEP_POSE_ATOL:
+        bad.append(f"T_kf_prev {e:.3e}")
+    if bits_differ(state[16:], state_p[16:]):
+        bad.append("carry slot")
+    if not torch.equal(table, table_p):
+        bad.append("table")
+    return bad, err
+
+
+def phase_scan_step(device, cfg):
+    """8a: the scan step (csrc/keyframe_scan.cu) against its plain version
+    (ops/scan_step.py scan_step_plain: scan_step_reference on the same
+    buffers) on the card, on STEP_CASES and STEP_RANDOM random frames with
+    the default config (statistics copied), and on the cases without the
+    statistics: the decisions and copied fields bit for bit, the poses
+    within STEP_POSE_ATOL; device us per call by CUDA events beside the
+    plain version's, and the bound from its bytes and operations."""
+    import dataclasses
+
+    import torch
+
+    from dvo_slam_tpu_torch.ops import scan_step
+
+    cases = [(c, i) for i, c in enumerate(STEP_CASES)] + [
+        ("random", 1000 + i) for i in range(STEP_RANDOM)]
+    worst, switches = 0.0, 0
+    for stats in (True, False):
+        c_cfg = dataclasses.replace(cfg, collect_stats=stats)
+        for case, seed in cases:
+            inp = _step_inputs(case, c_cfg, device, seed)
+            before = scan_step.LAUNCHES_SCAN_STEP
+            got, layout = _run_step(scan_step.scan_step_kernel, inp, c_cfg)
+            want, _ = _run_step(scan_step.scan_step_plain, inp, c_cfg)
+            torch.cuda.synchronize()
+            if scan_step.LAUNCHES_SCAN_STEP - before != 1:
+                raise AssertionError("the scan step did not launch")
+            bad, err = _step_differences(got, want, layout)
+            worst = max(worst, err)
+            switches += int(got[0][scan_step.output_layout(
+                1, 1, False)[1].offset].view(torch.int32))
+            if bad:
+                raise AssertionError(f"scan step, case {case} (seed {seed},"
+                                     f" stats {stats}): {bad}")
+    inp = _step_inputs("accepted", cfg, device, 0)
+    got, layout = _run_step(scan_step.scan_step_kernel, inp, cfg)
+    args = (inp["lev"], inp["lev_i"], inp["state_in"], inp["table_in"],
+            inp["force"], inp["cur"], *got, cfg, inp["scan_cfg"])
+    us = _events_us(lambda: scan_step.scan_step_kernel(*args))
+    plain_us = _events_us(lambda: scan_step.scan_step_plain(*args))
+    L, M = len(cfg.tracked_levels), cfg.max_iterations
+    stats_floats = 8 * L * M + 2 * L
+    read = 4 * (2 * (16 + 1 + 36 + 2) + 2 * L + scan_step.STATE_SIZE
+                + stats_floats) + 16 * L + 1
+    written = 4 * (scan_step.row_width(layout) + scan_step.STATE_SIZE) \
+        + 16 * L
+    bound = _bound_ms(read + written, SCAN_STEP_OPS, 0)
+    print(f"phase 8a scan step (csrc/keyframe_scan.cu) against its plain "
+          f"version: {2 * len(cases)} frames ({len(STEP_CASES)} cases and "
+          f"{STEP_RANDOM} random, with and without statistics; "
+          f"{switches} switch): decisions and copied fields bit for bit, "
+          f"max pose difference {worst:.3e} (tol {STEP_POSE_ATOL:g}); "
+          f"{us:.2f} us a call (events), plain {plain_us:.2f} us; bound "
+          f"{1e3 * bound[0]:.6f} us by {bound[1]} ({read + written} B, "
+          f"{SCAN_STEP_OPS} f32 operations)")
+    return {"err": worst, "us": us, "plain_ms": plain_us / 1e3,
+            "bound": bound}
+
+
 def _chunks(frames, n, t_base):
     """bench.py's slam-lc loop in chunks of CHUNK frames: the ring over and
     over, timestamps t_base + k / 30."""
@@ -3253,6 +3530,8 @@ def phase_chunked(device, slam_out):
     frames = slam_out["frames"]
     _, poses = _ring()
 
+    scan = dict.fromkeys(SCAN_LAUNCHES, 0)
+
     def run(t_base, timed):
         slam = ChunkedKeyframeSlam(K_TUPLE, TrackerConfig(), SlamConfig(),
                                    enable_loop_closure=True, device=device)
@@ -3263,6 +3542,7 @@ def phase_chunked(device, slam_out):
         for c, ii, zz, ts in _chunks(frames, SLAM_FRAMES, t_base):
             if c > 0:
                 slam.force_keyframe()
+            before = _launches()
             t_s = time.perf_counter()
             if timed and c == SYNC_CHUNK:
                 torch.cuda.set_sync_debug_mode("error")
@@ -3273,6 +3553,10 @@ def phase_chunked(device, slam_out):
             else:
                 slam.submit_chunk(ii, zz, ts)
             submit_ms.append(1e3 * (time.perf_counter() - t_s))
+            after = _launches()
+            if timed:
+                for k in scan:
+                    scan[k] += after[k] - before[k]
             in_flight += 1
             if in_flight == 2:
                 slam.collect_chunk()
@@ -3307,10 +3591,17 @@ def phase_chunked(device, slam_out):
           f"submit_chunk host ms median {np.median(submit_ms):.3f}, max "
           f"{max(submit_ms):.3f}; keyframes {len(slam.keyframes)}, loop "
           f"edges {slam.num_loop_edges}; ATE of finish() {1e3 * ate:.4f} mm")
+    # The scan's frames: every frame but the engine's first (its init
+    # pyramid is one more pyramid launch in the first submit_chunk).
+    scanned = SLAM_FRAMES - 1
+    per_frame = {k: (n - (k == "pyramid")) / scanned for k, n in scan.items()}
     print(f"phase 8 launches: track_level {launches['track_level']} "
           f"({launches['track_level'] / SLAM_FRAMES:.2f} per frame), per "
           f"frame by batch size {by_b}, linearize {launches['linearize']}, "
-          f"standalone sampler {launches['sample_slab']}; chunk "
+          f"standalone sampler {launches['sample_slab']}; in submit_chunk "
+          f"(the scan, {scanned} frames) per frame by kernel: "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in per_frame.items())} "
+          f"(want pyramid 1, track_level 3, scan_step 1, the rest 0); chunk "
           f"{SYNC_CHUNK}'s submit_chunk under set_sync_debug_mode(\"error\"):"
           f" no synchronizing call")
     # Outlier pruning judges the loop edges when a graph solve is applied:
@@ -3335,7 +3626,90 @@ def phase_chunked(device, slam_out):
     if (launches["track_level"] == 0 or launches["linearize"] != 0
             or launches["sample_slab"] != 0):
         raise AssertionError(f"chunked path launches {launches}")
-    return {"launches": launches, "ms_frame": ms}
+    if per_frame != SCAN_LAUNCHES:
+        raise AssertionError(f"the scan's launches per frame {per_frame}, "
+                             f"want {SCAN_LAUNCHES}")
+    return {"launches": launches, "ms_frame": ms,
+            "submit_ms": float(np.median(submit_ms))}
+
+
+def phase_chunk_profile(device, slam_out, chunks=2):
+    """8p (last of the profiles): the chunked scan under torch.profiler: a
+    fresh ChunkedKeyframeSlam (default configs) takes one chunk of the
+    ring, then `chunks` more are submitted inside labelled host ranges
+    (the frame loop, keyframe_scan._track_chunk_kernels, in one of its
+    own) and collected. Of the device records launched inside
+    submit_chunk: those of the frame loop per frame by kind, which must be
+    the scan's five kernels a frame and nothing else; the rest (the
+    chunk's uploads, its host copy, any set-up op) per chunk."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    from dvo_slam_tpu_torch import SlamConfig, TrackerConfig
+    from dvo_slam_tpu_torch.models import keyframe_scan
+    from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
+
+    slam = ChunkedKeyframeSlam(K_TUPLE, TrackerConfig(), SlamConfig(),
+                               enable_loop_closure=True, device=device)
+    slam.init()
+    todo = list(_chunks(slam_out["frames"], CHUNK * (chunks + 1), 500.0))
+    slam.submit_chunk(*todo[0][1:])
+    slam.collect_chunk()
+    loop = keyframe_scan._track_chunk_kernels
+
+    def ranged(*args, **kwargs):
+        with record_function("smoke frame loop"):
+            return loop(*args, **kwargs)
+
+    def body():
+        for c, ii, zz, ts in todo[1:]:
+            with record_function(f"smoke submit_chunk {c}"):
+                slam.submit_chunk(ii, zz, ts)
+        for _ in todo[1:]:
+            slam.collect_chunk()
+
+    keyframe_scan._track_chunk_kernels = ranged
+    try:
+        _, prof = _traced(body, "the chunked scan")
+    finally:
+        keyframe_scan._track_chunk_kernels = loop
+    events = prof.events()
+
+    def spans(prefix):
+        return [e.time_range for e in events
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith(prefix)]
+
+    submits, loops = spans("smoke submit_chunk"), spans("smoke frame loop")
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith("cu") and e.id}
+    in_loop, setup = {}, {}
+    for e in events:
+        if (e.device_type != DeviceType.CUDA
+                or e.name.startswith(_RANGE_PREFIXES)):
+            continue
+        t = launched.get(e.id)
+        if t is None or not any(r.start <= t <= r.end for r in submits):
+            continue
+        kind = _kernel_of(e.name) or (
+            "copies" if "memcpy" in e.name.lower() else e.name[:40])
+        held = in_loop if any(r.start <= t <= r.end for r in loops) \
+            else setup
+        held[kind] = held.get(kind, 0) + 1
+    n = CHUNK * chunks
+    per_frame = {k: in_loop.get(k, 0) / n for k in SCAN_LAUNCHES}
+    print(f"phase 8p chunked scan profile: {chunks} chunks of {CHUNK}, "
+          f"device records launched inside submit_chunk: in the frame loop "
+          f"{sum(in_loop.values()) / n:.2f} a frame, by kind "
+          f"{ {k: round(v / n, 3) for k, v in sorted(in_loop.items())} }; "
+          f"outside it {sum(setup.values()) / chunks:.1f} a chunk "
+          f"{ {k: v / chunks for k, v in sorted(setup.items())} }")
+    if per_frame != SCAN_LAUNCHES or set(in_loop) - set(SCAN_LAUNCHES):
+        raise AssertionError(f"the chunked scan's frame loop issued "
+                             f"{in_loop} in {chunks} chunks")
+    return {"in_loop": in_loop, "setup": setup}
 
 
 def _live_frames(frames, enc):
@@ -4015,8 +4389,9 @@ def main():
     phase_turns(device, frames, slam_out, offline)
     print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    scan = phase_scan_step(device, cfg)
     chunked = phase_chunked(device, slam_out)
-    print(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    print(f"phases 8a-8 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_live(device, slam_out)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
@@ -4039,10 +4414,11 @@ def main():
         phase_slam_profile(slam_out, host)
     for host in (False, True):
         phase_offline_profile(offline, device, host)
+    phase_chunk_profile(device, slam_out)
     print(json.dumps({"kernels": kernel_rows(
         cfg, levels, launches, dev_times, slam_out, level_pairs, batched,
         chunked["launches"], val_batches, compaction, par, graph, offline,
-        front)}))
+        front, scan)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

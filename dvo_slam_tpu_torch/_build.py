@@ -150,6 +150,12 @@ def _entry_points():
         "dvo_pose_graph_plan": ([ci, ci, vp], ci),
         "dvo_level_plan": ([ci, ci, vp], ci),
         "dvo_error_string": ([ci], ctypes.c_char_p),
+        "dvo_scan_step": ([
+            vp, vp, ci, ci,  # level rows, iterations, levels, iterations
+            vp, vp, vp, vp,  # carry slot, table, force, frame's slabs
+            cf, cf, ci, ci, ci,  # ratios, fuse, initial estimate, stats
+            vp, vp, vp, vp,  # packed row, next carry slot, table; stream
+        ], ci),
         "dvo_pyramid": ([
             vp, ci, vp, ci,  # intensity, i_u8, depth, depth encoding
             ci, ci, ci, cf, cf,  # H, W, num_levels, the raw scales

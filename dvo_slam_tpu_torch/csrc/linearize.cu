@@ -33,8 +33,10 @@
 // (ops/linearize.py::prepare_reference, the route of compaction, the
 // pixel shards and the plain versions), or computed in the residual pass
 // from the reference level's (6, H, W) slab itself (the slab route: row
-// b's slab by one of up to 32 row pointers in the parameters, or by a
-// stride): back-projection, the selection (finite depth, the gradient
+// b's slab by one of up to 32 row pointers in the parameters, by a row
+// pointer the launch reads from a table in device memory (the chunked
+// keyframe scan's, whose keyframe entry csrc/keyframe_scan.cu chooses on
+// the card), or by a stride): back-projection, the selection (finite depth, the gradient
 // thresholds through hypotf as torch.hypot calls it, the isfinite folds)
 // and the reference gradients, in prepare_reference's order with the _rn
 // intrinsics, so both routes give the same bits. That removes the front's
@@ -118,8 +120,12 @@ constexpr int kBestA = 0, kBestB = 36, kBestErr = 42, kBestErrRaw = 43,
 constexpr int kLevelT = 0, kLevelLoglik = 16, kLevelBest = 17, kLevelStats = 67,
               kStatPlanes = 5;
 constexpr int kExtraSelected = 0, kExtraEntropy = 1, kExtraRatio = 2, kExtraSize = 3;
-// Reference slabs by row pointer (SlamConfig.validation_batch_max).
+// Reference slabs by row pointer (SlamConfig.validation_batch_max), and
+// where the slab route finds row b's slab: at a stride from the first, in
+// a table of row pointers among the parameters, or in a table of row
+// pointers in device memory (ops/linearize.py _TABLE_*).
 constexpr int kMaxRefRows = 32;
+constexpr int kTableStride = 0, kTableParams = 1, kTableDevice = 2;
 // Termination codes (models/dense_tracker.py TERM_*).
 constexpr int kTermIterations = 0, kTermIncrement = 1, kTermErrorIncreased = 2,
               kTermTooFew = 3;
@@ -138,10 +144,13 @@ struct Params {
   const float* rgzx;  // depth)
   const float* rgzy;
   // The slab route: row b's (6, H, W) reference slab is ref_rows[b]
-  // (ref_table) or ref_rows[0] + b * ref_stride floats; a null ref_rows[0]
-  // reads the arrays above. igt, dgt: the gradient thresholds of the
-  // selection (cfg.intensity_grad_threshold, depth_grad_threshold).
+  // (ref_table kTableParams), ref_dev[b] (kTableDevice: a table in device
+  // memory, read by the launch itself) or ref_rows[0] + b * ref_stride
+  // floats (kTableStride); a null ref_rows[0] and ref_dev read the arrays
+  // above. igt, dgt: the gradient thresholds of the selection
+  // (cfg.intensity_grad_threshold, depth_grad_threshold).
   const float* ref_rows[kMaxRefRows];
+  const float* const* ref_dev;
   int64_t ref_stride;
   int ref_table;
   float igt, dgt;
@@ -195,8 +204,9 @@ __device__ __forceinline__ Row row_of(const Params& p, int b) {
   r.rgiy = p.rgiy ? p.rgiy + o : nullptr;
   r.rgzx = p.rgzx ? p.rgzx + o : nullptr;
   r.rgzy = p.rgzy ? p.rgzy + o : nullptr;
-  r.ref = p.ref_table ? p.ref_rows[b]
-                      : (p.ref_rows[0] ? p.ref_rows[0] + b * p.ref_stride : nullptr);
+  r.ref = p.ref_table == kTableDevice   ? p.ref_dev[b]
+          : p.ref_table == kTableParams ? p.ref_rows[b]
+          : (p.ref_rows[0] ? p.ref_rows[0] + b * p.ref_stride : nullptr);
   r.slab = p.slab + b * p.slab_stride;
   return r;
 }
@@ -974,8 +984,10 @@ Params params(const float* px, const float* py, const float* pz, const float* i1
   Params p = {};
   p.px = px; p.py = py; p.pz = pz; p.i1 = i1; p.selected = selected;
   p.rgix = rgix; p.rgiy = rgiy; p.rgzx = rgzx; p.rgzy = rgzy;
-  if (ref_rows) {
-    const int n = ref_table ? (B < kMaxRefRows ? B : kMaxRefRows) : 1;
+  if (ref_rows && ref_table == kTableDevice) {
+    p.ref_dev = ref_rows;  // a device address: never read on the host
+  } else if (ref_rows) {
+    const int n = ref_table == kTableParams ? (B < kMaxRefRows ? B : kMaxRefRows) : 1;
     for (int b = 0; b < n; ++b) p.ref_rows[b] = ref_rows[b];
   }
   p.ref_stride = ref_stride; p.ref_table = ref_table; p.igt = igt; p.dgt = dgt;
@@ -988,10 +1000,13 @@ Params params(const float* px, const float* py, const float* pz, const float* i1
 }
 
 // The reference arguments are valid: the arrays, or a slab route whose
-// points are the slab's pixels (table mode for at most kMaxRefRows rows).
+// points are the slab's pixels (a table among the parameters for at most
+// kMaxRefRows rows; a device table is not read here).
 bool refs_ok(const float* const* ref_rows, int ref_table, int B, int N, int H, int W) {
   if (!ref_rows) return true;
-  return ref_rows[0] && N == H * W && (!ref_table || B <= kMaxRefRows);
+  if (ref_table < kTableStride || ref_table > kTableDevice || N != H * W) return false;
+  if (ref_table == kTableDevice) return true;
+  return ref_rows[0] && (ref_table != kTableParams || B <= kMaxRefRows);
 }
 
 }  // namespace
@@ -1019,8 +1034,10 @@ extern "C" const char* dvo_error_string(int code) {
 // Mode (a): B linearizations, one per batch row, in one launch of clusters
 // of C CTAs on `stream`, no host sync. The reference points (px..rgzy) are
 // (B, N); or, where ref_rows is not null, the slab route: row b's (6, H, W)
-// reference slab is ref_rows[b] (ref_table; B <= 32) or ref_rows[0] + b *
-// ref_stride floats, its H W pixels the N points, selected with the
+// reference slab is ref_rows[b] (ref_table kTableParams, B <= 32; or
+// kTableDevice, ref_rows then a device array of B pointers) or ref_rows[0]
+// + b * ref_stride floats (kTableStride), its H W pixels the N points,
+// selected with the
 // gradient thresholds igt and dgt. Row b's current slab starts at slab + b *
 // slab_stride floats; T is (B, 4, 4), sigma_init (B, 2, 2) (read only with
 // warm). Reference gradients (rgix..rgzy) are read only with ref_grad

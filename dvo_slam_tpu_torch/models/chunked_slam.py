@@ -17,8 +17,10 @@ searched and validated, and the global solve is dispatched exactly as in
 the per-frame orchestrator.
 
 Pipelining: ``submit_chunk`` uploads the frames (non-blocking copies from
-pinned host memory), issues the scan, and starts a non-blocking copy of
-its outputs into one pinned host buffer, marked by an event;
+pinned host memory), issues the scan (on the card's default configs five
+launches a frame, the outputs written in place into one packed buffer:
+models/keyframe_scan.py), and starts a non-blocking copy of that buffer
+into one pinned host buffer, marked by an event;
 ``collect_chunk`` waits on that event alone. Results the previous walk
 left on the device (window refinement, validation batch, graph solve) are
 read on a side stream after an event recorded where they were issued. So
@@ -52,12 +54,11 @@ from dvo_slam_tpu_torch.models import keyframe_scan
 from dvo_slam_tpu_torch.models.keyframe_tracker import (
     FrameRecord, KeyframeSlam, _cov_from_info, _stats_record,
 )
+from dvo_slam_tpu_torch.ops import scan_step
 from dvo_slam_tpu_torch.utils.transfer import to_host
 
 # The scan outputs the walk reads, in the order of the packed host copy.
-_FIELDS = ("rel_pose", "switch", "Z_switch", "info_switch", "entropy",
-           "entropy_ratio", "accept", "valid_ratio", "T_kf_meas",
-           "T_odo_meas", "info_pair", "is_nan", "iterations")
+_FIELDS = scan_step.FIELDS
 
 
 _TORCH_DTYPES = {np.float32: torch.float32, np.uint8: torch.uint8,
@@ -88,39 +89,28 @@ def stage(array, device, raw=()):
 
 
 class _HostCopy:
-    """Tensors (each with a leading dim n) packed into one f32 device
-    buffer and copied to the host: on CUDA non-blocking into pinned memory
-    with an event marking its end, so reading it waits for that copy and
-    nothing issued after it."""
+    """A scan's packed (n, row) f32 outputs copied to the host: on CUDA
+    non-blocking into pinned memory with an event marking its end, so
+    reading it waits for that copy and nothing issued after it."""
 
-    def __init__(self, tensors):
-        n = tensors[0].shape[0]
-        self.shapes = [tuple(t.shape) for t in tensors]
-        self.dtypes = [torch.empty((), dtype=t.dtype).numpy().dtype
-                       for t in tensors]
-        flat = torch.cat([t.reshape(n, -1).to(torch.float32)
-                          for t in tensors], dim=1)
+    def __init__(self, packed, layout):
+        self.layout = layout
         self.event = None
-        if flat.device.type == "cuda":
-            self.host = torch.empty(flat.shape, dtype=torch.float32,
+        if packed.device.type == "cuda":
+            self.host = torch.empty(packed.shape, dtype=torch.float32,
                                     pin_memory=True)
-            self.host.copy_(flat, non_blocking=True)
+            self.host.copy_(packed, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.host = flat
+            self.host = packed
 
     def arrays(self):
-        """numpy copies of the tensors, in their dtypes."""
+        """numpy copies of the fields, in their dtypes and the layout's
+        order."""
         if self.event is not None:
             self.event.synchronize()
-        host = self.host.numpy()
-        out, at = [], 0
-        for shape, dtype in zip(self.shapes, self.dtypes):
-            width = int(np.prod(shape[1:], dtype=np.int64))
-            out.append(host[:, at:at + width].reshape(shape).astype(dtype))
-            at += width
-        return out
+        return scan_step.host_arrays(self.host.numpy(), self.layout)
 
 
 class ChunkedKeyframeSlam(KeyframeSlam):
@@ -233,21 +223,19 @@ class ChunkedKeyframeSlam(KeyframeSlam):
         self._force_next = False
 
         with_stats = self.frame_logger is not None
-        self._carry, outs = keyframe_scan.track_keyframe_chunk(
+        self._carry, packed, layout = keyframe_scan.scan_chunk(
             self._carry, intensities[start:], depths[start:], self.K,
             self.tracker_cfg, self.slam_cfg, force_keyframe=force,
-            with_stats=with_stats,
+            with_stats=with_stats, Ks=self.Ks,
         )
-        fields = [outs[f] for f in _FIELDS]
-        if "stats" in outs:
-            fields += list(outs["stats"])
         self._chunk_queue.append({
             "n": n, "start": start, "init_poses": init_poses,
-            "host": _HostCopy(fields), "timestamps": list(timestamps),
+            "host": _HostCopy(packed, layout), "timestamps": list(timestamps),
             "intensities": intensities, "depths": depths,
             # The carry as of THIS chunk's scan: its "kf" pyramid is this
-            # chunk's last-switch keyframe. self._carry may already belong
-            # to a later submitted chunk by collect time.
+            # chunk's last-switch keyframe (on the kernel route a
+            # PendingKeyframe, resolved at collect). self._carry may
+            # already belong to a later submitted chunk by collect time.
             "carry_after": self._carry,
         })
 
@@ -328,12 +316,22 @@ class ChunkedKeyframeSlam(KeyframeSlam):
         stats_b = arrays[len(_FIELDS):] or None
         lm_on = self.slam_cfg.local_map_optimize
 
-        # The chunk's scan carry already holds the pyramid of its LAST
-        # in-chunk switch keyframe: reuse it instead of rebuilding from the
-        # chunk's frames. Earlier switches in the same chunk (rare) still
-        # rebuild.
+        # The chunk's scan carry holds the pyramid of its LAST in-chunk
+        # switch keyframe. On the per-frame route it is an allocation of
+        # its own: reuse it instead of rebuilding from the chunk's frames.
+        # On the kernel route it is a PendingKeyframe, resolved here from
+        # the switch flags (a slot of the chunk's pyramid buffer, or the
+        # keyframe before the chunk): the carry keeps it (later chunks'
+        # tables point at it), and the keyframe record takes a rebuilt
+        # pyramid, so that it holds no chunk's whole buffer. Earlier
+        # switches in the same chunk (rare) rebuild on either route.
+        carry_after = chunk_rec["carry_after"]
+        pending = isinstance(carry_after["kf"], keyframe_scan.PendingKeyframe)
+        if pending:
+            carry_after["kf"] = carry_after["kf"].resolve(switch[:n])
         switch_positions = np.flatnonzero(switch[:n])
-        last_switch = int(switch_positions[-1]) if len(switch_positions) else -1
+        last_switch = (int(switch_positions[-1])
+                       if len(switch_positions) and not pending else -1)
 
         for k in range(n):
             t = float(timestamps[start + k])
@@ -378,7 +376,7 @@ class ChunkedKeyframeSlam(KeyframeSlam):
                               np.asarray(info_pair[k][1], np.float64))
                     )
                 if k == last_switch:
-                    pyr = chunk_rec["carry_after"]["kf"]
+                    pyr = carry_after["kf"]
                 else:
                     pyr = keyframe_scan.pyramid_from_stack(
                         chunk_rec["intensities"], chunk_rec["depths"],

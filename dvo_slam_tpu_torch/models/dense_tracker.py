@@ -447,6 +447,19 @@ def _track_batched_kernels(ref_pyrs, cur_pyrs, Ks, T_inits,
             out=out[:, j], out_i=out_i[:, j])
         T = out[:, j, lin_ops._LEVEL_T:lin_ops._LEVEL_LOGLIK].unflatten(
             -1, (4, 4))
+    return level_result(out, out_i, cfg)
+
+
+def level_result(out, out_i, cfg: TrackerConfig) -> TrackResult:
+    """The TrackResult mode (b)'s launches of every tracked level wrote
+    into ``out`` ((B, levels, level_row_size) f32) and ``out_i`` ((B,
+    levels, 2) int32): the finest level's pose, log-likelihood, record and
+    extras, every level's iterations, errors and statistics. Views of the
+    two tensors but the accepted flags and ``escalated``."""
+    B, M = out.shape[0], cfg.max_iterations
+    dev = out.device
+    T = out[:, -1, lin_ops._LEVEL_T:lin_ops._LEVEL_LOGLIK].unflatten(
+        -1, (4, 4))
     st = lin_ops._LEVEL_STATS
     stats = out[..., st:st + lin_ops._STAT_PLANES * M].unflatten(
         -1, (lin_ops._STAT_PLANES, M))

@@ -6,19 +6,37 @@ The reference's KeyframeTracker front-end (dual alignment + entropy-ratio
 keyframe selection + measurement fusion; dvo_slam/src/local_tracker.cpp +
 tracking_result_evaluation.cpp, SURVEY.md §3.3) makes one host decision
 per frame in the per-frame orchestrator (models/keyframe_tracker.py).
-Here the keyframe-switch decision, the active-keyframe pyramid swap, the
-constant-velocity warm start and the information fusion are all
-``torch.where`` selections on 0-d device tensors, so a chunk of frames is
-issued to the card with no device-to-host sync between frames: one
-pyramid build and one batched tracker call (B = 2: the keyframe and the
-previous frame against the new frame; one launch of csrc/linearize.cu's
-level kernel per tracked level) per frame. The JAX package runs the same
-step inside one ``lax.scan``.
+Here the keyframe-switch decision, the active-keyframe swap, the
+constant-velocity warm start and the information fusion all stay on the
+device, so a chunk of frames is issued to the card with no device-to-host
+sync between frames. The JAX package runs the same step inside one
+``lax.scan``. A chunk runs one of two ways:
+
+- on a CUDA device with ``dense_tracker.front_route`` (the t-distribution,
+  ``mu == 0``, no compaction; the defaults), ``_track_chunk_kernels``:
+  five launches a frame and no other device op in the frame loop: the
+  pyramid (into a slot of the chunk's pyramid buffer), the three level
+  launches of mode (b) at B = 2 (the keyframe and the previous frame
+  against the new frame), each reading its reference slabs through a
+  table of row pointers in device memory, and the scan step
+  (ops/scan_step.py, csrc/keyframe_scan.cu), which takes the frame's
+  decisions, writes its packed output row, the next carry slot (the next
+  frame's initial poses) and the next frame's pointer table: the
+  keyframe is chosen on the card with no copy of a slab. The outputs are
+  views of the one (n, row) buffer, ready for one host copy
+  (``scan_chunk``). The keyframe pyramid of the carry after such a chunk
+  is a ``PendingKeyframe`` until its switch flags are read
+  (``PendingKeyframe.resolve``, models/chunked_slam.py's collect);
+- elsewhere (CPU tensors, ``mu > 0``, the other estimators, compaction),
+  ``_step`` a frame: the pyramid, the batched tracker, and the decisions
+  as eager ops (``scan_step.scan_step_reference``, the keyframe swap a
+  ``torch.where`` per pyramid level), the outputs stacked after the loop.
+  It is the kernel route's plain version.
 
 No host sync holds for the configs the level kernel takes
-(``ops/linearize.level_route``: the t-distribution, ``mu == 0``). Other
-configs run the tracker's host loop, which reads each IRLS iteration's
-stop flags back: the scan is still correct there, with those syncs.
+(``ops/linearize.level_route``). Other configs run the tracker's host
+loop, which reads each IRLS iteration's stop flags back: the scan is
+still correct there, with those syncs.
 
 The backend (loop closure + global graph) stays host logic: the scan emits
 what the backend consumes — per-switch relative measurements with
@@ -40,11 +58,18 @@ import torch
 
 from dvo_slam_tpu_torch.config import SlamConfig, TrackerConfig
 from dvo_slam_tpu_torch.models import dense_tracker
-from dvo_slam_tpu_torch.ops import camera, pyramid, se3
+from dvo_slam_tpu_torch.ops import camera, pyramid, scan_step
+from dvo_slam_tpu_torch.ops import linearize as lin_ops
 
 # ONE constant for both engines: a drift here would silently desynchronize
 # the per-frame and scan engines' keyframe cadence.
 _ENTROPY_FLOOR = dense_tracker._ENTROPY_DENOM_FLOOR
+# The step's entropy ratio and fusion (ops/scan_step.py).
+_entropy_ratio = scan_step.entropy_ratio
+_fuse_relative_poses = scan_step.fuse_relative_poses
+# Floats a chunk's pyramid slot is rounded up to (the pyramid kernel
+# writes 16-B vectors from a 16-B aligned start).
+_SLOT_ALIGN = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,30 +85,6 @@ class ScanConfig:
     def from_slam(cls, s: SlamConfig, with_stats: bool = False):
         return cls(s.min_constraint_ratio, s.min_entropy_ratio,
                    s.fuse_odometry, with_stats)
-
-
-def _entropy_ratio(h_cur, h_ref, has_ref):
-    """Sign-safe entropy ratio (dense_tracker.entropy_ratio) on 0-d
-    tensors. No reference yet -> 1.0 even for non-finite h_cur (the host
-    orchestrator keeps tracking until a finite first entropy establishes
-    history; only WITH history does non-finite entropy force a switch)."""
-    ref = torch.where(has_ref, h_ref, h_cur)
-    ratio = 1.0 - (h_cur - ref) / torch.clamp(ref.abs(), min=_ENTROPY_FLOOR)
-    ok = torch.isfinite(h_cur) & torch.isfinite(ref)
-    return torch.where(has_ref, torch.where(ok, ratio, -torch.inf), 1.0)
-
-
-def _fuse_relative_poses(T_a, info_a, T_b, info_b):
-    """Information-weighted SE(3) fusion (keyframe_tracker.
-    fuse_relative_poses in f32 on the device): one Gauss-Newton step from
-    T_a. ``solve_ex`` does not check for errors (``solve`` would, with a
-    sync); a singular system gives a non-finite step, dropped below."""
-    xi = se3.log(T_b @ se3.inverse(T_a))
-    L = info_a + info_b
-    delta = torch.linalg.solve_ex(L, (info_b @ xi)[:, None])[0][:, 0]
-    good = torch.isfinite(delta).all()
-    delta = torch.where(good, delta, torch.zeros_like(delta))
-    return se3.exp(delta) @ T_a
 
 
 def init_carry(pyr0):
@@ -103,6 +104,51 @@ def init_carry(pyr0):
     }
 
 
+class PendingKeyframe:
+    """The keyframe pyramid of a carry after a chunk on the kernel route.
+
+    The card knows it (its slabs' pointers are row 0 of the carry's
+    table); the host learns which frame it is only when it reads the
+    chunk's switch flags: ``resolve`` then gives the pyramid of the
+    chunk's last switch, or the keyframe that was current before the
+    chunk. Until then it holds every pyramid the table may point at (the
+    keyframe before the chunk, resolved or pending, and the chunk's
+    frames), so no slab a later chunk's level launches read through the
+    table is freed and its memory reused. Resolving drops the others."""
+
+    def __init__(self, before, frames):
+        self.before = before  # a pyramid tuple, or a PendingKeyframe
+        self.frames = frames  # the chunk's per-frame pyramids (views)
+        self.pyramid = None
+
+    def candidates(self):
+        """Every pyramid this keyframe may be."""
+        if self.pyramid is not None:
+            return [self.pyramid]
+        before = self.before
+        first = (before.candidates() if isinstance(before, PendingKeyframe)
+                 else [before])
+        return first + list(self.frames)
+
+    def resolve(self, switch):
+        """The keyframe pyramid, from the chunk's switch flags (host bools,
+        one a frame); the keyframe before the chunk must be resolved."""
+        if self.pyramid is None:
+            hits = np.flatnonzero(np.asarray(switch))
+            if len(hits):
+                self.pyramid = self.frames[int(hits[-1])]
+            else:
+                before = self.before
+                self.pyramid = (before.pyramid
+                                if isinstance(before, PendingKeyframe)
+                                else before)
+                if self.pyramid is None:
+                    raise RuntimeError("resolve the chunks' keyframes in "
+                                       "the order the chunks ran")
+            self.before = self.frames = None
+        return self.pyramid
+
+
 def _step(carry, intensity, depth, force, Ks, cfg: TrackerConfig,
           scan_cfg: ScanConfig):
     """One frame: (carry, frame) -> (new carry, outputs), all on the
@@ -118,77 +164,147 @@ def _step(carry, intensity, depth, force, Ks, cfg: TrackerConfig,
     odo_init = carry["last_odo"] if cfg.use_initial_estimate else eye
     inits = torch.stack([carry["T_kf_prev"], odo_init])
     res = dense_tracker.track_batched(refs, cur, Ks, inits, cfg)
-
-    r_kf_T = res.transformation[0]
-    r_odo_T = res.transformation[1]
-    nan = res.is_nan()
-    kf_nan, odo_nan = nan[0], nan[1]
-    last_odo = torch.where(odo_nan, carry["last_odo"], r_odo_T)
-
-    accept = (~kf_nan) & (res.valid_ratio[0] >= scan_cfg.min_constraint_ratio)
-    h = res.entropy[0]
-    ratio = torch.where(
-        accept, _entropy_ratio(h, carry["H_first"], carry["has_first"]), 1.0)
-    switch = force | (~accept) | (ratio < scan_cfg.min_entropy_ratio)
-
-    # Non-switch pose: keyframe measurement fused with chained odometry
-    # (LocalMap keyframe+odometry measurements, closed form).
-    T_alt = r_odo_T @ carry["T_kf_prev"]
-    if scan_cfg.fuse_odometry:
-        fused = _fuse_relative_poses(r_kf_T, res.information[0], T_alt,
-                                     res.information[1])
-        T_kf_cur = torch.where(odo_nan, r_kf_T, fused)
-    else:
-        T_kf_cur = r_kf_T
-
-    # Switch measurement old-kf -> new-kf (KeyframeSlam switch branch).
-    Z_new = torch.where(accept, r_kf_T,
-                        torch.where(odo_nan, carry["T_kf_prev"], T_alt))
-    info_new = torch.where(
-        accept, res.information[0],
-        torch.where(odo_nan,
-                    1e2 * torch.eye(6, dtype=torch.float32, device=dev),
-                    res.information[1]))
-
-    # First-frame entropy of the active keyframe (ratioWithFirst); after a
-    # switch the new keyframe starts with no history.
-    set_first = accept & (~carry["has_first"]) & torch.isfinite(h)
-    H_first = torch.where(set_first, h, carry["H_first"])
-    has_first = carry["has_first"] | set_first
-    H_first = torch.where(switch, 0.0, H_first)
-    has_first = has_first & ~switch
-
-    new_carry = {
-        "kf": tuple(torch.where(switch, c, k)
-                    for c, k in zip(cur, carry["kf"])),
-        "prev": cur,
-        "T_kf_prev": torch.where(switch, eye, T_kf_cur),
-        "last_odo": last_odo,
-        "H_first": H_first,
-        "has_first": has_first,
-    }
-    out = {
-        "rel_pose": torch.where(switch, eye, T_kf_cur),
-        "switch": switch,
-        "Z_switch": Z_new,
-        "info_switch": info_new,
-        "entropy": h,
-        "entropy_ratio": ratio,
-        "valid_ratio": res.valid_ratio[0],
-        "accept": accept,
-        "iterations": res.iterations,
-        "is_nan": nan,
-        # Raw (pre-fusion) dual measurements + informations: the chunked
-        # walk replays the windowed LocalMap solve from these.
-        "T_kf_meas": r_kf_T,
-        "T_odo_meas": r_odo_T,
-        "info_pair": res.information,
-    }
+    new_carry, out = scan_step.scan_step_reference(res, carry, force, cur,
+                                                   scan_cfg)
     if cfg.collect_stats and scan_cfg.with_stats:
         # Per-iteration TrackStats of both alignments (batch 2: keyframe,
         # odometry), for ChunkedKeyframeSlam's frame logger.
         out["stats"] = tuple(res.stats[:5])
     return new_carry, out
+
+
+def _kernel_carry(carry, cfg: TrackerConfig, dev):
+    """A carry's slot and pointer table for the kernel route: a kernel
+    route carry's own (views of the previous chunk's buffers), or, for a
+    carry of the per-frame route (init_carry, a checkpoint), built on the
+    device (one cat; the pointers uploaded from pinned memory without a
+    sync)."""
+    if "_state" in carry:
+        return carry["_state"], carry["_table"]
+    state = scan_step.state_of(carry, cfg.use_initial_estimate)
+    ptrs = torch.tensor([[carry["kf"][lvl].data_ptr(),
+                          carry["prev"][lvl].data_ptr()]
+                         for lvl in cfg.tracked_levels], dtype=torch.int64)
+    if dev.type == "cuda":
+        ptrs = ptrs.pin_memory()
+    return state, ptrs.to(dev, non_blocking=True)
+
+
+def _track_chunk_kernels(carry, intensities, depths, force, Ks,
+                         cfg: TrackerConfig, scan_cfg: ScanConfig):
+    """The chunk on the kernel route (module docstring): returns (carry,
+    packed (n, row_width) f32 outputs, their layout). Carry slot k + 1 is
+    a new slot, never slot k overwritten: a chunk's carry stays valid
+    while later chunks run."""
+    n = intensities.shape[0]
+    dev = intensities.device
+    levels = cfg.tracked_levels
+    L, M = len(levels), cfg.max_iterations
+    H, W = intensities.shape[-2:]
+    layout = scan_step.output_layout(
+        L, M, bool(cfg.collect_stats and scan_cfg.with_stats))
+    size = pyramid.pyramid_size(H, W, cfg.num_levels)
+    slot = -(-size // _SLOT_ALIGN) * _SLOT_ALIGN
+    pyrs = torch.empty((n, slot), dtype=torch.float32, device=dev)
+    lev = torch.empty((n, 2, L, lin_ops.level_row_size(M)),
+                      dtype=torch.float32, device=dev)
+    lev_i = torch.empty((n, 2, L, 2), dtype=torch.int32, device=dev)
+    states = torch.empty((n, scan_step.STATE_SIZE), dtype=torch.float32,
+                         device=dev)
+    tables = torch.empty((n, L, 2), dtype=torch.int64, device=dev)
+    packed = torch.empty((n, scan_step.row_width(layout)),
+                         dtype=torch.float32, device=dev)
+    state, table = _kernel_carry(carry, cfg, dev)
+    kf = carry["kf"]
+    frames = []
+    # Every pyramid a table of this chunk may point at (the plain
+    # version's map from pointers to slabs; the frames join as they come).
+    known = (kf.candidates() if isinstance(kf, PendingKeyframe) else [kf])
+    known.append(carry["prev"])
+    # The frame loop's views, made ahead of it (one unbind each).
+    per_frame = zip(intensities.unbind(0), depths.unbind(0),
+                    pyrs[:, :size].unbind(0), lev.unbind(0),
+                    lev_i.unbind(0), force.unbind(0), packed.unbind(0),
+                    states.unbind(0), tables.unbind(0))
+    for ii, zz, slot_k, lev_k, lev_i_k, force_k, row_k, state_k, \
+            table_k in per_frame:
+        cur = pyramid.build_pyramid_kernel(ii, zz, cfg.num_levels,
+                                           out=slot_k)
+        frames.append(cur)
+        known.append(cur)
+        slabs = tuple(cur[lvl] for lvl in levels)
+        T = scan_step.inits_of(state)
+        poses = lev_k[..., :16].unflatten(-1, (4, 4)).unbind(1)
+        for j, (ref, out, out_i) in enumerate(zip(
+                table.unbind(0), lev_k.unbind(1), lev_i_k.unbind(1))):
+            lin_ops.track_level_kernels(
+                lin_ops.RefSlabs(lin_ops.SlabTable(
+                    ref, tuple(slabs[j].shape), known, levels[j])),
+                slabs[j], Ks[levels[j]], T, cfg, out=out, out_i=out_i)
+            T = poses[j]
+        scan_step.scan_step(lev_k, lev_i_k, state, table, force_k, slabs,
+                            row_k, state_k, table_k, cfg, scan_cfg)
+        state, table = state_k, table_k
+    new_carry = {
+        "kf": PendingKeyframe(kf, frames),
+        "prev": frames[-1],
+        **scan_step.carry_of(state),
+        "_state": state,
+        "_table": table,
+    }
+    return new_carry, packed, layout
+
+
+def _kernel_route(cfg: TrackerConfig, device) -> bool:
+    """Whether a chunk on ``device`` runs on the kernel route: the kernel
+    front's configs (``dense_tracker.front_route``, looked up at the
+    call) on a CUDA device."""
+    return dense_tracker.front_route(cfg, device)
+
+
+def scan_chunk(carry, intensities, depths, K, cfg: TrackerConfig,
+               slam_cfg: SlamConfig = SlamConfig(), force_keyframe=None,
+               with_stats: bool = False, Ks=None):
+    """``track_keyframe_chunk`` with its outputs packed for one host copy:
+    (carry, packed (n, row_width) f32, layout) (ops/scan_step.py
+    output_layout; ``scan_step.field_views`` reads the fields). On the
+    kernel route the kernels write the packed rows; on the per-frame
+    route the stacked outputs are packed with one cat. ``Ks``: K's
+    per-level intrinsics where the caller holds them (else made here)."""
+    n = intensities.shape[0]
+    if force_keyframe is None:
+        force_keyframe = torch.zeros(n, dtype=torch.bool,
+                                     device=intensities.device)
+    if Ks is None:
+        Ks = camera.pyramid_intrinsics(K, cfg.num_levels)
+    scan_cfg = ScanConfig.from_slam(slam_cfg, with_stats)
+    if n and _kernel_route(cfg, intensities.device):
+        return _track_chunk_kernels(carry, intensities, depths,
+                                    force_keyframe, Ks, cfg, scan_cfg)
+    carry, outs = _track_chunk_steps(carry, intensities, depths,
+                                     force_keyframe, Ks, cfg, scan_cfg)
+    layout = scan_step.output_layout(
+        len(cfg.tracked_levels), cfg.max_iterations, "stats" in outs)
+    return carry, scan_step.pack(outs, layout) if n else None, layout
+
+
+def _track_chunk_steps(carry, intensities, depths, force, Ks,
+                       cfg: TrackerConfig, scan_cfg: ScanConfig):
+    """The chunk on the per-frame route: ``_step`` a frame, the outputs
+    stacked with a leading n."""
+    outs = []
+    for k in range(intensities.shape[0]):
+        carry, out = _step(carry, intensities[k], depths[k], force[k], Ks,
+                           cfg, scan_cfg)
+        outs.append(out)
+    stacked = {}
+    for key in outs[0] if outs else ():
+        if key == "stats":
+            stacked[key] = tuple(torch.stack([o[key][i] for o in outs])
+                                 for i in range(5))
+        else:
+            stacked[key] = torch.stack([o[key] for o in outs])
+    return carry, stacked
 
 
 def track_keyframe_chunk(carry, intensities, depths, K, cfg: TrackerConfig,
@@ -202,26 +318,22 @@ def track_keyframe_chunk(carry, intensities, depths, K, cfg: TrackerConfig,
     raw uint8 intensity and uint16 / 12-bit-packed uint8 depth, converted
     by build_pyramid); K: (4,) intrinsics tensor; force_keyframe: optional
     (T,) bool tensor on the device. Semantics are those of
-    track_keyframe_sequence split at arbitrary boundaries."""
+    track_keyframe_sequence split at arbitrary boundaries. On the kernel
+    route the outputs are views of one packed buffer and the carry's
+    "kf" a ``PendingKeyframe`` (module docstring)."""
     n = intensities.shape[0]
+    if n and _kernel_route(cfg, intensities.device):
+        carry, packed, layout = scan_chunk(
+            carry, intensities, depths, K, cfg, slam_cfg,
+            force_keyframe=force_keyframe, with_stats=with_stats)
+        return carry, scan_step.field_views(packed, layout)
     if force_keyframe is None:
         force_keyframe = torch.zeros(n, dtype=torch.bool,
                                      device=intensities.device)
     Ks = camera.pyramid_intrinsics(K, cfg.num_levels)
-    scan_cfg = ScanConfig.from_slam(slam_cfg, with_stats)
-    outs = []
-    for k in range(n):
-        carry, out = _step(carry, intensities[k], depths[k],
-                           force_keyframe[k], Ks, cfg, scan_cfg)
-        outs.append(out)
-    stacked = {}
-    for key in outs[0] if outs else ():
-        if key == "stats":
-            stacked[key] = tuple(torch.stack([o[key][i] for o in outs])
-                                 for i in range(5))
-        else:
-            stacked[key] = torch.stack([o[key] for o in outs])
-    return carry, stacked
+    return _track_chunk_steps(carry, intensities, depths, force_keyframe,
+                              Ks, cfg, ScanConfig.from_slam(slam_cfg,
+                                                            with_stats))
 
 
 def track_keyframe_sequence(intensities, depths, K, cfg: TrackerConfig,

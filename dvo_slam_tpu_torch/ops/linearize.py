@@ -46,7 +46,10 @@ selection mask, or, with ``cfg.point_budget_fraction > 0``, the selected
 points compacted to a fixed slot count (``compact_reference``); the
 kernels take either N. The kernels also take the reference level's slabs
 themselves (``RefSlabs``, the slab route, where ``slab_route(cfg)``: no
-compaction) and compute each point in the residual pass with
+compaction; by a row stride, by row pointers among the launch's
+parameters, or by a ``SlabTable`` of row pointers in device memory,
+which the chunked keyframe scan's step kernel writes) and compute each
+point in the residual pass with
 ``prepare_reference``'s arithmetic, the same bits; ``prepare_reference``
 is the plain version of that route (``reference_points``) and the route
 of compaction, the pixel shards and the plain linearization. The plain linearization takes an optional
@@ -99,8 +102,12 @@ _EXTRA_SELECTED, _EXTRA_ENTROPY, _EXTRA_RATIO = 0, 1, 2
 _EXTRA_SIZE = 3
 # Clusters of at most 16 CTAs (a non-portable size on Hopper).
 _MAX_CLUSTER = 16
-# Reference slabs passed by row pointer (csrc/linearize.cu kMaxRefRows).
+# Reference slabs passed by row pointer (csrc/linearize.cu kMaxRefRows),
+# and where the slab route finds a row's slab (kTable*): at a stride from
+# the first, by a row pointer among the launch's parameters, or by a row
+# pointer in a table in device memory.
 _MAX_REF_ROWS = 32
+_TABLE_STRIDE, _TABLE_PARAMS, _TABLE_DEVICE = 0, 1, 2
 
 
 def level_row_size(max_iterations: int) -> int:
@@ -124,20 +131,49 @@ class RefData(NamedTuple):
     gzy: Optional[torch.Tensor] = None
 
 
+class SlabTable(NamedTuple):
+    """Row pointers to (6, H, W) slabs held in device memory, where a
+    launch reads them (the chunked keyframe scan's tables, whose keyframe
+    entry a kernel writes: ops/scan_step.py): ``table`` a (B,) int64
+    tensor on the slabs' device, row b the data pointer of a contiguous
+    slab of ``shape`` among ``pyramids`` (tuples of every level's slab),
+    at ``level``. ``pyramids`` holds every slab the table may point at
+    (the host cannot tell which without reading the table) and is what
+    keeps them alive."""
+
+    table: torch.Tensor
+    shape: tuple
+    pyramids: object
+    level: int
+
+    def slabs(self):
+        """The slabs the table points at, read back from the device (a
+        host sync: for the plain versions only)."""
+        by_ptr = {p[self.level].data_ptr(): p[self.level]
+                  for p in self.pyramids}
+        return [by_ptr[int(x)] for x in self.table.tolist()]
+
+
 class RefSlabs(NamedTuple):
     """A level's reference as its (6, H, W) slabs, for the slab route: the
     kernels compute each point (back-projection, selection, reference
     gradients) from the slab, as ``prepare_reference`` does. ``rows``: a
     (B, 6, H, W) tensor whose rows are contiguous (row b at a stride, 0
-    repeating one slab), or a sequence of B (6, H, W) contiguous tensors
-    (at most 32: row pointers, no stack)."""
+    repeating one slab), a sequence of B (6, H, W) contiguous tensors (at
+    most 32: row pointers, no stack), or a ``SlabTable`` (row pointers in
+    device memory, any B)."""
 
     rows: object
 
     def stacked(self):
-        """The rows as one (B, 6, H, W) tensor (a stack of a sequence)."""
+        """The rows as one (B, 6, H, W) tensor (a stack of a sequence or
+        of a table's slabs)."""
         r = self.rows
-        return r if isinstance(r, torch.Tensor) else torch.stack(list(r))
+        if isinstance(r, torch.Tensor):
+            return r
+        if isinstance(r, SlabTable):
+            r = r.slabs()
+        return torch.stack(list(r))
 
 
 def reference_points(ref, K, cfg: TrackerConfig) -> RefData:
@@ -624,7 +660,19 @@ def _check(ref, cur_slab, K, T):
     if H < 2 or W < 2:
         raise ValueError(f"want a slab of H, W >= 2, got {H}x{W}")
     B = T.shape[0]
-    if isinstance(ref, RefSlabs):
+    if isinstance(ref, RefSlabs) and isinstance(ref.rows, SlabTable):
+        t = ref.rows.table
+        if (t.dtype != torch.int64 or t.shape != (B,) or t.stride(0) != 1
+                or t.device != cur_slab.device):
+            raise ValueError(f"want a ({B},) int64 table of row pointers on "
+                             f"{cur_slab.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if tuple(ref.rows.shape) != (pyr.NUM_CHANNELS, H, W):
+            raise ValueError(f"want ({pyr.NUM_CHANNELS}, {H}, {W}) reference "
+                             f"slabs, got {tuple(ref.rows.shape)}")
+        named = []
+        N = H * W
+    elif isinstance(ref, RefSlabs):
         rows = (list(ref.rows) if not isinstance(ref.rows, torch.Tensor)
                 else [ref.rows[b] for b in range(ref.rows.shape[0])])
         if isinstance(ref.rows, torch.Tensor) and ref.rows.dim() != 4:
@@ -682,12 +730,16 @@ def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig):
     if isinstance(ref, RefSlabs):
         if not slab_route(cfg):
             raise ValueError("the slab route does not take point compaction")
-        if isinstance(ref.rows, torch.Tensor):
+        if isinstance(ref.rows, SlabTable):
+            # The table's device address itself: the launch reads it.
+            table = ref.rows.table.data_ptr()
+            stride, by_table = 0, _TABLE_DEVICE
+        elif isinstance(ref.rows, torch.Tensor):
             table = (ctypes.c_void_p * 1)(ref.rows.data_ptr())
-            stride, by_table = ref.rows.stride(0), 0
+            stride, by_table = ref.rows.stride(0), _TABLE_STRIDE
         else:
             table = (ctypes.c_void_p * B)(*(r.data_ptr() for r in ref.rows))
-            stride, by_table = 0, 1
+            stride, by_table = 0, _TABLE_PARAMS
         points = (None,) * 9 + (table, stride, by_table,
                                 cfg.intensity_grad_threshold,
                                 cfg.depth_grad_threshold)

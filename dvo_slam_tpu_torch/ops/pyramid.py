@@ -183,13 +183,23 @@ def phase_times(timing, num_levels):
             float((t[:, 1] - t[:, 0]).mean()) / 1e3)
 
 
-def build_pyramid_kernel(intensity, depth, num_levels, timing=None):
+def pyramid_size(H, W, num_levels):
+    """Floats of an H x W frame's pyramid: every level's (6, H_l, W_l)
+    slab, one after the other."""
+    return sum(NUM_CHANNELS * h * w for h, w in level_shapes(H, W,
+                                                              num_levels))
+
+
+def build_pyramid_kernel(intensity, depth, num_levels, timing=None,
+                         out=None):
     """``build_pyramid`` on the card: one launch of csrc/pyramid.cu on the
     current stream of the inputs' device, no host sync. Takes intensity
     f32 or uint8 (H, W) and depth f32 or uint16 (H, W) or 12-bit-packed
     uint8 (H, 3 W / 2) (W even), 1 to 6 levels of at least 1x1; raises on
     anything else. The slabs are views of one allocation, level after
-    level."""
+    level: a new one, or ``out``, a contiguous f32 tensor of
+    ``pyramid_size`` floats on the inputs' device starting 16-B aligned
+    (a slot of a buffer of many frames' pyramids)."""
     global LAUNCHES_PYRAMID
     if intensity.dim() != 2 or intensity.dtype not in (torch.float32,
                                                        torch.uint8):
@@ -215,8 +225,15 @@ def build_pyramid_kernel(intensity, depth, num_levels, timing=None):
                          f"CUDA device, got {intensity.device} and "
                          f"{depth.device}")
     shapes = level_shapes(H, W, num_levels)
-    out = torch.empty(sum(NUM_CHANNELS * h * w for h, w in shapes),
-                      dtype=torch.float32, device=dev)
+    size = pyramid_size(H, W, num_levels)
+    if out is None:
+        out = torch.empty(size, dtype=torch.float32, device=dev)
+    elif (out.dtype != torch.float32 or out.shape != (size,)
+          or not out.is_contiguous() or out.device != dev
+          or out.data_ptr() % 16):
+        raise ValueError(f"want out a contiguous ({size},) float32 tensor on "
+                         f"{dev} starting 16-B aligned, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
     intensity, depth = intensity.contiguous(), depth.contiguous()
     _build.launch("dvo_pyramid", dev, (
         intensity.data_ptr(), int(intensity.dtype == torch.uint8),

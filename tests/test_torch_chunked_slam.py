@@ -570,3 +570,69 @@ def test_cli_chunk_size(tmp_path):
                                      (517.3, 516.5, 318.6, 255.3), T_TRACKER,
                                      chunked=True, device="cpu")
     assert len(resumed.frames) == 8
+
+
+def _pipelined(slam, sizes, force=FORCED, seq=SEQ):
+    """submit_chunk over consecutive chunks of the given sizes with a
+    depth-2 pipeline (chunk k + 1 submitted before chunk k is collected),
+    force_keyframe() before the chunks that start at a frame in force."""
+    seq_i, seq_z, ts = seq[:3]
+    poses, k, in_flight = [], 0, 0
+    for size in sizes:
+        if k in force:
+            slam.force_keyframe()
+        slam.submit_chunk(seq_i[k:k + size], seq_z[k:k + size],
+                          ts[k:k + size])
+        k += size
+        in_flight += 1
+        if in_flight == 2:
+            poses.extend(slam.collect_chunk())
+            in_flight -= 1
+    while in_flight:
+        poses.extend(slam.collect_chunk())
+        in_flight -= 1
+    return poses
+
+
+@pytest.mark.parametrize("sizes, force", [((4, 4, 4), FORCED),
+                                          ((2, 3, 3, 2, 2), ())],
+                         ids=["forced", "held_keyframe"])
+def test_kernel_route_engine_matches_step_route(monkeypatch, sizes, force):
+    """ChunkedKeyframeSlam with its chunks on the kernel route (the
+    kernels stood in for on the CPU: tests/test_torch_keyframe_scan.py
+    stand_in_kernel_route) against the per-frame route, depth-2 pipelined,
+    loop closure and the window solve on: the same keyframes, edges and
+    poses, bit for bit; the frame logger's records equal. Without forced
+    keyframes one keyframe is held across chunks that are submitted
+    before the chunk that found it is collected: its PendingKeyframe must
+    keep the slabs the later chunks' tables point at. Every carry ends
+    resolved, with the keys a checkpoint saves."""
+    from test_torch_keyframe_scan import stand_in_kernel_route
+
+    runs = []
+    for kernels in (False, True):
+        if kernels:
+            counts = stand_in_kernel_route(monkeypatch)
+        logger = TFrameLogger()
+        slam = _t(SLAM_LM, frame_logger=logger)
+        poses = _pipelined(slam, sizes, force)
+        runs.append((slam, poses, logger.records))
+    (want, p_w, r_w), (got, p_g, r_g) = runs
+    n = sum(sizes)
+    assert counts["scan_step"] == n - 1 and counts["track_level"] >= \
+        2 * (n - 1)
+    assert [k.timestamp for k in got.keyframes] == \
+        [k.timestamp for k in want.keyframes]
+    assert _edges(got) == _edges(want)
+    assert len(p_g) == len(p_w) == n
+    for a, b in zip(p_g, p_w):
+        np.testing.assert_array_equal(a, b)
+    assert json.dumps(r_g, sort_keys=True, default=str) == \
+        json.dumps(r_w, sort_keys=True, default=str)
+    carry = got._carry
+    assert isinstance(carry["kf"], tuple) and "_state" in carry
+    for key in ("kf", "prev", "T_kf_prev", "last_odo", "H_first",
+                "has_first"):
+        assert key in carry
+    if not force:
+        assert len(got.keyframes) < 4  # a keyframe spanned chunks

@@ -259,6 +259,40 @@ def test_slab_route_kernel_args(frames):
                                      c)
 
 
+def test_slab_table_kernel_args(frames):
+    """The device-table route's launch arguments: the table's own address
+    (the launch reads the row pointers), mode _TABLE_DEVICE, any B; its
+    plain version reads the table back and stacks the slabs it points at;
+    a table of another type, length or device, or slabs of another shape,
+    raise before a launch."""
+    cfg = _port_cfg(dataclasses.replace(CFG4, intensity_grad_threshold=1.5))
+    pyrs = _port_pyramids(frames[0][:3], 2)
+    K = t_camera.intrinsics(*K_TUPLE, device="cpu")
+    cur = pyrs[2][0]
+    rows = [pyrs[1], pyrs[0], pyrs[1]]
+    table = torch.tensor([p[0].data_ptr() for p in rows])
+    ref = t_linearize.RefSlabs(t_linearize.SlabTable(
+        table, (6, H, W), pyrs, 0))
+    T = torch.eye(4).expand(3, 4, 4)
+    B, N, refs, _, ptr = t_linearize._kernel_args(ref, cur, K, T, cfg)
+    assert (B, N) == (3, H * W) and refs[1:10] == (None,) * 9
+    assert refs[10:15] == (table.data_ptr(), 0, t_linearize._TABLE_DEVICE,
+                           1.5, 0.0) and ptr == table.data_ptr()
+    assert torch.equal(ref.stacked().nan_to_num(-7.0),
+                       torch.stack([p[0] for p in rows]).nan_to_num(-7.0))
+    bad = [
+        (table.int(), (6, H, W), T),
+        (table[:2], (6, H, W), T),
+        (table[::2], (6, H, W), T[:2]),
+        (table, (6, H, W - 1), T),
+        (table.to("meta"), (6, H, W), T),
+    ]
+    for t, shape, T_b in bad:
+        with pytest.raises(ValueError):
+            t_linearize._kernel_args(t_linearize.RefSlabs(
+                t_linearize.SlabTable(t, shape, pyrs, 0)), cur, K, T_b, cfg)
+
+
 def _stand_in_level_kernels(ref, cur, K, T, cfg, out=None, out_i=None):
     """track_level_kernels on the CPU: the host loop over the plain
     linearization, packed in mode (b)'s row layout, and the extras

@@ -1672,3 +1672,213 @@ def test_odometry_front_copies_one_view(cuda, noisy9):
         res.transformation.untyped_storage().data_ptr()
     assert torch.equal(both[:16], res.transformation.reshape(16))
     assert torch.equal(both[-1], res.log_likelihood)
+
+
+# ---- the chunked keyframe scan on the kernels: the scan step
+# (csrc/keyframe_scan.cu), mode (b) through a device pointer table, the
+# chunk's five launches a frame, and the lifetimes of the slabs the tables
+# point at
+
+def _smoke():
+    """chip_smoke.py (the repository root's), for its scan-step cases."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+SMOKE = _smoke()
+
+
+@pytest.mark.parametrize("stats", [True, False], ids=["stats", "no_stats"])
+@pytest.mark.parametrize("case", [*SMOKE.STEP_CASES,
+                                  *(f"random{i}" for i in range(16))])
+def test_scan_step_kernel_matches_plain(cuda, case, stats):
+    """The scan step's kernel against its plain version
+    (scan_step_plain: scan_step_reference on the same buffers) on every
+    decision's cases and on random rows: the decisions and every copied
+    field bit for bit, the poses (the fused pose, the carry's T_kf_prev,
+    the chained odometry as the switch measurement) within 1e-5, the
+    next frame's pointer table equal."""
+    from dvo_slam_tpu_torch.ops import scan_step
+
+    cfg = dataclasses.replace(TrackerConfig(), collect_stats=stats)
+    seed = 1000 + int(case[6:]) if case.startswith("random") else \
+        SMOKE.STEP_CASES.index(case)
+    inp = SMOKE._step_inputs("random" if case.startswith("random") else case,
+                             cfg, cuda, seed)
+    before = scan_step.LAUNCHES_SCAN_STEP
+    got, layout = SMOKE._run_step(scan_step.scan_step, inp, cfg)
+    assert scan_step.LAUNCHES_SCAN_STEP - before == 1
+    want, _ = SMOKE._run_step(scan_step.scan_step_plain, inp, cfg)
+    bad, err = SMOKE._step_differences(got, want, layout)
+    assert not bad, (bad, err)
+    assert err <= 1e-5
+
+
+@pytest.mark.parametrize("level", [3, 2, 1])
+def test_device_table_route_matches_host_pointers(cuda, noisy9, level):
+    """Mode (b) and mode (a) reading each row's reference slab through a
+    table of row pointers in device memory (SlabTable) give the bits of
+    the same pointers passed among the launch's parameters, at B = 2 (the
+    scan's rows) and B = 8; the plain version of the table route reads it
+    back."""
+    cfg = TrackerConfig()
+    for B in (2, 8):
+        rows, stacked, cur, K, T, sigma = _front_batch(noisy9, cuda, B,
+                                                       level, cfg)
+        slabs = tuple(stacked.unbind(0))
+        pyrs = [(s,) for s in slabs]
+        table = torch.tensor([s.data_ptr() for s in slabs],
+                             dtype=torch.int64, device=cuda)
+        got = []
+        for ref in (linearize.RefSlabs(linearize.SlabTable(
+                table, tuple(slabs[0].shape), pyrs, 0)),
+                linearize.RefSlabs(slabs)):
+            lin = linearize.linearize_kernels_batched(ref, cur, K, T, cfg,
+                                                      sigma, True)
+            out, out_i = linearize.track_level_kernels(ref, cur, K, T, cfg)
+            got.append((lin, out, out_i))
+        (lin_t, o_t, oi_t), (lin_p, o_p, oi_p) = got
+        for field, a, b in zip(lin_t._fields, lin_t[:-1], lin_p[:-1]):
+            assert _bit_diff(a, b) == 0, field
+        assert _bit_diff(o_t, o_p) == 0 and torch.equal(oi_t, oi_p)
+        ref = linearize.RefSlabs(linearize.SlabTable(
+            table, tuple(slabs[0].shape), pyrs, 0))
+        assert _bit_diff(ref.stacked(), stacked) == 0
+
+
+def _ring_chunk(n, dev, start=0):
+    frames, _ = _ring640(start + n)
+    ii = torch.as_tensor(np.stack([f[0] for f in frames[start:]]),
+                         device=dev)
+    zz = torch.as_tensor(np.stack([f[1] for f in frames[start:]]),
+                         device=dev)
+    return ii, zz
+
+
+def test_chunk_on_kernels_matches_the_step_loop(cuda, monkeypatch):
+    """track_keyframe_sequence on the kernel route (five launches a frame:
+    pyramid 1, track_level 3, scan_step 1; no prepare_reference) against
+    the same scan through the per-frame _step loop on the card: identical
+    switch frames and decisions, poses within 1e-5 (the two fuse in f32
+    in another order, and each frame's level launches start from the
+    fused pose)."""
+    from dvo_slam_tpu_torch import SlamConfig
+    from dvo_slam_tpu_torch.models import keyframe_scan
+    from dvo_slam_tpu_torch.ops import scan_step
+
+    ii, zz = _ring_chunk(12, cuda)
+    force = torch.zeros(12, dtype=torch.bool, device=cuda)
+    force[6] = True
+    K = camera.intrinsics(*K640, device=cuda)
+    cfg, slam_cfg = TrackerConfig(), SlamConfig()
+    counts = (pyramid.LAUNCHES_PYRAMID, linearize.LAUNCHES_TRACK_LEVEL,
+              scan_step.LAUNCHES_SCAN_STEP, linearize.PREPARE_REFERENCE_CALLS)
+    got = keyframe_scan.track_keyframe_sequence(ii, zz, K, cfg, slam_cfg,
+                                                force_keyframe=force)
+    after = (pyramid.LAUNCHES_PYRAMID, linearize.LAUNCHES_TRACK_LEVEL,
+             scan_step.LAUNCHES_SCAN_STEP, linearize.PREPARE_REFERENCE_CALLS)
+    assert [a - b for a, b in zip(after, counts)] == [12, 3 * 11, 11, 0]
+    monkeypatch.setattr(keyframe_scan, "_kernel_route",
+                        lambda *args: False)
+    want = keyframe_scan.track_keyframe_sequence(ii, zz, K, cfg, slam_cfg,
+                                                 force_keyframe=force)
+    assert scan_step.LAUNCHES_SCAN_STEP == after[2]
+    for key in ("switch", "accept", "is_nan"):
+        assert torch.equal(got[key], want[key]), key
+    assert bool(got["switch"][5])
+    for key in ("rel_pose", "Z_switch", "T_kf_meas", "T_odo_meas"):
+        assert (got[key] - want[key]).abs().max().item() <= 1e-5, key
+
+
+def test_chunk_boundaries_on_kernels(cuda):
+    """The kernel route split at arbitrary chunk boundaries (the carry's
+    slot, table and PendingKeyframe chained) gives the whole sequence's
+    outputs bit for bit."""
+    from dvo_slam_tpu_torch import SlamConfig
+    from dvo_slam_tpu_torch.models import keyframe_scan
+
+    ii, zz = _ring_chunk(12, cuda)
+    force = torch.zeros(12, dtype=torch.bool, device=cuda)
+    force[[4, 9]] = True
+    K = camera.intrinsics(*K640, device=cuda)
+    cfg, slam_cfg = TrackerConfig(), SlamConfig()
+    runs = []
+    for bounds in (((1, 12),), ((1, 3), (3, 4), (4, 9), (9, 12))):
+        carry = keyframe_scan.init_carry(keyframe_scan.pyramid_from_stack(
+            ii, zz, 0, cfg.num_levels))
+        parts = []
+        for a, b in bounds:
+            carry, outs = keyframe_scan.track_keyframe_chunk(
+                carry, ii[a:b], zz[a:b], K, cfg, slam_cfg,
+                force_keyframe=force[a:b])
+            parts.append(outs)
+        runs.append({k: torch.cat([p[k] for p in parts]) for k in parts[0]})
+    whole, split = runs
+    for key in whole:
+        assert _bit_diff(whole[key].float(), split[key].float()) == 0, key
+
+
+def test_chunked_keyframe_outlives_its_chunk(cuda, monkeypatch):
+    """Depth-2 pipelining with one keyframe (found in chunk 1 by a forced
+    switch) held through chunks 2-5 with no switch, and every freed block
+    refilled with NaN between the calls (so a slab the device tables still
+    point at, were it freed, would be overwritten): the same poses and
+    keyframes as the per-frame _step route of the same engine."""
+    from dvo_slam_tpu_torch import SlamConfig
+    from dvo_slam_tpu_torch.models import keyframe_scan
+    from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
+
+    frames, _ = _ring640(8)
+    # Small motions about the first frames: no switch unless forced.
+    order = [0, 1, 2, 1, 0, 1, 2, 3, 2, 1, 0, 1]
+    seq = [frames[k] for k in order]
+    chunk = 2
+    slam_cfg = SlamConfig(min_entropy_ratio=-1e30)
+    cfg = TrackerConfig()
+    slot = -(-pyramid.pyramid_size(H640, W640, cfg.num_levels) // 64) * 64
+
+    def run():
+        slam = ChunkedKeyframeSlam(K640, cfg, slam_cfg,
+                                   enable_loop_closure=False, device=cuda)
+        slam.init()
+        slam.update_chunk(np.stack([seq[0][0]]), np.stack([seq[0][1]]),
+                          [0.0])
+        poses, in_flight = [], 0
+        for c, k in enumerate(range(1, len(seq) - 1, chunk)):
+            if c == 1:
+                slam.force_keyframe()
+            part = seq[k:k + chunk]
+            slam.submit_chunk(np.stack([f[0] for f in part]),
+                              np.stack([f[1] for f in part]),
+                              [(k + j) / 30.0 for j in range(len(part))])
+            in_flight += 1
+            if in_flight == 2:
+                poses += slam.collect_chunk()
+                in_flight -= 1
+            # Take and poison every block of a chunk's pyramid buffer's
+            # size the allocator holds free.
+            junk = [torch.full((chunk, slot), float("nan"), device=cuda)
+                    for _ in range(4)]
+            del junk
+        while in_flight:
+            poses += slam.collect_chunk()
+            in_flight -= 1
+        return slam, poses
+
+    got_slam, got = run()
+    monkeypatch.setattr(keyframe_scan, "_kernel_route",
+                        lambda *args: False)
+    want_slam, want = run()
+    kf = [k.timestamp for k in got_slam.keyframes]
+    assert kf == [k.timestamp for k in want_slam.keyframes]
+    assert len(kf) == 2  # the init frame and chunk 1's forced switch
+    assert len(got) == len(want) == len(seq) - 2
+    for a, b in zip(got, want):
+        assert np.isfinite(a).all()
+        assert np.abs(a - b).max() <= 1e-5

@@ -8,6 +8,7 @@ within TRAJ_ATOL (tests/test_torch_slam.py's tolerance).
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,9 @@ from dvo_slam_tpu_torch import convert
 from dvo_slam_tpu_torch.models import dense_tracker as t_dense_tracker
 from dvo_slam_tpu_torch.models import keyframe_scan as t_keyframe_scan
 from dvo_slam_tpu_torch.ops import camera as t_camera
+from dvo_slam_tpu_torch.ops import linearize as t_linearize
+from dvo_slam_tpu_torch.ops import pyramid as t_pyramid
+from dvo_slam_tpu_torch.ops import scan_step
 
 from test_torch_benchmark import one_torch_thread  # noqa: F401
 
@@ -203,3 +207,368 @@ def test_fusion_matches_jax_and_guards_singular():
     same = t_keyframe_scan._fuse_relative_poses(
         torch.as_tensor(T_a), zero, torch.as_tensor(T_b), zero)
     np.testing.assert_allclose(same.numpy(), T_a, atol=1e-6)
+
+
+# --- the scan step's decisions (ops/scan_step.py) against the JAX step's
+# where-chain, and the kernel route's plumbing on the CPU ---
+
+SCAN = t_keyframe_scan.ScanConfig(min_constraint_ratio=0.2,
+                                  min_entropy_ratio=0.9, fuse_odometry=True,
+                                  with_stats=False)
+# Poses and informations of the step against the JAX step (the fusion's
+# f32 log, solve and exp in two libraries): 1e-6; the decisions, the
+# copied fields and the entropy ratio exactly.
+STEP_ATOL = 1e-6
+STEP_CASES = ("accepted", "no_history", "kf_nan", "odo_nan", "both_nan",
+              "forced", "low_valid_ratio", "low_entropy_ratio",
+              "inf_entropy_with_history", "nan_entropy_without_history",
+              "signs_rising", "signs_falling", "singular_information",
+              "fuse_off")
+
+
+def _step_case(name):
+    """A frame's two track-result rows (keyframe, previous frame), the
+    carry before it and its force flag, as numpy arrays, for one case."""
+    from dvo_slam_tpu.utils import se3_np
+
+    rng = np.random.default_rng(STEP_CASES.index(name))
+    T = np.stack([se3_np.exp(rng.normal(scale=0.02, size=6))
+                  for _ in range(2)]).astype(np.float32)
+    M = rng.normal(size=(2, 6, 6))
+    info = (np.einsum("bij,bkj->bik", M, M) * 1e3
+            + 10 * np.eye(6)).astype(np.float32)
+    c = {"T": T, "ll": np.float32([-1e4, -2e4]), "info": info,
+         "entropy": np.float32([-20.0, -19.0]),
+         "valid_ratio": np.float32([0.8, 0.7]),
+         "iterations": np.int32([[5, 6, 7], [4, 5, 6]]),
+         "T_kf_prev": se3_np.exp(rng.normal(scale=0.01, size=6)).astype(
+             np.float32),
+         "last_odo": se3_np.exp(rng.normal(scale=0.01, size=6)).astype(
+             np.float32),
+         "H_first": np.float32(-20.5), "has_first": np.bool_(True),
+         "force": np.bool_(False), "fuse": True}
+    if name == "no_history":
+        c["has_first"], c["H_first"] = np.bool_(False), np.float32(0.0)
+    elif name in ("kf_nan", "both_nan"):
+        c["T"][0, 1, 2] = np.nan
+    if name in ("odo_nan", "both_nan"):
+        c["ll"][1] = np.inf
+    elif name == "forced":
+        c["force"] = np.bool_(True)
+    elif name == "low_valid_ratio":
+        c["valid_ratio"][0] = 0.1
+    elif name == "low_entropy_ratio":
+        c["entropy"][0] = -10.0
+    elif name == "inf_entropy_with_history":
+        c["entropy"][0] = np.inf
+    elif name == "nan_entropy_without_history":
+        c["entropy"][0] = np.nan
+        c["has_first"], c["H_first"] = np.bool_(False), np.float32(0.0)
+    elif name == "signs_rising":  # |H_first| under the floor: ratio 1.7
+        c["H_first"], c["entropy"][0] = np.float32(0.4), -0.3
+    elif name == "signs_falling":  # ratio 0.3
+        c["H_first"], c["entropy"][0] = np.float32(-0.4), 0.3
+    elif name == "singular_information":  # a zero row and column in both
+        c["info"][:, 5, :] = 0.0
+        c["info"][:, :, 5] = 0.0
+    elif name == "fuse_off":
+        c["fuse"] = False
+    return c
+
+
+def _jax_step(c, monkeypatch):
+    """The JAX package's scan step on the case's rows: its tracker and
+    pyramid stood in for, so the step's where-chain, entropy ratio and
+    fusion run on exactly these values."""
+    from dvo_slam_tpu.models import keyframe_scan as j_scan
+
+    res = dense_tracker.TrackResult(
+        transformation=jnp.asarray(c["T"]),
+        information=jnp.asarray(c["info"]),
+        log_likelihood=jnp.asarray(c["ll"]),
+        entropy=jnp.asarray(c["entropy"]), error=jnp.zeros(2),
+        sigma=jnp.zeros((2, 2, 2)), valid_pixels=jnp.zeros(2),
+        valid_ratio=jnp.asarray(c["valid_ratio"]),
+        iterations=jnp.asarray(c["iterations"]),
+        level_errors=jnp.zeros((2, 3)), stats=None,
+        window_miss_frac=jnp.zeros(2), escalated=jnp.zeros(2, bool))
+    monkeypatch.setattr(j_scan.dense_tracker, "track_batched_escalating",
+                        lambda *args: res)
+    monkeypatch.setattr(j_scan.pyramid, "build_pyramid",
+                        lambda *args: tuple(jnp.full((1, 2, 2), 7.0 + lvl)
+                                            for lvl in range(4)))
+    scan_cfg = j_scan.ScanConfig(SCAN.min_constraint_ratio,
+                                 SCAN.min_entropy_ratio, c["fuse"], False)
+    step = j_scan._make_step(None, TrackerConfig(), scan_cfg)
+    kf = tuple(jnp.full((1, 2, 2), -1.0 - lvl) for lvl in range(4))
+    carry = {"kf": kf, "prev": kf, "T_kf_prev": jnp.asarray(c["T_kf_prev"]),
+             "last_odo": jnp.asarray(c["last_odo"]),
+             "H_first": jnp.asarray(c["H_first"]),
+             "has_first": jnp.asarray(c["has_first"])}
+    return step(carry, (None, None, jnp.asarray(c["force"])))
+
+
+def _port_step(c):
+    res = t_dense_tracker.TrackResult(
+        transformation=torch.as_tensor(c["T"]),
+        information=torch.as_tensor(c["info"]),
+        log_likelihood=torch.as_tensor(c["ll"]),
+        entropy=torch.as_tensor(c["entropy"]), error=torch.zeros(2),
+        sigma=torch.zeros(2, 2, 2), valid_pixels=torch.zeros(2),
+        valid_ratio=torch.as_tensor(c["valid_ratio"]),
+        iterations=torch.as_tensor(c["iterations"]),
+        level_errors=torch.zeros(2, 3))
+    kf = tuple(torch.full((1, 2, 2), -1.0 - lvl) for lvl in range(4))
+    cur = tuple(torch.full((1, 2, 2), 7.0 + lvl) for lvl in range(4))
+    carry = {"kf": kf, "prev": kf,
+             **{k: torch.as_tensor(c[k]) for k in
+                ("T_kf_prev", "last_odo", "H_first", "has_first")}}
+    return scan_step.scan_step_reference(
+        res, carry, torch.as_tensor(c["force"]), cur,
+        dataclasses.replace(SCAN, fuse_odometry=c["fuse"]))
+
+
+@pytest.mark.parametrize("name", STEP_CASES)
+def test_scan_step_reference_like_jax(name, monkeypatch):
+    """scan_step_reference, the scan step's plain version (the decisions
+    of _step, and the kernel's yardstick), against the JAX package's step
+    (_make_step's where-chain, _entropy_ratio_jnp, _fuse_relative_poses_jnp)
+    on the same result rows and carry: the decisions, the entropy ratio,
+    the entropy history and every copied field exactly, poses and
+    informations within STEP_ATOL, the same keyframe pyramid kept."""
+    c = _step_case(name)
+    j_carry, j_out = _jax_step(c, monkeypatch)
+    t_carry, t_out = _port_step(c)
+    for key in ("switch", "accept", "is_nan", "entropy", "entropy_ratio",
+                "valid_ratio", "T_kf_meas", "T_odo_meas", "info_pair",
+                "iterations"):
+        np.testing.assert_array_equal(t_out[key].numpy(),
+                                      np.asarray(j_out[key]), err_msg=key)
+    for key in ("H_first", "has_first", "last_odo"):
+        np.testing.assert_array_equal(t_carry[key].numpy(),
+                                      np.asarray(j_carry[key]), err_msg=key)
+    for key in ("rel_pose", "Z_switch", "info_switch"):
+        np.testing.assert_allclose(t_out[key].numpy(),
+                                   np.asarray(j_out[key]), atol=STEP_ATOL,
+                                   rtol=0, err_msg=key)
+    np.testing.assert_allclose(t_carry["T_kf_prev"].numpy(),
+                               np.asarray(j_carry["T_kf_prev"]),
+                               atol=STEP_ATOL, rtol=0)
+    for a, b in zip(t_carry["kf"], j_carry["kf"]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    want_switch = {"kf_nan": True, "both_nan": True, "forced": True,
+                   "low_valid_ratio": True, "low_entropy_ratio": True,
+                   "inf_entropy_with_history": True, "signs_falling": True}
+    assert bool(t_out["switch"]) == want_switch.get(name, False)
+    if name == "singular_information":
+        # The non-finite step is dropped: the keyframe measurement stands.
+        np.testing.assert_array_equal(t_out["rel_pose"].numpy(), c["T"][0])
+    if name == "accepted":
+        assert np.abs(t_out["rel_pose"].numpy() - c["T"][0]).max() > 1e-5
+
+
+def test_kernel_source_scan_step_layout_matches_python():
+    """The packed row, carry slot and level-row offsets csrc/keyframe_scan.cu
+    writes and reads are the ones ops/scan_step.py and ops/linearize.py
+    lay out, and the device-table route's code in csrc/linearize.cu is the
+    wrapper's."""
+    from test_torch_sampler import _source_constants
+
+    src = Path(t_linearize.__file__).parents[1] / "csrc"
+    layout = {f.name: f.offset
+              for f in scan_step.output_layout(3, 7, with_stats=True)}
+    names = {"kOutRelPose": "rel_pose", "kOutSwitch": "switch",
+             "kOutZSwitch": "Z_switch", "kOutInfoSwitch": "info_switch",
+             "kOutEntropy": "entropy", "kOutEntropyRatio": "entropy_ratio",
+             "kOutAccept": "accept", "kOutValidRatio": "valid_ratio",
+             "kOutTKfMeas": "T_kf_meas", "kOutTOdoMeas": "T_odo_meas",
+             "kOutInfoPair": "info_pair", "kOutIsNan": "is_nan",
+             "kOutIterations": "iterations"}
+    got = _source_constants(src / "keyframe_scan.cu", list(names))
+    assert got == {k: layout[v] for k, v in names.items()}
+    # The stats follow the iterations (2 L), plane after plane.
+    L, M = 3, 7
+    at = layout["iterations"] + 2 * L
+    for i, f in enumerate(scan_step.STAT_FIELDS):
+        assert layout[f] == at + i * 2 * L * M
+    state = _source_constants(src / "keyframe_scan.cu", [
+        "kStateTKfPrev", "kStateOdoInit", "kStateLastOdo", "kStateHFirst",
+        "kStateHasFirst", "kStateSize"])
+    S = scan_step
+    assert list(state.values()) == [
+        S._STATE_T_KF_PREV, S._STATE_ODO_INIT, S._STATE_LAST_ODO,
+        S._STATE_H_FIRST, S._STATE_HAS_FIRST, S.STATE_SIZE]
+    level = _source_constants(src / "keyframe_scan.cu", [
+        "kLevelT", "kLevelLoglik", "kLevelBest", "kLevelStats",
+        "kStatPlanes", "kExtraEntropy", "kExtraRatio", "kExtraSize",
+        "kMaxLevels", "kEntropyFloor"])
+    Lo = t_linearize
+    assert list(level.values()) == [
+        Lo._LEVEL_T, Lo._LEVEL_LOGLIK, Lo._LEVEL_BEST, Lo._LEVEL_STATS,
+        Lo._STAT_PLANES, Lo._EXTRA_ENTROPY, Lo._EXTRA_RATIO, Lo._EXTRA_SIZE,
+        t_pyramid._MAX_LEVELS, t_dense_tracker._ENTROPY_DENOM_FLOOR]
+    assert t_dense_tracker._A == 0  # the record's information comes first
+    table = _source_constants(src / "linearize.cu", [
+        "kTableStride", "kTableParams", "kTableDevice"])
+    assert list(table.values()) == [Lo._TABLE_STRIDE, Lo._TABLE_PARAMS,
+                                    Lo._TABLE_DEVICE]
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_packed_outputs_round_trip(with_stats):
+    """pack -> field_views gives back every field in its dtype as views of
+    the packed buffer, and host_arrays the same numpy arrays (booleans and
+    integers as int32 bits)."""
+    L, M, n = 3, 5, 4
+    layout = scan_step.output_layout(L, M, with_stats)
+    g = torch.Generator().manual_seed(1)
+    outs = {}
+    for f in layout:
+        shape = (n, *f.shape)
+        if f.kind == scan_step.F32:
+            x = torch.randn(shape, generator=g)
+        elif f.kind == scan_step.I32:
+            x = torch.randint(-3, 60, shape, generator=g, dtype=torch.int32)
+        else:
+            x = torch.rand(shape, generator=g) < 0.5
+        outs[f.name] = x
+    stats = tuple(outs.pop(f) for f in scan_step.STAT_FIELDS if f in outs)
+    if stats:
+        outs["stats"] = stats
+    packed = scan_step.pack(outs, layout)
+    assert packed.shape == (n, scan_step.row_width(layout))
+    views = scan_step.field_views(packed, layout)
+    assert sorted(views) == sorted(outs)
+    host = scan_step.host_arrays(packed.numpy(), layout)
+    flat = [outs[k] for k in scan_step.FIELDS] + list(stats)
+    for f, want, got, arr in zip(layout, flat, [views[k] for k in
+                                                scan_step.FIELDS]
+                                 + list(views.get("stats", ())), host):
+        assert got.dtype == want.dtype and torch.equal(got, want), f.name
+        assert got.untyped_storage().data_ptr() == \
+            packed.untyped_storage().data_ptr(), f.name
+        np.testing.assert_array_equal(arr, want.numpy(), err_msg=f.name)
+        assert arr.dtype == want.numpy().dtype, f.name
+
+
+def test_pending_keyframe_resolves_in_chunk_order():
+    """A kernel route carry's keyframe: the chunk's last switch, else the
+    keyframe before it (resolved first); it holds every candidate until
+    then and drops them after."""
+    a, b = (torch.zeros(1),), (torch.ones(1),)
+    frames1 = [(torch.full((1,), 2.0),), (torch.full((1,), 3.0),)]
+    frames2 = [(torch.full((1,), 4.0),)]
+    p1 = t_keyframe_scan.PendingKeyframe(a, frames1)
+    p2 = t_keyframe_scan.PendingKeyframe(p1, frames2)
+    assert p2.candidates() == [a, *frames1, *frames2]
+    with pytest.raises(RuntimeError):
+        p2.resolve([False])
+    assert p1.resolve([True, False]) is frames1[0]
+    assert p1.frames is None and p1.candidates() == [frames1[0]]
+    assert p2.resolve([False]) is frames1[0]
+    assert p2.before is None and p2.frames is None
+    assert t_keyframe_scan.PendingKeyframe(b, frames2).resolve([True]) \
+        is frames2[0]
+
+
+# The kernel route on the CPU: the kernels stood in for (the pyramid
+# into its slot, the level launches by the host loop packed in mode (b)'s
+# layout, the scan step by its plain version on the same buffers), counted.
+def stand_in_kernel_route(monkeypatch):
+    """Route chunks on the CPU through ``_track_chunk_kernels`` with the
+    kernels stood in for; returns the launch counts by kernel."""
+    from test_torch_front import _stand_in_level_kernels
+
+    counts = {"pyramid": 0, "track_level": 0, "scan_step": 0}
+
+    def pyramid_kernel(intensity, depth, num_levels, timing=None, out=None):
+        counts["pyramid"] += 1
+        levels = t_pyramid.build_pyramid_reference(intensity, depth,
+                                                   num_levels)
+        if out is None:
+            return levels
+        views, at = [], 0
+        for lvl in levels:
+            out[at:at + lvl.numel()] = lvl.reshape(-1)
+            views.append(out[at:at + lvl.numel()].view(lvl.shape))
+            at += lvl.numel()
+        assert at == out.numel()
+        return tuple(views)
+
+    def level_kernels(*args, **kwargs):
+        counts["track_level"] += 1
+        return _stand_in_level_kernels(*args, **kwargs)
+
+    step = scan_step.scan_step
+
+    def step_counted(*args, **kwargs):
+        counts["scan_step"] += 1
+        return step(*args, **kwargs)
+
+    monkeypatch.setattr(t_dense_tracker, "front_route",
+                        lambda cfg, device, pixel_group=None:
+                        t_linearize.level_route(cfg)
+                        and t_linearize.slab_route(cfg))
+    monkeypatch.setattr(t_pyramid, "build_pyramid_kernel", pyramid_kernel)
+    monkeypatch.setattr(t_pyramid, "build_pyramid",
+                        lambda i, z, n: pyramid_kernel(i, z, n))
+    monkeypatch.setattr(t_linearize, "track_level_kernels", level_kernels)
+    monkeypatch.setattr(scan_step, "scan_step", step_counted)
+    return counts
+
+
+def _nan_equal(a, b):
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.nan_to_num(-7.0) if a.is_floating_point() else a,
+        b.nan_to_num(-7.0) if b.is_floating_point() else b)
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_kernel_route_chunks_match_the_step_route(forced_run, monkeypatch,
+                                                  with_stats):
+    """The kernel route's chunks (five launches a frame, the outputs views
+    of one packed buffer, the keyframe carried as a pointer table and a
+    PendingKeyframe) against the per-frame route's _step loop on the same
+    frames, split at the same boundaries: every output equal, and the
+    carry's pose and entropy state after every chunk."""
+    seq_i, seq_z, _, force, _ = forced_run
+    cfg = dataclasses.replace(T_TRACKER, collect_stats=True)
+    K = t_camera.intrinsics(*K_TUPLE, device="cpu")
+    ti, tz = torch.as_tensor(seq_i), torch.as_tensor(seq_z)
+    f = torch.as_tensor(force)
+    runs = []
+    for kernels in (False, True):
+        if kernels:
+            counts = stand_in_kernel_route(monkeypatch)
+        carry = t_keyframe_scan.init_carry(t_keyframe_scan.pyramid_from_stack(
+            ti, tz, 0, cfg.num_levels))
+        parts, carries = [], []
+        for a, b in ((1, 3), (3, 4), (4, 10)):
+            carry, outs = t_keyframe_scan.track_keyframe_chunk(
+                carry, ti[a:b], tz[a:b], K, cfg, T_SLAM,
+                force_keyframe=f[a:b], with_stats=with_stats)
+            parts.append(outs)
+            carries.append(carry)
+        runs.append((parts, carries))
+    assert counts == {"pyramid": 10, "track_level": 9 * 2, "scan_step": 9}
+    (want, want_c), (got, got_c) = runs
+    for p_w, p_g in zip(want, got):
+        assert sorted(p_g) == sorted(p_w)
+        for key in p_w:
+            pairs = (zip(p_w[key], p_g[key]) if key == "stats"
+                     else [(p_w[key], p_g[key])])
+            for x, y in pairs:
+                assert _nan_equal(x, y), key
+    assert bool(torch.cat([p["switch"] for p in got]).any())
+    for c_w, c_g in zip(want_c, got_c):
+        assert isinstance(c_g["kf"], t_keyframe_scan.PendingKeyframe)
+        for key in ("T_kf_prev", "last_odo", "H_first", "has_first"):
+            assert _nan_equal(c_w[key], c_g[key]), key
+        for a, b in zip(c_w["prev"], c_g["prev"]):
+            assert torch.equal(a.nan_to_num(-7.0), b.nan_to_num(-7.0))
+    # Resolved in chunk order, each carry's keyframe is the step route's.
+    for c_w, c_g, p in zip(want_c, got_c, got):
+        kf = c_g["kf"].resolve(p["switch"].numpy())
+        for a, b in zip(c_w["kf"], kf):
+            assert torch.equal(a.nan_to_num(-7.0), b.nan_to_num(-7.0))

@@ -157,7 +157,8 @@ def test_build_output_is_keyed_by_sources():
     assert path.name == _build.LIB_NAME
     assert path.parent.parent == _build.BUILD_ROOT
     assert path == _build.library_path()
-    assert [s.name for s in _build._sources()] == ["linearize.cu",
+    assert [s.name for s in _build._sources()] == ["keyframe_scan.cu",
+                                                   "linearize.cu",
                                                    "pose_graph.cu",
                                                    "pyramid.cu",
                                                    "sampler.cu"]
