@@ -154,9 +154,11 @@ launch a frame after its level launches). Phases:
   8a. the scan step (csrc/keyframe_scan.cu) against its plain version
      (ops/scan_step.py scan_step_plain, scan_step_reference on the same
      buffers) on every decision's cases (STEP_CASES) and 64 random
-     frames, with and without the statistics: the decisions and copied
+     frames, without and with the statistics: the decisions and copied
      fields bit for bit, the poses within STEP_POSE_ATOL; its device us
-     by CUDA events beside the plain version's, its bound;
+     by CUDA events without the statistics (the main path) and with them,
+     each beside the plain version's, the launch floor, its bound and the
+     kernel's phase split (its timing buffer);
   8. the chunked engine (ChunkedKeyframeSlam, default configs, loop
      closure on) over 5b's loop in chunks of 16 with a depth-2
      submit/collect pipeline, 160 warm-up frames then 160 timed: ms/frame,
@@ -168,7 +170,8 @@ launch a frame after its level launches). Phases:
      against 5b's per-frame KeyframeSlam on the same frames: the same
      keyframe timestamps and edge endpoints (outlier-pruning masks may
      differ, see phase_chunked), trajectories within 1e-4 where the masks
-     agree;
+     agree; then a 16-frame chunk's device time on the kernel route
+     behind a spin that outlasts the host's issue time (_chunk_device_us);
   9. the live node: node.serve on a unix socket in a thread and a client
      streaming 96 ring frames at 640x480, as JAX bench.py's live modes do
      (odometry and slam per frame, slam in chunks of 16 over the f32, raw
@@ -762,11 +765,11 @@ def phase_kernel_vs_plain(device):
     return cfg, levels
 
 
-def _events_us(fn, n=20, reps=5):
+def _events_us(fn, n=20, reps=5, cap_s=0.1):
     """Device microseconds per call of fn: n calls back to back between two
     CUDA events, the median over reps runs. A spin kernel queued before the
     first event holds the card while the host queues the n calls (for
-    twice the host time of one call times n, at most 0.1 s), so a call
+    twice the host time of one call times n, at most cap_s), so a call
     that is shorter than its host dispatch is timed by the card, not by
     the host; a call's time then includes the card's gap between two
     launches (~1 us). A fn that syncs is timed with its host time: the
@@ -780,7 +783,7 @@ def _events_us(fn, n=20, reps=5):
     fn()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    spin = int(SPIN_HZ * min(2.0 * n * host_s, 0.1))
+    spin = int(SPIN_HZ * min(2.0 * n * host_s, cap_s))
     runs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -2065,7 +2068,9 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
     # No Pallas kernel: the JAX package's scan step after the tracker,
     # compiled by XLA inside lax.scan; no PyTorch call computes it.
     row("scan_step (the chunked keyframe scan's decisions, one launch a "
-        "frame)", "dvo_slam_tpu_torch/csrc/keyframe_scan.cu",
+        "frame, a programmatic dependent of the finest level launch; "
+        "without statistics: the main path)",
+        "dvo_slam_tpu_torch/csrc/keyframe_scan.cu",
         "dvo_slam_tpu/models/keyframe_scan.py:100",
         chunked_launches["scan_step"], scan["err"], scan["us"] / 1e3,
         scan["plain_ms"], scan["bound"], None)
@@ -3260,7 +3265,7 @@ STEP_CASES = ("accepted", "no_history", "kf_nan", "odo_nan", "both_nan",
               "forced", "low_valid_ratio", "low_entropy_ratio",
               "inf_entropy_with_history", "nan_entropy_without_history",
               "signs_rising", "signs_falling", "singular_information",
-              "fuse_off")
+              "fuse_off", "pivot_tie")
 STEP_RANDOM = 64
 # The scan step's f32 operations a frame: the fusion's inverse, two 4x4
 # products, SE(3) log, a 6x6 elimination and exp, T_alt, the ratio and
@@ -3268,6 +3273,23 @@ STEP_RANDOM = 64
 # version (the decisions and copied fields: bit for bit).
 SCAN_STEP_OPS = 1100
 STEP_POSE_ATOL = 1e-5
+
+
+def _pivot_tie(info):
+    """Make rows 2 and 4 of column 0 of the fusion's system (the sum of
+    the two (6, 6) f32 informations, in place) tie for the largest |a|,
+    exactly (x and -x in each), each information still positive
+    definite (its other diagonal raised by |v|^2 / a for v the rest of
+    column 0: the Schur complement of a stays above the original's): the
+    elimination's first pivot is row 2 under the first-maximum rule (a
+    strictly larger |a| wins), row 4 under a last-maximum one."""
+    for b in range(2):
+        x = np.float32(2.0 * np.abs(info[b, :, 0]).max())
+        info[b, 2, 0] = info[b, 0, 2] = x
+        info[b, 4, 0] = info[b, 0, 4] = -x
+        v = info[b, 1:, 0].astype(np.float64)
+        info[b, 1:, 1:] += np.float32(v @ v / info[b, 0, 0]) * np.eye(
+            5, dtype=np.float32)
 
 
 def _step_inputs(case, cfg, device, seed):
@@ -3342,6 +3364,8 @@ def _step_inputs(case, cfg, device, seed):
         info[:, :, 5] = 0.0
     elif case == "fuse_off":
         fuse = False
+    elif case == "pivot_tie":
+        _pivot_tie(info)
     fin = lev[:, -1]
     fin[:, linearize._LEVEL_T:linearize._LEVEL_LOGLIK] = T.reshape(2, 16)
     fin[:, linearize._LEVEL_LOGLIK] = ll
@@ -3443,24 +3467,43 @@ def _step_differences(got, want, layout):
     return bad, err
 
 
+def _step_bytes(cfg, layout, stats):
+    """Bytes the scan step must move, each input read once and each output
+    written once: the two finest rows' heads and extras, lev_i, the carry
+    slot, the table and force; with the statistics their planes; the
+    packed row, the next carry slot and table."""
+    from dvo_slam_tpu_torch.ops import scan_step
+
+    L, M = len(cfg.tracked_levels), cfg.max_iterations
+    stats_floats = 8 * L * M + 2 * L if stats else 0
+    read = 4 * (2 * (16 + 1 + 36 + 2) + 2 * L + scan_step.STATE_SIZE
+                + stats_floats) + 16 * L + 1
+    written = 4 * (scan_step.row_width(layout) + scan_step.STATE_SIZE) \
+        + 16 * L
+    return read + written
+
+
 def phase_scan_step(device, cfg):
     """8a: the scan step (csrc/keyframe_scan.cu) against its plain version
     (ops/scan_step.py scan_step_plain: scan_step_reference on the same
-    buffers) on the card, on STEP_CASES and STEP_RANDOM random frames with
-    the default config (statistics copied), and on the cases without the
-    statistics: the decisions and copied fields bit for bit, the poses
-    within STEP_POSE_ATOL; device us per call by CUDA events beside the
-    plain version's, and the bound from its bytes and operations."""
+    buffers) on the card, on STEP_CASES and STEP_RANDOM random frames,
+    without the statistics (the main path: no frame logger) and with them:
+    the decisions and copied fields bit for bit, the poses within
+    STEP_POSE_ATOL. Then, without the statistics first: device us per
+    call by CUDA events beside the plain version's, the launch floor (an
+    empty kernel) and the bound from its bytes and operations, and the
+    kernel's phase split (its timing buffer, the median of 20 launches)."""
     import dataclasses
 
     import torch
 
+    from dvo_slam_tpu_torch import _build
     from dvo_slam_tpu_torch.ops import scan_step
 
     cases = [(c, i) for i, c in enumerate(STEP_CASES)] + [
         ("random", 1000 + i) for i in range(STEP_RANDOM)]
     worst, switches = 0.0, 0
-    for stats in (True, False):
+    for stats in (False, True):
         c_cfg = dataclasses.replace(cfg, collect_stats=stats)
         for case, seed in cases:
             inp = _step_inputs(case, c_cfg, device, seed)
@@ -3477,29 +3520,47 @@ def phase_scan_step(device, cfg):
             if bad:
                 raise AssertionError(f"scan step, case {case} (seed {seed},"
                                      f" stats {stats}): {bad}")
-    inp = _step_inputs("accepted", cfg, device, 0)
-    got, layout = _run_step(scan_step.scan_step_kernel, inp, cfg)
-    args = (inp["lev"], inp["lev_i"], inp["state_in"], inp["table_in"],
-            inp["force"], inp["cur"], *got, cfg, inp["scan_cfg"])
-    us = _events_us(lambda: scan_step.scan_step_kernel(*args))
-    plain_us = _events_us(lambda: scan_step.scan_step_plain(*args))
-    L, M = len(cfg.tracked_levels), cfg.max_iterations
-    stats_floats = 8 * L * M + 2 * L
-    read = 4 * (2 * (16 + 1 + 36 + 2) + 2 * L + scan_step.STATE_SIZE
-                + stats_floats) + 16 * L + 1
-    written = 4 * (scan_step.row_width(layout) + scan_step.STATE_SIZE) \
-        + 16 * L
-    bound = _bound_ms(read + written, SCAN_STEP_OPS, 0)
+    floor_us = _events_us(functools.partial(_build.empty_launch, device))
+    out = {"err": worst, "floor_us": floor_us}
+    for stats in (False, True):
+        c_cfg = dataclasses.replace(cfg, collect_stats=stats)
+        inp = _step_inputs("accepted", c_cfg, device, 0)
+        got, layout = _run_step(scan_step.scan_step_kernel, inp, c_cfg)
+        args = (inp["lev"], inp["lev_i"], inp["state_in"], inp["table_in"],
+                inp["force"], inp["cur"], *got, c_cfg, inp["scan_cfg"])
+        us = _events_us(functools.partial(scan_step.scan_step_kernel, *args))
+        plain_us = _events_us(functools.partial(scan_step.scan_step_plain,
+                                                *args))
+        splits = []
+        for _ in range(20):
+            buf = scan_step.timing_buffer(device)
+            scan_step.scan_step_kernel(*args, timing=buf)
+            torch.cuda.synchronize()
+            splits.append(scan_step.phase_times(buf.cpu().numpy()))
+        split = {k: float(np.median([x[0][k] for x in splits]))
+                 for k in splits[0][0]}
+        span = float(np.median([x[1] for x in splits]))
+        moved = _step_bytes(c_cfg, layout, stats)
+        bound = _bound_ms(moved, SCAN_STEP_OPS, 0)
+        tag = "with" if stats else "without"
+        print(f"phase 8a scan step {tag} statistics"
+              f"{'' if stats else ' (the main path)'}: {us:.2f} us a call "
+              f"(events), plain {plain_us:.2f} us, launch floor "
+              f"{floor_us:.2f} us; bound {1e3 * bound[0]:.6f} us by "
+              f"{bound[1]} ({moved} B, {SCAN_STEP_OPS} f32 operations); "
+              f"phase split (us, median of 20 stamped launches, span "
+              f"{span:.3f}): "
+              f"{', '.join(f'{k} {v:.3f}' for k, v in split.items())}")
+        key = "stats_" if stats else ""
+        out.update({f"{key}us": us, f"{key}plain_ms": plain_us / 1e3,
+                    f"{key}bound": bound, f"{key}split": split,
+                    f"{key}span_us": span})
     print(f"phase 8a scan step (csrc/keyframe_scan.cu) against its plain "
           f"version: {2 * len(cases)} frames ({len(STEP_CASES)} cases and "
-          f"{STEP_RANDOM} random, with and without statistics; "
+          f"{STEP_RANDOM} random, without and with statistics; "
           f"{switches} switch): decisions and copied fields bit for bit, "
-          f"max pose difference {worst:.3e} (tol {STEP_POSE_ATOL:g}); "
-          f"{us:.2f} us a call (events), plain {plain_us:.2f} us; bound "
-          f"{1e3 * bound[0]:.6f} us by {bound[1]} ({read + written} B, "
-          f"{SCAN_STEP_OPS} f32 operations)")
-    return {"err": worst, "us": us, "plain_ms": plain_us / 1e3,
-            "bound": bound}
+          f"max pose difference {worst:.3e} (tol {STEP_POSE_ATOL:g})")
+    return out
 
 
 def _chunks(frames, n, t_base):
@@ -3509,6 +3570,42 @@ def _chunks(frames, n, t_base):
         sel = [frames[(c * CHUNK + j) % len(frames)] for j in range(CHUNK)]
         yield (c, np.stack([s[0] for s in sel]), np.stack([s[1] for s in sel]),
                [t_base + (c * CHUNK + j) / 30.0 for j in range(CHUNK)])
+
+
+def _chunk_device_us(device, frames, reps=5):
+    """A CHUNK-frame chunk of the ring (frames 1..CHUNK after an init
+    frame, no forced switch) on the kernel route
+    (keyframe_scan.track_keyframe_chunk: five launches a frame) by
+    _events_us, one chunk a run, behind a spin that outlasts the host's
+    issue time for the chunk (cap 1 s): the device time of the chunk's
+    launches, not the host's issue rate. Returns (device us a chunk, the
+    host's issue us of one chunk)."""
+    import torch
+
+    from dvo_slam_tpu_torch import SlamConfig, TrackerConfig
+    from dvo_slam_tpu_torch.models import keyframe_scan
+    from dvo_slam_tpu_torch.ops import camera, scan_step
+
+    seq = [frames[k % len(frames)] for k in range(CHUNK + 1)]
+    ii = torch.as_tensor(np.stack([f[0] for f in seq]), device=device)
+    zz = torch.as_tensor(np.stack([f[1] for f in seq]), device=device)
+    cfg = TrackerConfig()
+    K = camera.intrinsics(*K_TUPLE, device=device)
+    carry = keyframe_scan.init_carry(keyframe_scan.pyramid_from_stack(
+        ii, zz, 0, cfg.num_levels))
+    fn = functools.partial(keyframe_scan.track_keyframe_chunk, carry,
+                           ii[1:], zz[1:], K, cfg, SlamConfig())
+    before = scan_step.LAUNCHES_SCAN_STEP
+    fn()
+    torch.cuda.synchronize()
+    if scan_step.LAUNCHES_SCAN_STEP - before != CHUNK:
+        raise AssertionError("the timed chunk did not run on the kernel "
+                             "route")
+    t0 = time.perf_counter()
+    fn()
+    host_us = 1e6 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return _events_us(fn, n=1, reps=reps, cap_s=1.0), host_us
 
 
 def phase_chunked(device, slam_out):
@@ -3629,8 +3726,14 @@ def phase_chunked(device, slam_out):
     if per_frame != SCAN_LAUNCHES:
         raise AssertionError(f"the scan's launches per frame {per_frame}, "
                              f"want {SCAN_LAUNCHES}")
+    chunk_us, issue_us = _chunk_device_us(device, frames)
+    print(f"phase 8 a {CHUNK}-frame chunk of the ring on the kernel route "
+          f"behind a spin: {chunk_us:.2f} us of device time "
+          f"({chunk_us / CHUNK:.2f} a frame; the host issues it in "
+          f"{issue_us:.2f} us)")
     return {"launches": launches, "ms_frame": ms,
-            "submit_ms": float(np.median(submit_ms))}
+            "submit_ms": float(np.median(submit_ms)),
+            "chunk_device_us": chunk_us}
 
 
 def phase_chunk_profile(device, slam_out, chunks=2):

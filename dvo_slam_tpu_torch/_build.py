@@ -129,6 +129,10 @@ def _entry_points():
             ci, vp,  # threads a block, stream
         ], ci),
         "dvo_empty": ([vp], ci),  # stream
+        "dvo_late_copy": ([
+            vp, vp, i64, vp, vp, i64,  # src, dst, bytes; twice
+            i64, i64, vp,  # trigger and spin ns, stream
+        ], ci),
         "dvo_linearize": ([
             *refs, vp, *scale, vp, ci, ci,  # T, ..., sigma_init, warm, C
             vp, vp, vp, vp, vp,  # out, rI, rZ, valid, stream
@@ -154,7 +158,8 @@ def _entry_points():
             vp, vp, ci, ci,  # level rows, iterations, levels, iterations
             vp, vp, vp, vp,  # carry slot, table, force, frame's slabs
             cf, cf, ci, ci, ci,  # ratios, fuse, initial estimate, stats
-            vp, vp, vp, vp,  # packed row, next carry slot, table; stream
+            vp, vp, vp,  # packed row, next carry slot, table
+            vp, vp,  # timing (or null), stream
         ], ci),
         "dvo_pyramid": ([
             vp, ci, vp, ci,  # intensity, i_u8, depth, depth encoding

@@ -839,6 +839,13 @@ __global__ void __launch_bounds__(kThreads, 1) linearize_kernel(Params p) {
 }
 
 __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
+  // cudaTriggerProgrammaticLaunchCompletion(): a launch after this one
+  // made with programmatic stream serialization (the chunked scan's step,
+  // csrc/keyframe_scan.cu, after the finest level) may start now and waits
+  // for this launch's end in griddepcontrol.wait before it reads what this
+  // launch writes. No other launch of the port is programmatic, and a
+  // plain launch after this one still waits for its end.
+  asm volatile("griddepcontrol.launch_dependents;");
   extern __shared__ float4 dyn_smem[];
   __shared__ Shared sh;
   cg::cluster_group cluster = cg::this_cluster();

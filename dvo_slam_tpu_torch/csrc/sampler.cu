@@ -105,6 +105,31 @@ void launch(const float* slab, int H, int W, const float* u, const float* v, int
 // sampler and the pyramid (a call's device time on a stream of them).
 __global__ void empty_kernel() {}
 
+// For the scan step's ordering test: spins on %globaltimer until
+// trigger_ns, triggers its programmatic dependents (as track_level_kernel
+// does at its start), spins until spin_ns, then copies bytes0 from src0
+// to dst0 and bytes1 from src1 to dst1 (4-byte words), so that a
+// dependent that read them before its grid dependency wait would read
+// what was there before.
+__device__ __forceinline__ void spin_until(unsigned long long t0, long long ns) {
+  unsigned long long t;
+  do {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  } while ((long long)(t - t0) < ns);
+}
+
+__global__ void late_copy_kernel(const int* src0, int* dst0, long long words0, const int* src1,
+                                 int* dst1, long long words1, long long trigger_ns,
+                                 long long spin_ns) {
+  unsigned long long t0;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  spin_until(t0, trigger_ns);
+  asm volatile("griddepcontrol.launch_dependents;");
+  spin_until(t0, spin_ns);
+  for (long long i = threadIdx.x; i < words0; i += blockDim.x) dst0[i] = src0[i];
+  for (long long i = threadIdx.x; i < words1; i += blockDim.x) dst1[i] = src1[i];
+}
+
 }  // namespace
 
 // slab: (>= C, H, W) f32 contiguous, 1 <= C <= 6; u, v: (N,) f32, N >= 1;
@@ -133,5 +158,19 @@ extern "C" int dvo_sample_slab(const float* slab, int C, int H, int W,
 // One launch of an empty kernel on `stream` (the launch floor).
 extern "C" int dvo_empty(void* stream) {
   empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// One launch of late_copy_kernel (one CTA) on `stream`: bytes0 and bytes1
+// multiples of 4, 0 <= trigger_ns <= spin_ns. A test's primary launch,
+// never on the main path.
+extern "C" int dvo_late_copy(const void* src0, void* dst0, int64_t bytes0, const void* src1,
+                             void* dst1, int64_t bytes1, int64_t trigger_ns, int64_t spin_ns,
+                             void* stream) {
+  if (bytes0 % 4 || bytes1 % 4 || trigger_ns < 0 || spin_ns < trigger_ns)
+    return (int)cudaErrorInvalidValue;
+  late_copy_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(
+      (const int*)src0, (int*)dst0, bytes0 / 4, (const int*)src1, (int*)dst1, bytes1 / 4,
+      trigger_ns, spin_ns);
   return (int)cudaGetLastError();
 }

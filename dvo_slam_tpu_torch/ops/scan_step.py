@@ -31,7 +31,8 @@ decisions on the raw buffers of the chunked scan's kernel route
 and writes frame k's packed output row (``output_layout``), carry slot
 k + 1 and the table of frame k + 1 (row 0 the keyframe's slab: frame k's
 where it switched; row 1 frame k's slab). On a CUDA tensor ``scan_step``
-launches csrc/keyframe_scan.cu (``scan_step_kernel``), one small CTA; on a
+launches csrc/keyframe_scan.cu (``scan_step_kernel``), one small CTA, as a
+programmatic dependent of the launch before it (the finest level's); on a
 CPU tensor it runs ``scan_step_plain``, which computes the same buffers
 through ``scan_step_reference`` (its kf swap over the pointer values).
 The plain version on the card is ``scan_step_plain`` called directly.
@@ -63,6 +64,16 @@ LAUNCHES_SCAN_STEP = 0
 # (int32 bits).
 _STATE_T_KF_PREV, _STATE_ODO_INIT, _STATE_LAST_ODO = 0, 16, 32
 _STATE_H_FIRST, _STATE_HAS_FIRST, STATE_SIZE = 48, 49, 50
+
+# The kernel's phase-timing buffer (csrc/keyframe_scan.cu kTimingSlots):
+# %globaltimer at the start and end, clock64 at the phase boundaries
+# _PHASE_SLOTS and at the end (_CLOCK_END).
+_TIMING_SLOTS = 13
+_PHASE_SLOTS = {"before the wait": (2, 3), "loads": (3, 4),
+                "finite checks": (4, 5), "T_alt": (5, 6), "log": (6, 7),
+                "elimination": (7, 8), "exp": (8, 9),
+                "decided writes": (9, 10), "copies": (2, 11)}
+_CLOCK_START, _CLOCK_END = 2, 12
 
 # Kinds of the packed row's entries: every entry is 4 bytes, booleans and
 # integers stored as int32 bits (read on the device as views, on the host
@@ -375,13 +386,41 @@ def scan_step_plain(lev, lev_i, state_in, table_in, force, cur, out_row,
     return out_row, state_out, table_out
 
 
+def timing_buffer(device):
+    """A zeroed phase-timing buffer for ``scan_step_kernel(...,
+    timing=)``: (_TIMING_SLOTS,) int64."""
+    return torch.zeros((_TIMING_SLOTS,), dtype=torch.int64, device=device)
+
+
+def phase_times(timing):
+    """The step kernel's phase split from a filled timing buffer (host
+    numpy int64, (_TIMING_SLOTS,)): ({phase: device us}, the launch's
+    device us from its start to its end). clock64 spans are converted by
+    the launch's %globaltimer span over its clock64 span. The phases
+    from "before the wait" to "decided writes" are warp 0's; "copies" is
+    warp 1's (the statistics among them, its wait included), from the
+    start, beside them."""
+    t = np.asarray(timing, np.int64)
+    ns = float(t[1] - t[0])
+    ns_per_clock = ns / max(float(t[_CLOCK_END] - t[_CLOCK_START]), 1.0)
+    return ({name: float(t[b] - t[a]) * ns_per_clock / 1e3
+             for name, (a, b) in _PHASE_SLOTS.items()}, ns / 1e3)
+
+
 def scan_step_kernel(lev, lev_i, state_in, table_in, force, cur, out_row,
-                     state_out, table_out, cfg, scan_cfg):
+                     state_out, table_out, cfg, scan_cfg, timing=None):
     """``scan_step`` on the card: one launch of csrc/keyframe_scan.cu (one
-    CTA) on the current stream of the buffers' device, no host sync."""
+    CTA) on the current stream of the buffers' device, no host sync.
+    ``timing``: None (the main path), or a ``timing_buffer`` the kernel
+    fills with its phase stamps (``phase_times``)."""
     global LAUNCHES_SCAN_STEP
     L = _check(lev, lev_i, state_in, table_in, force, cur, out_row,
                state_out, table_out, cfg, scan_cfg)
+    if timing is not None and (timing.shape != (_TIMING_SLOTS,)
+                               or timing.dtype != torch.int64
+                               or timing.device != lev.device):
+        raise ValueError(f"want timing a ({_TIMING_SLOTS},) int64 tensor "
+                         f"on {lev.device}")
     slabs = (ctypes.c_void_p * L)(*(c.data_ptr() for c in cur))
     _build.launch("dvo_scan_step", lev.device, (
         lev.data_ptr(), lev_i.data_ptr(), L, cfg.max_iterations,
@@ -389,6 +428,7 @@ def scan_step_kernel(lev, lev_i, state_in, table_in, force, cur, out_row,
         scan_cfg.min_constraint_ratio, scan_cfg.min_entropy_ratio,
         int(scan_cfg.fuse_odometry), int(cfg.use_initial_estimate),
         int(_with_stats(cfg, scan_cfg)), out_row.data_ptr(),
-        state_out.data_ptr(), table_out.data_ptr()))
+        state_out.data_ptr(), table_out.data_ptr(),
+        None if timing is None else timing.data_ptr()))
     LAUNCHES_SCAN_STEP += 1
     return out_row, state_out, table_out

@@ -1720,6 +1720,55 @@ def test_scan_step_kernel_matches_plain(cuda, case, stats):
     assert err <= 1e-5
 
 
+@pytest.mark.parametrize("stats", [True, False], ids=["stats", "no_stats"])
+def test_scan_step_reads_level_rows_after_the_wait(cuda, stats):
+    """The step launched, as on the main path, as a programmatic dependent
+    of the launch before it: here a primary (dvo_late_copy), queued
+    behind a spin kernel, that triggers its dependents 5 us in and writes
+    the finest level's rows and lev_i only after a ~50 us spin, over NaN
+    rows and -1 codes. The step starts while the primary spins (its
+    stamps span more than 20 us) and still gives the plain version's
+    bits on the final rows, so none of those reads comes before its grid
+    dependency wait."""
+    from dvo_slam_tpu_torch import _build
+    from dvo_slam_tpu_torch.ops import scan_step
+
+    cfg = dataclasses.replace(TrackerConfig(), collect_stats=stats)
+    inp = SMOKE._step_inputs("accepted", cfg, cuda, 0)
+    final, final_i = inp["lev"], inp["lev_i"]
+    L, S = final.shape[1], final.shape[2]
+    lev, lev_i = final.clone(), torch.full_like(final_i, -1)
+    lev[:, L - 1] = float("nan")
+    layout = scan_step.output_layout(L, cfg.max_iterations, stats)
+    out = (torch.full((scan_step.row_width(layout),), 7.0, device=cuda),
+           torch.full((scan_step.STATE_SIZE,), 7.0, device=cuda),
+           torch.full((L, 2), 7, dtype=torch.int64, device=cuda))
+    timing = scan_step.timing_buffer(cuda)
+    # The primary's first launch loads its module (lazy loading), which
+    # holds the host back; then a 1 ms spin, so that the host has issued
+    # both launches before the card reaches the primary. The finest rows:
+    # floats (L - 1) S .. 2 L S of lev (b = 1's coarser rows between them
+    # are copied onto themselves).
+    _build.launch("dvo_late_copy", cuda, (0, 0, 0, 0, 0, 0, 0, 0))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SMOKE.SPIN_HZ * 1e-3))
+    span = slice((L - 1) * S, 2 * L * S)
+    _build.launch("dvo_late_copy", cuda, (
+        final.view(-1)[span].data_ptr(), lev.view(-1)[span].data_ptr(),
+        4 * (span.stop - span.start), final_i.data_ptr(), lev_i.data_ptr(),
+        4 * final_i.numel(), 5_000, 50_000))
+    scan_step.scan_step_kernel(lev, lev_i, inp["state_in"],
+                               inp["table_in"], inp["force"], inp["cur"],
+                               *out, cfg, inp["scan_cfg"], timing=timing)
+    torch.cuda.synchronize()
+    assert torch.equal(lev, final) and torch.equal(lev_i, final_i)
+    want, _ = SMOKE._run_step(scan_step.scan_step_plain, inp, cfg)
+    bad, err = SMOKE._step_differences(out, want, layout)
+    assert not bad, (bad, err)
+    t = timing.cpu().numpy()
+    assert t[1] - t[0] > 20_000, "the step did not start before the wait"
+
+
 @pytest.mark.parametrize("level", [3, 2, 1])
 def test_device_table_route_matches_host_pointers(cuda, noisy9, level):
     """Mode (b) and mode (a) reading each row's reference slab through a
@@ -1761,13 +1810,17 @@ def _ring_chunk(n, dev, start=0):
     return ii, zz
 
 
-def test_chunk_on_kernels_matches_the_step_loop(cuda, monkeypatch):
+@pytest.mark.parametrize("stats", [False, True],
+                         ids=["no_stats", "stats"])
+def test_chunk_on_kernels_matches_the_step_loop(cuda, monkeypatch, stats):
     """track_keyframe_sequence on the kernel route (five launches a frame:
     pyramid 1, track_level 3, scan_step 1; no prepare_reference) against
     the same scan through the per-frame _step loop on the card: identical
     switch frames and decisions, poses within 1e-5 (the two fuse in f32
     in another order, and each frame's level launches start from the
-    fused pose)."""
+    fused pose). With the statistics: the same planes' shapes, and the
+    first frame's (both routes' level launches start from the same carry)
+    bit for bit."""
     from dvo_slam_tpu_torch import SlamConfig
     from dvo_slam_tpu_torch.models import keyframe_scan
     from dvo_slam_tpu_torch.ops import scan_step
@@ -1780,20 +1833,27 @@ def test_chunk_on_kernels_matches_the_step_loop(cuda, monkeypatch):
     counts = (pyramid.LAUNCHES_PYRAMID, linearize.LAUNCHES_TRACK_LEVEL,
               scan_step.LAUNCHES_SCAN_STEP, linearize.PREPARE_REFERENCE_CALLS)
     got = keyframe_scan.track_keyframe_sequence(ii, zz, K, cfg, slam_cfg,
-                                                force_keyframe=force)
+                                                force_keyframe=force,
+                                                with_stats=stats)
     after = (pyramid.LAUNCHES_PYRAMID, linearize.LAUNCHES_TRACK_LEVEL,
              scan_step.LAUNCHES_SCAN_STEP, linearize.PREPARE_REFERENCE_CALLS)
     assert [a - b for a, b in zip(after, counts)] == [12, 3 * 11, 11, 0]
     monkeypatch.setattr(keyframe_scan, "_kernel_route",
                         lambda *args: False)
     want = keyframe_scan.track_keyframe_sequence(ii, zz, K, cfg, slam_cfg,
-                                                 force_keyframe=force)
+                                                 force_keyframe=force,
+                                                 with_stats=stats)
     assert scan_step.LAUNCHES_SCAN_STEP == after[2]
     for key in ("switch", "accept", "is_nan"):
         assert torch.equal(got[key], want[key]), key
     assert bool(got["switch"][5])
     for key in ("rel_pose", "Z_switch", "T_kf_meas", "T_odo_meas"):
         assert (got[key] - want[key]).abs().max().item() <= 1e-5, key
+    assert ("stats" in got) == ("stats" in want) == stats
+    if stats:
+        for a, b in zip(got["stats"], want["stats"]):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert _bit_diff(a[0].float(), b[0].float()) == 0
 
 
 def test_chunk_boundaries_on_kernels(cuda):

@@ -223,7 +223,7 @@ STEP_CASES = ("accepted", "no_history", "kf_nan", "odo_nan", "both_nan",
               "forced", "low_valid_ratio", "low_entropy_ratio",
               "inf_entropy_with_history", "nan_entropy_without_history",
               "signs_rising", "signs_falling", "singular_information",
-              "fuse_off")
+              "fuse_off", "pivot_tie")
 
 
 def _step_case(name):
@@ -273,6 +273,13 @@ def _step_case(name):
         c["info"][:, :, 5] = 0.0
     elif name == "fuse_off":
         c["fuse"] = False
+    elif name == "pivot_tie":
+        # Rows 2 and 4 of column 0 of info[0] + info[1] tie for the
+        # largest |a|: the first pivot is row 2 under the first-maximum
+        # rule, row 4 under a last-maximum one.
+        from chip_smoke import _pivot_tie
+
+        _pivot_tie(c["info"])
     return c
 
 
@@ -363,8 +370,12 @@ def test_scan_step_reference_like_jax(name, monkeypatch):
     if name == "singular_information":
         # The non-finite step is dropped: the keyframe measurement stands.
         np.testing.assert_array_equal(t_out["rel_pose"].numpy(), c["T"][0])
-    if name == "accepted":
+    if name in ("accepted", "pivot_tie"):
         assert np.abs(t_out["rel_pose"].numpy() - c["T"][0]).max() > 1e-5
+    if name == "pivot_tie":
+        col = np.abs((c["info"][0] + c["info"][1])[:, 0])
+        assert col[2] == col[4] == col.max() and (col == col.max()).sum() == 2
+        assert np.all(np.linalg.eigvalsh(c["info"].astype(np.float64)) > 0)
 
 
 def test_kernel_source_scan_step_layout_matches_python():
@@ -398,6 +409,10 @@ def test_kernel_source_scan_step_layout_matches_python():
     assert list(state.values()) == [
         S._STATE_T_KF_PREV, S._STATE_ODO_INIT, S._STATE_LAST_ODO,
         S._STATE_H_FIRST, S._STATE_HAS_FIRST, S.STATE_SIZE]
+    assert _source_constants(src / "keyframe_scan.cu", [
+        "kTimingSlots"]) == {"kTimingSlots": S._TIMING_SLOTS}
+    slots = [i for pair in S._PHASE_SLOTS.values() for i in pair]
+    assert max(slots + [S._CLOCK_END]) < S._TIMING_SLOTS
     level = _source_constants(src / "keyframe_scan.cu", [
         "kLevelT", "kLevelLoglik", "kLevelBest", "kLevelStats",
         "kStatPlanes", "kExtraEntropy", "kExtraRatio", "kExtraSize",
@@ -412,6 +427,34 @@ def test_kernel_source_scan_step_layout_matches_python():
         "kTableStride", "kTableParams", "kTableDevice"])
     assert list(table.values()) == [Lo._TABLE_STRIDE, Lo._TABLE_PARAMS,
                                     Lo._TABLE_DEVICE]
+
+
+def test_step_phase_times():
+    """The step kernel's phase split from its stamps: clock64 spans
+    converted by the launch's %globaltimer span over its clock64 span, a
+    name a span in the kernel's order, "copies" from the start to warp
+    1's end."""
+    rng = np.random.default_rng(3)
+    buf = np.zeros(scan_step._TIMING_SLOTS, np.int64)
+    # Clocks 2..10 in order, warp 1's end [11] between the start and the
+    # end.
+    steps = rng.integers(10, 1000, size=8)
+    buf[2] = 10**9
+    buf[3:11] = buf[2] + np.cumsum(steps)
+    buf[11] = buf[2] + 123
+    buf[12] = buf[10] + 40
+    # 2 clocks a nanosecond: the globaltimer span is half the clock span.
+    buf[0] = 5000
+    buf[1] = buf[0] + (buf[12] - buf[2]) // 2
+    phases, span = scan_step.phase_times(buf)
+    assert list(phases) == ["before the wait", "loads", "finite checks",
+                            "T_alt", "log", "elimination", "exp",
+                            "decided writes", "copies"]
+    ns = (buf[1] - buf[0]) / (buf[12] - buf[2])
+    np.testing.assert_allclose([phases[k] for k in list(phases)[:8]],
+                               steps * ns / 1e3, rtol=1e-12)
+    assert phases["copies"] == pytest.approx(123 * ns / 1e3)
+    assert span == (buf[1] - buf[0]) / 1e3
 
 
 @pytest.mark.parametrize("with_stats", [False, True])

@@ -1,6 +1,7 @@
-"""The pyramid kernel (csrc/pyramid.cu) and the standalone slab sampler
-(csrc/sampler.cu) of one or more source trees, timed on the same seeded
-inputs in one run on one card.
+"""The pyramid kernel (csrc/pyramid.cu), the standalone slab sampler
+(csrc/sampler.cu) and the chunked scan's step (csrc/keyframe_scan.cu) of
+one or more source trees, timed on the same seeded inputs in one run on
+one card.
 
     python3 tests/torch_front_kernel_ab.py TREE [TREE ...] [--rounds 4]
         [--phases] [--sass]
@@ -15,12 +16,25 @@ both. The child times, by chip_smoke._events_us (CUDA events behind a spin
 kernel): the pyramid at 640x480 with 4 levels for f32 and u8 + u16 inputs
 (phase 3a's noisy frame), and its wrapper's host time a call; the sampler on phase 2a's noisy pair at the
 tracked levels 3, 2 and 1 and at phase 11's pixel-shard shape (the first
-half of level 1's rows), beside torch's grid_sample; and, where the tree
-has it, an empty kernel (the launch floor).
+half of level 1's rows), beside torch's grid_sample; where the tree has
+it, an empty kernel (the launch floor); and where the tree has the step
+kernel: the step held to its plain version on chip_smoke's STEP_CASES and
+8 random rows, with and without the statistics, then timed a call
+without them (the main path) and with them on the "accepted" case; where
+the tree has the test primary dvo_late_copy, the step behind it (it
+triggers its dependents at its start and spins 20 us, as the finest
+level launch triggers the step: us a pair, beside the primary alone);
+and a 16-frame chunk of the ring at 640x480 on the kernel route
+(keyframe_scan.track_keyframe_chunk, five launches a frame) behind a spin
+that outlasts the host's issue time for the chunk (twice it, at most
+1 s), so that the device time of the chunk's launches is timed and not
+the host's issue rate (the median of 11 chunks).
 
 --phases: where the tree's build_pyramid_kernel takes ``timing=``, the
 pyramid kernel's phase split (ops/pyramid.phase_times: mean us a CTA per
-phase, the launch's span) for both encodings. --sass [DIR]: the SASS of
+phase, the launch's span) for both encodings; where its scan_step_kernel
+does, the step's (ops/scan_step.phase_times, the median of 20 launches)
+with and without the statistics. --sass [DIR]: the SASS of
 every sample_slab_kernel of the tree's library (cuobjdump), written to
 DIR/<tree>.sass (default build/front_ab), and per function the order of
 its global loads, stores and float operations, compressed. Prints the card's
@@ -36,13 +50,14 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import functools, inspect, json, re, subprocess, sys, time
+import dataclasses, functools, inspect, json, re, subprocess, sys, time
 from pathlib import Path
 import numpy as np
 import torch
 import chip_smoke as s
-from dvo_slam_tpu_torch import TrackerConfig, _build
-from dvo_slam_tpu_torch.ops import linearize, pyramid, sampler
+from dvo_slam_tpu_torch import SlamConfig, TrackerConfig, _build
+from dvo_slam_tpu_torch.models import keyframe_scan
+from dvo_slam_tpu_torch.ops import camera, linearize, pyramid, sampler, scan_step
 from dvo_slam_tpu_torch.utils import synthetic
 
 phases, sass, tag = sys.argv[1] == "1", sys.argv[2] == "1", sys.argv[3]
@@ -140,6 +155,97 @@ for name, (slab, u, v) in cases.items():
 if hasattr(_build, "empty_launch"):
     out["empty kernel"] = s._events_us(
         functools.partial(_build.empty_launch, dev))
+
+# The chunked scan's step, where the tree has it.
+if hasattr(s, "STEP_CASES"):
+    step_timed = "timing" in inspect.signature(
+        scan_step.scan_step_kernel).parameters
+    cases = [(c, i) for i, c in enumerate(s.STEP_CASES)] + [
+        ("random", 1000 + i) for i in range(8)]
+    for stats in (False, True):
+        cfg = dataclasses.replace(TrackerConfig(), collect_stats=stats)
+        for case, seed in cases:
+            inp = s._step_inputs(case, cfg, dev, seed)
+            got, layout = s._run_step(scan_step.scan_step_kernel, inp, cfg)
+            want, _ = s._run_step(scan_step.scan_step_plain, inp, cfg)
+            torch.cuda.synchronize()
+            bad, err = s._step_differences(got, want, layout)
+            if bad:
+                sys.exit(f"step {case} (seed {seed}, stats {stats}): {bad}")
+        inp = s._step_inputs("accepted", cfg, dev, 0)
+        got, _ = s._run_step(scan_step.scan_step_kernel, inp, cfg)
+        args = (inp["lev"], inp["lev_i"], inp["state_in"], inp["table_in"],
+                inp["force"], inp["cur"], *got, cfg, inp["scan_cfg"])
+        what = "with statistics" if stats else "without statistics"
+        out[f"step {what}"] = s._events_us(
+            functools.partial(scan_step.scan_step_kernel, *args))
+        if phases and step_timed:
+            splits = []
+            for _ in range(20):
+                buf = scan_step.timing_buffer(dev)
+                scan_step.scan_step_kernel(*args, timing=buf)
+                torch.cuda.synchronize()
+                splits.append(scan_step.phase_times(buf.cpu().numpy()))
+            names = list(splits[0][0])
+            print(json.dumps({"phases": f"step {what}", "us_a_phase": {
+                k: float(np.median([x[0][k] for x in splits])) for k in names},
+                "span_us": float(np.median([x[1] for x in splits]))}),
+                flush=True)
+    if "dvo_late_copy" in _build._entry_points():
+        # The step behind a primary that triggers its dependents at its
+        # start and spins for 20 us (dvo_late_copy, copying nothing), as
+        # the step follows the finest level launch: us a pair.
+        cfg = TrackerConfig()
+        inp = s._step_inputs("accepted", cfg, dev, 0)
+        got, _ = s._run_step(scan_step.scan_step_kernel, inp, cfg)
+        args = (inp["lev"], inp["lev_i"], inp["state_in"], inp["table_in"],
+                inp["force"], inp["cur"], *got, cfg, inp["scan_cfg"])
+        primary = (0, 0, 0, 0, 0, 0, 0, 20_000)
+
+        def pair():
+            _build.launch("dvo_late_copy", dev, primary)
+            scan_step.scan_step_kernel(*args)
+
+        out["step behind a 20 us primary (a pair)"] = s._events_us(pair)
+        out["20 us primary alone"] = s._events_us(functools.partial(
+            _build.launch, "dvo_late_copy", dev, primary))
+
+    # A 16-frame chunk of the ring on the kernel route, behind a spin.
+    frames, _ = s._ring()
+    seq = [frames[k % len(frames)] for k in range(s.CHUNK + 1)]
+    ii = torch.as_tensor(np.stack([f[0] for f in seq]), device=dev)
+    zz = torch.as_tensor(np.stack([f[1] for f in seq]), device=dev)
+    cfg, slam_cfg = TrackerConfig(), SlamConfig()
+    K = camera.intrinsics(*s.K_TUPLE, device=dev)
+    carry = keyframe_scan.init_carry(keyframe_scan.pyramid_from_stack(
+        ii, zz, 0, cfg.num_levels))
+    before = scan_step.LAUNCHES_SCAN_STEP
+
+    def chunk():
+        return keyframe_scan.track_keyframe_chunk(carry, ii[1:], zz[1:], K,
+                                                  cfg, slam_cfg)
+
+    for _ in range(2):
+        chunk()
+    torch.cuda.synchronize()
+    if scan_step.LAUNCHES_SCAN_STEP - before != 2 * s.CHUNK:
+        sys.exit("the chunk did not run on the kernel route")
+    t0 = time.perf_counter()
+    chunk()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(11):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(s.SPIN_HZ * min(2.0 * host_s, 1.0)))
+        start.record()
+        chunk()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(1e3 * start.elapsed_time(end))
+    out["chunk of 16 (device us)"] = float(np.median(runs))
+    out["chunk host issue us"] = 1e6 * host_s
 
 if sass:
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
