@@ -11,9 +11,12 @@ the cluster kernel of csrc/linearize.cu in its two modes, (a) one
 IRLS linearization per batch row and (b) a pyramid level's whole IRLS loop
 per batch row (the tracker's route on the card; on the kernel front it
 reads the reference points from the reference slabs and writes the track
-result), the pose-graph kernel (csrc/pose_graph.cu: a dense
-Levenberg-Marquardt solve of up to 128 vertices per launch, the graph
-solves' route on the card), the pyramid kernel (csrc/pyramid.cu:
+result), the pose-graph kernels (csrc/pose_graph.cu: a dense
+Levenberg-Marquardt solve of up to 128 vertices per launch of one
+cluster; csrc/pose_graph_grid.cu: every other solve, dense past 128
+vertices or CG at any size, per cooperative launch of one CTA an SM:
+every graph solve on the card is one launch), the pyramid kernel
+(csrc/pyramid.cu:
 every level of a frame's pyramid in one launch) and the chunked keyframe
 scan's step (csrc/keyframe_scan.cu: a frame's keyframe decisions, one
 launch a frame after its level launches). Phases:
@@ -91,7 +94,13 @@ launch a frame after its level launches). Phases:
      evicted to pinned host memory and re-uploaded for validation; the run
      must equal one whose budget holds every pyramid (keyframes, edges,
      trajectory); its solves counted by vertex slots and route (graphs of
-     64 and 128 slots take the graph kernel's clusters);
+     64 and 128 slots take the graph kernel's clusters), one launch a
+     solve (pose_graph.LAUNCHES_BY_M);
+  5g. KeyframeSlam past 128 keyframes (a keyframe every frame, 136 frames
+     of the ring at 160x120, loop closure on): its solves by (vertex slots
+     M, route), the grid kernel's launches at M = 256 (> 0), the host
+     loop's LM steps (0), loop edges (>= 1), a finite trajectory and its
+     ATE against the ring's ground truth (printed);
   6. the offline surface over bench/accuracy.py's full-scale protocol
      rendered with the freiburg-1 intrinsics (noisy 640x480 frames, two
      laps of a 0.5 m orbit, cut from 240 frames to 160; written as a TUM
@@ -116,25 +125,31 @@ launch a frame after its level launches). Phases:
      f. `cli optimize-graph` on the benchmark's graph, and dense against
         CG on a 2560-vertex noisy two-lap ring (past graph_cg_threshold),
         5 LM steps without the robust kernel: ms and chi2 before and
-        after (finite, no worse);
+        after (finite, no worse), each solve one grid-kernel launch and no
+        host-loop step; both solves again through the grid kernel and
+        through the host loop (optimize_reference called directly): both
+        ms, the poses (1e-4, or where f32 cannot resolve that on the
+        graph, against the same loop in f64: _ring_solves), the chi2
+        (1e-4) and the decisions (5f's tie rule);
      g. `cli odometry --scale-estimator normal --influence huber` (24
         frames): one standalone sampler launch per linearization, no
         cluster-kernel launch;
-  5f. (after 6, whose graph it takes) the pose-graph kernel against the
-     plain host loop (optimize_reference, cuSOLVER's Cholesky) on the card:
-     the ring's final keyframe graph (M = 16), 5b's last window graph,
-     6b's benchmark graph (cropped to M = 32), 5e's last solves at 64 and
-     128 slots and _ring_graph at 64 and 128 vertices (clusters of 4 and
-     16 CTAs): steps on each route, max |dpose| (tol 1e-4), chi2 (rtol
-     1e-4; in f64 at each route's own poses where the two routes' own
-     f32 errors add up past it), weights and chi2 against the plain
-     formula at the kernel's poses (1e-4), the same accept decisions up
-     to a parting at a tie (at the parting step neither trial moves the
-     chi2 by more than 1e-4 relative); the kernel's device us per solve
-     and per step (CUDA events) and per step by phase (the kernel's
-     phase-timing buffer) beside the first version's as recorded, the
-     host loop's ms, cuSOLVER's cholesky_ex + cholesky_solve on the
-     damped system, the bound;
+  5f. (after 6, whose graph it takes) the pose-graph kernels against the plain
+     host loop (optimize_reference, cuSOLVER's Cholesky, torch's CG) on the
+     card: the ring's final keyframe graph (M = 16), 5b's last window graph,
+     6b's benchmark graph (cropped to M = 32), 5e's last solves at 64 and 128
+     slots and _ring_graph at 64 and 128 vertices (clusters of 4 and 16 CTAs);
+     on the grid kernel _ring_graph at 256, 512 and 1 024 vertices (dense), at
+     512 (CG, 5 LM steps) and 5g's last solve at 256 slots: steps on each
+     route, max |dpose| (tol 1e-4), chi2 (rtol 1e-4; in f64 at each route's own
+     poses where the two routes' own f32 errors add up past it), weights and
+     chi2 against the plain formula at the kernel's poses (1e-4), the same
+     accept decisions up to a parting at a tie (at the parting step neither
+     trial moves the chi2 by more than 1e-4 relative); the kernel's device us
+     per solve and per step (CUDA events) and per step by phase (the kernel's
+     phase-timing buffer) beside the first version's as recorded, the host
+     loop's ms, cuSOLVER's cholesky_ex + cholesky_solve on the damped system,
+     the bound;
   7. the three cells through the host loop (dense_tracker._track_level,
      one mode (a) launch per lockstep iteration, called directly in
      place of track_level) and through the level kernel, in turns (host,
@@ -233,15 +248,17 @@ launch a frame after its level launches). Phases:
      fails).
 
 The line before the last is a JSON object describing each kernel (the
-cluster kernel's modes at B = 1, with the odometry path's launches, at
-B = 2 and 8, with the SLAM path's, mode (b) at B = 2 with the chunked
+cluster kernel's modes at B = 1, with the odometry path's launches, at B
+= 2 and 8, with the SLAM path's, mode (b) at B = 2 with the chunked
 engine's, at B = 16 and 32 (5d), and at N = budget with phase 10's
 compacted odometry launches, and mode (b) on the slab route with phase
 3's launches; the standalone sampler on phase 11's pixel-sharded route;
 the pose-graph kernel on 5f's five graphs, with 5b's, 6b's and 5e's
-launches; the pyramid kernel at 640x480, f32 and raw inputs, with phase
-3's launches; the scan step, with phase 8's launches); the last line is
-{"ok": true,
+launches; the grid kernel on 5g's last solve and _ring_graph at 256 (5f,
+with 5g's launches at 256) and on 6f's 2 560-vertex ring, dense and CG
+(with the CLI's launches); the pyramid kernel at 640x480, f32 and raw
+inputs, with phase 3's launches; the scan step, with phase 8's
+launches); the last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -316,22 +333,37 @@ EVICT_FRAMES, EVICT_W, EVICT_H = 68, 160, 120
 CHUNK, SYNC_CHUNK = 16, 3
 # The chunked scan's launches a frame on the kernel route (phase 8, 8p).
 SCAN_LAUNCHES = {"pyramid": 1.0, "track_level": 3.0, "scan_step": 1.0,
-                 "linearize": 0.0, "sample_slab": 0.0, "pose_graph": 0.0}
+                 "linearize": 0.0, "sample_slab": 0.0, "pose_graph": 0.0,
+                 "pose_graph_grid": 0.0}
 # 9: the live node, bench.py's live modes (its default is 400 frames).
 LIVE_FRAMES, LIVE_TIMEOUT_S = 96, 300.0
 LIVE_RUNS = (("odometry", 0, "f32", 0), ("slam", 0, "f32", 0),
              ("slam", CHUNK, "f32", 0), ("slam", CHUNK, "raw", 0),
              ("slam", CHUNK, "raw12", 0), ("slam", 0, "raw", 30),
              ("slam", CHUNK, "raw", 30))
-# 5f: the graph kernel against the host loop; _ring_graph sizes that take
-# the kernel's cluster route.
+# 5f: the graph kernels against the host loop; _ring_graph sizes, on the
+# cluster kernel's route (64, 128) and the grid kernel's (256, 512, 1 024
+# dense; 512 CG, a few LM steps: the host loop's CG reads its stop test
+# back once a CG iteration); 5e's solves reach EVICT_VERTICES.
 # Operations per LM step, counted from csrc/pose_graph.cu: per edge
 # (residual, chi2 and blocks in f32; the Jacobian in f64), per edge of a
-# residual-only pass (f32), per vertex (exp and the pose product, f32).
-GRAPH_RING_VERTICES = (64, 128)
+# residual-only pass (f32), per vertex (exp and the pose product, f32);
+# per CG iteration (csrc/pose_graph_grid.cu): per edge of the matvec (its
+# two vertices' rows, 4 x 36 FMA) and per vertex (the preconditioner,
+# the updates and the dots).
+GRAPH_RING_VERTICES = (64, 128, 256, 512, 1024)
+GRAPH_CG_VERTICES, GRAPH_CG_ITERATIONS = (512,), 5
+EVICT_VERTICES = (64, 128)
+# 5f's graphs from the runs with a keyframe every frame (5e, 5g): their
+# weights lie beyond f32 (~1e-3), so only their poses are held.
+GRAPH_KEYFRAME_EVERY_FRAME = ("evict64", "evict128", "slam256")
 GRAPH_EDGE_OPS = (2110, 1070)
 GRAPH_RESIDUAL_OPS = 530
 GRAPH_VERTEX_OPS = 230
+GRAPH_CG_EDGE_OPS, GRAPH_CG_VERTEX_OPS = 288, 120
+# 5g: KeyframeSlam past 128 keyframes (a keyframe every frame at 160x120,
+# as 5e): its solves take 256 vertex slots, the grid kernel's route.
+PAST128_FRAMES = 136
 # 10: compaction on the main path's orbit (phase 3's frames).
 COMPACT_THRESHOLD, COMPACT_BUDGET = 1.0, 0.5
 # 11: parallel/ at 640x480: pairs and fleet candidates, sequences of the
@@ -475,12 +507,14 @@ def _busy_us(intervals):
 def _kernel_of(name):
     """Which of the port's kernels a device record is, or None: the
     standalone sampler, the cluster kernel's mode (a) ("linearize") or
-    mode (b) ("track_level"), the pose-graph kernel ("pose_graph"), the
-    pyramid kernel ("pyramid") or the scan step ("scan_step")."""
+    mode (b) ("track_level"), the pose-graph kernels ("pose_graph", the
+    cluster kernel; "pose_graph_grid", the grid kernel), the pyramid
+    kernel ("pyramid") or the scan step ("scan_step")."""
     for kernel, what in (("sample_slab_kernel", "sampler"),
                          ("scan_step_kernel", "scan_step"),
                          ("track_level_kernel", "track_level"),
                          ("linearize_kernel", "linearize"),
+                         ("pose_graph_grid_kernel", "pose_graph_grid"),
                          ("pose_graph_kernel", "pose_graph"),
                          ("pyramid_kernel", "pyramid")):
         if kernel in name:
@@ -500,7 +534,7 @@ def _traced(body, what):
     from torch.profiler import ProfilerActivity, profile
 
     kernels = ("sample_slab", "linearize", "track_level", "pose_graph",
-               "pyramid", "scan_step")
+               "pose_graph_grid", "pyramid", "scan_step")
     for attempt in range(1, PROFILER_ATTEMPTS + 1):
         torch.cuda.synchronize()
         before = _launches()
@@ -1500,12 +1534,13 @@ def _lm_counted(solves, host_steps, copy=False):
 
 def _graph_route(graph, kwargs):
     """The route pose_graph.optimize takes for a solve of `graph` with
-    `kwargs`: "kernel" (one launch) or "host loop"."""
+    `kwargs`: "cluster" (one launch of csrc/pose_graph.cu), "grid" (one
+    launch of csrc/pose_graph_grid.cu) or "host loop"."""
     from dvo_slam_tpu_torch.models import pose_graph
 
-    return ("kernel" if pose_graph.graph_route(
-        kwargs.get("solver", "dense"), graph.poses.shape[0],
-        kwargs.get("device", "cuda")) else "host loop")
+    return pose_graph.graph_route(kwargs.get("solver", "dense"),
+                                  graph.poses.shape[0],
+                                  kwargs.get("device", "cuda"))
 
 
 def _lm_summary(solves):
@@ -1603,7 +1638,8 @@ def phase_slam(device):
           f"{slam_cfg.optimization_iterations}; LAST_STEPS): "
           f"{_lm_summary(solves)}; pose-graph kernel launches "
           f"{launches['pose_graph']} ({launches['pose_graph'] / n_sw:.2f} "
-          f"per switch frame), routes "
+          f"per switch frame), grid kernel {launches['pose_graph_grid']}, "
+          f"routes "
           f"{sorted({_graph_route(g, kw) for _, _, g, kw in solves})}, host "
           f"loop LM steps {host_steps[0]}")
     if slam.num_loop_edges < 1:
@@ -1617,11 +1653,15 @@ def phase_slam(device):
                              f"steps {host_steps[0]}")
     window = [(g, dict(kw, iterations=it)) for it, _, g, kw in solves
               if not kw.get("use_robust")]
-    on_kernel = [kw.get("use_robust", True) for _, _, g, kw in solves
-                 if _graph_route(g, kw) == "kernel"]
-    if len(on_kernel) != launches["pose_graph"]:
-        raise AssertionError(f"{len(on_kernel)} solves on the kernel's "
-                             f"route, {launches['pose_graph']} launches")
+    routes = [_graph_route(g, kw) for _, _, g, kw in solves]
+    on_kernel = [kw.get("use_robust", True)
+                 for (_, _, g, kw), r in zip(solves, routes) if r == "cluster"]
+    if (len(on_kernel) != launches["pose_graph"]
+            or routes.count("grid") != launches["pose_graph_grid"]):
+        raise AssertionError(f"{len(on_kernel)} / {routes.count('grid')} "
+                             f"solves on the cluster / grid kernel's route, "
+                             f"{launches['pose_graph']} / "
+                             f"{launches['pose_graph_grid']} launches")
     # The final graph solve, twice on the same graph: the same bits.
     view = slam._solve_view()
     runs, solve_ms, final_solves = [], [], []
@@ -1970,7 +2010,10 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
     run); the pose-graph kernel on the ring's final keyframe graph and
     window graph (5b's graph and window solves' launches), on the offline
     benchmark's graph (6b's launches) and on _ring_graph at 64 and 128
-    vertices (5e's launches at those sizes), timed in 5f; the pyramid
+    vertices (5e's launches at those sizes), timed in 5f; the grid kernel
+    on 5g's last solve and _ring_graph at 256 (5g's launches at M = 256),
+    timed in 5f, and on 6f's ring, dense and CG (the CLI's launches), timed
+    in 6f; the pyramid
     kernel at 640x480 (f32 and raw u8 + u16 inputs; phase 3's launches,
     one a frame; its plain version's host ms a call) and mode (b) at B = 1
     on the slab route (phase 3's launches), timed in 3a with its bound
@@ -2058,13 +2101,33 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
              offline["launches"]["pose_graph"]),
             *((f"evict{v}", "5e's last solve at this M",
                slam_out["eviction"]["launches"][v])
-              for v in GRAPH_RING_VERTICES)):
+              for v in EVICT_VERTICES)):
         d = graph[name]
         row(f"pose_graph (one dense LM solve), {what}, M={d['M']}, "
             f"cluster of {d['C']}",
             "dvo_slam_tpu_torch/csrc/pose_graph.cu",
             "dvo_slam_tpu/models/pose_graph.py:463", n_launch, d["err"],
             d["us"] / 1e3, d["plain_ms"], d["bound"], None)
+    # No Pallas kernel: the JAX package's LM while_loop past 128 vertices
+    # and _solve_cg's while_loop, compiled by XLA; no PyTorch call computes
+    # a solve. 5g's run past 128 keyframes (its launches at M = 256, timed
+    # in 5f on its last such solve and on _ring_graph at 256) and 6f's
+    # optimize-graph runs on the 2 560-vertex ring (one launch each).
+    past = slam_out["past128"]["launches"].get(256, 0)
+    for name, what in (("slam256", "5g's last solve past 128 keyframes"),
+                       ("ring256", "_ring_graph, interleaved")):
+        d = graph[name]
+        row(f"pose_graph_grid (one dense LM solve), {what}, M={d['M']}, "
+            f"grid of {d['C']}", "dvo_slam_tpu_torch/csrc/pose_graph_grid.cu",
+            "dvo_slam_tpu/models/pose_graph.py:463", past, d["err"],
+            d["us"] / 1e3, d["plain_ms"], d["bound"], None)
+    for solver, src_line in (("dense", 463), ("cg", 307)):
+        d = offline["ring_solves"][solver]
+        row(f"pose_graph_grid (one {solver} LM solve, optimize-graph), "
+            f"{d['M']}-vertex ring, {d['steps']} steps",
+            "dvo_slam_tpu_torch/csrc/pose_graph_grid.cu",
+            f"dvo_slam_tpu/models/pose_graph.py:{src_line}", d["launches"],
+            d["err"], d["ms"], d["plain_ms"], d["bound"], None)
     # No Pallas kernel: the JAX package's scan step after the tracker,
     # compiled by XLA inside lax.scan; no PyTorch call computes it.
     row("scan_step (the chunked keyframe scan's decisions, one launch a "
@@ -2119,6 +2182,7 @@ def _reset_launches():
 
     scan_step.LAUNCHES_SCAN_STEP = 0
     pose_graph.LAUNCHES = 0
+    pose_graph.LAUNCHES_GRID = 0
     pose_graph.LAUNCHES_BY_M.clear()
     sampler.LAUNCHES = 0
     linearize.LAUNCHES_LINEARIZE = 0
@@ -2139,6 +2203,7 @@ def _launches():
             "linearize": linearize.LAUNCHES_LINEARIZE,
             "track_level": linearize.LAUNCHES_TRACK_LEVEL,
             "pose_graph": pose_graph.LAUNCHES,
+            "pose_graph_grid": pose_graph.LAUNCHES_GRID,
             "pyramid": getattr(pyramid, "LAUNCHES_PYRAMID", 0),
             "prepare_reference": getattr(linearize,
                                          "PREPARE_REFERENCE_CALLS", 0),
@@ -2195,8 +2260,7 @@ def _host_graph(on=True):
     """With on: every graph solve runs the plain host loop
     (pose_graph.optimize_reference: ~200 eager ops and a host sync a LM
     step), swapped in for pose_graph.optimize as _lm_counted swaps it;
-    otherwise as shipped (graph_route: one kernel launch a dense solve of
-    up to pose_graph.KERNEL_MAX_VERTICES (128) vertices)."""
+    otherwise as shipped (graph_route: one kernel launch a solve)."""
     from dvo_slam_tpu_torch.models import pose_graph
 
     saved = pose_graph.optimize
@@ -2322,9 +2386,15 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
         graph = os.path.join(tmp, "slam.g2o")
         cov = os.path.join(tmp, "slam_cov.txt")
         flags = OFFLINE_FLAGS
+        bench_host = [0]
+        undo = _lm_counted([], bench_host)
         _reset_launches()
-        rc, out = _cli(["benchmark", seq, *flags, "--trajectory-out", traj,
-                        "--graph-out", graph, "--covariance-out", cov, *dev])
+        try:
+            rc, out = _cli(["benchmark", seq, *flags, "--trajectory-out",
+                            traj, "--graph-out", graph, "--covariance-out",
+                            cov, *dev])
+        finally:
+            undo()
         launches = _launches()
         if rc != 0:
             raise AssertionError(f"benchmark exited {rc}")
@@ -2351,7 +2421,8 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
               f"batch size) {launches['by B']}; pose-graph kernel "
               f"{launches['pose_graph']} "
               f"({launches['pose_graph'] / slam['num_frames']:.3f} per "
-              f"frame)")
+              f"frame), grid kernel {launches['pose_graph_grid']}; host "
+              f"loop LM steps {bench_host[0]}")
         ate_slam, ate_kf = slam["ate_rmse_m"], kf.ate_rmse_m
         if not ate_slam < OFFLINE_ATE_LIMIT_M:
             raise AssertionError(f"ATE(slam) {ate_slam} m >= "
@@ -2363,8 +2434,10 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
                                  f"(keyframe) {ate_kf}")
         if (launches["track_level"] == 0 or launches["linearize"] != 0
                 or launches["sample_slab"] != 0
-                or launches["pose_graph"] == 0):
-            raise AssertionError(f"benchmark launches {launches}")
+                or launches["pose_graph"] == 0
+                or (torch.device(device).type == "cuda" and bench_host[0])):
+            raise AssertionError(f"benchmark launches {launches}, host "
+                                 f"loop LM steps {bench_host[0]}")
         bench_launches = launches
         # The benchmark's graph, cropped as the engine crops it to solve.
         saved = g2o_io.load_g2o(graph)
@@ -2477,15 +2550,24 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
         # edge (chi2 ~ 6 at the truth) would weigh ~0.1 and the solve
         # barely moves.
         ring_before = _initial_chi2(ring, device, use_robust=False)
+        cli_launches = {}
         for solver in ("dense", "cg"):
+            cli_solves, cli_host = [], [0]
+            undo = _lm_counted(cli_solves, cli_host)
+            _reset_launches()
             sync()
             t0 = time.perf_counter()
-            rc, out = _cli(["optimize-graph", ring, "--out", solved,
-                            "--solver", solver, "--iterations",
-                            str(OFFLINE_GRAPH_ITERATIONS),
-                            "--no-robust-kernel", *dev])
-            sync()
+            try:
+                rc, out = _cli(["optimize-graph", ring, "--out", solved,
+                                "--solver", solver, "--iterations",
+                                str(OFFLINE_GRAPH_ITERATIONS),
+                                "--no-robust-kernel", *dev])
+                sync()
+            finally:
+                undo()
             ms_solve = 1e3 * (time.perf_counter() - t0)
+            cli_launches[solver] = _launches()["pose_graph_grid"]
+            routes = [_graph_route(g, kw) for _, _, g, kw in cli_solves]
             final = float(out.split()[-1])
             print(f"phase 6f optimize-graph --solver {solver} "
                   f"--no-robust-kernel on the "
@@ -2493,11 +2575,20 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
                   f"{OFFLINE_GRAPH_ITERATIONS} LM iterations at most, "
                   f"graph_cg_threshold {slam_cfg.graph_cg_threshold}): "
                   f"{ms_solve:.1f} ms (load, solve, save), chi2 "
-                  f"{ring_before:.6g} -> {final:.6g}")
+                  f"{ring_before:.6g} -> {final:.6g}; routes {routes}, "
+                  f"grid kernel launches {cli_launches[solver]}, host loop "
+                  f"LM steps {cli_host[0]}")
             # (final is printed to 6 digits)
             if rc != 0 or not (np.isfinite(final)
                                and final <= ring_before * (1 + 1e-5)):
                 raise AssertionError(f"{solver} solve: chi2 {final}")
+            on_card = torch.device(device).type == "cuda"
+            if on_card and (routes != ["grid"] or cli_host[0] != 0
+                            or cli_launches[solver] != 1):
+                raise AssertionError(f"6f {solver}: routes {routes}, host "
+                                     f"loop LM steps {cli_host[0]}")
+        ring_solves = (_ring_solves(ring, device, cli_launches)
+                       if torch.device(device).type == "cuda" else {})
 
         # 6g: a scale estimator off the kernels' route: the plain
         # linearization with the standalone sampler kernel.
@@ -2535,7 +2626,90 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
                 "groundtruth": ds.groundtruth_pose,
                 "tracker_cfg": tracker_cfg, "slam_cfg": slam_cfg,
                 "graph": bench_graph, "launches": bench_launches,
-                "frames_run": slam["num_frames"]}
+                "frames_run": slam["num_frames"], "ring_solves": ring_solves}
+
+
+def _ring_solves(path, device, launches):
+    """6f's 2 560-vertex ring (the .g2o at `path`), dense and CG as the CLI
+    solved it, once more through the grid kernel (pose_graph.optimize) and
+    once through the host loop (optimize_reference called directly): both
+    ms (host clock to a sync), the steps, where the decisions part (only
+    at a tie, _graph_parted), max |dpose| and the chi2 (rtol 1e-4). The
+    poses are held at 1e-4 where f32 resolves that on the graph; where the
+    host loop's own poses lie farther than 1e-4 from the same loop in f64
+    on the card (f32 cannot resolve 1e-4 there), the 1e-4 comparison is
+    printed as met or missed, the criterion of record, and the kernel's
+    poses are held instead within twice the host loop's own distance to
+    the f64 poses (a rule still to be accepted). Returns {solver: row
+    numbers}, `launches` the CLI run's grid launches by solver."""
+    import torch
+
+    from dvo_slam_tpu_torch.models import pose_graph
+    from dvo_slam_tpu_torch.utils import g2o_io
+
+    g = g2o_io.load_g2o(path)
+    out = {}
+    for solver in ("dense", "cg"):
+        kw = dict(iterations=OFFLINE_GRAPH_ITERATIONS, use_robust=False,
+                  solver=solver)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pose_graph.optimize(g, device=device, **kw)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        run = (int(pose_graph.LAST_STEPS), pose_graph.LAST_STATS.cpu().numpy())
+        t0 = time.perf_counter()
+        want = pose_graph.optimize_reference(g, device=device, **kw)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        run_h = (int(pose_graph.LAST_STEPS),
+                 pose_graph.LAST_STATS.cpu().numpy())
+        d_pose = (got[0].poses - want[0].poses).abs().max().item()
+        c, c_h = float(got[1]), float(want[1])
+        chi2_met = abs(c - c_h) <= 1e-4 * abs(c_h) + 1e-6
+        parted = _graph_parted(run, run_h)
+        split, span, steps, its = _graph_phases(g, kw, device, "grid")
+        bound = (_graph_bound(g, run[0], kw["iterations"], False)
+                 if solver == "dense" else
+                 _graph_cg_bound(g, steps, its, kw["iterations"], False))
+        resolution = ""
+        held = d_pose <= 1e-4
+        if not held:
+            (n64, c64, P64), = _graph_f32_f64(g, kw, device, (True,))
+            e_k = (got[0].poses.double() - P64).abs().max().item()
+            e_h = (want[0].poses.double() - P64).abs().max().item()
+            held = e_h > 1e-4 and e_k <= 2 * e_h
+            resolution = (f"; the host loop in f64 on the card ({n64} "
+                          f"steps, chi2 {c64:.9g}) lies {e_h:.3e} from the "
+                          f"host loop's f32 poses and {e_k:.3e} from the "
+                          f"kernel's: "
+                          + (f"f32 cannot resolve 1e-4 on this graph; the "
+                             f"1e-4 comparison missed (the criterion of "
+                             f"record), the kernel held within twice the "
+                             f"host loop's distance to f64 (a rule still to "
+                             f"be accepted): {'met' if held else 'missed'}"
+                             if e_h > 1e-4 else
+                             "f32 resolves 1e-4 on this graph: missed"))
+        print(f"phase 6f ring, {solver}, grid kernel against the host loop "
+              f"(optimize_reference): kernel {ms:.1f} ms ({run[0]} steps, "
+              f"{span / 1e3:.1f} ms the launch by its stamps; per step us "
+              + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+              + (f"; CG iterations by LM step {its}" if any(its) else "")
+              + f"), host loop {plain_ms:.1f} ms ({run_h[0]} steps); "
+              + ("same decisions" if parted is None else
+                 f"decisions part at step {parted[0]} (tie {parted[1]})")
+              + f"; max |dpose| {d_pose:.3e} (tol 1e-4), chi2 {c:.7g} / "
+              f"{c_h:.7g} (tol 1e-4: {'met' if chi2_met else 'missed'}); "
+              f"bound {bound[0]:.3f} ms ({bound[1]}); CLI launches "
+              f"{launches[solver]}" + resolution)
+        if not (held and chi2_met and (parted is None or parted[1])):
+            raise AssertionError(f"6f {solver}: the grid kernel disagrees "
+                                 f"with the host loop")
+        out[solver] = {"ms": ms, "plain_ms": plain_ms, "err": d_pose,
+                       "bound": bound, "steps": run[0], "cg_iterations": its,
+                       "launches": launches[solver],
+                       "M": g.poses.shape[0]}
+    return out
 
 
 def _graph_parted(run, run_h):
@@ -2559,23 +2733,25 @@ def _graph_parted(run, run_h):
     return p, tie
 
 
-def _graph_bound(graph, steps, iterations, gnc_adaptive):
+def _graph_bound(graph, steps, iterations, gnc_adaptive, dense=True):
     """The graph kernel's bound for one solve: the packed upload (graph and
     sum plans, padding included) read once, the outputs written once; the
     operations of `steps` LM steps over the graph's nv real vertices and
     ne edges of the mask (inactive slots are decoupled identity blocks
     and masked edges add zero): per edge, per vertex, the assembly's
     adds, n^3 / 3 for the factorization and 2 n^2 for the solves at
-    n = 6 nv, the adaptive start's and the final pass's residuals."""
+    n = 6 nv (these three dense only), the adaptive start's and the final
+    pass's residuals."""
     from dvo_slam_tpu_torch.models import pose_graph
 
     M, E = graph.poses.shape[0], graph.edge_i.shape[0]
     nv, ne = int(graph.num_vertices), int(np.asarray(graph.edge_mask).sum())
     n = 6 * nv
-    buf, _ = pose_graph._pack(graph)
+    buf, _ = pose_graph._pack(graph, dense)
     step_f32 = (ne * (GRAPH_EDGE_OPS[0] + GRAPH_RESIDUAL_OPS)
-                + 18 * (4 * ne + nv) + 12 * ne + n**3 / 3 + 2 * n * n
-                + nv * GRAPH_VERTEX_OPS)
+                + 12 * ne + nv * GRAPH_VERTEX_OPS
+                + ((18 * (4 * ne + nv) + n**3 / 3 + 2 * n * n) if dense
+                   else 0))
     f32 = steps * step_f32 + (1 + int(gnc_adaptive)) * ne * GRAPH_RESIDUAL_OPS
     return _bound_ms(4 * buf.size + 4 * (16 * M + 1 + E + 4 * iterations) + 4,
                      f32, steps * ne * GRAPH_EDGE_OPS[1])
@@ -2592,24 +2768,39 @@ def _graph_f64(graph, device, upload=None):
                       information=g.information.double())
 
 
-def _graph_on_cpu(graph, kw):
-    """The host loop on the CPU in f32 and in f64 (to_device swapped for
-    _graph_f64, as _host_graph swaps optimize): ((steps, chi2) in f32,
-    (steps, chi2) in f64)."""
+def _graph_f32_f64(graph, kw, device="cpu", precisions=(False, True)):
+    """The host loop on `device` (the CPU unless said) in f32 and in f64
+    (to_device swapped for _graph_f64, as _host_graph swaps optimize):
+    [(steps, chi2, poses)] in f32, then in f64 (`precisions`: f64 or not,
+    in order)."""
     from dvo_slam_tpu_torch.models import pose_graph
 
     out, upload = [], pose_graph.to_device
-    for f64 in (False, True):
+    for f64 in precisions:
         if f64:
             pose_graph.to_device = functools.partial(_graph_f64,
                                                      upload=upload)
         try:
-            _, chi2, _ = pose_graph.optimize_reference(graph, device="cpu",
+            g, chi2, _ = pose_graph.optimize_reference(graph, device=device,
                                                        **kw)
         finally:
             pose_graph.to_device = upload
-        out.append((int(pose_graph.LAST_STEPS), float(chi2)))
+        out.append((int(pose_graph.LAST_STEPS), float(chi2),
+                    g.poses.double()))
     return out
+
+
+def _graph_cg_bound(graph, steps, cg_iterations, iterations, gnc_adaptive):
+    """_graph_bound for a CG solve: the LM steps' per-edge and per-vertex
+    work without the factorization, and per CG iteration this run's data
+    needed (cg_iterations: each step's count, from the grid kernel's
+    timing buffer) the matvec over the real edges and the vertex work."""
+    nv, ne = int(graph.num_vertices), int(np.asarray(graph.edge_mask).sum())
+    ms, by = _graph_bound(graph, steps, iterations, gnc_adaptive, dense=False)
+    cg_ops = sum(cg_iterations) * (ne * GRAPH_CG_EDGE_OPS
+                                   + nv * GRAPH_CG_VERTEX_OPS)
+    cg_ms = 1e3 * cg_ops / PEAK_F32_S
+    return (ms, by) if ms >= cg_ms else (cg_ms, "operations")
 
 
 # The first version of the graph kernel (a column Cholesky with a barrier
@@ -2630,53 +2821,67 @@ _KERNEL_KEYS = ("iterations", "use_robust", "cauchy_c", "gnc_init",
                 "gnc_decay", "gnc_adaptive")
 
 
-def _graph_phases(g, kw, device):
-    """One more kernel solve of `g` with the phase-timing buffer: ({phase:
-    device us per LM step}, the launch's us, steps)."""
+def _graph_phases(g, kw, device, route="cluster"):
+    """One more kernel solve of `g` on `route`'s kernel with its
+    phase-timing buffer: ({phase: device us per LM step}, the launch's us,
+    steps, [CG iterations a step] (grid; None on the cluster kernel))."""
     import torch
 
     from dvo_slam_tpu_torch.models import pose_graph
 
-    buf = torch.zeros(4 + 7 * kw["iterations"], dtype=torch.int64,
-                      device=device)
-    pose_graph.optimize_kernel(g, device=device, timing=buf,
-                               **{k: v for k, v in kw.items()
-                                  if k in _KERNEL_KEYS})
+    args = {k: v for k, v in kw.items() if k in _KERNEL_KEYS}
+    if route == "cluster":
+        buf = torch.zeros(4 + 7 * kw["iterations"], dtype=torch.int64,
+                          device=device)
+        pose_graph.optimize_kernel(g, device=device, timing=buf, **args)
+        steps = int(pose_graph.LAST_STEPS)
+        return (*pose_graph.phase_times(buf.cpu().numpy(), steps), steps,
+                None)
+    solver = kw.get("solver", "dense")
+    buf = torch.zeros(pose_graph.grid_timing_size(kw["iterations"]),
+                      dtype=torch.int64, device=device)
+    pose_graph.optimize_grid(g, device=device, timing=buf, solver=solver,
+                             **args)
     steps = int(pose_graph.LAST_STEPS)
-    split, launch_us = pose_graph.phase_times(buf.cpu().numpy(), steps)
-    return split, launch_us, steps
+    split, span, its = pose_graph.grid_phase_times(buf.cpu().numpy(), steps,
+                                                   solver)
+    return split, span, steps, its
 
 
 def phase_graph(device, slam_out, offline):
-    """5f: the pose-graph kernel (csrc/pose_graph.cu, one launch a dense
-    solve) against the plain host loop (optimize_reference, cuSOLVER's
-    Cholesky) on the card, on the SLAM ring's final keyframe graph (as its
-    final solve), the last window graph of 5b's timed run, 6b's benchmark
-    graph (cropped as the engine crops it, as its final solve), 5e's last
-    solve at each of GRAPH_RING_VERTICES (as 5e ran it) and _ring_graph
-    at GRAPH_RING_VERTICES (as an interleaved graph solve):
-    steps on each route, max |dpose|, the chi2's relative difference, where
-    the two runs' decisions part (only at a tie: _graph_parted);
-    the kernel's device us per solve and per step (CUDA events behind a
-    spin kernel), the host loop's ms (host clock to a sync), cuSOLVER's
-    factor and solve (cholesky_ex + cholesky_solve) on the graph's damped
-    system at its first step (events), the bound. The f32 resolution of
-    each graph: the plain formula (_build_blocks) in f32 against the same
-    in f64, at the kernel's poses (weights and chi2) and at the host loop's
-    (chi2). Where the weights' own f32 error passes 1e-4, f32 cannot
-    resolve the comparison on the graph, and the checks of the two routes
-    against each other that rest on it (weights, chi2, decisions) are
-    printed, not held, beside the host loop on the CPU in f32 and f64; the
-    poses are held on every graph, and every graph but 5e's must resolve
-    its weights. Two routes' f32 chi2 differ by their own f32 errors as
-    well as by their poses: where those two errors add up past 1e-4 (a
-    solve that ends fitting f32 evaluation noise, as 5b's window graph
-    without the robust kernel does: its f64 loop converges in 2 steps, its
-    f32 steps after that move the f32 chi2 by ~1e-4-5e-4 and the poses by
-    ~1e-7), the two routes' chi2 are compared in f64 at their own poses
-    (1e-4), a rule still to be accepted, and the f32 comparison is printed
-    as met or missed, the record of the criterion; every other check
-    stands. Returns {name: row numbers}."""
+    """5f: the pose-graph kernels (csrc/pose_graph.cu, one launch a dense solve
+    of at most 128 vertices; csrc/pose_graph_grid.cu, one cooperative launch
+    every other solve) against the plain host loop (optimize_reference,
+    cuSOLVER's Cholesky, torch's CG) on the card, on the SLAM ring's final
+    keyframe graph (as its final solve), the last window graph of 5b's timed
+    run, 6b's benchmark graph (cropped as the engine crops it, as its final
+    solve), 5e's last solve at each of EVICT_VERTICES (as 5e ran it),
+    _ring_graph at GRAPH_RING_VERTICES (as an interleaved graph solve; 256 and
+    past on the grid kernel), at GRAPH_CG_VERTICES with the CG solver
+    (GRAPH_CG_ITERATIONS LM steps) and 5g's last solve past 128 keyframes (256
+    slots, as 5g ran it): steps on each route, max |dpose|, the chi2's relative
+    difference, where the two runs' decisions part (only at a tie:
+    _graph_parted); the kernel's device us per solve and per step (CUDA events
+    behind a spin kernel), the host loop's ms (host clock to a sync),
+    cuSOLVER's factor and solve (cholesky_ex + cholesky_solve) on the graph's
+    damped system at its first step (events), the bound. The f32 resolution of
+    each graph: the plain formula (_build_blocks) in f32 against the same in
+    f64, at the kernel's poses (weights and chi2) and at the host loop's
+    (chi2). Where the weights' own f32 error passes 1e-4, f32 cannot resolve
+    the comparison on the graph, and the checks of the two routes against each
+    other that rest on it (weights, chi2, decisions) are printed, not held,
+    beside the host loop in f32 and f64 (on the CPU; on the card past 128
+    vertices); the poses are held on every graph, and every graph but 5e's and
+    5g's (GRAPH_KEYFRAME_EVERY_FRAME: a keyframe every frame, thousands of loop
+    edges) must resolve its weights. Two routes' f32 chi2 differ by their own
+    f32 errors as well as by their poses: where those two errors add up past
+    1e-4 (a solve that ends fitting f32 evaluation noise, as 5b's window graph
+    without the robust kernel does: its f64 loop converges in 2 steps, its f32
+    steps after that move the f32 chi2 by ~1e-4-5e-4 and the poses by ~1e-7),
+    the two routes' chi2 are compared in f64 at their own poses (1e-4), a rule
+    still to be accepted, and the f32 comparison is printed as met or missed,
+    the record of the criterion; every other check stands. Returns {name: row
+    numbers}."""
     import functools
     import os
     import shutil
@@ -2684,9 +2889,11 @@ def phase_graph(device, slam_out, offline):
 
     import torch
 
-    from dvo_slam_tpu_torch import SlamConfig
+    from dvo_slam_tpu_torch import SlamConfig, _build
     from dvo_slam_tpu_torch.models import pose_graph
     from dvo_slam_tpu_torch.utils import g2o_io
+
+    device = torch.device(device)
 
     def final_kw(slam_cfg):
         return dict(iterations=slam_cfg.final_optimization_iterations,
@@ -2701,28 +2908,37 @@ def phase_graph(device, slam_out, offline):
               {k: v for k, v in window_kw.items() if k != "device"}),
              ("offline", offline["graph"], final_kw(offline["slam_cfg"]))]
     cases += [(f"evict{M}", *slam_out["eviction"]["graphs"][M])
-              for M in GRAPH_RING_VERTICES]
+              for M in EVICT_VERTICES]
     tmp = tempfile.mkdtemp(prefix="dvo_graph_")
-    for vertices in GRAPH_RING_VERTICES:
+    interleaved = dict(final_kw(SlamConfig()),
+                       iterations=SlamConfig().optimization_iterations)
+    for vertices, solver in ([(v, "dense") for v in GRAPH_RING_VERTICES]
+                             + [(v, "cg") for v in GRAPH_CG_VERTICES]):
         path = os.path.join(tmp, f"ring{vertices}.g2o")
         n_edges = _ring_graph(path, vertices)
         g = pose_graph.crop(g2o_io.load_g2o(path, max_vertices=vertices),
                             vertices, pose_graph.bucket(n_edges, 64))
-        cases.append((f"ring{vertices}", g, dict(
-            final_kw(SlamConfig()),
-            iterations=SlamConfig().optimization_iterations)))
+        if solver == "dense":
+            cases.append((f"ring{vertices}", g, interleaved))
+        else:
+            cases.append((f"ring{vertices}cg", g, dict(
+                interleaved, solver="cg", iterations=GRAPH_CG_ITERATIONS)))
     shutil.rmtree(tmp)
+    cases.append(("slam256", *slam_out["past128"]["graph"]))
     out = {}
     for name, g, kw in cases:
         M, E = g.poses.shape[0], g.edge_i.shape[0]
-        if _graph_route(g, {"device": device}) != "kernel":
-            raise AssertionError(f"5f {name}: M = {M} is off the kernel's "
+        route = _graph_route(g, {"device": device, **kw})
+        if route != ("cluster" if M <= pose_graph.KERNEL_MAX_VERTICES
+                     and kw.get("solver", "dense") == "dense" else "grid"):
+            raise AssertionError(f"5f {name}: M = {M} takes the {route} "
                                  f"route")
-        before = pose_graph.LAUNCHES
+        counter = "LAUNCHES" if route == "cluster" else "LAUNCHES_GRID"
+        before = getattr(pose_graph, counter)
         got = pose_graph.optimize(g, device=device, **kw)
         run = (int(pose_graph.LAST_STEPS), pose_graph.LAST_STATS.cpu().numpy())
-        if pose_graph.LAUNCHES != before + 1:
-            raise AssertionError(f"5f {name}: not one kernel launch")
+        if getattr(pose_graph, counter) != before + 1:
+            raise AssertionError(f"5f {name}: not one {route} kernel launch")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = pose_graph.optimize_reference(g, device=device, **kw)
@@ -2780,24 +2996,43 @@ def phase_graph(device, slam_out, offline):
                   + pose_graph._JITTER * torch.eye(6 * M, device=device))
         cusolver_us = _events_us(lambda: torch.cholesky_solve(
             -grad[:, None], torch.linalg.cholesky_ex(damped)[0]))
-        bound = _graph_bound(g, run[0], kw["iterations"],
-                             kw.get("gnc_adaptive", False))
-        # The phase split, beside the first version's.
-        plan = pose_graph.kernel_plan(M, E)
-        split, launch_us, split_steps = _graph_phases(g, kw, device)
+        del H, damped
+        # The phase split (beside the cluster kernel's first version's).
+        split, launch_us, split_steps, cg_its = _graph_phases(g, kw, device,
+                                                              route)
+        if kw.get("solver", "dense") == "cg":
+            bound = _graph_cg_bound(g, split_steps, cg_its, kw["iterations"],
+                                    kw.get("gnc_adaptive", False))
+        else:
+            bound = _graph_bound(g, run[0], kw["iterations"],
+                                 kw.get("gnc_adaptive", False))
+        if route == "cluster":
+            plan = pose_graph.kernel_plan(M, E)
+            layout = f"cluster of {plan[1]} CTAs, panel width {plan[4]}"
+            ctas = plan[1]
+        else:
+            plan = pose_graph.grid_plan(M, E, kw.get("solver", "dense"),
+                                        _build.sm_count(device.index or 0))
+            layout = (f"grid of {plan[0]} CTAs, tile width {plan[3]}, "
+                      f"{plan[4]} tiles a side")
+            ctas = plan[0]
         first = GRAPH_FIRST_VERSION.get(name)
         print(f"phase 5f pose graph, {name} graph: per LM step, device us "
-              f"(the kernel's phase stamps; width {plan[4]}, {plan[1]} "
-              f"CTAs, {split_steps} steps, {launch_us:.2f} us the launch): "
+              f"(the kernel's phase stamps; {layout}, {split_steps} steps, "
+              f"{launch_us:.2f} us the launch): "
               + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
               + f"; by events {us / max(run[0], 1):.2f}"
+              + ("" if cg_its is None or not any(cg_its) else
+                 f"; CG iterations by LM step {cg_its}")
               + ("" if first is None else
                  "; the first version (column Cholesky, recorded): "
                  + ", ".join(f"{k} {v:.2f}" for k, v in
                              zip(pose_graph.PHASES, first))
                  + f"; by events {first[-1]:.2f}"))
+        on_card = M > pose_graph.KERNEL_MAX_VERTICES
+        ref_where = "on the card" if on_card else "on the CPU"
         print(f"phase 5f pose graph, {name} graph (M = {M}, E = {E}, "
-              f"cluster of {plan[1]} CTAs, panel width {plan[4]}, "
+              f"{kw.get('solver', 'dense')}, {route} route, {layout}, "
               f"{int(g.num_vertices)} vertices, {int(g.num_edges)} edges; "
               f"{kw['iterations']} LM steps at most): steps kernel {run[0]}, "
               f"host loop {run_h[0]}; "
@@ -2827,26 +3062,31 @@ def phase_graph(device, slam_out, offline):
                  f"record), held instead in f64 at each route's own poses "
                  f"(a rule still to be accepted): {float(chi2_64):.9g} / "
                  f"{float(chi2_64_h):.9g} (rel {d_chi2_64:.3e}, tol 1e-4); "
-                 f"host loop on the CPU "
-                 + ", ".join(f"{t} {n} steps, chi2 {x:.7g}" for t, (n, x)
-                             in zip(("f32", "f64"), _graph_on_cpu(g, kw)))
+                 f"host loop {ref_where} "
+                 + ", ".join(f"{t} {n} steps, chi2 {x:.7g}"
+                             for t, (n, x, _) in zip(
+                                 ("f32", "f64"),
+                                 _graph_f32_f64(g, kw, device if on_card
+                                                else "cpu")))
                  if res_w <= 1e-4 else
-                 "beyond f32, only the poses held; host loop on the CPU "
-                 + ", ".join(f"{t} {n} steps, chi2 {x:.7g}" for t, (n, x)
-                             in zip(("f32", "f64"), _graph_on_cpu(g, kw)))))
+                 f"beyond f32, only the poses held; host loop {ref_where} "
+                 + ", ".join(f"{t} {n} steps, chi2 {x:.7g}"
+                             for t, (n, x, _) in zip(
+                                 ("f32", "f64"),
+                                 _graph_f32_f64(g, kw, device if on_card
+                                                else "cpu")))))
         close = (d_w <= 1e-4 and d_chi2_at <= 1e-4
                  and (f32_met if chi2_resolved else d_chi2_64 <= 1e-4)
                  and (parted is None or parted[1]))
         if not (d_pose <= 1e-4 and (close or res_w > 1e-4)):
             raise AssertionError(f"5f {name}: the graph kernel disagrees "
                                  f"with the host loop")
-        if not (res_w <= 1e-4 or name.startswith("evict")):
+        if not (res_w <= 1e-4 or name in GRAPH_KEYFRAME_EVERY_FRAME):
             raise AssertionError(f"5f {name}: beyond f32 resolution")
-        out[name] = {"M": M, "C": plan[1], "us": us, "split": split,
-                     "plain_ms": plain_ms, "err": d_pose,
-                     "f32_met": f32_met,
-                     "bound": bound, "steps": run[0],
-                     "cusolver_us": cusolver_us}
+        out[name] = {"M": M, "C": ctas, "route": route, "us": us,
+                     "split": split, "plain_ms": plain_ms, "err": d_pose,
+                     "f32_met": f32_met, "bound": bound, "steps": run[0],
+                     "cusolver_us": cusolver_us, "cg_iterations": cg_its}
     return out
 
 
@@ -3188,9 +3428,9 @@ def phase_eviction(device):
     every pyramid: the same keyframes and edges, the same trajectory. Its
     graph and window solves reach M = 64 and 128 vertex slots: the first
     run's graph-kernel launches by M (pose_graph.LAUNCHES_BY_M) must be
-    one per solve on the kernel's route. Returns {"launches": {M: n},
-    "graphs": {M: (the last such solve's host graph, its keyword
-    arguments)}} for GRAPH_RING_VERTICES."""
+    one per solve (every solve on a kernel's route). Returns {"launches":
+    {M: n}, "graphs": {M: (the last such solve's host graph, its keyword
+    arguments)}} for EVICT_VERTICES."""
     import torch
 
     from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig, TrackerConfig
@@ -3204,12 +3444,12 @@ def phase_eviction(device):
     frames = synthetic.render_sequence(scene, np.asarray(K), EVICT_W, EVICT_H,
                                        ring)
     cfg = TrackerConfig(num_levels=3, first_level=2, last_level=0)
-    out, solves = {}, []
+    out, solves, host_steps = {}, [], [0]
     for resident in (64, 256):
         slam = KeyframeSlam(K, cfg, SlamConfig(resident_keyframes=resident),
                             device=device)
         slam.init()
-        undo = _lm_counted(solves if resident == 64 else [], [0],
+        undo = _lm_counted(solves if resident == 64 else [], host_steps,
                            copy=True)
         _reset_launches()
         t0 = time.perf_counter()
@@ -3242,21 +3482,113 @@ def phase_eviction(device):
           f"{small.num_loop_edges}), max trajectory difference {diff:.3e}; "
           f"{s_s:.1f} s / {s_l:.1f} s; graph and window solves of the "
           f"first run by (vertex slots M, route): {dict(sorted(by_m.items()))}"
-          f", graph-kernel launches by M {dict(sorted(launched.items()))}")
+          f", graph-kernel launches by M {dict(sorted(launched.items()))}"
+          f", host loop LM steps {host_steps[0]}")
     if not (len(small.keyframes) == EVICT_FRAMES and evicted > 0 and same
             and small.validation_cache_stats["misses"] > 0
             and small.num_loop_edges >= 1 and diff <= 1e-6):
         raise AssertionError("the evicting SLAM run differs from the "
                              "resident one")
-    on_kernel = {M: n for (M, route), n in by_m.items() if route == "kernel"}
-    if launched != on_kernel or not set(GRAPH_RING_VERTICES) <= set(launched):
+    on_kernel = {}
+    for (M, route), n in by_m.items():
+        if route != "host loop":
+            on_kernel[M] = on_kernel.get(M, 0) + n
+    if (launched != on_kernel or host_steps[0] != 0
+            or not set(EVICT_VERTICES) <= set(launched)):
         raise AssertionError(f"5e graph-kernel launches by M {launched}, "
-                             f"solves on its route by M {on_kernel}")
+                             f"solves by (M, route) {by_m}, host loop LM "
+                             f"steps {host_steps[0]}")
     graphs = {g.poses.shape[0]: (g, {k: v for k, v in kw.items()
                                      if k != "device"} | {"iterations": it})
-              for it, _, g, kw in solves if _graph_route(g, kw) == "kernel"}
+              for it, _, g, kw in solves if _graph_route(g, kw) == "cluster"}
     return {"launches": launched,
-            "graphs": {M: graphs[M] for M in GRAPH_RING_VERTICES}}
+            "graphs": {M: graphs[M] for M in EVICT_VERTICES}}
+
+
+def phase_past128(device):
+    """5g: KeyframeSlam past 128 keyframes (a keyframe forced every frame,
+    as 5e, PAST128_FRAMES frames of the ring at EVICT_W x EVICT_H, 5e's
+    tracker levels, default SlamConfig, loop closure on): past 128
+    keyframes its graph solves take 256 vertex slots, the grid kernel's
+    route. The solves by (vertex slots M, route) (LM steps counted per
+    solve as 5b counts them), the launches by M (LAUNCHES_BY_M: one per
+    solve), the grid kernel's launches (> 0 at M = 256, one per solve on
+    its route), the host loop's LM steps (0), loop edges (>= 1), a finite
+    trajectory and its ATE against the ring's ground truth (printed: 5e
+    holds no ATE at 160x120 either). Returns {"launches": {M: n},
+    "grid": grid launches, "graph": (the last M = 256 solve's host graph,
+    its keyword arguments)}."""
+    import torch
+
+    from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig, TrackerConfig
+    from dvo_slam_tpu_torch.models import pose_graph
+    from dvo_slam_tpu_torch.utils import evaluate, synthetic
+
+    K = (525.0 * EVICT_W / 640.0, 525.0 * EVICT_H / 480.0,
+         (EVICT_W - 1) / 2.0, (EVICT_H - 1) / 2.0)
+    scene = synthetic.two_plane_scene(sharpness=2.0)
+    ring = synthetic.orbit_trajectory(RING + 1, radius=0.06)[:RING]
+    frames = synthetic.render_sequence(scene, np.asarray(K), EVICT_W, EVICT_H,
+                                       ring)
+    cfg = TrackerConfig(num_levels=3, first_level=2, last_level=0)
+    slam = KeyframeSlam(K, cfg, SlamConfig(), enable_loop_closure=True,
+                        device=device)
+    slam.init()
+    solves, host_steps = [], [0]
+    undo = _lm_counted(solves, host_steps, copy=True)
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for k in range(PAST128_FRAMES):
+            if k > 0:
+                slam.force_keyframe()
+            slam.update(*frames[k % RING], k / 30.0)
+        traj = slam.finish()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    launched = dict(pose_graph.LAUNCHES_BY_M)
+    by_m, steps = {}, {}
+    mean_steps = (lambda: {k: round(float(np.mean(v)), 2)
+                           for k, v in sorted(steps.items())})
+    for _, ran, g, kw in solves:
+        key = (g.poses.shape[0], _graph_route(g, kw))
+        by_m[key] = by_m.get(key, 0) + 1
+        steps.setdefault(key, []).append(int(ran))
+    on_kernel = {}
+    for (M, route), n in by_m.items():
+        if route != "host loop":
+            on_kernel[M] = on_kernel.get(M, 0) + n
+    est = np.stack([T for _, T in traj])
+    gt = [ring[k % RING] for k in range(PAST128_FRAMES)]
+    ate = evaluate.ate_rmse(list(est), gt) if np.isfinite(est).all() \
+        else float("nan")
+    n_grid = sum(n for (_, r), n in by_m.items() if r == "grid")
+    print(f"phase 5g SLAM past 128 keyframes: {PAST128_FRAMES} frames at "
+          f"{EVICT_W}x{EVICT_H}, a keyframe every frame: "
+          f"{len(slam.keyframes)} keyframes, loop edges "
+          f"{slam.num_loop_edges}, ATE "
+          f"{1e3 * ate:.4f} mm against the ring's ground truth, "
+          f"{seconds:.1f} s; graph and window solves by (vertex slots M, "
+          f"route): {dict(sorted(by_m.items()))}, LM steps a solve mean by "
+          f"(M, route) "
+          f"{mean_steps()}"
+          f"; launches by M {dict(sorted(launched.items()))}, grid kernel "
+          f"{launches['pose_graph_grid']}, cluster kernel "
+          f"{launches['pose_graph']}; host loop LM steps {host_steps[0]}")
+    if not (len(slam.keyframes) > 128 and slam.num_loop_edges >= 1
+            and np.isfinite(est).all() and host_steps[0] == 0
+            and by_m.get((256, "grid"), 0) > 0 and launched == on_kernel
+            and launches["pose_graph_grid"] == n_grid):
+        raise AssertionError("5g: the SLAM run past 128 keyframes failed its "
+                             "checks")
+    last = [(g, {k: v for k, v in kw.items() if k != "device"}
+             | {"iterations": it}) for it, _, g, kw in solves
+            if g.poses.shape[0] == 256 and _graph_route(g, kw) == "grid"][-1]
+    return {"launches": launched, "grid": launches["pose_graph_grid"],
+            "graph": last}
 
 
 # The scan step's cases (8a; tests/test_torch_kernels_cuda.py takes them
@@ -4482,6 +4814,9 @@ def main():
     val_batches = phase_validation_batches(device, cfg)
     slam_out["eviction"] = phase_eviction(device)
     print(f"phases 5d-5e took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    slam_out["past128"] = phase_past128(device)
+    print(f"phase 5g took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     offline = phase_offline(device)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")

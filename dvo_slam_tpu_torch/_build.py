@@ -12,9 +12,10 @@ together, and one more ``nvcc`` links the objects:
 
 The library goes to ``build/dvo_slam_tpu_torch/<hash>/libdvo_kernels.so``
 beside the package (``build/`` is git-ignored), keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing is built or imported at module import: this module is
-imported on machines without a GPU.
+sources, the headers they include (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged tree is reused.
+Nothing is built or imported at module import: this module is imported
+on machines without a GPU.
 """
 
 from __future__ import annotations
@@ -66,8 +67,10 @@ def _sources():
 
 
 def library_path() -> Path:
+    """The library's path, keyed by the flags and every source and header
+    of csrc/ (an edited header rebuilds too)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
@@ -152,6 +155,16 @@ def _entry_points():
             vp, vp, vp, vp, vp, vp, vp, vp,  # scratch, poses, chi2, weights,
         ], ci),  # stats, steps, timing (or null), stream
         "dvo_pose_graph_plan": ([ci, ci, vp], ci),
+        "dvo_pose_graph_grid": ([
+            vp, vp, vp, vp, vp, vp,  # poses, Z, info, mask, edge_i, edge_j
+            vp, vp, vp,  # vertex plan (offsets, indices), dense plan indices
+            vp, vp,  # the dense plan's blocks (offsets, list); null for CG
+            ci, ci, ci, ci, ci,  # M, E, num_vertices, iterations, robust
+            cd, cd, cd, ci,  # cauchy_c, gnc_init, gnc_decay, gnc_adaptive
+            ci, ci,  # solver (0 dense, 1 CG), CTAs
+            vp, vp, vp, vp, vp, vp, vp, vp, vp,  # scratch, barrier, poses,
+        ], ci),  # chi2, weights, stats, steps, timing (or null), stream
+        "dvo_pose_graph_grid_plan": ([ci, ci, ci, ci, vp], ci),
         "dvo_level_plan": ([ci, ci, vp], ci),
         "dvo_error_string": ([ci], ctypes.c_char_p),
         "dvo_scan_step": ([

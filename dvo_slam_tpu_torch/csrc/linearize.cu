@@ -1035,6 +1035,9 @@ extern "C" const char* dvo_error_string(int code) {
   if (code == kErrNoActiveCluster)
     return "no cluster of this size fits on the card "
            "(cudaOccupancyMaxActiveClusters returned 0)";
+  if (code == 100002)  // csrc/pose_graph_grid.cu's kErrNotCoResident
+    return "the card cannot hold the cooperative grid's CTAs at once "
+           "(no cooperative launch, or too few resident CTAs an SM)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -801,12 +801,12 @@ class KeyframeSlam:
 
         The reference runs g2o on a background thread (keyframe_graph.cpp);
         here the solve runs on the device, and its poses are materialized
-        by _sync_poses() at the next pose read. On a CUDA device a dense
-        solve of up to pose_graph.KERNEL_MAX_VERTICES (128) vertices
-        (pose_graph.graph_route) is one launch of the graph kernel that
-        reads nothing back, so the solve stays asynchronous until that
-        read; other solves run the host loop, which reads its stop flag
-        back once per LM step.
+        by _sync_poses() at the next pose read. On a CUDA device every
+        solve, dense or CG at any size, is one kernel launch that reads
+        nothing back (pose_graph.graph_route: the cluster kernel up to 128
+        dense vertex slots, the grid kernel past that and for CG), so the
+        solve stays asynchronous until that read; on the CPU the host
+        loop runs it.
         """
         self._switches_since_solve = 0
         self._loop_edges_since_solve = 0

@@ -6,10 +6,9 @@ tracked frame, connected by keyframe->frame edges weighted with the dense
 tracker's information matrices and frame->frame odometry edges. The
 reference solves this mini-graph with g2o; here the window is solved by the
 same padded Levenberg-Marquardt used for the global graph
-(models/pose_graph.py), on the map's device: on a CUDA device a window of
-up to pose_graph.KERNEL_MAX_VERTICES (128) vertex slots is one launch of
-the graph kernel, which reads nothing back until the caller fetches the
-poses.
+(models/pose_graph.py), on the map's device: on a CUDA device every
+window solve is one kernel launch (pose_graph.graph_route), which reads
+nothing back until the caller fetches the poses.
 
 Division of labour with the orchestrator (models/keyframe_tracker.py):
 per-frame the current pose uses the cheap closed-form information fusion

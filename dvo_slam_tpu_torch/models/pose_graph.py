@@ -13,25 +13,30 @@ the LM accept/reject loop with the adaptive GNC anneal, all in f32 (the
 edge Jacobian in f64). The JAX package runs this through XLA as one
 ``jax.jit`` with a ``lax.while_loop`` over the LM steps, not Pallas.
 
-Two routes (``graph_route``), picked by device, solver and size alone:
+Three routes (``graph_route``), picked by device, solver and size alone.
+Every solve on a CUDA device is ONE kernel launch that runs the whole LM
+loop on the card, as the JAX ``while_loop`` runs it, with nothing read
+back to the host; a build or launch error raises, and nothing falls back:
 
-- A dense solve of at most ``KERNEL_MAX_VERTICES`` (128) vertices on a
-  CUDA device runs as ONE launch of csrc/pose_graph.cu
-  (``optimize_kernel``; one CTA up to 32 vertices, a cluster of up to 16
-  past that, ``kernel_plan``): the whole LM loop on the card, as the JAX
-  ``while_loop`` runs it, with nothing read back to the host. A build or
-  launch error raises; nothing falls back.
-- Every other call (the CPU, ``solver="cg"``, a dense graph past the
-  kernel's limit) runs the plain host loop ``optimize_reference``, the
-  kernel's plain version: ``torch`` / ``torch.linalg`` ops, reading its
-  stop flag back once per LM step (and the CG loop its stop test once per
-  CG step) and exiting where the JAX ``while_loop`` does.
+- "cluster": a dense solve of at most ``KERNEL_MAX_VERTICES`` (128)
+  vertices is one launch of csrc/pose_graph.cu (``optimize_kernel``; one
+  CTA up to 32 vertices, a cluster of up to 16 past that,
+  ``kernel_plan``).
+- "grid": every other CUDA solve (``solver="cg"`` at any size, a dense
+  graph past 128 vertices) is one cooperative launch of
+  csrc/pose_graph_grid.cu (``optimize_grid``; one CTA a streaming
+  multiprocessor, the dense system in 32 x 32 tiles or the block-Jacobi
+  CG with its own loop on the card, ``grid_plan``).
+- "host loop": the CPU runs the plain host loop ``optimize_reference``,
+  both kernels' plain version: ``torch`` / ``torch.linalg`` ops, reading
+  its stop flag back once per LM step (and the CG loop its stop test once
+  per CG step) and exiting where the JAX ``while_loop`` does.
 
 Sums with duplicate indices (the gradient, the block diagonal, the dense
 H, the CG matvec) follow a host-built plan in a fixed order, never
 ``index_add_``: CUDA's atomic scatter-add sums in no fixed order, and two
 solves of one graph must give the same bits. The plan depends only on the
-topology, which the caller holds on the host; the kernel takes the same
+topology, which the caller holds on the host; the kernels take the same
 plans as CSR lists.
 """
 
@@ -59,10 +64,22 @@ _KERNEL_MAX_CLUSTER = 16
 _KERNEL_MAX_COLUMNS = 96  # columns a CTA of a cluster holds
 _KERNEL_SMEM_BUDGET = 230_400  # dynamic shared memory bytes a CTA may ask
 _KERNEL_EDGE_FLOATS = 42  # per-edge slot: P (36), gj (6)
-# Kernel launches made by optimize_kernel since the last reset (plain
-# integer; callers reset it to 0 to count the launches of one run), and
-# the same launches by vertex slots M (callers clear it).
+# The grid kernel (csrc/pose_graph_grid.cu): one CTA of 256 threads a
+# streaming multiprocessor, all co-resident (a cooperative launch); the
+# dense system in 32 x 32 tiles, its trailing update in units of 4 x 4
+# tiles (dvo_pose_graph_grid_plan; grid_plan mirrors it).
+SOLVERS = ("dense", "cg")
+GRID_THREADS = 256
+GRID_TILE = 32
+_GRID_UNIT_ROWS = 4 * GRID_TILE
+# Per-CTA f64 partials: max, chi2, trial, final, p.Ap, r.z, r.r, b.b.
+_GRID_SLOTS = 8
+# Kernel launches since the last reset (plain integers; callers reset them
+# to 0 to count the launches of one run): optimize_kernel's (LAUNCHES) and
+# optimize_grid's (LAUNCHES_GRID), and both kernels' launches by vertex
+# slots M (callers clear it).
 LAUNCHES = 0
+LAUNCHES_GRID = 0
 LAUNCHES_BY_M = {}
 # The last solve's LM step count, a 0-d int32 tensor on its device (the
 # kernel's output, or the host loop's count), and its per-step statistics,
@@ -187,10 +204,15 @@ class _Plan(NamedTuple):
     size: int
 
 
-def _plan(targets: np.ndarray, size: int, device) -> _Plan:
+def _plan(targets: np.ndarray, size: int, device, keep=None) -> _Plan:
+    """The plan of K values into `size` slots by `targets`; with `keep`
+    (bool per value), only the kept values are summed (the others' slots
+    receive nothing from them)."""
     targets = np.asarray(targets, np.int64)
     K = targets.shape[0]
     order = np.argsort(targets, kind="stable")
+    if keep is not None:
+        order = order[np.asarray(keep, bool)[order]]
     keys, starts, counts = np.unique(targets[order], return_index=True,
                                      return_counts=True)
     D = int(counts.max()) if counts.size else 1
@@ -231,10 +253,17 @@ def _plan_targets(graph: PoseGraph):
 
 
 def _topology(graph: PoseGraph, device) -> _Topology:
+    """The plans over the unmasked edges, as the kernels' (``_pack``): a
+    masked edge's blocks and gradient are exact zeros (weight 0), and a
+    padded graph's masked edges all sit on vertex 0, whose slot would
+    otherwise gather every padded slot (a 256-slot graph with 16 384 edge
+    slots asked for ~73 GB)."""
     M = graph.poses.shape[0]
     vertex, dense = _plan_targets(graph)
-    return _Topology(vertex=_plan(vertex, M, device),
-                     dense=_plan(dense, M * M, device))
+    on = np.asarray(graph.edge_mask, bool)
+    return _Topology(vertex=_plan(vertex, M, device, np.tile(on, 2)),
+                     dense=_plan(dense, M * M, device, np.concatenate(
+                         [np.tile(on, 4), np.ones(M, bool)])))
 
 
 def _csr(targets: np.ndarray, size: int, keep=None):
@@ -446,13 +475,18 @@ def _apply_delta(poses, delta, num_vertices):
     return se3.exp(d) @ poses
 
 
-def graph_route(solver: str, M: int, device) -> bool:
-    """True where ``optimize`` runs as one launch of csrc/pose_graph.cu: a
-    dense solve of at most ``KERNEL_MAX_VERTICES`` vertices on a CUDA
-    device. False: the plain host loop ``optimize_reference`` (the CPU,
-    ``solver="cg"``, or a dense graph past the kernel's limit)."""
-    return (torch.device(device).type == "cuda" and solver == "dense"
-            and 1 <= M <= KERNEL_MAX_VERTICES)
+def graph_route(solver: str, M: int, device) -> str:
+    """The route ``optimize`` takes, by name: "cluster" (one launch of
+    csrc/pose_graph.cu: a dense solve of 1 to ``KERNEL_MAX_VERTICES``
+    vertices on a CUDA device), "grid" (one cooperative launch of
+    csrc/pose_graph_grid.cu: every other CUDA solve, CG at any size and
+    dense past the cluster kernel's limit) or "host loop" (the plain
+    ``optimize_reference``: the CPU)."""
+    if torch.device(device).type != "cuda":
+        return "host loop"
+    if solver == "dense" and 1 <= M <= KERNEL_MAX_VERTICES:
+        return "cluster"
+    return "grid"
 
 
 def _panel_floats(n: int, C: int, rank: int) -> int:
@@ -507,6 +541,44 @@ def kernel_plan(M: int, E: int = 0):
             + (_panel_floats(6 * M, 1, 0) if C > 1 else 0))
 
 
+def _grid_layout(M: int, E: int, solver: str, ctas: int):
+    """The grid kernel's global scratch, as csrc/pose_graph_grid.cu's
+    ``layout`` cuts it: (total floats, tiles a side of the dense system (0
+    for CG)). Each region starts at a 16-byte boundary: per-CTA f64
+    partials, the per-edge blocks, two pose buffers; dense: the tiles of
+    the lower triangle and -g's row, 1 / L_ii and the step; CG: per vertex
+    the preconditioner and seven 6-vectors (the damping, x, r, z, two p
+    and Ap)."""
+    up = (lambda n: (n + 3) & ~3)
+    floats = (up(2 * _GRID_SLOTS * ctas) + up(_KERNEL_EDGE_FLOATS * E)
+              + 2 * up(16 * M))
+    if solver != "dense":
+        return floats + up(36 * M) + 7 * up(6 * M), 0
+    Pt = -(-6 * M // GRID_TILE)
+    return (floats + up((Pt * (Pt + 1) // 2 + Pt) * GRID_TILE * GRID_TILE)
+            + 2 * up(GRID_TILE * Pt)), Pt
+
+
+def grid_plan(M: int, E: int, solver: str, ctas: int):
+    """``(CTAs, threads per CTA, dynamic shared memory bytes per CTA, tile
+    width, tiles a side of the dense system (0 for CG), global scratch
+    floats, barrier words)`` of one solve on the grid kernel, as
+    csrc/pose_graph_grid.cu's ``dvo_pose_graph_grid_plan(M, E, solver,
+    ctas, out)`` gives them. One CTA of 256 threads a streaming
+    multiprocessor (`ctas`, the caller's count); a CTA's shared memory holds
+    the diagonal tile (32 rows of 33 floats) and the trailing update's two
+    staged columns (32 rows of 128 + 4 floats each); the dense system is
+    ceil(6M / 32) tiles a side, its lower triangle and -g's row of tiles in
+    global scratch (4.7 MB at M = 256, 475 MB at 2 560)."""
+    if M < 1 or E < 0 or ctas < 1 or solver not in SOLVERS:
+        raise ValueError(f"no grid plan for M = {M}, E = {E}, solver "
+                         f"{solver!r}, {ctas} CTAs")
+    floats, Pt = _grid_layout(M, E, solver, ctas)
+    smem = 4 * (GRID_TILE * (GRID_TILE + 1)
+                + 2 * GRID_TILE * (_GRID_UNIT_ROWS + 4))
+    return (ctas, GRID_THREADS, smem, GRID_TILE, Pt, floats, 2)
+
+
 def optimize(graph: PoseGraph, iterations: int = 20, use_robust: bool = True,
              cauchy_c: float = 1.0, gnc_init: float = 1.0,
              gnc_decay: float = 0.5, solver: str = "dense",
@@ -519,17 +591,22 @@ def optimize(graph: PoseGraph, iterations: int = 20, use_robust: bool = True,
     solver: "dense" (6M x 6M Cholesky) or "cg" (block-Jacobi CG).
     Runs at most ``iterations`` LM steps and stops after the first step
     that converges, as the JAX ``while_loop`` does. ``graph_route`` picks
-    the route: one launch of the graph kernel, which reads nothing back
-    to the host (``optimize_kernel``), or the plain host loop, which reads
-    its stop flag back once per step (``optimize_reference``).
+    the route: on a CUDA device every solve is one kernel launch that
+    reads nothing back to the host (``optimize_kernel`` for a dense graph
+    of at most 128 vertices, ``optimize_grid`` for every other), on the
+    CPU the plain host loop, which reads its stop flag back once per step
+    (``optimize_reference``).
     Returns (optimized PoseGraph of tensors, final chi2, per-edge robust
     weights at the base cauchy_c), all on the device.
     """
     kw = dict(iterations=iterations, use_robust=use_robust,
               cauchy_c=cauchy_c, gnc_init=gnc_init, gnc_decay=gnc_decay,
               gnc_adaptive=gnc_adaptive, device=device)
-    if graph_route(solver, graph.poses.shape[0], device):
+    route = graph_route(solver, graph.poses.shape[0], device)
+    if route == "cluster":
         return optimize_kernel(graph, **kw)
+    if route == "grid":
+        return optimize_grid(graph, solver=solver, **kw)
     return optimize_reference(graph, solver=solver, **kw)
 
 
@@ -557,21 +634,18 @@ def _codes(d_idx: np.ndarray, E: int) -> np.ndarray:
                     -1 - (ci - 4 * E)).astype(np.int32)
 
 
-def _pack(graph: PoseGraph):
-    """A host graph, its CSR sum plans over the unmasked edges and the
-    dense plan's block list as one f32 buffer, int32 arrays stored
-    bitwise, the block list at a 16-byte boundary: (buffer, {name:
-    (offset, length, is_int32)})."""
+def _pack(graph: PoseGraph, dense: bool = True):
+    """A host graph, its CSR sum plans over the unmasked edges and (with
+    `dense`) the dense plan's block list as one f32 buffer, int32 arrays
+    stored bitwise, the block list at a 16-byte boundary: (buffer, {name:
+    (offset, length, is_int32)}). CG needs the vertex plan only."""
     M, E = graph.poses.shape[0], graph.edge_i.shape[0]
-    vertex, dense = _plan_targets(graph)
+    vertex, targets = _plan_targets(graph)
     # A masked edge's blocks and gradient are exact zeros (weight 0), so
-    # the kernel's plans leave them out (a padded graph's masked edges all
+    # the kernels' plans leave them out (a padded graph's masked edges all
     # sit on vertex 0).
     on = np.asarray(graph.edge_mask, bool)
     v_off, v_idx = _csr(vertex, M, np.tile(on, 2))
-    d_off, d_idx = _csr(dense, M * M,
-                        np.concatenate([np.tile(on, 4), np.ones(M, bool)]))
-    b_off, b_list = _blocks(d_off, M)
     f32 = (lambda x: np.asarray(x, np.float32).ravel())
     i32 = (lambda x: np.asarray(x, np.int32).ravel().view(np.float32))
     parts = {
@@ -579,11 +653,16 @@ def _pack(graph: PoseGraph):
         "info": f32(graph.information), "mask": f32(graph.edge_mask),
         "edge_i": i32(graph.edge_i), "edge_j": i32(graph.edge_j),
         "v_off": i32(v_off), "v_idx": i32(v_idx),
-        "d_idx": i32(_codes(d_idx, E)), "b_off": i32(b_off),
     }
-    at = sum(x.size for x in parts.values())
-    parts["pad"] = np.zeros(-at % 4, np.float32)
-    parts["b_list"] = i32(b_list)
+    if dense:
+        d_off, d_idx = _csr(targets, M * M, np.concatenate(
+            [np.tile(on, 4), np.ones(M, bool)]))
+        b_off, b_list = _blocks(d_off, M)
+        parts["d_idx"] = i32(_codes(d_idx, E))
+        parts["b_off"] = i32(b_off)
+        at = sum(x.size for x in parts.values())
+        parts["pad"] = np.zeros(-at % 4, np.float32)
+        parts["b_list"] = i32(b_list)
     at, where = 0, {}
     for name, x in parts.items():
         where[name] = (at, x.size, name.startswith(("edge", "v_", "d_",
@@ -592,66 +671,37 @@ def _pack(graph: PoseGraph):
     return np.concatenate(list(parts.values())), where
 
 
-def optimize_kernel(graph: PoseGraph, iterations: int = 20,
-                    use_robust: bool = True, cauchy_c: float = 1.0,
-                    gnc_init: float = 1.0, gnc_decay: float = 0.5,
-                    gnc_adaptive: bool = False, device="cuda", timing=None):
-    """A dense ``optimize`` as one launch of csrc/pose_graph.cu on the
-    current stream of the CUDA `device`: the graph and its sum plans go up
-    in one non-blocking copy from pinned memory, and nothing is read back
-    (no host sync). Sets ``LAST_STEPS`` and ``LAST_STATS``.
-
-    timing: None (the main path), or an int64 tensor of ``4 + 7 *
-    iterations`` elements on `device` that the kernel fills with its phase
-    stamps (``phase_times`` reads them)."""
-    global LAUNCHES, LAST_STEPS, LAST_STATS
-    from dvo_slam_tpu_torch import _build
-
-    device = torch.device(device)
-    M, E = graph.poses.shape[0], graph.edge_i.shape[0]
-    if device.type != "cuda" or not 1 <= M <= KERNEL_MAX_VERTICES:
-        raise ValueError(f"the graph kernel takes 1 <= M <= "
-                         f"{KERNEL_MAX_VERTICES} vertices on a CUDA device, "
-                         f"not M = {M} on {device}")
-    if iterations < 0:
-        raise ValueError(f"iterations must be >= 0, got {iterations}")
-    if timing is not None and (not timing.is_cuda
-                               or timing.dtype != torch.int64
-                               or timing.numel() < 4 + 7 * iterations
-                               or not timing.is_contiguous()):
-        raise ValueError(f"timing must be a contiguous int64 tensor of at "
-                         f"least {4 + 7 * iterations} elements on {device}")
-    lib = _build.load()
-    buf, where = _pack(graph)
+def _upload(graph: PoseGraph, device, dense: bool):
+    """The packed graph and plans (``_pack``) on `device`, from pinned
+    memory in one non-blocking copy: {name: view} (int32 views of the
+    integer arrays). Call with `device` current."""
+    buf, where = _pack(graph, dense)
     host = torch.empty(buf.size, dtype=torch.float32, pin_memory=True)
     host.numpy()[:] = buf
-    with torch.cuda.device(device):
-        dev = host.to(device, non_blocking=True)
-        ints = dev.view(torch.int32)
-        view = {k: (ints if is_int else dev)[a:a + n]
-                for k, (a, n, is_int) in where.items()}
-        scratch = torch.empty(max(kernel_plan(M, E)[6], 1),
-                              dtype=torch.float32, device=device)
-        out = torch.empty(16 * M + 1 + E + 4 * iterations,
-                          dtype=torch.float32, device=device)
-        steps = torch.empty((), dtype=torch.int32, device=device)
-        rc = lib.dvo_pose_graph(
-            *(view[k].data_ptr() for k in ("poses", "Z", "info", "mask",
-                                            "edge_i", "edge_j", "v_off",
-                                            "v_idx", "d_idx", "b_off",
-                                            "b_list")),
-            M, E, int(graph.num_vertices), int(iterations), int(use_robust),
-            float(cauchy_c), float(gnc_init), float(gnc_decay),
-            int(gnc_adaptive), scratch.data_ptr(), out.data_ptr(),
-            out[16 * M:].data_ptr(), out[16 * M + 1:].data_ptr(),
-            out[16 * M + 1 + E:].data_ptr(), steps.data_ptr(),
-            None if timing is None else timing.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"dvo_pose_graph failed: "
-                           f"{lib.dvo_error_string(rc).decode()} (CUDA "
-                           f"error {rc})")
-    LAUNCHES += 1
+    dev = host.to(device, non_blocking=True)
+    ints = dev.view(torch.int32)
+    return {k: (ints if is_int else dev)[a:a + n]
+            for k, (a, n, is_int) in where.items()}
+
+
+def _outputs(M: int, E: int, iterations: int, device):
+    """One solve's output buffer (poses (M, 16), chi2, weights (E,), stats
+    (iterations, 4)) and its step count."""
+    return (torch.empty(16 * M + 1 + E + 4 * iterations, dtype=torch.float32,
+                        device=device),
+            torch.empty((), dtype=torch.int32, device=device))
+
+
+def _solved(graph: PoseGraph, view, out, steps, iterations: int, kernel: str):
+    """Count the launch of `kernel` ("cluster" or "grid"), set LAST_STEPS
+    and LAST_STATS, and return ``optimize``'s outputs as views of the
+    uploaded graph and the output buffer."""
+    global LAUNCHES, LAUNCHES_GRID, LAST_STEPS, LAST_STATS
+    M, E = graph.poses.shape[0], graph.edge_i.shape[0]
+    if kernel == "cluster":
+        LAUNCHES += 1
+    else:
+        LAUNCHES_GRID += 1
     LAUNCHES_BY_M[M] = LAUNCHES_BY_M.get(M, 0) + 1
     LAST_STEPS = steps
     LAST_STATS = out[16 * M + 1 + E:].view(iterations, 4)
@@ -668,22 +718,159 @@ def optimize_kernel(graph: PoseGraph, iterations: int = 20,
     return solved, out[16 * M], out[16 * M + 1:16 * M + 1 + E]
 
 
+def _check_timing(timing, size: int, device):
+    if timing is not None and (not timing.is_cuda
+                               or timing.dtype != torch.int64
+                               or timing.numel() < size
+                               or not timing.is_contiguous()):
+        raise ValueError(f"timing must be a contiguous int64 tensor of at "
+                         f"least {size} elements on {device}")
+
+
+def _raise_on(lib, name: str, rc: int):
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: "
+                           f"{lib.dvo_error_string(rc).decode()} (CUDA "
+                           f"error {rc})")
+
+
+def optimize_kernel(graph: PoseGraph, iterations: int = 20,
+                    use_robust: bool = True, cauchy_c: float = 1.0,
+                    gnc_init: float = 1.0, gnc_decay: float = 0.5,
+                    gnc_adaptive: bool = False, device="cuda", timing=None):
+    """A dense ``optimize`` as one launch of csrc/pose_graph.cu on the
+    current stream of the CUDA `device`: the graph and its sum plans go up
+    in one non-blocking copy from pinned memory, and nothing is read back
+    (no host sync). Sets ``LAST_STEPS`` and ``LAST_STATS``.
+
+    timing: None (the main path), or an int64 tensor of ``4 + 7 *
+    iterations`` elements on `device` that the kernel fills with its phase
+    stamps (``phase_times`` reads them)."""
+    from dvo_slam_tpu_torch import _build
+
+    device = torch.device(device)
+    M, E = graph.poses.shape[0], graph.edge_i.shape[0]
+    if device.type != "cuda" or not 1 <= M <= KERNEL_MAX_VERTICES:
+        raise ValueError(f"the graph kernel takes 1 <= M <= "
+                         f"{KERNEL_MAX_VERTICES} vertices on a CUDA device, "
+                         f"not M = {M} on {device}")
+    if iterations < 0:
+        raise ValueError(f"iterations must be >= 0, got {iterations}")
+    _check_timing(timing, 4 + 7 * iterations, device)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        view = _upload(graph, device, dense=True)
+        scratch = torch.empty(max(kernel_plan(M, E)[6], 1),
+                              dtype=torch.float32, device=device)
+        out, steps = _outputs(M, E, iterations, device)
+        rc = lib.dvo_pose_graph(
+            *(view[k].data_ptr() for k in ("poses", "Z", "info", "mask",
+                                            "edge_i", "edge_j", "v_off",
+                                            "v_idx", "d_idx", "b_off",
+                                            "b_list")),
+            M, E, int(graph.num_vertices), int(iterations), int(use_robust),
+            float(cauchy_c), float(gnc_init), float(gnc_decay),
+            int(gnc_adaptive), scratch.data_ptr(), out.data_ptr(),
+            out[16 * M:].data_ptr(), out[16 * M + 1:].data_ptr(),
+            out[16 * M + 1 + E:].data_ptr(), steps.data_ptr(),
+            None if timing is None else timing.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "dvo_pose_graph", rc)
+    return _solved(graph, view, out, steps, iterations, "cluster")
+
+
+def grid_timing_size(iterations: int) -> int:
+    """Elements of the grid kernel's int64 phase-timing buffer."""
+    return 4 + 8 * iterations
+
+
+def optimize_grid(graph: PoseGraph, iterations: int = 20,
+                  use_robust: bool = True, cauchy_c: float = 1.0,
+                  gnc_init: float = 1.0, gnc_decay: float = 0.5,
+                  gnc_adaptive: bool = False, device="cuda", timing=None,
+                  solver: str = "dense"):
+    """``optimize`` as one cooperative launch of csrc/pose_graph_grid.cu on
+    the current stream of the CUDA `device`, for any M and either solver
+    (one CTA a streaming multiprocessor of the card, ``grid_plan``): the
+    graph and its sum plans go up in one non-blocking copy from pinned
+    memory, the scratch is allocated here, and nothing is read back (no
+    host sync). Sets ``LAST_STEPS`` and ``LAST_STATS``; counts the launch in
+    ``LAUNCHES_GRID`` and ``LAUNCHES_BY_M``. Raises on a CPU device, on a
+    build or launch error, and where the card cannot hold the grid at once;
+    it never runs the host loop.
+
+    timing: None (the main path), or an int64 tensor of
+    ``grid_timing_size(iterations)`` elements on `device` that the kernel
+    fills with its phase stamps and, per step, its CG iterations
+    (``grid_phase_times`` reads them)."""
+    from dvo_slam_tpu_torch import _build
+
+    device = torch.device(device)
+    M, E = graph.poses.shape[0], graph.edge_i.shape[0]
+    if device.type != "cuda" or M < 1:
+        raise ValueError(f"the grid kernel takes M >= 1 vertices on a CUDA "
+                         f"device, not M = {M} on {device}")
+    if solver not in SOLVERS:
+        raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
+    if iterations < 0:
+        raise ValueError(f"iterations must be >= 0, got {iterations}")
+    _check_timing(timing, grid_timing_size(iterations), device)
+    lib = _build.load()
+    dense = solver == "dense"
+    with torch.cuda.device(device):
+        ctas = _build.sm_count(torch.cuda.current_device())
+        plan = grid_plan(M, E, solver, ctas)
+        view = _upload(graph, device, dense)
+        scratch = torch.empty(plan[5], dtype=torch.float32, device=device)
+        bar = torch.zeros(plan[6], dtype=torch.int32, device=device)
+        out, steps = _outputs(M, E, iterations, device)
+        rc = lib.dvo_pose_graph_grid(
+            *(view[k].data_ptr() for k in ("poses", "Z", "info", "mask",
+                                            "edge_i", "edge_j", "v_off",
+                                            "v_idx")),
+            *((view[k].data_ptr() for k in ("d_idx", "b_off", "b_list"))
+              if dense else (None, None, None)),
+            M, E, int(graph.num_vertices), int(iterations), int(use_robust),
+            float(cauchy_c), float(gnc_init), float(gnc_decay),
+            int(gnc_adaptive), SOLVERS.index(solver), ctas,
+            scratch.data_ptr(), bar.data_ptr(), out.data_ptr(),
+            out[16 * M:].data_ptr(), out[16 * M + 1:].data_ptr(),
+            out[16 * M + 1 + E:].data_ptr(), steps.data_ptr(),
+            None if timing is None else timing.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "dvo_pose_graph_grid", rc)
+    return _solved(graph, view, out, steps, iterations, "grid")
+
+
 PHASES = ("edge pass", "assembly", "factorization", "solves", "exp(delta)",
           "trial chi2")
+# The grid kernel's CG solves stamp the same boundaries under these names.
+PHASES_CG = ("edge pass", "preconditioner", "CG iterations", "step test",
+             "exp(delta)", "trial chi2")
 
 
-def phase_times(timing, steps: int):
-    """The graph kernel's phase split of one solve from its filled
-    ``timing`` buffer (host numpy int64) and the steps it ran: ({phase:
-    device us per LM step}, the launch's device us from its first stamp to
-    its last). clock64 stamps are converted to time by the launch's own
-    %globaltimer span."""
+def phase_times(timing, steps: int, stride: int = 7, phases=PHASES):
+    """A graph kernel's phase split of one solve from its filled ``timing``
+    buffer (host numpy int64) and the steps it ran: ({phase: device us per
+    LM step}, the launch's device us from its first stamp to its last).
+    clock64 stamps are converted to time by the launch's own %globaltimer
+    span. `stride`: the buffer's slots a step (7 on the cluster kernel)."""
     t = np.asarray(timing, np.int64)
     ns_per_clock = (t[2] - t[0]) / max(int(t[3] - t[1]), 1)
-    stamps = t[4:4 + 7 * steps].reshape(steps, 7).astype(np.float64)
-    per_step = (np.diff(stamps, axis=1).sum(0) * ns_per_clock / 1e3
-                / max(steps, 1))
-    return dict(zip(PHASES, per_step.tolist())), (t[2] - t[0]) / 1e3
+    stamps = t[4:4 + stride * steps].reshape(steps, stride)[:, :7]
+    per_step = (np.diff(stamps.astype(np.float64), axis=1).sum(0)
+                * ns_per_clock / 1e3 / max(steps, 1))
+    return dict(zip(phases, per_step.tolist())), (t[2] - t[0]) / 1e3
+
+
+def grid_phase_times(timing, steps: int, solver: str = "dense"):
+    """``phase_times`` of the grid kernel's buffer (8 slots a step, the
+    last its CG iterations): ({phase: us per step}, the launch's us, [CG
+    iterations of each step] (zeros for dense))."""
+    t = np.asarray(timing, np.int64)
+    split, span = phase_times(t, steps, 8,
+                              PHASES if solver == "dense" else PHASES_CG)
+    return split, span, t[4:4 + 8 * steps].reshape(steps, 8)[:, 7].tolist()
 
 
 def optimize_reference(graph: PoseGraph, iterations: int = 20,

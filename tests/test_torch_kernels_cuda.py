@@ -45,9 +45,11 @@ row's paths may part at such a tie (the step's error within 1e-5 of the
 best, or an increment norm within a factor 2 of the precision), on at
 most one row or a quarter of a batch, and its pose still within 1e-5.
 
-The pose-graph kernel (csrc/pose_graph.cu, one launch per dense solve)
-against its plain version, the host loop ``optimize_reference`` on the
-same card (cuSOLVER's Cholesky): poses within 1e-4, the final chi2 within
+The pose-graph kernels (csrc/pose_graph.cu, one launch per dense solve
+of at most 128 vertices; csrc/pose_graph_grid.cu, one cooperative launch
+per solve past that and per CG solve) against their plain version, the
+host loop ``optimize_reference`` on the same card (cuSOLVER's Cholesky,
+torch's CG): poses within 1e-4, the final chi2 within
 rtol 1e-4 (atol 1e-6: a consistent graph's chi2 is f32 rounding noise);
 the weights within 1e-4 of the plain formula's at the kernel's own poses
 (a loop edge's Cauchy weight moves ~1e-3 for a 2e-6 pose change, so the
@@ -1362,6 +1364,174 @@ def test_pose_graph_kernel_on_a_card_that_is_not_current(cuda):
     second = torch.device("cuda", 1)
     g = _noisy_ring(64, 40, seed=7, slots=128)
     kw = dict(iterations=20, gnc_init=16.0, gnc_adaptive=True)
+    with torch.cuda.device(cuda):
+        got = pose_graph.optimize(g, device=second, **kw)
+        assert torch.cuda.current_device() == cuda.index
+    want = pose_graph.optimize(g, device=cuda, **kw)
+    assert got[0].poses.device == second
+    assert torch.equal(got[0].poses.cpu(), want[0].poses.cpu())
+
+
+# --- the grid kernel (csrc/pose_graph_grid.cu) against the host loop ---
+# Every CUDA solve the cluster kernel does not take: dense past 128 vertex
+# slots, CG at any size. The host loop's CG reads its stop test back once a
+# CG iteration (up to 4M a step), so each case runs a few LM steps.
+
+GRID_CASES = {
+    "dense256": (256, 150, "dense", 6),
+    "dense512": (512, 300, "dense", 4),
+    "cg64": (64, 40, "cg", 4),
+    "cg512": (512, 300, "cg", 3),
+}
+GRID_KW = dict(use_robust=True, cauchy_c=1.0, gnc_init=16.0,
+               gnc_adaptive=True)
+
+
+def _grid_and_plain(g, dev, solver, **kw):
+    before = (pose_graph.LAUNCHES, pose_graph.LAUNCHES_GRID)
+    got = pose_graph.optimize(g, device=dev, solver=solver, **kw)
+    run = (int(pose_graph.LAST_STEPS), pose_graph.LAST_STATS.cpu().numpy())
+    assert (pose_graph.LAUNCHES, pose_graph.LAUNCHES_GRID) == (
+        before[0], before[1] + 1)
+    want = pose_graph.optimize_reference(g, device=dev, solver=solver, **kw)
+    return got, run, want, (int(pose_graph.LAST_STEPS),
+                            pose_graph.LAST_STATS.cpu().numpy())
+
+
+@pytest.mark.parametrize("case", sorted(GRID_CASES))
+def test_pose_graph_grid_matches_host_loop(cuda, case):
+    """Seeded noisy rings past 128 vertex slots (dense) and at 64 and 512
+    (CG) through one grid launch and through the host loop on the card:
+    poses within 1e-4, chi2 rtol 1e-4, weights against the plain formula
+    at the grid's poses, LAST_STEPS and LAST_STATS the same decisions up
+    to a parting at a tie (phase 5f's rule)."""
+    M, n, solver, iterations = GRID_CASES[case]
+    g = _noisy_ring(M, n, seed=M + n, slots=2 * M)
+    assert pose_graph.graph_route(solver, M, cuda) == "grid"
+    kw = dict(GRID_KW, iterations=iterations)
+    got, run, want, run_h = _grid_and_plain(g, cuda, solver, **kw)
+    _assert_graph_close(got, run, want, run_h, g, kw)
+    assert run[0] > 0
+
+
+@pytest.mark.parametrize("case", ["dense256", "cg512"])
+def test_pose_graph_grid_is_deterministic(cuda, case):
+    M, n, solver, iterations = GRID_CASES[case]
+    g = _noisy_ring(M, n, seed=5, slots=2 * M)
+    kw = dict(GRID_KW, iterations=iterations, solver=solver)
+    runs = [pose_graph.optimize(g, device=cuda, **kw) for _ in range(3)]
+    for r in runs[1:]:
+        assert torch.equal(r[0].poses, runs[0][0].poses)
+        assert torch.equal(r[1], runs[0][1]) and torch.equal(r[2], runs[0][2])
+
+
+@pytest.mark.parametrize("v", [48, 50])
+def test_pose_graph_grid_stops_at_a_failed_pivot(cuda, v):
+    """A 256-slot graph whose first failed pivot is column 6 v (288: the
+    first column of tile column 9; 300: inside it): every CTA stops at that
+    pivot and the step is zeroed (step norm 0, the poses unchanged), as on
+    the host loop (cuSOLVER's info != 0)."""
+    g = _not_pd_graph_at(256, 150, v)
+    kw = dict(iterations=3, use_robust=False)
+    got, run, want, run_h = _grid_and_plain(g, cuda, "dense", **kw)
+    assert run[1][0, 2] == 0 and run_h[1][0, 2] == 0
+    assert torch.equal(got[0].poses.cpu(), torch.from_numpy(g.poses))
+    _assert_graph_close(got, run, want, run_h, g, kw)
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_pose_graph_grid_zeroes_a_non_finite_step(cuda, solver):
+    """A step that is not finite (the gradient overflows f32 while every
+    pivot passes): zeroed on every CTA, one step, the poses unchanged, as
+    on the host loop."""
+    g = _overflowing_gradient_graph(256, 150)
+    kw = dict(iterations=3, use_robust=False)
+    got, run, want, run_h = _grid_and_plain(g, cuda, solver, **kw)
+    assert run[0] == run_h[0] == 1
+    assert run[1][0, 2] == 0 and run_h[1][0, 2] == 0
+    assert torch.equal(got[0].poses.cpu(), torch.from_numpy(g.poses))
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_pose_graph_grid_issues_no_host_sync(cuda, solver):
+    """The grid route uploads from pinned memory without blocking,
+    allocates its scratch and zeroes its barrier on the stream, and reads
+    nothing back: set_sync_debug_mode("error") raises on any sync."""
+    g = _noisy_ring(256, 150, seed=1, slots=512)
+    pose_graph.optimize(g, iterations=2, solver=solver, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pose_graph.optimize(g, iterations=5, solver=solver,
+                                  device=cuda, **GRID_KW)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out[0].poses).all()
+
+
+def test_pose_graph_grid_plan_matches_python(cuda):
+    """dvo_pose_graph_grid_plan (the source) and grid_plan (the wrapper's
+    Python side) agree on the CTAs, threads, shared memory, tile width,
+    tiles a side and scratch; both refuse what the kernel does not take."""
+    import ctypes
+
+    from dvo_slam_tpu_torch import _build
+
+    lib = _build.load()
+    for M in (1, 17, 129, 150, 256, 512, 1024, 2560):
+        for E in (0, 64, 4096):
+            for solver in pose_graph.SOLVERS:
+                for ctas in (1, 132):
+                    out = (ctypes.c_int64 * 7)()
+                    assert lib.dvo_pose_graph_grid_plan(
+                        M, E, pose_graph.SOLVERS.index(solver), ctas,
+                        out) == 0
+                    assert tuple(out) == pose_graph.grid_plan(M, E, solver,
+                                                              ctas)
+    out = (ctypes.c_int64 * 7)()
+    assert lib.dvo_pose_graph_grid_plan(0, 64, 0, 132, out) != 0
+
+
+def test_pose_graph_grid_refuses_a_grid_the_card_cannot_hold(cuda,
+                                                             monkeypatch):
+    """More CTAs than the card holds at once: the launch is refused and
+    raises with the message; nothing falls back to the host loop."""
+    from dvo_slam_tpu_torch import _build
+
+    g = _noisy_ring(256, 150, seed=2, slots=512)
+    monkeypatch.setattr(_build, "sm_count", lambda index: 100_000)
+    before = pose_graph.LAUNCHES_GRID
+    with pytest.raises(RuntimeError, match="dvo_pose_graph_grid failed"):
+        pose_graph.optimize(g, iterations=2, device=cuda)
+    assert pose_graph.LAUNCHES_GRID == before
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_pose_graph_grid_phase_stamps(cuda, solver):
+    """The timing buffer: six phases a step, each >= 0, summing to at most
+    the launch's span; the CG iterations of each step (0 for dense)."""
+    g = _noisy_ring(256, 150, seed=3, slots=512)
+    kw = dict(GRID_KW, iterations=3)
+    buf = torch.zeros(pose_graph.grid_timing_size(3), dtype=torch.int64,
+                      device=cuda)
+    pose_graph.optimize_grid(g, device=cuda, timing=buf, solver=solver, **kw)
+    steps = int(pose_graph.LAST_STEPS)
+    split, span, its = pose_graph.grid_phase_times(buf.cpu().numpy(), steps,
+                                                   solver)
+    assert steps == 3 and span > 0
+    assert all(v >= 0 for v in split.values())
+    assert sum(split.values()) * steps <= span
+    assert (min(its) > 0) if solver == "cg" else its == [0] * steps
+
+
+def test_pose_graph_grid_on_a_card_that_is_not_current(cuda):
+    """A grid solve on card 1 while card 0 is current launches on card 1
+    and leaves the current card as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    second = torch.device("cuda", 1)
+    g = _noisy_ring(256, 150, seed=7, slots=512)
+    kw = dict(GRID_KW, iterations=4)
     with torch.cuda.device(cuda):
         got = pose_graph.optimize(g, device=second, **kw)
         assert torch.cuda.current_device() == cuda.index

@@ -267,25 +267,34 @@ def test_host_graph_helpers_like_jax():
         assert x.dtype == np.asarray(y).dtype
 
 
-@pytest.mark.parametrize("solver, M, device, kernel", [
-    ("dense", 16, "cuda", True),
-    ("dense", 32, "cuda", True),
-    ("dense", 1, torch.device("cuda", 1), True),
-    ("dense", 64, "cuda", True),
-    ("dense", 128, "cuda", True),
-    ("dense", 129, "cuda", False),
-    ("dense", 256, "cuda", False),
-    ("dense", 2560, "cuda", False),
-    ("cg", 16, "cuda", False),
-    ("cg", 4096, "cuda", False),
-    ("dense", 16, "cpu", False),
-    ("cg", 16, "cpu", False),
+@pytest.mark.parametrize("solver, M, device, route", [
+    ("dense", 16, "cuda", "cluster"),
+    ("dense", 32, "cuda", "cluster"),
+    ("dense", 1, torch.device("cuda", 1), "cluster"),
+    ("dense", 64, "cuda", "cluster"),
+    ("dense", 128, "cuda", "cluster"),
+    ("dense", 129, "cuda", "grid"),
+    ("dense", 256, "cuda", "grid"),
+    ("dense", 512, torch.device("cuda", 0), "grid"),
+    ("dense", 1024, "cuda", "grid"),
+    ("dense", 2560, "cuda", "grid"),
+    ("cg", 1, "cuda", "grid"),
+    ("cg", 16, "cuda", "grid"),
+    ("cg", 64, torch.device("cuda", 1), "grid"),
+    ("cg", 128, "cuda", "grid"),
+    ("cg", 512, "cuda", "grid"),
+    ("cg", 4096, "cuda", "grid"),
+    ("dense", 16, "cpu", "host loop"),
+    ("dense", 256, "cpu", "host loop"),
+    ("cg", 16, "cpu", "host loop"),
+    ("cg", 2560, torch.device("cpu"), "host loop"),
 ])
-def test_graph_route(solver, M, device, kernel):
-    """A dense solve of at most KERNEL_MAX_VERTICES vertices on a CUDA
-    device is one kernel launch; the CPU, CG and larger dense graphs take
-    the plain host loop. Decided by device, solver and size alone."""
-    assert t_pose_graph.graph_route(solver, M, device) is kernel
+def test_graph_route(solver, M, device, route):
+    """Every solve on a CUDA device is one kernel launch: a dense solve of
+    at most KERNEL_MAX_VERTICES vertices on the cluster kernel, every
+    other (CG at any size, dense past 128) on the grid kernel; the CPU
+    takes the plain host loop. Decided by device, solver and size alone."""
+    assert t_pose_graph.graph_route(solver, M, device) == route
 
 
 NB = 16  # the kernel's panel width
@@ -407,11 +416,162 @@ def test_optimize_kernel_refuses_cpu_and_large_graphs():
         t_pose_graph.optimize_kernel(big, device="cuda")
 
 
+def test_optimize_grid_refuses_the_cpu():
+    """The grid route has no plain fallback either: a CPU device, a solver
+    it does not know or a negative step count raise instead of running the
+    host loop (before anything is built)."""
+    g, _ = _chain_graph(n=6)
+    for solver in t_pose_graph.SOLVERS:
+        with pytest.raises(ValueError):
+            t_pose_graph.optimize_grid(g, device="cpu", solver=solver)
+    with pytest.raises(ValueError):
+        t_pose_graph.optimize_grid(g, device="cuda", solver="qr")
+    with pytest.raises(ValueError):
+        t_pose_graph.optimize_grid(g, device="cuda", iterations=-1)
+
+
+def _grid_floats(M, E, solver, ctas):
+    """The grid kernel's scratch floats, each region rounded up to 4
+    floats (16 bytes): per-CTA f64 partials (8 slots), the per-edge blocks
+    (42 floats), two pose buffers; dense: the lower triangle's tiles and
+    -g's row of tiles (32 x 32 floats each), 1 / L_ii and the step; CG:
+    the preconditioner (36 a vertex) and seven 6-vectors a vertex."""
+    up = (lambda n: -(-n // 4) * 4)
+    floats = up(2 * 8 * ctas) + up(42 * E) + 2 * up(16 * M)
+    if solver == "dense":
+        Pt = -(-6 * M // 32)
+        return floats + up((Pt * (Pt + 1) // 2 + Pt) * 1024) + 2 * up(32 * Pt)
+    return floats + up(36 * M) + 7 * up(6 * M)
+
+
+@pytest.mark.parametrize("M, E, solver", [
+    (1, 0, "dense"), (129, 256, "dense"), (150, 256, "dense"),
+    (256, 512, "dense"), (512, 1024, "dense"), (1024, 2048, "dense"),
+    (2560, 4096, "dense"), (1, 0, "cg"), (64, 128, "cg"), (512, 1024, "cg"),
+    (2560, 4096, "cg")])
+@pytest.mark.parametrize("ctas", [1, 132])
+def test_grid_plan_sizes(M, E, solver, ctas):
+    """One CTA of 256 threads a streaming multiprocessor; a CTA's shared
+    memory holds the diagonal tile (32 rows of 33 floats) and the trailing
+    update's two staged columns (32 rows of 132 floats), under the 48 KB a
+    launch may ask without opting in; the dense system in ceil(6M / 32)
+    tiles a side, whose lower triangle covers the damped system's (4.7 MB
+    at M = 256, ~475 MB at 2 560)."""
+    plan = t_pose_graph.grid_plan(M, E, solver, ctas)
+    Pt = -(-6 * M // 32) if solver == "dense" else 0
+    smem = 4 * (32 * 33 + 2 * 32 * 132)
+    assert plan == (ctas, 256, smem, 32, Pt, _grid_floats(M, E, solver, ctas),
+                    2)
+    assert smem <= 48 * 1024
+    if solver == "dense":
+        n = 6 * M
+        tiles = (Pt * (Pt + 1) // 2) * 1024
+        assert n * (n + 1) // 2 <= tiles <= (n + 32) * (n + 64) // 2
+    if (M, solver) == (256, "dense"):
+        assert 4.7e6 < 4 * tiles < 4.9e6
+    if (M, solver) == (2560, "dense"):
+        assert 4.7e8 < 4 * plan[5] < 4.8e8
+
+
+@pytest.mark.parametrize("bad", [(0, 64, "dense"), (16, -1, "dense"),
+                                 (16, 64, "qr"), (16, 64, "cg", 0)])
+def test_grid_plan_refuses(bad):
+    M, E, solver, *ctas = bad
+    with pytest.raises(ValueError):
+        t_pose_graph.grid_plan(M, E, solver, *(ctas or [132]))
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_grid_pack_plans_sum_in_the_plain_order(dense):
+    """The grid kernel's upload: the vertex plan (the gradient, the CG
+    preconditioner's block diagonal and its matvec all sum over it) holds,
+    vertex by vertex, the plain loop's gather rows without the masked
+    edges, in the same order; a dense solve adds the cluster kernel's
+    dense plan and block list unchanged, a CG solve uploads no dense plan;
+    the graph's own arrays are the same in both."""
+    g, _ = _chain_graph(n=8, drift=0.03, max_v=32, max_e=64)
+    e = int(g.num_edges)
+    g.edge_i[e], g.edge_j[e] = 5, 2  # an edge against the chain's order
+    g.edge_mask[e] = True
+    buf, where = t_pose_graph._pack(g, dense)
+    full, full_where = t_pose_graph._pack(g)
+    assert ("d_idx" in where) is dense and ("b_list" in where) is dense
+    for name, (a, n, is_int) in where.items():
+        b, m, full_int = full_where[name]
+        assert (n, is_int) == (m, full_int)
+        np.testing.assert_array_equal(buf[a:a + n].view(np.int32),
+                                      full[b:b + m].view(np.int32))
+    M, E = g.poses.shape[0], g.edge_i.shape[0]
+    mask = np.asarray(g.edge_mask, bool)
+    topo = t_pose_graph._topology(g, "cpu")
+    rows = {int(k): [int(x) for x in r if x != 2 * E]
+            for k, r in zip(topo.vertex.keys, topo.vertex.gather)}
+    a_off, _, _ = where["v_off"]
+    a_idx, _, _ = where["v_idx"]
+    off = buf[a_off:a_off + M + 1].view(np.int32)
+    idx = buf[a_idx:a_idx + int(off[-1])].view(np.int32)
+    for v in range(M):
+        assert list(idx[off[v]:off[v + 1]]) == [
+            c for c in rows.get(v, []) if mask[c % E]]
+
+
+def _noisy_ring(M, n, seed, slots):
+    """A seeded SLAM-like graph padded to M vertex and `slots` edge slots
+    (tests/test_torch_kernels_cuda.py's): n keyframes on a 1 m ring,
+    odometry edges with 5 mm / 0.01 rad noise chained into the initial
+    poses, loop edges from the last third back to the first, one false
+    loop edge; information scaled as a tracker's (1e4-1e6)."""
+    rng = np.random.default_rng(seed)
+    gt = [se3_np.exp(np.array([np.sin(a), 1 - np.cos(a), 0.05 * np.sin(2 * a),
+                               0.02 * np.sin(a), 0, a]))
+          for a in 2 * np.pi * np.arange(n) / n]
+    sigma = np.array([5e-3] * 3 + [1e-2] * 3)
+    info = np.diag(1.0 / sigma**2) * rng.uniform(0.5, 2.0)
+    edges, T_est = [], [gt[0]]
+    for k in range(n - 1):
+        Z = (se3_np.inverse(gt[k]) @ gt[k + 1]
+             @ se3_np.exp(rng.normal(size=6) * sigma))
+        edges.append((k, k + 1, Z, info))
+        T_est.append(T_est[-1] @ Z)
+    for k in range(2 * n // 3, n):
+        j = int(rng.integers(0, n // 3))
+        Z = (se3_np.inverse(gt[k]) @ gt[j]
+             @ se3_np.exp(rng.normal(size=6) * sigma))
+        edges.append((k, j, Z, info))
+    edges.append((n // 2, 1, se3_np.exp(np.array([0.4, -0.3, 0.2, 0.3, 0.1,
+                                                  -0.2])), info))
+    g = t_pose_graph.empty_graph_host(M, slots)
+    g.poses[:n] = np.stack(T_est)
+    for e, (i, j, Zm, inf) in enumerate(edges):
+        g.edge_i[e], g.edge_j[e] = i, j
+        g.measurements[e], g.information[e] = Zm, inf
+        g.edge_mask[e] = True
+    return g._replace(num_vertices=np.asarray(n, np.int32),
+                      num_edges=np.asarray(len(edges), np.int32))
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_ring_past_128_vertices_like_jax(solver):
+    """A 150-keyframe noisy ring padded to 256 vertex slots (the grid
+    kernel's route on the card), solved as the SLAM engine solves its
+    graph (Cauchy, adaptive GNC from 16), through the JAX package and the
+    port's CPU route, dense and CG: poses within 1e-4, weights within
+    1e-3, chi2 rtol 1e-3 (_assert_close's tolerances: sums in another
+    order, jax.jacfwd against the closed-form Jacobians); the false loop
+    edge is rejected."""
+    g = _noisy_ring(256, 150, seed=21, slots=512)
+    got, want = _both(g, iterations=8, use_robust=True, cauchy_c=1.0,
+                      gnc_init=16.0, gnc_adaptive=True, solver=solver)
+    _assert_close(got, want)
+    assert float(got[2][int(g.num_edges) - 1]) < 0.05
+
+
 @pytest.mark.parametrize("padded", [False, True])
 def test_kernel_plans_sum_in_the_plain_order(padded):
     """The kernel's CSR lists hold, slot by slot, the contributions the
-    plain loop's gather plans sum, in the same order; the packed upload
-    keeps every array (integers bitwise)."""
+    plain loop's gather plans sum, in the same order, neither holding a
+    masked edge's (exact zeros); the packed upload keeps every array
+    (integers bitwise)."""
     g, _ = _chain_graph(n=8, drift=0.03, max_v=32 if padded else 16,
                         max_e=64 if padded else 32)
     e = int(g.num_edges)
@@ -420,9 +580,12 @@ def test_kernel_plans_sum_in_the_plain_order(padded):
     topo = t_pose_graph._topology(g, "cpu")
     targets = t_pose_graph._plan_targets(g)
     M = g.poses.shape[0]
-    for plan, tgt, size in ((topo.vertex, targets[0], M),
-                            (topo.dense, targets[1], M * M)):
-        off, idx = t_pose_graph._csr(tgt, size)
+    on = np.asarray(g.edge_mask, bool)
+    for plan, tgt, size, keep in (
+            (topo.vertex, targets[0], M, np.tile(on, 2)),
+            (topo.dense, targets[1], M * M,
+             np.concatenate([np.tile(on, 4), np.ones(M, bool)]))):
+        off, idx = t_pose_graph._csr(tgt, size, keep)
         K = tgt.shape[0]
         rows = {int(k): [int(x) for x in r if x != K]
                 for k, r in zip(plan.keys, plan.gather)}

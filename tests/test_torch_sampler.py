@@ -152,7 +152,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
         _build.find_nvcc()
 
 
-def test_build_output_is_keyed_by_sources():
+def test_build_output_is_keyed_by_sources(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.name == _build.LIB_NAME
     assert path.parent.parent == _build.BUILD_ROOT
@@ -160,8 +160,19 @@ def test_build_output_is_keyed_by_sources():
     assert [s.name for s in _build._sources()] == ["keyframe_scan.cu",
                                                    "linearize.cu",
                                                    "pose_graph.cu",
+                                                   "pose_graph_grid.cu",
                                                    "pyramid.cu",
                                                    "sampler.cu"]
+    # The header both graph kernels include is part of the key.
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert _build.library_path() == path
+    header = csrc / "pose_graph_common.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert _build.library_path() != path
 
 
 
