@@ -100,7 +100,10 @@ launch a frame after its level launches). Phases:
      of the ring at 160x120, loop closure on): its solves by (vertex slots
      M, route), the grid kernel's launches at M = 256 (> 0), the host
      loop's LM steps (0), loop edges (>= 1), a finite trajectory and its
-     ATE against the ring's ground truth (printed);
+     ATE against the ring's ground truth (printed); its last 256-slot
+     solve once more on the grid kernel and on the host loop: why each LM
+     step came out zero (pose_graph.LAST_ZEROED: used, a failed pivot or
+     not finite);
   6. the offline surface over bench/accuracy.py's full-scale protocol
      rendered with the freiburg-1 intrinsics (noisy 640x480 frames, two
      laps of a 0.5 m orbit, cut from 240 frames to 160; written as a TUM
@@ -129,8 +132,13 @@ launch a frame after its level launches). Phases:
         host-loop step; both solves again through the grid kernel and
         through the host loop (optimize_reference called directly): both
         ms, the poses (1e-4, or where f32 cannot resolve that on the
-        graph, against the same loop in f64: _ring_solves), the chi2
-        (1e-4) and the decisions (5f's tie rule);
+        graph, within twice the host loop's own distance to the same loop
+        in f64: _ring_solves), the chi2 (1e-4) and the decisions (5f's tie
+        rule); cuSOLVER's factor and solve of the ring's first damped
+        system beside the kernel's dense step; the dense-to-CG crossing:
+        _ring_graph at 1 024 and 2 048 vertices beside the 2 560 ring,
+        dense and CG on the grid kernel (device ms by the launch's stamps;
+        graph_cg_threshold printed, not changed);
      g. `cli odometry --scale-estimator normal --influence huber` (24
         frames): one standalone sampler launch per linearization, no
         cluster-kernel launch;
@@ -353,6 +361,9 @@ LIVE_RUNS = (("odometry", 0, "f32", 0), ("slam", 0, "f32", 0),
 # the updates and the dots).
 GRAPH_RING_VERTICES = (64, 128, 256, 512, 1024)
 GRAPH_CG_VERTICES, GRAPH_CG_ITERATIONS = (512,), 5
+# 6f's dense-to-CG crossing: _ring_graph at these vertex counts beside its
+# 2 560-vertex ring, dense and CG on the grid kernel.
+GRAPH_CROSSING_VERTICES = (1024, 2048)
 EVICT_VERTICES = (64, 128)
 # 5f's graphs from the runs with a keyframe every frame (5e, 5g): their
 # weights lie beyond f32 (~1e-3), so only their poses are held.
@@ -529,17 +540,27 @@ def _traced(body, what):
     now and then loses device records (all of them in 2 sessions of ~340
     in the smoke's runs, some of them in others), and one that falls short
     is run again, up to PROFILER_ATTEMPTS times, and said so; if every
-    attempt falls short, the phase fails."""
+    attempt falls short, the phase fails. The session opens with a
+    warm-up cycle (one device op, its records dropped), so body() starts
+    once the tracer is live: launches in the first few ms of a session
+    have lost their device records (the first pyramid launch of 12, in
+    three attempts in a row)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     kernels = ("sample_slab", "linearize", "track_level", "pose_graph",
                "pose_graph_grid", "pyramid", "scan_step")
     for attempt in range(1, PROFILER_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        before = _launches()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            prof.step()
+            before = _launches()
             out = body()
             torch.cuda.synchronize()
         after = _launches()
@@ -2589,6 +2610,8 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
                                      f"loop LM steps {cli_host[0]}")
         ring_solves = (_ring_solves(ring, device, cli_launches)
                        if torch.device(device).type == "cuda" else {})
+        crossing = (_dense_or_cg(device, ring_solves)
+                    if torch.device(device).type == "cuda" else {})
 
         # 6g: a scale estimator off the kernels' route: the plain
         # linearization with the standalone sampler kernel.
@@ -2626,7 +2649,8 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
                 "groundtruth": ds.groundtruth_pose,
                 "tracker_cfg": tracker_cfg, "slam_cfg": slam_cfg,
                 "graph": bench_graph, "launches": bench_launches,
-                "frames_run": slam["num_frames"], "ring_solves": ring_solves}
+                "frames_run": slam["num_frames"], "ring_solves": ring_solves,
+                "crossing": crossing}
 
 
 def _ring_solves(path, device, launches):
@@ -2640,8 +2664,11 @@ def _ring_solves(path, device, launches):
     on the card (f32 cannot resolve 1e-4 there), the 1e-4 comparison is
     printed as met or missed, the criterion of record, and the kernel's
     poses are held instead within twice the host loop's own distance to
-    the f64 poses (a rule still to be accepted). Returns {solver: row
-    numbers}, `launches` the CLI run's grid launches by solver."""
+    the f64 poses (the rule the grid kernel is held to on this graph).
+    Beside the dense row, cuSOLVER's factor and solve (cholesky_ex +
+    cholesky_solve, events) of the graph's first damped system. Returns
+    {solver: row numbers}, `launches` the CLI run's grid launches by
+    solver."""
     import torch
 
     from dvo_slam_tpu_torch.models import pose_graph
@@ -2686,8 +2713,8 @@ def _ring_solves(path, device, launches):
                           + (f"f32 cannot resolve 1e-4 on this graph; the "
                              f"1e-4 comparison missed (the criterion of "
                              f"record), the kernel held within twice the "
-                             f"host loop's distance to f64 (a rule still to "
-                             f"be accepted): {'met' if held else 'missed'}"
+                             f"host loop's distance to f64 (the rule it is "
+                             f"held to here): {'met' if held else 'missed'}"
                              if e_h > 1e-4 else
                              "f32 resolves 1e-4 on this graph: missed"))
         print(f"phase 6f ring, {solver}, grid kernel against the host loop "
@@ -2707,9 +2734,82 @@ def _ring_solves(path, device, launches):
                                  f"with the host loop")
         out[solver] = {"ms": ms, "plain_ms": plain_ms, "err": d_pose,
                        "bound": bound, "steps": run[0], "cg_iterations": its,
-                       "launches": launches[solver],
+                       "launches": launches[solver], "span_ms": span / 1e3,
                        "M": g.poses.shape[0]}
+    M = g.poses.shape[0]
+    out["dense"]["cusolver_us"] = _cusolver_step_us(g, kw, device, 3, 3)
+    step_us = 1e3 * out["dense"]["span_ms"] / max(out["dense"]["steps"], 1)
+    print(f"phase 6f ring, cholesky_ex + cholesky_solve of the first damped "
+          f"{6 * M}x{6 * M} system: {out['dense']['cusolver_us']:.2f} us "
+          f"(events); the grid kernel's dense LM step {step_us:.2f} us (its "
+          f"stamps)")
     return out
+
+
+def _dense_or_cg(device, ring_solves):
+    """6f's dense-to-CG crossing: _ring_graph at GRAPH_CROSSING_VERTICES
+    (uncropped, as optimize-graph loads a file) solved dense and CG on the
+    grid kernel as 6f solves its ring (OFFLINE_GRAPH_ITERATIONS LM steps,
+    no robust kernel), each timed by the launch's own stamps (device ms),
+    beside 6f's 2 560-vertex ring (`ring_solves`). The route's threshold
+    (SlamConfig.graph_cg_threshold) is printed, not changed. Returns {V:
+    {solver: (ms, steps)}}."""
+    import os
+    import shutil
+    import tempfile
+
+    from dvo_slam_tpu_torch import SlamConfig
+    from dvo_slam_tpu_torch.utils import g2o_io
+
+    tmp = tempfile.mkdtemp(prefix="dvo_crossing_")
+    out = {}
+    try:
+        for V in GRAPH_CROSSING_VERTICES:
+            path = os.path.join(tmp, f"ring{V}.g2o")
+            _ring_graph(path, V)
+            g = g2o_io.load_g2o(path)
+            out[V] = {}
+            for solver in ("dense", "cg"):
+                kw = dict(iterations=OFFLINE_GRAPH_ITERATIONS,
+                          use_robust=False, solver=solver)
+                _, span, steps, _ = _graph_phases(g, kw, device, "grid")
+                out[V][solver] = (span / 1e3, steps)
+    finally:
+        shutil.rmtree(tmp)
+    for solver in ("dense", "cg"):
+        d = ring_solves[solver]
+        out.setdefault(d["M"], {})[solver] = (d["span_ms"], d["steps"])
+    print("phase 6f dense against CG on _ring_graph (the grid kernel, "
+          f"{OFFLINE_GRAPH_ITERATIONS} LM steps at most, no robust kernel; "
+          "device ms a solve by the launch's stamps): "
+          + "; ".join(f"{V} vertices dense {d['dense'][0]:.2f} "
+                      f"({d['dense'][1]} steps), CG {d['cg'][0]:.2f} "
+                      f"({d['cg'][1]} steps)"
+                      for V, d in sorted(out.items()))
+          + f"; graph_cg_threshold {SlamConfig().graph_cg_threshold} "
+          "(not changed)")
+    return out
+
+
+def _cusolver_step_us(graph, kw, device, n=20, reps=5):
+    """cuSOLVER's factor and solve (cholesky_ex + cholesky_solve) of the
+    first LM step's damped system (the host loop's, with `kw`'s robust
+    kernel), device us by CUDA events (_events_us with `n` and `reps`):
+    the graph kernels' yardstick (library_ms)."""
+    import torch
+
+    from dvo_slam_tpu_torch.models import pose_graph
+
+    M = graph.poses.shape[0]
+    H, grad, _, _ = pose_graph._build_system(
+        pose_graph.to_device(graph, device),
+        pose_graph._topology(graph, device), kw.get("use_robust", True),
+        kw.get("cauchy_c", 1.0))
+    damped = (H + 1e-6 * torch.diag(torch.diagonal(H))
+              + pose_graph._JITTER * torch.eye(6 * M, device=device))
+    del H
+    return _events_us(lambda: torch.cholesky_solve(
+        -grad[:, None], torch.linalg.cholesky_ex(damped)[0]), n, reps)
 
 
 def _graph_parted(run, run_h):
@@ -2733,25 +2833,62 @@ def _graph_parted(run, run_h):
     return p, tie
 
 
+def _fill_ops(graph):
+    """The f32 operations of one dense factorization and solve of the
+    damped system as the graph's block-level fill needs them, whatever
+    kernel runs it: the symbolic Cholesky over the 6 x 6 blocks of the nv
+    real vertices (inactive slots are decoupled identity blocks), where
+    block (i, k) is nonzero if an unmasked edge or the diagonal puts one
+    there, or if some j < k has (i, j) and (k, j) nonzero (column k's rows
+    are its own and its children's in the elimination tree). Per block
+    column with d nonzero blocks below the diagonal (b = 6): the diagonal
+    factor (b^3 / 3), d row solves (b^3 each), d (d - 1) / 2 products into
+    blocks below the diagonal (2 b^3 each) and d into the diagonal block
+    (its lower triangle, b^2 (b + 1) each); the forward and backward
+    solves, 4 b^2 a block below the diagonal and 2 b^2 a diagonal one."""
+    nv = int(graph.num_vertices)
+    on = np.asarray(graph.edge_mask, bool)
+    i, j = np.asarray(graph.edge_i)[on], np.asarray(graph.edge_j)[on]
+    real = (i < nv) & (j < nv) & (i != j)
+    A = np.zeros((nv, nv), bool)
+    A[np.maximum(i, j)[real], np.minimum(i, j)[real]] = True
+    d = np.zeros(nv)
+    children = [[] for _ in range(nv)]
+    cols = {}
+    for k in range(nv):
+        col = A[:, k].copy()
+        for c in children[k]:
+            col |= cols.pop(c)
+        col[:k + 1] = False
+        below = np.flatnonzero(col)
+        d[k] = below.size
+        if below.size:
+            cols[k] = col
+            children[below[0]].append(k)
+    b = 6.0
+    return float(nv * b**3 / 3 + d.sum() * b**3
+                 + (d * (d - 1) / 2).sum() * 2 * b**3
+                 + d.sum() * b * b * (b + 1)
+                 + 4 * d.sum() * b * b + 2 * nv * b * b)
+
+
 def _graph_bound(graph, steps, iterations, gnc_adaptive, dense=True):
     """The graph kernel's bound for one solve: the packed upload (graph and
     sum plans, padding included) read once, the outputs written once; the
     operations of `steps` LM steps over the graph's nv real vertices and
     ne edges of the mask (inactive slots are decoupled identity blocks
     and masked edges add zero): per edge, per vertex, the assembly's
-    adds, n^3 / 3 for the factorization and 2 n^2 for the solves at
-    n = 6 nv (these three dense only), the adaptive start's and the final
-    pass's residuals."""
+    adds, and the factorization and solves (these two dense only) as the
+    graph's block-level fill needs them (_fill_ops); the adaptive start's
+    and the final pass's residuals."""
     from dvo_slam_tpu_torch.models import pose_graph
 
     M, E = graph.poses.shape[0], graph.edge_i.shape[0]
     nv, ne = int(graph.num_vertices), int(np.asarray(graph.edge_mask).sum())
-    n = 6 * nv
     buf, _ = pose_graph._pack(graph, dense)
     step_f32 = (ne * (GRAPH_EDGE_OPS[0] + GRAPH_RESIDUAL_OPS)
                 + 12 * ne + nv * GRAPH_VERTEX_OPS
-                + ((18 * (4 * ne + nv) + n**3 / 3 + 2 * n * n) if dense
-                   else 0))
+                + ((18 * (4 * ne + nv) + _fill_ops(graph)) if dense else 0))
     f32 = steps * step_f32 + (1 + int(gnc_adaptive)) * ne * GRAPH_RESIDUAL_OPS
     return _bound_ms(4 * buf.size + 4 * (16 * M + 1 + E + 4 * iterations) + 4,
                      f32, steps * ne * GRAPH_EDGE_OPS[1])
@@ -2987,16 +3124,7 @@ def phase_graph(device, slam_out, offline):
         us = _events_us(functools.partial(pose_graph.optimize, g,
                                           device=device, **kw),
                         *((20, 5) if M <= 32 else (4, 3)))
-        # cuSOLVER on the first step's damped system (the plain loop's).
-        g0 = pose_graph.to_device(g, device)
-        topo = pose_graph._topology(g, device)
-        H, grad, _, _ = pose_graph._build_system(
-            g0, topo, kw.get("use_robust", True), kw.get("cauchy_c", 1.0))
-        damped = (H + 1e-6 * torch.diag(torch.diagonal(H))
-                  + pose_graph._JITTER * torch.eye(6 * M, device=device))
-        cusolver_us = _events_us(lambda: torch.cholesky_solve(
-            -grad[:, None], torch.linalg.cholesky_ex(damped)[0]))
-        del H, damped
+        cusolver_us = _cusolver_step_us(g, kw, device)
         # The phase split (beside the cluster kernel's first version's).
         split, launch_us, split_steps, cg_its = _graph_phases(g, kw, device,
                                                               route)
@@ -3587,8 +3715,20 @@ def phase_past128(device):
     last = [(g, {k: v for k, v in kw.items() if k != "device"}
              | {"iterations": it}) for it, _, g, kw in solves
             if g.poses.shape[0] == 256 and _graph_route(g, kw) == "grid"][-1]
+    # Why each step of the last 256-slot solve came out zero, on the grid
+    # kernel and on the host loop (pose_graph.LAST_ZEROED).
+    why = {}
+    for route, solve in (("grid kernel", pose_graph.optimize),
+                         ("host loop", pose_graph.optimize_reference)):
+        solve(last[0], device=device, **last[1])
+        steps = int(pose_graph.LAST_STEPS)
+        why[route] = (steps, pose_graph.LAST_ZEROED[:steps].cpu().tolist())
+    print("phase 5g last 256-slot solve, why each LM step came out zero ("
+          f"{pose_graph.ZEROED_NONE} used, {pose_graph.ZEROED_PIVOT} a "
+          f"failed pivot, {pose_graph.ZEROED_NOT_FINITE} not finite): "
+          + "; ".join(f"{r} {n} steps {z}" for r, (n, z) in why.items()))
     return {"launches": launched, "grid": launches["pose_graph_grid"],
-            "graph": last}
+            "graph": last, "zeroed": why}
 
 
 # The scan step's cases (8a; tests/test_torch_kernels_cuda.py takes them

@@ -159,11 +159,13 @@ def _entry_points():
             vp, vp, vp, vp, vp, vp,  # poses, Z, info, mask, edge_i, edge_j
             vp, vp, vp,  # vertex plan (offsets, indices), dense plan indices
             vp, vp,  # the dense plan's blocks (offsets, list); null for CG
+            vp, vp, vp, ci,  # the fill's bits, units, per column, units
             ci, ci, ci, ci, ci,  # M, E, num_vertices, iterations, robust
             cd, cd, cd, ci,  # cauchy_c, gnc_init, gnc_decay, gnc_adaptive
             ci, ci,  # solver (0 dense, 1 CG), CTAs
             vp, vp, vp, vp, vp, vp, vp, vp, vp,  # scratch, barrier, poses,
-        ], ci),  # chi2, weights, stats, steps, timing (or null), stream
+            vp,  # chi2, weights, stats, steps, zeroed, timing (or null),
+        ], ci),  # stream
         "dvo_pose_graph_grid_plan": ([ci, ci, ci, ci, vp], ci),
         "dvo_level_plan": ([ci, ci, vp], ci),
         "dvo_error_string": ([ci], ctypes.c_char_p),

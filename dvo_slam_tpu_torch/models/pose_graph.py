@@ -25,8 +25,9 @@ back to the host; a build or launch error raises, and nothing falls back:
 - "grid": every other CUDA solve (``solver="cg"`` at any size, a dense
   graph past 128 vertices) is one cooperative launch of
   csrc/pose_graph_grid.cu (``optimize_grid``; one CTA a streaming
-  multiprocessor, the dense system in 32 x 32 tiles or the block-Jacobi
-  CG with its own loop on the card, ``grid_plan``).
+  multiprocessor, the dense system's nonzero 32 x 32 tiles (the host's
+  symbolic fill, ``grid_pattern``) or the block-Jacobi CG with its own
+  loop on the card, ``grid_plan``).
 - "host loop": the CPU runs the plain host loop ``optimize_reference``,
   both kernels' plain version: ``torch`` / ``torch.linalg`` ops, reading
   its stop flag back once per LM step (and the CG loop its stop test once
@@ -66,12 +67,12 @@ _KERNEL_SMEM_BUDGET = 230_400  # dynamic shared memory bytes a CTA may ask
 _KERNEL_EDGE_FLOATS = 42  # per-edge slot: P (36), gj (6)
 # The grid kernel (csrc/pose_graph_grid.cu): one CTA of 256 threads a
 # streaming multiprocessor, all co-resident (a cooperative launch); the
-# dense system in 32 x 32 tiles, its trailing update in units of 4 x 4
-# tiles (dvo_pose_graph_grid_plan; grid_plan mirrors it).
+# dense system in 32 x 32 tiles, owned and updated in units of 2 x 2 tiles
+# (dvo_pose_graph_grid_plan; grid_plan mirrors it).
 SOLVERS = ("dense", "cg")
 GRID_THREADS = 256
 GRID_TILE = 32
-_GRID_UNIT_ROWS = 4 * GRID_TILE
+_GRID_UNIT_ROWS = 2 * GRID_TILE
 # Per-CTA f64 partials: max, chi2, trial, final, p.Ap, r.z, r.r, b.b.
 _GRID_SLOTS = 8
 # Kernel launches since the last reset (plain integers; callers reset them
@@ -87,6 +88,13 @@ LAUNCHES_BY_M = {}
 # flag (1 or 0), zero past the last step. For tests and the smoke.
 LAST_STEPS = None
 LAST_STATS = None
+# Why each step of the last solve came out zero, (iterations,) int32 on its
+# device: ZEROED_NONE (the step was used), ZEROED_PIVOT (the dense
+# factorization met a pivot <= 0) or ZEROED_NOT_FINITE (a step that is not
+# finite), ZEROED_NONE past the last step. Written by the grid kernel and
+# the host loop; None after a solve on the cluster kernel.
+LAST_ZEROED = None
+ZEROED_NONE, ZEROED_PIVOT, ZEROED_NOT_FINITE = 0, 1, 2
 
 
 class PoseGraph(NamedTuple):
@@ -546,9 +554,11 @@ def _grid_layout(M: int, E: int, solver: str, ctas: int):
     ``layout`` cuts it: (total floats, tiles a side of the dense system (0
     for CG)). Each region starts at a 16-byte boundary: per-CTA f64
     partials, the per-edge blocks, two pose buffers; dense: the tiles of
-    the lower triangle and -g's row, 1 / L_ii and the step; CG: per vertex
-    the preconditioner and seven 6-vectors (the damping, x, r, z, two p
-    and Ap)."""
+    the lower triangle and -g's row, 1 / L_ii, the step and the
+    factorization's flags (a word a tile column for each of col_done,
+    diag_ready and x_ready, and the pivot flag); CG: per vertex the
+    preconditioner and seven 6-vectors (the damping, x, r, z, two p and
+    Ap)."""
     up = (lambda n: (n + 3) & ~3)
     floats = (up(2 * _GRID_SLOTS * ctas) + up(_KERNEL_EDGE_FLOATS * E)
               + 2 * up(16 * M))
@@ -556,7 +566,7 @@ def _grid_layout(M: int, E: int, solver: str, ctas: int):
         return floats + up(36 * M) + 7 * up(6 * M), 0
     Pt = -(-6 * M // GRID_TILE)
     return (floats + up((Pt * (Pt + 1) // 2 + Pt) * GRID_TILE * GRID_TILE)
-            + 2 * up(GRID_TILE * Pt)), Pt
+            + 2 * up(GRID_TILE * Pt) + up(3 * Pt + 1)), Pt
 
 
 def grid_plan(M: int, E: int, solver: str, ctas: int):
@@ -566,17 +576,81 @@ def grid_plan(M: int, E: int, solver: str, ctas: int):
     csrc/pose_graph_grid.cu's ``dvo_pose_graph_grid_plan(M, E, solver,
     ctas, out)`` gives them. One CTA of 256 threads a streaming
     multiprocessor (`ctas`, the caller's count); a CTA's shared memory holds
-    the diagonal tile (32 rows of 33 floats) and the trailing update's two
-    staged columns (32 rows of 128 + 4 floats each); the dense system is
+    the diagonal tile (32 rows of 33 floats), its factor's column broadcast
+    (two buffers of 32 floats) and a unit's two staged columns (32 rows of
+    64 + 4 floats each); the dense system is
     ceil(6M / 32) tiles a side, its lower triangle and -g's row of tiles in
-    global scratch (4.7 MB at M = 256, 475 MB at 2 560)."""
+    global scratch (4.7 MB at M = 256, 475 MB at 2 560; only the tiles of
+    the symbolic fill are touched)."""
     if M < 1 or E < 0 or ctas < 1 or solver not in SOLVERS:
         raise ValueError(f"no grid plan for M = {M}, E = {E}, solver "
                          f"{solver!r}, {ctas} CTAs")
     floats, Pt = _grid_layout(M, E, solver, ctas)
-    smem = 4 * (GRID_TILE * (GRID_TILE + 1)
+    smem = 4 * (GRID_TILE * (GRID_TILE + 1) + 2 * GRID_TILE
                 + 2 * GRID_TILE * (_GRID_UNIT_ROWS + 4))
     return (ctas, GRID_THREADS, smem, GRID_TILE, Pt, floats, 2)
+
+
+def grid_pattern(b_list: np.ndarray, M: int):
+    """The grid kernel's map of the dense factor, from the dense plan's
+    block list (``_dense_plan``: the non-empty 6 x 6 blocks (a, b), a >=
+    b, of the damped system's lower triangle) at M vertex slots, with Pt =
+    ceil(6M / 32) tiles a side:
+
+    - fill, (Pt + 1, Pt) bool: tile (I, J) of the factor is nonzero (J <=
+      I; row Pt is the right-hand side's, -g then y, full). The tile-level
+      symbolic Cholesky: a tile is nonzero where a block meets it or on the
+      diagonal (padded identity rows are diagonal only), and tile (I, K) is
+      nonzero where some j < K has (I, j) and (K, j) nonzero; column K's
+      rows are those of its own and of its children in the elimination tree
+      (the columns whose first row below the diagonal is K), so the pass is
+      one union a column.
+    - units, (n,) int32 U << 16 | W: the units of 2 x 2 tiles (rows 2U,
+      2U + 1; columns 2W, 2W + 1) that hold a nonzero tile, by W then U (the
+      order the kernel deals them over its CTAs).
+    - col_units, (Pt,) int32: the units that hold a nonzero tile of column
+      j (the count the kernel waits for before column j is read).
+    """
+    T = GRID_TILE
+    Pt = -(-6 * M // T)
+    A = np.zeros((Pt, Pt), bool)
+    a = np.asarray(b_list, np.int64).reshape(-1, 4)[:, 0]
+    b = np.asarray(b_list, np.int64).reshape(-1, 4)[:, 1]
+    for dr in (0, 5):  # a block spans at most two tiles each way
+        for dc in (0, 5):
+            A[(6 * a + dr) // T, (6 * b + dc) // T] = True
+    A = np.tril(A)
+    L = np.zeros((Pt, Pt), bool)  # column K: its rows below the diagonal
+    children = [[] for _ in range(Pt)]
+    for K in range(Pt):
+        col = A[:, K].copy()
+        for c in children[K]:
+            col |= L[:, c]
+        col[:K + 1] = False
+        L[:, K] = col
+        below = np.flatnonzero(col)
+        if below.size:
+            children[below[0]].append(K)
+    fill = np.zeros((Pt + 1, Pt), bool)
+    fill[:Pt] = L | np.eye(Pt, dtype=bool)
+    fill[Pt] = True
+    Ur, Wc = Pt // 2 + 1, (Pt + 1) // 2
+    F = np.zeros((2 * Ur, 2 * Wc), bool)
+    F[:Pt + 1, :Pt] = fill
+    held = F.reshape(Ur, 2, Wc, 2).any(axis=(1, 3))
+    W, U = np.nonzero(held.T)
+    units = ((U << 16) | W).astype(np.int32)
+    col_units = F[:, :Pt].reshape(Ur, 2, Pt).any(axis=1).sum(0)
+    return fill, units, col_units.astype(np.int32)
+
+
+def _fill_words(fill: np.ndarray) -> np.ndarray:
+    """A fill pattern as the kernel reads it: row I's bits in
+    ceil(Pt / 32) uint32 words, bit J % 32 of word J / 32."""
+    rows, Pt = fill.shape
+    padded = np.zeros((rows, 32 * -(-Pt // 32)), bool)
+    padded[:, :Pt] = fill
+    return np.packbits(padded, axis=1, bitorder="little").view("<u4")
 
 
 def optimize(graph: PoseGraph, iterations: int = 20, use_robust: bool = True,
@@ -610,18 +684,27 @@ def optimize(graph: PoseGraph, iterations: int = 20, use_robust: bool = True,
     return optimize_reference(graph, solver=solver, **kw)
 
 
-def _blocks(d_off: np.ndarray, M: int):
-    """The non-empty blocks of the dense plan's lower triangle (row vertex
-    a >= column vertex b), ordered by b then a, as (K, 4) int32 rows (a, b,
-    first, end: the block's range of the plan's index list) and the (M + 1,)
-    offsets of each column vertex's rows."""
-    slot = np.arange(M * M)
-    a, b = slot // M, slot % M
-    sel = np.nonzero((d_off[1:] > d_off[:-1]) & (a >= b))[0]
+def _dense_plan(targets: np.ndarray, keep: np.ndarray, M: int):
+    """The dense plan: its index list (``_csr(targets, M * M, keep)``'s),
+    the non-empty blocks of its lower triangle (row vertex a >= column
+    vertex b), ordered by b then a, as (K, 4) int32 rows (a, b, first, end:
+    the block's range of the index list) and the (M + 1,) offsets of each
+    column vertex's rows: (d_idx, b_off, b_list). Built from the non-empty
+    blocks alone, with no pass over the M * M slots (6f's 2 560-vertex
+    graph has 6.6M slots and ~11 000 contributions)."""
+    targets = np.asarray(targets, np.int64)
+    idx = np.argsort(targets, kind="stable")
+    idx = idx[np.asarray(keep, bool)[idx]]
+    slots, first, counts = np.unique(targets[idx], return_index=True,
+                                     return_counts=True)
+    a, b = slots // M, slots % M
+    sel = np.nonzero(a >= b)[0]
     sel = sel[np.argsort(b[sel] * M + a[sel], kind="stable")]
-    rows = np.stack([a[sel], b[sel], d_off[sel], d_off[sel + 1]], axis=1)
-    return (np.searchsorted(b[sel], np.arange(M + 1)).astype(np.int32),
-            rows.astype(np.int32))
+    rows = np.stack([a[sel], b[sel], first[sel], first[sel] + counts[sel]],
+                    axis=1)
+    return (idx.astype(np.int32),
+            np.searchsorted(b[sel], np.arange(M + 1)).astype(np.int32),
+            rows.astype(np.int32).reshape(-1, 4))
 
 
 def _codes(d_idx: np.ndarray, E: int) -> np.ndarray:
@@ -634,11 +717,13 @@ def _codes(d_idx: np.ndarray, E: int) -> np.ndarray:
                     -1 - (ci - 4 * E)).astype(np.int32)
 
 
-def _pack(graph: PoseGraph, dense: bool = True):
+def _pack(graph: PoseGraph, dense: bool = True, grid: bool = False):
     """A host graph, its CSR sum plans over the unmasked edges and (with
     `dense`) the dense plan's block list as one f32 buffer, int32 arrays
     stored bitwise, the block list at a 16-byte boundary: (buffer, {name:
-    (offset, length, is_int32)}). CG needs the vertex plan only."""
+    (offset, length, is_int32)}). CG needs the vertex plan only; a dense
+    solve on the grid kernel (`grid`) adds its map of the factor
+    (``grid_pattern``: the fill's bits, the units, their count a column)."""
     M, E = graph.poses.shape[0], graph.edge_i.shape[0]
     vertex, targets = _plan_targets(graph)
     # A masked edge's blocks and gradient are exact zeros (weight 0), so
@@ -655,27 +740,32 @@ def _pack(graph: PoseGraph, dense: bool = True):
         "v_off": i32(v_off), "v_idx": i32(v_idx),
     }
     if dense:
-        d_off, d_idx = _csr(targets, M * M, np.concatenate(
-            [np.tile(on, 4), np.ones(M, bool)]))
-        b_off, b_list = _blocks(d_off, M)
+        d_idx, b_off, b_list = _dense_plan(targets, np.concatenate(
+            [np.tile(on, 4), np.ones(M, bool)]), M)
         parts["d_idx"] = i32(_codes(d_idx, E))
         parts["b_off"] = i32(b_off)
         at = sum(x.size for x in parts.values())
         parts["pad"] = np.zeros(-at % 4, np.float32)
         parts["b_list"] = i32(b_list)
+        if grid:
+            fill, units, col_units = grid_pattern(b_list, M)
+            parts["fill"] = _fill_words(fill).ravel().view(np.float32)
+            parts["units"] = i32(units)
+            parts["col_units"] = i32(col_units)
     at, where = 0, {}
     for name, x in parts.items():
         where[name] = (at, x.size, name.startswith(("edge", "v_", "d_",
-                                                     "b_")))
+                                                     "b_", "fill", "units",
+                                                     "col_")))
         at += x.size
     return np.concatenate(list(parts.values())), where
 
 
-def _upload(graph: PoseGraph, device, dense: bool):
+def _upload(graph: PoseGraph, device, dense: bool, grid: bool = False):
     """The packed graph and plans (``_pack``) on `device`, from pinned
     memory in one non-blocking copy: {name: view} (int32 views of the
     integer arrays). Call with `device` current."""
-    buf, where = _pack(graph, dense)
+    buf, where = _pack(graph, dense, grid)
     host = torch.empty(buf.size, dtype=torch.float32, pin_memory=True)
     host.numpy()[:] = buf
     dev = host.to(device, non_blocking=True)
@@ -692,11 +782,13 @@ def _outputs(M: int, E: int, iterations: int, device):
             torch.empty((), dtype=torch.int32, device=device))
 
 
-def _solved(graph: PoseGraph, view, out, steps, iterations: int, kernel: str):
-    """Count the launch of `kernel` ("cluster" or "grid"), set LAST_STEPS
-    and LAST_STATS, and return ``optimize``'s outputs as views of the
-    uploaded graph and the output buffer."""
-    global LAUNCHES, LAUNCHES_GRID, LAST_STEPS, LAST_STATS
+def _solved(graph: PoseGraph, view, out, steps, iterations: int, kernel: str,
+            zeroed=None):
+    """Count the launch of `kernel` ("cluster" or "grid"), set LAST_STEPS,
+    LAST_STATS and LAST_ZEROED (`zeroed`, the grid kernel's), and return
+    ``optimize``'s outputs as views of the uploaded graph and the output
+    buffer."""
+    global LAUNCHES, LAUNCHES_GRID, LAST_STEPS, LAST_STATS, LAST_ZEROED
     M, E = graph.poses.shape[0], graph.edge_i.shape[0]
     if kernel == "cluster":
         LAUNCHES += 1
@@ -705,6 +797,7 @@ def _solved(graph: PoseGraph, view, out, steps, iterations: int, kernel: str):
     LAUNCHES_BY_M[M] = LAUNCHES_BY_M.get(M, 0) + 1
     LAST_STEPS = steps
     LAST_STATS = out[16 * M + 1 + E:].view(iterations, 4)
+    LAST_ZEROED = zeroed
     solved = PoseGraph(
         poses=out[:16 * M].view(M, 4, 4),
         num_vertices=int(graph.num_vertices),
@@ -820,26 +913,30 @@ def optimize_grid(graph: PoseGraph, iterations: int = 20,
     with torch.cuda.device(device):
         ctas = _build.sm_count(torch.cuda.current_device())
         plan = grid_plan(M, E, solver, ctas)
-        view = _upload(graph, device, dense)
+        view = _upload(graph, device, dense, grid=dense)
         scratch = torch.empty(plan[5], dtype=torch.float32, device=device)
         bar = torch.zeros(plan[6], dtype=torch.int32, device=device)
         out, steps = _outputs(M, E, iterations, device)
+        zeroed = torch.empty(iterations, dtype=torch.int32, device=device)
+        names = ("d_idx", "b_off", "b_list", "fill", "units", "col_units")
         rc = lib.dvo_pose_graph_grid(
             *(view[k].data_ptr() for k in ("poses", "Z", "info", "mask",
                                             "edge_i", "edge_j", "v_off",
                                             "v_idx")),
-            *((view[k].data_ptr() for k in ("d_idx", "b_off", "b_list"))
-              if dense else (None, None, None)),
+            *((view[k].data_ptr() for k in names)
+              if dense else (None,) * len(names)),
+            view["units"].numel() if dense else 0,
             M, E, int(graph.num_vertices), int(iterations), int(use_robust),
             float(cauchy_c), float(gnc_init), float(gnc_decay),
             int(gnc_adaptive), SOLVERS.index(solver), ctas,
             scratch.data_ptr(), bar.data_ptr(), out.data_ptr(),
             out[16 * M:].data_ptr(), out[16 * M + 1:].data_ptr(),
             out[16 * M + 1 + E:].data_ptr(), steps.data_ptr(),
+            zeroed.data_ptr() if iterations else None,
             None if timing is None else timing.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "dvo_pose_graph_grid", rc)
-    return _solved(graph, view, out, steps, iterations, "grid")
+    return _solved(graph, view, out, steps, iterations, "grid", zeroed)
 
 
 PHASES = ("edge pass", "assembly", "factorization", "solves", "exp(delta)",
@@ -880,9 +977,9 @@ def optimize_reference(graph: PoseGraph, iterations: int = 20,
                        device="cuda"):
     """``optimize`` as a host loop of ``torch`` ops on `device`, for every
     solver and size: the graph kernel's plain version. Each LM step reads
-    its stop flag back to the host (one sync). Sets ``LAST_STEPS`` and
-    ``LAST_STATS``."""
-    global LAST_STEPS, LAST_STATS
+    its stop flag back to the host (one sync). Sets ``LAST_STEPS``,
+    ``LAST_STATS`` and ``LAST_ZEROED``."""
+    global LAST_STEPS, LAST_STATS, LAST_ZEROED
     device = torch.device(device)
     g0 = to_device(graph, device)
     topo = _topology(graph, device)
@@ -901,7 +998,7 @@ def optimize_reference(graph: PoseGraph, iterations: int = 20,
 
     g_cur = g0
     lam = torch.full((), 1e-6, dtype=dtype, device=device)
-    steps, stats = 0, []
+    steps, stats, zeroed = 0, [], []
     for k in range(iterations):
         anneal = torch.clamp(anneal0 * gnc_decay ** k, min=1.0)
         c_eff = cauchy_c * anneal
@@ -910,6 +1007,7 @@ def optimize_reference(graph: PoseGraph, iterations: int = 20,
             delta = _solve_cg(g_cur, topo, blocks, lam, -g,
                               maxiter=4 * M).reshape(6 * M)
             ok = torch.isfinite(delta).all()
+            why = torch.where(ok, ZEROED_NONE, ZEROED_NOT_FINITE)
         else:
             H, g, chi2, _ = _build_system(g_cur, topo, use_robust, c_eff)
             damped = H + lam * torch.diag(torch.diagonal(H)) + _JITTER * eye
@@ -919,6 +1017,9 @@ def optimize_reference(graph: PoseGraph, iterations: int = 20,
             L, info = torch.linalg.cholesky_ex(damped)
             delta = torch.cholesky_solve(-g[:, None], L)[:, 0]
             ok = (info == 0) & torch.isfinite(delta).all()
+            why = torch.where(info != 0, ZEROED_PIVOT, torch.where(
+                ok, ZEROED_NONE, ZEROED_NOT_FINITE))
+        zeroed.append(why)
         delta = torch.where(ok, delta, 0.0)
         new_poses = _apply_delta(g_cur.poses, delta, g_cur.num_vertices)
         chi2_new = _total_chi2(g_cur._replace(poses=new_poses), use_robust,
@@ -937,9 +1038,12 @@ def optimize_reference(graph: PoseGraph, iterations: int = 20,
             break
     LAST_STEPS = torch.full((), steps, dtype=torch.int32, device=device)
     LAST_STATS = torch.zeros((iterations, 4), dtype=dtype, device=device)
+    LAST_ZEROED = torch.full((iterations,), ZEROED_NONE, dtype=torch.int32,
+                             device=device)
     if stats:
         LAST_STATS[:steps] = torch.stack(
             [torch.stack(col).to(dtype) for col in zip(*stats)], dim=1)
+        LAST_ZEROED[:steps] = torch.stack(zeroed).to(torch.int32)
     _, _, chi2, weights = _build_blocks(g_cur, topo, use_robust, cauchy_c)
     return g_cur, chi2, weights
 

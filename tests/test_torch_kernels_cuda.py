@@ -81,6 +81,7 @@ from dvo_slam_tpu_torch import TrackerConfig
 from dvo_slam_tpu_torch.models import dense_tracker, pose_graph
 from dvo_slam_tpu_torch.ops import camera, linearize, pyramid, sampler
 from dvo_slam_tpu_torch.utils import se3_np, synthetic
+from torch_graphs import two_lap_ring
 
 pytestmark = pytest.mark.cuda
 
@@ -1437,6 +1438,96 @@ def test_pose_graph_grid_stops_at_a_failed_pivot(cuda, v):
     assert run[1][0, 2] == 0 and run_h[1][0, 2] == 0
     assert torch.equal(got[0].poses.cpu(), torch.from_numpy(g.poses))
     _assert_graph_close(got, run, want, run_h, g, kw)
+
+
+@pytest.mark.parametrize("M, n, v", [(256, 150, 54), (256, 256, 254)])
+def test_pose_graph_grid_stops_at_a_failed_pivot_in_a_panel(cuda, M, n, v):
+    """The dense factorization in panels of two tile columns: a first
+    failed pivot at column 6 v = 324 (tile column 10, the first of panel 5:
+    its first diagonal factor) and at 1 524 (tile column 47, the last of
+    the matrix, the second factor of the last panel, every vertex active):
+    every CTA stops there and the step is zeroed as on the host loop; the
+    kernel and the host loop both record a failed pivot (LAST_ZEROED)."""
+    g = _not_pd_graph_at(M, n, v)
+    kw = dict(iterations=3, use_robust=False)
+    got, run, want, run_h = _grid_and_plain(g, cuda, "dense", **kw)
+    zeroed = pose_graph.LAST_ZEROED.cpu()
+    assert run[1][0, 2] == 0 and run_h[1][0, 2] == 0
+    assert int(zeroed[0]) == pose_graph.ZEROED_PIVOT
+    optimize = pose_graph.optimize(g, device=cuda, solver="dense", **kw)
+    assert int(pose_graph.LAST_ZEROED[0]) == pose_graph.ZEROED_PIVOT
+    assert torch.equal(optimize[0].poses, got[0].poses)
+    assert torch.equal(got[0].poses.cpu(), torch.from_numpy(g.poses))
+    _assert_graph_close(got, run, want, run_h, g, kw)
+
+
+def _full_window(M, n, seed=0):
+    """_noisy_ring's first n keyframes (no false edge) with every pair of
+    keyframes joined by an edge, padded to M vertex slots: a factor whose
+    active tiles all fill in (phase 5g's graphs, a keyframe every frame)."""
+    g = _noisy_ring(M, n, seed, slots=2 * M)
+    rng = np.random.default_rng(seed + 1)
+    sigma = np.array([5e-3] * 3 + [1e-2] * 3)
+    info = np.diag(1.0 / sigma**2)
+    poses = g.poses[:n].astype(np.float64)
+    edges = [(j, i, se3_np.inverse(poses[j]) @ poses[i]
+              @ se3_np.exp(rng.normal(size=6) * sigma), info)
+             for i in range(n) for j in range(i + 1, n)]
+    full = pose_graph.empty_graph_host(M, pose_graph.bucket(len(edges), 64))
+    full.poses[:] = g.poses
+    return _with_edges(full, n, edges)
+
+
+def _hub_ring(M, n, hub, degree, seed=0):
+    """_noisy_ring plus `degree` edges from vertex `hub` to the ring's
+    other keyframes (measured at the initial poses with _noisy_ring's
+    noise): a vertex with that many incident edges."""
+    g = _noisy_ring(M, n, seed, slots=2 * M)
+    rng = np.random.default_rng(seed + 2)
+    sigma = np.array([5e-3] * 3 + [1e-2] * 3)
+    e0 = int(g.num_edges)
+    others = [j for j in range(n) if abs(j - hub) > 1][:degree]
+    for e, j in enumerate(others, start=e0):
+        g.edge_i[e], g.edge_j[e] = hub, j
+        g.measurements[e] = (se3_np.inverse(g.poses[hub].astype(np.float64))
+                             @ g.poses[j] @ se3_np.exp(rng.normal(size=6)
+                                                       * sigma))
+        g.information[e] = np.diag(1.0 / sigma**2)
+        g.edge_mask[e] = True
+    return g._replace(num_edges=np.asarray(e0 + len(others), np.int32))
+
+
+NEW_GRID_CASES = {
+    # the fill of a two-lap ring: about a third of the tiles
+    "sparse_fill_ring512": (lambda: two_lap_ring(512), "dense", 4),
+    # every active tile filled in, 136 keyframes in 256 slots
+    "full_fill_window256": (lambda: _full_window(256, 136), "dense", 4),
+    # CG with a vertex of 200 incident edges
+    "cg_hub512": (lambda: _hub_ring(512, 300, 5, 200), "cg", 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEW_GRID_CASES))
+def test_pose_graph_grid_fill_and_hubs_match_host_loop(cuda, case):
+    """A graph whose factor stays mostly zero (the ring: the kernel skips
+    those tiles), one whose factor fills in completely, and a CG solve over
+    a vertex with 200 incident edges (its edges split over a group of
+    lanes): one grid launch against the host loop by phase 5f's rule, and
+    a second launch on the same inputs gives the same bits."""
+    make, solver, iterations = NEW_GRID_CASES[case]
+    g = make()
+    M = g.poses.shape[0]
+    if case.startswith("cg"):
+        off, _ = pose_graph._csr(pose_graph._plan_targets(g)[0], M,
+                                 np.tile(np.asarray(g.edge_mask), 2))
+        assert np.diff(off).max() >= 200
+    kw = dict(GRID_KW, iterations=iterations)
+    got, run, want, run_h = _grid_and_plain(g, cuda, solver, **kw)
+    _assert_graph_close(got, run, want, run_h, g, kw)
+    assert run[0] > 0
+    again = pose_graph.optimize(g, device=cuda, solver=solver, **kw)
+    assert torch.equal(again[0].poses, got[0].poses)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
 
 
 @pytest.mark.parametrize("solver", ["dense", "cg"])

@@ -19,6 +19,7 @@ from dvo_slam_tpu.models import pose_graph
 from dvo_slam_tpu.utils import se3_np
 from dvo_slam_tpu_torch import convert
 from dvo_slam_tpu_torch.models import pose_graph as t_pose_graph
+from torch_graphs import two_lap_ring
 
 
 def _chain_graph(n=8, drift=0.02, seed=0, max_v=16, max_e=32, loop=True):
@@ -434,13 +435,15 @@ def _grid_floats(M, E, solver, ctas):
     """The grid kernel's scratch floats, each region rounded up to 4
     floats (16 bytes): per-CTA f64 partials (8 slots), the per-edge blocks
     (42 floats), two pose buffers; dense: the lower triangle's tiles and
-    -g's row of tiles (32 x 32 floats each), 1 / L_ii and the step; CG:
-    the preconditioner (36 a vertex) and seven 6-vectors a vertex."""
+    -g's row of tiles (32 x 32 floats each), 1 / L_ii, the step and the
+    factorization's flags (three words a tile column and the pivot flag);
+    CG: the preconditioner (36 a vertex) and seven 6-vectors a vertex."""
     up = (lambda n: -(-n // 4) * 4)
     floats = up(2 * 8 * ctas) + up(42 * E) + 2 * up(16 * M)
     if solver == "dense":
         Pt = -(-6 * M // 32)
-        return floats + up((Pt * (Pt + 1) // 2 + Pt) * 1024) + 2 * up(32 * Pt)
+        return (floats + up((Pt * (Pt + 1) // 2 + Pt) * 1024) + 2 * up(32 * Pt)
+                + up(3 * Pt + 1))
     return floats + up(36 * M) + 7 * up(6 * M)
 
 
@@ -452,14 +455,15 @@ def _grid_floats(M, E, solver, ctas):
 @pytest.mark.parametrize("ctas", [1, 132])
 def test_grid_plan_sizes(M, E, solver, ctas):
     """One CTA of 256 threads a streaming multiprocessor; a CTA's shared
-    memory holds the diagonal tile (32 rows of 33 floats) and the trailing
-    update's two staged columns (32 rows of 132 floats), under the 48 KB a
-    launch may ask without opting in; the dense system in ceil(6M / 32)
-    tiles a side, whose lower triangle covers the damped system's (4.7 MB
-    at M = 256, ~475 MB at 2 560)."""
+    memory holds the diagonal tile (32 rows of 33 floats), its factor's
+    column broadcast (two buffers of 32 floats) and a unit's two staged
+    columns (32 rows of 64 + 4 floats each: units of 2 x 2 tiles), under
+    the 48 KB a launch may ask without opting in; the dense system in
+    ceil(6M / 32) tiles a side, whose lower triangle covers the damped
+    system's (4.7 MB at M = 256, ~475 MB at 2 560)."""
     plan = t_pose_graph.grid_plan(M, E, solver, ctas)
     Pt = -(-6 * M // 32) if solver == "dense" else 0
-    smem = 4 * (32 * 33 + 2 * 32 * 132)
+    smem = 4 * (32 * 33 + 64 + 2 * 32 * 68)
     assert plan == (ctas, 256, smem, 32, Pt, _grid_floats(M, E, solver, ctas),
                     2)
     assert smem <= 48 * 1024
@@ -564,6 +568,167 @@ def test_ring_past_128_vertices_like_jax(solver):
                       gnc_init=16.0, gnc_adaptive=True, solver=solver)
     _assert_close(got, want)
     assert float(got[2][int(g.num_edges) - 1]) < 0.05
+
+
+def _window(M, n, seed=0):
+    """A SLAM window with a keyframe every frame (phase 5g's graphs): n
+    keyframes padded to M slots, every pair of keyframes joined by an
+    edge."""
+    rng = np.random.default_rng(seed)
+    pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+    g = t_pose_graph.empty_graph_host(M, len(pairs) + 8)
+    for e, (i, j) in enumerate(pairs):
+        g.edge_i[e], g.edge_j[e] = j, i
+        g.measurements[e] = se3_np.exp(rng.normal(scale=0.01, size=6))
+        g.information[e] = np.eye(6) * 1e3
+        g.edge_mask[e] = True
+    g.poses[:n] = [se3_np.exp(rng.normal(scale=0.1, size=6))
+                   for _ in range(n)]
+    return g._replace(num_vertices=np.asarray(n, np.int32),
+                      num_edges=np.asarray(len(pairs), np.int32))
+
+
+PATTERN_GRAPHS = {
+    "chain": lambda: _chain_graph(n=40, drift=0.02, max_v=64, max_e=64,
+                                  loop=False)[0],
+    "noisy_ring256": lambda: _noisy_ring(256, 150, seed=21, slots=512),
+    "two_lap_ring256": lambda: two_lap_ring(256),
+    "window": lambda: _window(64, 40),
+    "padded": lambda: _noisy_ring(256, 30, seed=5, slots=512),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PATTERN_GRAPHS))
+def test_grid_pattern_holds_the_factor(case):
+    """The grid kernel's map of the dense factor (grid_pattern, uploaded by
+    _pack with `grid`): every 32 x 32 tile that numpy's f64 Cholesky of the
+    damped system (the plain _build_system in f64, damped as the host
+    loop's first step) leaves nonzero is in the fill, with the diagonal and
+    the -g row; nothing above the diagonal; the units hold every nonzero
+    tile and no empty one, by unit column then row; each column's count is
+    the units holding it; the uploaded words carry the fill's bits. On the
+    rings at least half the tiles stay zero (the work the kernel skips)."""
+    g = PATTERN_GRAPHS[case]()
+    M = g.poses.shape[0]
+    buf, where = t_pose_graph._pack(g, dense=True, grid=True)
+    got = {k: buf[a:a + n].view(np.int32) for k, (a, n, _) in where.items()
+           if k in ("b_list", "fill", "units", "col_units")}
+    fill, units, col_units = t_pose_graph.grid_pattern(
+        got["b_list"].reshape(-1, 4), M)
+    Pt = -(-6 * M // 32)
+    assert fill.shape == (Pt + 1, Pt)
+    g64 = t_pose_graph.to_device(g, "cpu")
+    g64 = g64._replace(poses=g64.poses.double(),
+                       measurements=g64.measurements.double(),
+                       information=g64.information.double())
+    H, _, _, _ = t_pose_graph._build_system(
+        g64, t_pose_graph._topology(g, "cpu"), True, 1.0)
+    damped = (H + 1e-6 * torch.diag(torch.diagonal(H))
+              + 1e-6 * torch.eye(6 * M, dtype=torch.float64)).numpy()
+    L = np.zeros((32 * Pt, 32 * Pt))
+    L[:6 * M, :6 * M] = np.linalg.cholesky(damped)
+    held = np.abs(L).reshape(Pt, 32, Pt, 32).max(axis=(1, 3)) > 0
+    assert not (held & ~fill[:Pt]).any()
+    assert fill[np.arange(Pt), np.arange(Pt)].all() and fill[Pt].all()
+    assert not np.triu(fill[:Pt], 1).any()
+    if "ring" in case:
+        assert fill[:Pt].sum() < 0.5 * Pt * (Pt + 1) / 2
+    U, W = units >> 16, units & 0xffff
+    assert list(zip(W, U)) == sorted(zip(W, U))
+    in_units = set(zip(U.tolist(), W.tolist()))
+    assert in_units == {(I // 2, J // 2) for I, J in zip(*np.nonzero(fill))}
+    for j in range(Pt):
+        assert col_units[j] == len({I // 2 for I in np.flatnonzero(fill[:, j])})
+    np.testing.assert_array_equal(got["units"], units)
+    np.testing.assert_array_equal(got["col_units"], col_units)
+    words = got["fill"].view(np.uint32).reshape(Pt + 1, -1)
+    bits = (words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    np.testing.assert_array_equal(bits.reshape(Pt + 1, -1)[:, :Pt], fill)
+
+
+@pytest.mark.parametrize("case", sorted(PATTERN_GRAPHS))
+def test_fill_ops_counts_the_block_fill(case):
+    """chip_smoke._fill_ops, the dense solve's operations in the graph
+    kernels' bound, counts the 6 x 6 blocks that numpy's f64 Cholesky of
+    the damped system over the real vertices leaves nonzero: per block
+    column with d of them below the diagonal, b^3 / 3 + d b^3 + d (d - 1)
+    b^3 + d b^2 (b + 1) for the factor, 4 d b^2 + 2 b^2 for the two solves
+    (b = 6)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    g = PATTERN_GRAPHS[case]()
+    nv = int(g.num_vertices)
+    g64 = t_pose_graph.to_device(g, "cpu")
+    g64 = g64._replace(poses=g64.poses.double(),
+                       measurements=g64.measurements.double(),
+                       information=g64.information.double())
+    H, _, _, _ = t_pose_graph._build_system(
+        g64, t_pose_graph._topology(g, "cpu"), True, 1.0)
+    H = H[:6 * nv, :6 * nv]
+    damped = (H + 1e-6 * torch.diag(torch.diagonal(H))
+              + 1e-6 * torch.eye(6 * nv, dtype=torch.float64)).numpy()
+    L = np.linalg.cholesky(damped)
+    nz = np.abs(L).reshape(nv, 6, nv, 6).max(axis=(1, 3)) > 0
+    d = np.tril(nz, -1).sum(0).astype(np.float64)
+    b = 6.0
+    want = (nv * b**3 / 3 + d.sum() * b**3 + (d * (d - 1)).sum() * b**3
+            + d.sum() * b * b * (b + 1) + 4 * d.sum() * b * b
+            + 2 * nv * b * b)
+    assert smoke._fill_ops(g) == pytest.approx(want, rel=1e-12)
+
+
+def _overflowing_gradient(g):
+    """g plus an edge 0 -> 1 with a 2 m translation residual and
+    translation information 2e38: its block of H stays finite, every pivot
+    passes, and its gradient overflows f32 (a step that is not finite)."""
+    e = int(g.num_edges)
+    g.edge_i[e], g.edge_j[e] = 0, 1
+    g.measurements[e] = (se3_np.inverse(g.poses[0]) @ g.poses[1]
+                         @ se3_np.exp(np.array([-2.0, 0, 0, 0, 0, 0])))
+    g.information[e] = np.diag([2e38] * 3 + [0.0] * 3)
+    g.edge_mask[e] = True
+    return g._replace(num_edges=np.asarray(e + 1, np.int32))
+
+
+@pytest.mark.parametrize("case, solver, want", [
+    ("loop_closure", "dense", "none"), ("loop_closure", "cg", "none"),
+    ("not_pd", "dense", "pivot"), ("overflow", "dense", "not_finite"),
+    ("overflow", "cg", "none")])
+def test_last_zeroed_tells_why_a_step_was_zeroed(case, solver, want):
+    """LAST_ZEROED after the plain loop: (iterations,) int32, per step why
+    it came out zero: ZEROED_PIVOT where cholesky_ex met a pivot <= 0 (a
+    negated information makes a diagonal block negative definite),
+    ZEROED_NOT_FINITE where the step is not finite (an f32 gradient that
+    overflows), ZEROED_NONE for a step used and past the last step; a
+    zeroed step has norm 0 in LAST_STATS. CG meets the overflow in its stop
+    test first: rr > tol^2 |b|^2 is false at |b|^2 = inf, so it runs no
+    iteration and its zero step is used."""
+    g, _ = _chain_graph(n=8, drift=0.03)
+    if case == "not_pd":
+        g = g._replace(information=g.information.copy())
+        g.information[0] = -np.eye(6) * 1e2
+    if case == "overflow":
+        g = _overflowing_gradient(g)
+    t_pose_graph.optimize(g, iterations=6, solver=solver, use_robust=False,
+                          device="cpu")
+    zeroed = t_pose_graph.LAST_ZEROED
+    steps = int(t_pose_graph.LAST_STEPS)
+    assert zeroed.dtype == torch.int32 and zeroed.shape == (6,)
+    code = {"none": t_pose_graph.ZEROED_NONE,
+            "pivot": t_pose_graph.ZEROED_PIVOT,
+            "not_finite": t_pose_graph.ZEROED_NOT_FINITE}[want]
+    assert int(zeroed[0]) == code
+    assert not zeroed[steps:].any()
+    norms = t_pose_graph.LAST_STATS[:steps, 2]
+    assert torch.equal(norms[zeroed[:steps] != 0],
+                       torch.zeros_like(norms[zeroed[:steps] != 0]))
+    if want == "none":
+        assert not zeroed.any() and 0 < steps
 
 
 @pytest.mark.parametrize("padded", [False, True])
