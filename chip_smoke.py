@@ -60,6 +60,27 @@ launch a frame after its level launches). Phases:
      levels (3 a tracked frame), pyramid launches the frames (one a
      frame), mode (a) and standalone sampler launches and prepare_reference
      calls 0;
+  13. (after 3, whose orbit it takes) the cluster kernel under every scale
+     estimator the CLI offers, each under another influence function
+     (ESTIMATOR_CONFIGS: mad + huber, normal + tukey, unit + tdist,
+     unweighted) and with the motion prior (PRIOR_CONFIGS: mu = MU, GN
+     and LM), at 640x480 (phase_estimators):
+     a. per tracked level, mode (a) against linearize_reference (2b's
+        gates, and the MAD elements bit for bit against the plain sort's)
+        and mode (b) against the host loop over the plain linearization
+        (2d's gates); the prior (GN and LM) also at mu = c x the data's
+        largest diagonal entry (PRIOR_SCALES), pose, posterior and entropy
+        against the host loop; mode (b)'s device us a launch on the noisy
+        pair beside the t-distribution's;
+     b. the 24-frame odometry orbit under each config through the level
+        kernel and through the host loop (in turns for mad + huber and
+        mu = MU): a frame on the kernel route must show 1 pyramid and 3
+        level launches (0 on the first frame), no mode (a) or standalone
+        sampler launch and no host-loop level; world poses within 1e-4 of
+        the host loop's, paths parting only at a tie (_parted); ms/frame;
+     c. a 16-frame chunk of ChunkedKeyframeSlam under mad + huber: 1
+        pyramid, 3 level and 1 scan-step launch a frame inside
+        submit_chunk, under set_sync_debug_mode("error");
   3a. the front against its plain versions: the pyramid kernel against
      build_pyramid_reference bit for bit (640x480 f32, u8 + u16 and
      u8 + packed-12 inputs, the TMA fill; 642x482 at 4 and 5 levels, the
@@ -140,8 +161,8 @@ launch a frame after its level launches). Phases:
         dense and CG on the grid kernel (device ms by the launch's stamps;
         graph_cg_threshold printed, not changed);
      g. `cli odometry --scale-estimator normal --influence huber` (24
-        frames): one standalone sampler launch per linearization, no
-        cluster-kernel launch;
+        frames): one level-kernel launch a tracked level, no mode (a) or
+        standalone sampler launch;
   5f. (after 6, whose graph it takes) the pose-graph kernels against the plain
      host loop (optimize_reference, cuSOLVER's Cholesky, torch's CG) on the
      card: the ring's final keyframe graph (M = 16), 5b's last window graph,
@@ -266,7 +287,8 @@ launches; the grid kernel on 5g's last solve and _ring_graph at 256 (5f,
 with 5g's launches at 256) and on 6f's 2 560-vertex ring, dense and CG
 (with the CLI's launches); the pyramid kernel at 640x480, f32 and raw
 inputs, with phase 3's launches; the scan step, with phase 8's
-launches); the last line is {"ok": true,
+launches; mode (b) under each of phase 13's configs, with 13b's
+odometry launches); the last line is {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -920,6 +942,83 @@ def _compare_level(got, want, cfg, what):
     return d_T, a_rel, parted
 
 
+# 13a and the card tests: the motion prior at weights scaled to the data,
+# mu = c x the largest diagonal entry of the free level's record. At
+# 640x480 that diagonal is so large that a mu of 0.1 or 0.5 lies below one
+# f32 ulp of it and cannot tell a kernel that drops the prior, or adds the
+# posterior's mu I twice, from a right one. c = 1e-2 leaves the pose
+# mostly to the data, c = 1 holds it near T_init, c = 1e4 pins it there.
+PRIOR_SCALES = (1e-2, 1.0, 1e4)
+
+
+def _prior_check(ref, cur, K, T0, cfg, what):
+    """Mode (b) under priors scaled to the data (mu = c x the largest
+    diagonal entry of the free level's record A over the rows, c in
+    PRIOR_SCALES, cfg's other fields as they are) against the host loop
+    over linearize_batched_reference on the same rows: _compare_level's
+    gates (T within 1e-5; where the paths do not part, the records'
+    posterior A within 1e-4 * max|A|), the kernel's record A within 1e-4 *
+    max|A| of the plain linearization at the kernel's pose plus mu I (the
+    posterior, mu I added once), and the kernel's entropy (mode (b)'s
+    extras, from its record) within ENTROPY_ATOL of pose_entropy of both.
+    The prior must move the pose: every row's pose at c = 1 at least 1e-4
+    (ten times the pose gate) from the free pose, and at c = 1e4 at most a
+    fifth as far from T_init as the free pose. Returns (max |dT|, max
+    entropy error, {c: mu}, {c (0 for the free level): max |T - T_init|
+    over rows and entries})."""
+    import dataclasses
+
+    import torch
+
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.ops import linearize
+
+    T_free, fin_free, _ = dense_tracker.track_level(
+        ref, cur, K, T0, dataclasses.replace(cfg, mu=0.0))
+    scale = fin_free.A.diagonal(dim1=-2, dim2=-1).max().item()
+    moved = {0.0: (T_free - T0).abs().amax(dim=(-2, -1))}
+    poses = {}
+    d_T = d_H = 0.0
+    mus = {}
+    eye = torch.eye(6, device=T0.device)
+    entropy_at = (linearize._LEVEL_STATS + linearize._STAT_PLANES
+                  * cfg.max_iterations + linearize._EXTRA_ENTROPY)
+    for c in PRIOR_SCALES:
+        cfg_c = dataclasses.replace(cfg, mu=c * scale)
+        mus[c] = cfg_c.mu
+        got = dense_tracker.track_level(ref, cur, K, T0, cfg_c)
+        want = dense_tracker._track_level(
+            ref, cur, K, T0, cfg_c,
+            linearize=linearize.linearize_batched_reference)
+        tag = f"{what} mu = {c:g} x {scale:.4g}"
+        d_T = max(d_T, _compare_level(got, want, cfg_c, tag)[0])
+        T, fin, _ = got
+        post = (linearize.linearize_batched_reference(ref, cur, K, T, cfg_c).A
+                + cfg_c.mu * eye)
+        a_err = (fin.A - post).abs().amax(dim=(-2, -1))
+        if not bool((a_err <= 1e-4 * post.abs().amax(dim=(-2, -1))).all()):
+            raise AssertionError(f"{tag}: the record's A is {a_err.tolist()} "
+                                 f"from the plain linearization + mu I")
+        out, _ = linearize.track_level_kernels(ref, cur, K, T0, cfg_c)
+        h = out[:, entropy_at]
+        for h_want in (dense_tracker.pose_entropy(want[1].A),
+                       dense_tracker.pose_entropy(post)):
+            d_H = max(d_H, (h - h_want).abs().max().item())
+        if not d_H <= ENTROPY_ATOL:
+            raise AssertionError(f"{tag}: entropy {h.tolist()} is {d_H} from "
+                                 f"the host loop's / the plain posterior's")
+        poses[c] = T
+        moved[c] = (T - T0).abs().amax(dim=(-2, -1))
+    apart = (poses[1.0] - T_free).abs().amax(dim=(-2, -1))
+    if not (bool((apart >= 1e-4).all())
+            and bool((5.0 * moved[1e4] <= moved[0.0]).all())):
+        raise AssertionError(f"{what}: the prior does not move the pose as it "
+                             f"must: |T(c = 1) - T_free| {apart.tolist()}, "
+                             f"|T - T_init| free {moved[0.0].tolist()}, at "
+                             f"c = 1e4 {moved[1e4].tolist()}")
+    return d_T, d_H, mus, {c: m.max().item() for c, m in moved.items()}
+
+
 def phase_level_vs_plain(device, cfg):
     """2d: the level kernel (mode b, one launch per level) against its
     plain version, the host loop over linearize_batched_reference, at each
@@ -1013,6 +1112,316 @@ def _front_frames(device, n, num_levels):
     Ks = camera.pyramid_intrinsics(camera.intrinsics(*K_TUPLE, device=device),
                                    num_levels)
     return pyrs, Ks, poses
+
+
+# 13: every scale estimator, influence function and weighting the CLI
+# offers (each estimator under another influence) and the motion prior,
+# on the cluster kernel; MU is the prior's weight on the odometry orbit.
+MU = 0.1
+ESTIMATOR_CONFIGS = {
+    "mad_huber": {"scale_estimator": "mad", "influence": "huber"},
+    "normal_tukey": {"scale_estimator": "normal", "influence": "tukey"},
+    "unit_tdist": {"scale_estimator": "unit", "influence": "tdist"},
+    "unweighted": {"use_weighting": False},
+}
+PRIOR_CONFIGS = {"mu_gn": {"mu": MU},
+                 "mu_lm": {"mu": MU, "lm_lambda_init": 1e-4}}
+# 13b: the configs whose odometry runs are timed in turns against the host
+# loop; the others run once on each route.
+TURN_CONFIGS = ("mad_huber", "mu_gn")
+
+
+def _mad_elements(res):
+    """The plain MAD scale's elements of a residual pass (robust.scale_mad
+    reads them from its sort): |rI|, |rZ| at index min(n // 2, n - 1) of
+    the sorted values over the n valid points, +inf without one."""
+    import torch
+
+    n = int(res.valid.sum())
+    out = []
+    for r in (res.rI, res.rZ):
+        absr = torch.where(res.valid, r.abs(), torch.full_like(r, np.inf))
+        out.append(torch.sort(absr).values[min(n // 2, max(n - 1, 0))])
+    return torch.stack(out)
+
+
+def _odometry_run(device, cfg, frames):
+    """A fresh OdometryTracker over the frames: (world poses, per frame
+    after the first its (iterations, accepted, error, delta_norm) per
+    level as numpy, ms/frame after N_WARMUP frames, the launches of each
+    frame by kernel, the host loop's level calls)."""
+    import torch
+
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.models.odometry import OdometryTracker
+
+    host_levels = [0]
+    host_loop = dense_tracker._track_level
+
+    def counted(*args, **kwargs):
+        host_levels[0] += 1
+        return host_loop(*args, **kwargs)
+
+    tracker = OdometryTracker(K_TUPLE, cfg, device=device)
+    ms, stats, per_frame = [], [], []
+    dense_tracker._track_level = counted
+    if dense_tracker.track_level is host_loop:  # under _host_loop
+        dense_tracker.track_level = counted
+    try:
+        for k, (i, z) in enumerate(frames):
+            before = _launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracker.update(i, z, float(k))
+            torch.cuda.synchronize()
+            if k >= N_WARMUP:
+                ms.append(1e3 * (time.perf_counter() - t0))
+            after = _launches()
+            per_frame.append({key: after[key] - before[key] for key in (
+                "pyramid", "track_level", "linearize", "sample_slab")})
+            if k > 0:
+                s = tracker.last_result.stats
+                stats.append(tuple(np.asarray(x.cpu()) for x in (
+                    tracker.last_result.iterations, s.accepted, s.error,
+                    s.delta_norm)))
+    finally:
+        if dense_tracker.track_level is counted:
+            dense_tracker.track_level = host_loop
+        dense_tracker._track_level = host_loop
+    poses = [T for _, T in tracker.trajectory]
+    return poses, stats, float(np.mean(ms)), per_frame, host_levels[0]
+
+
+def phase_estimators(device, frames):
+    """13: the cluster kernel under every scale estimator the CLI offers
+    (ESTIMATOR_CONFIGS) and with the motion prior (PRIOR_CONFIGS, mu =
+    MU), at 640x480:
+    a. per tracked level of the noisy pair, mode (a) against
+       linearize_reference on the same card tensors (_check_fused: n_raw,
+       valid, rI and rZ exact; A, b within 1e-4 * max|.|; the rest rtol
+       1e-4) and the MAD elements bit for bit against the plain sort's;
+       mode (b) against the host loop over linearize_batched_reference
+       (_compare_level on the noise-free orbit pair, 2d's gates on the
+       noisy pair); for PRIOR_CONFIGS (GN, LM) also under priors scaled
+       to the data (_prior_check: pose, the posterior A + mu I and the
+       entropy against the host loop, the pose moved and pinned by the
+       prior); mode (b)'s device us a launch (events) on the noisy pair
+       beside the t-distribution's, and at the finest level the host
+       loop's time (events, host time included) and the bound;
+    b. 24-frame odometry over phase 3's orbit under each config, through
+       the level kernel and through the host loop (_host_loop: the eager
+       front, dense_tracker._track_level, one mode (a) launch an
+       iteration), in turns (host, kernel, kernel, host) for TURN_CONFIGS,
+       once each otherwise (mad + huber once more through the route it
+       took before, the host loop over the plain linearization, timed
+       only): on the kernel route every frame must show 1
+       pyramid launch, 3 level launches (0 on the first frame), 0 mode (a)
+       and standalone sampler launches and no host-loop level; the two
+       routes' world poses within 1e-4 and every (frame, level) whose
+       paths part parting at a tie (_parted); ms/frame;
+    c. one 16-frame chunk of ChunkedKeyframeSlam under MAD + Huber after an
+       8-frame one: inside submit_chunk 1 pyramid, 3 level and 1 scan-step
+       launch a frame and nothing else, under
+       torch.cuda.set_sync_debug_mode("error").
+    Returns, per config, the kernels line's numbers."""
+    import dataclasses
+    from functools import partial
+
+    import torch
+
+    from dvo_slam_tpu_torch import SlamConfig, TrackerConfig
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
+    from dvo_slam_tpu_torch.ops import linearize
+
+    t_start = time.perf_counter()
+    base = TrackerConfig()
+    configs = {name: dataclasses.replace(base, **fields) for name, fields in
+               {"tdist": {}, **ESTIMATOR_CONFIGS, **PRIOR_CONFIGS}.items()}
+    pairs = {noisy: _noisy_pair(device, base, noisy) for noisy in (False, True)}
+    out = {name: {"err": 0.0, "us": {}} for name in configs}
+    finest = base.tracked_levels[-1]
+    for lvl in base.tracked_levels:
+        for name, cfg in configs.items():
+            d = out[name]
+            if name in ESTIMATOR_CONFIGS:
+                ref_pyr, cur_pyr, Ks, T = pairs[True]
+                ref = linearize.prepare_reference(ref_pyr[lvl], Ks[lvl], cfg)
+                r_err, abs_err, _ = _check_fused(ref, cur_pyr[lvl], Ks[lvl],
+                                                 T, cfg)
+                got = linearize.kernel_mad_elements(
+                    device, ref.px.numel()).clone()
+                want = _mad_elements(linearize.residuals_reference(
+                    ref, cur_pyr[lvl], Ks[lvl], T, cfg))
+                if cfg.scale_estimator == "mad" and cfg.use_weighting:
+                    if _same_bits(got, want):
+                        raise AssertionError(
+                            f"13a {name} level {lvl}: MAD elements "
+                            f"{got.tolist()} != plain {want.tolist()}")
+                elif bool(got.any()):
+                    raise AssertionError(f"13a {name}: MAD elements {got}")
+                d["err"] = max(d["err"], r_err, abs_err)
+            checks = []
+            for noisy in (False, True):
+                ref_pyr, cur_pyr, Ks, T = pairs[noisy]
+                ref = linearize.prepare_reference(ref_pyr[lvl][None],
+                                                  Ks[lvl], cfg)
+                args = (ref, cur_pyr[lvl], Ks[lvl], T[None])
+                got = dense_tracker.track_level(*args, cfg)
+                want = dense_tracker._track_level(
+                    *args, cfg, linearize=linearize.linearize_batched_reference)
+                if noisy:
+                    d_T = (got[0] - want[0]).abs().max().item()
+                    n_k, n_h = float(got[1].n_raw[0]), float(want[1].n_raw[0])
+                    if not (d_T <= 1e-3 and abs(n_k - n_h) <= 0.01 * n_h):
+                        raise AssertionError(
+                            f"13a {name} noisy level {lvl}: |dT| {d_T}, "
+                            f"valid {n_k} / {n_h}")
+                    us = _events_us(partial(linearize.track_level_kernels,
+                                            *args, cfg))
+                    its = int(got[2]["iterations"][0])
+                    d["us"][lvl] = us
+                    checks.append(f"noisy |dT| {d_T:.2e}, {its} iterations, "
+                                  f"{us:.2f} us a launch")
+                    if lvl == finest:
+                        d["plain_ms"] = _events_us(partial(
+                            dense_tracker._track_level, *args, cfg,
+                            linearize=linearize.linearize_batched_reference),
+                            n=1, reps=3) / 1e3
+                        bound_cfg = cfg if name == "tdist" else \
+                            dataclasses.replace(cfg, tdist_scale_iters=0)
+                        d["bound"] = _bounds(bound_cfg, {
+                            "N": ref.px.shape[1], "H": cur_pyr[lvl].shape[1],
+                            "W": cur_pyr[lvl].shape[2]}, 1, {
+                            "its": [its], "n_valid": float(got[1].n_raw[0]),
+                            "paired": False})["track_level"]
+                else:
+                    d_T, a_rel, parted = _compare_level(
+                        got, want, cfg, f"13a {name} orbit level {lvl}")
+                    d["err"] = max(d["err"], d_T)
+                    checks.append(f"orbit |dT| {d_T:.2e}, A error / max|A| "
+                                  f"{a_rel:.2e}, parted at a tie "
+                                  f"{parted or 'none'}")
+            print(f"phase 13a {name} level {lvl}: "
+                  + ("mode (a) vs plain: n_raw, valid, rI, rZ"
+                     + (" and the MAD elements" if "mad" in name else "")
+                     + " exact; " if name in ESTIMATOR_CONFIGS else "")
+                  + "mode (b) vs host loop: " + "; ".join(checks))
+    for lvl in base.tracked_levels:
+        # The prior at weights scaled to the data, GN and LM, on the orbit.
+        ref_pyr, cur_pyr, Ks, T = pairs[False]
+        for name in PRIOR_CONFIGS:
+            cfg = configs[name]
+            ref = linearize.prepare_reference(ref_pyr[lvl][None], Ks[lvl], cfg)
+            d_T, d_H, mus, moved = _prior_check(
+                ref, cur_pyr[lvl], Ks[lvl], T[None], cfg,
+                f"13a {name} orbit level {lvl}")
+            out[name]["err"] = max(out[name]["err"], d_T)
+            print(f"phase 13a {name} level {lvl}, the prior scaled to the "
+                  f"data (mu " + ", ".join(f"{m:.4g}" for m in mus.values())
+                  + f"): mode (b) vs host loop |dT| {d_T:.2e}, the "
+                  f"posterior A + mu I once, entropy within {d_H:.2e}; max "
+                  f"|T - T_init| free {moved[0.0]:.3e}, "
+                  + ", ".join(f"c = {c:g} {moved[c]:.3e}"
+                              for c in PRIOR_SCALES))
+    for lvl in base.tracked_levels:
+        print(f"phase 13a mode (b) device us a launch (events, noisy pair, "
+              f"B = 1) level {lvl}: " + ", ".join(
+                  f"{name} {out[name]['us'][lvl]:.2f}" for name in configs))
+
+    for name, cfg in configs.items():
+        if name == "tdist":
+            continue
+        d = out[name]
+        runs = {True: [], False: []}
+        order = (True, False, False, True) if name in TURN_CONFIGS \
+            else (False, True)
+        for host in order:
+            if not host:
+                _reset_launches()
+            with _host_loop(host):
+                runs[host].append(_odometry_run(device, cfg, frames))
+            if not host:
+                d["launches"] = _launches()["track_level"]
+        (poses, stats, _, per_frame, host_levels) = runs[False][0]
+        (poses_h, stats_h, _, _, host_levels_h) = runs[True][0]
+        want = [{"pyramid": 1, "track_level": 3 * (k > 0), "linearize": 0,
+                 "sample_slab": 0} for k in range(len(frames))]
+        if per_frame != want or host_levels != 0:
+            raise AssertionError(f"13b {name}: launches a frame {per_frame}, "
+                                 f"host-loop levels {host_levels}")
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(poses, poses_h))
+        parted = []
+        for k, (s, s_h) in enumerate(zip(stats, stats_h)):
+            for j, lvl in enumerate(cfg.tracked_levels):
+                part = _parted(s[1][j], s_h[1][j], s[2][j], s_h[2][j],
+                               s[3][j], s_h[3][j], int(s[0][j]),
+                               int(s_h[0][j]), cfg.precision)
+                if part is not None:
+                    if not part[1]:
+                        raise AssertionError(
+                            f"13b {name} frame {k + 1} level {lvl}: the "
+                            f"routes part at iteration {part[0]} without a "
+                            f"tie")
+                    parted.append((k + 1, lvl))
+        if not diff <= 1e-4:
+            raise AssertionError(f"13b {name}: trajectories {diff} apart")
+        ms_k = [r[2] for r in runs[False]]
+        ms_h = [r[2] for r in runs[True]]
+        d.update(ms_frame=ms_k, host_ms_frame=ms_h, traj_err=diff)
+        replaced = ""
+        if name == "mad_huber":
+            # The route this config took on the card before the kernel
+            # took every estimator: the host loop over the plain
+            # linearization (the standalone sampler and a sort).
+            with _host_loop(), _plain_linearize():
+                old = _odometry_run(device, cfg, frames)
+            d["replaced_ms_frame"] = old[2]
+            replaced = (f"; the replaced route (host loop over the plain "
+                        f"linearization) {old[2]:.3f} ms/frame")
+        d["err"] = max(d["err"], diff)
+        print(f"phase 13b odometry {name} ({len(frames)} frames {W}x{H}): "
+              f"level kernel {', '.join(f'{m:.3f}' for m in ms_k)} ms/frame, "
+              f"host loop {', '.join(f'{m:.3f}' for m in ms_h)} ms/frame"
+              + (" (in turns: host, kernel, kernel, host)"
+                 if name in TURN_CONFIGS else "")
+              + replaced
+              + f"; a frame on the kernel route: pyramid 1, track_level 3, "
+              f"linearize 0, standalone sampler 0, host-loop levels 0 "
+              f"(host route: {host_levels_h} host-loop levels); max "
+              f"|T_kernel - T_host| {diff:.3e}; (frame, level) parted at a "
+              f"tie: {parted or 'none'}")
+
+    cfg = configs["mad_huber"]
+    slam = ChunkedKeyframeSlam(K_TUPLE, cfg, SlamConfig(),
+                               enable_loop_closure=True, device=device)
+    slam.init()
+
+    def chunk(a, b):
+        sel = [frames[k % len(frames)] for k in range(a, b)]
+        return (np.stack([s[0] for s in sel]), np.stack([s[1] for s in sel]),
+                [k / 30.0 for k in range(a, b)])
+
+    slam.update_chunk(*chunk(0, 8))
+    torch.cuda.synchronize()
+    before = _launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slam.submit_chunk(*chunk(8, 8 + CHUNK))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = _launches()
+    slam.collect_chunk()
+    per_frame = {k: (after[k] - before[k]) / CHUNK for k in SCAN_LAUNCHES}
+    print(f"phase 13c a {CHUNK}-frame chunk under mad_huber: launches in "
+          f"submit_chunk a frame "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in per_frame.items())}; "
+          f"under set_sync_debug_mode(\"error\"): no synchronizing call")
+    if per_frame != SCAN_LAUNCHES:
+        raise AssertionError(f"13c: launches a frame {per_frame}, want "
+                             f"{SCAN_LAUNCHES}")
+    print(f"phase 13 took {time.perf_counter() - t_start:.1f} s")
+    return out
 
 
 def phase_front(device):
@@ -2018,7 +2427,7 @@ def _sampler_bound(slab, u, v):
 
 def kernel_rows(cfg, levels, launches, dev_times, slam_out,
                 level_pairs, batched, chunked_launches, val_batches,
-                compaction, par, graph, offline, front, scan):
+                compaction, par, graph, offline, front, scan, estimators):
     """The kernels' JSON rows at the finest tracked level: the standalone
     sampler, and the cluster kernel's two modes at B = 1 (the odometry
     main path's launches), at the SLAM path's batch sizes (its launches at
@@ -2039,7 +2448,10 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
     one a frame; its plain version's host ms a call) and mode (b) at B = 1
     on the slab route (phase 3's launches), timed in 3a with its bound
     and plain version from 3a's own launch; the scan step (phase 8's
-    launches), timed in 8a with its bound. Every kernel time by CUDA
+    launches), timed in 8a with its bound; mode (b) under each scale
+    estimator and with the motion prior (13b's kernel-route odometry
+    launches, timed in 13a on the noisy pair with the bound of that
+    launch's iterations and valid points). Every kernel time by CUDA
     events."""
     slam_launches = slam_out["launches"]
     lvl = cfg.tracked_levels[-1]
@@ -2158,6 +2570,12 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
         "dvo_slam_tpu/models/keyframe_scan.py:100",
         chunked_launches["scan_step"], scan["err"], scan["us"] / 1e3,
         scan["plain_ms"], scan["bound"], None)
+    for name in (*ESTIMATOR_CONFIGS, *PRIOR_CONFIGS):
+        d = estimators[name]
+        row(f"track_level (mode b), {name} (odometry's launches)",
+            "dvo_slam_tpu_torch/csrc/linearize.cu",
+            "dvo_slam_tpu/ops/pallas/sampler.py:226", d["launches"], d["err"],
+            d["us"][lvl] / 1e3, d["plain_ms"], d["bound"], None)
     return rows
 
 
@@ -2358,7 +2776,7 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
 
     from dvo_slam_tpu_torch import benchmark, cli, native
     from dvo_slam_tpu_torch.models import pose_graph
-    from dvo_slam_tpu_torch.ops import camera, linearize
+    from dvo_slam_tpu_torch.ops import camera
     from dvo_slam_tpu_torch.utils import g2o_io, tum
 
     dev = ["--device", str(device)]
@@ -2613,37 +3031,33 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
         crossing = (_dense_or_cg(device, ring_solves)
                     if torch.device(device).type == "cuda" else {})
 
-        # 6g: a scale estimator off the kernels' route: the plain
-        # linearization with the standalone sampler kernel.
-        rows_seen = [0]
-        batched = linearize.linearize_batched
-
-        def counting(ref, cur_slab, K, T, *a, **kw):
-            rows_seen[0] += T.shape[0]
-            return batched(ref, cur_slab, K, T, *a, **kw)
-
-        linearize.linearize_batched = counting
+        # 6g: another scale estimator and influence function through the
+        # CLI: the level kernel, one launch a tracked level, as the default.
         _reset_launches()
-        try:
-            rc, out = _cli(["odometry", seq, "--fr", "1", "--max-frames",
-                            "24", "--scale-estimator", "normal",
-                            "--influence", "huber", *dev])
-        finally:
-            linearize.linearize_batched = batched
+        rc, out = _cli(["odometry", seq, "--fr", "1", "--max-frames",
+                        "24", "--scale-estimator", "normal",
+                        "--influence", "huber", *dev])
         launches = _launches()
         r = json.loads(out)
+        n_levels = len(tracker_cfg.tracked_levels)
         print(f"phase 6g odometry --scale-estimator normal --influence huber "
-              f"(24 frames): {r['fps']:.3f} fps, ATE "
-              f"{1e3 * r['ate_rmse_m']:.4f} mm; linearizations "
-              f"{rows_seen[0]}, standalone sampler launches "
-              f"{launches['sample_slab']}, linearize {launches['linearize']}, "
-              f"track_level {launches['track_level']}")
-        if not (rc == 0 and rows_seen[0] > 0
-                and launches["sample_slab"] == rows_seen[0]
-                and launches["linearize"] == 0
-                and launches["track_level"] == 0):
-            raise AssertionError(f"off-route launches {launches}, "
-                                 f"linearizations {rows_seen[0]}")
+              f"({r['num_frames']} frames): {r['fps']:.3f} fps, ATE "
+              f"{1e3 * r['ate_rmse_m']:.4f} mm; track_level "
+              f"{launches['track_level']} ({n_levels} a tracked pair), "
+              f"pyramid {launches['pyramid']}, linearize "
+              f"{launches['linearize']}, standalone sampler launches "
+              f"{launches['sample_slab']}")
+        on_card = torch.device(device).type == "cuda"
+        # One level launch a level for every tracked pair: the frames after
+        # the first, and the benchmark's warm-up pair (run_sequence's own
+        # tracker over the first two frames), so n_levels a frame; one
+        # pyramid a frame and the warm-up's two.
+        want = {"track_level": n_levels * r["num_frames"],
+                "pyramid": r["num_frames"] + 2, "linearize": 0,
+                "sample_slab": 0}
+        if not (rc == 0 and (not on_card or all(
+                launches[k] == v for k, v in want.items()))):
+            raise AssertionError(f"6g launches {launches}, want {want}")
         return {"frames": [ds[k] for k in range(
                     max(2 * OFFLINE_PROFILED_FRAMES, TURN_OFFLINE_FRAMES))],
                 "groundtruth": ds.groundtruth_pose,
@@ -4948,6 +5362,7 @@ def main():
     level_pairs = phase_level_vs_plain(device, cfg)
     batched = phase_batched_vs_plain(device, cfg)
     launches, _, frames, _ = phase_main_path(device)
+    estimators = phase_estimators(device, frames)
     front = phase_front(device)
     slam_out = phase_slam(device)
     t0 = time.perf_counter()
@@ -4996,7 +5411,7 @@ def main():
     print(json.dumps({"kernels": kernel_rows(
         cfg, levels, launches, dev_times, slam_out, level_pairs, batched,
         chunked["launches"], val_batches, compaction, par, graph, offline,
-        front, scan)}))
+        front, scan, estimators)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -124,7 +124,9 @@ def _entry_points():
         vp, i64, ci, cf, cf,  # slab route: rows, stride, table, thresholds
         ci, vp, i64, ci, ci, vp,  # N, slab, slab_stride, H, W, K
     ]
-    scale = [ci, ci, cf, cf, cf, ci, ci]  # use_depth .. warm_iters
+    # use_depth .. warm_iters, estimator, influence, huber_k, tukey_b,
+    # the scale floors
+    scale = [ci, ci, cf, cf, cf, ci, ci, ci, ci, cf, cf, cf, cf]
     return {
         "dvo_sample_slab": ([
             vp, ci, ci, ci,  # slab, C, H, W
@@ -142,7 +144,7 @@ def _entry_points():
         ], ci),
         "dvo_track_level": ([
             *refs, vp, i64, *scale, ci, cf,  # T_init, stride, ..., precision
-            cf, cf, cf, cf, ci,  # LM lambda init, up, down, max; cluster
+            cf, cf, cf, cf, cf, ci,  # LM lambda init, up, down, max, mu; C
             vp, i64, vp, i64,  # out, its row stride, out_i, its row stride
             cd, vp,  # loglik constant, stream
         ], ci),

@@ -11,12 +11,16 @@
 // dvo_slam_tpu/models/dense_tracker.py:147-296 (accept / revert, LM damping,
 // 6x6 solve, exp(delta) T, stop test). The plain PyTorch versions are
 // ops/linearize.py::linearize_batched_reference (mode a) and the host loop
-// models/dense_tracker.py::_track_level over it (mode b). Both cover the
+// models/dense_tracker.py::_track_level over it (mode b). Both cover every
+// scale estimator and influence function of the tracker's config: the
 // t-distribution branch (both gradient sources, use_depth on and off, the
-// Sigma warm start); mode (b) without the motion prior (mu == 0).
+// Sigma warm start) and the branch of dvo_slam_tpu/ops/linearize.py:452-482
+// (the unit, normal and MAD scales, each influence function, or no
+// weighting), and mode (b) runs the motion prior (mu > 0) as
+// dvo_slam_tpu/models/dense_tracker.py:192-204 and :283-288 do.
 //
 //   (a) linearize_kernel: one linearization per batch row at the row's pose
-//       T, written as the 51-float Linearization vector (kOut*), and the
+//       T, written as the 53-float Linearization vector (kOut*), and the
 //       per-point rI, rZ and valid of the residual pass.
 //   (b) track_level_kernel: a pyramid level's whole IRLS loop per batch row,
 //       up to max_iterations linearizations and solves in one launch;
@@ -28,6 +32,10 @@
 //       result's log-likelihood, pose entropy and valid ratio from its
 //       accepted record (what models/dense_tracker.py's eager assembly
 //       computes from the finest level's).
+//
+// Each kernel is two instantiations: <false> for the t-distribution (the
+// default config), <true> for every other scale estimator and for no
+// weighting, so that the default's passes carry no estimator branch.
 //
 // The reference points. Either read from RefData's (B, N) arrays
 // (ops/linearize.py::prepare_reference, the route of compaction, the
@@ -64,6 +72,24 @@
 // number of barriers. Sums run in f64 from the per-point f32 products on, in
 // a fixed order: the same inputs give the same bits every run, and a row's
 // bits do not depend on B.
+//
+// The robust scale off the t-distribution (ops/robust.py). unit: none.
+// normal: one reduction of the sums of rI and rZ for the means, then one
+// of the squared deviations from them (two passes, as robust.scale_normal;
+// the one-pass E[r^2] - mean^2 cancels). The means' sums are not carried in
+// the residual pass's moments, which every other estimator reduces too. mad: the
+// element robust.scale_mad reads from its sort, index min(n / 2, n - 1) of
+// the sorted |r| over the n valid points, for rI and rZ, found by a radix
+// select over the f32 bits of |r| (non-negative floats order as unsigned
+// integers): kDigitPasses passes of kDigitBits bits, high digit first; in
+// each pass every CTA counts its points that match the digits chosen so
+// far into a shared-memory histogram of the next digit (integer atomics),
+// thread t of every CTA sums bin t over the cluster's CTAs through
+// distributed shared memory, and every CTA scans the sums and picks the
+// same digit. One cluster barrier a pass (the histograms alternate
+// between two buffers, as cluster_sum's sums): a MAD linearization takes
+// 4 cluster barriers more than a unit one, a normal one 2 more. The
+// element is the plain version's bit for bit.
 //
 // The residual arithmetic (warp, projection, sample, rI, rZ) uses the _rn
 // intrinsics in the plain version's order, so nvcc contracts nothing into
@@ -104,9 +130,21 @@ constexpr int kPointFloats = 9;    // rI, rZ, X, Y, Z, gix, giy, gzx, gzy
 constexpr int kPointBytes = 4 * kPointFloats + 1;  // and valid
 // The Linearization vector of mode (a) (ops/linearize.py reads the same
 // offsets).
+// kOutMad: the MAD scale's two selected elements, |rI| and |rZ| before the
+// 1.4826 factor (+inf with no valid point; 0 for the other estimators).
 constexpr int kOutA = 0, kOutB = 36, kOutErrMean = 42, kOutN = 43,
               kOutNRaw = 44, kOutSigma = 45, kOutLog1p = 49, kOutErrRaw = 50,
-              kOutSize = 51;
+              kOutMad = 51, kOutSize = 53;
+// Scale estimators and influence functions (ops/linearize.py _ESTIMATORS,
+// _INFLUENCES); kEstNone: use_weighting off.
+constexpr int kEstTdist = 0, kEstUnit = 1, kEstNormal = 2, kEstMad = 3, kEstNone = 4;
+constexpr int kInfUnit = 0, kInfHuber = 1, kInfTukey = 2, kInfTdist = 3;
+constexpr float kMadFactor = 1.4826f;  // ops/robust.py scale_mad
+// The MAD radix select: digits of the 31 bits of |r| (the sign bit is 0),
+// a histogram of 2 x kBins bins a pass (rI's, then rZ's), one bin a thread.
+constexpr int kDigitBits = 8, kDigitPasses = 4, kBins = 1 << kDigitBits;
+static_assert(kDigitBits * kDigitPasses >= 31, "the digits cover |r|'s bits");
+static_assert(2 * kBins == kThreads, "thread t sums bin t across the ranks");
 // The tracker's record of the last accepted linearization
 // (models/dense_tracker.py _flat).
 constexpr int kBestA = 0, kBestB = 36, kBestErr = 42, kBestErrRaw = 43,
@@ -165,15 +203,20 @@ struct Params {
   int use_depth, ref_grad, warm;
   float nu, floor_ii, floor_zz;
   int scale_iters, warm_iters;
+  // The scale estimator and influence function (kEst*, kInf*), their
+  // parameters, and the scale floors min_intensity_sigma, min_depth_sigma.
+  int estimator, influence;
+  float huber_k, tukey_b, min_si, min_sz;
   // Mode (b): the IRLS loop.
   int max_iterations;
   float precision, lm_init, lm_up, lm_down, lm_max;
+  float mu;  // the motion prior's weight (0: none)
   // Mode (b): lgamma((nu + 2) / 2) - lgamma(nu / 2) - log(nu pi), for the
   // log-likelihood.
   double loglik_const;
   // Points per CTA, and whether they are kept in shared memory.
   int P, stored;
-  // Outputs. (a): out (B, 51), rI / rZ / valid (B, N). (b): row b's
+  // Outputs. (a): out (B, 53), rI / rZ / valid (B, N). (b): row b's
   // kLevelStats + 5 * max_iterations + kExtraSize floats at out + b *
   // out_stride, its iterations and termination at out_i + b * out_i_stride.
   float* out;
@@ -219,6 +262,10 @@ struct Shared {
   double tot[32];      // the cluster's sums
   float T[16];         // the pose the next linearization is taken at
   float Tbest[16];     // mode (b): the pose of the last accepted one
+  float Tinit[16];     // mode (b): the level's initial pose (the prior's)
+  unsigned hist[2][2 * kBins];  // MAD: this CTA's digit counts (2 buffers)
+  unsigned scan[kWarps];        // MAD: each warp's inclusive bin sums
+  unsigned digit[2], below[2];  // MAD: the pass's digit, the points under it
   float best[kBestSize];
   float lin[kOutSize];  // the last linearization
   float a, bq, c, n, n_raw;  // Sigma entries, valid count floored and raw
@@ -470,10 +517,166 @@ __device__ __forceinline__ void tdist_weight(const Precision& P, float nu, float
   *w = mul(__frcp_rn(add(*maha, nu)), nu + 2.f);
 }
 
+// torch.clamp(x, min=lo): NaN stays NaN (fmaxf would drop it).
+__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
+
+// maha and the weight of one valid point off the t-distribution
+// (ops/linearize.py::linearize_reference's other branch): maha = rI^2 / a +
+// rZ^2 / c and w = influence(sqrt(maha)), or 1 unweighted; scalar / tensor
+// as reciprocal-then-scale, as there.
+__device__ __forceinline__ void point_weight(const Params& p, const Precision& P, float rI,
+                                             float rZ, float* maha, float* w) {
+  *maha = add(mul(P.p00, mul(rI, rI)), mul(P.p11, mul(rZ, rZ)));
+  if (p.estimator == kEstNone) {
+    *w = 1.f;
+    return;
+  }
+  const float x = __fsqrt_rn(*maha);
+  if (p.influence == kInfHuber) {
+    const float ax = fabsf(x);
+    *w = ax <= p.huber_k ? 1.f : mul(__frcp_rn(clamp_min(ax, kEps)), p.huber_k);
+  } else if (p.influence == kInfTukey) {
+    const float xb = __fdiv_rn(x, p.tukey_b);
+    const float t = sub(1.f, mul(xb, xb));
+    *w = fabsf(x) <= p.tukey_b ? mul(t, t) : 0.f;
+  } else if (p.influence == kInfTdist) {
+    *w = mul(__frcp_rn(add(p.nu, mul(x, x))), add(p.nu, 1.f));
+  } else {
+    *w = 1.f;
+  }
+}
+
+// The MAD scale's element for rI and rZ (see the header): the k-th
+// smallest |r| over the row's `count` valid points, k = min(count / 2,
+// count - 1), by a radix select; count > 0, the same in every CTA. Every
+// CTA ends with the same sh.lin[kOutMad + c].
+__device__ void mad_select(const Params& p, const Row& r, Shared& sh, const Points& s,
+                           int base, int n_mine, int count) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, ch = t / kBins;
+  const unsigned k = (unsigned)min(count / 2, count - 1);
+  unsigned prefix[2] = {0u, 0u}, rank[2] = {k, k}, mask = 0u;
+  for (int pass = 0; pass < kDigitPasses; ++pass) {
+    const int shift = kDigitBits * (kDigitPasses - 1 - pass);
+    unsigned* hist = sh.hist[pass & 1];
+    hist[t] = 0u;
+    __syncthreads();
+    for (int j = threadIdx.x; j < n_mine; j += kThreads) {
+      const Point q = load_point<false>(p, r, sh, s, j, base + j);
+      if (!q.valid) continue;
+      const unsigned bI = __float_as_uint(q.rI) & 0x7fffffffu;
+      const unsigned bZ = __float_as_uint(q.rZ) & 0x7fffffffu;
+      if ((bI & mask) == prefix[0]) atomicAdd(hist + ((bI >> shift) & (kBins - 1)), 1u);
+      if ((bZ & mask) == prefix[1])
+        atomicAdd(hist + kBins + ((bZ >> shift) & (kBins - 1)), 1u);
+    }
+    // Every CTA's counts are in place past the barrier (release /
+    // acquire); a buffer is written again two passes on, after the next
+    // barrier, which every CTA passes only once it has read this one.
+    cluster.sync();
+    unsigned v = 0u;
+    for (int q = 0; q < C; ++q) v += *cluster.map_shared_rank(hist + t, q);
+    // The inclusive sum of this channel's bins up to bin t.
+    unsigned incl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane == 31) sh.scan[warp] = incl;
+    __syncthreads();
+    for (int w = ch * (kBins / 32); w < warp; ++w) incl += sh.scan[w];
+    const unsigned excl = incl - v, want = rank[ch];
+    if (excl <= want && want < incl) {
+      sh.digit[ch] = t & (kBins - 1);
+      sh.below[ch] = excl;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      prefix[c] |= sh.digit[c] << shift;
+      rank[c] -= sh.below[c];
+    }
+    mask |= (unsigned)(kBins - 1) << shift;
+    // sh.scan, digit and below are written again only past the next
+    // pass's barriers, which every thread reaches after reading them.
+  }
+  if (threadIdx.x == 0) {
+    sh.lin[kOutMad] = __uint_as_float(prefix[0]);
+    sh.lin[kOutMad + 1] = __uint_as_float(prefix[1]);
+  }
+  __syncthreads();
+}
+
+// The robust scale off the t-distribution (ops/linearize.py::
+// linearize_reference's other branch, ops/robust.py): Sigma = diag(a, c)
+// into sh.a, sh.bq = 0, sh.c, with s_i, s_z clamped to the floors
+// (weighted), or a = c = 1 (unweighted). After the residual pass.
+__device__ void robust_scale(const Params& p, const Row& r, Shared& sh, const Points& s,
+                             int base, int n_mine, int& parity, int C) {
+  float si = 1.f, sz = 1.f;
+  if (p.estimator == kEstNormal) {
+    // scale_normal: the masked mean, then the masked mean of the squared
+    // deviations from it (a second pass), sqrt(var + 1e-12).
+    const float n = sh.n;
+    double m[2] = {0.0, 0.0};
+    for (int j = threadIdx.x; j < n_mine; j += kThreads) {
+      const Point q = load_point<false>(p, r, sh, s, j, base + j);
+      if (q.valid) {
+        m[0] += (double)q.rI;
+        m[1] += (double)q.rZ;
+      }
+    }
+    cluster_sum<2>(m, sh, parity, C);
+    const float mean_i = __fdiv_rn((float)sh.tot[0], n);
+    const float mean_z = __fdiv_rn((float)sh.tot[1], n);
+    m[0] = m[1] = 0.0;
+    for (int j = threadIdx.x; j < n_mine; j += kThreads) {
+      const Point q = load_point<false>(p, r, sh, s, j, base + j);
+      if (q.valid) {
+        const float di = sub(q.rI, mean_i), dz = sub(q.rZ, mean_z);
+        m[0] += (double)mul(di, di);
+        m[1] += (double)mul(dz, dz);
+      }
+    }
+    cluster_sum<2>(m, sh, parity, C);
+    si = __fsqrt_rn(add(__fdiv_rn((float)sh.tot[0], n), 1e-12f));
+    sz = __fsqrt_rn(add(__fdiv_rn((float)sh.tot[1], n), 1e-12f));
+  } else if (p.estimator == kEstMad) {
+    // scale_mad: 1.4826 x the selected element, 1 where it is not finite
+    // (no valid point).
+    const int count = (int)sh.n_raw;
+    if (count > 0) {
+      mad_select(p, r, sh, s, base, n_mine, count);
+    } else if (threadIdx.x == 0) {
+      sh.lin[kOutMad] = sh.lin[kOutMad + 1] = __int_as_float(0x7f800000);
+    }
+    __syncthreads();
+    const float ei = sh.lin[kOutMad], ez = sh.lin[kOutMad + 1];
+    si = mul(kMadFactor, isfinite(ei) ? ei : 1.f);
+    sz = mul(kMadFactor, isfinite(ez) ? ez : 1.f);
+  }
+  if (p.estimator != kEstNone) {
+    si = clamp_min(si, p.min_si);
+    sz = clamp_min(sz, p.min_sz);
+  }
+  if (threadIdx.x == 0) {
+    sh.a = mul(si, si);
+    sh.bq = 0.f;
+    sh.c = mul(sz, sz);
+  }
+  __syncthreads();
+}
+
 // One linearization of this cluster's batch row at sh.T: the residual pass,
-// the Sigma fixed point and the normal equations. Every CTA ends with the
-// same sh.lin. `seed` (2, 2) warm-starts Sigma when `warm` and finite. Mode
-// (a) passes `residuals` to write rI, rZ and valid out.
+// the robust scale (the Sigma fixed point, or robust_scale off the
+// t-distribution: kRobust, the instantiation the launch picks for every
+// other estimator, so that the t-distribution's code has no estimator
+// branch) and the normal equations. Every CTA ends with the same sh.lin. `seed` (2, 2) warm-starts
+// Sigma when `warm` and finite (the t-distribution only). Mode (a) passes
+// `residuals` to write rI, rZ and valid out.
+template <bool kRobust>
 __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
                               const Points& s, int b, int rank, int C,
                               int& parity, bool warm, const float* seed,
@@ -481,6 +684,7 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
   const int base = rank * p.P;
   const int n_mine = max(0, min(p.P, p.N - base));
   const int64_t row0 = (int64_t)b * p.N;
+  constexpr bool tdist = !kRobust;
 
   // Residual pass: every point of the slice, and the residual moments.
   {
@@ -510,8 +714,8 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
       float a = add(__fdiv_rn((float)sh.tot[0], n), p.floor_ii);
       float bq = __fdiv_rn((float)sh.tot[1], n);
       float c = add(__fdiv_rn((float)sh.tot[2], n), p.floor_zz);
-      int n_fp = p.scale_iters;
-      if (warm) {
+      int n_fp = tdist ? p.scale_iters : 0;
+      if (tdist && warm) {
         // Warm start from the previous Sigma when it is finite
         // (dvo_slam_tpu/ops/linearize.py:422-431 decides it with jnp.where).
         const float s00 = seed[0], s01 = seed[1], s10 = seed[2], s11 = seed[3];
@@ -528,6 +732,7 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
       sh.n = n;
       sh.n_raw = n_raw;
       sh.n_fp = n_fp;
+      if (p.estimator != kEstMad) sh.lin[kOutMad] = sh.lin[kOutMad + 1] = 0.f;
     }
     __syncthreads();
   }
@@ -554,10 +759,20 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
     }
     __syncthreads();
   }
+  if (!tdist) robust_scale(p, r, sh, s, base, n_mine, parity, C);
 
   // Weights, Jacobian and the normal equations
-  // (ops/linearize.py::normal_equations_reference).
-  const Precision P = precision(sh.a, sh.bq, sh.c);
+  // (ops/linearize.py::normal_equations_reference). Off the t-distribution
+  // the precision is diag(1 / a, 1 / c) and det = a c.
+  Precision P;
+  if (tdist) {
+    P = precision(sh.a, sh.bq, sh.c);
+  } else {
+    P.det = fmaxf(mul(sh.a, sh.c), kEps);
+    P.p00 = __frcp_rn(sh.a);
+    P.p01 = 0.f;
+    P.p11 = __frcp_rn(sh.c);
+  }
   {
     double acc[kNormalSums];
 #pragma unroll
@@ -569,7 +784,10 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
       const Point q = load_point<true>(p, r, sh, s, j, base + j);
       if (!q.valid) continue;
       float maha, w;
-      tdist_weight(P, p.nu, q.rI, q.rZ, &maha, &w);
+      if (tdist)
+        tdist_weight(P, p.nu, q.rI, q.rZ, &maha, &w);
+      else
+        point_weight(p, P, q.rI, q.rZ, &maha, &w);
       const float X = q.X, Y = q.Y, Z = q.Z, zi = guarded_inv(q.Z);
       const float A_ = fx * zi, B_ = fy * zi;
       const float C_ = -fx * X * zi * zi, D_ = -fy * Y * zi * zi;
@@ -609,8 +827,15 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
     }
     for (int k = 0; k < 6; ++k) o[kOutB + k] = (float)sh.tot[21 + k];
     const float log1p_sum = (float)sh.tot[28];
-    o[kOutErrMean] =
-        add(0.5f * logf(P.det), __fdiv_rn((p.nu + 2.f) * 0.5f * log1p_sum, sh.n));
+    const float err_raw = (float)sh.tot[27];
+    if (tdist) {
+      o[kOutErrMean] =
+          add(0.5f * logf(P.det), __fdiv_rn((p.nu + 2.f) * 0.5f * log1p_sum, sh.n));
+    } else if (p.estimator == kEstNone) {
+      o[kOutErrMean] = __fdiv_rn(err_raw, sh.n);
+    } else {
+      o[kOutErrMean] = add(__fdiv_rn(err_raw, sh.n), logf(P.det));
+    }
     o[kOutN] = sh.n;
     o[kOutNRaw] = sh.n_raw;
     o[kOutSigma + 0] = sh.a;
@@ -618,7 +843,7 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
     o[kOutSigma + 2] = sh.bq;
     o[kOutSigma + 3] = sh.c;
     o[kOutLog1p] = log1p_sum;
-    o[kOutErrRaw] = (float)sh.tot[27];
+    o[kOutErrRaw] = err_raw;
   }
   __syncthreads();
 }
@@ -697,9 +922,73 @@ __device__ void se3_exp(const float* xi, float* E) {
   E[15] = 1.f;
 }
 
+// torch.clamp(x, lo, hi), NaN kept.
+__device__ __forceinline__ float clamp2(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// ops/se3.py::log (with log_so3 and its branches as there): (4, 4) -> the
+// (6,) twist (v, w), in f32.
+__device__ void se3_log(const float* T, float* xi) {
+  const float trace = add(add(T[0], T[5]), T[10]);
+  const float u = clamp2(mul(sub(3.f, trace), 0.5f), 0.f, 2.f);  // 1 - cos
+  const bool small_u = u < 1e-6f;
+  const float us = small_u ? 1.f : u;
+  const float theta_r = acosf(sub(1.f, us));
+  const float sin_r = sqrtf(mul(us, sub(2.f, us)));
+  const float tss = add(mul(2.f, u), __fdiv_rn(mul(u, u), 3.f));
+  const float factor =
+      small_u ? add(add(0.5f, __fdiv_rn(tss, 12.f)), __fdiv_rn(mul(mul(7.f, tss), tss), 720.f))
+              : __fdiv_rn(theta_r, mul(2.f, sin_r));
+  const float w[3] = {mul(factor, sub(T[9], T[6])), mul(factor, sub(T[2], T[8])),
+                      mul(factor, sub(T[4], T[1]))};
+  const float th2 = add(add(mul(w[0], w[0]), mul(w[1], w[1])), mul(w[2], w[2]));
+  const bool small = th2 < 1e-8f;
+  const float th = sqrtf(th2 < 1e-12f ? 1.f : th2);
+  // V^-1 = I - W / 2 + coef W^2, coef = 1 / t^2 - (1 + cos t) / (2 t sin t)
+  const float coef = small ? add(1.f / 12.f, __fdiv_rn(th2, 720.f))
+                           : sub(__frcp_rn(th2), __fdiv_rn(add(1.f, cosf(th)),
+                                                           mul(mul(2.f, th), sinf(th))));
+  const float Wm[9] = {0.f, -w[2], w[1], w[2], 0.f, -w[0], -w[1], w[0], 0.f};
+  for (int i = 0; i < 3; ++i) {
+    float v = 0.f;
+    for (int j = 0; j < 3; ++j) {
+      const float w2 = Wm[3 * i] * Wm[j] + Wm[3 * i + 1] * Wm[3 + j] + Wm[3 * i + 2] * Wm[6 + j];
+      const float vij = (i == j ? 1.f : 0.f) - 0.5f * Wm[3 * i + j] + coef * w2;
+      v += vij * T[4 * j + 3];
+    }
+    xi[i] = v;
+    xi[3 + i] = w[i];
+  }
+}
+
+// The motion prior's twist log(Tbase T_init^-1) (models/dense_tracker.py's
+// xi_prior), with T_init^-1 = [R^T, -R^T t].
+__device__ void prior_twist(const float* Tbase, const float* Tinit, float* xi) {
+  float inv[16], P[16];
+  for (int i = 0; i < 3; ++i) {
+    float t = 0.f;
+    for (int j = 0; j < 3; ++j) {
+      inv[4 * i + j] = Tinit[4 * j + i];
+      t += Tinit[4 * j + i] * Tinit[4 * j + 3];
+    }
+    inv[4 * i + 3] = -t;
+  }
+  inv[12] = inv[13] = inv[14] = 0.f;
+  inv[15] = 1.f;
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
+      P[4 * i + j] = Tbase[4 * i] * inv[j] + Tbase[4 * i + 1] * inv[4 + j] +
+                     Tbase[4 * i + 2] * inv[8 + j] + Tbase[4 * i + 3] * inv[12 + j];
+  se3_log(P, xi);
+}
+
 // One IRLS step of models/dense_tracker.py::_track_level for this row, from
 // sh.lin (the linearization at sh.T), in thread 0. Writes iteration k's
-// statistics when `stats` is set (rank 0).
+// statistics when `stats` is set (rank 0). With mu > 0 the solve takes the
+// motion prior, A + mu I and b + mu log(Tbase T_init^-1); the carried
+// record stays the pure data term (dvo_slam_tpu/models/dense_tracker.py:
+// 193-198: else each rejection would stack another mu I).
 __device__ void irls_step(const Params& p, Shared& sh, int k, float* stats) {
   const float* lin = sh.lin;
   float* best = sh.best;
@@ -725,7 +1014,18 @@ __device__ void irls_step(const Params& p, Shared& sh, int k, float* stats) {
     rejected_stop = !accept;  // pure GN: an error increase reverts and stops
   }
   float delta[6];
-  solve6(best + kBestA, best + kBestB, lam, delta);
+  if (p.mu > 0.f) {
+    float A[36], g[6], xi[6];
+    prior_twist(Tbase, sh.Tinit, xi);
+    for (int i = 0; i < 36; ++i) A[i] = best[kBestA + i];
+    for (int i = 0; i < 6; ++i) {
+      A[7 * i] = add(A[7 * i], p.mu);
+      g[i] = add(best[kBestB + i], mul(p.mu, xi[i]));
+    }
+    solve6(A, g, lam, delta);
+  } else {
+    solve6(best + kBestA, best + kBestB, lam, delta);
+  }
   bool finite = true;
   for (int i = 0; i < 6; ++i) finite = finite && isfinite(delta[i]);
   float sq = 0.f;
@@ -821,6 +1121,7 @@ __device__ __forceinline__ Points points_of(const Params& p, float4* dyn) {
   return s;
 }
 
+template <bool kRobust>
 __global__ void __launch_bounds__(kThreads, 1) linearize_kernel(Params p) {
   extern __shared__ float4 dyn_smem[];
   __shared__ Shared sh;
@@ -831,13 +1132,14 @@ __global__ void __launch_bounds__(kThreads, 1) linearize_kernel(Params p) {
   if (threadIdx.x < 16) sh.T[threadIdx.x] = p.T[b * p.T_stride + threadIdx.x];
   __syncthreads();
   int parity = 0;
-  linearize_row(p, r, sh, points_of(p, dyn_smem), b, rank, C, parity,
+  linearize_row<kRobust>(p, r, sh, points_of(p, dyn_smem), b, rank, C, parity,
                 p.warm != 0, p.warm ? p.sigma_init + 4 * b : nullptr, true);
   if (rank == 0 && threadIdx.x < kOutSize)
     p.out[(int64_t)b * kOutSize + threadIdx.x] = sh.lin[threadIdx.x];
   cluster.sync();  // no CTA leaves while another may read its shared memory
 }
 
+template <bool kRobust>
 __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
   // cudaTriggerProgrammaticLaunchCompletion(): a launch after this one
   // made with programmatic stream serialization (the chunked scan's step,
@@ -858,6 +1160,7 @@ __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
   if (threadIdx.x < 16) {
     sh.T[threadIdx.x] = p.T[b * p.T_stride + threadIdx.x];
     sh.Tbest[threadIdx.x] = p.T[b * p.T_stride + threadIdx.x];
+    sh.Tinit[threadIdx.x] = p.T[b * p.T_stride + threadIdx.x];
   }
   if (threadIdx.x < kBestSize) sh.best[threadIdx.x] = 0.f;
   if (threadIdx.x == 0) {
@@ -871,13 +1174,21 @@ __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
   // the same flag (computed from the same sums), so all take the same
   // number of barriers.
   while (k < M) {
-    linearize_row(p, r, sh, s, b, rank, C, parity,
+    linearize_row<kRobust>(p, r, sh, s, b, rank, C, parity,
                   k > 0 && p.warm_iters > 0, sh.best + kBestSigma, false);
     if (threadIdx.x == 0) irls_step(p, sh, k, rank == 0 ? o + kLevelStats : nullptr);
     __syncthreads();
     ++k;
     if (sh.done) break;
   }
+  // The record leaves the level as the posterior information A + mu I,
+  // added once, here: the carry above stays the data term (irls_step),
+  // and what reads the record after the launch (the entropy below,
+  // models/dense_tracker.py::level_result, the scan step's row head in
+  // csrc/keyframe_scan.cu) takes it as it is, so nothing adds it again.
+  if (p.mu > 0.f && threadIdx.x == 0)
+    for (int i = 0; i < 6; ++i) sh.best[kBestA + 7 * i] = add(sh.best[kBestA + 7 * i], p.mu);
+  __syncthreads();
   if (rank == 0) {
     if (threadIdx.x < 16) o[kLevelT + threadIdx.x] = sh.Tbest[threadIdx.x];
     if (threadIdx.x < kBestSize) o[kLevelBest + threadIdx.x] = sh.best[threadIdx.x];
@@ -987,7 +1298,9 @@ Params params(const float* px, const float* py, const float* pz, const float* i1
               int64_t ref_stride, int ref_table, float igt, float dgt, int B, int N,
               const float* slab, int64_t slab_stride, int H, int W, const float* K,
               const float* T, int64_t T_stride, int use_depth, int ref_grad, float nu,
-              float floor_ii, float floor_zz, int scale_iters, int warm_iters) {
+              float floor_ii, float floor_zz, int scale_iters, int warm_iters,
+              int estimator, int influence, float huber_k, float tukey_b, float min_si,
+              float min_sz) {
   Params p = {};
   p.px = px; p.py = py; p.pz = pz; p.i1 = i1; p.selected = selected;
   p.rgix = rgix; p.rgiy = rgiy; p.rgzx = rgzx; p.rgzy = rgzy;
@@ -1003,7 +1316,15 @@ Params params(const float* px, const float* py, const float* pz, const float* i1
   p.use_depth = use_depth; p.ref_grad = ref_grad;
   p.nu = nu; p.floor_ii = floor_ii; p.floor_zz = floor_zz;
   p.scale_iters = scale_iters; p.warm_iters = warm_iters;
+  p.estimator = estimator; p.influence = influence;
+  p.huber_k = huber_k; p.tukey_b = tukey_b; p.min_si = min_si; p.min_sz = min_sz;
   return p;
+}
+
+// The estimator and influence codes are ones the kernel has.
+bool codes_ok(int estimator, int influence) {
+  return estimator >= kEstTdist && estimator <= kEstNone && influence >= kInfUnit &&
+         influence <= kInfTdist;
 }
 
 // The reference arguments are valid: the arrays, or a slab route whose
@@ -1023,7 +1344,7 @@ bool refs_ok(const float* const* ref_rows, int ref_table, int B, int N, int H, i
 // shared memory bytes per CTA. Returns a CUDA error code (0: none).
 extern "C" int dvo_level_plan(int N, int C, int* out) {
   Plan plan;
-  const int e = plan_of((const void*)track_level_kernel, N, C, &plan);
+  const int e = plan_of((const void*)track_level_kernel<false>, N, C, &plan);
   out[0] = plan.P;
   out[1] = plan.stored;
   out[2] = (int)plan.dyn;
@@ -1050,10 +1371,12 @@ extern "C" const char* dvo_error_string(int code) {
 // selected with the
 // gradient thresholds igt and dgt. Row b's current slab starts at slab + b *
 // slab_stride floats; T is (B, 4, 4), sigma_init (B, 2, 2) (read only with
-// warm). Reference gradients (rgix..rgzy) are read only with ref_grad
-// (rgzx, rgzy only with use_depth too). out: (B, 51) floats, each row laid
-// out as the kOut* offsets; rI, rZ, valid: (B, N), the residual pass's
-// values. Returns a CUDA error code (0: launched).
+// warm, and with the t-distribution). Reference gradients (rgix..rgzy) are
+// read only with ref_grad (rgzx, rgzy only with use_depth too). estimator,
+// influence: kEst*, kInf* codes, with huber_k, tukey_b and the scale floors
+// min_si, min_sz. out: (B, 53) floats, each row laid out as the kOut*
+// offsets; rI, rZ, valid: (B, N), the residual pass's values. Returns a
+// CUDA error code (0: launched).
 extern "C" int dvo_linearize(
     int B, const float* px, const float* py, const float* pz, const float* i1,
     const uint8_t* selected, const float* rgix, const float* rgiy,
@@ -1061,28 +1384,34 @@ extern "C" int dvo_linearize(
     int64_t ref_stride, int ref_table, float igt, float dgt, int N,
     const float* slab, int64_t slab_stride, int H, int W, const float* K,
     const float* T, int use_depth, int ref_grad, float nu, float floor_ii,
-    float floor_zz, int scale_iters, int warm_iters, const float* sigma_init,
+    float floor_zz, int scale_iters, int warm_iters, int estimator, int influence,
+    float huber_k, float tukey_b, float min_si, float min_sz, const float* sigma_init,
     int warm, int C, float* out, float* rI, float* rZ, uint8_t* valid,
     void* stream) {
-  if (!refs_ok(ref_rows, ref_table, B, N, H, W)) return (int)cudaErrorInvalidValue;
+  if (!refs_ok(ref_rows, ref_table, B, N, H, W) || !codes_ok(estimator, influence))
+    return (int)cudaErrorInvalidValue;
   Params p = params(px, py, pz, i1, selected, rgix, rgiy, rgzx, rgzy, ref_rows,
                     ref_stride, ref_table, igt, dgt, B, N, slab, slab_stride, H, W,
                     K, T, 16, use_depth, ref_grad, nu, floor_ii, floor_zz,
-                    scale_iters, warm_iters);
+                    scale_iters, warm_iters, estimator, influence, huber_k, tukey_b,
+                    min_si, min_sz);
   p.sigma_init = sigma_init;
   p.warm = warm;
   p.out = out;
   p.rI = rI;
   p.rZ = rZ;
   p.valid = valid;
-  return launch(linearize_kernel, p, B, C, stream);
+  return launch(estimator == kEstTdist ? linearize_kernel<false> : linearize_kernel<true>, p,
+                B, C, stream);
 }
 
 // Mode (b): one pyramid level's IRLS loop for B rows in one launch, from
 // T_init (row b's at T_init + b * T_stride floats; the other inputs as
 // dvo_linearize's). LM when lm_init > 0, else Gauss-Newton with rollback;
 // the Sigma warm start from the last accepted Sigma after the first
-// iteration when warm_iters > 0. out: row b's 67 + 5 * max_iterations + 3
+// iteration when warm_iters > 0 (the t-distribution); the motion prior
+// when mu > 0, its record the posterior A + mu I. out: row b's 67 + 5 *
+// max_iterations + 3
 // floats at out + b * out_stride, as the kLevel* and kExtra* offsets
 // (loglik_const as Params');
 // out_i: row b's iterations and termination code at out_i + b *
@@ -1094,26 +1423,31 @@ extern "C" int dvo_track_level(
     int64_t ref_stride, int ref_table, float igt, float dgt, int N,
     const float* slab, int64_t slab_stride, int H, int W, const float* K,
     const float* T_init, int64_t T_stride, int use_depth, int ref_grad, float nu,
-    float floor_ii, float floor_zz, int scale_iters, int warm_iters,
+    float floor_ii, float floor_zz, int scale_iters, int warm_iters, int estimator,
+    int influence, float huber_k, float tukey_b, float min_si, float min_sz,
     int max_iterations, float precision, float lm_init, float lm_up, float lm_down,
-    float lm_max, int C, float* out, int64_t out_stride, int* out_i,
+    float lm_max, float mu, int C, float* out, int64_t out_stride, int* out_i,
     int64_t out_i_stride, double loglik_const, void* stream) {
-  if (max_iterations < 1 || !refs_ok(ref_rows, ref_table, B, N, H, W))
+  if (max_iterations < 1 || !refs_ok(ref_rows, ref_table, B, N, H, W) ||
+      !codes_ok(estimator, influence) || !(mu >= 0.f))
     return (int)cudaErrorInvalidValue;
   Params p = params(px, py, pz, i1, selected, rgix, rgiy, rgzx, rgzy, ref_rows,
                     ref_stride, ref_table, igt, dgt, B, N, slab, slab_stride, H, W,
                     K, T_init, T_stride, use_depth, ref_grad, nu, floor_ii,
-                    floor_zz, scale_iters, warm_iters);
+                    floor_zz, scale_iters, warm_iters, estimator, influence, huber_k,
+                    tukey_b, min_si, min_sz);
   p.max_iterations = max_iterations;
   p.precision = precision;
   p.lm_init = lm_init;
   p.lm_up = lm_up;
   p.lm_down = lm_down;
   p.lm_max = lm_max;
+  p.mu = mu;
   p.out = out;
   p.out_stride = out_stride;
   p.out_i = out_i;
   p.out_i_stride = out_i_stride;
   p.loglik_const = loglik_const;
-  return launch(track_level_kernel, p, B, C, stream);
+  return launch(estimator == kEstTdist ? track_level_kernel<false> : track_level_kernel<true>,
+                p, B, C, stream);
 }

@@ -6,22 +6,26 @@ The JAX package runs each level's IRLS loop as a ``lax.while_loop`` on the
 device, and batches pairs with ``jax.vmap`` over it. ``track_level`` runs
 one level for B rows:
 
-- on a CUDA slab with ``linearize.level_route(cfg)`` (the t-distribution,
-  no motion prior): one launch of the cluster kernel's mode (b)
-  (csrc/linearize.cu), one cluster per row, the whole loop on the card
-  and no host sync (``_track_level_kernel``);
-- elsewhere: ``_track_level``, one host loop per level over (B, ...)
-  device tensors with the same carry semantics: every carried quantity is
-  updated with ``torch.where`` on the device, every row is linearized in
-  every iteration (one batched call), a row whose stop test has fired
-  keeps its carry frozen, and the loop reads the rows' done flags back
-  once per iteration. Over ``linearize_batched_reference`` it is the
-  plain version of mode (b).
+- on a CUDA slab, for every config (every scale estimator and influence
+  function, weighting off, the motion prior): one launch of the cluster
+  kernel's mode (b) (csrc/linearize.cu), one cluster per row, the whole
+  loop on the card and no host sync (``_track_level_kernel``);
+- on a CPU slab: ``_track_level``, one host loop per level over (B, ...)
+  tensors with the same carry semantics: every carried quantity is
+  updated with ``torch.where``, every row is linearized in every
+  iteration (one batched call), a row whose stop test has fired keeps its
+  carry frozen, and the loop reads the rows' done flags back once per
+  iteration. Over ``linearize_batched_reference`` it is the plain version
+  of mode (b); the pixel route runs it on the card (below).
+
+With the motion prior (``mu > 0``) the level's record leaves either route
+as the posterior information A + mu I: the kernel adds the prior as the
+level ends, the host loop after its last iteration, each once.
 
 ``track_batched`` runs a frame's front one of two ways:
 
-- on a CUDA slab with ``front_route`` (``level_route`` and
-  ``linearize.slab_route``: no compaction, no pixel shards), the kernel
+- on a CUDA slab with ``front_route`` (``linearize.slab_route``: no
+  compaction; no pixel shards), the kernel
   front (``_track_batched_kernels``): one level-kernel launch a tracked
   level reading each row's reference points from its slab (no
   ``prepare_reference``), every launch writing its level's slot of one
@@ -145,18 +149,27 @@ def _flat(lin):
                       lin.n_raw[:, None], lin.log1p_sum[:, None]], dim=1)
 
 
-def _final(best, cfg: TrackerConfig):
+def _posterior(best, cfg: TrackerConfig):
+    """The (B, 50) record with its A the posterior information: the data
+    term plus the motion prior's mu I (JAX's ``A_final``). The record a
+    level returns holds it on both routes, added once where the level ends
+    (here for the host loop, in csrc/linearize.cu for the kernel), so that
+    every reader of the record (``_final``, ``level_result``, the kernel's
+    entropy, the scan step's row head) takes it as it is."""
+    if cfg.mu <= 0.0:
+        return best
+    eye = torch.eye(6, dtype=best.dtype, device=best.device).reshape(36)
+    return torch.cat([best[:, _A:_B] + cfg.mu * eye, best[:, _B:]], dim=1)
+
+
+def _final(best):
     """The Linearization of each row's last accepted evaluation, from its
-    (B, 50) record."""
+    (B, 50) record (A the posterior information already, ``_posterior``)."""
     B = best.shape[0]
-    A_final = best[:, _A:_B].view(B, 6, 6)
-    if cfg.mu > 0.0:
-        # Posterior information: data term + the prior's mu*I, added once.
-        A_final = A_final + cfg.mu * torch.eye(6, dtype=best.dtype,
-                                               device=best.device)
     n_valid_best = best[:, _N_RAW]
     return lin_ops.Linearization(
-        A=A_final, b=best[:, _B:_ERR], err_mean=best[:, _ERR],
+        A=best[:, _A:_B].view(B, 6, 6), b=best[:, _B:_ERR],
+        err_mean=best[:, _ERR],
         n_valid=torch.clamp(n_valid_best, min=1.0), n_raw=n_valid_best,
         sigma=best[:, _SIGMA:_N_RAW].view(B, 2, 2),
         log1p_sum=best[:, _LOG1P], err_raw=best[:, _ERR_RAW],
@@ -169,9 +182,9 @@ def track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
     (B, 4, 4). Returns (T (B, 4, 4), Linearization of each row's last
     accepted evaluation, stats dict: "iterations" (B,) int32, "error" (B,)
     and with cfg.collect_stats "per_iter" = (valid, error, delta_norm,
-    accepted, termination)). A CUDA slab on ``level_route(cfg)`` runs the
-    level kernel, anything else the host loop."""
-    if cur_slab.device.type == "cuda" and lin_ops.level_route(cfg):
+    accepted, termination)). A CUDA slab runs the level kernel, a CPU slab
+    the host loop."""
+    if cur_slab.device.type == "cuda":
         return _track_level_kernel(ref_data, cur_slab, K, T_init, cfg)
     return _track_level(ref_data, cur_slab, K, T_init, cfg)
 
@@ -185,7 +198,7 @@ def _track_level_kernel(ref_data, cur_slab, K, T_init, cfg: TrackerConfig):
     if cfg.collect_stats:
         stats["per_iter"] = (lvl.valid, lvl.error, lvl.delta_norm,
                              lvl.accepted, lvl.termination)
-    return lvl.T, _final(lvl.best, cfg), stats
+    return lvl.T, _final(lvl.best), stats
 
 
 def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig,
@@ -252,7 +265,8 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig,
         b_solve = new_best[:, _B:_ERR]
         if cfg.mu > 0.0:
             # Motion prior on the solve operands only; the carried A/b stay
-            # the pure data term (else each rejection stacks another mu*I).
+            # the pure data term (else each rejection stacks another mu*I;
+            # the returned record gets it once, _posterior).
             xi_prior = se3.log(T_base @ se3.inverse(T_init))
             A_solve = A_solve + cfg.mu * eye6
             b_solve = b_solve + cfg.mu * xi_prior
@@ -318,15 +332,16 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig,
                       dim=1),
             term,
         )
-    return T_best, _final(best, cfg), stats
+    return T_best, _final(_posterior(best, cfg)), stats
 
 
 def front_route(cfg: TrackerConfig, device, pixel_group=None) -> bool:
     """True where ``track_batched`` runs the kernel front on ``device``: a
-    CUDA device, ``level_route(cfg)``, ``slab_route(cfg)`` and no pixel
-    route. Looked up at the call (a caller may swap in the eager front)."""
+    CUDA device, ``slab_route(cfg)`` (no compaction) and no pixel route;
+    every estimator, influence, weighting and motion prior. Looked up at
+    the call (a caller may swap in the eager front)."""
     return (torch.device(device).type == "cuda"
-            and lin_ops.level_route(cfg) and lin_ops.slab_route(cfg)
+            and lin_ops.slab_route(cfg)
             and not lin_ops.pixel_route(pixel_group))
 
 
@@ -455,7 +470,9 @@ def level_result(out, out_i, cfg: TrackerConfig) -> TrackResult:
     into ``out`` ((B, levels, level_row_size) f32) and ``out_i`` ((B,
     levels, 2) int32): the finest level's pose, log-likelihood, record and
     extras, every level's iterations, errors and statistics. Views of the
-    two tensors but the accepted flags and ``escalated``."""
+    two tensors but the accepted flags and ``escalated``. The information
+    is the record's A as the kernel wrote it: the posterior A + mu I with
+    the motion prior (``_posterior``), its entropy the kernel's."""
     B, M = out.shape[0], cfg.max_iterations
     dev = out.device
     T = out[:, -1, lin_ops._LEVEL_T:lin_ops._LEVEL_LOGLIK].unflatten(

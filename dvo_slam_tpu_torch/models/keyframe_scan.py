@@ -12,8 +12,9 @@ device, so a chunk of frames is issued to the card with no device-to-host
 sync between frames. The JAX package runs the same step inside one
 ``lax.scan``. A chunk runs one of two ways:
 
-- on a CUDA device with ``dense_tracker.front_route`` (the t-distribution,
-  ``mu == 0``, no compaction; the defaults), ``_track_chunk_kernels``:
+- on a CUDA device with ``dense_tracker.front_route`` (no compaction;
+  every scale estimator, influence function, weighting and motion prior),
+  ``_track_chunk_kernels``:
   five launches a frame and no other device op in the frame loop: the
   pyramid (into a slot of the chunk's pyramid buffer), the three level
   launches of mode (b) at B = 2 (the keyframe and the previous frame
@@ -27,16 +28,15 @@ sync between frames. The JAX package runs the same step inside one
   (``scan_chunk``). The keyframe pyramid of the carry after such a chunk
   is a ``PendingKeyframe`` until its switch flags are read
   (``PendingKeyframe.resolve``, models/chunked_slam.py's collect);
-- elsewhere (CPU tensors, ``mu > 0``, the other estimators, compaction),
-  ``_step`` a frame: the pyramid, the batched tracker, and the decisions
-  as eager ops (``scan_step.scan_step_reference``, the keyframe swap a
-  ``torch.where`` per pyramid level), the outputs stacked after the loop.
-  It is the kernel route's plain version.
+- elsewhere (CPU tensors, compaction), ``_step`` a frame: the pyramid,
+  the batched tracker, and the decisions as eager ops
+  (``scan_step.scan_step_reference``, the keyframe swap a ``torch.where``
+  per pyramid level), the outputs stacked after the loop. It is the
+  kernel route's plain version.
 
-No host sync holds for the configs the level kernel takes
-(``ops/linearize.level_route``). Other configs run the tracker's host
-loop, which reads each IRLS iteration's stop flags back: the scan is
-still correct there, with those syncs.
+No config runs the tracker's IRLS host loop on the card: ``_step``
+under compaction also tracks each level with one level-kernel launch
+(through the eager front).
 
 The backend (loop closure + global graph) stays host logic: the scan emits
 what the backend consumes — per-switch relative measurements with

@@ -4,9 +4,9 @@ computeResidualsSse + computeScaleSse/computeWeightsSse + the SSE 6x6 rank
 updates), and the wrappers of the cluster kernel that runs it, or a whole
 pyramid level's IRLS loop, on the card.
 
-warp -> project -> bilinear sample -> bivariate residual -> t-distribution
-Sigma fixed point -> weights -> analytic Jacobian -> weighted 6x6 normal
-equations.
+warp -> project -> bilinear sample -> bivariate residual -> robust scale
+(the t-distribution Sigma fixed point by default) -> weights -> analytic
+Jacobian -> weighted 6x6 normal equations.
 
 ``linearize`` (one pair: ``linearize_batched`` at B = 1) dispatches on
 the current slab's device:
@@ -19,21 +19,18 @@ the current slab's device:
   (one Sigma step) and ``normal_equations_reference``.
 - a CUDA tensor goes to mode (a) of csrc/linearize.cu, one launch of
   thread-block clusters (one cluster per batch row: the residual pass with
-  the bilinear gather inside it, the Sigma steps and the normal equations,
-  the points kept in shared memory), with no host sync, when
-  ``kernel_route(cfg)``: the t-distribution branch (``use_weighting`` and
-  ``scale_estimator == "tdist"``, the default), with either gradient
-  source, ``use_depth`` on or off and the Sigma warm start. The other
-  scale estimators (``mad``, ``normal``, ``unit``) and
-  ``use_weighting=False`` run ``linearize_reference`` on the card,
-  gathering with the standalone sampler kernel (``sampler.sample_slab``,
-  csrc/sampler.cu): the config alone picks that route. A failed build or
-  launch raises; nothing falls back to the plain version.
+  the bilinear gather inside it, the robust scale, the weights and the
+  normal equations, the points kept in shared memory), with no host sync,
+  for every config: the t-distribution branch (the default; either
+  gradient source, ``use_depth`` on or off, the Sigma warm start), the
+  other scale estimators (``unit``, ``normal``, ``mad``: a radix select of
+  the median on the card) under each influence function, and
+  ``use_weighting=False``. A failed build or launch raises; nothing falls
+  back to the plain version.
 
 ``track_level_kernels`` is mode (b) of the same kernel: a pyramid level's
 whole IRLS loop (models/dense_tracker.py's ``_track_level``) for B rows in
-one launch, for the configs ``level_route(cfg)`` accepts (those of
-``kernel_route`` without the motion prior, ``mu == 0``).
+one launch, for every config, the motion prior (``mu > 0``) included.
 
 ``linearize_batched`` takes a batch of B problems (the JAX package's vmap
 over the tracker): reference points (B, N), poses (B, 4, 4), Sigma seeds
@@ -95,7 +92,8 @@ PREPARE_REFERENCE_CALLS = 0
 # TPU sampler's window misses), then the extras: the level's selected
 # count and the track result's entropy and valid ratio from the level's
 # record (the finest level's are the result's).
-_OUT_SIZE = 51
+_OUT_SIZE = 53
+_OUT_MAD = 51  # the MAD scale's selected |rI|, |rZ| (kOutMad)
 _LEVEL_T, _LEVEL_LOGLIK, _LEVEL_BEST, _LEVEL_STATS = 0, 16, 17, 67
 _STAT_PLANES = 5
 _EXTRA_SELECTED, _EXTRA_ENTROPY, _EXTRA_RATIO = 0, 1, 2
@@ -108,6 +106,10 @@ _MAX_CLUSTER = 16
 # pointer in a table in device memory.
 _MAX_REF_ROWS = 32
 _TABLE_STRIDE, _TABLE_PARAMS, _TABLE_DEVICE = 0, 1, 2
+# The kernel's codes of the scale estimators (use_weighting off: "none")
+# and influence functions (csrc/linearize.cu kEst*, kInf*).
+_ESTIMATORS = {"tdist": 0, "unit": 1, "normal": 2, "mad": 3, "none": 4}
+_INFLUENCES = {"unit": 0, "huber": 1, "tukey": 2, "tdist": 3}
 
 
 def level_row_size(max_iterations: int) -> int:
@@ -524,18 +526,11 @@ def normal_equations_reference(res: Residuals, w, p00, p01, p11, K,
     return A, b
 
 
-def kernel_route(cfg: TrackerConfig) -> bool:
-    """True where ``linearize`` on a CUDA tensor runs mode (a) of
-    csrc/linearize.cu, False where it runs ``linearize_reference`` on the
-    card (the scale estimators other than the t-distribution)."""
-    return cfg.use_weighting and cfg.scale_estimator == "tdist"
-
-
 def slab_route(cfg: TrackerConfig) -> bool:
     """True where the kernels may take a level's reference as its slabs
-    (``RefSlabs``): ``kernel_route``'s configs without point compaction
-    (compacted points need ``prepare_reference``'s gather)."""
-    return kernel_route(cfg) and cfg.point_budget_fraction == 0.0
+    (``RefSlabs``): every config without point compaction (compacted
+    points need ``prepare_reference``'s gather)."""
+    return cfg.point_budget_fraction == 0.0
 
 
 def pixel_route(group) -> bool:
@@ -545,23 +540,13 @@ def pixel_route(group) -> bool:
     host loop over ``linearize_batched_reference`` with every sum
     all-reduced over the group (on the card gathering with the standalone
     sampler kernel), since neither mode of csrc/linearize.cu can reduce
-    across processes inside a launch. The group picks the route, as
-    ``mu > 0`` picks the host loop; a group of one rank, or None, leaves
-    the routes of ``kernel_route`` and ``level_route``."""
+    across processes inside a launch. The group alone picks the route; a
+    group of one rank, or None, leaves the kernels' route."""
     if group is None:
         return False
     import torch.distributed as dist
 
     return dist.get_world_size(group) > 1
-
-
-def level_route(cfg: TrackerConfig) -> bool:
-    """True where the tracker runs a level's IRLS loop on a CUDA tensor as
-    one launch of mode (b) (``track_level_kernels``): ``kernel_route``'s
-    configs without the motion prior (``mu == 0``; GN or LM, the Sigma warm
-    start, ``collect_stats`` on or off). Elsewhere the tracker runs its host
-    loop over ``linearize_batched``."""
-    return kernel_route(cfg) and cfg.mu == 0.0
 
 
 def cluster_size(N: int) -> int:
@@ -597,12 +582,12 @@ def linearize_batched(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
     """B linearizations at once: ``ref`` holds (B, N) points, T is
     (B, 4, 4), ``sigma_init`` (B, 2, 2), and ``cur_slab`` is one (6, H, W)
     slab shared by every row or (B, 6, H, W), one per row. Returns a
-    Linearization whose every field has a leading B. Off the kernels'
-    route each row runs ``linearize_reference``; a CUDA slab still gathers
-    with the sampler kernel there, a CPU slab with the plain sampler.
-    ``ref`` may be ``RefSlabs`` on ``slab_route(cfg)``."""
+    Linearization whose every field has a leading B. A CUDA slab runs mode
+    (a); a CPU slab runs ``linearize_reference`` row by row (gathering
+    through ``sampler.sample_slab``, the plain sampler there). ``ref`` may
+    be ``RefSlabs`` on ``slab_route(cfg)``."""
     _check_device(cur_slab)
-    if cur_slab.device.type == "cuda" and kernel_route(cfg):
+    if cur_slab.device.type == "cuda":
         return linearize_kernels_batched(ref, cur_slab, K, T, cfg,
                                          sigma_init, sigma_warm)
     return linearize_batched_reference(ref, cur_slab, K, T, cfg, sigma_init,
@@ -635,8 +620,10 @@ def _check_device(cur_slab):
 
 
 # Per-(device, stream, B, N) copies of the last mode (a) call's residual
-# pass: (rI, rZ, valid), each (B, N), allocated once and reused.
+# pass: (rI, rZ, valid), each (B, N), allocated once and reused; and the
+# same call's MAD elements, a (B, 2) view of its output.
 _RESIDUALS = {}
+_MAD_ELEMENTS = {}
 
 
 def kernel_residuals(device, N, B=None):
@@ -652,6 +639,20 @@ def kernel_residuals(device, N, B=None):
     if B is None:
         return rI[0], rZ[0], valid[0]
     return rI, rZ, valid
+
+
+def kernel_mad_elements(device, N, B=None):
+    """The MAD elements of the last mode (a) call over B rows of N points
+    on the current stream of ``device``: per row the |rI| and |rZ| that
+    ``robust.scale_mad`` reads from its sort (before the 1.4826 factor;
+    +inf with no valid point, 0 under the other estimators), (B, 2), or
+    (2,) for B None. For holding the kernel's selection to the plain
+    version's, bit for bit."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+    out = _MAD_ELEMENTS[(device, stream, 1 if B is None else B, N)]
+    return out[0] if B is None else out
 
 
 def _check(ref, cur_slab, K, T):
@@ -716,12 +717,13 @@ def _check(ref, cur_slab, K, T):
 def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig):
     """The arguments of the two entry points of csrc/linearize.cu after
     the checks: ``(B, N, refs, scale, table)``, refs from B to K, scale
-    from use_depth to warm_iters (T goes between them), and the ctypes
-    array of the slab route's row pointers, which must live until the
-    launch."""
-    if not kernel_route(cfg):
-        raise ValueError("the linearization kernel covers the "
-                         "t-distribution scale estimator only")
+    from use_depth to the scale floors (T goes between them), and the
+    ctypes array of the slab route's row pointers, which must live until
+    the launch. A config the kernel has no code for raises."""
+    estimator = cfg.scale_estimator if cfg.use_weighting else "none"
+    if estimator not in _ESTIMATORS or cfg.influence not in _INFLUENCES:
+        raise ValueError(f"the linearization kernel has no scale estimator "
+                         f"{estimator!r} or influence {cfg.influence!r}")
     B, N = _check(ref, cur_slab, K, T)
     C, H, W = cur_slab.shape[-3:]
     ref_grad = cfg.gradient_source == "reference"
@@ -759,7 +761,9 @@ def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig):
             H, W, K.data_ptr())
     scale = (int(cfg.use_depth), int(ref_grad), cfg.tdist_dof,
              cfg.min_intensity_sigma**2, cfg.min_depth_sigma**2,
-             cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters)
+             cfg.tdist_scale_iters, cfg.tdist_scale_warm_iters,
+             _ESTIMATORS[estimator], _INFLUENCES[cfg.influence], cfg.huber_k,
+             cfg.tukey_b, cfg.min_intensity_sigma, cfg.min_depth_sigma)
     return B, N, refs, scale, table
 
 
@@ -776,11 +780,12 @@ def level_plan(device, N):
 
 
 def unpack_linearization(out) -> Linearization:
-    """The Linearization (fields with a leading B) in mode (a)'s (B, 51)
+    """The Linearization (fields with a leading B) in mode (a)'s (B, 53)
     output: views, and the fields in the order of csrc/linearize.cu's
-    kOut* offsets."""
+    kOut* offsets (the MAD elements past them are not a field)."""
     B = out.shape[0]
-    err_mean, n_valid, n_raw, *_, log1p_sum, err_raw = out[:, 42:].unbind(-1)
+    err_mean, n_valid, n_raw, *_, log1p_sum, err_raw = out[
+        :, 42:_OUT_MAD].unbind(-1)
     return Linearization(
         A=out[:, :36].view(B, 6, 6), b=out[:, 36:42], err_mean=err_mean,
         n_valid=n_valid, n_raw=n_raw, sigma=out[:, 45:49].view(B, 2, 2),
@@ -829,11 +834,12 @@ def linearize_kernels_batched(ref, cur_slab, K, T, cfg: TrackerConfig,
                               sigma_init=None,
                               sigma_warm=False) -> Linearization:
     """``linearize_batched`` on the card through mode (a) of
-    csrc/linearize.cu, for the t-distribution branch: one launch of one
-    cluster per row on the current stream of the slab's device, with no
-    host sync. ``ref``: RefData, or RefSlabs (the slab route).
-    ``sigma_warm`` is one host bool for the whole batch (all rows enter a
-    level together)."""
+    csrc/linearize.cu, for every config: one launch of one cluster per row
+    on the current stream of the slab's device, with no host sync.
+    ``ref``: RefData, or RefSlabs (the slab route). ``sigma_warm`` is one
+    host bool for the whole batch (all rows enter a level together); it
+    and ``sigma_init`` matter to the t-distribution only, as in the JAX
+    package."""
     global LAUNCHES_LINEARIZE
     K, T = K.contiguous(), T.contiguous()
     B, N, refs, scale, _table = _kernel_args(ref, cur_slab, K, T, cfg)
@@ -851,6 +857,7 @@ def linearize_kernels_batched(ref, cur_slab, K, T, cfg: TrackerConfig,
             torch.empty((B, N), dtype=torch.float32, device=dev),
             torch.empty((B, N), dtype=torch.bool, device=dev))
     out = torch.empty((B, _OUT_SIZE), dtype=torch.float32, device=dev)
+    _MAD_ELEMENTS[key] = out[:, _OUT_MAD:]
     _build.launch("dvo_linearize", dev, (
         *refs, T.data_ptr(), *scale,
         sigma_init.data_ptr() if warm else None, int(warm),
@@ -881,13 +888,14 @@ def track_level_kernels(ref, cur_slab, K, T_init, cfg: TrackerConfig,
     are contiguous, at any row stride: a level's slot in a buffer of all
     levels). Each row holds the log-likelihood of the level's record at
     ``_LEVEL_LOGLIK`` and ends with the extras (``_EXTRA_*``): the
-    selected count and the entropy and valid ratio of that record."""
+    selected count and the entropy and valid ratio of that record. With
+    ``cfg.mu > 0`` the record's A is the posterior information A + mu I
+    (the kernel adds the prior once, as the level ends)."""
     global LAUNCHES_TRACK_LEVEL
-    if not level_route(cfg):
-        raise ValueError("the level kernel covers level_route's configs "
-                         "only (the t-distribution, mu == 0)")
     if cfg.max_iterations < 1:
         raise ValueError("the level kernel needs max_iterations >= 1")
+    if not cfg.mu >= 0.0:
+        raise ValueError(f"the level kernel needs mu >= 0, got {cfg.mu}")
     K = K.contiguous()
     T_init, T_stride = _rows_of(T_init)
     B, N, refs, scale, _table = _kernel_args(ref, cur_slab, K, T_init, cfg)
@@ -906,7 +914,7 @@ def track_level_kernels(ref, cur_slab, K, T_init, cfg: TrackerConfig,
     _build.launch("dvo_track_level", dev, (
         *refs, T_init.data_ptr(), T_stride, *scale, cfg.max_iterations,
         cfg.precision, cfg.lm_lambda_init if use_lm else 0.0,
-        cfg.lm_lambda_up, cfg.lm_lambda_down, cfg.lm_lambda_max,
+        cfg.lm_lambda_up, cfg.lm_lambda_down, cfg.lm_lambda_max, cfg.mu,
         cluster_size(N), out.data_ptr(), out.stride(0), out_i.data_ptr(),
         out_i.stride(0), loglik_constant(cfg.tdist_dof)))
     LAUNCHES_TRACK_LEVEL += 1

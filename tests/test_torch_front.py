@@ -210,15 +210,18 @@ def test_level_shapes(size):
 
 
 def test_front_route():
-    """The kernel front: a CUDA device, the level kernel's configs, no
-    compaction (decided from the config and device alone)."""
+    """The kernel front: a CUDA device and no compaction, whatever the
+    estimator, weighting or motion prior (decided from the config and
+    device alone)."""
     cfg = _port_cfg(TrackerConfig())
     route = t_dense_tracker.front_route
     assert route(cfg, "cuda") and route(cfg, torch.device("cuda", 1))
     assert not route(cfg, "cpu")
     for over in ({"scale_estimator": "mad"}, {"use_weighting": False},
-                 {"mu": 0.1}, {"point_budget_fraction": 0.5}):
-        assert not route(dataclasses.replace(cfg, **over), "cuda"), over
+                 {"mu": 0.1}):
+        assert route(dataclasses.replace(cfg, **over), "cuda"), over
+    assert not route(dataclasses.replace(cfg, point_budget_fraction=0.5),
+                     "cuda")
     assert route(dataclasses.replace(cfg, intensity_grad_threshold=1.0),
                  "cuda")
 
@@ -315,6 +318,37 @@ def _stand_in_level_kernels(ref, cur, K, T, cfg, out=None, out_i=None):
                         torch.zeros(B, M), extras], dim=1)
     out_i[:] = torch.stack([st["iterations"], term], dim=1)
     return out, out_i
+
+
+def test_posterior_information_added_once(frames, monkeypatch):
+    """With the motion prior, a level's record leaves the level as the
+    posterior information A + mu I, added once: the eager front's result
+    (the host loop's record through ``_final``) holds the data term plus
+    mu I exactly and the entropy of that sum, and ``level_result``, given
+    records that hold it (mode (b)'s, stood in for), takes them as they
+    are: the same information and entropy, nothing added again."""
+    mu = 0.5
+    cfg = _port_cfg(dataclasses.replace(CFG4, max_iterations=6, mu=mu))
+    imgs, _ = frames
+    pyrs = _port_pyramids(imgs, cfg.num_levels)
+    Ks = t_camera.pyramid_intrinsics(
+        t_camera.intrinsics(*K_TUPLE, device="cpu"), cfg.num_levels)
+    refs = tuple(pyrs[0][lvl][None] for lvl in range(cfg.num_levels))
+    T0 = torch.eye(4)[None]
+    want = t_dense_tracker.track_batched(refs, pyrs[3], Ks, T0, cfg)
+    with monkeypatch.context() as m:
+        m.setattr(t_dense_tracker, "_posterior", lambda best, cfg: best)
+        data = t_dense_tracker.track_batched(refs, pyrs[3], Ks, T0, cfg)
+    assert torch.equal(data.transformation, want.transformation)
+    posterior = data.information + mu * torch.eye(6)
+    assert torch.equal(want.information, posterior)
+    assert torch.equal(want.entropy,
+                       t_dense_tracker.pose_entropy(posterior))
+    monkeypatch.setattr(t_linearize, "track_level_kernels",
+                        _stand_in_level_kernels)
+    got = t_dense_tracker._track_batched_kernels(refs, pyrs[3], Ks, T0, cfg)
+    assert torch.equal(got.information, want.information)
+    assert torch.equal(got.entropy, want.entropy)
 
 
 @pytest.mark.parametrize("rows", ["B1", "B2_pointers", "B3_paired"])

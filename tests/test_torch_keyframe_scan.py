@@ -56,15 +56,17 @@ def _sequence(n=10, radius=0.05, dropout=None):
             poses)
 
 
-def _both(seq_i, seq_z, force=None):
+def _both(seq_i, seq_z, force=None, tracker=TRACKER):
     """The JAX and the port scan over the same frames."""
     j_outs = keyframe_scan.track_keyframe_sequence(
         jnp.asarray(seq_i), jnp.asarray(seq_z), camera.intrinsics(*K_TUPLE),
-        TRACKER, SLAM,
+        tracker, SLAM,
         force_keyframe=None if force is None else jnp.asarray(force))
     t_outs = t_keyframe_scan.track_keyframe_sequence(
         torch.as_tensor(seq_i), torch.as_tensor(seq_z),
-        t_camera.intrinsics(*K_TUPLE, device="cpu"), T_TRACKER, T_SLAM,
+        t_camera.intrinsics(*K_TUPLE, device="cpu"),
+        convert.tracker_config_from_fields(dataclasses.asdict(tracker)),
+        T_SLAM,
         force_keyframe=None if force is None else torch.as_tensor(force))
     return j_outs, t_outs
 
@@ -113,6 +115,22 @@ def test_scan_matches_host_orchestrator(forced_run):
     for Ts, Th, Tj in zip(scan_traj, host_traj, j_traj):
         np.testing.assert_allclose(Ts, Th, atol=TRAJ_ATOL)
         np.testing.assert_allclose(Ts, Tj, atol=TRAJ_ATOL)
+
+
+@pytest.mark.parametrize("fields", [
+    {"scale_estimator": "mad", "influence": "huber"}, {"mu": 0.1}],
+    ids=["mad_huber", "mu"])
+def test_scan_off_the_default_estimator_matches_jax(fields):
+    """The scan under MAD + Huber and under the motion prior (on the card
+    both take the kernel route) against the JAX scan on the same frames,
+    one forced switch: the same decisions, poses within TRAJ_ATOL."""
+    seq_i, seq_z, _ = _sequence(8)
+    force = np.zeros(8, bool)
+    force[4] = True
+    j_outs, t_outs = _both(seq_i, seq_z, force,
+                           dataclasses.replace(TRACKER, **fields))
+    _assert_same(j_outs, t_outs)
+    assert bool(t_outs["switch"].any())
 
 
 def test_scan_entropy_switches_and_accuracy():
@@ -550,8 +568,7 @@ def stand_in_kernel_route(monkeypatch):
 
     monkeypatch.setattr(t_dense_tracker, "front_route",
                         lambda cfg, device, pixel_group=None:
-                        t_linearize.level_route(cfg)
-                        and t_linearize.slab_route(cfg))
+                        t_linearize.slab_route(cfg))
     monkeypatch.setattr(t_pyramid, "build_pyramid_kernel", pyramid_kernel)
     monkeypatch.setattr(t_pyramid, "build_pyramid",
                         lambda i, z, n: pyramid_kernel(i, z, n))

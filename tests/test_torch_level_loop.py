@@ -3,7 +3,7 @@ package's vmapped ``while_loop``, and the layout of the cluster kernel's
 outputs (csrc/linearize.cu modes (a) and (b)) as the Python side unpacks
 them.
 
-The card runs a level as one launch of mode (b) (``level_route``); the
+The card runs a level as one launch of mode (b), for every config; the
 CPU runs the host loop ``_track_level`` over the plain linearization,
 which is mode (b)'s plain version. Here that host loop meets
 ``jax.vmap(dense_tracker._track_level)`` on the same numpy inputs: 64x48
@@ -50,16 +50,33 @@ def _port_cfg(cfg):
     return convert.tracker_config_from_fields(dataclasses.asdict(cfg))
 
 
-# ---- which configs the level kernel takes
+# ---- which configs the level kernel takes: all of them
+
+def _kernel_codes(cfg):
+    """The estimator and influence codes (and huber_k, tukey_b and the
+    scale floors) ``_kernel_args`` passes to csrc/linearize.cu for cfg,
+    built on tiny CPU tensors without a launch."""
+    N = 4
+    ref = t_linearize.RefData(*(torch.zeros(1, N) for _ in range(4)),
+                              torch.ones(1, N, dtype=torch.bool),
+                              *((torch.zeros(1, N),) * 4))
+    scale = t_linearize._kernel_args(ref, torch.zeros(6, 2, 2),
+                                     torch.ones(4), torch.eye(4)[None],
+                                     cfg)[3]
+    return scale[7:]
+
 
 @pytest.mark.parametrize("estimator", ["tdist", "mad", "normal", "unit"])
 @pytest.mark.parametrize("weighting", [True, False])
 def test_level_route_by_estimator(estimator, weighting):
+    """Every scale estimator, weighted or not, runs the level kernel on the
+    card (the kernel front), with the kernel's code for it."""
     cfg = _port_cfg(TrackerConfig(scale_estimator=estimator,
                                   use_weighting=weighting))
-    want = weighting and estimator == "tdist"
-    assert t_linearize.kernel_route(cfg) == want
-    assert t_linearize.level_route(cfg) == want
+    assert t_dense_tracker.front_route(cfg, "cuda")
+    assert t_linearize.slab_route(cfg)
+    want = t_linearize._ESTIMATORS[estimator if weighting else "none"]
+    assert _kernel_codes(cfg)[:2] == (want, t_linearize._INFLUENCES["tdist"])
 
 
 @pytest.mark.parametrize("fields, want", [
@@ -68,13 +85,17 @@ def test_level_route_by_estimator(estimator, weighting):
     ({"tdist_scale_warm_iters": 2}, True),
     ({"collect_stats": False}, True),
     ({"gradient_source": "reference", "use_depth": False}, True),
-    ({"mu": 0.5}, False),
-    ({"mu": 0.5, "lm_lambda_init": 1e-4}, False),
+    ({"mu": 0.5}, True),
+    ({"mu": 0.5, "lm_lambda_init": 1e-4}, True),
 ])
 def test_level_route_by_option(fields, want):
+    """Every option, the motion prior included, keeps the level kernel on
+    the card; only compaction and a pixel group leave the kernel front."""
     cfg = _port_cfg(dataclasses.replace(TrackerConfig(), **fields))
-    assert t_linearize.kernel_route(cfg)
-    assert t_linearize.level_route(cfg) == want
+    assert t_dense_tracker.front_route(cfg, "cuda") == want
+    assert not t_dense_tracker.front_route(cfg, "cpu")
+    assert not t_dense_tracker.front_route(
+        dataclasses.replace(cfg, point_budget_fraction=0.5), "cuda")
 
 
 @pytest.mark.parametrize("N, C", [(1, 1), (300, 1), (301, 2), (1200, 2),
@@ -262,8 +283,11 @@ def test_level_output_unpacks_to_the_host_loops_result(level_pair,
 
 
 def test_unpack_linearization_layout():
+    """Mode (a)'s row of 53 floats: the Linearization's fields at the
+    kOut* offsets; the two MAD elements past them are not a field."""
     B = 3
-    out = torch.arange(B * 51, dtype=torch.float32).view(B, 51)
+    out = torch.arange(B * 53, dtype=torch.float32).view(B, 53)
+    assert t_linearize._OUT_SIZE == 53 and t_linearize._OUT_MAD == 51
     lin = t_linearize.unpack_linearization(out)
     for b in range(B):
         o = out[b]

@@ -8,8 +8,8 @@ and the t log-likelihood rtol 1e-4 (f32 sums over ~4 800 points taken in
 another order differ by ~1e-6 relative; a port bug shows as O(1e-1)).
 
 On CPU tensors ``linearize`` is ``linearize_reference`` (checked exactly);
-which route a CUDA tensor takes is checked through ``kernel_route``, the
-dispatch predicate, with no card.
+a CUDA tensor runs mode (a) for every config, whose launch arguments (the
+estimator and influence codes) are checked without a card.
 """
 
 import dataclasses
@@ -126,17 +126,17 @@ def test_linearize_on_cpu_is_the_plain_version(frames, name):
         assert torch.equal(torch.as_tensor(a), torch.as_tensor(b)), field
 
 
-# Which route a CUDA slab takes, per config: the kernels for the
-# t-distribution branch, the plain version for the other estimators.
+# The kernel's codes per config (csrc/linearize.cu kEst*, kInf*): every
+# config takes mode (a) on a CUDA slab.
 KERNEL_ROUTE = {
-    "tdist": True,
-    "photometric": True,
-    "reference_gradients": True,
-    "tdist_warm": True,
-    "mad_huber": False,
-    "normal": False,
-    "unit": False,
-    "unweighted": False,
+    "tdist": ("tdist", "tdist"),
+    "photometric": ("tdist", "tdist"),
+    "reference_gradients": ("tdist", "tdist"),
+    "tdist_warm": ("tdist", "tdist"),
+    "mad_huber": ("mad", "huber"),
+    "normal": ("normal", "tdist"),
+    "unit": ("unit", "tdist"),
+    "unweighted": ("none", "tdist"),
 }
 ROUTE_CONFIGS = {
     **CONFIGS,
@@ -147,9 +147,21 @@ ROUTE_CONFIGS = {
 
 
 @pytest.mark.parametrize("name", sorted(ROUTE_CONFIGS))
-def test_kernel_route(name):
-    cfg = t_config.TrackerConfig(**ROUTE_CONFIGS[name])
-    assert t_linearize.kernel_route(cfg) is KERNEL_ROUTE[name]
+def test_kernel_route(frames, name):
+    """Mode (a)'s launch arguments for the config (built without a
+    launch): the kernel's estimator and influence codes, huber_k, tukey_b
+    and the scale floors."""
+    cfg = t_config.TrackerConfig(num_levels=1, first_level=0, last_level=0,
+                                 **ROUTE_CONFIGS[name])
+    rd, cur_slab, K, T = _port_inputs(frames, cfg)
+    scale = t_linearize._kernel_args(
+        t_linearize.RefData(*(None if f is None else f[None] for f in rd)),
+        cur_slab, K, T[None], cfg)[3]
+    est, inf = KERNEL_ROUTE[name]
+    assert scale[7:] == (t_linearize._ESTIMATORS[est],
+                         t_linearize._INFLUENCES[inf], cfg.huber_k,
+                         cfg.tukey_b, cfg.min_intensity_sigma,
+                         cfg.min_depth_sigma)
 
 
 @pytest.mark.parametrize("name", ["mad_huber", "tdist"])
@@ -178,12 +190,15 @@ def test_plain_route_gathers_through_the_sampler_wrapper(frames, monkeypatch,
 
 
 def test_kernels_refuse_plain_only_configs(frames):
-    """The kernel wrapper raises for a config off its route, before any
-    build or launch (so this runs without a card)."""
+    """The kernel wrapper raises for a config it has no code for (a scale
+    estimator past the config's own check), before any build or launch
+    (so this runs without a card): nothing runs the plain version in its
+    place."""
     t_cfg = t_config.TrackerConfig(num_levels=1, first_level=0, last_level=0,
                                    **CONFIGS["mad_huber"])
     rd, cur_slab, K, T = _port_inputs(frames, t_cfg)
-    with pytest.raises(ValueError, match="t-distribution"):
+    object.__setattr__(t_cfg, "scale_estimator", "trimmed")
+    with pytest.raises(ValueError, match="no scale estimator"):
         t_linearize.linearize_kernels_batched(
             t_linearize.RefData(*(None if f is None else f[None]
                                   for f in rd)), cur_slab, K, T[None], t_cfg)

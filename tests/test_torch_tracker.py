@@ -5,7 +5,8 @@ pyramid levels. Tolerances: transformation entries 1e-4 and per-frame
 world poses 1e-4 (f32 IRLS on both sides, reductions in another order);
 iterations per level equal or +-1 (an accept/reject decision at the f32
 noise floor may flip); valid_pixels within 2; entropy and log-likelihood
-rtol 1e-3; ATE below 5 mm for both over the orbit.
+rtol 1e-3; the information (the posterior A + mu I with the motion prior)
+within 1e-3 * max|.|; ATE below 5 mm for both over the orbit.
 """
 
 import dataclasses
@@ -23,12 +24,30 @@ from dvo_slam_tpu_torch import convert
 from dvo_slam_tpu_torch.models import dense_tracker as t_dense_tracker
 from dvo_slam_tpu_torch.models import odometry as t_odometry
 from dvo_slam_tpu_torch.ops import camera as t_camera
+from dvo_slam_tpu_torch.ops import linearize as t_linearize
 from dvo_slam_tpu_torch.ops import pyramid as t_pyramid
 
 W, H = 80, 60
 K_TUPLE = (40.0, 40.0, (W - 1) / 2.0, (H - 1) / 2.0)
 CFG = TrackerConfig(num_levels=3, first_level=2, last_level=0)
 CFG_LM = dataclasses.replace(CFG, lm_lambda_init=1e-4)
+# The tracker's configs beside the default t-distribution: every scale
+# estimator the CLI offers (each under another influence function), no
+# weighting, and the motion prior under GN and LM (on the card each runs
+# the level kernel).
+CFGS = {
+    "gauss_newton": CFG,
+    "lm": CFG_LM,
+    "mad_huber": dataclasses.replace(CFG, scale_estimator="mad",
+                                     influence="huber"),
+    "normal_tukey": dataclasses.replace(CFG, scale_estimator="normal",
+                                        influence="tukey"),
+    "unit_tdist": dataclasses.replace(CFG, scale_estimator="unit",
+                                      influence="tdist"),
+    "unweighted": dataclasses.replace(CFG, use_weighting=False),
+    "mu_gauss_newton": dataclasses.replace(CFG, mu=0.5),
+    "mu_lm": dataclasses.replace(CFG_LM, mu=0.5),
+}
 XI = np.array([0.02, -0.015, 0.01, 0.01, -0.008, 0.012])
 
 
@@ -89,11 +108,14 @@ def _assert_results_agree(got, want):
     assert not bool(got.is_nan())
 
 
-@pytest.mark.parametrize("cfg", [CFG, CFG_LM], ids=["gauss_newton", "lm"])
+@pytest.mark.parametrize("cfg", list(CFGS.values()), ids=list(CFGS))
 def test_track_recovers_known_pose_like_jax(pair, cfg):
     ref, cur, T_rel = pair
     got, want = _track_both(ref, cur, cfg)
     _assert_results_agree(got, want)
+    # The information is the posterior A + mu I on both sides.
+    info = np.asarray(want.information)
+    assert np.abs(got.information - info).max() <= 1e-3 * np.abs(info).max()
     assert _pose_error(got.transformation, T_rel) < 2e-3
     assert _pose_error(want.transformation, T_rel) < 2e-3
     # Per-iteration stats follow the same IRLS history.
@@ -107,6 +129,42 @@ def test_track_recovers_known_pose_like_jax(pair, cfg):
             assert int(s.termination[lvl]) == int(ws.termination[lvl])
             np.testing.assert_array_equal(s.accepted[lvl],
                                           np.asarray(ws.accepted[lvl]))
+
+
+def test_strong_prior_pins_each_level_like_jax(pair):
+    """mu = 1e9 (the JAX package's test_mu_pose_prior_pulls_toward_init):
+    from the identity, the port agrees with JAX on the whole track, each
+    tracked level's pose stays within 1e-3 of the pose it started from,
+    and the free track ends at least 5x further from the identity, in
+    both packages."""
+    ref, cur, _ = pair
+    prior = dataclasses.replace(CFG, mu=1e9)
+    got, want = _track_both(ref, cur, prior)
+    _assert_results_agree(got, want)
+    t_Ks = t_camera.pyramid_intrinsics(
+        t_camera.intrinsics(*K_TUPLE, device="cpu"), CFG.num_levels)
+    t_pyr = [t_pyramid.build_pyramid(torch.from_numpy(i), torch.from_numpy(z),
+                                     CFG.num_levels) for i, z in (ref, cur)]
+    moved = {}
+    for cfg in (CFG, prior):
+        t_cfg = _port_cfg(cfg)
+        T = torch.eye(4)[None]
+        for lvl in cfg.tracked_levels:
+            rd = t_linearize.prepare_reference(t_pyr[0][lvl][None],
+                                               t_Ks[lvl], t_cfg)
+            T_next = t_dense_tracker.track_level(rd, t_pyr[1][lvl],
+                                                 t_Ks[lvl], T, t_cfg)[0]
+            moved[(cfg.mu, lvl)] = _pose_error(
+                T_next[0].numpy() @ se3_np.inverse(T[0].numpy()), np.eye(4))
+            T = T_next
+    # A level pinned by the prior moves by -b / mu at most, ~5e-4 here at
+    # the finest level (b is the data term's gradient there).
+    assert max(moved[(1e9, lvl)] for lvl in CFG.tracked_levels) < 1e-3, moved
+    free = _track_both(ref, cur, CFG)
+    for T_free, T_prior in ((free[0].transformation, got.transformation),
+                            (free[1].transformation, want.transformation)):
+        assert _pose_error(T_free, np.eye(4)) > 5 * _pose_error(
+            T_prior, np.eye(4))
 
 
 def test_reference_without_depth_stops_early_like_jax(pair):

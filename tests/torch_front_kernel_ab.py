@@ -1,5 +1,6 @@
 """The pyramid kernel (csrc/pyramid.cu), the standalone slab sampler
-(csrc/sampler.cu) and the chunked scan's step (csrc/keyframe_scan.cu) of
+(csrc/sampler.cu), the cluster kernel (csrc/linearize.cu) and the chunked
+scan's step (csrc/keyframe_scan.cu) of
 one or more source trees, timed on the same seeded inputs in one run on
 one card.
 
@@ -16,7 +17,12 @@ both. The child times, by chip_smoke._events_us (CUDA events behind a spin
 kernel): the pyramid at 640x480 with 4 levels for f32 and u8 + u16 inputs
 (phase 3a's noisy frame), and its wrapper's host time a call; the sampler on phase 2a's noisy pair at the
 tracked levels 3, 2 and 1 and at phase 11's pixel-shard shape (the first
-half of level 1's rows), beside torch's grid_sample; where the tree has
+half of level 1's rows), beside torch's grid_sample; the cluster
+kernel's mode (b) under the default t-distribution at B = 1 (phase 2's
+noisy pair), 2 and 8 (chip_smoke._batch_inputs) at the tracked levels,
+with the iterations each launch runs, and its mode (a) at B = 1; where
+the tree runs other scale estimators on the kernel, mode (b) under normal
++ Tukey and MAD + Huber at B = 1; where the tree has
 it, an empty kernel (the launch floor); and where the tree has the step
 kernel: the step held to its plain version on chip_smoke's STEP_CASES and
 8 random rows, with and without the statistics, then timed a call
@@ -152,6 +158,36 @@ for name, (slab, u, v) in cases.items():
         functools.partial(sampler.sample_slab, slab, u, v))
     out[f"grid_sample {name}"] = s._events_us(
         functools.partial(s._grid_sample, slab[None], grid))
+
+# The cluster kernel (csrc/linearize.cu): mode (b) under the default
+# t-distribution at B = 1 (phase 2's noisy pair), 2 (a shared slab) and 8
+# (a slab a row; chip_smoke._batch_inputs) at each tracked level, and mode
+# (a) at B = 1; where the tree runs other estimators on the kernel, mode
+# (b) under normal + Tukey and MAD + Huber at B = 1. Each launch's
+# iterations (of the longest row) beside its us.
+lin_cfgs = {"tdist": cfg}
+if hasattr(linearize, "_ESTIMATORS"):
+    lin_cfgs["normal_tukey"] = dataclasses.replace(
+        cfg, scale_estimator="normal", influence="tukey")
+    lin_cfgs["mad_huber"] = dataclasses.replace(
+        cfg, scale_estimator="mad", influence="huber")
+for lvl in cfg.tracked_levels:
+    ref = linearize.prepare_reference(ref_pyr[lvl][None], Ks[lvl], cfg)
+    batches = {1: (ref, cur_pyr[lvl], Ks[lvl], T[None])}
+    for B, paired in ((2, False), (8, True)):
+        batches[B] = s._batch_inputs(dev, cfg, B, paired, lvl)[:4]
+    for B, args in batches.items():
+        for name, c in lin_cfgs.items():
+            if B > 1 and name != "tdist":
+                continue
+            its = linearize.unpack_level(*linearize.track_level_kernels(
+                *args, c), c.max_iterations).iterations.max().item()
+            case = f"mode (b) {name} B={B} level {lvl}"
+            out[case] = s._events_us(
+                functools.partial(linearize.track_level_kernels, *args, c))
+            out[case + " iterations"] = float(its)
+    out[f"mode (a) B=1 level {lvl}"] = s._events_us(functools.partial(
+        linearize.linearize_kernels_batched, *batches[1], cfg))
 if hasattr(_build, "empty_launch"):
     out["empty kernel"] = s._events_us(
         functools.partial(_build.empty_launch, dev))
