@@ -139,7 +139,8 @@ launch a frame after its level launches). Phases:
      i. the protocol's budget run: slam mode again at
         point_budget_fraction 0.25 (point compaction): fps, keyframes, loop
         edges, ATE beside 6b's, and gate_budget (ATE < 20 mm, >= 1 loop
-        edge, ATE <= 0.7 ATE(keyframe)); launches as 6b's;
+        edge, ATE <= 0.7 ATE(keyframe)); launches as 6b's, and no
+        prepare_reference call;
      c. `cli odometry` with a covariance file (one 37-field line a frame);
      d. `python -m dvo_slam_tpu_torch.cli evaluate` in a subprocess: the
         benchmark's ATE within 1e-6; `evaluate --rpe-seconds`;
@@ -223,15 +224,26 @@ launch a frame after its level launches). Phases:
      frame and chunked): fps, pose latency p50 / p99 (send to arrival);
      every session's finish() trajectory must equal the engine's direct
      run on the same frames;
-  10. point compaction (ops/linearize.compact_reference) at
-     intensity_grad_threshold 1.0: odometry over phase 3's orbit on the
-     full grid and at budget 0.5 (ms/frame, ATE < 5 mm, one level-kernel
-     launch per tracked level); per tracked level at N = budget, mode (b)
+  10. point compaction at intensity_grad_threshold 1.0, on the kernel
+     front (each level launch picks its slots' pixels from the reference
+     slab, csrc/linearize.cu select_slots; ops/linearize.compact_reference
+     is its plain version): a. odometry over phase 3's orbit on the full
+     grid and at budget 0.5 in turns (ms/frame, ATE < 5 mm, a pyramid and
+     three level launches a frame, no prepare_reference call; records by
+     layer in the profiles, "10a"); b. per tracked level at N = budget,
+     the slab route against the RefData route over prepare_reference's
+     compacted points bit for bit (both modes, B = 1, 2, 8), mode (b)
      against the plain host loop (2d's gates) at B = 1 and 2, mode (a)
-     against plain row by row (5a's), the level kernel's us per launch at
-     N = budget and on the full grid and whether the points are kept in
-     shared memory; compaction on the card bit-equal to the CPU's and
-     across runs;
+     against plain row by row (5a's), the level kernel's us per launch on
+     the slab route and the RefData route at the budget and on the full
+     grid, mode (a)'s on both routes (the prologue's cost), whether the
+     points and slot tables are kept in shared memory, the bound with the
+     prologue's bytes; c. compaction on the card bit-equal to the CPU's
+     and across runs; d. phase 8's chunked engine at the budget: five
+     launches a scanned frame, no host sync in submit_chunk, no
+     prepare_reference or scan_step_reference call, the same keyframes
+     and edges as the per-frame engine at the budget, ms/frame beside
+     phase 8's;
   11. parallel/ (torch.distributed) at 640x480 with the default config:
      4 ranks over nccl with 4 cards or more, 2 with 2 or 3, or 2 ranks
      sharing one card over gloo,
@@ -279,8 +291,9 @@ launch a frame after its level launches). Phases:
 The line before the last is a JSON object describing each kernel (the
 cluster kernel's modes at B = 1, with the odometry path's launches, at B
 = 2 and 8, with the SLAM path's, mode (b) at B = 2 with the chunked
-engine's, at B = 16 and 32 (5d), and at N = budget with phase 10's
-compacted odometry launches, and mode (b) on the slab route with phase
+engine's, at B = 16 and 32 (5d), and on the slab route at N = budget
+with phase 10a's compacted odometry launches, and mode (b) on the slab
+route with phase
 3's launches; the standalone sampler on phase 11's pixel-sharded route;
 the pose-graph kernel on 5f's five graphs, with 5b's, 6b's and 5e's
 launches; the grid kernel on 5g's last solve and _ring_graph at 256 (5f,
@@ -447,8 +460,9 @@ FRONT_LAYERS = (
 LAYER_ORDER = ("pyramid", "reference", "levels", "assembly", "copies",
                "other")
 # Names of the profiler's own device-side copies of host ranges: not
-# device work.
-_RANGE_PREFIXES = ("front ", "smoke ")
+# device work. "ProfilerStep" is the schedule's step range (_traced's
+# warm-up cycle), which spans the whole session on the device side.
+_RANGE_PREFIXES = ("front ", "smoke ", "ProfilerStep")
 
 
 @contextlib.contextmanager
@@ -1055,7 +1069,7 @@ def phase_level_vs_plain(device, cfg):
                 check = (f"|dT| {d_T:.2e}, A error / max|A| {a_rel:.2e}, "
                          f"paths parted at a tie: {parted or 'none'}")
             us = _events_us(lambda: linearize.track_level_kernels(*args))
-            C, P, stored, smem = linearize.level_plan(device,
+            C, P, stored, smem, _ = linearize.level_plan(device,
                                                       ref.px.shape[1])
             print(f"phase 2d track_level (mode b) vs host loop: {pair} "
                   f"pair level {lvl}: iterations {its[0]} / {its[1]}, "
@@ -1664,6 +1678,18 @@ def _slab_ref_bytes(cfg):
                        or (ref_grad and cfg.use_depth)))
 
 
+def _prologue_bytes(cfg, HW):
+    """Bytes compaction's prologue reads (csrc/linearize.cu select_slots)
+    for one row: its selection planes once (Z; Ix, Iy for the intensity
+    threshold; Zx, Zy for the depth threshold or reference depth
+    gradients). Its slot tables stay in shared memory."""
+    ref_grad = cfg.gradient_source == "reference"
+    planes = (1 + 2 * (cfg.intensity_grad_threshold > 0)
+              + 2 * (cfg.depth_grad_threshold > 0
+                     or (ref_grad and cfg.use_depth)))
+    return 4 * planes * HW
+
+
 def _slab_route_plain(ref_slab, cur, K, T, cfg):
     """The slab route's plain version: prepare_reference, then the host
     loop over the plain linearization."""
@@ -2137,8 +2163,11 @@ def _top_records(recs, n, k=6):
     return [(tot / n, cnt / n, name) for name, (tot, cnt) in top]
 
 
-def phase_profile(device, frames, host, n=3, limits=True):
-    """4: frames 1..n of the odometry main path under torch.profiler, on a
+def phase_profile(device, frames, host, n=3, limits=True, cfg=None,
+                  tag="4"):
+    """4 (and 10a's profile, tag "10a", at a point budget): frames 1..n of
+    the odometry main path under torch.profiler (the default config, or
+    cfg), on a
     fresh tracker given frame 0 unprofiled, through the level kernel or
     (host) the host loop: wall and device busy per frame, idle share,
     device records per frame and per IRLS iteration, the heaviest
@@ -2151,7 +2180,7 @@ def phase_profile(device, frames, host, n=3, limits=True):
     from dvo_slam_tpu_torch import TrackerConfig
     from dvo_slam_tpu_torch.models.odometry import OdometryTracker
 
-    tracker = OdometryTracker(K_TUPLE, TrackerConfig(), device=device)
+    tracker = OdometryTracker(K_TUPLE, cfg or TrackerConfig(), device=device)
     tracker.update(*frames[0], 0.0)
 
     def body():
@@ -2171,7 +2200,7 @@ def phase_profile(device, frames, host, n=3, limits=True):
     kinds = [_kernel_of(r[0]) for r in recs]
     route = "host loop" if host else "level kernel"
     layers = _records_by_layer(prof)
-    print(f"phase 4 profile ({route}): {n} frames, {n_it} IRLS iterations, "
+    print(f"phase {tag} profile ({route}): {n} frames, {n_it} IRLS iterations, "
           f"wall {wall_us / 1e3 / n:.3f} ms/frame (profiler on), device "
           f"busy {busy / 1e3 / n:.3f} ms/frame, idle share "
           f"{1 - busy / wall_us:.4f}; {len(recs) / n:.1f} device records per "
@@ -2206,7 +2235,7 @@ def phase_profile(device, frames, host, n=3, limits=True):
             acc[1] += 1
             acc[2] += its[j // len(levels)][j % len(levels)]
         for lvl, (us, cnt, it) in per_level.items():
-            print(f"phase 4 device time (profiler): level {lvl}, {cnt} "
+            print(f"phase {tag} device time (profiler): level {lvl}, {cnt} "
                   f"launches, {it} IRLS iterations: track_level "
                   f"{us / cnt:.2f} us per launch, {us / it:.2f} us per "
                   f"iteration")
@@ -2370,7 +2399,7 @@ def phase_slam_profile(slam_out, host, n=SLAM_PROFILED_FRAMES):
             "layers": {k: v / n_plain for k, v in layers.items()}}
 
 
-def _bounds(cfg, L, B, d, ref_bytes=17):
+def _bounds(cfg, L, B, d, ref_bytes=17, extra_bytes=0):
     """Per kernel at one level and batch: (ms, "bytes" or "operations"),
     the least time the card could take. Bytes: each input read once, each
     output written once: per linearization each row's reference points
@@ -2379,9 +2408,10 @@ def _bounds(cfg, L, B, d, ref_bytes=17):
     pixel; once per distinct
     slab), mode (a)'s outputs (204 B a row and 9 B a point of rI, rZ,
     valid); mode (b) repeats a linearization's reads once per iteration
-    this run's rows took. Operations: counted per point from the source,
-    the Sigma steps' and the normal equations' over the valid points only
-    (the final valid count standing for every iteration's)."""
+    this run's rows took; extra_bytes once a launch (compaction's
+    prologue, _prologue_bytes). Operations: counted per point from the
+    source, the Sigma steps' and the normal equations' over the valid
+    points only (the final valid count standing for every iteration's)."""
     N, HW = L["N"], L["H"] * L["W"]
     steps = cfg.tdist_scale_iters
     its, n_valid = d["its"], d["n_valid"]
@@ -2392,10 +2422,10 @@ def _bounds(cfg, L, B, d, ref_bytes=17):
     out = {
         "linearize": _bound_ms(
             B * (ref_bytes * N + 204 + 9 * N)
-            + (B if d["paired"] else 1) * 24 * HW,
+            + (B if d["paired"] else 1) * 24 * HW + extra_bytes,
             B * f32_row + f32_valid * n_valid, f64_valid * n_valid),
         "track_level": _bound_ms(
-            sum(its) * ref_bytes * N + slab_reads * 24 * HW,
+            sum(its) * ref_bytes * N + slab_reads * 24 * HW + extra_bytes,
             sum(its) * f32_row + f32_valid * n_valid * sum(its) / B,
             f64_valid * n_valid * sum(its) / B),
     }
@@ -2515,7 +2545,7 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
             by_b.get(("track_level", B), 0), d["err"], d["us"] / 1e3,
             d["plain_ms"], d["bound"], None)
     d = compaction[lvl]
-    row(f"track_level (mode b), compacted to N = budget "
+    row(f"track_level (mode b), slab route compacted to N = budget "
         f"({COMPACT_BUDGET:g})", "dvo_slam_tpu_torch/csrc/linearize.cu",
         "dvo_slam_tpu/ops/pallas/sampler.py:226",
         compaction["launches"]["track_level"], compaction["err"],
@@ -2904,14 +2934,20 @@ def phase_offline(device, width=W, height=H, frames=OFFLINE_FRAMES,
               f"(6b {1e3 * ate_slam:.4f}, keyframe mode {1e3 * ate_kf:.4f}); "
               f"gate_budget {gate_budget} (ATE < "
               f"{1e3 * OFFLINE_ATE_LIMIT_M:g} mm, >= 1 loop edge, <= 0.7 x "
-              f"ATE(keyframe)); launches track_level "
-              f"{b_launches['track_level']}, linearize "
+              f"ATE(keyframe)); launches pyramid {b_launches['pyramid']}, "
+              f"track_level {b_launches['track_level']} "
+              f"({b_launches['track_level'] / budget.num_frames:.3f} a "
+              f"frame; 6b's {launches['track_level'] / slam['num_frames']:.3f})"
+              f", by batch size {b_launches['by B']}, linearize "
               f"{b_launches['linearize']}, standalone sampler "
-              f"{b_launches['sample_slab']}")
+              f"{b_launches['sample_slab']}; prepare_reference calls "
+              f"{b_launches['prepare_reference']}")
         if not gate_budget:
             raise AssertionError("the budget run fails gate_budget")
         if (b_launches["track_level"] == 0 or b_launches["linearize"] != 0
-                or b_launches["sample_slab"] != 0):
+                or b_launches["sample_slab"] != 0
+                or (torch.device(device).type == "cuda"
+                    and b_launches["prepare_reference"] != 0)):
             raise AssertionError(f"budget run launches {b_launches}")
 
         # 6c: `odometry` with covariances.
@@ -4458,10 +4494,11 @@ def _chunks(frames, n, t_base):
                [t_base + (c * CHUNK + j) / 30.0 for j in range(CHUNK)])
 
 
-def _chunk_device_us(device, frames, reps=5):
+def _chunk_device_us(device, frames, reps=5, cfg=None):
     """A CHUNK-frame chunk of the ring (frames 1..CHUNK after an init
     frame, no forced switch) on the kernel route
-    (keyframe_scan.track_keyframe_chunk: five launches a frame) by
+    (keyframe_scan.track_keyframe_chunk: five launches a frame; the
+    default config, or cfg) by
     _events_us, one chunk a run, behind a spin that outlasts the host's
     issue time for the chunk (cap 1 s): the device time of the chunk's
     launches, not the host's issue rate. Returns (device us a chunk, the
@@ -4475,7 +4512,7 @@ def _chunk_device_us(device, frames, reps=5):
     seq = [frames[k % len(frames)] for k in range(CHUNK + 1)]
     ii = torch.as_tensor(np.stack([f[0] for f in seq]), device=device)
     zz = torch.as_tensor(np.stack([f[1] for f in seq]), device=device)
-    cfg = TrackerConfig()
+    cfg = cfg or TrackerConfig()
     K = camera.intrinsics(*K_TUPLE, device=device)
     carry = keyframe_scan.init_carry(keyframe_scan.pyramid_from_stack(
         ii, zz, 0, cfg.num_levels))
@@ -4494,16 +4531,18 @@ def _chunk_device_us(device, frames, reps=5):
     return _events_us(fn, n=1, reps=reps, cap_s=1.0), host_us
 
 
-def phase_chunked(device, slam_out):
-    """8: ChunkedKeyframeSlam over 5b's loop (640x480, default configs,
-    loop closure on) in chunks of CHUNK frames, force_keyframe() before
+def phase_chunked(device, slam_out, cfg=None, tag="8", per_frame="5b"):
+    """8 (and 10d at a point budget, tag "10d"): ChunkedKeyframeSlam over
+    5b's loop (640x480, default configs or cfg, loop closure on) in chunks
+    of CHUNK frames, force_keyframe() before
     every chunk but the first (5b's every FORCE_EVERY frames), with a
     depth-2 submit/collect pipeline: SLAM_FRAMES warm-up frames on one
     instance, then SLAM_FRAMES timed on a fresh one (the launch counts
     reset just before and read just after). The submit of chunk SYNC_CHUNK
-    runs under torch.cuda.set_sync_debug_mode("error"). Against 5b's
-    per-frame KeyframeSlam over the same frames: the same keyframe
-    timestamps and graph edges, trajectories within 1e-4."""
+    runs under torch.cuda.set_sync_debug_mode("error"). Against the
+    per-frame KeyframeSlam over the same frames (slam_out["slam"], 5b's or
+    10d's, with its ms/frame): the same keyframe timestamps and graph
+    edges, trajectories within 1e-4. No prepare_reference call."""
     import torch
 
     from dvo_slam_tpu_torch import SlamConfig, TrackerConfig
@@ -4512,11 +4551,12 @@ def phase_chunked(device, slam_out):
 
     frames = slam_out["frames"]
     _, poses = _ring()
+    cfg = cfg or TrackerConfig()
 
     scan = dict.fromkeys(SCAN_LAUNCHES, 0)
 
     def run(t_base, timed):
-        slam = ChunkedKeyframeSlam(K_TUPLE, TrackerConfig(), SlamConfig(),
+        slam = ChunkedKeyframeSlam(K_TUPLE, cfg, SlamConfig(),
                                    enable_loop_closure=True, device=device)
         slam.init()
         in_flight, submit_ms = 0, []
@@ -4567,23 +4607,25 @@ def phase_chunked(device, slam_out):
                for (_, a), (_, b) in zip(traj, ref_traj))
     by_b = {b: n / SLAM_FRAMES for (kind, b), n in launches["by B"].items()
             if kind == "track_level"}
-    print(f"phase 8 chunked engine: {SLAM_FRAMES} frames {W}x{H} in chunks "
-          f"of {CHUNK} (depth-2 pipeline) after {SLAM_FRAMES} warm-up "
+    print(f"phase {tag} chunked engine: {SLAM_FRAMES} frames {W}x{H} in "
+          f"chunks of {CHUNK} (depth-2 pipeline) after {SLAM_FRAMES} warm-up "
           f"frames on another instance: {ms:.3f} ms/frame "
-          f"({1e3 / ms:.2f} fps; 5b per-frame {slam_out['ms_frame']:.3f}); "
+          f"({1e3 / ms:.2f} fps; {per_frame} per-frame "
+          f"{slam_out['ms_frame']:.3f}); "
           f"submit_chunk host ms median {np.median(submit_ms):.3f}, max "
           f"{max(submit_ms):.3f}; keyframes {len(slam.keyframes)}, loop "
           f"edges {slam.num_loop_edges}; ATE of finish() {1e3 * ate:.4f} mm")
     # The scan's frames: every frame but the engine's first (its init
     # pyramid is one more pyramid launch in the first submit_chunk).
     scanned = SLAM_FRAMES - 1
-    per_frame = {k: (n - (k == "pyramid")) / scanned for k, n in scan.items()}
-    print(f"phase 8 launches: track_level {launches['track_level']} "
+    by_kernel = {k: (n - (k == "pyramid")) / scanned for k, n in scan.items()}
+    print(f"phase {tag} launches: track_level {launches['track_level']} "
           f"({launches['track_level'] / SLAM_FRAMES:.2f} per frame), per "
           f"frame by batch size {by_b}, linearize {launches['linearize']}, "
-          f"standalone sampler {launches['sample_slab']}; in submit_chunk "
+          f"standalone sampler {launches['sample_slab']}, prepare_reference "
+          f"calls {launches['prepare_reference']}; in submit_chunk "
           f"(the scan, {scanned} frames) per frame by kernel: "
-          f"{', '.join(f'{k} {v:.2f}' for k, v in per_frame.items())} "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in by_kernel.items())} "
           f"(want pyramid 1, track_level 3, scan_step 1, the rest 0); chunk "
           f"{SYNC_CHUNK}'s submit_chunk under set_sync_debug_mode(\"error\"):"
           f" no synchronizing call")
@@ -4593,7 +4635,8 @@ def phase_chunked(device, slam_out):
     # may differ; its endpoints may not.
     ends = [e[:2] for e in edges] == [e[:2] for e in ref_edges]
     masks = [e for e, r in zip(edges, ref_edges) if e[2] != r[2]]
-    print(f"phase 8 against 5b's per-frame KeyframeSlam on the same frames: "
+    print(f"phase {tag} against {per_frame}'s per-frame KeyframeSlam on the "
+          f"same frames: "
           f"keyframe timestamps {'identical' if kf_t == ref_kf_t else 'differ'}"
           f" ({len(kf_t)} / {len(ref_kf_t)}), graph edges "
           f"{'identical' if edges == ref_edges else 'differ'} ({len(edges)} "
@@ -4607,13 +4650,14 @@ def phase_chunked(device, slam_out):
     if kf_t != ref_kf_t or not ends or (not masks and not diff <= 1e-4):
         raise AssertionError("the chunked and per-frame engines differ")
     if (launches["track_level"] == 0 or launches["linearize"] != 0
-            or launches["sample_slab"] != 0):
+            or launches["sample_slab"] != 0
+            or launches["prepare_reference"] != 0):
         raise AssertionError(f"chunked path launches {launches}")
-    if per_frame != SCAN_LAUNCHES:
-        raise AssertionError(f"the scan's launches per frame {per_frame}, "
+    if by_kernel != SCAN_LAUNCHES:
+        raise AssertionError(f"the scan's launches per frame {by_kernel}, "
                              f"want {SCAN_LAUNCHES}")
-    chunk_us, issue_us = _chunk_device_us(device, frames)
-    print(f"phase 8 a {CHUNK}-frame chunk of the ring on the kernel route "
+    chunk_us, issue_us = _chunk_device_us(device, frames, cfg=cfg)
+    print(f"phase {tag} a {CHUNK}-frame chunk of the ring on the kernel route "
           f"behind a spin: {chunk_us:.2f} us of device time "
           f"({chunk_us / CHUNK:.2f} a frame; the host issues it in "
           f"{issue_us:.2f} us)")
@@ -4859,35 +4903,51 @@ def phase_live(device, slam_out):
     return out
 
 
-def phase_compaction(device, frames):
+def phase_compaction(device, frames, slam_out, chunked):
     """10: point compaction on the card (TrackerConfig.point_budget_fraction;
-    ops/linearize.compact_reference), at intensity_grad_threshold
-    COMPACT_THRESHOLD:
+    ops/linearize.compact_reference's slots, picked by each level launch
+    on the slab route: csrc/linearize.cu select_slots), at
+    intensity_grad_threshold COMPACT_THRESHOLD:
     a. odometry over phase 3's 24-frame orbit on the full grid and at
        budget COMPACT_BUDGET, in turns (full, budget, budget, full), each
        run on a fresh tracker: ms/frame, ATE (< 5 mm), launches per frame
-       (counts reset just before and read just after each run: track_level
-       one per tracked level, linearize and sampler 0);
-    b. per tracked level, the noise-free orbit pair at N = budget: mode (b)
-       against the host loop over the plain linearization at B = 1 and 2
-       (2d's _compare_level gates), mode (a) against the plain version row
-       by row (5a's _check_batched), the level kernel's us per launch at
-       N = budget and on the full grid (CUDA events), whether the points
-       are kept in shared memory (level_plan), the host loop's ms and the
-       bound;
-    c. compaction itself: each level's compacted points on the card equal,
-       bit for bit, the CPU's from the same slab, and five card runs equal.
-    Returns what the kernels line needs (its error: mode (b)'s largest
-    |T - T_host|, as the other mode (b) rows)."""
+       (counts reset just before and read just after each run: a pyramid
+       a frame, track_level one per tracked level, linearize, sampler and
+       prepare_reference 0); its records by layer come last, in the
+       profiles (phase_profile's "10a");
+    b. per tracked level, the noise-free orbit pair at N = budget: the
+       slab route (the launch compacts the slab's pixels) against the
+       RefData route over prepare_reference's compacted points, both
+       modes, bit for bit, at B = 1, 2 and 8; mode (b) against the host
+       loop over the plain linearization at B = 1 and 2 (2d's
+       _compare_level gates), mode (a) against the plain version row by
+       row (5a's _check_batched); at B = 1 the level kernel's us per
+       launch by CUDA events on the slab route at the budget, on the
+       RefData route at the budget and on the full grid (slab route), mode
+       (a)'s on both routes at the budget (their difference: the
+       prologue and the slab route's per-point reads), whether the points
+       and the slot tables are kept in shared memory (level_plan), the
+       host loop's ms and the bound (the prologue's bytes included);
+    c. compaction itself (the plain version, the pixel route's): each
+       level's compacted points on the card equal, bit for bit, the CPU's
+       from the same slab, and five card runs equal;
+    d. a budget chunk: phase 8's chunked engine at the budget against a
+       per-frame KeyframeSlam at the budget on the same frames (5b's
+       loop): five launches a scanned frame, no host sync in
+       submit_chunk, no prepare_reference or scan_step_reference call,
+       the same keyframes and edges, ms/frame beside phase 8's.
+    Returns what the kernels line needs (its error: the largest of mode
+    (b)'s |T - T_host| and the slab route's bit differences from the
+    RefData route)."""
     import dataclasses
     from functools import partial
 
     import torch
 
-    from dvo_slam_tpu_torch import TrackerConfig
+    from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig, TrackerConfig
     from dvo_slam_tpu_torch.models import dense_tracker
     from dvo_slam_tpu_torch.models.odometry import OdometryTracker
-    from dvo_slam_tpu_torch.ops import linearize
+    from dvo_slam_tpu_torch.ops import linearize, scan_step
     from dvo_slam_tpu_torch.utils import evaluate, se3_np, synthetic
 
     full_cfg = TrackerConfig(intensity_grad_threshold=COMPACT_THRESHOLD)
@@ -4910,94 +4970,152 @@ def phase_compaction(device, frames):
         launches = _launches()
         ate = evaluate.ate_rmse([T for _, T in tracker.trajectory], poses)
         res = tracker.last_result
-        runs[name] = {"launches": launches}
+        runs.setdefault(name, {"ms": []})["launches"] = launches
+        runs[name]["ms"].append(float(np.mean(frame_ms)))
         print(f"phase 10a odometry, {name} (intensity_grad_threshold "
               f"{COMPACT_THRESHOLD:g}, point_budget_fraction "
               f"{c.point_budget_fraction:g}): {N_FRAMES} frames "
               f"{W}x{H}, {np.mean(frame_ms):.3f} ms/frame after {N_WARMUP} "
               f"warm-up frames; ATE {1e3 * ate:.4f} mm; last frame valid "
               f"{float(res.valid_pixels):.0f}, valid ratio "
-              f"{float(res.valid_ratio):.4f}; launches per frame track_level "
+              f"{float(res.valid_ratio):.4f}; launches per frame pyramid "
+              f"{launches['pyramid'] / N_FRAMES:.3f}, track_level "
               f"{launches['track_level'] / (N_FRAMES - 1):.3f} "
               f"({launches['track_level']} for {levels} tracked levels), "
               f"linearize {launches['linearize']}, standalone sampler "
               f"{launches['sample_slab']}; prepare_reference calls "
-              f"{launches['prepare_reference']} (the eager front's, under "
-              f"compaction)")
+              f"{launches['prepare_reference']}")
         if not ate < ATE_LIMIT_M:
             raise AssertionError(f"{name}: ATE {ate} m >= {ATE_LIMIT_M} m")
         if (launches["track_level"] != levels or launches["linearize"] != 0
                 or launches["sample_slab"] != 0
-                or (launches["prepare_reference"] == 0)
-                != (c.point_budget_fraction == 0.0)):
+                or launches["pyramid"] != N_FRAMES
+                or launches["prepare_reference"] != 0):
             raise AssertionError(f"{name}: launches {launches}")
 
     ref_pyr, cur_pyr, Ks, T = _noisy_pair(device, cfg, noisy=False)
-    T2 = torch.stack([T, T @ torch.as_tensor(
-        se3_np.exp(np.array([-1e-3, 2e-3, -1e-3, 2e-3, -1e-3, 1e-3])),
-        dtype=torch.float32, device=device)])
-    out = {"launches": runs["budget"]["launches"], "err": 0.0}
+    T8 = torch.stack([T @ torch.as_tensor(se3_np.exp(
+        1e-3 * np.array([-1.0, 2.0, -1.0, 2.0, -1.0, 1.0]) * (b % 3 - 1)
+        + 5e-4 * b), dtype=torch.float32, device=device) for b in range(8)])
+    T8[0] = T
+    out = {"launches": runs["budget"]["launches"], "err": 0.0,
+           "odometry_ms": {k: v["ms"] for k, v in runs.items()}}
     for lvl in cfg.tracked_levels:
         h, w = ref_pyr[lvl].shape[-2:]
-        for B in (1, 2):
-            ref = linearize.prepare_reference(
-                torch.stack([ref_pyr[lvl]] * B), Ks[lvl], cfg)
-            N = ref.px.shape[1]
-            if N != linearize.compact_budget(h * w, COMPACT_BUDGET, 128):
+        N = linearize.ref_budget(cfg, h, w)
+        for B in (1, 2, 8):
+            stacked = torch.stack([ref_pyr[lvl]] * B)
+            ref = linearize.prepare_reference(stacked, Ks[lvl], cfg)
+            if (ref.px.shape[1] != N
+                    or N != linearize.compact_budget(h * w, COMPACT_BUDGET,
+                                                     128)):
                 raise AssertionError(f"level {lvl}: {N} compacted slots")
-            args = (ref, cur_pyr[lvl], Ks[lvl], T2[:B].contiguous(), cfg)
-            before = linearize.LAUNCHES_TRACK_LEVEL
-            got = dense_tracker.track_level(*args)
-            if linearize.LAUNCHES_TRACK_LEVEL - before != 1:
-                raise AssertionError("not one level-kernel launch")
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            want = dense_tracker._track_level(
-                *args, linearize=linearize.linearize_batched_reference)
-            end.record()
-            torch.cuda.synchronize()
-            plain_ms = start.elapsed_time(end)
-            d_T, a_rel, parted = _compare_level(
-                got, want, cfg, f"budget level {lvl} B={B}")
+            slabs = linearize.RefSlabs(stacked)
+            T_B = T8[:B].contiguous()
             sigma = torch.tensor([[40.0, 0.01], [0.01, 1e-3]],
                                  device=device).expand(B, 2, 2).contiguous()
-            r_err, abs_err, rel = _check_batched(
-                ref, cur_pyr[lvl], Ks[lvl], T2[:B].contiguous(), sigma, cfg)
-            out["err"] = max(out["err"], d_T)
-            its = got[2]["iterations"].tolist()
+            # The slab route against the RefData route, both modes.
+            routes = []
+            for r in (slabs, ref):
+                calls = linearize.PREPARE_REFERENCE_CALLS
+                lin = linearize.linearize_kernels_batched(
+                    r, cur_pyr[lvl], Ks[lvl], T_B, cfg, sigma, True)
+                res = [t.clone() for t in
+                       linearize.kernel_residuals(device, N, B)]
+                o, o_i = linearize.track_level_kernels(r, cur_pyr[lvl],
+                                                       Ks[lvl], T_B, cfg)
+                if (r is slabs
+                        and linearize.PREPARE_REFERENCE_CALLS != calls):
+                    raise AssertionError("the slab route called "
+                                         "prepare_reference")
+                routes.append((lin, res, o, o_i))
+            (lin_s, res_s, o_s, oi_s), (lin_r, res_r, o_r, oi_r) = routes
+            diff = (sum(_same_bits(a, b) for a, b in
+                        zip(lin_s[:-1], lin_r[:-1]))
+                    + sum(int((a != b).sum()) for a, b in
+                          zip(res_s, res_r))
+                    + _same_bits(o_s, o_r) + int((oi_s != oi_r).sum()))
+            worst = float((o_s - o_r).abs().nan_to_num(0.0).max())
+            out["err"] = max(out["err"], worst)
             line = (f"phase 10b level {lvl} B={B} at N = budget {N} of "
-                    f"{h * w} (selected {int(ref.selected.sum())}): "
-                    f"track_level (mode b) vs host loop |dT| {d_T:.2e}, A "
-                    f"error / max|A| {a_rel:.2e}, parted at a tie: "
-                    f"{parted or 'none'}; linearize (mode a) vs plain: rI, "
-                    f"rZ error {r_err:.1e}, A/b error / max|.| {rel:.2e}; "
-                    f"iterations {its}")
+                    f"{h * w} (selected {int(ref.selected.sum())}): slab "
+                    f"route against the RefData route over prepare_reference"
+                    f"'s compacted points, modes (a) and (b): {diff} entries "
+                    f"differ (largest |difference| {worst:.1e})")
+            if diff:
+                raise AssertionError(line)
+            if B <= 2:
+                args = (ref, cur_pyr[lvl], Ks[lvl], T_B, cfg)
+                before = linearize.LAUNCHES_TRACK_LEVEL
+                got = dense_tracker.track_level(linearize.RefSlabs(stacked),
+                                                *args[1:])
+                if linearize.LAUNCHES_TRACK_LEVEL - before != 1:
+                    raise AssertionError("not one level-kernel launch")
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                want = dense_tracker._track_level(
+                    *args, linearize=linearize.linearize_batched_reference)
+                end.record()
+                torch.cuda.synchronize()
+                plain_ms = start.elapsed_time(end)
+                d_T, a_rel, parted = _compare_level(
+                    got, want, cfg, f"budget level {lvl} B={B}")
+                r_err, abs_err, rel = _check_batched(
+                    ref, cur_pyr[lvl], Ks[lvl], T_B, sigma, cfg)
+                out["err"] = max(out["err"], d_T)
+                its = got[2]["iterations"].tolist()
+                line += (f"; track_level (mode b) vs host loop |dT| "
+                         f"{d_T:.2e}, A error / max|A| {a_rel:.2e}, parted "
+                         f"at a tie: {parted or 'none'}; linearize (mode a) "
+                         f"vs plain: rI, rZ error {r_err:.1e}, A/b error / "
+                         f"max|.| {rel:.2e}; iterations {its}")
             if B == 1:
+                cur_args = (cur_pyr[lvl], Ks[lvl], T[None], cfg)
                 us = _events_us(partial(linearize.track_level_kernels,
-                                        *args))
-                ref_f = linearize.prepare_reference(ref_pyr[lvl][None],
-                                                    Ks[lvl], full_cfg)
-                full_args = (ref_f, cur_pyr[lvl], Ks[lvl], T[None], full_cfg)
+                                        slabs, *cur_args))
+                us_r = _events_us(partial(linearize.track_level_kernels,
+                                          ref, *cur_args))
+                a_us = _events_us(partial(
+                    linearize.linearize_kernels_batched, slabs, *cur_args))
+                a_us_r = _events_us(partial(
+                    linearize.linearize_kernels_batched, ref, *cur_args))
+                full_args = (linearize.RefSlabs(ref_pyr[lvl][None]),
+                             cur_pyr[lvl], Ks[lvl], T[None], full_cfg)
                 its_f = int(dense_tracker.track_level(*full_args)[2][
                     "iterations"][0])
                 us_f = _events_us(partial(linearize.track_level_kernels,
                                           *full_args))
-                C, P, kept, smem = linearize.level_plan(device, N)
-                C_f, P_f, kept_f, _ = linearize.level_plan(device, h * w)
+                C, P, kept, smem, slots_kept = linearize.level_plan(
+                    device, N, True)
+                C_f, P_f, kept_f, _, _ = linearize.level_plan(device, h * w)
                 bound = _bounds(cfg, {"N": N, "H": h, "W": w}, 1, {
                     "its": its, "n_valid": float(got[1].n_raw.sum()),
-                    "paired": False})["track_level"]
-                line += (f"; device {us:.2f} us per launch ({us / its[0]:.2f}"
-                         f" per iteration; cluster of {C} CTAs, {P} points "
-                         f"each, {'kept in' if kept else 'not in'} shared "
-                         f"memory) against the full grid's {us_f:.2f} us "
-                         f"({its_f} iterations; {C_f} CTAs of {P_f} points, "
-                         f"{'kept' if kept_f else 'not kept'}); host loop "
-                         f"over plain {plain_ms:.3f} ms (events, one call); "
-                         f"bound {1e3 * bound[0]:.4f} us ({bound[1]})")
-                out[lvl] = {"us": us, "plain_ms": plain_ms, "bound": bound,
-                            "kept": kept}
+                    "paired": False}, ref_bytes=_slab_ref_bytes(cfg),
+                    extra_bytes=_prologue_bytes(cfg, h * w))["track_level"]
+                pro = _prologue_bytes(cfg, h * w)
+                line += (f"; device {us:.2f} us per launch on the slab route "
+                         f"({us / its[0]:.2f} per iteration; cluster of {C} "
+                         f"CTAs, {P} slots each, points "
+                         f"{'kept in' if kept else 'not in'} shared memory, "
+                         f"slot table {'in shared' if slots_kept else 'in global'}"
+                         f" memory), {us_r:.2f} on the RefData route over "
+                         f"prepared points, against the full grid's "
+                         f"{us_f:.2f} us on the slab route ({its_f} "
+                         f"iterations; {C_f} CTAs of {P_f} points, "
+                         f"{'kept' if kept_f else 'not kept'}); mode (a) "
+                         f"{a_us:.2f} us on the slab route, {a_us_r:.2f} on "
+                         f"the RefData route (the prologue and the slab "
+                         f"route's reads: {a_us - a_us_r:+.2f} us; the "
+                         f"prologue's bytes {pro} B, "
+                         f"{1e6 * pro / PEAK_BYTES_S:.4f} us at "
+                         f"{PEAK_BYTES_S / 1e12:g} TB/s); host loop over plain "
+                         f"{plain_ms:.3f} ms (events, one call); bound "
+                         f"{1e3 * bound[0]:.4f} us ({bound[1]})")
+                out[lvl] = {"us": us, "us_refdata": us_r, "us_full": us_f,
+                            "a_us": a_us, "a_us_refdata": a_us_r,
+                            "plain_ms": plain_ms, "bound": bound,
+                            "kept": kept, "slots_kept": slots_kept}
             print(line)
 
         # c: compaction on the card against the CPU, and run to run.
@@ -5018,6 +5136,43 @@ def phase_compaction(device, frames):
         print(f"phase 10c level {lvl}: compaction to {got.px.shape[0]} "
               f"slots on the card equal to the CPU's bit for bit, and in 5 "
               f"more runs")
+
+    # d: a budget chunk against the per-frame engine at the budget.
+    ring = slam_out["frames"]
+    slam = KeyframeSlam(K_TUPLE, cfg, SlamConfig(), enable_loop_closure=True,
+                        device=device)
+    slam.init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _slam_frames(slam, ring, SLAM_FRAMES, 100.0)
+    torch.cuda.synchronize()
+    per_frame_ms = 1e3 * (time.perf_counter() - t0) / SLAM_FRAMES
+    plain = {"scan_step_reference": 0}
+    step_reference = scan_step.scan_step_reference
+
+    def counted(*args, **kwargs):
+        plain["scan_step_reference"] += 1
+        return step_reference(*args, **kwargs)
+
+    scan_step.scan_step_reference = counted
+    try:
+        got = phase_chunked(device, {"frames": ring, "slam": slam,
+                                     "ms_frame": per_frame_ms}, cfg,
+                            tag="10d", per_frame="10d")
+    finally:
+        scan_step.scan_step_reference = step_reference
+    print(f"phase 10d the budget chunk beside phase 8's full grid: "
+          f"{got['ms_frame']:.3f} against {chunked['ms_frame']:.3f} ms/frame;"
+          f" submit_chunk host ms median {got['submit_ms']:.3f} against "
+          f"{chunked['submit_ms']:.3f}; a {CHUNK}-frame chunk's device time "
+          f"{got['chunk_device_us']:.2f} against "
+          f"{chunked['chunk_device_us']:.2f} us; scan_step_reference calls "
+          f"{plain['scan_step_reference']}; the per-frame engine at the "
+          f"budget {per_frame_ms:.3f} ms/frame (5b's full grid "
+          f"{slam_out['ms_frame']:.3f})")
+    if plain["scan_step_reference"] != 0:
+        raise AssertionError("the budget chunk ran scan_step_reference")
+    out["chunked"] = got
     return out
 
 
@@ -5353,6 +5508,8 @@ def _plain_linearize(on=True):
 def main():
     import torch
 
+    from dvo_slam_tpu_torch import TrackerConfig
+
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
                  "this smoke test needs an NVIDIA GPU")
@@ -5389,7 +5546,7 @@ def main():
     phase_live(device, slam_out)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    compaction = phase_compaction(device, frames)
+    compaction = phase_compaction(device, frames, slam_out, chunked)
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     par = phase_parallel(device)
@@ -5403,6 +5560,9 @@ def main():
     # attempts in a row.
     for host in (False, True):
         phase_profile(device, frames, host)
+    phase_profile(device, frames, False, cfg=TrackerConfig(
+        intensity_grad_threshold=COMPACT_THRESHOLD,
+        point_budget_fraction=COMPACT_BUDGET), tag="10a")
     for host in (False, True):
         phase_slam_profile(slam_out, host)
     for host in (False, True):

@@ -122,6 +122,7 @@ def _entry_points():
         ci,  # B
         vp, vp, vp, vp, vp, vp, vp, vp, vp,  # reference points (or null)
         vp, i64, ci, cf, cf,  # slab route: rows, stride, table, thresholds
+        ci, vp,  # compaction's budget and global slot table (or null)
         ci, vp, i64, ci, ci, vp,  # N, slab, slab_stride, H, W, K
     ]
     # use_depth .. warm_iters, estimator, influence, huber_k, tukey_b,
@@ -169,7 +170,7 @@ def _entry_points():
             vp,  # chi2, weights, stats, steps, zeroed, timing (or null),
         ], ci),  # stream
         "dvo_pose_graph_grid_plan": ([ci, ci, ci, ci, vp], ci),
-        "dvo_level_plan": ([ci, ci, vp], ci),
+        "dvo_level_plan": ([ci, ci, ci, vp], ci),
         "dvo_error_string": ([ci], ctypes.c_char_p),
         "dvo_scan_step": ([
             vp, vp, ci, ci,  # level rows, iterations, levels, iterations

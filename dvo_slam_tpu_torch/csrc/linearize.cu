@@ -38,19 +38,41 @@
 // weighting, so that the default's passes carry no estimator branch.
 //
 // The reference points. Either read from RefData's (B, N) arrays
-// (ops/linearize.py::prepare_reference, the route of compaction, the
-// pixel shards and the plain versions), or computed in the residual pass
-// from the reference level's (6, H, W) slab itself (the slab route: row
-// b's slab by one of up to 32 row pointers in the parameters, by a row
-// pointer the launch reads from a table in device memory (the chunked
-// keyframe scan's, whose keyframe entry csrc/keyframe_scan.cu chooses on
-// the card), or by a stride): back-projection, the selection (finite depth, the gradient
-// thresholds through hypotf as torch.hypot calls it, the isfinite folds)
-// and the reference gradients, in prepare_reference's order with the _rn
-// intrinsics, so both routes give the same bits. That removes the front's
-// 16 eager ops a tracked level and its (B, N) copies; the dvo_slam_tpu
-// counterpart is dvo_slam_tpu/ops/linearize.py::prepare_reference (:77),
-// which XLA fused into the frame's program.
+// (ops/linearize.py::prepare_reference, the route of the pixel shards and
+// the plain versions), or computed in the residual pass from the
+// reference level's (6, H, W) slab itself (the slab route: row b's slab
+// by one of up to 32 row pointers in the parameters, by a row pointer the
+// launch reads from a table in device memory (the chunked keyframe
+// scan's, whose keyframe entry csrc/keyframe_scan.cu chooses on the
+// card), or by a stride): back-projection, the selection (finite depth,
+// the gradient thresholds through hypotf as torch.hypot calls it, the
+// isfinite folds) and the reference gradients, in prepare_reference's
+// order with the _rn intrinsics, so both routes give the same bits. That
+// removes the front's 16 eager ops a tracked level and its (B, N) copies;
+// the dvo_slam_tpu counterpart is dvo_slam_tpu/ops/linearize.py::
+// prepare_reference (:77), which XLA fused into the frame's program.
+//
+// Compaction on the slab route (kCompact; budget > 0, N = budget slots;
+// ops/linearize.py::compact_reference, dvo_slam_tpu/ops/linearize.py::
+// compact_reference :163 with its slot map _muldiv_floor :138). Before
+// the first residual pass each launch builds its rows' slot tables
+// (select_slots): CTA r of the row's cluster counts the selected pixels
+// of its band of the slab (the selection bits above), the CTAs exchange
+// the counts through distributed shared memory (one cluster barrier),
+// and warp ballots over each warp's sub-band of the CTA's band give each
+// selected pixel its rank q in row-major order. Its slot is q while
+// count <= budget, else floor(q budget / count) in 64-bit integers
+// (slot_of: exact, so JAX's split int32 map wherever its n < 2^19 assert
+// holds); only the first pixel of a slot writes it (q == 0 or floor((q -
+// 1) budget / count) differs), as JAX's scatter, so each slot has one
+// writer and no atomics are needed. The writer stores its pixel index
+// into the slot's owner CTA's table (map_shared_rank; a global (B,
+// budget) table where the plan puts it there), and one more cluster
+// barrier publishes it. Slots from
+// min(count, budget) on are unselected and skipped (the plain version
+// replicates the last filled point there, unselected: the same sums and
+// residual outputs). Every pass then takes slot j's point from pixel
+// slot[j] of the slab. Nothing is carried from one launch to the next.
 //
 // Layout. One cluster of C CTAs per batch row (grid (C, B), cluster (C, 1,
 // 1); C from ops/linearize.py::cluster_size, up to 16, which is a
@@ -192,6 +214,11 @@ struct Params {
   int64_t ref_stride;
   int ref_table;
   float igt, dgt;
+  // Compaction on the slab route: the slot count (0: the full grid) and,
+  // where the plan keeps the slot tables out of shared memory, a (B,
+  // budget) int32 table in device memory.
+  int budget;
+  int* slots;
   int N;
   const float* slab;    // (6, H, W) current pyramid level of row 0
   int64_t slab_stride;  // floats from one row's slab to the next (0: shared)
@@ -214,8 +241,11 @@ struct Params {
   // Mode (b): lgamma((nu + 2) / 2) - lgamma(nu / 2) - log(nu pi), for the
   // log-likelihood.
   double loglik_const;
-  // Points per CTA, and whether they are kept in shared memory.
-  int P, stored;
+  // Points per CTA, whether they are kept in shared memory, and whether
+  // compaction's slot table is (at byte slot_at of the dynamic shared
+  // memory).
+  int P, stored, slots_shared;
+  int64_t slot_at;
   // Outputs. (a): out (B, 53), rI / rZ / valid (B, N). (b): row b's
   // kLevelStats + 5 * max_iterations + kExtraSize floats at out + b *
   // out_stride, its iterations and termination at out_i + b * out_i_stride.
@@ -272,6 +302,11 @@ struct Shared {
   float n_sel;               // selected reference points
   float lam;
   int n_fp, done, term;
+  // Compaction: each warp's selected pixels, this CTA's count and the
+  // counts of the ranks before it, the row's count, and its filled slots
+  // min(count, budget).
+  unsigned sel_warp[kWarps];
+  int sel_count, sel_off, sel_total, n_fill;
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -300,6 +335,21 @@ struct RefPoint {
 
 __device__ __forceinline__ float finite_or0(float x) { return isfinite(x) ? x : 0.f; }
 
+// prepare_reference's selection of a pixel from its depth z, intensity
+// gradient (ix, iy) and depth gradient (zx, zy): the gradients are read
+// only where a threshold or the reference-gradient fold needs them.
+__device__ __forceinline__ bool selection(const Params& p, float z, float ix, float iy,
+                                          float zx, float zy) {
+  bool sel = isfinite(z);
+  if (p.igt > 0.f) sel = sel && (hypotf(ix, iy) >= p.igt);
+  if (p.dgt > 0.f) {
+    const float gz = hypotf(zx, zy);
+    sel = sel && isfinite(gz) && (gz >= p.dgt);
+  }
+  if (p.ref_grad && p.use_depth) sel = sel && isfinite(zx) && isfinite(zy);
+  return sel;
+}
+
 __device__ __forceinline__ RefPoint ref_point(const Params& p, const Row& r, int i) {
   RefPoint q;
   q.gix = q.giy = q.gzx = q.gzy = 0.f;
@@ -324,17 +374,11 @@ __device__ __forceinline__ RefPoint ref_point(const Params& p, const Row& r, int
   const float z = __ldg(s + plane);
   const float ix = __ldg(s + 2 * plane), iy = __ldg(s + 3 * plane);
   const float zx = __ldg(s + 4 * plane), zy = __ldg(s + 5 * plane);
-  bool sel = isfinite(z);
-  if (p.igt > 0.f) sel = sel && (hypotf(ix, iy) >= p.igt);
-  if (p.dgt > 0.f) {
-    const float gz = hypotf(zx, zy);
-    sel = sel && isfinite(gz) && (gz >= p.dgt);
-  }
+  const bool sel = selection(p, z, ix, iy, zx, zy);
   if (p.ref_grad) {
     q.gix = finite_or0(ix);
     q.giy = finite_or0(iy);
     if (p.use_depth) {
-      sel = sel && isfinite(zx) && isfinite(zy);
       q.gzx = finite_or0(zx);
       q.gzy = finite_or0(zy);
     }
@@ -414,13 +458,42 @@ __device__ __forceinline__ Point residual(const Params& p, const Row& r,
   return q;
 }
 
-// The CTA's slice of points in shared memory, structure of arrays.
+// The CTA's slice of points in shared memory, structure of arrays, and
+// under compaction its slot table (slot j's pixel; in shared memory or in
+// the global table).
 struct Points {
   float* f;  // kPointFloats planes of P floats
   uint8_t* valid;
+  int* slot;
   int P;
   __device__ float& at(int plane, int j) const { return f[plane * P + j]; }
 };
+
+// The reference pixel of this CTA's point j: base + j on the full grid;
+// under compaction slot j's pixel, or -1 for a slot past the row's filled
+// ones (no point).
+template <bool kCompact>
+__device__ __forceinline__ int pixel_of(const Shared& sh, const Points& s, int base, int j) {
+  if (!kCompact) return base + j;
+  return base + j < sh.n_fill ? s.slot[j] : -1;
+}
+
+// A slot without a point: unselected and not valid, rI = rZ = 0 (the
+// plain version's unselected replicas give the same outputs and sums).
+__device__ __forceinline__ Point no_point() {
+  Point q;
+  q.X = q.Y = q.Z = q.gix = q.giy = q.gzx = q.gzy = q.rI = q.rZ = 0.f;
+  q.valid = q.selected = false;
+  return q;
+}
+
+// The residual of pixel i at pose T, or no point (i < 0, compaction only).
+template <bool kCompact>
+__device__ __forceinline__ Point residual_at(const Params& p, const Row& r, const float* T,
+                                             int i) {
+  if (kCompact && i < 0) return no_point();
+  return residual(p, r, T, i);
+}
 
 __device__ __forceinline__ void store_point(const Points& s, int j, const Point& q) {
   s.at(0, j) = q.rI;
@@ -435,13 +508,13 @@ __device__ __forceinline__ void store_point(const Points& s, int j, const Point&
   s.valid[j] = q.valid;
 }
 
-// Point j of this CTA (reference point i): from shared memory, or
+// Point j of this CTA (its points start at base): from shared memory, or
 // recomputed where nothing is kept (`full`: the Jacobian inputs too).
-template <bool full>
+template <bool full, bool kCompact>
 __device__ __forceinline__ Point load_point(const Params& p, const Row& r,
                                             const Shared& sh, const Points& s,
-                                            int j, int i) {
-  if (!p.stored) return residual(p, r, sh.T, i);
+                                            int base, int j) {
+  if (!p.stored) return residual_at<kCompact>(p, r, sh.T, pixel_of<kCompact>(sh, s, base, j));
   Point q;
   q.selected = false;  // read by the residual pass only
   q.rI = s.at(0, j);
@@ -550,6 +623,7 @@ __device__ __forceinline__ void point_weight(const Params& p, const Precision& P
 // smallest |r| over the row's `count` valid points, k = min(count / 2,
 // count - 1), by a radix select; count > 0, the same in every CTA. Every
 // CTA ends with the same sh.lin[kOutMad + c].
+template <bool kCompact>
 __device__ void mad_select(const Params& p, const Row& r, Shared& sh, const Points& s,
                            int base, int n_mine, int count) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -563,7 +637,7 @@ __device__ void mad_select(const Params& p, const Row& r, Shared& sh, const Poin
     hist[t] = 0u;
     __syncthreads();
     for (int j = threadIdx.x; j < n_mine; j += kThreads) {
-      const Point q = load_point<false>(p, r, sh, s, j, base + j);
+      const Point q = load_point<false, kCompact>(p, r, sh, s, base, j);
       if (!q.valid) continue;
       const unsigned bI = __float_as_uint(q.rI) & 0x7fffffffu;
       const unsigned bZ = __float_as_uint(q.rZ) & 0x7fffffffu;
@@ -613,6 +687,7 @@ __device__ void mad_select(const Params& p, const Row& r, Shared& sh, const Poin
 // linearize_reference's other branch, ops/robust.py): Sigma = diag(a, c)
 // into sh.a, sh.bq = 0, sh.c, with s_i, s_z clamped to the floors
 // (weighted), or a = c = 1 (unweighted). After the residual pass.
+template <bool kCompact>
 __device__ void robust_scale(const Params& p, const Row& r, Shared& sh, const Points& s,
                              int base, int n_mine, int& parity, int C) {
   float si = 1.f, sz = 1.f;
@@ -622,7 +697,7 @@ __device__ void robust_scale(const Params& p, const Row& r, Shared& sh, const Po
     const float n = sh.n;
     double m[2] = {0.0, 0.0};
     for (int j = threadIdx.x; j < n_mine; j += kThreads) {
-      const Point q = load_point<false>(p, r, sh, s, j, base + j);
+      const Point q = load_point<false, kCompact>(p, r, sh, s, base, j);
       if (q.valid) {
         m[0] += (double)q.rI;
         m[1] += (double)q.rZ;
@@ -633,7 +708,7 @@ __device__ void robust_scale(const Params& p, const Row& r, Shared& sh, const Po
     const float mean_z = __fdiv_rn((float)sh.tot[1], n);
     m[0] = m[1] = 0.0;
     for (int j = threadIdx.x; j < n_mine; j += kThreads) {
-      const Point q = load_point<false>(p, r, sh, s, j, base + j);
+      const Point q = load_point<false, kCompact>(p, r, sh, s, base, j);
       if (q.valid) {
         const float di = sub(q.rI, mean_i), dz = sub(q.rZ, mean_z);
         m[0] += (double)mul(di, di);
@@ -648,7 +723,7 @@ __device__ void robust_scale(const Params& p, const Row& r, Shared& sh, const Po
     // (no valid point).
     const int count = (int)sh.n_raw;
     if (count > 0) {
-      mad_select(p, r, sh, s, base, n_mine, count);
+      mad_select<kCompact>(p, r, sh, s, base, n_mine, count);
     } else if (threadIdx.x == 0) {
       sh.lin[kOutMad] = sh.lin[kOutMad + 1] = __int_as_float(0x7f800000);
     }
@@ -676,7 +751,7 @@ __device__ void robust_scale(const Params& p, const Row& r, Shared& sh, const Po
 // branch) and the normal equations. Every CTA ends with the same sh.lin. `seed` (2, 2) warm-starts
 // Sigma when `warm` and finite (the t-distribution only). Mode (a) passes
 // `residuals` to write rI, rZ and valid out.
-template <bool kRobust>
+template <bool kRobust, bool kCompact>
 __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
                               const Points& s, int b, int rank, int C,
                               int& parity, bool warm, const float* seed,
@@ -691,7 +766,7 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
     double m[kMomentSums] = {0.0, 0.0, 0.0, 0.0, 0.0};
     for (int j = threadIdx.x; j < n_mine; j += kThreads) {
       const int i = base + j;
-      const Point q = residual(p, r, sh.T, i);
+      const Point q = residual_at<kCompact>(p, r, sh.T, pixel_of<kCompact>(sh, s, base, j));
       if (p.stored) store_point(s, j, q);
       if (residuals) {
         p.rI[row0 + i] = q.rI;
@@ -742,7 +817,7 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
     const Precision P = precision(sh.a, sh.bq, sh.c);
     double m[kScaleSums] = {0.0, 0.0, 0.0};
     for (int j = threadIdx.x; j < n_mine; j += kThreads) {
-      const Point q = load_point<false>(p, r, sh, s, j, base + j);
+      const Point q = load_point<false, kCompact>(p, r, sh, s, base, j);
       if (q.valid) {
         float maha, w;
         tdist_weight(P, p.nu, q.rI, q.rZ, &maha, &w);
@@ -759,7 +834,7 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
     }
     __syncthreads();
   }
-  if (!tdist) robust_scale(p, r, sh, s, base, n_mine, parity, C);
+  if (!tdist) robust_scale<kCompact>(p, r, sh, s, base, n_mine, parity, C);
 
   // Weights, Jacobian and the normal equations
   // (ops/linearize.py::normal_equations_reference). Off the t-distribution
@@ -781,7 +856,7 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
     const float p11 = p.use_depth ? P.p11 : 0.f;
     const float fx = __ldg(p.K + 0), fy = __ldg(p.K + 1);
     for (int j = threadIdx.x; j < n_mine; j += kThreads) {
-      const Point q = load_point<true>(p, r, sh, s, j, base + j);
+      const Point q = load_point<true, kCompact>(p, r, sh, s, base, j);
       if (!q.valid) continue;
       float maha, w;
       if (tdist)
@@ -1113,15 +1188,142 @@ __device__ void track_result(const Params& p, const float* best, float n_sel,
   extra[kExtraRatio] = __fdiv_rn(n_raw, fmaxf(n_sel, 1.f));
 }
 
-__device__ __forceinline__ Points points_of(const Params& p, float4* dyn) {
+// Row b's CTA `rank`'s points (kept in shared memory or not) and its slot
+// table (compaction only: in shared memory after the points, or its rows
+// of the global table; null on the full grid).
+__device__ __forceinline__ Points points_of(const Params& p, float4* dyn, int b, int rank) {
   Points s;
   s.f = reinterpret_cast<float*>(dyn);
   s.P = p.P;
   s.valid = reinterpret_cast<uint8_t*>(s.f + kPointFloats * p.P);
+  s.slot = p.slots_shared ? reinterpret_cast<int*>(reinterpret_cast<char*>(dyn) + p.slot_at)
+           : p.slots      ? p.slots + (int64_t)b * p.budget + (int64_t)rank * p.P
+                          : nullptr;
   return s;
 }
 
-template <bool kRobust>
+// Whether pixel i of a reference slab is selected: ref_point's bits,
+// reading only the planes the selection needs.
+__device__ __forceinline__ bool selected_pixel(const Params& p, const float* ref,
+                                               int64_t plane, int i) {
+  const float* s = ref + i;
+  const float z = __ldg(s + plane);
+  float ix = 0.f, iy = 0.f, zx = 0.f, zy = 0.f;
+  if (p.igt > 0.f) {
+    ix = __ldg(s + 2 * plane);
+    iy = __ldg(s + 3 * plane);
+  }
+  if (p.dgt > 0.f || (p.ref_grad && p.use_depth)) {
+    zx = __ldg(s + 4 * plane);
+    zy = __ldg(s + 5 * plane);
+  }
+  return selection(p, z, ix, iy, zx, zy);
+}
+
+// Compaction's slot map (dvo_slam_tpu/ops/linearize.py::_muldiv_floor's
+// floor(q budget / count), exact): a double quotient, within one of the
+// true one while q budget < 2^62, corrected by the 64-bit remainder. The
+// remainder also gives JAX's first-writer test: floor((q - 1) budget /
+// count) differs from the slot exactly where it is below budget (budget <
+// count).
+__device__ __forceinline__ int slot_of(int q, int64_t budget, int64_t count, bool* first) {
+  const int64_t num = (int64_t)q * budget;
+  int64_t slot = (int64_t)((double)num / (double)count);
+  int64_t rem = num - slot * count;
+  if (rem < 0) {
+    --slot;
+    rem += count;
+  } else if (rem >= count) {
+    ++slot;
+    rem -= count;
+  }
+  *first = rem < budget;
+  return (int)slot;
+}
+
+// Compaction's slot tables of this cluster's row (the header's
+// "Compaction on the slab route"): after it every CTA's s.slot[j] holds
+// the pixel of its slot j for each slot below sh.n_fill, the row's count
+// of filled slots. CTA r takes band r of the slab's pixels, warp w of it
+// sub-band w, in chunks of 32 pixels: the first pass counts the selected
+// pixels (no warp sync inside its loop, so the loads of several chunks
+// are in flight) and keeps each lane's bit of its first kKeptChunks
+// chunks in a register, the CTAs exchange their counts (one cluster
+// barrier), and the second pass ranks from those bits by a warp ballot a
+// chunk (reading the slab again only past them), with no block barrier
+// in either loop. Two cluster barriers, the same in every CTA.
+__device__ void select_slots(const Params& p, const Row& r, Shared& sh, const Points& s,
+                             int b, int rank, int C) {
+  constexpr int kKeptChunks = 64;  // bits of a uint64_t
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t plane = (int64_t)p.H * p.W;
+  const int64_t band = (plane + C - 1) / C;
+  const int lo = (int)min((int64_t)rank * band, plane);
+  const int hi = (int)min((int64_t)lo + band, plane);
+  const int sub = (hi - lo + kWarps - 1) / kWarps;
+  const int wlo = min(lo + warp * sub, hi), whi = min(wlo + sub, hi);
+  // This warp's count of selected pixels, this CTA's, then every CTA's.
+  uint64_t bits = 0;
+  int n = 0;
+#pragma unroll 4
+  for (int c0 = wlo, c = 0; c0 < whi; c0 += 32, ++c) {
+    const int i = c0 + lane;
+    const bool sel = i < whi && selected_pixel(p, r.ref, plane, i);
+    if (sel && c < kKeptChunks) bits |= 1ull << c;
+    n += sel;
+  }
+  n = __reduce_add_sync(0xffffffffu, n);
+  if (lane == 0) sh.sel_warp[warp] = (unsigned)n;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int w = 0; w < kWarps; ++w) t += (int)sh.sel_warp[w];
+    sh.sel_count = t;
+  }
+  cluster.sync();  // every CTA's count in place (written once a launch)
+  if (warp == 0) {
+    // Lane q reads CTA q's count: one round of remote reads, not C.
+    const int m = lane < C ? *cluster.map_shared_rank(&sh.sel_count, lane) : 0;
+    const int off = __reduce_add_sync(0xffffffffu, lane < rank ? m : 0);
+    const int total = __reduce_add_sync(0xffffffffu, m);
+    if (lane == 0) {
+      sh.sel_off = off;
+      sh.sel_total = total;
+      sh.n_fill = min(total, p.budget);
+    }
+  }
+  __syncthreads();
+  // Ranks in row-major order: the ranks before this CTA and before this
+  // warp, then a chunk's ballot; each slot's first writer stores its pixel
+  // in the owner's table.
+  const int64_t count = sh.sel_total, budget = p.budget;
+  int done = sh.sel_off;  // selected pixels before this warp's chunk
+  for (int w = 0; w < warp; ++w) done += (int)sh.sel_warp[w];
+  for (int c0 = wlo, c = 0; c0 < whi; c0 += 32, ++c) {
+    const int i = c0 + lane;
+    const bool sel = c < kKeptChunks ? ((bits >> c) & 1ull) != 0
+                                     : (i < whi && selected_pixel(p, r.ref, plane, i));
+    const unsigned bal = __ballot_sync(0xffffffffu, sel);
+    if (sel) {
+      const int q = done + __popc(bal & ((1u << lane) - 1u));
+      bool first = true;
+      const int slot = count > budget ? slot_of(q, budget, count, &first) : q;
+      if (first) {
+        if (p.slots_shared) {
+          const int owner = slot / p.P;
+          cluster.map_shared_rank(s.slot, owner)[slot - owner * p.P] = i;
+        } else {
+          p.slots[(int64_t)b * p.budget + slot] = i;
+        }
+      }
+    }
+    done += __popc(bal);
+  }
+  cluster.sync();  // every filled slot's pixel in its owner's table
+}
+
+template <bool kRobust, bool kCompact>
 __global__ void __launch_bounds__(kThreads, 1) linearize_kernel(Params p) {
   extern __shared__ float4 dyn_smem[];
   __shared__ Shared sh;
@@ -1129,17 +1331,19 @@ __global__ void __launch_bounds__(kThreads, 1) linearize_kernel(Params p) {
   const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
   const int b = blockIdx.y;
   const Row r = row_of(p, b);
+  const Points s = points_of(p, dyn_smem, b, rank);
   if (threadIdx.x < 16) sh.T[threadIdx.x] = p.T[b * p.T_stride + threadIdx.x];
   __syncthreads();
+  if (kCompact) select_slots(p, r, sh, s, b, rank, C);
   int parity = 0;
-  linearize_row<kRobust>(p, r, sh, points_of(p, dyn_smem), b, rank, C, parity,
-                p.warm != 0, p.warm ? p.sigma_init + 4 * b : nullptr, true);
+  linearize_row<kRobust, kCompact>(p, r, sh, s, b, rank, C, parity, p.warm != 0,
+                                   p.warm ? p.sigma_init + 4 * b : nullptr, true);
   if (rank == 0 && threadIdx.x < kOutSize)
     p.out[(int64_t)b * kOutSize + threadIdx.x] = sh.lin[threadIdx.x];
   cluster.sync();  // no CTA leaves while another may read its shared memory
 }
 
-template <bool kRobust>
+template <bool kRobust, bool kCompact>
 __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
   // cudaTriggerProgrammaticLaunchCompletion(): a launch after this one
   // made with programmatic stream serialization (the chunked scan's step,
@@ -1154,7 +1358,7 @@ __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
   const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
   const int b = blockIdx.y;
   const Row r = row_of(p, b);
-  const Points s = points_of(p, dyn_smem);
+  const Points s = points_of(p, dyn_smem, b, rank);
   const int M = p.max_iterations;
   float* o = p.out + b * p.out_stride;
   if (threadIdx.x < 16) {
@@ -1169,13 +1373,14 @@ __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
     sh.term = kTermIterations;
   }
   __syncthreads();
+  if (kCompact) select_slots(p, r, sh, s, b, rank, C);
   int parity = 0, k = 0;
   // Bounded by max_iterations whatever the stop flag says; every CTA reads
   // the same flag (computed from the same sums), so all take the same
   // number of barriers.
   while (k < M) {
-    linearize_row<kRobust>(p, r, sh, s, b, rank, C, parity,
-                  k > 0 && p.warm_iters > 0, sh.best + kBestSigma, false);
+    linearize_row<kRobust, kCompact>(p, r, sh, s, b, rank, C, parity,
+                                     k > 0 && p.warm_iters > 0, sh.best + kBestSigma, false);
     if (threadIdx.x == 0) irls_step(p, sh, k, rank == 0 ? o + kLevelStats : nullptr);
     __syncthreads();
     ++k;
@@ -1206,13 +1411,15 @@ __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
 }
 
 struct Plan {
-  int P, stored;
-  size_t dyn;
+  int P, stored, slots_shared;
+  size_t dyn, slot_at;
 };
 
 // The points per CTA and whether they fit in shared memory beside the
-// kernel's static shared memory.
-int plan_of(const void* kernel, int N, int C, Plan* plan) {
+// kernel's static shared memory; under compaction (`compact`) whether the
+// CTA's slot table (P int32) fits there too, after them (else it goes to
+// the global table).
+int plan_of(const void* kernel, int N, int C, int compact, Plan* plan) {
   int dev, optin;
   cudaFuncAttributes attr;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1224,6 +1431,10 @@ int plan_of(const void* kernel, int N, int C, Plan* plan) {
   const size_t all = ((size_t)kPointBytes * plan->P + 15) & ~(size_t)15;
   plan->stored = attr.sharedSizeBytes + all <= (size_t)optin;
   plan->dyn = plan->stored ? all : 0;
+  const size_t slots = ((size_t)sizeof(int) * plan->P + 15) & ~(size_t)15;
+  plan->slots_shared = compact && attr.sharedSizeBytes + plan->dyn + slots <= (size_t)optin;
+  plan->slot_at = plan->dyn;
+  if (plan->slots_shared) plan->dyn += slots;
   return 0;
 }
 
@@ -1269,10 +1480,14 @@ template <typename Kernel>
 int launch(Kernel kernel, Params& p, int B, int C, void* stream) {
   if (C < 1 || C > kMaxCluster || B < 1 || p.N < 1) return (int)cudaErrorInvalidValue;
   Plan plan;
-  int e = plan_of((const void*)kernel, p.N, C, &plan);
+  int e = plan_of((const void*)kernel, p.N, C, p.budget > 0, &plan);
   if (e) return e;
+  // A slot table the plan keeps out of shared memory needs the global one.
+  if (p.budget > 0 && !plan.slots_shared && !p.slots) return (int)cudaErrorInvalidValue;
   p.P = plan.P;
   p.stored = plan.stored;
+  p.slots_shared = plan.slots_shared;
+  p.slot_at = (int64_t)plan.slot_at;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1295,7 +1510,8 @@ int launch(Kernel kernel, Params& p, int B, int C, void* stream) {
 Params params(const float* px, const float* py, const float* pz, const float* i1,
               const uint8_t* selected, const float* rgix, const float* rgiy,
               const float* rgzx, const float* rgzy, const float* const* ref_rows,
-              int64_t ref_stride, int ref_table, float igt, float dgt, int B, int N,
+              int64_t ref_stride, int ref_table, float igt, float dgt, int budget,
+              int* slots, int B, int N,
               const float* slab, int64_t slab_stride, int H, int W, const float* K,
               const float* T, int64_t T_stride, int use_depth, int ref_grad, float nu,
               float floor_ii, float floor_zz, int scale_iters, int warm_iters,
@@ -1311,6 +1527,7 @@ Params params(const float* px, const float* py, const float* pz, const float* i1
     for (int b = 0; b < n; ++b) p.ref_rows[b] = ref_rows[b];
   }
   p.ref_stride = ref_stride; p.ref_table = ref_table; p.igt = igt; p.dgt = dgt;
+  p.budget = budget; p.slots = slots;
   p.N = N; p.slab = slab; p.slab_stride = slab_stride; p.H = H; p.W = W;
   p.K = K; p.T = T; p.T_stride = T_stride;
   p.use_depth = use_depth; p.ref_grad = ref_grad;
@@ -1328,26 +1545,35 @@ bool codes_ok(int estimator, int influence) {
 }
 
 // The reference arguments are valid: the arrays, or a slab route whose
-// points are the slab's pixels (a table among the parameters for at most
-// kMaxRefRows rows; a device table is not read here).
-bool refs_ok(const float* const* ref_rows, int ref_table, int B, int N, int H, int W) {
-  if (!ref_rows) return true;
-  if (ref_table < kTableStride || ref_table > kTableDevice || N != H * W) return false;
+// points are the slab's pixels or, under compaction, its budget slots (a
+// table among the parameters for at most kMaxRefRows rows; a device table
+// is not read here).
+bool refs_ok(const float* const* ref_rows, int ref_table, int budget, int B, int N, int H,
+             int W) {
+  if (!ref_rows) return budget == 0;
+  if (ref_table < kTableStride || ref_table > kTableDevice || budget < 0 ||
+      N != (budget > 0 ? budget : H * W))
+    return false;
   if (ref_table == kTableDevice) return true;
   return ref_rows[0] && (ref_table != kTableParams || B <= kMaxRefRows);
 }
 
 }  // namespace
 
-// What a launch over N points with clusters of C CTAs uses: out[0] points
-// per CTA, out[1] 1 if they are kept in shared memory, out[2] dynamic
-// shared memory bytes per CTA. Returns a CUDA error code (0: none).
-extern "C" int dvo_level_plan(int N, int C, int* out) {
+// What a launch over N points with clusters of C CTAs uses (`compact`:
+// N compaction slots on the slab route): out[0] points per CTA, out[1] 1
+// if they are kept in shared memory, out[2] dynamic shared memory bytes
+// per CTA, out[3] 1 if compaction's slot table is in shared memory (0:
+// the launch needs the global one). Returns a CUDA error code (0: none).
+extern "C" int dvo_level_plan(int N, int C, int compact, int* out) {
   Plan plan;
-  const int e = plan_of((const void*)track_level_kernel<false>, N, C, &plan);
+  const int e = plan_of(compact ? (const void*)track_level_kernel<false, true>
+                                : (const void*)track_level_kernel<false, false>,
+                        N, C, compact, &plan);
   out[0] = plan.P;
   out[1] = plan.stored;
   out[2] = (int)plan.dyn;
+  out[3] = plan.slots_shared;
   return e;
 }
 
@@ -1368,8 +1594,10 @@ extern "C" const char* dvo_error_string(int code) {
 // reference slab is ref_rows[b] (ref_table kTableParams, B <= 32; or
 // kTableDevice, ref_rows then a device array of B pointers) or ref_rows[0]
 // + b * ref_stride floats (kTableStride), its H W pixels the N points,
-// selected with the
-// gradient thresholds igt and dgt. Row b's current slab starts at slab + b *
+// selected with the gradient thresholds igt and dgt; with budget > 0 the
+// selected pixels compacted to N = budget slots (slots: a (B, budget)
+// int32 scratch where dvo_level_plan's out[3] is 0, else unread). Row b's
+// current slab starts at slab + b *
 // slab_stride floats; T is (B, 4, 4), sigma_init (B, 2, 2) (read only with
 // warm, and with the t-distribution). Reference gradients (rgix..rgzy) are
 // read only with ref_grad (rgzx, rgzy only with use_depth too). estimator,
@@ -1381,18 +1609,18 @@ extern "C" int dvo_linearize(
     int B, const float* px, const float* py, const float* pz, const float* i1,
     const uint8_t* selected, const float* rgix, const float* rgiy,
     const float* rgzx, const float* rgzy, const float* const* ref_rows,
-    int64_t ref_stride, int ref_table, float igt, float dgt, int N,
+    int64_t ref_stride, int ref_table, float igt, float dgt, int budget, int* slots, int N,
     const float* slab, int64_t slab_stride, int H, int W, const float* K,
     const float* T, int use_depth, int ref_grad, float nu, float floor_ii,
     float floor_zz, int scale_iters, int warm_iters, int estimator, int influence,
     float huber_k, float tukey_b, float min_si, float min_sz, const float* sigma_init,
     int warm, int C, float* out, float* rI, float* rZ, uint8_t* valid,
     void* stream) {
-  if (!refs_ok(ref_rows, ref_table, B, N, H, W) || !codes_ok(estimator, influence))
+  if (!refs_ok(ref_rows, ref_table, budget, B, N, H, W) || !codes_ok(estimator, influence))
     return (int)cudaErrorInvalidValue;
   Params p = params(px, py, pz, i1, selected, rgix, rgiy, rgzx, rgzy, ref_rows,
-                    ref_stride, ref_table, igt, dgt, B, N, slab, slab_stride, H, W,
-                    K, T, 16, use_depth, ref_grad, nu, floor_ii, floor_zz,
+                    ref_stride, ref_table, igt, dgt, budget, slots, B, N, slab,
+                    slab_stride, H, W, K, T, 16, use_depth, ref_grad, nu, floor_ii, floor_zz,
                     scale_iters, warm_iters, estimator, influence, huber_k, tukey_b,
                     min_si, min_sz);
   p.sigma_init = sigma_init;
@@ -1401,13 +1629,16 @@ extern "C" int dvo_linearize(
   p.rI = rI;
   p.rZ = rZ;
   p.valid = valid;
-  return launch(estimator == kEstTdist ? linearize_kernel<false> : linearize_kernel<true>, p,
-                B, C, stream);
+  const bool tdist = estimator == kEstTdist;
+  return launch(budget > 0 ? (tdist ? linearize_kernel<false, true> : linearize_kernel<true, true>)
+                           : (tdist ? linearize_kernel<false, false>
+                                    : linearize_kernel<true, false>),
+                p, B, C, stream);
 }
 
 // Mode (b): one pyramid level's IRLS loop for B rows in one launch, from
-// T_init (row b's at T_init + b * T_stride floats; the other inputs as
-// dvo_linearize's). LM when lm_init > 0, else Gauss-Newton with rollback;
+// T_init (row b's at T_init + b * T_stride floats; the other inputs,
+// compaction's budget and slots too, as dvo_linearize's). LM when lm_init > 0, else Gauss-Newton with rollback;
 // the Sigma warm start from the last accepted Sigma after the first
 // iteration when warm_iters > 0 (the t-distribution); the motion prior
 // when mu > 0, its record the posterior A + mu I. out: row b's 67 + 5 *
@@ -1420,7 +1651,7 @@ extern "C" int dvo_track_level(
     int B, const float* px, const float* py, const float* pz, const float* i1,
     const uint8_t* selected, const float* rgix, const float* rgiy,
     const float* rgzx, const float* rgzy, const float* const* ref_rows,
-    int64_t ref_stride, int ref_table, float igt, float dgt, int N,
+    int64_t ref_stride, int ref_table, float igt, float dgt, int budget, int* slots, int N,
     const float* slab, int64_t slab_stride, int H, int W, const float* K,
     const float* T_init, int64_t T_stride, int use_depth, int ref_grad, float nu,
     float floor_ii, float floor_zz, int scale_iters, int warm_iters, int estimator,
@@ -1428,12 +1659,12 @@ extern "C" int dvo_track_level(
     int max_iterations, float precision, float lm_init, float lm_up, float lm_down,
     float lm_max, float mu, int C, float* out, int64_t out_stride, int* out_i,
     int64_t out_i_stride, double loglik_const, void* stream) {
-  if (max_iterations < 1 || !refs_ok(ref_rows, ref_table, B, N, H, W) ||
+  if (max_iterations < 1 || !refs_ok(ref_rows, ref_table, budget, B, N, H, W) ||
       !codes_ok(estimator, influence) || !(mu >= 0.f))
     return (int)cudaErrorInvalidValue;
   Params p = params(px, py, pz, i1, selected, rgix, rgiy, rgzx, rgzy, ref_rows,
-                    ref_stride, ref_table, igt, dgt, B, N, slab, slab_stride, H, W,
-                    K, T_init, T_stride, use_depth, ref_grad, nu, floor_ii,
+                    ref_stride, ref_table, igt, dgt, budget, slots, B, N, slab,
+                    slab_stride, H, W, K, T_init, T_stride, use_depth, ref_grad, nu, floor_ii,
                     floor_zz, scale_iters, warm_iters, estimator, influence, huber_k,
                     tukey_b, min_si, min_sz);
   p.max_iterations = max_iterations;
@@ -1448,6 +1679,10 @@ extern "C" int dvo_track_level(
   p.out_i = out_i;
   p.out_i_stride = out_i_stride;
   p.loglik_const = loglik_const;
-  return launch(estimator == kEstTdist ? track_level_kernel<false> : track_level_kernel<true>,
+  const bool tdist = estimator == kEstTdist;
+  return launch(budget > 0 ? (tdist ? track_level_kernel<false, true>
+                                    : track_level_kernel<true, true>)
+                           : (tdist ? track_level_kernel<false, false>
+                                    : track_level_kernel<true, false>),
                 p, B, C, stream);
 }

@@ -24,17 +24,20 @@ level ends, the host loop after its last iteration, each once.
 
 ``track_batched`` runs a frame's front one of two ways:
 
-- on a CUDA slab with ``front_route`` (``linearize.slab_route``: no
-  compaction; no pixel shards), the kernel
-  front (``_track_batched_kernels``): one level-kernel launch a tracked
-  level reading each row's reference points from its slab (no
-  ``prepare_reference``), every launch writing its level's slot of one
-  output buffer with its record's log-likelihood, entropy and valid
-  ratio (the finest level's are the result's); the TrackResult's fields
-  are views of that buffer;
-- elsewhere the eager front: ``prepare_reference`` a level, ``track_level``
-  a level, and the result assembled with eager ops (``tdist_loglik``,
-  ``pose_entropy``, stacks). It is the kernel front's plain version.
+- on a CUDA slab with ``front_route`` (no pixel shards; every config,
+  point compaction included), the kernel front
+  (``_track_batched_kernels``): one level-kernel launch a tracked level
+  reading each row's reference points from its slab (no
+  ``prepare_reference``; under compaction the launch picks each slot's
+  pixel itself, as ``compact_reference`` does), every launch writing its
+  level's slot of one output buffer with its record's log-likelihood,
+  entropy and valid ratio (the finest level's are the result's); the
+  TrackResult's fields are views of that buffer;
+- elsewhere (CPU tensors, the pixel route) the eager front:
+  ``prepare_reference`` (and ``compact_reference``) a level,
+  ``track_level`` a level, and the result assembled with eager ops
+  (``tdist_loglik``, ``pose_entropy``, stacks). It is the kernel front's
+  plain version.
 
 ``track`` is ``track_batched`` at B = 1. Gauss-Newton rollback
 (lambda = 0: revert and stop) and adaptive Levenberg-Marquardt
@@ -337,11 +340,10 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig,
 
 def front_route(cfg: TrackerConfig, device, pixel_group=None) -> bool:
     """True where ``track_batched`` runs the kernel front on ``device``: a
-    CUDA device, ``slab_route(cfg)`` (no compaction) and no pixel route;
-    every estimator, influence, weighting and motion prior. Looked up at
-    the call (a caller may swap in the eager front)."""
+    CUDA device and no pixel route, for every config (each estimator,
+    influence, weighting, motion prior and point budget). Looked up at the
+    call (a caller may swap in the eager front)."""
     return (torch.device(device).type == "cuda"
-            and lin_ops.slab_route(cfg)
             and not lin_ops.pixel_route(pixel_group))
 
 

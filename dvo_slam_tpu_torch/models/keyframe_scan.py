@@ -12,14 +12,16 @@ device, so a chunk of frames is issued to the card with no device-to-host
 sync between frames. The JAX package runs the same step inside one
 ``lax.scan``. A chunk runs one of two ways:
 
-- on a CUDA device with ``dense_tracker.front_route`` (no compaction;
-  every scale estimator, influence function, weighting and motion prior),
-  ``_track_chunk_kernels``:
+- on a CUDA device with ``dense_tracker.front_route`` (every scale
+  estimator, influence function, weighting, motion prior and point
+  budget), ``_track_chunk_kernels``:
   five launches a frame and no other device op in the frame loop: the
   pyramid (into a slot of the chunk's pyramid buffer), the three level
   launches of mode (b) at B = 2 (the keyframe and the previous frame
   against the new frame), each reading its reference slabs through a
-  table of row pointers in device memory, and the scan step
+  table of row pointers in device memory (under compaction each launch
+  picks its slots' pixels from those slabs itself: no index table is
+  carried and no keyframe copied), and the scan step
   (ops/scan_step.py, csrc/keyframe_scan.cu), which takes the frame's
   decisions, writes its packed output row, the next carry slot (the next
   frame's initial poses) and the next frame's pointer table: the
@@ -28,15 +30,11 @@ sync between frames. The JAX package runs the same step inside one
   (``scan_chunk``). The keyframe pyramid of the carry after such a chunk
   is a ``PendingKeyframe`` until its switch flags are read
   (``PendingKeyframe.resolve``, models/chunked_slam.py's collect);
-- elsewhere (CPU tensors, compaction), ``_step`` a frame: the pyramid,
-  the batched tracker, and the decisions as eager ops
+- elsewhere (CPU tensors), ``_step`` a frame: the pyramid, the batched
+  tracker, and the decisions as eager ops
   (``scan_step.scan_step_reference``, the keyframe swap a ``torch.where``
   per pyramid level), the outputs stacked after the loop. It is the
-  kernel route's plain version.
-
-No config runs the tracker's IRLS host loop on the card: ``_step``
-under compaction also tracks each level with one level-kernel launch
-(through the eager front).
+  kernel route's plain version and never runs on the card.
 
 The backend (loop closure + global graph) stays host logic: the scan emits
 what the backend consumes — per-switch relative measurements with
@@ -151,8 +149,8 @@ class PendingKeyframe:
 
 def _step(carry, intensity, depth, force, Ks, cfg: TrackerConfig,
           scan_cfg: ScanConfig):
-    """One frame: (carry, frame) -> (new carry, outputs), all on the
-    device, no host sync on the level kernel's route."""
+    """One frame: (carry, frame) -> (new carry, outputs), the kernel
+    route's plain version (CPU tensors)."""
     dev = carry["T_kf_prev"].device
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     cur = pyramid.build_pyramid(intensity, depth, cfg.num_levels)

@@ -42,14 +42,17 @@ row (B, 6, H, W). Its plain version is ``linearize_batched_reference``:
 selection mask, or, with ``cfg.point_budget_fraction > 0``, the selected
 points compacted to a fixed slot count (``compact_reference``); the
 kernels take either N. The kernels also take the reference level's slabs
-themselves (``RefSlabs``, the slab route, where ``slab_route(cfg)``: no
-compaction; by a row stride, by row pointers among the launch's
-parameters, or by a ``SlabTable`` of row pointers in device memory,
-which the chunked keyframe scan's step kernel writes) and compute each
-point in the residual pass with
-``prepare_reference``'s arithmetic, the same bits; ``prepare_reference``
-is the plain version of that route (``reference_points``) and the route
-of compaction, the pixel shards and the plain linearization. The plain linearization takes an optional
+themselves (``RefSlabs``, the slab route, for every config; by a row
+stride, by row pointers among the launch's parameters, or by a
+``SlabTable`` of row pointers in device memory, which the chunked
+keyframe scan's step kernel writes) and compute each point in the
+residual pass with ``prepare_reference``'s arithmetic, the same bits;
+under compaction each launch first builds its rows' slot tables on the
+card (which pixel each of the ``ref_budget`` slots takes, as
+``compact_reference``), so nothing on the host touches the reference.
+``prepare_reference`` is the plain version of that route
+(``reference_points``) and the route of the pixel shards and the plain
+linearization. The plain linearization takes an optional
 ``group``, a ``torch.distributed`` process group over which the points
 are sharded (pixel rows, parallel/sharded.py): every sum the JAX package
 ``psum``s is all-reduced over it. ``pixel_route(group)`` says when the
@@ -295,10 +298,8 @@ def prepare_reference(ref_slab, K, cfg: TrackerConfig,
     px = (u - cx) / fx * z_safe
     py = (v - cy) / fy * z_safe
     ref = RefData(px=px, py=py, pz=z_safe, i1=i1, selected=selected, **grads)
-    if cfg.point_budget_fraction > 0.0:
-        ref = compact_reference(ref, compact_budget(
-            H * W, cfg.point_budget_fraction, _COMPACT_TILE_GATHER))
-    return ref
+    budget = ref_budget(cfg, H, W)
+    return compact_reference(ref, budget) if budget else ref
 
 
 # Points per slot tile under compaction: the JAX package's gather-path
@@ -312,6 +313,15 @@ def compact_budget(n_points: int, frac: float, tile: int) -> int:
     want = max(math.ceil(frac * n_points), 1)
     up = lambda x: ((x + tile - 1) // tile) * tile  # noqa: E731
     return min(up(want), up(n_points))
+
+
+def ref_budget(cfg: TrackerConfig, H: int, W: int) -> int:
+    """The compaction slots of an H x W level under ``cfg`` (0: the full
+    grid, ``point_budget_fraction`` 0): the N of its reference points."""
+    if cfg.point_budget_fraction <= 0.0:
+        return 0
+    return compact_budget(H * W, cfg.point_budget_fraction,
+                          _COMPACT_TILE_GATHER)
 
 
 def compact_reference(ref: RefData, budget: int) -> RefData:
@@ -526,13 +536,6 @@ def normal_equations_reference(res: Residuals, w, p00, p01, p11, K,
     return A, b
 
 
-def slab_route(cfg: TrackerConfig) -> bool:
-    """True where the kernels may take a level's reference as its slabs
-    (``RefSlabs``): every config without point compaction (compacted
-    points need ``prepare_reference``'s gather)."""
-    return cfg.point_budget_fraction == 0.0
-
-
 def pixel_route(group) -> bool:
     """True where the tracker runs a pixel-sharded level (reference rows
     split over the ranks of the ``torch.distributed`` process group
@@ -585,7 +588,7 @@ def linearize_batched(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,
     Linearization whose every field has a leading B. A CUDA slab runs mode
     (a); a CPU slab runs ``linearize_reference`` row by row (gathering
     through ``sampler.sample_slab``, the plain sampler there). ``ref`` may
-    be ``RefSlabs`` on ``slab_route(cfg)``."""
+    be ``RefSlabs`` (N then ``ref_budget`` slots under compaction)."""
     _check_device(cur_slab)
     if cur_slab.device.type == "cuda":
         return linearize_kernels_batched(ref, cur_slab, K, T, cfg,
@@ -655,7 +658,7 @@ def kernel_mad_elements(device, N, B=None):
     return out[0] if B is None else out
 
 
-def _check(ref, cur_slab, K, T):
+def _check(ref, cur_slab, K, T, cfg: TrackerConfig):
     """Raise on inputs the kernels do not take; returns (B, N)."""
     H, W = cur_slab.shape[-2:]
     if H < 2 or W < 2:
@@ -672,7 +675,7 @@ def _check(ref, cur_slab, K, T):
             raise ValueError(f"want ({pyr.NUM_CHANNELS}, {H}, {W}) reference "
                              f"slabs, got {tuple(ref.rows.shape)}")
         named = []
-        N = H * W
+        N = ref_budget(cfg, H, W) or H * W
     elif isinstance(ref, RefSlabs):
         rows = (list(ref.rows) if not isinstance(ref.rows, torch.Tensor)
                 else [ref.rows[b] for b in range(ref.rows.shape[0])])
@@ -689,7 +692,7 @@ def _check(ref, cur_slab, K, T):
                                  f"{W}) reference slabs, got "
                                  f"{tuple(r.shape)}")
         named = [("reference slab", r) for r in rows]
-        N = H * W
+        N = ref_budget(cfg, H, W) or H * W
     else:
         named = [("ref.px", ref.px)]
         if ref.px.dim() != 2 or ref.px.shape[0] != B:
@@ -714,24 +717,25 @@ def _check(ref, cur_slab, K, T):
     return B, N
 
 
-def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig):
+def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig, slots=None):
     """The arguments of the two entry points of csrc/linearize.cu after
     the checks: ``(B, N, refs, scale, table)``, refs from B to K, scale
     from use_depth to the scale floors (T goes between them), and the
     ctypes array of the slab route's row pointers, which must live until
-    the launch. A config the kernel has no code for raises."""
+    the launch. On the slab route under compaction N is the budget and
+    ``slots`` the global slot table (``_slot_table``; None where the
+    launch keeps it in shared memory). A config the kernel has no code for
+    raises."""
     estimator = cfg.scale_estimator if cfg.use_weighting else "none"
     if estimator not in _ESTIMATORS or cfg.influence not in _INFLUENCES:
         raise ValueError(f"the linearization kernel has no scale estimator "
                          f"{estimator!r} or influence {cfg.influence!r}")
-    B, N = _check(ref, cur_slab, K, T)
+    B, N = _check(ref, cur_slab, K, T, cfg)
     C, H, W = cur_slab.shape[-3:]
     ref_grad = cfg.gradient_source == "reference"
     if C < ((2 if cfg.use_depth else 1) if ref_grad else 6):
         raise ValueError(f"the slab has {C} channels, too few for {cfg}")
     if isinstance(ref, RefSlabs):
-        if not slab_route(cfg):
-            raise ValueError("the slab route does not take point compaction")
         if isinstance(ref.rows, SlabTable):
             # The table's device address itself: the launch reads it.
             table = ref.rows.table.data_ptr()
@@ -744,7 +748,9 @@ def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig):
             stride, by_table = 0, _TABLE_PARAMS
         points = (None,) * 9 + (table, stride, by_table,
                                 cfg.intensity_grad_threshold,
-                                cfg.depth_grad_threshold)
+                                cfg.depth_grad_threshold,
+                                ref_budget(cfg, H, W),
+                                None if slots is None else slots.data_ptr())
     else:
         table = None
         points = (
@@ -754,7 +760,7 @@ def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig):
             ref.giy.data_ptr() if ref_grad else None,
             ref.gzx.data_ptr() if ref_grad and cfg.use_depth else None,
             ref.gzy.data_ptr() if ref_grad and cfg.use_depth else None,
-            None, 0, 0, 0.0, 0.0)
+            None, 0, 0, 0.0, 0.0, 0, None)
     refs = (B, *points,
             # Row b's slab starts b * stride floats in; 0 shares one slab.
             N, cur_slab.data_ptr(), C * H * W if cur_slab.dim() == 4 else 0,
@@ -767,16 +773,38 @@ def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig):
     return B, N, refs, scale, table
 
 
-def level_plan(device, N):
+def level_plan(device, N, compact=False):
     """``(C, points per CTA, kept in shared memory, dynamic shared memory
-    bytes per CTA)`` of a launch over N points on ``device``."""
+    bytes per CTA, slot table in shared memory)`` of a launch over N
+    points on ``device`` (``compact``: N compaction slots on the slab
+    route; the last field is False without compaction)."""
     C = cluster_size(N)
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
-        rc = _build.load().dvo_level_plan(N, C, out)
+        rc = _build.load().dvo_level_plan(N, C, int(compact), out)
     if rc != 0:
         raise RuntimeError(f"dvo_level_plan failed: CUDA error {rc}")
-    return C, out[0], bool(out[1]), out[2]
+    return C, out[0], bool(out[1]), out[2], bool(out[3])
+
+
+# Per (device, N): whether a compacted launch over N slots keeps its slot
+# tables in shared memory (level_plan's last field).
+_SLOTS_SHARED = {}
+
+
+def _slot_table(ref, cur_slab, B, cfg: TrackerConfig):
+    """The global (B, budget) int32 slot table of a compacted slab-route
+    launch whose slot tables do not fit in shared memory (a new tensor on
+    the slab's device), else None."""
+    budget = ref_budget(cfg, *cur_slab.shape[-2:])
+    if not budget or not isinstance(ref, RefSlabs):
+        return None
+    key = (cur_slab.device, budget)
+    if key not in _SLOTS_SHARED:
+        _SLOTS_SHARED[key] = level_plan(cur_slab.device, budget, True)[4]
+    if _SLOTS_SHARED[key]:
+        return None
+    return torch.empty((B, budget), dtype=torch.int32, device=cur_slab.device)
 
 
 def unpack_linearization(out) -> Linearization:
@@ -842,7 +870,8 @@ def linearize_kernels_batched(ref, cur_slab, K, T, cfg: TrackerConfig,
     package."""
     global LAUNCHES_LINEARIZE
     K, T = K.contiguous(), T.contiguous()
-    B, N, refs, scale, _table = _kernel_args(ref, cur_slab, K, T, cfg)
+    slots = _slot_table(ref, cur_slab, T.shape[0], cfg)
+    B, N, refs, scale, _table = _kernel_args(ref, cur_slab, K, T, cfg, slots)
     warm = (sigma_init is not None and cfg.tdist_scale_warm_iters > 0
             and bool(sigma_warm))
     if warm:
@@ -898,7 +927,9 @@ def track_level_kernels(ref, cur_slab, K, T_init, cfg: TrackerConfig,
         raise ValueError(f"the level kernel needs mu >= 0, got {cfg.mu}")
     K = K.contiguous()
     T_init, T_stride = _rows_of(T_init)
-    B, N, refs, scale, _table = _kernel_args(ref, cur_slab, K, T_init, cfg)
+    slots = _slot_table(ref, cur_slab, T_init.shape[0], cfg)
+    B, N, refs, scale, _table = _kernel_args(ref, cur_slab, K, T_init, cfg,
+                                             slots)
     dev = cur_slab.device
     S = level_row_size(cfg.max_iterations)
     if out is None:

@@ -210,18 +210,19 @@ def test_level_shapes(size):
 
 
 def test_front_route():
-    """The kernel front: a CUDA device and no compaction, whatever the
-    estimator, weighting or motion prior (decided from the config and
-    device alone)."""
+    """The kernel front: a CUDA device, whatever the estimator, weighting,
+    motion prior or point budget (decided from the config and device
+    alone)."""
     cfg = _port_cfg(TrackerConfig())
     route = t_dense_tracker.front_route
     assert route(cfg, "cuda") and route(cfg, torch.device("cuda", 1))
     assert not route(cfg, "cpu")
     for over in ({"scale_estimator": "mad"}, {"use_weighting": False},
-                 {"mu": 0.1}):
+                 {"mu": 0.1}, {"point_budget_fraction": 0.5},
+                 {"point_budget_fraction": 0.25, "scale_estimator": "mad"}):
         assert route(dataclasses.replace(cfg, **over), "cuda"), over
     assert not route(dataclasses.replace(cfg, point_budget_fraction=0.5),
-                     "cuda")
+                     "cpu")
     assert route(dataclasses.replace(cfg, intensity_grad_threshold=1.0),
                  "cuda")
 
@@ -229,7 +230,9 @@ def test_front_route():
 def test_slab_route_kernel_args(frames):
     """The slab route's launch arguments (built without a launch): a
     stacked tensor by its row stride (0 for one slab repeated), a sequence
-    by row pointers; the gradient thresholds from the config; and what it
+    by row pointers; the gradient thresholds from the config; under a
+    point budget N the budget's slots and the budget among the arguments
+    (the global slot table only where the wrapper gives one); and what it
     refuses."""
     cfg = _port_cfg(dataclasses.replace(CFG4, intensity_grad_threshold=1.5,
                                         depth_grad_threshold=0.02))
@@ -244,17 +247,33 @@ def test_slab_route_kernel_args(frames):
         B, N, refs, _, ptrs = t_linearize._kernel_args(
             t_linearize.RefSlabs(rows), cur, K, T, cfg)
         assert (B, N) == (2, H * W) and refs[1:10] == (None,) * 9
-        assert refs[11:15] == (stride, table, 1.5, 0.02)
+        assert refs[11:17] == (stride, table, 1.5, 0.02, 0, None)
+        assert refs[17] == N
         first = (rows[0] if table else rows).data_ptr()
         assert ptrs[0] == first
         if table:
             assert ptrs[1] == rows[1].data_ptr()
+    budget_cfg = dataclasses.replace(cfg, point_budget_fraction=0.5)
+    budget = t_linearize.compact_budget(H * W, 0.5, 128)
+    assert t_linearize.ref_budget(budget_cfg, H, W) == budget == 2432
+    slots = torch.empty((2, budget), dtype=torch.int32)
+    for table in (None, slots):
+        B, N, refs, _, _ = t_linearize._kernel_args(
+            t_linearize.RefSlabs(stacked), cur, K, T, budget_cfg, table)
+        assert (B, N) == (2, budget) and refs[17] == budget
+        assert refs[15:17] == (budget, None if table is None
+                               else slots.data_ptr())
+    # The points route takes prepare_reference's compacted arrays, N their
+    # slots, and passes no budget.
+    ref = t_linearize.prepare_reference(stacked, K, budget_cfg)
+    B, N, refs, _, _ = t_linearize._kernel_args(ref, cur, K, T, budget_cfg)
+    assert (B, N) == (2, budget) and refs[15:17] == (0, None)
     bad = [
         (tuple([pyrs[0][0]] * 33), torch.eye(4).expand(33, 4, 4), cfg),
         (stacked[:, :, :-1], T, cfg),
         (stacked[:, :4], T, cfg),
         ((pyrs[0][0],), T, cfg),
-        (stacked, T, dataclasses.replace(cfg, point_budget_fraction=0.5)),
+        ((pyrs[0][0],), T, budget_cfg),
     ]
     for rows, T_b, c in bad:
         with pytest.raises(ValueError):
@@ -351,13 +370,17 @@ def test_posterior_information_added_once(frames, monkeypatch):
     assert torch.equal(got.entropy, want.entropy)
 
 
+@pytest.mark.parametrize("budget", [0.0, 0.5], ids=["full", "budget"])
 @pytest.mark.parametrize("rows", ["B1", "B2_pointers", "B3_paired"])
-def test_kernel_front_assembly(frames, monkeypatch, rows):
+def test_kernel_front_assembly(frames, monkeypatch, rows, budget):
     """The kernel front's TrackResult (every field a view of the level
     launches' output, each level starting from the pose the level above
     wrote) against the eager front on the same rows, with the launches
-    stood in for on the CPU: every field equal."""
-    cfg = _port_cfg(dataclasses.replace(CFG4, max_iterations=6))
+    stood in for on the CPU: every field equal, on the full grid and under
+    a point budget (the selected count and valid ratio the compacted
+    slots')."""
+    cfg = _port_cfg(dataclasses.replace(CFG4, max_iterations=6,
+                                        point_budget_fraction=budget))
     imgs, _ = frames
     pyrs = _port_pyramids(imgs, cfg.num_levels)
     B = int(rows[1])

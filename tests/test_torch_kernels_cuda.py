@@ -57,6 +57,14 @@ and falls ~100x over a level). mu = 1e9 holds a level's pose near its
 start (the free level moves 5x further). A MAD + Huber chunk of the
 keyframe scan: five launches a frame, no host sync in submit_chunk.
 
+Point compaction on the slab route (each launch picks its slots' pixels
+from the reference slab): both modes bit for bit against the same kernel
+over prepare_reference's compacted points (by stride, row pointers and a
+device table; B = 1, 2, 8; levels 3, 2, 1; four threshold and budget
+pairs; a blank reference row; slot tables past shared memory), and every
+budget path (odometry, SLAM, the chunked scan) on the kernel front with
+no prepare_reference or scan_step_reference call.
+
 The pose-graph kernels (csrc/pose_graph.cu, one launch per dense solve
 of at most 128 vertices; csrc/pose_graph_grid.cu, one cooperative launch
 per solve past that and per CG solve) against their plain version, the
@@ -890,7 +898,7 @@ def test_track_level_kernel_without_shared_points(cuda, orbit640):
     their plain versions."""
     cfg = TrackerConfig(last_level=0, max_iterations=6)
     ref, cur, K, T0 = _level_batch(orbit640, cuda, 1, False, 0, cfg)
-    C, P, stored, smem = linearize.level_plan(cuda, ref.px.shape[1])
+    C, P, stored, smem, _ = linearize.level_plan(cuda, ref.px.shape[1])
     assert (C, P, stored, smem) == (16, 19200, False, 0)
     _assert_level_matches_host_loop(ref, cur, K, T0, cfg)
     row = linearize.RefData(*(None if f is None else f[0] for f in ref))
@@ -2056,7 +2064,8 @@ def test_slab_route_matches_refdata_route(cuda, noisy9, name, level, B):
 def test_slab_route_rejects_bad_references(cuda, noisy9):
     """A reference the slab route does not take raises before a launch:
     more row pointers than the kernel holds, slabs of another level's
-    shape, point compaction."""
+    shape. A point budget launches (the kernel compacts the slab's
+    points itself)."""
     cfg = TrackerConfig()
     rows, stacked, cur, K, T, _ = _front_batch(noisy9, cuda, 2, 3, cfg)
     before = linearize.LAUNCHES_TRACK_LEVEL
@@ -2067,11 +2076,237 @@ def test_slab_route_rejects_bad_references(cuda, noisy9):
     with pytest.raises(ValueError):
         linearize.track_level_kernels(
             linearize.RefSlabs(stacked[:, :, :-1]), cur, K, T, cfg)
-    with pytest.raises(ValueError):
-        linearize.track_level_kernels(
-            linearize.RefSlabs(rows), cur, K, T,
-            dataclasses.replace(cfg, point_budget_fraction=0.5))
     assert linearize.LAUNCHES_TRACK_LEVEL == before
+    budget_cfg = dataclasses.replace(cfg, point_budget_fraction=0.5)
+    out, out_i = linearize.track_level_kernels(linearize.RefSlabs(rows), cur,
+                                               K, T, budget_cfg)
+    assert linearize.LAUNCHES_TRACK_LEVEL == before + 1
+    h, w = cur.shape[-2:]
+    sel = out[:, linearize._LEVEL_STATS + linearize._STAT_PLANES
+              * budget_cfg.max_iterations + linearize._EXTRA_SELECTED]
+    assert (sel == linearize.ref_budget(budget_cfg, h, w)).all()
+    assert (out_i[:, 0] >= 1).all()
+
+
+# ---- compaction on the slab route: the launch picks each slot's pixel
+
+BUDGET_FRONT = {
+    "b50_t1": {"intensity_grad_threshold": 1.0, "point_budget_fraction": 0.5},
+    "b90_t3": {"intensity_grad_threshold": 3.0, "point_budget_fraction": 0.9},
+    "b25_t0": {"point_budget_fraction": 0.25},
+    "b50_refgrad": {"gradient_source": "reference",
+                    "intensity_grad_threshold": 1.0,
+                    "depth_grad_threshold": 0.005,
+                    "point_budget_fraction": 0.5},
+}
+
+
+def _table_of(stacked):
+    """A SlabTable over the rows of a (B, 6, H, W) tensor."""
+    ptrs = torch.tensor([r.data_ptr() for r in stacked.unbind(0)],
+                        dtype=torch.int64, device=stacked.device)
+    return linearize.SlabTable(ptrs, tuple(stacked.shape[1:]),
+                               [(r,) for r in stacked.unbind(0)], 0)
+
+
+def _budget_routes(rows, stacked, cur, K, T, sigma, cfg):
+    """Both modes of the level kernel under cfg's point budget on the slab
+    route (``rows`` as given, and through a SlabTable of ``stacked``) and on
+    the RefData route over prepare_reference's compacted points: the
+    compacted points and, per route, (Linearization, [rI, rZ, valid], out,
+    out_i). The slab routes make no prepare_reference call."""
+    ref = linearize.prepare_reference(stacked, K, cfg)
+    N, B = ref.px.shape[1], T.shape[0]
+    assert N == linearize.ref_budget(cfg, *cur.shape[-2:])
+    routes = {"slabs": linearize.RefSlabs(rows),
+              "table": linearize.RefSlabs(_table_of(stacked)),
+              "points": ref}
+    got = {}
+    for name, r in routes.items():
+        calls = linearize.PREPARE_REFERENCE_CALLS
+        lin = linearize.linearize_kernels_batched(r, cur, K, T, cfg, sigma,
+                                                  True)
+        res = [t.clone() for t in linearize.kernel_residuals(cur.device, N,
+                                                             B)]
+        out, out_i = linearize.track_level_kernels(r, cur, K, T, cfg)
+        assert linearize.PREPARE_REFERENCE_CALLS == calls
+        got[name] = (lin, res, out, out_i)
+    return ref, got
+
+
+def _assert_routes_equal(ref, got, cfg):
+    """Every slab route's outputs the RefData route's bits, and the
+    selected count the compacted selection's."""
+    lin_r, res_r, o_r, oi_r = got["points"]
+    for name in ("slabs", "table"):
+        lin_s, res_s, o_s, oi_s = got[name]
+        for field, a, b in zip(lin_s._fields, lin_s[:-1], lin_r[:-1]):
+            assert _bit_diff(a, b) == 0, (name, field)
+        for field, a, b in zip(("rI", "rZ", "valid"), res_s, res_r):
+            assert torch.equal(a, b), (name, field)
+        assert _bit_diff(o_s, o_r) == 0, name
+        assert torch.equal(oi_s, oi_r), name
+        sel = o_s[:, linearize._LEVEL_STATS + linearize._STAT_PLANES
+                  * cfg.max_iterations + linearize._EXTRA_SELECTED]
+        assert torch.equal(sel, ref.selected.sum(-1).float()), name
+
+
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("level", [3, 2, 1])
+@pytest.mark.parametrize("name", sorted(BUDGET_FRONT))
+def test_slab_route_at_budget_matches_refdata_route(cuda, noisy9, name,
+                                                    level, B):
+    """Under a point budget, both modes of the level kernel on the slab
+    route (by stride at B = 1 and 8, by row pointers at B = 2, and through
+    a SlabTable), whose launches pick each slot's pixel themselves, give
+    the bits of the same kernel over prepare_reference's compacted points:
+    mode (a)'s Linearization and rI, rZ, valid; mode (b)'s whole output
+    rows (pose, record, statistics, the selected count) and iterations."""
+    cfg = dataclasses.replace(TrackerConfig(), **BUDGET_FRONT[name])
+    rows, stacked, cur, K, T, sigma = _front_batch(noisy9, cuda, B, level,
+                                                   cfg)
+    ref, got = _budget_routes(rows, stacked, cur, K, T, sigma, cfg)
+    if name == "b25_t0" and level < 3:
+        # More points selected than slots: decimated, every slot filled.
+        assert bool(ref.selected.all())
+    _assert_routes_equal(ref, got, cfg)
+
+
+@pytest.mark.parametrize("level", [3, 2, 1])
+def test_slab_route_at_budget_blank_reference(cuda, noisy9, level):
+    """A reference row with no finite depth at a point budget: no slot is
+    filled, the row's level stops at its first iteration with too few
+    constraints, and both routes give the same bits; the other row is
+    untouched by it."""
+    cfg = dataclasses.replace(TrackerConfig(), **BUDGET_FRONT["b50_t1"])
+    rows, stacked, cur, K, T, sigma = _front_batch(noisy9, cuda, 2, level,
+                                                   cfg)
+    stacked = stacked.clone()
+    stacked[1, pyramid.CH_Z] = float("nan")
+    rows = tuple(stacked.unbind(0))
+    ref, got = _budget_routes(rows, stacked, cur, K, T, sigma, cfg)
+    assert not bool(ref.selected[1].any()) and bool(ref.selected[0].any())
+    _assert_routes_equal(ref, got, cfg)
+    lin, _, out, out_i = got["slabs"]
+    assert float(lin.n_raw[1]) == 0.0 and float(lin.n_raw[0]) > 0.0
+    assert out_i[1].tolist() == [1, dense_tracker.TERM_TOO_FEW_CONSTRAINTS]
+
+
+@pytest.mark.parametrize("where", ["points_recomputed", "global_slots"])
+def test_slab_route_at_budget_past_shared_memory(cuda, noisy9, where):
+    """Where a CTA's slots do not fit in shared memory: 640x480's level 0 at
+    budget 0.5 (9 600 slots a CTA: the points are recomputed every pass,
+    the slot table stays in shared memory) and a 1280x960 slab at budget
+    1.0 (76 800 slots a CTA: the slot table goes to a global (B, budget)
+    table the wrapper allocates). The slab route gives the RefData route's
+    bits in both modes."""
+    cfg = dataclasses.replace(TrackerConfig(), max_iterations=4,
+                              **BUDGET_FRONT["b50_t1"])
+    if where == "points_recomputed":
+        rows, stacked, cur, K, T, sigma = _front_batch(noisy9, cuda, 2, 0,
+                                                       cfg)
+        want_plan = (16, 9600, False, 38400, True)
+    else:
+        cfg = dataclasses.replace(cfg, point_budget_fraction=1.0)
+        w, h = 2 * W640, 2 * H640
+        Kt = (1050.0, 1050.0, (w - 1) / 2.0, (h - 1) / 2.0)
+        scene = synthetic.two_plane_scene(sharpness=2.0)
+        poses = synthetic.orbit_trajectory(24, radius=0.06)
+        frames = [synthetic.add_sensor_noise(
+            *scene.render(np.asarray(Kt), w, h, poses[k]),
+            np.random.default_rng(k), dropout=0.02) for k in range(2)]
+        slabs = [pyramid.build_pyramid(torch.as_tensor(i, device=cuda),
+                                       torch.as_tensor(z, device=cuda), 1)[0]
+                 for i, z in frames]
+        stacked, cur = slabs[0][None], slabs[1]
+        rows = stacked
+        K = camera.intrinsics(*Kt, device=cuda)
+        T = torch.as_tensor(se3_np.inverse(poses[1]) @ poses[0],
+                            dtype=torch.float32, device=cuda)[None]
+        sigma = torch.tensor([[[40.0, 0.01], [0.01, 1e-3]]], device=cuda)
+        want_plan = (16, 76800, False, 0, False)
+    N = linearize.ref_budget(cfg, *cur.shape[-2:])
+    assert linearize.level_plan(cuda, N, True) == want_plan
+    ref, got = _budget_routes(rows, stacked, cur, K, T, sigma, cfg)
+    _assert_routes_equal(ref, got, cfg)
+
+
+def test_budget_paths_run_on_the_kernel_front(cuda, monkeypatch):
+    """At a point budget every single-card path runs the kernel front:
+    odometry one pyramid and three level launches a frame; KeyframeSlam's
+    pairs and validation batches (a loop edge accepted) and
+    ChunkedKeyframeSlam's scan (five launches a frame, submit_chunk with
+    no synchronizing call) level launches only. None makes a
+    prepare_reference or scan_step_reference call, or a mode (a) or
+    standalone sampler launch."""
+    from dvo_slam_tpu_torch import KeyframeSlam, SlamConfig
+    from dvo_slam_tpu_torch.models.chunked_slam import ChunkedKeyframeSlam
+    from dvo_slam_tpu_torch.models.odometry import OdometryTracker
+    from dvo_slam_tpu_torch.ops import scan_step
+
+    plain = {"scan_step_reference": 0}
+    step_reference = scan_step.scan_step_reference
+
+    def counted(*args, **kwargs):
+        plain["scan_step_reference"] += 1
+        return step_reference(*args, **kwargs)
+
+    monkeypatch.setattr(scan_step, "scan_step_reference", counted)
+
+    def counts():
+        return (pyramid.LAUNCHES_PYRAMID, linearize.LAUNCHES_TRACK_LEVEL,
+                scan_step.LAUNCHES_SCAN_STEP, linearize.LAUNCHES_LINEARIZE,
+                sampler.LAUNCHES, linearize.PREPARE_REFERENCE_CALLS,
+                plain["scan_step_reference"])
+
+    cfg = TrackerConfig(intensity_grad_threshold=1.0,
+                        point_budget_fraction=0.5)
+    frames, _ = _ring640(24)
+    tracker = OdometryTracker(K640, cfg, device=cuda)
+    before = counts()
+    for k, (i, z) in enumerate(frames[:9]):
+        tracker.update(i, z, float(k))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [9, 24, 0, 0, 0, 0, 0]
+
+    W, H = 160, 120
+    K = (525.0 * W / 640.0, 525.0 * H / 480.0, (W - 1) / 2.0, (H - 1) / 2.0)
+    ring = synthetic.orbit_trajectory(9, radius=0.06)[:8]
+    small = synthetic.render_sequence(synthetic.two_plane_scene(
+        sharpness=2.0), np.asarray(K), W, H, ring)
+    cfg3 = dataclasses.replace(cfg, num_levels=3, first_level=2,
+                               last_level=0)
+    slam = KeyframeSlam(K, cfg3, SlamConfig(), device=cuda)
+    slam.init()
+    before = counts()
+    for k in range(72):
+        if k > 0:
+            slam.force_keyframe()
+        slam.update(*small[k % 8], k / 30.0)
+    slam.finish()
+    diff = [a - b for a, b in zip(counts(), before)]
+    assert diff[1] > 0 and diff[2:] == [0, 0, 0, 0, 0], diff
+    assert slam.num_loop_edges >= 1
+
+    chunked = ChunkedKeyframeSlam(K640, cfg, SlamConfig(), device=cuda)
+    chunked.init()
+
+    def chunk(a, b):
+        return (np.stack([f[0] for f in frames[a:b]]),
+                np.stack([f[1] for f in frames[a:b]]),
+                [k / 30.0 for k in range(a, b)])
+
+    chunked.update_chunk(*chunk(0, 8))
+    torch.cuda.synchronize()
+    before = counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunked.submit_chunk(*chunk(8, 24))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    diff = [a - b for a, b in zip(counts(), before)]
+    assert diff == [16, 48, 16, 0, 0, 0, 0], diff
+    assert len(chunked.collect_chunk()) == 16
 
 
 @pytest.mark.parametrize("B", [1, 2, 8])
@@ -2278,17 +2513,19 @@ def _ring_chunk(n, dev, start=0):
     return ii, zz
 
 
+@pytest.mark.parametrize("budget", [0.0, 0.5], ids=["full", "budget"])
 @pytest.mark.parametrize("stats", [False, True],
                          ids=["no_stats", "stats"])
-def test_chunk_on_kernels_matches_the_step_loop(cuda, monkeypatch, stats):
+def test_chunk_on_kernels_matches_the_step_loop(cuda, monkeypatch, stats,
+                                                budget):
     """track_keyframe_sequence on the kernel route (five launches a frame:
     pyramid 1, track_level 3, scan_step 1; no prepare_reference) against
-    the same scan through the per-frame _step loop on the card: identical
-    switch frames and decisions, poses within 1e-5 (the two fuse in f32
-    in another order, and each frame's level launches start from the
-    fused pose). With the statistics: the same planes' shapes, and the
-    first frame's (both routes' level launches start from the same carry)
-    bit for bit."""
+    the same scan through the per-frame _step loop on the card, on the
+    full grid and at a point budget: identical switch frames and
+    decisions, poses within 1e-5 (the two fuse in f32 in another order,
+    and each frame's level launches start from the fused pose). With the
+    statistics: the same planes' shapes, and the first frame's (both
+    routes' level launches start from the same carry) bit for bit."""
     from dvo_slam_tpu_torch import SlamConfig
     from dvo_slam_tpu_torch.models import keyframe_scan
     from dvo_slam_tpu_torch.ops import scan_step
@@ -2297,7 +2534,8 @@ def test_chunk_on_kernels_matches_the_step_loop(cuda, monkeypatch, stats):
     force = torch.zeros(12, dtype=torch.bool, device=cuda)
     force[6] = True
     K = camera.intrinsics(*K640, device=cuda)
-    cfg, slam_cfg = TrackerConfig(), SlamConfig()
+    cfg = TrackerConfig(point_budget_fraction=budget)
+    slam_cfg = SlamConfig()
     counts = (pyramid.LAUNCHES_PYRAMID, linearize.LAUNCHES_TRACK_LEVEL,
               scan_step.LAUNCHES_SCAN_STEP, linearize.PREPARE_REFERENCE_CALLS)
     got = keyframe_scan.track_keyframe_sequence(ii, zz, K, cfg, slam_cfg,

@@ -118,12 +118,14 @@ def test_scan_matches_host_orchestrator(forced_run):
 
 
 @pytest.mark.parametrize("fields", [
-    {"scale_estimator": "mad", "influence": "huber"}, {"mu": 0.1}],
-    ids=["mad_huber", "mu"])
+    {"scale_estimator": "mad", "influence": "huber"}, {"mu": 0.1},
+    {"point_budget_fraction": 0.5}],
+    ids=["mad_huber", "mu", "budget"])
 def test_scan_off_the_default_estimator_matches_jax(fields):
-    """The scan under MAD + Huber and under the motion prior (on the card
-    both take the kernel route) against the JAX scan on the same frames,
-    one forced switch: the same decisions, poses within TRAJ_ATOL."""
+    """The scan under MAD + Huber, under the motion prior and at a point
+    budget (on the card all take the kernel route) against the JAX scan on
+    the same frames, one forced switch: the same decisions, poses within
+    TRAJ_ATOL."""
     seq_i, seq_z, _ = _sequence(8)
     force = np.zeros(8, bool)
     force[4] = True
@@ -567,8 +569,7 @@ def stand_in_kernel_route(monkeypatch):
         return step(*args, **kwargs)
 
     monkeypatch.setattr(t_dense_tracker, "front_route",
-                        lambda cfg, device, pixel_group=None:
-                        t_linearize.slab_route(cfg))
+                        lambda cfg, device, pixel_group=None: True)
     monkeypatch.setattr(t_pyramid, "build_pyramid_kernel", pyramid_kernel)
     monkeypatch.setattr(t_pyramid, "build_pyramid",
                         lambda i, z, n: pyramid_kernel(i, z, n))
@@ -584,16 +585,19 @@ def _nan_equal(a, b):
         b.nan_to_num(-7.0) if b.is_floating_point() else b)
 
 
+@pytest.mark.parametrize("budget", [0.0, 0.5], ids=["full", "budget"])
 @pytest.mark.parametrize("with_stats", [False, True])
 def test_kernel_route_chunks_match_the_step_route(forced_run, monkeypatch,
-                                                  with_stats):
+                                                  with_stats, budget):
     """The kernel route's chunks (five launches a frame, the outputs views
     of one packed buffer, the keyframe carried as a pointer table and a
     PendingKeyframe) against the per-frame route's _step loop on the same
-    frames, split at the same boundaries: every output equal, and the
-    carry's pose and entropy state after every chunk."""
+    frames, split at the same boundaries, on the full grid and at a point
+    budget: every output equal, and the carry's pose and entropy state
+    after every chunk."""
     seq_i, seq_z, _, force, _ = forced_run
-    cfg = dataclasses.replace(T_TRACKER, collect_stats=True)
+    cfg = dataclasses.replace(T_TRACKER, collect_stats=True,
+                              point_budget_fraction=budget)
     K = t_camera.intrinsics(*K_TUPLE, device="cpu")
     ti, tz = torch.as_tensor(seq_i), torch.as_tensor(seq_z)
     f = torch.as_tensor(force)

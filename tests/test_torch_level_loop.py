@@ -74,7 +74,8 @@ def test_level_route_by_estimator(estimator, weighting):
     cfg = _port_cfg(TrackerConfig(scale_estimator=estimator,
                                   use_weighting=weighting))
     assert t_dense_tracker.front_route(cfg, "cuda")
-    assert t_linearize.slab_route(cfg)
+    assert t_dense_tracker.front_route(
+        dataclasses.replace(cfg, point_budget_fraction=0.5), "cuda")
     want = t_linearize._ESTIMATORS[estimator if weighting else "none"]
     assert _kernel_codes(cfg)[:2] == (want, t_linearize._INFLUENCES["tdist"])
 
@@ -89,13 +90,14 @@ def test_level_route_by_estimator(estimator, weighting):
     ({"mu": 0.5, "lm_lambda_init": 1e-4}, True),
 ])
 def test_level_route_by_option(fields, want):
-    """Every option, the motion prior included, keeps the level kernel on
-    the card; only compaction and a pixel group leave the kernel front."""
+    """Every option, the motion prior and a point budget included, keeps
+    the level kernel on the card; only a pixel group leaves the kernel
+    front."""
     cfg = _port_cfg(dataclasses.replace(TrackerConfig(), **fields))
     assert t_dense_tracker.front_route(cfg, "cuda") == want
     assert not t_dense_tracker.front_route(cfg, "cpu")
-    assert not t_dense_tracker.front_route(
-        dataclasses.replace(cfg, point_budget_fraction=0.5), "cuda")
+    assert t_dense_tracker.front_route(
+        dataclasses.replace(cfg, point_budget_fraction=0.5), "cuda") == want
 
 
 @pytest.mark.parametrize("N, C", [(1, 1), (300, 1), (301, 2), (1200, 2),

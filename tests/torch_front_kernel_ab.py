@@ -22,8 +22,10 @@ kernel's mode (b) under the default t-distribution at B = 1 (phase 2's
 noisy pair), 2 and 8 (chip_smoke._batch_inputs) at the tracked levels,
 with the iterations each launch runs, and its mode (a) at B = 1; where
 the tree runs other scale estimators on the kernel, mode (b) under normal
-+ Tukey and MAD + Huber at B = 1; where the tree has
-it, an empty kernel (the launch floor); and where the tree has the step
++ Tukey and MAD + Huber at B = 1; where the tree compacts on the slab
+route, both modes at B = 1 at phase 10b's budget on the slab route and
+on the RefData route over the prepared compacted points; where the tree
+has it, an empty kernel (the launch floor); and where the tree has the step
 kernel: the step held to its plain version on chip_smoke's STEP_CASES and
 8 random rows, with and without the statistics, then timed a call
 without them (the main path) and with them on the "accepted" case; where
@@ -188,6 +190,25 @@ for lvl in cfg.tracked_levels:
             out[case + " iterations"] = float(its)
     out[f"mode (a) B=1 level {lvl}"] = s._events_us(functools.partial(
         linearize.linearize_kernels_batched, *batches[1], cfg))
+
+# Where the tree compacts on the slab route (linearize.ref_budget): both
+# modes at B = 1 at the budget of chip_smoke's phase 10b (its noise-free
+# orbit pair) on the slab route, whose launches pick the slots' pixels,
+# and on the RefData route over prepare_reference's compacted points.
+if hasattr(linearize, "ref_budget"):
+    b_cfg = TrackerConfig(intensity_grad_threshold=s.COMPACT_THRESHOLD,
+                          point_budget_fraction=s.COMPACT_BUDGET)
+    b_ref, b_cur, b_Ks, b_T = s._noisy_pair(dev, b_cfg, noisy=False)
+    for lvl in b_cfg.tracked_levels:
+        slab = b_ref[lvl][None]
+        for route, r in (("slab", linearize.RefSlabs(slab)), (
+                "RefData", linearize.prepare_reference(slab, b_Ks[lvl],
+                                                       b_cfg))):
+            args = (r, b_cur[lvl], b_Ks[lvl], b_T[None], b_cfg)
+            out[f"budget mode (b) {route} level {lvl}"] = s._events_us(
+                functools.partial(linearize.track_level_kernels, *args))
+            out[f"budget mode (a) {route} level {lvl}"] = s._events_us(
+                functools.partial(linearize.linearize_kernels_batched, *args))
 if hasattr(_build, "empty_launch"):
     out["empty kernel"] = s._events_us(
         functools.partial(_build.empty_launch, dev))
