@@ -415,6 +415,7 @@ COMPACT_THRESHOLD, COMPACT_BUDGET = 1.0, 0.5
 # 11: parallel/ at 640x480: pairs and fleet candidates, sequences of the
 # ring and their length; the world's timeout.
 PARALLEL_B, PARALLEL_T, PARALLEL_TIMEOUT_S = 8, 6, 400.0
+SPLIT_SPIN_S = 1e-3  # the spin ahead of a timed split launch
 CONFIGS = {
     "tdist": {},
     "photometric": {"use_depth": False},
@@ -2465,10 +2466,14 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
     launches; the same launch as the SLAM path's B = 2 row, timed there),
     timed in phase 12; mode (b) at the validation batches B = 16 and 32
     (5d; the SLAM path's launches at that B), at N = budget (10b; phase
-    10a's compacted odometry run's launches), and the standalone sampler
-    on the pixel-sharded route (11; rank 0's launches in the sharded pairs
-    run); the pose-graph kernel on the ring's final keyframe graph and
-    window graph (5b's graph and window solves' launches), on the offline
+    10a's compacted odometry run's launches), the standalone sampler at a
+    pixel shard's shape (11; rank 0's launches in the sharded pairs run:
+    none since the split route) and the split mode (11; rank 0's split
+    launches in the pairs run, the device time of rank 0's launches alone
+    on the card by events, the plain pixel route's wall time, the bound
+    from the bands' bytes); the pose-graph kernel on the ring's final
+    keyframe graph and window graph (5b's graph and window solves'
+    launches), on the offline
     benchmark's graph (6b's launches) and on _ring_graph at 64 and 128
     vertices (5e's launches at those sizes), timed in 5f; the grid kernel
     on 5g's last solve and _ring_graph at 256 (5g's launches at M = 256),
@@ -2554,6 +2559,13 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
         "dvo_slam_tpu_torch/csrc/sampler.cu",
         "dvo_slam_tpu/ops/pallas/sampler.py:226", par["launches"],
         par["err"], par["ms"], par["plain_ms"], par["bound"], par["lib_ms"])
+    d = par["split"]
+    row(f"track_level_split (the level kernel's split mode, the pixel route: "
+        f"stage launches over a rank's band, all-reduced between them), "
+        f"pairs B={PARALLEL_B} on 2 pixel ranks, a pairs run's launches",
+        "dvo_slam_tpu_torch/csrc/linearize.cu",
+        "dvo_slam_tpu/ops/pallas/sampler.py:226", d["launches"], d["err"],
+        d["ms"], d["plain_ms"], d["bound"], None)
     # No Pallas kernel: the JAX package's LM while_loop, compiled by XLA.
     for name, what, n_launch in (
             ("ring", "SLAM ring keyframe graph",
@@ -2656,6 +2668,8 @@ def _reset_launches():
     sampler.LAUNCHES = 0
     linearize.LAUNCHES_LINEARIZE = 0
     linearize.LAUNCHES_TRACK_LEVEL = 0
+    linearize.LAUNCHES_TRACK_LEVEL_SPLIT = 0
+    linearize.COLLECTIVES_SPLIT = 0
     linearize.LAUNCHES_BY_BATCH.clear()
     linearize.PREPARE_REFERENCE_CALLS = 0
     pyramid.LAUNCHES_PYRAMID = 0
@@ -2671,6 +2685,8 @@ def _launches():
             "scan_step": scan_step.LAUNCHES_SCAN_STEP,
             "linearize": linearize.LAUNCHES_LINEARIZE,
             "track_level": linearize.LAUNCHES_TRACK_LEVEL,
+            "track_level_split": linearize.LAUNCHES_TRACK_LEVEL_SPLIT,
+            "collectives_split": linearize.COLLECTIVES_SPLIT,
             "pose_graph": pose_graph.LAUNCHES,
             "pose_graph_grid": pose_graph.LAUNCHES_GRID,
             "pyramid": getattr(pyramid, "LAUNCHES_PYRAMID", 0),
@@ -5176,15 +5192,155 @@ def phase_compaction(device, frames, slam_out, chunked):
     return out
 
 
+@contextlib.contextmanager
+def _plain_pixel_route(on=True):
+    """With on: track_batched's pixel route runs its plain version on the
+    card (the eager front: prepare_reference of the band and the host loop
+    over the plain linearization, every sum all-reduced over the pixel
+    group, gathering with the standalone sampler), the kernel front's
+    lookup swapped out as phase 7 swaps routes; otherwise as shipped."""
+    from dvo_slam_tpu_torch.models import dense_tracker
+
+    saved = dense_tracker.front_route
+    if on:
+        dense_tracker.front_route = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        dense_tracker.front_route = saved
+
+
+def _split_kind(code, steps):
+    from dvo_slam_tpu_torch.ops import linearize
+
+    if code == linearize._STAGE_FINISH:
+        return "finish"
+    return "first" if code == 0 else "normal" if code == steps + 1 else "sigma"
+
+
+def _split_stage_times(fn):
+    """fn run once with every split-route stage launch between two CUDA
+    events (behind a spin of SPLIT_SPIN_S, as _events_us queues one) and
+    every all-reduce of the stage buffer timed on the host clock between
+    two device syncs (so that neither includes the other):
+    ({(level height, stage kind): [device us]}, [all-reduce s], fn's wall
+    s, this instrumented run's)."""
+    import torch
+    import torch.distributed as dist
+
+    from dvo_slam_tpu_torch import _build
+    from dvo_slam_tpu_torch.ops import linearize
+
+    recs, coll, level = [], [], [0]
+    saved = (_build.launch, dist.all_reduce, linearize.track_level_split)
+
+    def tls(ref, cur, *args, **kwargs):
+        level[0] = int(cur.shape[-2])
+        return saved[2](ref, cur, *args, **kwargs)
+
+    def launch(name, dev, args):
+        if name != "dvo_track_level_split":
+            return saved[0](name, dev, args)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        # A spin ahead of the first event holds the card while the host
+        # queues the launch, so the events time the card, not the host.
+        torch.cuda._sleep(int(SPIN_HZ * SPLIT_SPIN_S))
+        ev[0].record()
+        saved[0](name, dev, args)
+        ev[1].record()
+        recs.append((level[0], _split_kind(args[-3], args[-2]), ev))
+
+    def all_reduce(t, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = saved[1](t, *args, **kwargs)
+        torch.cuda.synchronize()
+        coll.append(time.perf_counter() - t0)
+        return r
+
+    _build.launch, dist.all_reduce, linearize.track_level_split = (
+        launch, all_reduce, tls)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        _build.launch, dist.all_reduce, linearize.track_level_split = saved
+    times = {}
+    for h, kind, ev in recs:
+        times.setdefault((h, kind), []).append(
+            1e3 * ev[0].elapsed_time(ev[1]))
+    return times, coll, wall
+
+
+def _split_alone(refs, curs, Ks, T0, cfg):
+    """The split route's stage launches with the card to themselves (in
+    phase 11's world two ranks share it, and each launch's events also
+    span the other rank's work): rank 0's bands of the pairs (the top
+    half of every level's rows), every tracked level through
+    track_level_split in a 1-rank gloo group, as _split_stage_times
+    times them. Returns its (times, all-reduces, wall) and the launches
+    it made."""
+    import torch.distributed as dist
+
+    from dvo_slam_tpu_torch import parallel
+    from dvo_slam_tpu_torch.ops import linearize
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{parallel.free_port()}",
+        rank=0, world_size=1)
+    try:
+        def run():
+            T = T0
+            for lvl in cfg.tracked_levels:
+                h = refs[lvl].shape[-2] // 2
+                out, _ = linearize.track_level_split(
+                    linearize.RefSlabs(refs[lvl][:, :, :h].contiguous()),
+                    curs[lvl], Ks[lvl], T, cfg, dist.group.WORLD)
+                T = out[:, linearize._LEVEL_T:linearize._LEVEL_LOGLIK
+                        ].unflatten(-1, (4, 4))
+
+        run()
+        before = linearize.LAUNCHES_TRACK_LEVEL_SPLIT
+        timed = _split_stage_times(run)
+        return timed, linearize.LAUNCHES_TRACK_LEVEL_SPLIT - before
+    finally:
+        dist.destroy_process_group()
+
+
+def _split_expected(res, cfg):
+    """The split launches and all-reduces a sharded tracker's run on one
+    rank should make from its result: per tracked level stage_plan x the
+    loop's iterations (its rows' most) + 1 launches, an all-reduce after
+    each but a max_iterations finish."""
+    from dvo_slam_tpu_torch.ops import linearize
+
+    plan = linearize.stage_plan(cfg)
+    its = res.iterations.max(dim=0).values.cpu().numpy()
+    stages = [plan.cold + (int(n) - 1) * plan.warm for n in its]
+    return (sum(s + 1 for s in stages),
+            sum(s + (int(n) < cfg.max_iterations)
+                for s, n in zip(stages, its)))
+
+
 def _parallel_rank(rank, world_size, device, inp):
     """11, one rank: parallel/'s four workloads on a default mesh of the
     world (pixel axis 2), each timed (host clock around work that ends in
     a device sync, after one warm-up call of the tracker) with the launch
-    counts of its run. Returns numpy results, every one gathered whole."""
+    counts of its run: the pairs and the fleet on the pixel route as
+    shipped (the level kernel's split mode) and on its plain version
+    (_plain_pixel_route), the graph build, the sequences. Also the split
+    launches and all-reduces the pairs run should make (_split_expected),
+    the plain linearizations it made, and an instrumented pairs run
+    (_split_stage_times). Returns numpy results, every one gathered
+    whole."""
     import torch
     import torch.distributed as dist
 
     from dvo_slam_tpu_torch import TrackerConfig, convert
+    from dvo_slam_tpu_torch.ops import linearize
     from dvo_slam_tpu_torch.parallel import batch_slam, sharded
 
     cfg = TrackerConfig()
@@ -5195,28 +5351,48 @@ def _parallel_rank(rank, world_size, device, inp):
          for k, v in inp["graph"].items()}
     out = {"coordinate": tuple(mesh.get_coordinate()),
            "backend": dist.get_backend(), "device": str(device)}
+    plain = linearize.linearize_batched_reference
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return plain(*args, **kwargs)
 
     def timed(name, fn):
         torch.cuda.synchronize()
         dist.barrier()
         _reset_launches()
+        calls[0] = 0
         t0 = time.perf_counter()
         r = fn()
         torch.cuda.synchronize()
         out[name + " s"] = time.perf_counter() - t0
-        out[name + " launches"] = _launches()
+        out[name + " launches"] = {**_launches(), "plain linearize": calls[0]}
         return r
 
     pairs = sharded.sharded_track_pairs(mesh, cfg)
+    fleet = sharded.sharded_validation_fleet(mesh, cfg)
     local = (sharded.shard_pyramid(refs, mesh),
              sharded.shard_pyramid(curs, mesh, pixel=False), Ks,
              sharded.shard_rows(T0, mesh).contiguous())
-    pairs(*local)
-    res = timed("pairs", lambda: pairs(*local))
-    out["pairs"] = convert.result_to_numpy(sharded.gather_rows(res, mesh))
-    fleet = sharded.sharded_validation_fleet(mesh, cfg)
-    out["fleet"] = tuple(convert.result_to_numpy(r) for r in timed(
-        "fleet", lambda: fleet(refs, new, Ks, Tf)))
+    linearize.linearize_batched_reference = counted
+    try:
+        for route in ("", " plain"):
+            with _plain_pixel_route(route == " plain"):
+                pairs(*local)
+                res = timed("pairs" + route, lambda: pairs(*local))
+                out["pairs" + route] = convert.result_to_numpy(
+                    sharded.gather_rows(res, mesh))
+                if not route:
+                    out["rows"] = int(res.transformation.shape[0])
+                    out["expected"] = _split_expected(res, cfg)
+                    dist.barrier()
+                    out["stages"] = _split_stage_times(lambda: pairs(*local))
+                out["fleet" + route] = tuple(
+                    convert.result_to_numpy(r) for r in timed(
+                        "fleet" + route, lambda: fleet(refs, new, Ks, Tf)))
+    finally:
+        linearize.linearize_batched_reference = plain
     build = sharded.sharded_pose_graph_build(mesh)
     H, gv = timed("graph", lambda: build(g["poses"], *(
         sharded.shard_rows(g[k], mesh)
@@ -5276,18 +5452,30 @@ def phase_parallel(device):
     validation fleet at PARALLEL_B candidates (2 B rows), the edge-sharded
     graph assembly at SlamConfig()'s capacities (256 vertices, 1 024 edges,
     a noisy ring with loop edges), and track_sequences_sharded over
-    PARALLEL_B sequences of PARALLEL_T ring frames. Every rank must return
-    the same whole results, held to single-process runs on card 0: the
-    shipped route (the level kernel: T within 1e-4, valid counts within
-    0.1 %) and the host loop over the plain linearization (the pixel
-    route's arithmetic unsharded: T within 5e-5, valid counts within
-    0.1 %); the graph's H and g within 2e-3 and 1e-3 of its own
-    single-process build (the gauge block's diagonal excluded). Prints
-    each workload's time on rank 0 beside the single-process one and the
-    standalone sampler's launches per tracked pair on the pixel route, and
-    holds that sampler to its plain version at a pixel shard's shape.
-    Returns the kernels line's row inputs: that sampler's launches, error,
-    bound and device times (CUDA events)."""
+    PARALLEL_B sequences of PARALLEL_T ring frames. The pairs and the
+    fleet run the pixel route as shipped (the level kernel's split mode:
+    stage launches over each rank's band, their sums all-reduced between
+    them) and its plain version in the same world (_plain_pixel_route).
+    Every rank must return the same whole results; the split route is held
+    to the plain pixel route (T within 1e-4, valid counts within 0.1 %:
+    f64 sums against f32 ones) and to single-process runs on card 0: the
+    level kernel (T within 1e-4, valid counts within 0.1 %) and the host
+    loop over the plain linearization (the pixel route's arithmetic
+    unsharded: T within 5e-5, valid counts within 0.1 %); the graph's H
+    and g within 2e-3 and 1e-3 of its own single-process build (the gauge
+    block's diagonal excluded). The split route must make no standalone
+    sampler, mode (a) or (b) launch, no prepare_reference call and no
+    plain linearization, and stage_plan x iterations + 1 split launches a
+    level. Prints each workload's time on rank 0 beside the plain pixel
+    route's and the single-process ones, the split launches and
+    all-reduces per tracked pair, device us per stage launch by level
+    (CUDA events; in the world and alone on the card, _split_alone) and
+    the all-reduces' time apart from the launches'; holds the standalone
+    sampler to its plain version at a pixel shard's shape. Returns the
+    kernels line's row inputs for that sampler and for the split mode
+    (its launches, error against the plain pixel route, device time of
+    rank 0's pairs-run launches alone on the card, the plain route's time
+    and the bound)."""
     import torch
 
     from dvo_slam_tpu_torch import SlamConfig, TrackerConfig, convert
@@ -5345,7 +5533,8 @@ def phase_parallel(device):
     shared = (f"{world} ranks sharing 1 card over {backend}" if cards == 1
               else f"{world} ranks on {world} cards over {backend}")
     for r in ranks[1:]:
-        for key in ("pairs", "fleet", "graph", "sequences"):
+        for key in ("pairs", "fleet", "pairs plain", "fleet plain", "graph",
+                    "sequences"):
             a_l, b_l = _leaves(r[key]), _leaves(r0[key])
             if not all(np.array_equal(a, b, equal_nan=True)
                        for a, b in zip(a_l, b_l)):
@@ -5367,10 +5556,12 @@ def phase_parallel(device):
             pairs_s = time.perf_counter() - t0
             news = tuple(x.expand(PARALLEL_B, *x.shape).contiguous()
                          for x in new)
+            t0 = time.perf_counter()
             fleet = (dense_tracker.track_batched(refs, news, Ks, Tf_t, cfg),
                      dense_tracker.track_batched(
                          news, refs, Ks, se3.inverse(Tf_t).contiguous(), cfg))
             torch.cuda.synchronize()
+            fleet_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             seqs = batch_slam.track_sequences_batched(seq_i, seq_z, K, cfg)
             torch.cuda.synchronize()
@@ -5378,6 +5569,7 @@ def phase_parallel(device):
         single[route] = {
             "pairs": convert.result_to_numpy(pairs), "pairs s": pairs_s,
             "fleet": tuple(convert.result_to_numpy(f) for f in fleet),
+            "fleet s": fleet_s,
             "sequences": {k: v.cpu().numpy() for k, v in seqs.items()},
             "sequences s": seq_s}
     gg = pg.PoseGraph(poses=graph["poses"], num_vertices=np.int32(M),
@@ -5392,7 +5584,10 @@ def phase_parallel(device):
     graph_s = time.perf_counter() - t0
 
     err = {}
-    for route, tol in (("kernel", 1e-4), ("host", 5e-5)):
+    single["plain pixel"] = {"pairs": r0["pairs plain"],
+                             "fleet": r0["fleet plain"]}
+    for route, tol in (("plain pixel", 1e-4), ("kernel", 1e-4),
+                       ("host", 5e-5)):
         s = single[route]
         pairs_w = [(r0["pairs"], s["pairs"]),
                    *zip(r0["fleet"], s["fleet"])]
@@ -5401,12 +5596,16 @@ def phase_parallel(device):
         d_n = max(float((np.abs(a.valid_pixels - b.valid_pixels)
                          / np.maximum(b.valid_pixels, 1.0)).max())
                   for a, b in pairs_w)
-        d_seq = float(np.abs(r0["sequences"]["rel_poses"]
-                             - s["sequences"]["rel_poses"]).max())
-        err[route] = max(d_T, d_seq)
-        print(f"phase 11 parallel ({shared}) against the single-process "
-              f"{'level-kernel route' if route == 'kernel' else 'host loop over the plain linearization'}"
-              f": pairs and fleet |dT| {d_T:.2e}, valid counts within "
+        d_seq = (0.0 if "sequences" not in s else float(np.abs(
+            r0["sequences"]["rel_poses"]
+            - s["sequences"]["rel_poses"]).max()))
+        err[route] = d_T
+        what = {"plain pixel": "plain pixel route (the same world)",
+                "kernel": "single-process level-kernel route",
+                "host": "single-process host loop over the plain "
+                        "linearization"}[route]
+        print(f"phase 11 parallel ({shared}), the split route against the "
+              f"{what}: pairs and fleet |dT| {d_T:.2e}, valid counts within "
               f"{d_n:.2e}; sequences |d rel_poses| {d_seq:.2e} (tol: poses "
               f"{tol:g}, valid counts 1e-3 relative)")
         if not (d_T <= tol and d_seq <= tol and d_n <= 1e-3):
@@ -5418,29 +5617,99 @@ def phase_parallel(device):
     H_1[:6, :6] = 0.0
     d_H = float(np.abs(H_sh - H_1).max())
     d_g = float(np.abs(g_sh - g1.double().cpu().numpy()).max())
-    la = r0["pairs launches"]
-    per_pair = la["sample_slab"] / PARALLEL_B
+    la, la_p = r0["pairs launches"], r0["pairs plain launches"]
+    rows_0 = r0["rows"]
     print(f"phase 11 parallel: {shared} ({world_s:.1f} s for the world, "
           f"start-up included), mesh coordinates "
           f"{[r['coordinate'] for r in ranks]}, devices "
-          f"{[r['device'] for r in ranks]}; rank 0 times: pairs B="
-          f"{PARALLEL_B} {1e3 * r0['pairs s']:.1f} ms (single process: level "
-          f"kernel {1e3 * single['kernel']['pairs s']:.1f}, host loop "
-          f"{1e3 * single['host']['pairs s']:.1f}), validation fleet "
-          f"{PARALLEL_B} candidates {1e3 * r0['fleet s']:.1f} ms, graph "
+          f"{[r['device'] for r in ranks]}; rank 0 wall times: pairs B="
+          f"{PARALLEL_B} {1e3 * r0['pairs s']:.1f} ms on the split route "
+          f"(plain pixel route {1e3 * r0['pairs plain s']:.1f}; single "
+          f"process: level kernel {1e3 * single['kernel']['pairs s']:.1f}, "
+          f"host loop {1e3 * single['host']['pairs s']:.1f}), validation "
+          f"fleet {PARALLEL_B} candidates {1e3 * r0['fleet s']:.1f} ms "
+          f"(plain pixel route {1e3 * r0['fleet plain s']:.1f}; single "
+          f"process: level kernel {1e3 * single['kernel']['fleet s']:.1f}, "
+          f"host loop {1e3 * single['host']['fleet s']:.1f}), graph "
           f"build {M} vertices {E} edges {1e3 * r0['graph s']:.1f} ms "
           f"(single process {1e3 * graph_s:.1f}; |dH| {d_H:.2e}, |dg| "
           f"{d_g:.2e}), sequences {PARALLEL_B} x {PARALLEL_T} frames "
           f"{1e3 * r0['sequences s']:.1f} ms (single process: level kernel "
-          f"{1e3 * single['kernel']['sequences s']:.1f}); pixel route: "
-          f"standalone sampler launches per tracked pair {per_pair:.2f} "
-          f"({la['sample_slab']} on rank 0 for {PARALLEL_B} pairs), "
-          f"track_level {la['track_level']}, linearize {la['linearize']}")
+          f"{1e3 * single['kernel']['sequences s']:.1f})")
+    print(f"phase 11 pixel route, rank 0's {rows_0} pairs: split launches "
+          f"{la['track_level_split']} ({la['track_level_split'] / rows_0:.2f} "
+          f"a tracked pair), all-reduces {la['collectives_split']} "
+          f"({la['collectives_split'] / rows_0:.2f} a tracked pair; expected "
+          f"{r0['expected']}), standalone sampler {la['sample_slab']}, "
+          f"mode (a) {la['linearize']}, mode (b) {la['track_level']}, "
+          f"prepare_reference {la['prepare_reference']}, plain "
+          f"linearizations {la['plain linearize']}; the plain pixel route: "
+          f"standalone sampler {la_p['sample_slab']} "
+          f"({la_p['sample_slab'] / rows_0:.2f} a tracked pair), plain "
+          f"linearizations {la_p['plain linearize']}, split launches "
+          f"{la_p['track_level_split']}")
     if not (d_H <= 2e-3 and d_g <= 1e-3):
         raise AssertionError(f"graph build |dH| {d_H}, |dg| {d_g}")
-    if (la["sample_slab"] == 0 or la["track_level"] != 0
-            or la["linearize"] != 0):
-        raise AssertionError(f"pixel route launches {la}")
+    if (la["sample_slab"] != 0 or la["track_level"] != 0
+            or la["linearize"] != 0 or la["prepare_reference"] != 0
+            or la["plain linearize"] != 0
+            or (la["track_level_split"], la["collectives_split"])
+            != tuple(r0["expected"])):
+        raise AssertionError(f"split route launches {la}, expected "
+                             f"{r0['expected']}")
+    if la_p["plain linearize"] == 0 or la_p["track_level_split"] != 0:
+        raise AssertionError(f"plain pixel route launches {la_p}")
+
+    # The split route's stage launches by level (CUDA events) and its
+    # all-reduces (host clock, apart from the launches), an instrumented
+    # pairs run on rank 0; its bound from the band's bytes at 3.35 TB/s.
+    def by_level(times):
+        lines = {}
+        for (h, kind), us in sorted(times.items(), reverse=True):
+            lines.setdefault(int(round(np.log2(H / h))), []).append(
+                f"{kind} {np.median(us):.2f} (x{len(us)})")
+        return "; ".join(f"level {lv}: " + ", ".join(v) for lv, v in
+                         sorted(lines.items(), reverse=True))
+
+    times, coll, wall = r0["stages"]
+    dev_ms = sum(sum(v) for v in times.values()) / 1e3
+    shares = (", so a launch's events span the other rank's work too"
+              if cards == 1 else "")
+    print(f"phase 11 split route stage launches, rank 0's pairs run in the "
+          f"world (device us a launch, median; B = {rows_0}; "
+          f"{shared}{shares}): {by_level(times)}")
+    print(f"phase 11 split route, instrumented pairs run on rank 0: "
+          f"{1e3 * wall:.1f} ms wall, of it launches {dev_ms:.2f} ms of "
+          f"device time and {len(coll)} all-reduces {1e3 * sum(coll):.1f} ms "
+          f"({1e6 * np.mean(coll):.1f} us each, median "
+          f"{1e6 * np.median(coll):.1f}; {backend}, host clock between "
+          f"device syncs)")
+    (times_1, coll_1, wall_1), n_alone = _split_alone(refs, curs, Ks, T0_t,
+                                                      cfg)
+    alone_ms = sum(sum(v) for v in times_1.values()) / 1e3
+    print(f"phase 11 split route stage launches alone on the card (rank "
+          f"0's bands of the {PARALLEL_B} pairs in a 1-rank gloo group; "
+          f"device us a launch, median): {by_level(times_1)}; {n_alone} "
+          f"launches {alone_ms:.3f} ms of device time, "
+          f"{1e3 * wall_1:.1f} ms wall ({len(coll_1)} one-rank all-reduces "
+          f"{1e3 * sum(coll_1):.1f} ms)")
+    its = r0["pairs"].iterations[:rows_0]  # rank 0's rows, (B, levels)
+    split_bytes = split_ops = 0.0
+    for j, lv in enumerate(cfg.tracked_levels):
+        h_l, w_l = H >> lv, W >> lv
+        band = (h_l // 2) * w_l
+        n_its = float(its[:, j].sum())
+        split_bytes += n_its * (_slab_ref_bytes(cfg) * band + 24 * h_l * w_l)
+        split_ops += n_its * RESIDUAL_OPS[0] * band
+    split_row = {"launches": la["track_level_split"],
+                 "err": err["plain pixel"], "ms": alone_ms,
+                 "plain_ms": 1e3 * r0["pairs plain s"],
+                 "bound": _bound_ms(split_bytes, split_ops, 0.0)}
+    print(f"phase 11 split route row: device {alone_ms:.3f} ms a pairs "
+          f"run's launches (alone on the card), plain pixel route "
+          f"{split_row['plain_ms']:.1f} ms, bound "
+          f"{split_row['bound'][0]:.4f} ms ({split_row['bound'][1]}; "
+          f"{split_bytes / 1e6:.1f} MB)")
 
     # The standalone sampler at a pixel shard's shape (rank 0's rows of
     # the finest tracked level, warped by pair 0's pose): kernel against
@@ -5474,7 +5743,8 @@ def phase_parallel(device):
           f"(CUDA events; plain {1e3 * plain_ms:.2f}, grid_sample {1e3 * lib_ms:.2f}); "
           f"bound {1e3 * bound[0]:.4f} us ({bound[1]})")
     return {"launches": la["sample_slab"], "err": s_err, "bound": bound,
-            "ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms}
+            "ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms,
+            "split": split_row}
 
 
 def _leaves(x):

@@ -149,6 +149,14 @@ def _entry_points():
             vp, i64, vp, i64,  # out, its row stride, out_i, its row stride
             cd, vp,  # loglik constant, stream
         ], ci),
+        "dvo_track_level_split": ([
+            *refs, vp, i64, *scale, ci, cf,  # T_init, stride, ..., precision
+            cf, cf, cf, cf, cf, ci,  # LM lambda init, up, down, max, mu; C
+            vp, i64, vp, i64, cd,  # out, stride, out_i, stride, loglik
+            ci, ci, vp, vp, vp,  # the band's rows and first row, state,
+            # sums, points
+            ci, ci, ci, vp,  # stage, Sigma steps, iteration, stream
+        ], ci),
         "dvo_pose_graph": ([
             vp, vp, vp, vp, vp, vp,  # poses, Z, info, mask, edge_i, edge_j
             vp, vp, vp,  # vertex plan (offsets, indices), dense plan indices

@@ -32,15 +32,27 @@
 //       result's log-likelihood, pose entropy and valid ratio from its
 //       accepted record (what models/dense_tracker.py's eager assembly
 //       computes from the finest level's).
+//   (c) split_stage_kernel: mode (b)'s loop cut at its cross-rank
+//       reductions, for the pixel route (parallel/sharded.py: a row's
+//       reference rows split over the ranks of a process group, each rank
+//       launching over its band at image row row0, the JAX package's
+//       shard_map over dvo_slam_tpu/models/dense_tracker.py's loop with
+//       its psums at dvo_slam_tpu/ops/linearize.py:399, :416-445). A
+//       launch cannot wait on another process, so each stage writes its
+//       rows' partial sums to a (B, kSplitSums) f64 buffer that the caller
+//       all-reduces over the group before the next stage reads the totals;
+//       the decisions (irls_step) run on the card from those totals, the
+//       same bits on every rank. See split_stage_kernel.
 //
 // Each kernel is two instantiations: <false> for the t-distribution (the
 // default config), <true> for every other scale estimator and for no
 // weighting, so that the default's passes carry no estimator branch.
 //
 // The reference points. Either read from RefData's (B, N) arrays
-// (ops/linearize.py::prepare_reference, the route of the pixel shards and
-// the plain versions), or computed in the residual pass from the
-// reference level's (6, H, W) slab itself (the slab route: row b's slab
+// (ops/linearize.py::prepare_reference, the plain versions' route), or
+// computed in the residual pass from the reference level's (6, H, W) slab
+// itself, or from a pixel band's (6, ref_H, W) rows at image row row0 in
+// the split mode (the slab route: row b's slab
 // by one of up to 32 row pointers in the parameters, by a row pointer the
 // launch reads from a table in device memory (the chunked keyframe
 // scan's, whose keyframe entry csrc/keyframe_scan.cu chooses on the
@@ -191,6 +203,16 @@ constexpr int kTermIterations = 0, kTermIncrement = 1, kTermErrorIncreased = 2,
               kTermTooFew = 3;
 // Returned when no cluster of the asked size fits on an SM group of the card.
 constexpr int kErrNoActiveCluster = 100001;
+// The split mode (ops/linearize.py _SPLIT_*, _SUM_*): a row's stage sums
+// (kNormalSums, or the moments or a Sigma step's in the first columns),
+// then its valid and selected counts, its done flag (0 or 1) and the Sigma
+// steps its iteration takes; the state's floats a row; the stage code of
+// the level's last launch.
+constexpr int kSumValid = 29, kSumSelected = 30, kSumDone = 31, kSumSteps = 32,
+              kSplitSums = 33;
+constexpr int kSplitStateWords = 112;
+constexpr int kStageFinish = 1024;
+static_assert(kSumValid >= kNormalSums, "the counts follow the normal equations' sums");
 
 struct Params {
   // Reference points (B, N), ops/linearize.py::RefData.
@@ -219,6 +241,10 @@ struct Params {
   // budget) int32 table in device memory.
   int budget;
   int* slots;
+  // The reference slab's rows (H, or a pixel band's) and the image row of
+  // its first (a pixel band's offset, ops/linearize.py::prepare_reference's
+  // row_offset; 0 otherwise).
+  int ref_H, row0;
   int N;
   const float* slab;    // (6, H, W) current pyramid level of row 0
   int64_t slab_stride;  // floats from one row's slab to the next (0: shared)
@@ -255,7 +281,25 @@ struct Params {
   float* rI;
   float* rZ;
   uint8_t* valid;
+  // The split mode: the rows' state ((B, kSplitStateWords) floats), their
+  // stage sums ((B, kSplitSums) f64: the totals of the launch before on
+  // entry, this launch's partial sums on exit), the stage code (0, a Sigma
+  // step 1..split_steps, split_steps + 1 the normal equations, or
+  // kStageFinish) and the caller's iteration.
+  float* split_state;
+  double* split_sums;
+  int split_stage, split_steps, split_iter;
+  // The split mode's points, kept in device memory from stage 0 to the
+  // stages after it: per CTA the shared-memory layout of Points (at a
+  // stride of points_bytes(P)).
+  uint8_t* split_points;
 };
+
+// Bytes of one CTA's kept points (P floats of each of kPointFloats planes,
+// then P valid flags), rounded up to 16.
+__host__ __device__ __forceinline__ int64_t points_bytes(int P) {
+  return ((int64_t)kPointBytes * P + 15) & ~(int64_t)15;
+}
 
 // One batch row's reference points (or reference slab) and current slab.
 struct Row {
@@ -369,7 +413,7 @@ __device__ __forceinline__ RefPoint ref_point(const Params& p, const Row& r, int
     }
     return q;
   }
-  const int64_t plane = (int64_t)p.H * p.W;
+  const int64_t plane = (int64_t)p.ref_H * p.W;
   const float* s = r.ref + i;
   const float z = __ldg(s + plane);
   const float ix = __ldg(s + 2 * plane), iy = __ldg(s + 3 * plane);
@@ -386,7 +430,7 @@ __device__ __forceinline__ RefPoint ref_point(const Params& p, const Row& r, int
   const float zs = sel ? z : 1.f;
   const int v = i / p.W, u = i - v * p.W;
   q.px = mul(__fdiv_rn(sub((float)u, __ldg(p.K + 2)), __ldg(p.K + 0)), zs);
-  q.py = mul(__fdiv_rn(sub((float)v, __ldg(p.K + 3)), __ldg(p.K + 1)), zs);
+  q.py = mul(__fdiv_rn(sub((float)(v + p.row0), __ldg(p.K + 3)), __ldg(p.K + 1)), zs);
   q.pz = zs;
   q.i1 = __ldg(s);
   q.selected = sel;
@@ -744,6 +788,198 @@ __device__ void robust_scale(const Params& p, const Row& r, Shared& sh, const Po
   __syncthreads();
 }
 
+// The linearization's passes (linearize_row runs them in one launch, the
+// split mode one stage launch each). The cluster's sums land in sh.tot;
+// the thread-0 steps read sums from `tot` (sh.tot, or the all-reduced sums
+// of the split mode's stage buffer).
+
+// Residual pass: every point of this CTA's slice at sh.T (kept in shared
+// memory where the plan keeps points; mode (a) writes rI, rZ and valid
+// out), and the residual moments: sh.tot[0..4] = the sums of rI^2, rI rZ,
+// rZ^2, the valid and the selected points.
+template <bool kCompact>
+__device__ __forceinline__ void residual_pass(const Params& p, const Row& r, Shared& sh,
+                                              const Points& s, int b, int base, int n_mine,
+                                              int& parity, int C, bool residuals) {
+  const int64_t row0 = (int64_t)b * p.N;
+  double m[kMomentSums] = {0.0, 0.0, 0.0, 0.0, 0.0};
+  for (int j = threadIdx.x; j < n_mine; j += kThreads) {
+    const int i = base + j;
+    const Point q = residual_at<kCompact>(p, r, sh.T, pixel_of<kCompact>(sh, s, base, j));
+    if (p.stored) store_point(s, j, q);
+    if (residuals) {
+      p.rI[row0 + i] = q.rI;
+      p.rZ[row0 + i] = q.rZ;
+      p.valid[row0 + i] = q.valid;
+    }
+    if (q.valid) {
+      m[0] += (double)mul(q.rI, q.rI);
+      m[1] += (double)mul(q.rI, q.rZ);
+      m[2] += (double)mul(q.rZ, q.rZ);
+      m[3] += 1.0;
+    }
+    if (q.selected) m[4] += 1.0;
+  }
+  cluster_sum<kMomentSums>(m, sh, parity, C);
+}
+
+// Thread 0: the valid counts (sh.n_raw, sh.n floored at 1) and Sigma's
+// seed from the moment sums sII, sIZ, sZZ and the valid count: the moment
+// estimate, or `seed` (2, 2) when `warm` and finite (the t-distribution
+// only); sh.n_fp the Sigma steps to take.
+__device__ __forceinline__ void seed_sigma(const Params& p, Shared& sh, double sII, double sIZ,
+                                           double sZZ, double valid, bool tdist, bool warm,
+                                           const float* seed) {
+  const float n_raw = (float)valid;
+  const float n = fmaxf(n_raw, 1.f);
+  float a = add(__fdiv_rn((float)sII, n), p.floor_ii);
+  float bq = __fdiv_rn((float)sIZ, n);
+  float c = add(__fdiv_rn((float)sZZ, n), p.floor_zz);
+  int n_fp = tdist ? p.scale_iters : 0;
+  if (tdist && warm) {
+    // Warm start from the previous Sigma when it is finite
+    // (dvo_slam_tpu/ops/linearize.py:422-431 decides it with jnp.where).
+    const float s00 = seed[0], s01 = seed[1], s10 = seed[2], s11 = seed[3];
+    if (isfinite(s00) && isfinite(s01) && isfinite(s10) && isfinite(s11)) {
+      a = fmaxf(s00, p.floor_ii);
+      bq = s01;
+      c = fmaxf(s11, p.floor_zz);
+      n_fp = p.warm_iters;
+    }
+  }
+  sh.a = a;
+  sh.bq = bq;
+  sh.c = c;
+  sh.n = n;
+  sh.n_raw = n_raw;
+  sh.n_fp = n_fp;
+}
+
+// One Sigma step's weighted moments under the current Sigma, in sh.tot[0..2].
+template <bool kCompact>
+__device__ __forceinline__ void sigma_pass(const Params& p, const Row& r, Shared& sh,
+                                           const Points& s, int base, int n_mine, int& parity,
+                                           int C) {
+  const Precision P = precision(sh.a, sh.bq, sh.c);
+  double m[kScaleSums] = {0.0, 0.0, 0.0};
+  for (int j = threadIdx.x; j < n_mine; j += kThreads) {
+    const Point q = load_point<false, kCompact>(p, r, sh, s, base, j);
+    if (q.valid) {
+      float maha, w;
+      tdist_weight(P, p.nu, q.rI, q.rZ, &maha, &w);
+      m[0] += (double)mul(w, mul(q.rI, q.rI));
+      m[1] += (double)mul(w, mul(q.rI, q.rZ));
+      m[2] += (double)mul(w, mul(q.rZ, q.rZ));
+    }
+  }
+  cluster_sum<kScaleSums>(m, sh, parity, C);
+}
+
+// Thread 0: Sigma from one step's weighted moment sums.
+__device__ __forceinline__ void sigma_update(const Params& p, Shared& sh, const double* tot) {
+  sh.a = add(__fdiv_rn((float)tot[0], sh.n), p.floor_ii);
+  sh.bq = __fdiv_rn((float)tot[1], sh.n);
+  sh.c = add(__fdiv_rn((float)tot[2], sh.n), p.floor_zz);
+}
+
+// The precision the weights and the normal equations take: Sigma's inverse,
+// or off the t-distribution diag(1 / a, 1 / c) with det = a c.
+__device__ __forceinline__ Precision lin_precision(const Shared& sh, bool tdist) {
+  Precision P;
+  if (tdist) {
+    P = precision(sh.a, sh.bq, sh.c);
+  } else {
+    P.det = fmaxf(mul(sh.a, sh.c), kEps);
+    P.p00 = __frcp_rn(sh.a);
+    P.p01 = 0.f;
+    P.p11 = __frcp_rn(sh.c);
+  }
+  return P;
+}
+
+// Thread 0: the Linearization vector sh.lin from the normal equations' sums
+// `tot` (A's upper triangle, b, err_raw, log1p_sum) at precision P, with
+// Sigma and the valid counts in sh.
+__device__ __forceinline__ void finish_lin(const Params& p, Shared& sh, const double* tot,
+                                           const Precision& P, bool tdist) {
+  float* o = sh.lin;
+  int e = 0;
+  for (int j = 0; j < 6; ++j) {
+    for (int k = j; k < 6; ++k, ++e) {
+      o[kOutA + 6 * j + k] = (float)tot[e];
+      o[kOutA + 6 * k + j] = (float)tot[e];
+    }
+  }
+  for (int k = 0; k < 6; ++k) o[kOutB + k] = (float)tot[21 + k];
+  const float log1p_sum = (float)tot[28];
+  const float err_raw = (float)tot[27];
+  if (tdist) {
+    o[kOutErrMean] =
+        add(0.5f * logf(P.det), __fdiv_rn((p.nu + 2.f) * 0.5f * log1p_sum, sh.n));
+  } else if (p.estimator == kEstNone) {
+    o[kOutErrMean] = __fdiv_rn(err_raw, sh.n);
+  } else {
+    o[kOutErrMean] = add(__fdiv_rn(err_raw, sh.n), logf(P.det));
+  }
+  o[kOutN] = sh.n;
+  o[kOutNRaw] = sh.n_raw;
+  o[kOutSigma + 0] = sh.a;
+  o[kOutSigma + 1] = sh.bq;
+  o[kOutSigma + 2] = sh.bq;
+  o[kOutSigma + 3] = sh.c;
+  o[kOutLog1p] = log1p_sum;
+  o[kOutErrRaw] = err_raw;
+}
+
+// Weights, Jacobian and the normal equations' sums at precision P
+// (ops/linearize.py::normal_equations_reference), in sh.tot[0..28].
+template <bool kCompact, bool tdist>
+__device__ __forceinline__ void normal_pass(const Params& p, const Row& r, Shared& sh,
+                                            const Points& s, int base, int n_mine,
+                                            int& parity, int C, const Precision& P) {
+  double acc[kNormalSums];
+#pragma unroll
+  for (int k = 0; k < kNormalSums; ++k) acc[k] = 0.0;
+  const float p01 = p.use_depth ? P.p01 : 0.f;
+  const float p11 = p.use_depth ? P.p11 : 0.f;
+  const float fx = __ldg(p.K + 0), fy = __ldg(p.K + 1);
+  for (int j = threadIdx.x; j < n_mine; j += kThreads) {
+    const Point q = load_point<true, kCompact>(p, r, sh, s, base, j);
+    if (!q.valid) continue;
+    float maha, w;
+    if (tdist)
+      tdist_weight(P, p.nu, q.rI, q.rZ, &maha, &w);
+    else
+      point_weight(p, P, q.rI, q.rZ, &maha, &w);
+    const float X = q.X, Y = q.Y, Z = q.Z, zi = guarded_inv(q.Z);
+    const float A_ = fx * zi, B_ = fy * zi;
+    const float C_ = -fx * X * zi * zi, D_ = -fy * Y * zi * zi;
+    const float Ju[6] = {A_, 0.f, C_, C_ * Y, A_ * Z - C_ * X, -A_ * Y};
+    const float Jv[6] = {0.f, B_, D_, -B_ * Z + D_ * Y, -D_ * X, B_ * X};
+    const float Jg3[6] = {0.f, 0.f, 1.f, Y, -X, 0.f};
+    float JI[6], JZ[6], GI[6], GZ[6];
+    const float wI = w * P.p00, wX = w * p01, wZ = w * p11;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      JI[k] = q.gix * Ju[k] + q.giy * Jv[k];
+      JZ[k] = p.use_depth ? q.gzx * Ju[k] + q.gzy * Jv[k] - Jg3[k] : 0.f;
+      GI[k] = wI * JI[k] + wX * JZ[k];
+      GZ[k] = wX * JI[k] + wZ * JZ[k];
+    }
+    int e = 0;
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+#pragma unroll
+      for (int k = a; k < 6; ++k) acc[e++] += (double)(JI[a] * GI[k] + JZ[a] * GZ[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) acc[21 + k] += (double)(GI[k] * q.rI + GZ[k] * q.rZ);
+    acc[27] += (double)(w * maha);
+    acc[28] += (double)log1pf(maha * (1.f / p.nu));
+  }
+  cluster_sum<kNormalSums>(acc, sh, parity, C);
+}
+
 // One linearization of this cluster's batch row at sh.T: the residual pass,
 // the robust scale (the Sigma fixed point, or robust_scale off the
 // t-distribution: kRobust, the instantiation the launch picks for every
@@ -758,168 +994,27 @@ __device__ void linearize_row(const Params& p, const Row& r, Shared& sh,
                               bool residuals) {
   const int base = rank * p.P;
   const int n_mine = max(0, min(p.P, p.N - base));
-  const int64_t row0 = (int64_t)b * p.N;
   constexpr bool tdist = !kRobust;
 
-  // Residual pass: every point of the slice, and the residual moments.
-  {
-    double m[kMomentSums] = {0.0, 0.0, 0.0, 0.0, 0.0};
-    for (int j = threadIdx.x; j < n_mine; j += kThreads) {
-      const int i = base + j;
-      const Point q = residual_at<kCompact>(p, r, sh.T, pixel_of<kCompact>(sh, s, base, j));
-      if (p.stored) store_point(s, j, q);
-      if (residuals) {
-        p.rI[row0 + i] = q.rI;
-        p.rZ[row0 + i] = q.rZ;
-        p.valid[row0 + i] = q.valid;
-      }
-      if (q.valid) {
-        m[0] += (double)mul(q.rI, q.rI);
-        m[1] += (double)mul(q.rI, q.rZ);
-        m[2] += (double)mul(q.rZ, q.rZ);
-        m[3] += 1.0;
-      }
-      if (q.selected) m[4] += 1.0;
-    }
-    cluster_sum<kMomentSums>(m, sh, parity, C);
-    if (threadIdx.x == 0) {
-      sh.n_sel = (float)sh.tot[4];
-      const float n_raw = (float)sh.tot[3];
-      const float n = fmaxf(n_raw, 1.f);
-      float a = add(__fdiv_rn((float)sh.tot[0], n), p.floor_ii);
-      float bq = __fdiv_rn((float)sh.tot[1], n);
-      float c = add(__fdiv_rn((float)sh.tot[2], n), p.floor_zz);
-      int n_fp = tdist ? p.scale_iters : 0;
-      if (tdist && warm) {
-        // Warm start from the previous Sigma when it is finite
-        // (dvo_slam_tpu/ops/linearize.py:422-431 decides it with jnp.where).
-        const float s00 = seed[0], s01 = seed[1], s10 = seed[2], s11 = seed[3];
-        if (isfinite(s00) && isfinite(s01) && isfinite(s10) && isfinite(s11)) {
-          a = fmaxf(s00, p.floor_ii);
-          bq = s01;
-          c = fmaxf(s11, p.floor_zz);
-          n_fp = p.warm_iters;
-        }
-      }
-      sh.a = a;
-      sh.bq = bq;
-      sh.c = c;
-      sh.n = n;
-      sh.n_raw = n_raw;
-      sh.n_fp = n_fp;
-      if (p.estimator != kEstMad) sh.lin[kOutMad] = sh.lin[kOutMad + 1] = 0.f;
-    }
-    __syncthreads();
+  residual_pass<kCompact>(p, r, sh, s, b, base, n_mine, parity, C, residuals);
+  if (threadIdx.x == 0) {
+    sh.n_sel = (float)sh.tot[4];
+    seed_sigma(p, sh, sh.tot[0], sh.tot[1], sh.tot[2], sh.tot[3], tdist, warm, seed);
+    if (p.estimator != kEstMad) sh.lin[kOutMad] = sh.lin[kOutMad + 1] = 0.f;
   }
+  __syncthreads();
 
   // Sigma fixed point: the weighted moments under the current Sigma.
   for (int step = 0; step < sh.n_fp; ++step) {
-    const Precision P = precision(sh.a, sh.bq, sh.c);
-    double m[kScaleSums] = {0.0, 0.0, 0.0};
-    for (int j = threadIdx.x; j < n_mine; j += kThreads) {
-      const Point q = load_point<false, kCompact>(p, r, sh, s, base, j);
-      if (q.valid) {
-        float maha, w;
-        tdist_weight(P, p.nu, q.rI, q.rZ, &maha, &w);
-        m[0] += (double)mul(w, mul(q.rI, q.rI));
-        m[1] += (double)mul(w, mul(q.rI, q.rZ));
-        m[2] += (double)mul(w, mul(q.rZ, q.rZ));
-      }
-    }
-    cluster_sum<kScaleSums>(m, sh, parity, C);
-    if (threadIdx.x == 0) {
-      sh.a = add(__fdiv_rn((float)sh.tot[0], sh.n), p.floor_ii);
-      sh.bq = __fdiv_rn((float)sh.tot[1], sh.n);
-      sh.c = add(__fdiv_rn((float)sh.tot[2], sh.n), p.floor_zz);
-    }
+    sigma_pass<kCompact>(p, r, sh, s, base, n_mine, parity, C);
+    if (threadIdx.x == 0) sigma_update(p, sh, sh.tot);
     __syncthreads();
   }
   if (!tdist) robust_scale<kCompact>(p, r, sh, s, base, n_mine, parity, C);
 
-  // Weights, Jacobian and the normal equations
-  // (ops/linearize.py::normal_equations_reference). Off the t-distribution
-  // the precision is diag(1 / a, 1 / c) and det = a c.
-  Precision P;
-  if (tdist) {
-    P = precision(sh.a, sh.bq, sh.c);
-  } else {
-    P.det = fmaxf(mul(sh.a, sh.c), kEps);
-    P.p00 = __frcp_rn(sh.a);
-    P.p01 = 0.f;
-    P.p11 = __frcp_rn(sh.c);
-  }
-  {
-    double acc[kNormalSums];
-#pragma unroll
-    for (int k = 0; k < kNormalSums; ++k) acc[k] = 0.0;
-    const float p01 = p.use_depth ? P.p01 : 0.f;
-    const float p11 = p.use_depth ? P.p11 : 0.f;
-    const float fx = __ldg(p.K + 0), fy = __ldg(p.K + 1);
-    for (int j = threadIdx.x; j < n_mine; j += kThreads) {
-      const Point q = load_point<true, kCompact>(p, r, sh, s, base, j);
-      if (!q.valid) continue;
-      float maha, w;
-      if (tdist)
-        tdist_weight(P, p.nu, q.rI, q.rZ, &maha, &w);
-      else
-        point_weight(p, P, q.rI, q.rZ, &maha, &w);
-      const float X = q.X, Y = q.Y, Z = q.Z, zi = guarded_inv(q.Z);
-      const float A_ = fx * zi, B_ = fy * zi;
-      const float C_ = -fx * X * zi * zi, D_ = -fy * Y * zi * zi;
-      const float Ju[6] = {A_, 0.f, C_, C_ * Y, A_ * Z - C_ * X, -A_ * Y};
-      const float Jv[6] = {0.f, B_, D_, -B_ * Z + D_ * Y, -D_ * X, B_ * X};
-      const float Jg3[6] = {0.f, 0.f, 1.f, Y, -X, 0.f};
-      float JI[6], JZ[6], GI[6], GZ[6];
-      const float wI = w * P.p00, wX = w * p01, wZ = w * p11;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        JI[k] = q.gix * Ju[k] + q.giy * Jv[k];
-        JZ[k] = p.use_depth ? q.gzx * Ju[k] + q.gzy * Jv[k] - Jg3[k] : 0.f;
-        GI[k] = wI * JI[k] + wX * JZ[k];
-        GZ[k] = wX * JI[k] + wZ * JZ[k];
-      }
-      int e = 0;
-#pragma unroll
-      for (int a = 0; a < 6; ++a) {
-#pragma unroll
-        for (int k = a; k < 6; ++k) acc[e++] += (double)(JI[a] * GI[k] + JZ[a] * GZ[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < 6; ++k) acc[21 + k] += (double)(GI[k] * q.rI + GZ[k] * q.rZ);
-      acc[27] += (double)(w * maha);
-      acc[28] += (double)log1pf(maha * (1.f / p.nu));
-    }
-    cluster_sum<kNormalSums>(acc, sh, parity, C);
-  }
-  if (threadIdx.x == 0) {
-    float* o = sh.lin;
-    int e = 0;
-    for (int j = 0; j < 6; ++j) {
-      for (int k = j; k < 6; ++k, ++e) {
-        o[kOutA + 6 * j + k] = (float)sh.tot[e];
-        o[kOutA + 6 * k + j] = (float)sh.tot[e];
-      }
-    }
-    for (int k = 0; k < 6; ++k) o[kOutB + k] = (float)sh.tot[21 + k];
-    const float log1p_sum = (float)sh.tot[28];
-    const float err_raw = (float)sh.tot[27];
-    if (tdist) {
-      o[kOutErrMean] =
-          add(0.5f * logf(P.det), __fdiv_rn((p.nu + 2.f) * 0.5f * log1p_sum, sh.n));
-    } else if (p.estimator == kEstNone) {
-      o[kOutErrMean] = __fdiv_rn(err_raw, sh.n);
-    } else {
-      o[kOutErrMean] = add(__fdiv_rn(err_raw, sh.n), logf(P.det));
-    }
-    o[kOutN] = sh.n;
-    o[kOutNRaw] = sh.n_raw;
-    o[kOutSigma + 0] = sh.a;
-    o[kOutSigma + 1] = sh.bq;
-    o[kOutSigma + 2] = sh.bq;
-    o[kOutSigma + 3] = sh.c;
-    o[kOutLog1p] = log1p_sum;
-    o[kOutErrRaw] = err_raw;
-  }
+  const Precision P = lin_precision(sh, tdist);
+  normal_pass<kCompact, tdist>(p, r, sh, s, base, n_mine, parity, C, P);
+  if (threadIdx.x == 0) finish_lin(p, sh, sh.tot, P, tdist);
   __syncthreads();
 }
 
@@ -1257,7 +1352,7 @@ __device__ void select_slots(const Params& p, const Row& r, Shared& sh, const Po
   constexpr int kKeptChunks = 64;  // bits of a uint64_t
   cg::cluster_group cluster = cg::this_cluster();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t plane = (int64_t)p.H * p.W;
+  const int64_t plane = (int64_t)p.ref_H * p.W;
   const int64_t band = (plane + C - 1) / C;
   const int lo = (int)min((int64_t)rank * band, plane);
   const int hi = (int)min((int64_t)lo + band, plane);
@@ -1343,6 +1438,25 @@ __global__ void __launch_bounds__(kThreads, 1) linearize_kernel(Params p) {
   cluster.sync();  // no CTA leaves while another may read its shared memory
 }
 
+// Mode (b)'s write-out of row b's level after k iterations (rank 0's CTA,
+// every thread): the pose, the record, the statistics (those past the last
+// iteration zero, the window misses too), the iteration count and the
+// termination code, and the track result's fields from the record.
+__device__ __forceinline__ void write_level_row(const Params& p, const Shared& sh, int b, int k,
+                                                float* o) {
+  const int M = p.max_iterations;
+  if (threadIdx.x < 16) o[kLevelT + threadIdx.x] = sh.Tbest[threadIdx.x];
+  if (threadIdx.x < kBestSize) o[kLevelBest + threadIdx.x] = sh.best[threadIdx.x];
+  for (int q = threadIdx.x; q < kStatPlanes * M; q += kThreads)
+    if (q >= 4 * M || q % M >= k) o[kLevelStats + q] = 0.f;
+  float* extra = o + kLevelStats + kStatPlanes * M;
+  if (threadIdx.x == 0) {
+    p.out_i[b * p.out_i_stride] = k;
+    p.out_i[b * p.out_i_stride + 1] = sh.term;
+    track_result(p, sh.best, sh.n_sel, o + kLevelLoglik, extra);
+  }
+}
+
 template <bool kRobust, bool kCompact>
 __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
   // cudaTriggerProgrammaticLaunchCompletion(): a launch after this one
@@ -1394,20 +1508,208 @@ __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
   if (p.mu > 0.f && threadIdx.x == 0)
     for (int i = 0; i < 6; ++i) sh.best[kBestA + 7 * i] = add(sh.best[kBestA + 7 * i], p.mu);
   __syncthreads();
-  if (rank == 0) {
-    if (threadIdx.x < 16) o[kLevelT + threadIdx.x] = sh.Tbest[threadIdx.x];
-    if (threadIdx.x < kBestSize) o[kLevelBest + threadIdx.x] = sh.best[threadIdx.x];
-    // Statistics past the last iteration are zero, the window misses too.
-    for (int q = threadIdx.x; q < kStatPlanes * M; q += kThreads)
-      if (q >= 4 * M || q % M >= k) o[kLevelStats + q] = 0.f;
-    float* extra = o + kLevelStats + kStatPlanes * M;
-    if (threadIdx.x == 0) {
-      p.out_i[b * p.out_i_stride] = k;
-      p.out_i[b * p.out_i_stride + 1] = sh.term;
-      track_result(p, sh.best, sh.n_sel, o + kLevelLoglik, extra);
+  if (rank == 0) write_level_row(p, sh, b, k, o);
+  cluster.sync();  // no CTA leaves while another may read its shared memory
+}
+
+// The split mode (the pixel route: a row's reference points split over the
+// ranks of a process group, each rank's launches over its band). One IRLS
+// iteration is a fixed sequence of stage launches, each ending where the
+// JAX package psums; the caller all-reduces the stage buffer `split_sums`
+// ((B, kSplitSums) f64: every row's partial sums over this rank's points)
+// over the group between launches, so each launch reads the totals of the
+// one before. The t-distribution: stage 0 the residual pass (the moments,
+// valid and selected counts), stages 1..steps one Sigma step each, stage
+// steps + 1 the normal equations: 2 + steps collectives an iteration. Off
+// it stage 0 is the whole linearization, the scale per rank as the JAX
+// package takes it (no psum in its scale functions): one collective.
+// Stage 0 of iteration k > 0 first takes iteration k - 1's decision
+// (irls_step on the all-reduced totals); kStageFinish takes the last
+// iteration's. The carry lives in SplitState, one per row, between
+// launches; stage 0's residual pass keeps each point (rI, rZ, valid and
+// the Jacobian's inputs, mode (b)'s shared-memory layout) in device
+// memory for the stages after it, and the slot tables of compaction live
+// in the global (B, budget) table (select_slots in the level's first
+// launch). What bounds it: a stage reads each row's kept points (9 of
+// their 37 bytes in a Sigma step) far under the memory rate; its time is
+// the launch, its one cluster reduction and, in stage 0, the decision in
+// one thread, and an iteration's is the all-reduce between launches (over
+// gloo a copy through the host each). The design cuts the host out of the
+// iteration but for those collectives and one read of the done flags.
+struct SplitState {
+  float T[16], Tbest[16], Tinit[16];
+  float best[kBestSize];
+  float lam, a, bq, c, n, n_raw, n_sel;
+  int k, done, term, n_fp, n_fill;
+};
+static_assert(sizeof(SplitState) <= 4 * kSplitStateWords, "the state fits its row");
+
+template <bool kRobust, bool kCompact>
+__global__ void __launch_bounds__(kThreads, 1) split_stage_kernel(Params p) {
+  __shared__ Shared sh;
+  __shared__ double tot_in[kSplitSums];  // the all-reduced sums of the launch before
+  __shared__ int k_row, decided;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int b = blockIdx.y;
+  const Row r = row_of(p, b);
+  const Points s = points_of(
+      p, reinterpret_cast<float4*>(p.split_points + ((int64_t)b * C + rank) * points_bytes(p.P)),
+      b, rank);
+  SplitState* st = reinterpret_cast<SplitState*>(p.split_state + (int64_t)b * kSplitStateWords);
+  double* sums = p.split_sums + (int64_t)b * kSplitSums;
+  float* o = p.out + b * p.out_stride;
+  const int base = rank * p.P;
+  const int n_mine = max(0, min(p.P, p.N - base));
+  const int stage = p.split_stage, steps = p.split_steps;
+  constexpr bool tdist = !kRobust;
+  const bool first = stage == 0 && p.split_iter == 0;
+  const int t = threadIdx.x;
+
+  // The carry: the level's initial state, or the launch before's.
+  if (first) {
+    if (t < 16) sh.T[t] = sh.Tbest[t] = sh.Tinit[t] = p.T[b * p.T_stride + t];
+    if (t < kBestSize) sh.best[t] = 0.f;
+    if (t == 0) {
+      sh.lam = p.lm_init > 0.f ? p.lm_init : 0.f;
+      sh.a = sh.bq = sh.c = sh.n = sh.n_raw = sh.n_sel = 0.f;
+      sh.done = 0;
+      sh.term = kTermIterations;
+      sh.n_fp = 0;
+      sh.n_fill = 0;
+      k_row = 0;
+    }
+  } else {
+    if (t < 16) {
+      sh.T[t] = st->T[t];
+      sh.Tbest[t] = st->Tbest[t];
+      sh.Tinit[t] = st->Tinit[t];
+    }
+    if (t < kBestSize) sh.best[t] = st->best[t];
+    if (t < kSplitSums) tot_in[t] = sums[t];
+    if (t == 0) {
+      sh.lam = st->lam;
+      sh.a = st->a;
+      sh.bq = st->bq;
+      sh.c = st->c;
+      sh.n = st->n;
+      sh.n_raw = st->n_raw;
+      sh.n_sel = st->n_sel;
+      sh.done = st->done;
+      sh.term = st->term;
+      sh.n_fp = st->n_fp;
+      sh.n_fill = st->n_fill;
+      k_row = st->k;
     }
   }
-  cluster.sync();  // no CTA leaves while another may read its shared memory
+  if (t == 0) decided = 0;
+  __syncthreads();
+  if (first && kCompact) select_slots(p, r, sh, s, b, rank, C);
+
+  // The decision of the iteration before (every CTA, from the same totals).
+  if ((stage == 0 && !first) || stage == kStageFinish) {
+    if (t == 0 && !sh.done) {
+      if (!tdist) {
+        // Off the t-distribution the counts come with stage 0's sums;
+        // Sigma (sh.a, sh.c) is this rank's own.
+        sh.n_raw = (float)tot_in[kSumValid];
+        sh.n = fmaxf(sh.n_raw, 1.f);
+        sh.n_sel = (float)tot_in[kSumSelected];
+      }
+      finish_lin(p, sh, tot_in, lin_precision(sh, tdist), tdist);
+      irls_step(p, sh, k_row, rank == 0 ? o + kLevelStats : nullptr);
+      ++k_row;
+      decided = 1;
+    }
+    __syncthreads();
+  } else if (stage > 0 && !sh.done) {
+    // Sigma from the stage before's sums: the moment seed after stage 0, a
+    // step's update after a step this row took.
+    if (t == 0) {
+      if (stage == 1) {
+        sh.n_sel = (float)tot_in[kSumSelected];
+        seed_sigma(p, sh, tot_in[0], tot_in[1], tot_in[2], tot_in[kSumValid], true,
+                   k_row > 0 && p.warm_iters > 0, sh.best + kBestSigma);
+      } else if (stage - 1 <= sh.n_fp) {
+        sigma_update(p, sh, tot_in);
+      }
+    }
+    __syncthreads();
+  }
+
+  // This launch's pass over the rank's points, for a live row.
+  const bool live = !sh.done && stage != kStageFinish;
+  int parity = 0;
+  if (live && stage == 0) {
+    if (tdist) {
+      if (t == 0) {
+        // The Sigma steps this iteration takes (seed_sigma's rule), for
+        // the caller to launch.
+        const float* seed = sh.best + kBestSigma;
+        const bool warm = k_row > 0 && p.warm_iters > 0 && isfinite(seed[0]) &&
+                          isfinite(seed[1]) && isfinite(seed[2]) && isfinite(seed[3]);
+        sh.n_fp = warm ? p.warm_iters : p.scale_iters;
+      }
+      residual_pass<kCompact>(p, r, sh, s, b, base, n_mine, parity, C, false);
+    } else {
+      linearize_row<true, kCompact>(p, r, sh, s, b, rank, C, parity, false, nullptr, false);
+    }
+  } else if (live && stage <= steps && stage <= sh.n_fp) {
+    sigma_pass<kCompact>(p, r, sh, s, base, n_mine, parity, C);
+  } else if (live && stage == steps + 1) {
+    normal_pass<kCompact, true>(p, r, sh, s, base, n_mine, parity, C, lin_precision(sh, true));
+  }
+  cluster.sync();  // every CTA has read the buffers rank 0 writes below
+
+  if (rank == 0) {
+    // The stage's sums: sh.tot's fields for this stage, zeros elsewhere.
+    if (t < kSplitSums) {
+      double v = 0.0;
+      if (live && stage == 0 && tdist) {
+        v = t < 3 ? sh.tot[t] : t == kSumValid ? sh.tot[3] : t == kSumSelected ? sh.tot[4] : 0.0;
+      } else if (live && stage == 0) {
+        v = t < kNormalSums ? sh.tot[t]
+            : t == kSumValid ? (double)sh.n_raw
+            : t == kSumSelected ? (double)sh.n_sel : 0.0;
+      } else if (live && stage <= steps && stage <= sh.n_fp) {
+        v = t < kScaleSums ? sh.tot[t] : 0.0;
+      } else if (live && stage == steps + 1) {
+        v = t < kNormalSums ? sh.tot[t] : 0.0;
+      }
+      if (t == kSumDone) v = sh.done ? 1.0 : 0.0;
+      if (t == kSumSteps) v = live ? (double)sh.n_fp : 0.0;
+      sums[t] = v;
+    }
+    if (t < 16) {
+      st->T[t] = sh.T[t];
+      st->Tbest[t] = sh.Tbest[t];
+      st->Tinit[t] = sh.Tinit[t];
+    }
+    if (t < kBestSize) st->best[t] = sh.best[t];
+    if (t == 0) {
+      st->lam = sh.lam;
+      st->a = sh.a;
+      st->bq = sh.bq;
+      st->c = sh.c;
+      st->n = sh.n;
+      st->n_raw = sh.n_raw;
+      st->n_sel = sh.n_sel;
+      st->k = k_row;
+      st->done = sh.done;
+      st->term = sh.term;
+      st->n_fp = sh.n_fp;
+      st->n_fill = sh.n_fill;
+    }
+    // A row leaves the level as its decision stops it, or at the finish:
+    // mode (b)'s write-out (the posterior A + mu I into the row only).
+    if (decided && (sh.done || stage == kStageFinish)) {
+      __syncthreads();  // the state is stored before the record takes the prior
+      if (p.mu > 0.f && t == 0)
+        for (int i = 0; i < 6; ++i) sh.best[kBestA + 7 * i] = add(sh.best[kBestA + 7 * i], p.mu);
+      __syncthreads();
+      write_level_row(p, sh, b, k_row, o);
+    }
+  }
 }
 
 struct Plan {
@@ -1428,7 +1730,7 @@ int plan_of(const void* kernel, int N, int C, int compact, Plan* plan) {
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return (int)e;
   plan->P = (N + C - 1) / C;
-  const size_t all = ((size_t)kPointBytes * plan->P + 15) & ~(size_t)15;
+  const size_t all = (size_t)points_bytes(plan->P);
   plan->stored = attr.sharedSizeBytes + all <= (size_t)optin;
   plan->dyn = plan->stored ? all : 0;
   const size_t slots = ((size_t)sizeof(int) * plan->P + 15) & ~(size_t)15;
@@ -1477,10 +1779,13 @@ int prepare(Kernel kernel, int C, size_t dyn, cudaLaunchConfig_t* cfg) {
 }
 
 template <typename Kernel>
-int launch(Kernel kernel, Params& p, int B, int C, void* stream) {
+int launch(Kernel kernel, Params& p, int B, int C, void* stream, bool split = false) {
   if (C < 1 || C > kMaxCluster || B < 1 || p.N < 1) return (int)cudaErrorInvalidValue;
-  Plan plan;
-  int e = plan_of((const void*)kernel, p.N, C, p.budget > 0, &plan);
+  Plan plan = {(p.N + C - 1) / C, 1, 0, 0, 0};
+  // The split mode keeps its points in device memory (split_points) and
+  // compaction's slot tables in the global table, both from the level's
+  // first launch on: nothing in shared memory across launches.
+  int e = split ? 0 : plan_of((const void*)kernel, p.N, C, p.budget > 0, &plan);
   if (e) return e;
   // A slot table the plan keeps out of shared memory needs the global one.
   if (p.budget > 0 && !plan.slots_shared && !p.slots) return (int)cudaErrorInvalidValue;
@@ -1529,6 +1834,7 @@ Params params(const float* px, const float* py, const float* pz, const float* i1
   p.ref_stride = ref_stride; p.ref_table = ref_table; p.igt = igt; p.dgt = dgt;
   p.budget = budget; p.slots = slots;
   p.N = N; p.slab = slab; p.slab_stride = slab_stride; p.H = H; p.W = W;
+  p.ref_H = H;
   p.K = K; p.T = T; p.T_stride = T_stride;
   p.use_depth = use_depth; p.ref_grad = ref_grad;
   p.nu = nu; p.floor_ii = floor_ii; p.floor_zz = floor_zz;
@@ -1685,4 +1991,71 @@ extern "C" int dvo_track_level(
                            : (tdist ? track_level_kernel<false, false>
                                     : track_level_kernel<true, false>),
                 p, B, C, stream);
+}
+
+// The split mode: one stage launch of a pyramid level's IRLS loop for B
+// rows over this rank's band of the reference (see split_stage_kernel),
+// on `stream`, no host sync. The inputs as dvo_track_level's, the
+// reference on the slab route only (ref_rows: row b's (6, ref_H, W) band
+// of reference rows starting at image row row0; N its ref_H W pixels, or
+// its budget slots, slots then the (B, budget) table the level's launches
+// share); the current slabs (6, H, W) whole. state: (B, kSplitStateWords)
+// floats, sums (B, kSplitSums) doubles and points (B C points_bytes(P)
+// bytes, C CTAs a cluster, P = ceil(N / C)), kept by the caller from the
+// level's first launch (stage 0 at iter 0) to its last; stage: 0, 1..steps
+// (the t-distribution's Sigma steps), steps + 1 (its normal equations) or
+// kStageFinish. out, out_i: mode (b)'s rows, written as each row leaves
+// the level. Returns a CUDA error code (0: launched).
+extern "C" int dvo_track_level_split(
+    int B, const float* px, const float* py, const float* pz, const float* i1,
+    const uint8_t* selected, const float* rgix, const float* rgiy,
+    const float* rgzx, const float* rgzy, const float* const* ref_rows,
+    int64_t ref_stride, int ref_table, float igt, float dgt, int budget, int* slots, int N,
+    const float* slab, int64_t slab_stride, int H, int W, const float* K,
+    const float* T_init, int64_t T_stride, int use_depth, int ref_grad, float nu,
+    float floor_ii, float floor_zz, int scale_iters, int warm_iters, int estimator,
+    int influence, float huber_k, float tukey_b, float min_si, float min_sz,
+    int max_iterations, float precision, float lm_init, float lm_up, float lm_down,
+    float lm_max, float mu, int C, float* out, int64_t out_stride, int* out_i,
+    int64_t out_i_stride, double loglik_const, int ref_H, int row0, float* state,
+    double* sums, uint8_t* points, int stage, int steps, int iter, void* stream) {
+  const bool tdist = estimator == kEstTdist;
+  const bool stage_ok = stage == kStageFinish || stage == 0 ||
+                        (tdist && stage >= 1 && stage <= steps + 1);
+  if (max_iterations < 1 || !ref_rows || ref_H < 1 || row0 < 0 ||
+      !refs_ok(ref_rows, ref_table, budget, B, N, ref_H, W) || !codes_ok(estimator, influence) ||
+      !(mu >= 0.f) || !state || !sums || !points || steps < 0 || steps + 1 >= kStageFinish ||
+      !stage_ok ||
+      iter < 0 || (budget > 0 && !slots))
+    return (int)cudaErrorInvalidValue;
+  Params p = params(px, py, pz, i1, selected, rgix, rgiy, rgzx, rgzy, ref_rows,
+                    ref_stride, ref_table, igt, dgt, budget, slots, B, N, slab,
+                    slab_stride, H, W, K, T_init, T_stride, use_depth, ref_grad, nu, floor_ii,
+                    floor_zz, scale_iters, warm_iters, estimator, influence, huber_k,
+                    tukey_b, min_si, min_sz);
+  p.ref_H = ref_H;
+  p.row0 = row0;
+  p.max_iterations = max_iterations;
+  p.precision = precision;
+  p.lm_init = lm_init;
+  p.lm_up = lm_up;
+  p.lm_down = lm_down;
+  p.lm_max = lm_max;
+  p.mu = mu;
+  p.out = out;
+  p.out_stride = out_stride;
+  p.out_i = out_i;
+  p.out_i_stride = out_i_stride;
+  p.loglik_const = loglik_const;
+  p.split_state = state;
+  p.split_sums = sums;
+  p.split_stage = stage;
+  p.split_steps = steps;
+  p.split_iter = iter;
+  p.split_points = points;
+  return launch(budget > 0 ? (tdist ? split_stage_kernel<false, true>
+                                    : split_stage_kernel<true, true>)
+                           : (tdist ? split_stage_kernel<false, false>
+                                    : split_stage_kernel<true, false>),
+                p, B, C, stream, true);
 }

@@ -16,7 +16,7 @@ one level for B rows:
   iteration (one batched call), a row whose stop test has fired keeps its
   carry frozen, and the loop reads the rows' done flags back once per
   iteration. Over ``linearize_batched_reference`` it is the plain version
-  of mode (b); the pixel route runs it on the card (below).
+  of mode (b), and with a pixel group that of the split mode (below).
 
 With the motion prior (``mu > 0``) the level's record leaves either route
 as the posterior information A + mu I: the kernel adds the prior as the
@@ -24,20 +24,20 @@ level ends, the host loop after its last iteration, each once.
 
 ``track_batched`` runs a frame's front one of two ways:
 
-- on a CUDA slab with ``front_route`` (no pixel shards; every config,
-  point compaction included), the kernel front
-  (``_track_batched_kernels``): one level-kernel launch a tracked level
-  reading each row's reference points from its slab (no
-  ``prepare_reference``; under compaction the launch picks each slot's
-  pixel itself, as ``compact_reference`` does), every launch writing its
-  level's slot of one output buffer with its record's log-likelihood,
-  entropy and valid ratio (the finest level's are the result's); the
-  TrackResult's fields are views of that buffer;
-- elsewhere (CPU tensors, the pixel route) the eager front:
-  ``prepare_reference`` (and ``compact_reference``) a level,
-  ``track_level`` a level, and the result assembled with eager ops
-  (``tdist_loglik``, ``pose_entropy``, stacks). It is the kernel front's
-  plain version.
+- on a CUDA slab (``front_route``) the kernel front
+  (``_track_batched_kernels``; every config, point compaction included):
+  a tracked level is one level-kernel launch, or on the pixel route the
+  split mode's stage launches with the pixel group's all-reduces between
+  them. Each row's reference points come from
+  its slab (no ``prepare_reference``; under compaction the launch picks
+  each slot's pixel itself, as ``compact_reference`` does), and each
+  level writes its slot of one output buffer with its record's
+  log-likelihood, entropy and valid ratio (the finest level's are the
+  result's); the TrackResult's fields are views of that buffer;
+- on CPU tensors the eager front: ``prepare_reference`` (and
+  ``compact_reference``) a level, ``track_level`` a level, and the result
+  assembled with eager ops (``tdist_loglik``, ``pose_entropy``, stacks).
+  It is the kernel front's plain version.
 
 ``track`` is ``track_batched`` at B = 1. Gauss-Newton rollback
 (lambda = 0: revert and stop) and adaptive Levenberg-Marquardt
@@ -45,15 +45,19 @@ level ends, the host loop after its last iteration, each once.
 
 Pixel sharding (parallel/sharded.py; the JAX package's ``axis_name``):
 with a ``pixel_group``, a ``torch.distributed`` process group whose ranks
-each hold a band of the reference rows, each rank prepares its rows at
-``row_offset = rank * rows``, and where ``linearize.pixel_route(group)``
-holds (more than one rank) every level runs the host loop over
-``linearize_batched_reference`` with each sum all-reduced over the group
-(on the card gathering through csrc/sampler.cu): neither kernel mode can
-reduce across processes inside a launch. Every branch of that loop (the
-accept test, the lambda update, the stop test and the termination code)
-reads only all-reduced values, so all ranks take the same path and the
-same collectives. The selected count is all-reduced too.
+each hold a band of the reference rows, each rank's points sit at image
+rows ``rank * rows`` on, and where ``linearize.pixel_route(group)`` holds
+(more than one rank) every sum the JAX package ``psum``s is all-reduced
+over the group: on the card by ``linearize.track_level_split`` (a launch
+cannot wait on another process, so each level's loop is cut at those
+reductions), on the CPU by the host loop over
+``linearize_batched_reference`` with ``group``. On the t-distribution
+every decision (the accept test, the lambda update, the stop test and the
+termination code) reads only all-reduced values, so all ranks take the
+same path and the same collectives; off it each rank's error takes its
+own scale's log-determinant, as in the JAX package, and the ranks can
+part: the split route then raises (``linearize.split_verdict``). The
+selected count is all-reduced too.
 """
 
 from __future__ import annotations
@@ -340,11 +344,11 @@ def _track_level(ref_data, cur_slab, K, T_init, cfg: TrackerConfig,
 
 def front_route(cfg: TrackerConfig, device, pixel_group=None) -> bool:
     """True where ``track_batched`` runs the kernel front on ``device``: a
-    CUDA device and no pixel route, for every config (each estimator,
-    influence, weighting, motion prior and point budget). Looked up at the
-    call (a caller may swap in the eager front)."""
-    return (torch.device(device).type == "cuda"
-            and not lin_ops.pixel_route(pixel_group))
+    CUDA device, for every config (each estimator, influence, weighting,
+    motion prior and point budget) and pixel group (the split mode on the
+    pixel route). Looked up at the call (a caller may swap in the eager
+    front, on the pixel route the plain pixel route)."""
+    return torch.device(device).type == "cuda"
 
 
 def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits, cfg: TrackerConfig,
@@ -367,7 +371,8 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits, cfg: TrackerConfig,
     rank gets the same result. None: whole reference slabs."""
     if front_route(cfg, cur_pyrs[cfg.tracked_levels[0]].device,
                    pixel_group):
-        return _track_batched_kernels(ref_pyrs, cur_pyrs, Ks, T_inits, cfg)
+        return _track_batched_kernels(ref_pyrs, cur_pyrs, Ks, T_inits, cfg,
+                                      pixel_group)
     T = T_inits
     dev, dtype = T_inits.device, T_inits.dtype
     B = T_inits.shape[0]
@@ -442,10 +447,13 @@ def track_batched(ref_pyrs, cur_pyrs, Ks, T_inits, cfg: TrackerConfig,
 
 
 def _track_batched_kernels(ref_pyrs, cur_pyrs, Ks, T_inits,
-                           cfg: TrackerConfig) -> TrackResult:
+                           cfg: TrackerConfig,
+                           pixel_group=None) -> TrackResult:
     """``track_batched``'s kernel front: one mode (b) launch a tracked
-    level on the slab route, coarse to fine, each writing its level's
-    slot of one (B, levels, level_row_size) output (and (B, levels, 2)
+    level on the slab route (on the pixel route, a ``pixel_group`` of more
+    than one rank, the split mode's launches over this rank's band,
+    ``linearize.track_level_split``), coarse to fine, each level writing
+    its slot of one (B, levels, level_row_size) output (and (B, levels, 2)
     iteration and termination counts), each starting from the level
     above's pose in that buffer; the finest level's log-likelihood (right
     after its pose) and extras are the result's log-likelihood, entropy
@@ -457,11 +465,23 @@ def _track_batched_kernels(ref_pyrs, cur_pyrs, Ks, T_inits,
     out = torch.empty((B, len(levels), lin_ops.level_row_size(M)),
                       dtype=torch.float32, device=dev)
     out_i = torch.empty((B, len(levels), 2), dtype=torch.int32, device=dev)
+    sharded = lin_ops.pixel_route(pixel_group)
+    if sharded:
+        import torch.distributed as dist
+
+        rank = dist.get_rank(pixel_group)
     T = T_inits
     for j, lvl in enumerate(levels):
-        lin_ops.track_level_kernels(
-            lin_ops.RefSlabs(ref_pyrs[lvl]), cur_pyrs[lvl], Ks[lvl], T, cfg,
-            out=out[:, j], out_i=out_i[:, j])
+        ref = lin_ops.RefSlabs(ref_pyrs[lvl])
+        if sharded:
+            rows = ref_pyrs[lvl]
+            h = (rows if isinstance(rows, torch.Tensor) else rows[0]).shape[-2]
+            lin_ops.track_level_split(ref, cur_pyrs[lvl], Ks[lvl], T, cfg,
+                                      pixel_group, row0=rank * h,
+                                      out=out[:, j], out_i=out_i[:, j])
+        else:
+            lin_ops.track_level_kernels(ref, cur_pyrs[lvl], Ks[lvl], T, cfg,
+                                        out=out[:, j], out_i=out_i[:, j])
         T = out[:, j, lin_ops._LEVEL_T:lin_ops._LEVEL_LOGLIK].unflatten(
             -1, (4, 4))
     return level_result(out, out_i, cfg)

@@ -32,6 +32,13 @@ the current slab's device:
 whole IRLS loop (models/dense_tracker.py's ``_track_level``) for B rows in
 one launch, for every config, the motion prior (``mu > 0``) included.
 
+``track_level_split`` is its split mode, for the pixel route (a row's
+reference rows split over the ranks of a ``torch.distributed`` process
+group, parallel/sharded.py): the level's loop cut where the JAX package
+``psum``s (``stage_plan``), a stage launch over the rank's band each,
+every stage's partial sums all-reduced over the group between launches,
+and the IRLS decisions taken on the card from the all-reduced totals.
+
 ``linearize_batched`` takes a batch of B problems (the JAX package's vmap
 over the tracker): reference points (B, N), poses (B, 4, 4), Sigma seeds
 (B, 2, 2), and one current slab (6, H, W) shared by every row or one per
@@ -51,12 +58,12 @@ under compaction each launch first builds its rows' slot tables on the
 card (which pixel each of the ``ref_budget`` slots takes, as
 ``compact_reference``), so nothing on the host touches the reference.
 ``prepare_reference`` is the plain version of that route
-(``reference_points``) and the route of the pixel shards and the plain
-linearization. The plain linearization takes an optional
+(``reference_points``). The plain linearization takes an optional
 ``group``, a ``torch.distributed`` process group over which the points
 are sharded (pixel rows, parallel/sharded.py): every sum the JAX package
-``psum``s is all-reduced over it. ``pixel_route(group)`` says when the
-tracker takes that route.
+``psum``s is all-reduced over it (one all-reduce a sum of the JAX
+package's, row by row), the plain version of the split mode.
+``pixel_route(group)`` says when the tracker takes the pixel route.
 """
 
 from __future__ import annotations
@@ -82,6 +89,10 @@ _EPS = 1e-12
 LAUNCHES_LINEARIZE = 0
 LAUNCHES_TRACK_LEVEL = 0
 LAUNCHES_BY_BATCH = {}
+# The split mode's stage launches (``track_level_split``) and the
+# all-reduces of its stage buffer, since the last reset.
+LAUNCHES_TRACK_LEVEL_SPLIT = 0
+COLLECTIVES_SPLIT = 0
 # Calls of prepare_reference since the last reset (a plain integer): the
 # slab route makes none.
 PREPARE_REFERENCE_CALLS = 0
@@ -109,6 +120,18 @@ _MAX_CLUSTER = 16
 # pointer in a table in device memory.
 _MAX_REF_ROWS = 32
 _TABLE_STRIDE, _TABLE_PARAMS, _TABLE_DEVICE = 0, 1, 2
+# The split mode's stage buffer (csrc/linearize.cu kSum*, kSplitSums): a
+# row's stage sums in the first columns, then its valid and selected
+# counts, its done flag and the Sigma steps its iteration takes; the
+# state's floats a row (kSplitStateWords); the stage code of a level's
+# last launch (kStageFinish).
+_SUM_VALID, _SUM_SELECTED, _SUM_DONE, _SUM_STEPS = 29, 30, 31, 32
+_SPLIT_SUMS = 33
+_SPLIT_STATE_WORDS = 112
+_STAGE_FINISH = 1024
+# Bytes of a point the split mode keeps between its launches (csrc/
+# linearize.cu kPointBytes: 9 floats and the valid flag).
+_POINT_BYTES = 37
 # The kernel's codes of the scale estimators (use_weighting off: "none")
 # and influence functions (csrc/linearize.cu kEst*, kInf*).
 _ESTIMATORS = {"tdist": 0, "unit": 1, "normal": 2, "mad": 3, "none": 4}
@@ -539,12 +562,13 @@ def normal_equations_reference(res: Residuals, w, p00, p01, p11, K,
 def pixel_route(group) -> bool:
     """True where the tracker runs a pixel-sharded level (reference rows
     split over the ranks of the ``torch.distributed`` process group
-    ``group``): a group of more than one rank. There the tracker runs its
-    host loop over ``linearize_batched_reference`` with every sum
-    all-reduced over the group (on the card gathering with the standalone
-    sampler kernel), since neither mode of csrc/linearize.cu can reduce
-    across processes inside a launch. The group alone picks the route; a
-    group of one rank, or None, leaves the kernels' route."""
+    ``group``): a group of more than one rank. A launch cannot wait on
+    another process, so there the card runs the split mode
+    (``track_level_split``: stage launches with the group's all-reduces
+    between them), and the CPU its plain version, the host loop over
+    ``linearize_batched_reference`` with every sum all-reduced over the
+    group. The group alone picks the route; a group of one rank, or None,
+    leaves the kernels' route."""
     if group is None:
         return False
     import torch.distributed as dist
@@ -658,11 +682,14 @@ def kernel_mad_elements(device, N, B=None):
     return out[0] if B is None else out
 
 
-def _check(ref, cur_slab, K, T, cfg: TrackerConfig):
-    """Raise on inputs the kernels do not take; returns (B, N)."""
+def _check(ref, cur_slab, K, T, cfg: TrackerConfig, ref_H=None):
+    """Raise on inputs the kernels do not take; returns (B, N). ``ref_H``:
+    the reference slabs' rows where they are a pixel band (None: the
+    current slab's H)."""
     H, W = cur_slab.shape[-2:]
     if H < 2 or W < 2:
         raise ValueError(f"want a slab of H, W >= 2, got {H}x{W}")
+    ref_H = H if ref_H is None else ref_H
     B = T.shape[0]
     if isinstance(ref, RefSlabs) and isinstance(ref.rows, SlabTable):
         t = ref.rows.table
@@ -671,11 +698,11 @@ def _check(ref, cur_slab, K, T, cfg: TrackerConfig):
             raise ValueError(f"want a ({B},) int64 table of row pointers on "
                              f"{cur_slab.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-        if tuple(ref.rows.shape) != (pyr.NUM_CHANNELS, H, W):
-            raise ValueError(f"want ({pyr.NUM_CHANNELS}, {H}, {W}) reference "
-                             f"slabs, got {tuple(ref.rows.shape)}")
+        if tuple(ref.rows.shape) != (pyr.NUM_CHANNELS, ref_H, W):
+            raise ValueError(f"want ({pyr.NUM_CHANNELS}, {ref_H}, {W}) "
+                             f"reference slabs, got {tuple(ref.rows.shape)}")
         named = []
-        N = ref_budget(cfg, H, W) or H * W
+        N = ref_budget(cfg, ref_H, W) or ref_H * W
     elif isinstance(ref, RefSlabs):
         rows = (list(ref.rows) if not isinstance(ref.rows, torch.Tensor)
                 else [ref.rows[b] for b in range(ref.rows.shape[0])])
@@ -686,13 +713,13 @@ def _check(ref, cur_slab, K, T, cfg: TrackerConfig):
             raise ValueError(f"{len(rows)} reference slabs for {B} rows (a "
                              f"sequence takes at most {_MAX_REF_ROWS})")
         for r in rows:
-            if tuple(r.shape) != (pyr.NUM_CHANNELS, H, W) or (
+            if tuple(r.shape) != (pyr.NUM_CHANNELS, ref_H, W) or (
                     not r.is_contiguous()):
-                raise ValueError(f"want contiguous ({pyr.NUM_CHANNELS}, {H}, "
-                                 f"{W}) reference slabs, got "
+                raise ValueError(f"want contiguous ({pyr.NUM_CHANNELS}, "
+                                 f"{ref_H}, {W}) reference slabs, got "
                                  f"{tuple(r.shape)}")
         named = [("reference slab", r) for r in rows]
-        N = ref_budget(cfg, H, W) or H * W
+        N = ref_budget(cfg, ref_H, W) or ref_H * W
     else:
         named = [("ref.px", ref.px)]
         if ref.px.dim() != 2 or ref.px.shape[0] != B:
@@ -717,21 +744,23 @@ def _check(ref, cur_slab, K, T, cfg: TrackerConfig):
     return B, N
 
 
-def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig, slots=None):
-    """The arguments of the two entry points of csrc/linearize.cu after
-    the checks: ``(B, N, refs, scale, table)``, refs from B to K, scale
-    from use_depth to the scale floors (T goes between them), and the
-    ctypes array of the slab route's row pointers, which must live until
-    the launch. On the slab route under compaction N is the budget and
+def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig, slots=None,
+                 ref_H=None):
+    """The arguments of the entry points of csrc/linearize.cu after the
+    checks: ``(B, N, refs, scale, table)``, refs from B to K, scale from
+    use_depth to the scale floors (T goes between them), and the ctypes
+    array of the slab route's row pointers, which must live until the
+    launch. On the slab route under compaction N is the budget and
     ``slots`` the global slot table (``_slot_table``; None where the
-    launch keeps it in shared memory). A config the kernel has no code for
-    raises."""
+    launch keeps it in shared memory). ``ref_H``: a pixel band's rows
+    (``_check``). A config the kernel has no code for raises."""
     estimator = cfg.scale_estimator if cfg.use_weighting else "none"
     if estimator not in _ESTIMATORS or cfg.influence not in _INFLUENCES:
         raise ValueError(f"the linearization kernel has no scale estimator "
                          f"{estimator!r} or influence {cfg.influence!r}")
-    B, N = _check(ref, cur_slab, K, T, cfg)
+    B, N = _check(ref, cur_slab, K, T, cfg, ref_H)
     C, H, W = cur_slab.shape[-3:]
+    ref_H = H if ref_H is None else ref_H
     ref_grad = cfg.gradient_source == "reference"
     if C < ((2 if cfg.use_depth else 1) if ref_grad else 6):
         raise ValueError(f"the slab has {C} channels, too few for {cfg}")
@@ -749,7 +778,7 @@ def _kernel_args(ref, cur_slab, K, T, cfg: TrackerConfig, slots=None):
         points = (None,) * 9 + (table, stride, by_table,
                                 cfg.intensity_grad_threshold,
                                 cfg.depth_grad_threshold,
-                                ref_budget(cfg, H, W),
+                                ref_budget(cfg, ref_H, W),
                                 None if slots is None else slots.data_ptr())
     else:
         table = None
@@ -931,6 +960,20 @@ def track_level_kernels(ref, cur_slab, K, T_init, cfg: TrackerConfig,
     B, N, refs, scale, _table = _kernel_args(ref, cur_slab, K, T_init, cfg,
                                              slots)
     dev = cur_slab.device
+    out, out_i = _level_outputs(out, out_i, B, cfg, dev)
+    _build.launch("dvo_track_level", dev, (
+        *refs, T_init.data_ptr(), T_stride, *scale,
+        *_loop_args(cfg, N, out, out_i)))
+    LAUNCHES_TRACK_LEVEL += 1
+    LAUNCHES_BY_BATCH[("track_level", B)] = (
+        LAUNCHES_BY_BATCH.get(("track_level", B), 0) + 1)
+    return out, out_i
+
+
+def _level_outputs(out, out_i, B, cfg: TrackerConfig, dev):
+    """Mode (b)'s (B, level_row_size) f32 and (B, 2) int32 outputs: new
+    tensors, or the given ones checked (rows contiguous, any row
+    stride)."""
     S = level_row_size(cfg.max_iterations)
     if out is None:
         out = torch.empty((B, S), dtype=torch.float32, device=dev)
@@ -941,17 +984,177 @@ def track_level_kernels(ref, cur_slab, K, T_init, cfg: TrackerConfig,
             raise ValueError(f"want a ({B}, {size}) {dtype} output with "
                              f"contiguous rows on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    use_lm = cfg.lm_lambda_init > 0.0
-    _build.launch("dvo_track_level", dev, (
-        *refs, T_init.data_ptr(), T_stride, *scale, cfg.max_iterations,
-        cfg.precision, cfg.lm_lambda_init if use_lm else 0.0,
-        cfg.lm_lambda_up, cfg.lm_lambda_down, cfg.lm_lambda_max, cfg.mu,
-        cluster_size(N), out.data_ptr(), out.stride(0), out_i.data_ptr(),
-        out_i.stride(0), loglik_constant(cfg.tdist_dof)))
-    LAUNCHES_TRACK_LEVEL += 1
-    LAUNCHES_BY_BATCH[("track_level", B)] = (
-        LAUNCHES_BY_BATCH.get(("track_level", B), 0) + 1)
     return out, out_i
+
+
+def _loop_args(cfg: TrackerConfig, N, out, out_i):
+    """Mode (b)'s arguments from max_iterations to the log-likelihood
+    constant (the IRLS loop, the cluster size and the outputs)."""
+    use_lm = cfg.lm_lambda_init > 0.0
+    return (cfg.max_iterations, cfg.precision,
+            cfg.lm_lambda_init if use_lm else 0.0, cfg.lm_lambda_up,
+            cfg.lm_lambda_down, cfg.lm_lambda_max, cfg.mu, cluster_size(N),
+            out.data_ptr(), out.stride(0), out_i.data_ptr(), out_i.stride(0),
+            loglik_constant(cfg.tdist_dof))
+
+
+class StagePlan(NamedTuple):
+    """Stage launches of one IRLS iteration on the split route, each
+    followed by one all-reduce of the stage buffer: a level's first
+    iteration (``cold``) and a later one (``warm``; the Sigma warm start's
+    shorter fixed point where ``tdist_scale_warm_iters > 0`` and the
+    carried Sigma is finite)."""
+
+    cold: int
+    warm: int
+
+
+def stage_plan(cfg: TrackerConfig) -> StagePlan:
+    """The split route's stages an iteration under ``cfg``: where the JAX
+    package's pixel-sharded linearization (dvo_slam_tpu/ops/linearize.py)
+    must wait on a psum. The t-distribution: the residual pass (valid
+    count and moments), one stage a Sigma step, the normal equations
+    (log1p and error sums, A, b): 2 + the steps. Every other estimator
+    takes its scale per rank with no psum, so its count, A, b and sums
+    reduce together: one stage. Point budgets and the motion prior add
+    none."""
+    if cfg.use_weighting and cfg.scale_estimator == "tdist":
+        warm = cfg.tdist_scale_warm_iters or cfg.tdist_scale_iters
+        return StagePlan(2 + cfg.tdist_scale_iters, 2 + warm)
+    return StagePlan(1, 1)
+
+
+class SplitArgs(NamedTuple):
+    """One split-route level's launch arguments and buffers."""
+
+    args: tuple  # dvo_track_level_split's, up to stage, steps, iter, stream
+    state: torch.Tensor  # (B, _SPLIT_STATE_WORDS) f32, the rows' carry
+    sums: torch.Tensor  # (B, _SPLIT_SUMS) f64, the stage buffer
+    points: torch.Tensor  # uint8, the points kept between launches
+    slots: Optional[torch.Tensor]  # (B, budget) int32 under compaction
+    out: torch.Tensor  # mode (b)'s outputs
+    out_i: torch.Tensor
+    keep: object  # what the pointers point at (alive until the last launch)
+
+
+def split_args(ref, cur_slab, K, T_init, cfg: TrackerConfig, row0: int,
+               out, out_i) -> SplitArgs:
+    """The arguments of the split route's launches over a rank's band:
+    ``ref`` RefSlabs of B (6, h, W) bands of reference rows starting at
+    image row ``row0``, ``cur_slab`` the whole current slabs (6, H, W) or
+    (B, 6, H, W); the compaction budget is the band's own
+    (``ref_budget(cfg, h, W)``, as ``prepare_reference`` of the band
+    compacts); the state, stage buffer, kept points and slot table new
+    tensors on the slab's device; out, out_i as
+    ``track_level_kernels``'."""
+    if not isinstance(ref, RefSlabs):
+        raise ValueError("the split route reads the reference band's slabs "
+                         "(RefSlabs)")
+    if cfg.max_iterations < 1:
+        raise ValueError("the level kernel needs max_iterations >= 1")
+    if not cfg.mu >= 0.0:
+        raise ValueError(f"the level kernel needs mu >= 0, got {cfg.mu}")
+    if row0 < 0:
+        raise ValueError(f"a band starts at image row >= 0, not {row0}")
+    rows = ref.rows
+    if isinstance(rows, SlabTable):
+        h = rows.shape[-2]
+    else:
+        h = (rows if isinstance(rows, torch.Tensor) else rows[0]).shape[-2]
+    K = K.contiguous()
+    T_init, T_stride = _rows_of(T_init)
+    B, dev = T_init.shape[0], cur_slab.device
+    budget = ref_budget(cfg, h, cur_slab.shape[-1])
+    slots = (torch.empty((B, budget), dtype=torch.int32, device=dev)
+             if budget else None)
+    B, N, refs, scale, table = _kernel_args(ref, cur_slab, K, T_init, cfg,
+                                            slots, ref_H=h)
+    out, out_i = _level_outputs(out, out_i, B, cfg, dev)
+    state = torch.empty((B, _SPLIT_STATE_WORDS), dtype=torch.float32,
+                        device=dev)
+    sums = torch.empty((B, _SPLIT_SUMS), dtype=torch.float64, device=dev)
+    points = torch.empty(B * split_points_bytes(N), dtype=torch.uint8,
+                         device=dev)
+    args = (*refs, T_init.data_ptr(), T_stride, *scale,
+            *_loop_args(cfg, N, out, out_i), h, row0, state.data_ptr(),
+            sums.data_ptr(), points.data_ptr())
+    return SplitArgs(args, state, sums, points, slots, out, out_i,
+                     (table, K, T_init))
+
+
+def split_points_bytes(N: int) -> int:
+    """Bytes of one row's points the split mode keeps between its launches
+    (csrc/linearize.cu points_bytes): each of the cluster's C CTAs its P =
+    ceil(N / C) points, 37 bytes each, rounded up to 16 bytes a CTA."""
+    C = cluster_size(N)
+    P = -(-N // C)
+    return C * ((_POINT_BYTES * P + 15) // 16 * 16)
+
+
+def split_verdict(flags, world: int):
+    """The host's reading of a stage 0's all-reduced done flags and Sigma
+    steps (``flags`` (B, 2): each summed over the ``world`` ranks):
+    ``(all rows done, the Sigma steps of the iteration's live rows)``.
+    Ranks that disagree on a row's done flag would go on to call
+    different collectives (the plain route's gloo aborts on the mismatch,
+    the JAX package's rendezvous times out): raise instead, on every rank
+    alike, since all read the same totals."""
+    done = [float(x) for x in flags[:, 0]]
+    if any(0.0 < d < world for d in done):
+        raise RuntimeError(
+            "the pixel ranks' IRLS decisions parted (a row stopped on some "
+            "ranks and not on others; off the t-distribution each rank "
+            "weighs its error by its own scale, as the JAX package does): "
+            f"done flags summed over {world} ranks {done}")
+    live = [int(round(float(s) / world)) for d, s in zip(done, flags[:, 1])
+            if d == 0.0]
+    return not live, max(live, default=0)
+
+
+def track_level_split(ref, cur_slab, K, T_init, cfg: TrackerConfig, group,
+                      row0: int = 0, out=None, out_i=None):
+    """A pyramid level's IRLS loop for B rows on the pixel route on the
+    card: the split mode of csrc/linearize.cu over this rank's band
+    (``split_args``), its stage buffer all-reduced over the
+    ``torch.distributed`` process group ``group`` after every stage launch
+    (nccl: on the current stream, no host sync; gloo: through the host).
+    An iteration is ``stage_plan(cfg)`` stage launches and as many
+    all-reduces; stage 0 of every later iteration first takes the one
+    before's decision on the card, from the all-reduced totals, the same
+    bits on every rank. The host reads the rows' done flags once an
+    iteration, after stage 0's all-reduce (``split_verdict``); a level
+    ends when every row is done, or after max_iterations with one more
+    launch that takes the last decision. Writes, and returns, mode (b)'s
+    outputs (``track_level_kernels``'). A failed build or launch raises;
+    nothing falls back to the plain route."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size(group)
+    a = split_args(ref, cur_slab, K, T_init, cfg, row0, out, out_i)
+    dev = cur_slab.device
+    tdist = stage_plan(cfg).cold > 1
+
+    def stage(code, steps, k):
+        global LAUNCHES_TRACK_LEVEL_SPLIT, COLLECTIVES_SPLIT
+        _build.launch("dvo_track_level_split", dev, (*a.args, code, steps, k))
+        LAUNCHES_TRACK_LEVEL_SPLIT += 1
+        if code != _STAGE_FINISH:
+            dist.all_reduce(a.sums, group=group)
+            COLLECTIVES_SPLIT += 1
+
+    steps = cfg.tdist_scale_iters if tdist else 0
+    for k in range(cfg.max_iterations):
+        stage(0, steps, k)
+        if k > 0:
+            done, steps = split_verdict(
+                a.sums[:, _SUM_DONE:_SUM_STEPS + 1].cpu(), world)
+            if done:
+                return a.out, a.out_i
+        if tdist:
+            for j in range(1, steps + 2):
+                stage(j, steps, k)
+    stage(_STAGE_FINISH, steps, cfg.max_iterations)
+    return a.out, a.out_i
 
 
 def linearize_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,

@@ -7,10 +7,15 @@ same functions on its own shard:
 
   * Tracking: reference pyramids split over ``batch`` (independent
     alignments) and their rows over ``pixel``; current pyramids split over
-    ``batch`` only (warped lookups cross row bands). Every sum of the IRLS
-    linearization is all-reduced over the pixel group
-    (``dense_tracker.track_batched(..., pixel_group=...)``), so the ranks
-    of one batch shard compute the same result.
+    ``batch`` only (warped lookups cross row bands). Every sum the JAX
+    package ``psum``s is all-reduced over the pixel group
+    (``dense_tracker.track_batched(..., pixel_group=...)``): on CUDA cards
+    each level runs the level kernel's split mode, stage launches over the
+    rank's band with an all-reduce of their partial sums between them
+    (``linearize.track_level_split``), on the CPU the host loop over the
+    plain linearization. On the t-distribution the ranks of one batch
+    shard compute the same result; off it ranks whose decisions part
+    raise on the card.
   * The validation fleet: candidates x directions on ``batch`` (forward
     rows [0, B), backward rows [B, 2B)).
   * Pose-graph assembly: edges split over ``batch``; each rank assembles

@@ -65,6 +65,18 @@ pairs; a blank reference row; slot tables past shared memory), and every
 budget path (odometry, SLAM, the chunked scan) on the kernel front with
 no prepare_reference or scan_step_reference call.
 
+The pixel route (parallel/sharded.py) on the level kernel's split mode
+(stage launches over each rank's band, their partial sums all-reduced
+between them) in 2-rank worlds on the card: every rank the same bits;
+no standalone sampler, mode (b) or prepare_reference call; stage_plan x
+iterations + 1 launches a level; poses within 1e-4 of the plain pixel
+route in the same world (f64 sums against f32 ones), of the
+single-process level kernel and within 5e-5 of the single-process host
+loop, valid counts within 1e-3 relative. The 36 split cases (the default,
+a budget of 0.5, MAD + Huber, mu = 0.1; B = 1, 2, 8; levels 3 / 2 / 1)
+hold the level kernel over the bands' points side by side, each band
+compacted to its own budget as the plain pixel route compacts.
+
 The pose-graph kernels (csrc/pose_graph.cu, one launch per dense solve
 of at most 128 vertices; csrc/pose_graph_grid.cu, one cooperative launch
 per solve past that and per CG solve) against their plain version, the
@@ -102,6 +114,7 @@ from dvo_slam_tpu_torch.models import dense_tracker, pose_graph
 from dvo_slam_tpu_torch.ops import camera, linearize, pyramid, sampler
 from dvo_slam_tpu_torch.utils import se3_np, synthetic
 from torch_graphs import two_lap_ring
+import torch_sharded_cases as cases
 
 pytestmark = pytest.mark.cuda
 
@@ -1205,34 +1218,47 @@ def test_compaction_on_card_equals_cpu(cuda, orbit640, frac, thr):
                 assert all(torch.equal(a, getattr(x, f)) for x in again)
 
 
+def _pixel_inputs(orbit, B):
+    """B pairs of the orbit (frame b against b + 1), each from its ground
+    truth pose perturbed."""
+    frames, poses = orbit
+    rng = np.random.default_rng(3)
+    return {"frames": frames[:B + 1], "K": K640, "T0": np.stack([
+        (se3_np.inverse(poses[b + 1]) @ poses[b])
+        @ se3_np.exp(rng.normal(scale=2e-3, size=6))
+        for b in range(B)]).astype(np.float32)}
+
+
 def test_pixel_sharded_world_on_card_matches_single(cuda, orbit640):
     """parallel/'s pixel route on the card: a 2-rank world (nccl with two
     cards, the ranks sharing one card over gloo with one) tracks two
     640x480 pairs with the reference rows split over the ranks, through
-    the host loop over the all-reduced plain linearization and the
-    standalone sampler kernel. Both ranks return the same poses: within
-    5e-5 of the single-process host loop over the plain linearization (the
-    same arithmetic, sums unsplit) and 1e-4 of the level kernel's, valid
-    counts within 1e-3 relative."""
+    the level kernel's split mode (stage launches over each rank's band,
+    their sums all-reduced between them; no standalone sampler launch, no
+    mode (b) launch, no prepare_reference). Each level makes stage_plan x
+    its iterations + 1 stage launches. Both ranks return the same poses:
+    within 5e-5 of the single-process host loop over the plain
+    linearization and 1e-4 of the level kernel's, valid counts within
+    1e-3 relative."""
     import functools
 
-    import torch_sharded_cases as cases
     from dvo_slam_tpu_torch import parallel
 
-    frames, poses = orbit640
-    rng = np.random.default_rng(3)
-    inp = {"frames": frames[:3], "K": K640, "T0": np.stack([
-        (se3_np.inverse(poses[b + 1]) @ poses[b])
-        @ se3_np.exp(rng.normal(scale=2e-3, size=6))
-        for b in range(2)]).astype(np.float32)}
+    inp = _pixel_inputs(orbit640, 2)
     ranks = parallel.spawn(cases.run_card_pixel, 2, "cuda", (inp,),
                            timeout_s=300)
+    cfg = TrackerConfig()
+    plan = linearize.stage_plan(cfg)
     for r in ranks:
-        assert r["launches"]["sample_slab"] > 0, r["launches"]
-        assert r["launches"]["track_level"] == 0
+        la = r["launches"]
+        assert la["sample_slab"] == 0 and la["track_level"] == 0, la
+        assert la["prepare_reference"] == 0, la
+        n_it = r["iterations"].max(axis=0)  # every level's loop count
+        assert la["split"] == int((n_it * plan.cold + 1).sum()), (la, n_it)
+        assert la["collectives"] == int(
+            (n_it * plan.cold + (n_it < cfg.max_iterations)).sum())
         np.testing.assert_array_equal(r["T"], ranks[0]["T"])
     refs, curs, Ks, T0 = cases.card_pairs(inp, cuda)
-    cfg = TrackerConfig()
     want = {"kernel": dense_tracker.track_batched(refs, curs, Ks, T0, cfg)}
     plain = functools.partial(linearize.linearize_batched_reference,
                               sample=sampler.sample_slab)
@@ -1250,6 +1276,69 @@ def test_pixel_sharded_world_on_card_matches_single(cuda, orbit640):
                                    w.transformation.cpu().numpy(), atol=tol)
         np.testing.assert_allclose(ranks[0]["valid"],
                                    w.valid_pixels.cpu().numpy(), rtol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def split_world(orbit640):
+    """The split cases' 2-rank world (tests/torch_sharded_cases.py
+    run_card_split), started once."""
+    from dvo_slam_tpu_torch import parallel
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    inp = _pixel_inputs(orbit640, 8)
+    return inp, parallel.spawn(cases.run_card_split, 2, "cuda", (inp,),
+                               timeout_s=900)
+
+
+@pytest.mark.parametrize("case", range(len(cases.SPLIT_CASES)), ids=[
+    f"{n}-B{B}-level{lvl}" for n, B, lvl in cases.SPLIT_CASES])
+def test_pixel_split_case_on_card(cuda, split_world, case):
+    """The split route at one level (levels 3 / 2 / 1), B = 1, 2 and 8, the
+    default config, a point budget of 0.5 (each band compacted to its own
+    budget, as the plain pixel route and the JAX package compact), MAD +
+    Huber and mu = 0.1, over a 2-rank world: both ranks the same bits;
+    stage_plan x iterations + 1 launches; poses within 1e-4 of the plain
+    pixel route in the same world (f64 sums against f32 ones) and of the
+    single-process level kernel (mode (b) over the bands' points side by
+    side, each band compacted to its own budget: the same f64 sums but
+    for their order), valid counts within 1e-3 relative. Off the
+    t-distribution the ranks may part (each weighs its error by its own
+    scale, as the JAX package does): both then raise the split route's
+    error, the same launch."""
+    inp, ranks = split_world
+    name, B, level = cases.SPLIT_CASES[case]
+    got = [r[(name, B, level)] for r in ranks]
+    cfg = TrackerConfig(**cases.SPLIT_CONFIGS[name])
+    if got[0]["error"] is not None:
+        assert cfg.scale_estimator != "tdist", got[0]["error"]
+        assert all("parted" in (g["error"] or "") for g in got)
+        return
+    for g in got[1:]:
+        for key in ("T", "valid", "iterations", "launches", "collectives"):
+            np.testing.assert_array_equal(g[key], got[0][key], err_msg=key)
+    g = got[0]
+    plan = linearize.stage_plan(cfg)
+    n_it = int(g["iterations"].max())
+    assert g["launches"] == n_it * plan.cold + 1
+    assert g["collectives"] == n_it * plan.cold + (n_it < cfg.max_iterations)
+    refs, curs, Ks, T0 = cases.card_pairs(inp, cuda)
+    # The single process's points: each band's as prepare_reference gives
+    # them at its row offset (compacted to the band's budget), side by side.
+    h = refs[level].shape[-2] // len(ranks)
+    bands = [linearize.prepare_reference(
+        refs[level][:B, :, r * h:(r + 1) * h], Ks[level], cfg,
+        row_offset=r * h) for r in range(len(ranks))]
+    points = linearize.RefData(*(None if f[0] is None else torch.cat(
+        f, dim=-1).contiguous() for f in zip(*bands)))
+    out, out_i = linearize.track_level_kernels(
+        points, curs[level][:B], Ks[level], T0[:B].contiguous(), cfg)
+    single = linearize.unpack_level(out, out_i, cfg.max_iterations)
+    for T, n in ((g["T_plain"], g["valid_plain"]),
+                 (single.T.cpu().numpy(),
+                  single.best[:, dense_tracker._N_RAW].cpu().numpy())):
+        np.testing.assert_allclose(g["T"], T, atol=1e-4)
+        np.testing.assert_allclose(g["valid"], n, rtol=1e-3)
 
 
 # --- the pose-graph kernel (csrc/pose_graph.cu) against the host loop ---

@@ -180,19 +180,178 @@ def card_pairs(inp, device):
 def run_card_pixel(rank, world_size, device, inp):
     """One rank of the card test's world: the pairs of ``card_pairs`` with
     the reference rows split over all ranks (mesh (1, world_size)); the
-    gathered poses and valid counts, and this rank's launch counts."""
+    gathered poses and valid counts, and this rank's launch counts (the
+    split route's stage launches and all-reduces, the standalone sampler's
+    and the level kernel's launches, prepare_reference calls)."""
     from dvo_slam_tpu_torch import TrackerConfig
     from dvo_slam_tpu_torch.ops import linearize, sampler
     from dvo_slam_tpu_torch.parallel import sharded
 
     refs, curs, Ks, T0 = card_pairs(inp, device)
     mesh = sharded.make_mesh(world_size, 1, world_size)
-    before = (sampler.LAUNCHES, linearize.LAUNCHES_TRACK_LEVEL)
+
+    def counts():
+        return {"sample_slab": sampler.LAUNCHES,
+                "track_level": linearize.LAUNCHES_TRACK_LEVEL,
+                "split": linearize.LAUNCHES_TRACK_LEVEL_SPLIT,
+                "collectives": linearize.COLLECTIVES_SPLIT,
+                "prepare_reference": linearize.PREPARE_REFERENCE_CALLS}
+
+    before = counts()
     res = sharded.sharded_track_pairs(mesh, TrackerConfig())(
         sharded.shard_pyramid(refs, mesh), curs, Ks, T0)
+    after = counts()
     res = sharded.gather_rows(res, mesh)
     return {"T": res.transformation.cpu().numpy(),
             "valid": res.valid_pixels.cpu().numpy(),
-            "launches": {"sample_slab": sampler.LAUNCHES - before[0],
-                         "track_level": (linearize.LAUNCHES_TRACK_LEVEL
-                                         - before[1])}}
+            "iterations": res.iterations.cpu().numpy(),
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+SPLIT_CONFIGS = {
+    "default": {},
+    "budget": {"point_budget_fraction": 0.5},
+    "mad_huber": {"scale_estimator": "mad", "influence": "huber"},
+    "mu": {"mu": 0.1},
+}
+SPLIT_CASES = tuple((name, B, level) for name in SPLIT_CONFIGS
+                    for B in (1, 2, 8) for level in (3, 2, 1))
+
+
+def run_card_split(rank, world_size, device, inp):
+    """One rank of the card test's split cases (SPLIT_CASES: a config,
+    B pairs of ``card_pairs``, one pyramid level): the level tracked from
+    ``inp["T0"]`` over this rank's band of the reference rows by the split
+    route (``linearize.track_level_split``) and by the plain pixel route
+    (the host loop over the plain linearization, every sum all-reduced
+    over the world, prepare_reference of the band at its row offset).
+    Per case: both routes' poses and valid counts, the split route's
+    iterations, and its stage launches and all-reduces; or the error the
+    split route raised where the ranks' decisions parted."""
+    import functools
+
+    import torch.distributed as dist
+
+    from dvo_slam_tpu_torch import TrackerConfig
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.ops import linearize, sampler
+
+    refs, curs, Ks, T0 = card_pairs(inp, device)
+    group = dist.group.WORLD
+    out = {}
+    for name, B, level in SPLIT_CASES:
+        cfg = TrackerConfig(**SPLIT_CONFIGS[name])
+        h = refs[level].shape[-2] // world_size
+        band = refs[level][:B, :, rank * h:(rank + 1) * h].contiguous()
+        cur, K, T = curs[level][:B], Ks[level], T0[:B].contiguous()
+        before = (linearize.LAUNCHES_TRACK_LEVEL_SPLIT,
+                  linearize.COLLECTIVES_SPLIT)
+        try:
+            lvl = linearize.unpack_level(*linearize.track_level_split(
+                linearize.RefSlabs(band), cur, K, T, cfg, group,
+                row0=rank * h), cfg.max_iterations)
+        except RuntimeError as e:
+            # Ranks whose decisions part raise alike; the plain route
+            # would call mismatched collectives there, so it is not run.
+            out[(name, B, level)] = {"error": str(e)}
+            continue
+        counts = (linearize.LAUNCHES_TRACK_LEVEL_SPLIT - before[0],
+                  linearize.COLLECTIVES_SPLIT - before[1])
+        T_p, fin, _ = dense_tracker._track_level(
+            linearize.prepare_reference(band, K, cfg, row_offset=rank * h),
+            cur, K, T, cfg, linearize=functools.partial(
+                linearize.linearize_batched_reference,
+                sample=sampler.sample_slab, group=group))
+        out[(name, B, level)] = {
+            "error": None, "T": lvl.T.cpu().numpy(),
+            "valid": lvl.best[:, dense_tracker._N_RAW].cpu().numpy(),
+            "iterations": lvl.iterations.cpu().numpy(),
+            "T_plain": T_p.cpu().numpy(),
+            "valid_plain": fin.n_raw.cpu().numpy(),
+            "launches": counts[0], "collectives": counts[1]}
+    return out
+
+
+def run_cpu_pixel_route(rank, world_size, device, inp):
+    """One rank of tests/test_torch_pixel_split.py's CPU world: the pairs
+    of ``inp`` through the sharded tracker (every rank a band of rows),
+    with the routes the tracker picks, the plain linearization's grouped
+    calls and the split launches; then, per scenario, the split route's
+    host loop over a stand-in for its kernel: the launches' (stage,
+    steps, iteration), the all-reduces, and the error raised, if any."""
+    import torch
+    import torch.distributed as dist
+
+    from dvo_slam_tpu_torch import TrackerConfig
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.ops import camera
+    from dvo_slam_tpu_torch.ops import linearize as lin_ops
+    from dvo_slam_tpu_torch.parallel import sharded
+
+    calls = {"grouped": 0}
+    plain = lin_ops.linearize_batched_reference
+
+    def counted(*args, **kw):
+        calls["grouped"] += kw.get("group") is not None
+        return plain(*args, **kw)
+
+    lin_ops.linearize_batched_reference = counted
+    cfg = TrackerConfig(**inp["cfg"])
+    L = cfg.num_levels
+    Ks = camera.pyramid_intrinsics(camera.intrinsics(*inp["K"], device=device),
+                                   L)
+    refs = _pyramids(inp["ref_i"], inp["ref_z"], L, device)
+    curs = _pyramids(inp["cur_i"], inp["cur_z"], L, device)
+    B = refs[0].shape[0]
+    T0 = torch.eye(4).expand(B, 4, 4).contiguous()
+    mesh = sharded.make_mesh(world_size, 1, world_size)
+    group = mesh.get_group("pixel")
+    split_before = lin_ops.LAUNCHES_TRACK_LEVEL_SPLIT
+    res = sharded.sharded_track_pairs(mesh, cfg)(
+        sharded.shard_pyramid(refs, mesh), curs, Ks, T0)
+    out = {"pairs": _np(res), "grouped": calls["grouped"],
+           "split_launches": lin_ops.LAUNCHES_TRACK_LEVEL_SPLIT - split_before,
+           "routes": (lin_ops.pixel_route(group),
+                      dense_tracker.front_route(cfg, "cpu", group),
+                      dense_tracker.front_route(cfg, "cuda", group))}
+
+    # The host loop over a stand-in kernel, once a scenario of
+    # inp["scenarios"] (config fields, each rank's stop, Sigma steps):
+    # stage 0 of iteration k > 0 reports every row done once k >= the
+    # rank's stop (the decision of iteration k - 1).
+    real_args, saved_launch = lin_ops.split_args, lin_ops._build.launch
+    band = refs[L - 1][:, :, :refs[L - 1].shape[-2] // world_size].contiguous()
+    out["scenarios"] = []
+    for fields, stops, steps in inp["scenarios"]:
+        seen = {"launches": []}
+
+        def capture(*args, **kw):
+            seen["a"] = real_args(*args, **kw)
+            return seen["a"]
+
+        def fake_split(name, dev, args, stop=stops[rank], steps=steps):
+            assert name == "dvo_track_level_split"
+            code, _, k = args[-3:]
+            seen["launches"].append(tuple(args[-3:]))
+            sums = seen["a"].sums
+            sums.zero_()
+            if code == 0:
+                sums[:, lin_ops._SUM_DONE] = float(0 < k and stop <= k)
+                sums[:, lin_ops._SUM_STEPS] = float(steps)
+
+        collectives = lin_ops.COLLECTIVES_SPLIT
+        lin_ops.split_args, lin_ops._build.launch = capture, fake_split
+        try:
+            lin_ops.track_level_split(
+                lin_ops.RefSlabs(band), curs[L - 1], Ks[L - 1], T0,
+                TrackerConfig(**fields), group, row0=rank * band.shape[-2])
+            error = None
+        except RuntimeError as e:
+            error = str(e)
+        finally:
+            lin_ops.split_args, lin_ops._build.launch = real_args, saved_launch
+        out["scenarios"].append({
+            "launches": seen["launches"], "error": error,
+            "collectives": lin_ops.COLLECTIVES_SPLIT - collectives})
+    dist.barrier()
+    return out
