@@ -2566,6 +2566,7 @@ def kernel_rows(cfg, levels, launches, dev_times, slam_out,
         "dvo_slam_tpu_torch/csrc/linearize.cu",
         "dvo_slam_tpu/ops/pallas/sampler.py:226", d["launches"], d["err"],
         d["ms"], d["plain_ms"], d["bound"], None)
+    rows[-1]["launch_bound_ms"] = d["launch_bound_ms"]
     # No Pallas kernel: the JAX package's LM while_loop, compiled by XLA.
     for name, what, n_launch in (
             ("ring", "SLAM ring keyframe graph",
@@ -2670,6 +2671,8 @@ def _reset_launches():
     linearize.LAUNCHES_TRACK_LEVEL = 0
     linearize.LAUNCHES_TRACK_LEVEL_SPLIT = 0
     linearize.COLLECTIVES_SPLIT = 0
+    linearize.CAPTURES_SPLIT = 0
+    linearize.REPLAYS_SPLIT = 0
     linearize.LAUNCHES_BY_BATCH.clear()
     linearize.PREPARE_REFERENCE_CALLS = 0
     pyramid.LAUNCHES_PYRAMID = 0
@@ -2687,6 +2690,8 @@ def _launches():
             "track_level": linearize.LAUNCHES_TRACK_LEVEL,
             "track_level_split": linearize.LAUNCHES_TRACK_LEVEL_SPLIT,
             "collectives_split": linearize.COLLECTIVES_SPLIT,
+            "captures_split": linearize.CAPTURES_SPLIT,
+            "replays_split": linearize.REPLAYS_SPLIT,
             "pose_graph": pose_graph.LAUNCHES,
             "pose_graph_grid": pose_graph.LAUNCHES_GRID,
             "pyramid": getattr(pyramid, "LAUNCHES_PYRAMID", 0),
@@ -5219,12 +5224,14 @@ def _split_kind(code, steps):
 
 
 def _split_stage_times(fn):
-    """fn run once with every split-route stage launch between two CUDA
-    events (behind a spin of SPLIT_SPIN_S, as _events_us queues one) and
-    every all-reduce of the stage buffer timed on the host clock between
-    two device syncs (so that neither includes the other):
-    ({(level height, stage kind): [device us]}, [all-reduce s], fn's wall
-    s, this instrumented run's)."""
+    """fn run once with every split-route stage launch issued eagerly, and
+    every replay of a captured unit (nccl: kind "unit", an iteration's
+    stages and all-reduces), between two CUDA events (behind a spin of
+    SPLIT_SPIN_S, as _events_us queues one) and every eager all-reduce of
+    the stage buffer timed on the host clock between two device syncs (so
+    that neither includes the other); nothing is timed while a unit is
+    captured: ({(level height, stage kind): [device us]}, [all-reduce
+    s], fn's wall s, this instrumented run's)."""
     import torch
     import torch.distributed as dist
 
@@ -5232,25 +5239,33 @@ def _split_stage_times(fn):
     from dvo_slam_tpu_torch.ops import linearize
 
     recs, coll, level = [], [], [0]
-    saved = (_build.launch, dist.all_reduce, linearize.track_level_split)
+    saved = (_build.launch, dist.all_reduce, linearize.track_level_split,
+             linearize._replay)
 
     def tls(ref, cur, *args, **kwargs):
         level[0] = int(cur.shape[-2])
         return saved[2](ref, cur, *args, **kwargs)
 
-    def launch(name, dev, args):
-        if name != "dvo_track_level_split":
-            return saved[0](name, dev, args)
+    def timed(kind, issue):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         # A spin ahead of the first event holds the card while the host
         # queues the launch, so the events time the card, not the host.
         torch.cuda._sleep(int(SPIN_HZ * SPLIT_SPIN_S))
         ev[0].record()
-        saved[0](name, dev, args)
+        issue()
         ev[1].record()
-        recs.append((level[0], _split_kind(args[-3], args[-2]), ev))
+        recs.append((level[0], kind, ev))
+
+    def launch(name, dev, args):
+        if (name != "dvo_track_level_split"
+                or torch.cuda.is_current_stream_capturing()):
+            return saved[0](name, dev, args)
+        timed(_split_kind(args[-3], args[-2]),
+              lambda: saved[0](name, dev, args))
 
     def all_reduce(t, *args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            return saved[1](t, *args, **kwargs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = saved[1](t, *args, **kwargs)
@@ -5258,8 +5273,11 @@ def _split_stage_times(fn):
         coll.append(time.perf_counter() - t0)
         return r
 
-    _build.launch, dist.all_reduce, linearize.track_level_split = (
-        launch, all_reduce, tls)
+    def replay(graph):
+        timed("unit", lambda: saved[3](graph))
+
+    (_build.launch, dist.all_reduce, linearize.track_level_split,
+     linearize._replay) = (launch, all_reduce, tls, replay)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5267,12 +5285,197 @@ def _split_stage_times(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        _build.launch, dist.all_reduce, linearize.track_level_split = saved
+        (_build.launch, dist.all_reduce, linearize.track_level_split,
+         linearize._replay) = saved
     times = {}
     for h, kind, ev in recs:
         times.setdefault((h, kind), []).append(
             1e3 * ev[0].elapsed_time(ev[1]))
     return times, coll, wall
+
+
+def _split_phases(fn):
+    """fn run once with a zeroed phase-timing buffer in every split-route
+    stage launch (csrc/linearize.cu's stamps of row 0's rank-0 CTA):
+    {(level height, stage kind): [({phase: device us}, the CTA's span
+    us)]} (linearize.split_phase_times)."""
+    import torch
+
+    from dvo_slam_tpu_torch import _build
+    from dvo_slam_tpu_torch.ops import linearize
+
+    recs, level = [], [0]
+    saved = (_build.launch, linearize.track_level_split)
+
+    def tls(ref, cur, *args, **kwargs):
+        level[0] = int(cur.shape[-2])
+        return saved[1](ref, cur, *args, **kwargs)
+
+    def launch(name, dev, args):
+        if (name != "dvo_track_level_split"
+                or torch.cuda.is_current_stream_capturing()):
+            return saved[0](name, dev, args)
+        buf = linearize.split_timing_buffer(dev)
+        saved[0](name, dev, (*args[:-4], buf.data_ptr(), *args[-3:]))
+        recs.append((level[0], _split_kind(args[-3], args[-2]), buf))
+
+    _build.launch, linearize.track_level_split = launch, tls
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        _build.launch, linearize.track_level_split = saved
+    out = {}
+    for h, kind, buf in recs:
+        out.setdefault((h, kind), []).append(
+            linearize.split_phase_times(buf.cpu().numpy()))
+    return out
+
+
+def _phase_medians(phases):
+    """{key: [(phases, span)]} -> {key: ({phase: median us}, median span
+    us)}."""
+    return {key: ({k: float(np.median([p[0][k] for p in v]))
+                   for k in v[0][0]},
+                  float(np.median([p[1] for p in v])))
+            for key, v in phases.items()}
+
+
+def _split_issue_parts(fn):
+    """fn run once with the host's time in each part of the split route's
+    issue on the host clock, nothing synced between them: each eager
+    stage's ctypes launch call, each eager all-reduce's dist.all_reduce
+    call and its entry time (time.monotonic_ns, one clock for every
+    process of the host: the ranks' skew), each graph replay of an
+    iteration's unit (nccl), each iteration's read of the done flags (it
+    waits for the card), and fn's wall time (to a device sync). Returns
+    {"launch": [s], "all_reduce": [s], "entered": [ns], "replay": [s],
+    "read": [s], "wall": s}."""
+    import torch
+    import torch.distributed as dist
+
+    from dvo_slam_tpu_torch import _build
+    from dvo_slam_tpu_torch.ops import linearize
+
+    got = {"launch": [], "all_reduce": [], "entered": [], "replay": [],
+           "read": []}
+    saved = (_build.launch, dist.all_reduce, linearize._split_flags,
+             linearize._replay)
+
+    def launch(name, dev, args):
+        t0 = time.perf_counter()
+        r = saved[0](name, dev, args)
+        if name == "dvo_track_level_split":
+            got["launch"].append(time.perf_counter() - t0)
+        return r
+
+    def all_reduce(t, *args, **kwargs):
+        got["entered"].append(time.monotonic_ns())
+        t0 = time.perf_counter()
+        r = saved[1](t, *args, **kwargs)
+        got["all_reduce"].append(time.perf_counter() - t0)
+        return r
+
+    def flags(sums):
+        t0 = time.perf_counter()
+        r = saved[2](sums)
+        got["read"].append(time.perf_counter() - t0)
+        return r
+
+    def replay(graph):
+        t0 = time.perf_counter()
+        saved[3](graph)
+        got["replay"].append(time.perf_counter() - t0)
+
+    (_build.launch, dist.all_reduce, linearize._split_flags,
+     linearize._replay) = (launch, all_reduce, flags, replay)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        got["wall"] = time.perf_counter() - t0
+    finally:
+        (_build.launch, dist.all_reduce, linearize._split_flags,
+         linearize._replay) = saved
+    return got
+
+
+def _stage_reduce_us(B, group, device, n=50):
+    """Device us of one all-reduce of a (B, 33) f64 stage buffer over
+    ``group``, n back to back between two CUDA events behind a spin that
+    outlasts the host's issue of the n (twice its time in a first round),
+    so that the events time the card's collectives, nothing between
+    them."""
+    import torch
+    import torch.distributed as dist
+
+    from dvo_slam_tpu_torch.ops import linearize
+
+    sums = torch.zeros((B, linearize._SPLIT_SUMS), dtype=torch.float64,
+                       device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        dist.all_reduce(sums, group=group)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda._sleep(int(SPIN_HZ * (2.0 * host_s + 1e-3)))
+    ev[0].record()
+    for _ in range(n):
+        dist.all_reduce(sums, group=group)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return 1e3 * ev[0].elapsed_time(ev[1]) / n
+
+
+def _issue_summary(parts, reduce_us, skew_us=None):
+    """One line of a pairs run's issue split (_split_issue_parts) per
+    stage pair (a launch and its all-reduce)."""
+    def us(x):
+        return (f"{1e6 * np.mean(x):.1f} us (median {1e6 * np.median(x):.1f})"
+                if len(x) else "none")
+
+    n = max(len(parts["launch"]), 1)
+    pair = 1e6 * parts["wall"] / n
+    line = (f"{len(parts['launch'])} eager stage launches, "
+            f"{len(parts['all_reduce'])} eager all-reduces, "
+            f"{len(parts['replay'])} graph replays, {len(parts['read'])} reads"
+            f" in {1e3 * parts['wall']:.2f} ms ({pair:.1f} us an eager "
+            f"stage pair): host ctypes launch {us(parts['launch'])}, host "
+            f"dist.all_reduce call {us(parts['all_reduce'])}, host graph "
+            f"replay {us(parts['replay'])}, NCCL's device time "
+            f"for the stage buffer {reduce_us:.2f} us (back to back, events), "
+            f"the read of the done flags {1e6 * np.mean(parts['read']):.1f} "
+            f"us an iteration ({1e3 * np.sum(parts['read']):.2f} ms in all)")
+    if skew_us is not None:
+        line += (f", the ranks' skew at an all-reduce {np.mean(skew_us):.1f}"
+                 f" us (median {np.median(skew_us):.1f}, max "
+                 f"{np.max(skew_us):.1f})")
+    return line
+
+
+def _split_bands(refs, curs, Ks, T0, cfg, group, log=None):
+    """Rank 0's bands (the top half of every tracked level's rows) of the
+    pairs through track_level_split in ``group``, coarse to fine, each
+    level from the one before's poses: [(out, out_i)] copies a level; with
+    ``log`` a list, (level, band, the level's initial poses) appended to
+    it a level."""
+    from dvo_slam_tpu_torch.ops import linearize
+
+    T, outs = T0, []
+    for lvl in cfg.tracked_levels:
+        h = refs[lvl].shape[-2] // 2
+        band = refs[lvl][:, :, :h].contiguous()
+        if log is not None:
+            log.append((lvl, band, T.clone()))
+        out, out_i = linearize.track_level_split(
+            linearize.RefSlabs(band), curs[lvl], Ks[lvl], T, cfg, group)
+        outs.append((out.clone(), out_i.clone()))
+        T = out[:, linearize._LEVEL_T:linearize._LEVEL_LOGLIK].unflatten(
+            -1, (4, 4))
+    return outs
 
 
 def _split_alone(refs, curs, Ks, T0, cfg):
@@ -5293,21 +5496,119 @@ def _split_alone(refs, curs, Ks, T0, cfg):
         rank=0, world_size=1)
     try:
         def run():
-            T = T0
-            for lvl in cfg.tracked_levels:
-                h = refs[lvl].shape[-2] // 2
-                out, _ = linearize.track_level_split(
-                    linearize.RefSlabs(refs[lvl][:, :, :h].contiguous()),
-                    curs[lvl], Ks[lvl], T, cfg, dist.group.WORLD)
-                T = out[:, linearize._LEVEL_T:linearize._LEVEL_LOGLIK
-                        ].unflatten(-1, (4, 4))
+            _split_bands(refs, curs, Ks, T0, cfg, dist.group.WORLD)
 
         run()
         before = linearize.LAUNCHES_TRACK_LEVEL_SPLIT
         timed = _split_stage_times(run)
         return timed, linearize.LAUNCHES_TRACK_LEVEL_SPLIT - before
     finally:
-        dist.destroy_process_group()
+        parallel.destroy()
+
+
+@contextlib.contextmanager
+def _eager_issue():
+    """The split route's issue eager under any backend (its nccl graph
+    issue swapped out, as phase 7 swaps routes): the yardstick of the
+    graph issue's parts."""
+    from dvo_slam_tpu_torch.ops import linearize
+
+    saved = linearize.graph_issue
+    linearize.graph_issue = lambda group: False
+    try:
+        yield
+    finally:
+        linearize.graph_issue = saved
+
+
+def _split_nccl_alone(refs, curs, Ks, T0, cfg, device):
+    """The split route's graph issue in a 1-rank nccl group in this
+    process (rank 0's bands of phase 11's pairs, every tracked level at
+    B = PARALLEL_B): three runs held bit for bit to the eager issue (a
+    1-rank gloo group beside it: the same sums), each level to the level
+    kernel over the same band's points from the same pose (poses 1e-4,
+    valid counts 1e-3 relative); the captures of the first run, the
+    launches, all-reduces and replays of a later one; a pairs run's issue
+    split (_split_issue_parts) with the graph and with the eager issue;
+    and the stage launches by phase (_split_phases, eager in the gloo
+    group). Returns the figures."""
+    import torch
+    import torch.distributed as dist
+
+    from dvo_slam_tpu_torch import parallel
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.ops import linearize
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{parallel.free_port()}",
+        rank=0, world_size=1)
+    try:
+        gloo = dist.new_group([0], backend="gloo")
+
+        def run(group, log=None):
+            return _split_bands(refs, curs, Ks, T0, cfg, group, log)
+
+        def counts():
+            return {k: v for k, v in _launches().items()
+                    if k.endswith("_split")}
+
+        levels = []
+        eager = run(gloo, levels)
+        runs, issued = [], []
+        for _ in range(3):
+            before = counts()
+            runs.append(run(dist.group.WORLD))
+            after = counts()
+            issued.append({k: after[k] - before[k] for k in after})
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for r in runs
+                   for x, y in zip(r, eager) for a, b in zip(x, y))
+        d_T = d_n = 0.0
+        M = cfg.max_iterations
+        for (lvl, band, T), (out, out_i) in zip(levels, runs[0]):
+            got = linearize.unpack_level(out, out_i, M)
+            o2, i2 = linearize.track_level_kernels(
+                linearize.prepare_reference(band, Ks[lvl], cfg), curs[lvl],
+                Ks[lvl], T, cfg)
+            want = linearize.unpack_level(o2, i2, M)
+            d_T = max(d_T, float((got.T - want.T).abs().max()))
+            n_g = got.best[:, dense_tracker._N_RAW]
+            n_w = want.best[:, dense_tracker._N_RAW]
+            d_n = max(d_n, float(((n_g - n_w).abs()
+                                  / n_w.clamp(min=1.0)).max()))
+        parts = {"graph": _split_issue_parts(lambda: run(dist.group.WORLD))}
+        with _eager_issue():
+            run(dist.group.WORLD)
+            parts["eager"] = _split_issue_parts(
+                lambda: run(dist.group.WORLD))
+        reduce_us = _stage_reduce_us(T0.shape[0], dist.group.WORLD, device)
+        phases = _phase_medians(_split_phases(lambda: run(gloo)))
+    finally:
+        parallel.destroy()
+    return {"same": same, "d_T": d_T, "d_n": d_n, "issued": issued,
+            "parts": parts, "reduce_us": reduce_us, "phases": phases}
+
+
+def _split_launch_bounds(cfg, B):
+    """The least time of each stage launch of a pairs run's bands (rank
+    0's: half of every tracked level's rows) at B rows, from the bytes it
+    must move at PEAK_BYTES_S ({(level, stage kind): us}): stage 0 reads
+    the band's reference planes (_slab_ref_bytes a pixel) and the current
+    slab's pixels that the band's near-identity warps gather from (about
+    the band's own rows: 24 B a point) and writes the kept points (37 B a
+    point); a Sigma
+    step reads rI, rZ and valid (9 B a point); the normal equations all
+    37; the stage buffer and the carry are ~1 KB a row."""
+    out = {}
+    for lv in cfg.tracked_levels:
+        h, w = H >> lv, W >> lv
+        n = (h // 2) * w * B
+        small = 1024 * B
+        for kind, nbytes in (
+                ("first", n * (_slab_ref_bytes(cfg) + 37 + 24)),
+                ("sigma", 9 * n), ("normal", 37 * n)):
+            out[(lv, kind)] = 1e6 * (nbytes + small) / PEAK_BYTES_S
+    return out
 
 
 def _split_expected(res, cfg):
@@ -5638,7 +5939,8 @@ def phase_parallel(device):
           f"{1e3 * single['kernel']['sequences s']:.1f})")
     print(f"phase 11 pixel route, rank 0's {rows_0} pairs: split launches "
           f"{la['track_level_split']} ({la['track_level_split'] / rows_0:.2f} "
-          f"a tracked pair), all-reduces {la['collectives_split']} "
+          f"a tracked pair; graph replays {la['replays_split']}, captures "
+          f"{la['captures_split']}), all-reduces {la['collectives_split']} "
           f"({la['collectives_split'] / rows_0:.2f} a tracked pair; expected "
           f"{r0['expected']}), standalone sampler {la['sample_slab']}, "
           f"mode (a) {la['linearize']}, mode (b) {la['track_level']}, "
@@ -5693,18 +5995,60 @@ def phase_parallel(device):
           f"launches {alone_ms:.3f} ms of device time, "
           f"{1e3 * wall_1:.1f} ms wall ({len(coll_1)} one-rank all-reduces "
           f"{1e3 * sum(coll_1):.1f} ms)")
+    # The graph issue (nccl) in a 1-rank group on card 0; the phase split.
+    t0 = time.perf_counter()
+    nc = _split_nccl_alone(refs, curs, Ks, T0_t, cfg, device)
+    first, later = nc["issued"][0], nc["issued"][2]
+    print(f"phase 11 split route, graph issue in a 1-rank nccl group "
+          f"(rank 0's bands of the {PARALLEL_B} pairs): three runs "
+          f"{'the same bits as' if nc['same'] else 'DIFFER from'} the eager "
+          f"issue (1-rank gloo); against the level kernel over the same "
+          f"points |dT| {nc['d_T']:.2e}, valid counts within "
+          f"{nc['d_n']:.2e} (tol 1e-4, 1e-3); captures in the first run "
+          f"{first['captures_split']}, in a later run "
+          f"{later['captures_split']}; a later run's replays "
+          f"{later['replays_split']}, launches "
+          f"{later['track_level_split']} and all-reduces "
+          f"{later['collectives_split']} (eager ones "
+          f"{len(nc['parts']['graph']['launch'])}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    for name in ("graph", "eager"):
+        print(f"phase 11 split issue, {name} issue, 1-rank nccl group: "
+              + _issue_summary(nc["parts"][name], nc["reduce_us"]))
+    bounds_1 = _split_launch_bounds(cfg, PARALLEL_B)
+    for (h, kind), (ph, span) in sorted(nc["phases"].items(), reverse=True):
+        lv = int(round(np.log2(H / h)))
+        print(f"phase 11 split phases, level {lv} {kind} (B = {PARALLEL_B}, "
+              f"row 0's first CTA, us, median): span {span:.2f}; "
+              + ", ".join(f"{k} {v:.2f}" for k, v in ph.items())
+              + (f"; bound {bounds_1[(lv, kind)]:.4f}"
+                 if (lv, kind) in bounds_1 else ""))
+    if not (nc["same"] and nc["d_T"] <= 1e-4 and nc["d_n"] <= 1e-3):
+        raise AssertionError(f"the graph issue: bits {nc['same']}, |dT| "
+                             f"{nc['d_T']}, valid {nc['d_n']}")
+    if not (first["captures_split"] >= 1 and later["captures_split"] == 0
+            and later["replays_split"] >= 1
+            and later["track_level_split"] == first["track_level_split"]):
+        raise AssertionError(f"the graph issue's counts {nc['issued']}")
+
     its = r0["pairs"].iterations[:rows_0]  # rank 0's rows, (B, levels)
     split_bytes = split_ops = 0.0
     for j, lv in enumerate(cfg.tracked_levels):
         h_l, w_l = H >> lv, W >> lv
         band = (h_l // 2) * w_l
         n_its = float(its[:, j].sum())
-        split_bytes += n_its * (_slab_ref_bytes(cfg) * band + 24 * h_l * w_l)
+        # The band's planes and the current slab's pixels its warps
+        # gather from (about the band's rows), each iteration.
+        split_bytes += n_its * (_slab_ref_bytes(cfg) + 24) * band
         split_ops += n_its * RESIDUAL_OPS[0] * band
     split_row = {"launches": la["track_level_split"],
                  "err": err["plain pixel"], "ms": alone_ms,
                  "plain_ms": 1e3 * r0["pairs plain s"],
-                 "bound": _bound_ms(split_bytes, split_ops, 0.0)}
+                 "bound": _bound_ms(split_bytes, split_ops, 0.0),
+                 "launch_bound_ms": {
+                     f"level {lv} {kind}": 1e-3 * us
+                     for (lv, kind), us in _split_launch_bounds(
+                         cfg, rows_0).items()}}
     print(f"phase 11 split route row: device {alone_ms:.3f} ms a pairs "
           f"run's launches (alone on the card), plain pixel route "
           f"{split_row['plain_ms']:.1f} ms, bound "

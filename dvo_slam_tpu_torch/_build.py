@@ -155,6 +155,7 @@ def _entry_points():
             vp, i64, vp, i64, cd,  # out, stride, out_i, stride, loglik
             ci, ci, vp, vp, vp,  # the band's rows and first row, state,
             # sums, points
+            ci, vp,  # the t-distribution's CTAs a row; timing (or null)
             ci, ci, ci, vp,  # stage, Sigma steps, iteration, stream
         ], ci),
         "dvo_pose_graph": ([

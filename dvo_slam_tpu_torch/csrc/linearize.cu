@@ -41,8 +41,11 @@
 //       launch cannot wait on another process, so each stage writes its
 //       rows' partial sums to a (B, kSplitSums) f64 buffer that the caller
 //       all-reduces over the group before the next stage reads the totals;
-//       the decisions (irls_step) run on the card from those totals, the
-//       same bits on every rank. See split_stage_kernel.
+//       the decisions (irls_step_warp) run on the card from those totals, the
+//       same bits on every rank. On the t-distribution no launch waits on
+//       another CTA, so its stages run on plain CTAs, the last of which
+//       (an integer ticket) sums the row's partial sums; the others keep
+//       clusters. See split_stage_kernel.
 //
 // Each kernel is two instantiations: <false> for the t-distribution (the
 // default config), <true> for every other scale estimator and for no
@@ -211,7 +214,26 @@ constexpr int kErrNoActiveCluster = 100001;
 constexpr int kSumValid = 29, kSumSelected = 30, kSumDone = 31, kSumSteps = 32,
               kSplitSums = 33;
 constexpr int kSplitStateWords = 112;
+constexpr int kSplitTicketWord = 10;  // SplitState's ticket, a word of its row
 constexpr int kStageFinish = 1024;
+// The split mode's t-distribution launches: threads a CTA (no cluster), at
+// most kMaxSplitCtas CTAs a row, each CTA's partial sums kPartialStride
+// doubles apart.
+constexpr int kSplitThreads = 256;
+constexpr int kMaxSplitCtas = 256;
+constexpr int kPartialStride = 32;
+static_assert(kPartialStride >= kNormalSums, "a CTA's partial sums fit their slot");
+static_assert(kSplitThreads % 32 == 0 && kThreads % kSplitThreads == 0, "whole warps");
+// The split mode's phase-timing buffer (ops/linearize.py
+// split_timing_buffer / split_phase_times): %globaltimer (ns) at the start
+// [0] and end [1] of row 0's first CTA; clock64 at its start [2], with the
+// carry loaded [3], the decision taken [4], the pass done [5], its sums
+// reduced [6] (the CTA's and, on clusters, the cluster's; the
+// t-distribution: into its partial slot, and its ticket taken), the
+// row's sums in place [7] (clusters: past the barrier; the
+// t-distribution: the last CTA's sum of the partials, nothing where this
+// CTA is not the last) and with the sums and the carry written [8].
+constexpr int kSplitTimingSlots = 9;
 static_assert(kSumValid >= kNormalSums, "the counts follow the normal equations' sums");
 
 struct Params {
@@ -293,6 +315,9 @@ struct Params {
   // stages after it: per CTA the shared-memory layout of Points (at a
   // stride of points_bytes(P)).
   uint8_t* split_points;
+  // The split mode's phase stamps (kSplitTiming* slots; null on the main
+  // path), written by row 0's rank-0 CTA.
+  long long* split_timing;
 };
 
 // Bytes of one CTA's kept points (P floats of each of kPointFloats planes,
@@ -394,10 +419,52 @@ __device__ __forceinline__ bool selection(const Params& p, float z, float ix, fl
   return sel;
 }
 
-__device__ __forceinline__ RefPoint ref_point(const Params& p, const Row& r, int i) {
+// A pixel's six reference planes on the slab route (ref_point's loads).
+struct RefRaw {
+  float z, ix, iy, zx, zy, i1;
+};
+
+__device__ __forceinline__ RefRaw ref_raw(const Params& p, const Row& r, int i) {
+  const int64_t plane = (int64_t)p.ref_H * p.W;
+  const float* s = r.ref + i;
+  RefRaw w;
+  w.z = __ldg(s + plane);
+  w.ix = __ldg(s + 2 * plane);
+  w.iy = __ldg(s + 3 * plane);
+  w.zx = __ldg(s + 4 * plane);
+  w.zy = __ldg(s + 5 * plane);
+  w.i1 = __ldg(s);
+  return w;
+}
+
+// Reference pixel i of the slab route from its planes (ref_point's
+// arithmetic after its loads).
+__device__ __forceinline__ RefPoint ref_point_of(const Params& p, const RefRaw& w, int i) {
   RefPoint q;
   q.gix = q.giy = q.gzx = q.gzy = 0.f;
+  const bool sel = selection(p, w.z, w.ix, w.iy, w.zx, w.zy);
+  if (p.ref_grad) {
+    q.gix = finite_or0(w.ix);
+    q.giy = finite_or0(w.iy);
+    if (p.use_depth) {
+      q.gzx = finite_or0(w.zx);
+      q.gzy = finite_or0(w.zy);
+    }
+  }
+  const float zs = sel ? w.z : 1.f;
+  const int v = i / p.W, u = i - v * p.W;
+  q.px = mul(__fdiv_rn(sub((float)u, __ldg(p.K + 2)), __ldg(p.K + 0)), zs);
+  q.py = mul(__fdiv_rn(sub((float)(v + p.row0), __ldg(p.K + 3)), __ldg(p.K + 1)), zs);
+  q.pz = zs;
+  q.i1 = w.i1;
+  q.selected = sel;
+  return q;
+}
+
+__device__ __forceinline__ RefPoint ref_point(const Params& p, const Row& r, int i) {
   if (!r.ref) {
+    RefPoint q;
+    q.gix = q.giy = q.gzx = q.gzy = 0.f;
     q.px = __ldg(r.px + i);
     q.py = __ldg(r.py + i);
     q.pz = __ldg(r.pz + i);
@@ -413,36 +480,14 @@ __device__ __forceinline__ RefPoint ref_point(const Params& p, const Row& r, int
     }
     return q;
   }
-  const int64_t plane = (int64_t)p.ref_H * p.W;
-  const float* s = r.ref + i;
-  const float z = __ldg(s + plane);
-  const float ix = __ldg(s + 2 * plane), iy = __ldg(s + 3 * plane);
-  const float zx = __ldg(s + 4 * plane), zy = __ldg(s + 5 * plane);
-  const bool sel = selection(p, z, ix, iy, zx, zy);
-  if (p.ref_grad) {
-    q.gix = finite_or0(ix);
-    q.giy = finite_or0(iy);
-    if (p.use_depth) {
-      q.gzx = finite_or0(zx);
-      q.gzy = finite_or0(zy);
-    }
-  }
-  const float zs = sel ? z : 1.f;
-  const int v = i / p.W, u = i - v * p.W;
-  q.px = mul(__fdiv_rn(sub((float)u, __ldg(p.K + 2)), __ldg(p.K + 0)), zs);
-  q.py = mul(__fdiv_rn(sub((float)(v + p.row0), __ldg(p.K + 3)), __ldg(p.K + 1)), zs);
-  q.pz = zs;
-  q.i1 = __ldg(s);
-  q.selected = sel;
-  return q;
+  return ref_point_of(p, ref_raw(p, r, i), i);
 }
 
-// Warp, project, sample and residual of reference point i at pose T, in the
-// order of ops/linearize.py::residuals_reference (and ops/sampler.py's plain
-// sample).
-__device__ __forceinline__ Point residual(const Params& p, const Row& r,
-                                          const float* T, int i) {
-  const RefPoint rp = ref_point(p, r, i);
+// Warp, project, sample and residual of reference point rp at pose T, in
+// the order of ops/linearize.py::residuals_reference (and ops/sampler.py's
+// plain sample).
+__device__ __forceinline__ Point residual_of(const Params& p, const Row& r, const float* T,
+                                             const RefPoint& rp) {
   const float px = rp.px, py = rp.py, pz = rp.pz;
   Point q;
   q.X = add(add(add(mul(T[0], px), mul(T[1], py)), mul(T[2], pz)), T[3]);
@@ -500,6 +545,11 @@ __device__ __forceinline__ Point residual(const Params& p, const Row& r,
   q.rI = valid ? rI : 0.f;
   q.rZ = (valid && p.use_depth) ? rZ : 0.f;
   return q;
+}
+
+// The residual of reference point i.
+__device__ __forceinline__ Point residual(const Params& p, const Row& r, const float* T, int i) {
+  return residual_of(p, r, T, ref_point(p, r, i));
 }
 
 // The CTA's slice of points in shared memory, structure of arrays, and
@@ -934,16 +984,14 @@ __device__ __forceinline__ void finish_lin(const Params& p, Shared& sh, const do
 // Weights, Jacobian and the normal equations' sums at precision P
 // (ops/linearize.py::normal_equations_reference), in sh.tot[0..28].
 template <bool kCompact, bool tdist>
-__device__ __forceinline__ void normal_pass(const Params& p, const Row& r, Shared& sh,
+__device__ __forceinline__ void normal_sums(const Params& p, const Row& r, const Shared& sh,
                                             const Points& s, int base, int n_mine,
-                                            int& parity, int C, const Precision& P) {
-  double acc[kNormalSums];
-#pragma unroll
-  for (int k = 0; k < kNormalSums; ++k) acc[k] = 0.0;
+                                            const Precision& P, double (&acc)[kNormalSums],
+                                            int nt = kThreads) {
   const float p01 = p.use_depth ? P.p01 : 0.f;
   const float p11 = p.use_depth ? P.p11 : 0.f;
   const float fx = __ldg(p.K + 0), fy = __ldg(p.K + 1);
-  for (int j = threadIdx.x; j < n_mine; j += kThreads) {
+  for (int j = threadIdx.x; j < n_mine; j += nt) {
     const Point q = load_point<true, kCompact>(p, r, sh, s, base, j);
     if (!q.valid) continue;
     float maha, w;
@@ -977,6 +1025,16 @@ __device__ __forceinline__ void normal_pass(const Params& p, const Row& r, Share
     acc[27] += (double)(w * maha);
     acc[28] += (double)log1pf(maha * (1.f / p.nu));
   }
+}
+
+template <bool kCompact, bool tdist>
+__device__ __forceinline__ void normal_pass(const Params& p, const Row& r, Shared& sh,
+                                            const Points& s, int base, int n_mine,
+                                            int& parity, int C, const Precision& P) {
+  double acc[kNormalSums];
+#pragma unroll
+  for (int k = 0; k < kNormalSums; ++k) acc[k] = 0.0;
+  normal_sums<kCompact, tdist>(p, r, sh, s, base, n_mine, P, acc);
   cluster_sum<kNormalSums>(acc, sh, parity, C);
 }
 
@@ -1447,7 +1505,7 @@ __device__ __forceinline__ void write_level_row(const Params& p, const Shared& s
   const int M = p.max_iterations;
   if (threadIdx.x < 16) o[kLevelT + threadIdx.x] = sh.Tbest[threadIdx.x];
   if (threadIdx.x < kBestSize) o[kLevelBest + threadIdx.x] = sh.best[threadIdx.x];
-  for (int q = threadIdx.x; q < kStatPlanes * M; q += kThreads)
+  for (int q = threadIdx.x; q < kStatPlanes * M; q += blockDim.x)
     if (q >= 4 * M || q % M >= k) o[kLevelStats + q] = 0.f;
   float* extra = o + kLevelStats + kStatPlanes * M;
   if (threadIdx.x == 0) {
@@ -1523,191 +1581,924 @@ __global__ void __launch_bounds__(kThreads, 1) track_level_kernel(Params p) {
 // steps + 1 the normal equations: 2 + steps collectives an iteration. Off
 // it stage 0 is the whole linearization, the scale per rank as the JAX
 // package takes it (no psum in its scale functions): one collective.
-// Stage 0 of iteration k > 0 first takes iteration k - 1's decision
-// (irls_step on the all-reduced totals); kStageFinish takes the last
+// Stage 0 of iteration k > 0 first takes iteration k - 1's decision (the
+// IRLS step on the all-reduced totals); kStageFinish takes the last
 // iteration's. The carry lives in SplitState, one per row, between
 // launches; stage 0's residual pass keeps each point (rI, rZ, valid and
-// the Jacobian's inputs, mode (b)'s shared-memory layout) in device
-// memory for the stages after it, and the slot tables of compaction live
-// in the global (B, budget) table (select_slots in the level's first
-// launch). What bounds it: a stage reads each row's kept points (9 of
-// their 37 bytes in a Sigma step) far under the memory rate; its time is
-// the launch, its one cluster reduction and, in stage 0, the decision in
-// one thread, and an iteration's is the all-reduce between launches (over
-// gloo a copy through the host each). The design cuts the host out of the
-// iteration but for those collectives and one read of the done flags.
+// the Jacobian's inputs) in device memory for the stages after it, a row's
+// points as planes of N (split_points_of: any grid reads them), and the
+// slot tables of compaction live in the global (B, budget) table
+// (select_slots in the level's first launch).
+//
+// What bounds it on this card. A stage moves little: a Sigma step reads 9
+// of a kept point's 37 bytes (2 400 points, ~22 KB, at level 3), stage 0
+// writes the 37. Its time is fixed costs, which the phase stamps
+// (split_stamp) split. Launched as clusters of cluster_size(N) CTAs of
+// 512 threads (one CTA an SM), as the first design of this mode did, a
+// Sigma step at level 3 spent ~5 us outside its CTAs (the cluster
+// launch), 1.5 us in its cluster reduction, 0.65 us in a second cluster
+// barrier and ~0.5 us each loading and storing the whole carry; stage 0
+// 3.8 us on the decision in one thread; and at level 1, B = 8 eight
+// clusters of 16 CTAs did not fit on the card at once (events 45.5 us
+// against the CTA's 21.8). What is left after the design below: a launch
+// behind another kernel costs ~4.8 us before any CTA runs (an empty
+// kernel timed alone), the decision ~2.6 us, a reduction's partial sums
+// and ticket ~1.2-3.4 us, and stage 0's pass at level 1, B = 8 ~1.3x its
+// bytes' time. The design:
+// - The t-distribution's launches (kRobust false) need no cluster: nothing
+//   inside a launch waits on another CTA's sum. A grid of split_ctas
+//   plain CTAs of kSplitThreads a row (ops/linearize.py split_ctas: a
+//   point a thread while two CTAs an SM hold the batch in one wave), each
+//   CTA's sums reduced by shuffle trees into its partial slot
+//   (split_partial), and the CTA that finishes last (an integer ticket in
+//   the carry, reset by it) sums the row's partials in a fixed order
+//   (split_totals) and writes the stage buffer and the carry. No float
+//   atomics. Only compaction's first launch, whose select_slots exchanges
+//   counts through distributed shared memory, runs as a cluster
+//   (cluster_size(N) CTAs of kThreads).
+// - A launch loads, and its last CTA stores, only the carry its stage
+//   reads and changes: a Sigma step or the normal equations the scale
+//   fields (SplitState's first block; each thread its own copy, with
+//   Sigma computed in registers, so no barrier comes before the pass),
+//   stage 0 and the finish all of it.
+// - Stage 0's decision runs on one warp in registers (irls_step_warp: the
+//   system's rows in lanes 0-5, each pivot's reciprocal square root
+//   multiplied in where solve6 divides: the solve took 2.5 of the
+//   decision's 4.2 us with solve6's divisions).
+// - The residual and Sigma passes take two points a thread at once (their
+//   loads in flight together), the first two's loaded ahead (stage 0's
+//   reference planes before the decision, a Sigma step's kept points
+//   before the carry); stores stay coalesced (planes of N). A Sigma step
+//   at level 3 on one CTA of 512 threads (8 points a thread, no ticket)
+//   took as long as on the grid (8.53-8.91 against 8.94 us), and levels
+//   2 and 1 lost 0.1-1.1 us on it: one grid serves every stage.
+// The other estimators (kRobust) keep the cluster grid: stage 0 is the
+// whole linearization, whose robust scale reduces inside the launch (MAD's
+// select, the normal scale's means), on clusters, with the same
+// decision on warp 0 (split_robust).
 struct SplitState {
+  // The scale carry, which every stage reads.
+  float a, bq, c, n, n_raw, n_sel;
+  int k, done, n_fp, n_fill;
+  unsigned ticket;  // CTAs of the running launch past their partial sums
+  // The decision's carry (stage 0 and the finish).
+  float lam;
+  int term;
   float T[16], Tbest[16], Tinit[16];
   float best[kBestSize];
-  float lam, a, bq, c, n, n_raw, n_sel;
-  int k, done, term, n_fp, n_fill;
 };
 static_assert(sizeof(SplitState) <= 4 * kSplitStateWords, "the state fits its row");
+static_assert(offsetof(SplitState, ticket) == 4 * kSplitTicketWord, "the ticket's word");
+static_assert(offsetof(SplitState, Tinit) == offsetof(SplitState, T) + 128 &&
+                  offsetof(Shared, Tinit) == offsetof(Shared, T) + 128,
+              "the poses are 48 floats in a row");
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A phase stamp of the split mode: clock64 into slot `slot` by row 0's
+// first CTA, every thread of which first meets here (a uniform branch:
+// timing is null or not for the whole launch).
+__device__ __forceinline__ void split_stamp(const Params& p, int slot) {
+  if (p.split_timing == nullptr || blockIdx.x != 0 || blockIdx.y != 0) return;
+  __syncthreads();
+  if (threadIdx.x == 0) p.split_timing[slot] = clock64();
+}
+
+// Bytes of one row of the split mode's buffer: its kept points (planes of
+// N floats, then N valid flags, rounded up to 16), then its CTAs' partial
+// sums (kMaxSplitCtas slots of kPartialStride doubles).
+__host__ __device__ __forceinline__ int64_t split_row_bytes(int N) {
+  return points_bytes(N) + (int64_t)kMaxSplitCtas * kPartialStride * 8;
+}
+
+// The points of row b from its point `base` on (a CTA's first), in the
+// row's planes, and its slot table from the same slot.
+__device__ __forceinline__ Points split_points_of(const Params& p, int b, int base) {
+  uint8_t* row = p.split_points + (int64_t)b * split_row_bytes(p.N);
+  Points s;
+  s.f = reinterpret_cast<float*>(row) + base;
+  s.P = p.N;
+  s.valid = row + (int64_t)4 * kPointFloats * p.N + base;
+  s.slot = p.slots ? p.slots + (int64_t)b * p.budget + base : nullptr;
+  return s;
+}
+
+// The carry into sh from row b's SplitState: the scalars by thread 0, the
+// poses and the record a load a thread, every load issued at once.
+__device__ __forceinline__ void load_carry(const SplitState* st, Shared& sh, int& k_row) {
+  const int t = threadIdx.x;
+  if (t == 0) {
+    const float a = st->a, bq = st->bq, c = st->c, n = st->n, n_raw = st->n_raw,
+                n_sel = st->n_sel, lam = st->lam;
+    const int k = st->k, done = st->done, n_fp = st->n_fp, n_fill = st->n_fill,
+              term = st->term;
+    sh.a = a;
+    sh.bq = bq;
+    sh.c = c;
+    sh.n = n;
+    sh.n_raw = n_raw;
+    sh.n_sel = n_sel;
+    sh.lam = lam;
+    k_row = k;
+    sh.done = done;
+    sh.n_fp = n_fp;
+    sh.n_fill = n_fill;
+    sh.term = term;
+  }
+  // SplitState's T, Tbest, Tinit and Shared's are 48 floats in a row each.
+  if (t < 48) (&sh.T[0])[t] = (&st->T[0])[t];
+  else if (t < 48 + kBestSize) sh.best[t - 48] = st->best[t - 48];
+}
+
+// The carry from sh into row b's SplitState (the last CTA), as load_carry
+// reads it; the ticket goes back to 0.
+__device__ __forceinline__ void store_carry(SplitState* st, const Shared& sh, int k_row) {
+  const int t = threadIdx.x;
+  if (t == 0) {
+    st->a = sh.a;
+    st->bq = sh.bq;
+    st->c = sh.c;
+    st->n = sh.n;
+    st->n_raw = sh.n_raw;
+    st->n_sel = sh.n_sel;
+    st->lam = sh.lam;
+    st->k = k_row;
+    st->done = sh.done;
+    st->n_fp = sh.n_fp;
+    st->n_fill = sh.n_fill;
+    st->term = sh.term;
+    st->ticket = 0u;  // for the next launch
+  }
+  if (t < 48) (&st->T[0])[t] = (&sh.T[0])[t];
+  else if (t < 48 + kBestSize) st->best[t - 48] = sh.best[t - 48];
+}
+
+// The level's initial carry (stage 0 of iteration 0), as track_level_kernel
+// starts a row.
+__device__ __forceinline__ void init_carry(const Params& p, Shared& sh, int b, int& k_row) {
+  const int t = threadIdx.x;
+  if (t < 16) sh.T[t] = sh.Tbest[t] = sh.Tinit[t] = p.T[b * p.T_stride + t];
+  if (t < kBestSize) sh.best[t] = 0.f;
+  if (t == 0) {
+    sh.lam = p.lm_init > 0.f ? p.lm_init : 0.f;
+    sh.a = sh.bq = sh.c = sh.n = sh.n_raw = sh.n_sel = 0.f;
+    sh.done = 0;
+    sh.term = kTermIterations;
+    sh.n_fp = 0;
+    sh.n_fill = 0;
+    k_row = 0;
+  }
+}
+
+// A warp's M sums of its lanes' values (M <= 32), lane m ending with sum m,
+// by a fixed tree: eight values at a time, a transposing butterfly over
+// each group of 8 lanes (at each of its 3 steps a lane keeps half of its
+// values and adds its partner's copy of that half), then two steps over
+// the groups: 9 shuffles for 8 values, not 40, and 8 values in registers.
+template <int M>
+__device__ __forceinline__ double warp_sums(const double (&v)[M], int lane) {
+  static_assert(M <= 32, "a sum a lane");
+  double out = 0.0;
+#pragma unroll
+  for (int g = 0; g < (M + 7) / 8; ++g) {
+    double x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = 8 * g + i < M ? v[8 * g + i] : 0.0;
+#pragma unroll
+    for (int s = 4; s >= 1; s >>= 1) {
+      const bool upper = (lane & s) != 0;
+#pragma unroll
+      for (int i = 0; i < s; ++i) {
+        const double send = upper ? x[i] : x[i + s];
+        const double keep = upper ? x[i + s] : x[i];
+        x[i] = keep + __shfl_xor_sync(0xffffffffu, send, s);
+      }
+    }
+    // Lane l holds value 8 g + (l & 7) over its group; then over the groups.
+    double y = x[0];
+    y += __shfl_xor_sync(0xffffffffu, y, 8);
+    y += __shfl_xor_sync(0xffffffffu, y, 16);
+    if ((lane >> 3) == g) out = y;
+  }
+  return out;
+}
+
+// This CTA's sums of M per-thread values into its partial slot of the row
+// (warp_sums, then warp 0 adds the warps' sums in order), and its ticket
+// (the carry's count of the launch's CTAs past this point, taken by warp
+// 0 after its partial sums are visible on the card). Returns, in every
+// thread, whether this CTA is the last to take one: it alone goes on to
+// split_totals (and store_carry writes the ticket back to 0). A row's
+// only CTA writes its sums into sh.tot itself, takes no ticket and needs
+// no split_totals.
+template <int M>
+__device__ bool split_partial(double (&v)[M], Shared& sh, double* partials, unsigned* ticket,
+                              int& last) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nw = blockDim.x >> 5;
+  const double x = warp_sums<M>(v, lane);
+  if (lane < M) sh.warp[lane * kWarps + warp] = x;
+  __syncthreads();
+  if (gridDim.x == 1) {
+    // The row's only CTA: its sums are the totals (into sh.tot).
+    if (warp == 0 && lane < M) {
+      double y = sh.warp[lane * kWarps];
+      for (int w = 1; w < nw; ++w) y += sh.warp[lane * kWarps + w];
+      sh.tot[lane] = y;
+    }
+    __syncthreads();
+    return true;
+  }
+  if (warp == 0) {
+    if (lane < M) {
+      double y = sh.warp[lane * kWarps];
+      for (int w = 1; w < nw; ++w) y += sh.warp[lane * kWarps + w];
+      partials[(int64_t)blockIdx.x * kPartialStride + lane] = y;
+    }
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1u;
+  }
+  __syncthreads();
+  return last != 0;
+}
+
+// A CTA with no sums to add (a stopped row, the finish, a step the row
+// does not take): with more than one CTA it takes its ticket all the same,
+// so that the CTA that writes the row's sums and carry (the last) does so
+// only after every CTA of the launch has read them. A row's only CTA
+// writes.
+__device__ bool split_arrive(unsigned* ticket, int& last) {
+  if (gridDim.x == 1) return true;
+  __syncthreads();  // this CTA's threads have read the carry and the sums
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1u;
+  }
+  __syncthreads();
+  return last != 0;
+}
+
+// The last CTA (of more than one): the row's totals over the launch's
+// CTAs' partial sums into tot, in a fixed order (sum m's lane l adds CTAs
+// l, l + 32, ... in turn, then a shuffle tree over the lanes): the same
+// inputs give the same bits every run. A warp's sums m = warp + i nw are
+// loaded together. No float atomics.
+template <int M>
+__device__ void split_totals(const double* partials, double* tot) {
+  constexpr int kEach = (M + kSplitThreads / 32 - 1) / (kSplitThreads / 32);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int G = gridDim.x;
+  __threadfence();
+  double x[kEach];
+#pragma unroll
+  for (int i = 0; i < kEach; ++i) {
+    const int m = warp + i * nw;
+    x[i] = m < M && lane < G ? __ldcg(partials + (int64_t)lane * kPartialStride + m) : 0.0;
+  }
+  for (int r = lane + 32; r < G; r += 32) {
+#pragma unroll
+    for (int i = 0; i < kEach; ++i) {
+      const int m = warp + i * nw;
+      if (m < M) x[i] += __ldcg(partials + (int64_t)r * kPartialStride + m);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kEach; ++i) {
+    double y = x[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) y += __shfl_down_sync(0xffffffffu, y, off);
+    const int m = warp + i * nw;
+    if (lane == 0 && m < M) tot[m] = y;
+  }
+  __syncthreads();
+}
+
+// Row i's entry c of a lane's registers, for the lane's own row: a chain
+// of selects over the static indices (an index into the array itself would
+// put it in local memory).
+__device__ __forceinline__ float at6(const float (&r)[6], int c) {
+  float x = r[0];
+#pragma unroll
+  for (int q = 1; q < 6; ++q) x = (q == c) ? r[q] : x;
+  return x;
+}
+
+// solve6 on one warp: the same damping, Jacobi scaling and Cholesky
+// (NaN where a pivot is not > 0), with each pivot's reciprocal square
+// root (__frsqrt_rn) multiplied in where solve6 divides, so the chain of
+// dependent steps is shorter (a different rounding: within f32 rounding of
+// solve6's). Lane i < 6 holds row i of the (scaled, then factored) system
+// in registers; the pivots and the substitutions' values pass by
+// shuffles. A (6, 6) and g (6,) in shared memory; every lane ends with dx.
+__device__ __forceinline__ void solve6_warp(const float* A, const float* g, float lam,
+                                            float (&dx)[6]) {
+  const unsigned full = 0xffffffffu;
+  const int i = threadIdx.x & 31;
+  float r[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) r[c] = i < 6 ? A[6 * i + c] : 0.f;
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+    if (c == i) r[c] = add(add(r[c], mul(lam, r[c])), kJitter);
+  const float d0 = at6(r, i);
+  const float si = __frcp_rn(__fsqrt_rn(d0 < kJitter ? kJitter : d0));  // clamp keeps NaN
+  float s[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) s[c] = __shfl_sync(full, si, c);
+#pragma unroll
+  for (int c = 0; c < 6; ++c) r[c] = mul(mul(r[c], si), s[c]);
+  bool ok = true;
+  float inv[6];  // 1 / L[j][j]
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float piv = 0.f;
+    if (i == j) {
+      float d = r[j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) d = sub(d, mul(r[k], r[k]));
+      ok = d > 0.f;
+      piv = __frsqrt_rn(d);
+    }
+    inv[j] = __shfl_sync(full, piv, j);
+    float lj[6];
+#pragma unroll
+    for (int k = 0; k < j; ++k) lj[k] = __shfl_sync(full, r[k], j);
+    if (i > j) {
+      float v = r[j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) v = sub(v, mul(r[k], lj[k]));
+      r[j] = mul(v, inv[j]);
+    }
+  }
+  ok = __all_sync(full, i >= 6 || ok);
+  const float gi = i < 6 ? g[i] : 0.f;
+  float y[6];
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {  // L y = -s b, row q on lane q
+    float v = 0.f;
+    if (i == q) {
+      v = -mul(gi, si);
+#pragma unroll
+      for (int k = 0; k < q; ++k) v = sub(v, mul(r[k], y[k]));
+      v = mul(v, inv[q]);
+    }
+    y[q] = __shfl_sync(full, v, q);
+  }
+#pragma unroll
+  for (int q = 5; q >= 0; --q) {  // L^T x = y, x into y, on every lane
+    float v = y[q];
+#pragma unroll
+    for (int k = q + 1; k < 6; ++k) v = sub(v, mul(__shfl_sync(full, r[q], k), y[k]));
+    y[q] = mul(v, inv[q]);
+  }
+#pragma unroll
+  for (int c = 0; c < 6; ++c) dx[c] = ok ? mul(y[c], s[c]) : __int_as_float(0x7fc00000);
+}
+
+// Scratch of one warp's decision: the pose it starts from and the system.
+struct DecideScratch {
+  float Tbase[16];
+  float A[36], g[6];
+};
+
+// finish_lin on one warp: A and b by lanes, the scalars on lane 0 (the
+// same expressions).
+__device__ __forceinline__ void finish_lin_warp(const Params& p, Shared& sh, const double* tot,
+                                                const Precision& P) {
+  const int lane = threadIdx.x & 31;
+  float* o = sh.lin;
+  if (lane < 21) {
+    int j = 0, e = lane;
+    while (e >= 6 - j) {
+      e -= 6 - j;
+      ++j;
+    }
+    const int k = j + e;
+    o[kOutA + 6 * j + k] = (float)tot[lane];
+    o[kOutA + 6 * k + j] = (float)tot[lane];
+  } else if (lane < 27) {
+    o[kOutB + lane - 21] = (float)tot[lane];
+  } else if (lane == 27) {
+    const float log1p_sum = (float)tot[28];
+    o[kOutErrMean] = add(0.5f * logf(P.det), __fdiv_rn((p.nu + 2.f) * 0.5f * log1p_sum, sh.n));
+    o[kOutN] = sh.n;
+    o[kOutNRaw] = sh.n_raw;
+    o[kOutSigma + 0] = sh.a;
+    o[kOutSigma + 1] = sh.bq;
+    o[kOutSigma + 2] = sh.bq;
+    o[kOutSigma + 3] = sh.c;
+    o[kOutLog1p] = log1p_sum;
+    o[kOutErrRaw] = (float)tot[27];
+  }
+  __syncwarp();
+}
+
+// irls_step on one warp (every lane of warp 0 calls it): its operations in
+// its order, the copies and the pose product spread over the lanes, the
+// solve by solve6_warp.
+__device__ __forceinline__ void irls_step_warp(const Params& p, Shared& sh, DecideScratch& ds,
+                                               int k, float* stats) {
+  const int lane = threadIdx.x & 31;
+  const float* lin = sh.lin;
+  float* best = sh.best;
+  const bool accept = (k == 0) || (lin[kOutErrMean] <= best[kBestErr]);
+  if (lane < 16) ds.Tbase[lane] = accept ? sh.T[lane] : sh.Tbest[lane];
+  __syncwarp();
+  if (accept) {
+    for (int i = lane; i < 42; i += 32) best[kBestA + i] = lin[kOutA + i];  // A, b
+    if (lane < 4) best[kBestSigma + lane] = lin[kOutSigma + lane];
+    if (lane == 4) best[kBestErr] = lin[kOutErrMean];
+    if (lane == 5) best[kBestErrRaw] = lin[kOutErrRaw];
+    if (lane == 6) best[kBestNRaw] = lin[kOutNRaw];
+    if (lane == 7) best[kBestLog1p] = lin[kOutLog1p];
+  }
+  __syncwarp();
+  float lam = sh.lam;
+  bool rejected_stop = false;
+  if (p.lm_init > 0.f) {
+    lam = accept ? fmaxf(mul(lam, p.lm_down), 1e-12f) : fminf(mul(lam, p.lm_up), p.lm_max);
+  } else {
+    rejected_stop = !accept;
+  }
+  // The system: the record's A and b, with the motion prior A + mu I and
+  // b + mu log(Tbase T_init^-1).
+  for (int i = lane; i < 42; i += 32) {
+    if (i < 36) ds.A[i] = best[kBestA + i];
+    else ds.g[i - 36] = best[kBestB + i - 36];
+  }
+  __syncwarp();
+  if (p.mu > 0.f) {
+    if (lane == 0) {
+      float xi[6];
+      prior_twist(ds.Tbase, sh.Tinit, xi);
+      for (int i = 0; i < 6; ++i) {
+        ds.A[7 * i] = add(ds.A[7 * i], p.mu);
+        ds.g[i] = add(ds.g[i], mul(p.mu, xi[i]));
+      }
+    }
+    __syncwarp();
+  }
+  float delta[6];
+  solve6_warp(ds.A, ds.g, lam, delta);
+  bool finite = true;
+  for (int i = 0; i < 6; ++i) finite = finite && isfinite(delta[i]);
+  float sq = 0.f;
+  for (int i = 0; i < 6; ++i) {
+    if (!finite) delta[i] = 0.f;
+    sq += delta[i] * delta[i];
+  }
+  const float delta_norm = sqrtf(sq);
+  float E[16];
+  se3_exp(delta, E);
+  const float* Tb = ds.Tbase;
+  if (lane < 16) {
+    const int i = lane >> 2, j = lane & 3;
+    sh.T[4 * i + j] = E[4 * i] * Tb[j] + E[4 * i + 1] * Tb[4 + j] + E[4 * i + 2] * Tb[8 + j] +
+                      E[4 * i + 3] * Tb[12 + j];
+    sh.Tbest[lane] = Tb[lane];
+  }
+  if (lane == 0) {
+    const bool converged = delta_norm < p.precision;
+    const bool too_few = best[kBestNRaw] < 6.f;
+    if (stats) {
+      const int M = p.max_iterations;
+      stats[k] = lin[kOutNRaw];
+      stats[M + k] = lin[kOutErrMean];
+      stats[2 * M + k] = delta_norm;
+      stats[3 * M + k] = accept ? 1.f : 0.f;
+    }
+    sh.term = rejected_stop ? kTermErrorIncreased
+              : too_few     ? kTermTooFew
+              : converged   ? kTermIncrement
+                            : kTermIterations;
+    sh.done = rejected_stop || converged || too_few;
+    sh.lam = lam;
+  }
+  __syncwarp();
+}
+
+// The residual of pixel i (no point for i < 0 under compaction) from its
+// reference planes `w` where `have`, else loaded here.
+template <bool kCompact>
+__device__ __forceinline__ Point split_point(const Params& p, const Row& r, const float* T, int i,
+                                             const RefRaw& w, bool have) {
+  if (kCompact && i < 0) return no_point();
+  return residual_of(p, r, T, ref_point_of(p, have ? w : ref_raw(p, r, i), i));
+}
+
+// The reference planes of a thread's first two points (j0 = the thread,
+// j0 + the block's threads, as split_residuals takes them), loaded ahead.
+template <bool kCompact>
+__device__ __forceinline__ void split_prefetch(const Params& p, const Row& r, const Shared& sh,
+                                               const Points& s, int base, int n_mine,
+                                               RefRaw (&pre)[2]) {
+  const int j0 = threadIdx.x, j1 = j0 + (int)blockDim.x;
+  if (j0 >= n_mine) return;
+  const int i0 = pixel_of<kCompact>(sh, s, base, j0);
+  const int i1 = pixel_of<kCompact>(sh, s, base, j1 < n_mine ? j1 : j0);
+  if (!kCompact || i0 >= 0) pre[0] = ref_raw(p, r, i0);
+  if (!kCompact || i1 >= 0) pre[1] = ref_raw(p, r, i1);
+}
+
+// The residual pass of the split mode: every point of this CTA's slice at
+// sh.T, kept in the row's planes, and its moments (residual_moments'),
+// two points a thread at once; the first two's reference planes from
+// `pre` where `have` (split_prefetch, before the decision).
+template <bool kCompact>
+__device__ __forceinline__ void split_residuals(const Params& p, const Row& r, Shared& sh,
+                                                const Points& s, int base, int n_mine,
+                                                const RefRaw (&pre)[2], bool have,
+                                                double (&m)[kMomentSums]) {
+  const int nt = blockDim.x;
+  for (int j0 = threadIdx.x; j0 < n_mine; j0 += 2 * nt) {
+    const int j1 = j0 + nt;
+    const bool two = j1 < n_mine;
+    const bool use = have && j0 == (int)threadIdx.x;
+    const Point q0 =
+        split_point<kCompact>(p, r, sh.T, pixel_of<kCompact>(sh, s, base, j0), pre[0], use);
+    const Point q1 = split_point<kCompact>(
+        p, r, sh.T, pixel_of<kCompact>(sh, s, base, two ? j1 : j0), pre[1], use);
+    store_point(s, j0, q0);
+    if (two) store_point(s, j1, q1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const Point& q = h ? q1 : q0;
+      if (h && !two) break;
+      if (q.valid) {
+        m[0] += (double)mul(q.rI, q.rI);
+        m[1] += (double)mul(q.rI, q.rZ);
+        m[2] += (double)mul(q.rZ, q.rZ);
+        m[3] += 1.0;
+      }
+      if (q.selected) m[4] += 1.0;
+    }
+  }
+}
+
+// A thread's first two kept points of a Sigma step (j0 and j0 + the
+// block's threads), loaded before the launch's carry so that the two
+// loads' latencies overlap.
+struct SigmaPair {
+  float rI[2], rZ[2];
+  bool valid[2];
+};
+
+__device__ __forceinline__ SigmaPair sigma_pair(const Points& s, int j0, int n_mine) {
+  SigmaPair q;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + h * (int)blockDim.x;
+    q.rI[h] = q.rZ[h] = 0.f;
+    q.valid[h] = false;
+    if (j < n_mine) {
+      q.rI[h] = s.at(0, j);
+      q.rZ[h] = s.at(1, j);
+      q.valid[h] = s.valid[j] != 0;
+    }
+  }
+  return q;
+}
+
+// One Sigma step's weighted moments (sigma_moments'), two kept points a
+// thread at once, the first two from `first` (sigma_pair).
+__device__ __forceinline__ void split_sigma(const Params& p, const Precision& P, const Points& s,
+                                            int n_mine, const SigmaPair& first,
+                                            double (&m)[kScaleSums]) {
+  const int nt = blockDim.x;
+  for (int j0 = threadIdx.x; j0 < n_mine; j0 += 2 * nt) {
+    const SigmaPair q = j0 == (int)threadIdx.x ? first : sigma_pair(s, j0, n_mine);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (q.valid[h]) {
+        float maha, w;
+        tdist_weight(P, p.nu, q.rI[h], q.rZ[h], &maha, &w);
+        m[0] += (double)mul(w, mul(q.rI[h], q.rI[h]));
+        m[1] += (double)mul(w, mul(q.rI[h], q.rZ[h]));
+        m[2] += (double)mul(w, mul(q.rZ[h], q.rZ[h]));
+      }
+    }
+  }
+}
+
+// A t-distribution stage launch's row pointers and this CTA's slice.
+struct SplitRow {
+  SplitState* st;
+  double* sums;
+  double* partials;
+  float* out;
+  int base, n_mine;
+};
+
+__device__ __forceinline__ SplitRow split_row(const Params& p, int b) {
+  SplitRow w;
+  w.st = reinterpret_cast<SplitState*>(p.split_state + (int64_t)b * kSplitStateWords);
+  w.sums = p.split_sums + (int64_t)b * kSplitSums;
+  w.partials = reinterpret_cast<double*>(p.split_points + (int64_t)b * split_row_bytes(p.N) +
+                                         points_bytes(p.N));
+  w.out = p.out + b * p.out_stride;
+  w.base = blockIdx.x * p.P;
+  w.n_mine = max(0, min(p.P, p.N - w.base));
+  return w;
+}
+
+// The t-distribution's Sigma steps (stage 1..steps) and normal equations
+// (steps + 1) on plain CTAs. Each thread loads the scale carry and the
+// stage before's totals itself (broadcast loads, issued with its first
+// kept points') and computes Sigma from them in registers (seed_sigma's
+// and sigma_update's arithmetic): no barrier before the pass. The row's
+// sums by split_partial and split_totals; the last CTA writes them and the
+// scale fields it changed.
+template <bool kCompact>
+__device__ void split_scale(const Params& p, Shared& sh, int& last) {
+  const int b = blockIdx.y, t = threadIdx.x;
+  const int stage = p.split_stage, steps = p.split_steps;
+  const Row r = row_of(p, b);
+  const SplitRow w = split_row(p, b);
+  const Points s = split_points_of(p, b, w.base);
+  const SplitState* st = w.st;
+  SigmaPair pair = {};
+  if (stage <= steps) pair = sigma_pair(s, t, w.n_mine);
+  float a = st->a, bq = st->bq, c = st->c, n = st->n, n_raw = st->n_raw, n_sel = st->n_sel;
+  int n_fp = st->n_fp;
+  const int done = st->done, k_row = st->k;
+  if (!done && stage == 1) {
+    // The moment seed (seed_sigma), warm from the carried Sigma where set.
+    const double s0 = w.sums[0], s1 = w.sums[1], s2 = w.sums[2];
+    n_raw = (float)w.sums[kSumValid];
+    n_sel = (float)w.sums[kSumSelected];
+    n = fmaxf(n_raw, 1.f);
+    a = add(__fdiv_rn((float)s0, n), p.floor_ii);
+    bq = __fdiv_rn((float)s1, n);
+    c = add(__fdiv_rn((float)s2, n), p.floor_zz);
+    n_fp = p.scale_iters;
+    if (k_row > 0 && p.warm_iters > 0) {
+      const float s00 = st->best[kBestSigma], s01 = st->best[kBestSigma + 1],
+                  s10 = st->best[kBestSigma + 2], s11 = st->best[kBestSigma + 3];
+      if (isfinite(s00) && isfinite(s01) && isfinite(s10) && isfinite(s11)) {
+        a = fmaxf(s00, p.floor_ii);
+        bq = s01;
+        c = fmaxf(s11, p.floor_zz);
+        n_fp = p.warm_iters;
+      }
+    }
+  } else if (!done && stage - 1 <= n_fp) {
+    // sigma_update from the step before's weighted moments.
+    const double s0 = w.sums[0], s1 = w.sums[1], s2 = w.sums[2];
+    a = add(__fdiv_rn((float)s0, n), p.floor_ii);
+    bq = __fdiv_rn((float)s1, n);
+    c = add(__fdiv_rn((float)s2, n), p.floor_zz);
+  }
+  split_stamp(p, 3);
+  split_stamp(p, 4);
+  const Precision P = precision(a, bq, c);
+  const bool step = !done && stage <= steps && stage <= n_fp;
+  const bool normal = !done && stage == steps + 1;
+  bool is_last;
+  if (step) {
+    double m[kScaleSums] = {0.0, 0.0, 0.0};
+    split_sigma(p, P, s, w.n_mine, pair, m);
+    split_stamp(p, 5);
+    is_last = split_partial<kScaleSums>(m, sh, w.partials, &w.st->ticket, last);
+    split_stamp(p, 6);
+    if (is_last && gridDim.x > 1) split_totals<kScaleSums>(w.partials, sh.tot);
+  } else if (normal) {
+    double acc[kNormalSums];
+#pragma unroll
+    for (int k = 0; k < kNormalSums; ++k) acc[k] = 0.0;
+    normal_sums<kCompact, true>(p, r, sh, s, w.base, w.n_mine, P, acc, blockDim.x);
+    split_stamp(p, 5);
+    is_last = split_partial<kNormalSums>(acc, sh, w.partials, &w.st->ticket, last);
+    split_stamp(p, 6);
+    if (is_last && gridDim.x > 1) split_totals<kNormalSums>(w.partials, sh.tot);
+  } else {
+    // Nothing to sum (a stopped row, a step it does not take).
+    split_stamp(p, 5);
+    is_last = split_arrive(&w.st->ticket, last);
+    split_stamp(p, 6);
+  }
+  split_stamp(p, 7);
+  if (!is_last) return;
+  if (t < kSplitSums) {
+    double v = 0.0;
+    if (step) v = t < kScaleSums ? sh.tot[t] : 0.0;
+    if (normal) v = t < kNormalSums ? sh.tot[t] : 0.0;
+    if (t == kSumDone) v = done ? 1.0 : 0.0;
+    if (t == kSumSteps) v = done ? 0.0 : (double)n_fp;
+    w.sums[t] = v;
+  }
+  if (t == 0) {
+    w.st->a = a;
+    w.st->bq = bq;
+    w.st->c = c;
+    w.st->n = n;
+    w.st->n_raw = n_raw;
+    w.st->n_sel = n_sel;
+    w.st->n_fp = n_fp;
+    w.st->ticket = 0u;  // for the next launch
+  }
+}
+
+// The t-distribution's stage 0 (the residual pass; from iteration 1 on
+// first the decision of the iteration before, on warp 0) and the finish
+// (the last decision and the write-out) on plain CTAs, or, for
+// compaction's first launch, on a cluster (select_slots); the row's sums
+// by split_partial and split_totals.
+template <bool kCompact>
+__device__ void split_tdist(const Params& p, Shared& sh, DecideScratch& ds, double* tot_in,
+                            int& k_row, int& decided, int& last) {
+  const int b = blockIdx.y, t = threadIdx.x;
+  const int stage = p.split_stage;
+  const bool first = stage == 0 && p.split_iter == 0;
+  const Row r = row_of(p, b);
+  const SplitRow w = split_row(p, b);
+  const Points s = split_points_of(p, b, w.base);
+  SplitState* st = w.st;
+
+  // The carry: the level's initial state, or all of it; and the
+  // all-reduced totals of the normal equations.
+  if (first) init_carry(p, sh, b, k_row);
+  else load_carry(st, sh, k_row);
+  if (!first && t < kSplitSums) tot_in[t] = w.sums[t];
+  if (t == 0) decided = 0;
+  __syncthreads();
+  split_stamp(p, 3);
+  if (first && kCompact) select_slots(p, r, sh, s, b, blockIdx.x, (int)gridDim.x);
+  // The reference planes of this thread's first points, in flight while
+  // warp 0 takes the decision.
+  RefRaw pre[2] = {};
+  const bool have = !first && !sh.done;
+  if (have) split_prefetch<kCompact>(p, r, sh, s, w.base, w.n_mine, pre);
+
+  if (!first) {
+    if (!sh.done && t < 32) {
+      finish_lin_warp(p, sh, tot_in, lin_precision(sh, true));
+      irls_step_warp(p, sh, ds, k_row, blockIdx.x == 0 ? w.out + kLevelStats : nullptr);
+      if (t == 0) {
+        ++k_row;
+        decided = 1;
+      }
+    }
+    __syncthreads();
+  }
+  split_stamp(p, 4);
+
+  // This launch's pass over the CTA's points, for a live row, and the
+  // row's sums.
+  const bool live = !sh.done && stage != kStageFinish;
+  bool is_last;
+  if (live) {
+    if (t == 0) {
+      // The Sigma steps this iteration takes (seed_sigma's rule), for the
+      // caller to launch.
+      const float* seed = sh.best + kBestSigma;
+      const bool warm = k_row > 0 && p.warm_iters > 0 && isfinite(seed[0]) &&
+                        isfinite(seed[1]) && isfinite(seed[2]) && isfinite(seed[3]);
+      sh.n_fp = warm ? p.warm_iters : p.scale_iters;
+    }
+    double m[kMomentSums] = {0.0, 0.0, 0.0, 0.0, 0.0};
+    split_residuals<kCompact>(p, r, sh, s, w.base, w.n_mine, pre, have, m);
+    split_stamp(p, 5);
+    is_last = split_partial<kMomentSums>(m, sh, w.partials, &st->ticket, last);
+    split_stamp(p, 6);
+    if (is_last && gridDim.x > 1) split_totals<kMomentSums>(w.partials, sh.tot);
+  } else {
+    // Nothing to sum (a stopped row, the finish).
+    split_stamp(p, 5);
+    is_last = split_arrive(&st->ticket, last);
+    split_stamp(p, 6);
+  }
+  split_stamp(p, 7);
+  if (!is_last) return;
+
+  // The last CTA: the stage's sums (the moments, valid and selected
+  // counts; zeros elsewhere), the carry, and the row's write-out where the
+  // decision stopped it or at the finish.
+  if (t < kSplitSums) {
+    double v = 0.0;
+    if (live)
+      v = t < 3 ? sh.tot[t] : t == kSumValid ? sh.tot[3] : t == kSumSelected ? sh.tot[4] : 0.0;
+    if (t == kSumDone) v = sh.done ? 1.0 : 0.0;
+    if (t == kSumSteps) v = live ? (double)sh.n_fp : 0.0;
+    w.sums[t] = v;
+  }
+  store_carry(st, sh, k_row);
+  if (decided && (sh.done || stage == kStageFinish)) {
+    __syncthreads();  // the carry is stored before the record takes the prior
+    if (p.mu > 0.f && t == 0)
+      for (int i = 0; i < 6; ++i) sh.best[kBestA + 7 * i] = add(sh.best[kBestA + 7 * i], p.mu);
+    __syncthreads();
+    write_level_row(p, sh, b, k_row, w.out);
+  }
+}
+
+// Every other estimator's stage launch: clusters of
+// cluster_size(N) CTAs; stage 0 the whole linearization (linearize_row,
+// its reductions inside the launch), the decision on warp 0 as the
+// t-distribution's (finish_lin in lane 0, then irls_step_warp), rank 0
+// writes the sums and the carry after a cluster barrier.
+template <bool kCompact>
+__device__ void split_robust(const Params& p, Shared& sh, DecideScratch& ds, double* tot_in,
+                             int& k_row, int& decided) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int b = blockIdx.y, t = threadIdx.x;
+  const int stage = p.split_stage;
+  const bool first = stage == 0 && p.split_iter == 0;
+  const Row r = row_of(p, b);
+  const int base = rank * p.P;
+  const Points s = split_points_of(p, b, base);
+  SplitState* st = reinterpret_cast<SplitState*>(p.split_state + (int64_t)b * kSplitStateWords);
+  double* sums = p.split_sums + (int64_t)b * kSplitSums;
+  float* o = p.out + b * p.out_stride;
+
+  if (first) init_carry(p, sh, b, k_row);
+  else load_carry(st, sh, k_row);
+  if (!first && t < kSplitSums) tot_in[t] = sums[t];
+  if (t == 0) decided = 0;
+  __syncthreads();
+  split_stamp(p, 3);
+  if (first && kCompact) select_slots(p, r, sh, s, b, rank, C);
+
+  // The decision of the iteration before (every CTA, from the same totals;
+  // the counts come with stage 0's sums, Sigma is this rank's own).
+  if (!first) {
+    if (!sh.done && t < 32) {
+      if (t == 0) {
+        sh.n_raw = (float)tot_in[kSumValid];
+        sh.n = fmaxf(sh.n_raw, 1.f);
+        sh.n_sel = (float)tot_in[kSumSelected];
+        finish_lin(p, sh, tot_in, lin_precision(sh, false), false);
+      }
+      __syncwarp();
+      irls_step_warp(p, sh, ds, k_row, rank == 0 ? o + kLevelStats : nullptr);
+      if (t == 0) {
+        ++k_row;
+        decided = 1;
+      }
+    }
+    __syncthreads();
+  }
+  split_stamp(p, 4);
+
+  const bool live = !sh.done && stage != kStageFinish;
+  int parity = 0;
+  if (live) linearize_row<true, kCompact>(p, r, sh, s, b, rank, C, parity, false, nullptr, false);
+  split_stamp(p, 5);
+  split_stamp(p, 6);
+  cluster.sync();  // every CTA has read the buffers rank 0 writes below
+  split_stamp(p, 7);
+  if (rank != 0) return;
+  if (t < kSplitSums) {
+    double v = 0.0;
+    if (live)
+      v = t < kNormalSums ? sh.tot[t]
+          : t == kSumValid ? (double)sh.n_raw
+          : t == kSumSelected ? (double)sh.n_sel : 0.0;
+    if (t == kSumDone) v = sh.done ? 1.0 : 0.0;
+    if (t == kSumSteps) v = live ? (double)sh.n_fp : 0.0;
+    sums[t] = v;
+  }
+  store_carry(st, sh, k_row);
+  // A row leaves the level as its decision stops it, or at the finish:
+  // mode (b)'s write-out (the posterior A + mu I into the row only).
+  if (decided && (sh.done || stage == kStageFinish)) {
+    __syncthreads();  // the carry is stored before the record takes the prior
+    if (p.mu > 0.f && t == 0)
+      for (int i = 0; i < 6; ++i) sh.best[kBestA + 7 * i] = add(sh.best[kBestA + 7 * i], p.mu);
+    __syncthreads();
+    write_level_row(p, sh, b, k_row, o);
+  }
+}
 
 template <bool kRobust, bool kCompact>
 __global__ void __launch_bounds__(kThreads, 1) split_stage_kernel(Params p) {
   __shared__ Shared sh;
   __shared__ double tot_in[kSplitSums];  // the all-reduced sums of the launch before
-  __shared__ int k_row, decided;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
-  const int b = blockIdx.y;
-  const Row r = row_of(p, b);
-  const Points s = points_of(
-      p, reinterpret_cast<float4*>(p.split_points + ((int64_t)b * C + rank) * points_bytes(p.P)),
-      b, rank);
-  SplitState* st = reinterpret_cast<SplitState*>(p.split_state + (int64_t)b * kSplitStateWords);
-  double* sums = p.split_sums + (int64_t)b * kSplitSums;
-  float* o = p.out + b * p.out_stride;
-  const int base = rank * p.P;
-  const int n_mine = max(0, min(p.P, p.N - base));
-  const int stage = p.split_stage, steps = p.split_steps;
-  constexpr bool tdist = !kRobust;
-  const bool first = stage == 0 && p.split_iter == 0;
+  __shared__ DecideScratch ds;
+  __shared__ int k_row, decided, last;
   const int t = threadIdx.x;
-
-  // The carry: the level's initial state, or the launch before's.
-  if (first) {
-    if (t < 16) sh.T[t] = sh.Tbest[t] = sh.Tinit[t] = p.T[b * p.T_stride + t];
-    if (t < kBestSize) sh.best[t] = 0.f;
-    if (t == 0) {
-      sh.lam = p.lm_init > 0.f ? p.lm_init : 0.f;
-      sh.a = sh.bq = sh.c = sh.n = sh.n_raw = sh.n_sel = 0.f;
-      sh.done = 0;
-      sh.term = kTermIterations;
-      sh.n_fp = 0;
-      sh.n_fill = 0;
-      k_row = 0;
-    }
+  const bool stamped = p.split_timing != nullptr && blockIdx.x == 0 && blockIdx.y == 0;
+  if (stamped && t == 0) {
+    p.split_timing[0] = (long long)global_ns();
+    p.split_timing[2] = clock64();
+  }
+  if constexpr (kRobust) {
+    split_robust<kCompact>(p, sh, ds, tot_in, k_row, decided);
+  } else if (p.split_stage >= 1 && p.split_stage <= p.split_steps + 1) {
+    split_scale<kCompact>(p, sh, last);
   } else {
-    if (t < 16) {
-      sh.T[t] = st->T[t];
-      sh.Tbest[t] = st->Tbest[t];
-      sh.Tinit[t] = st->Tinit[t];
-    }
-    if (t < kBestSize) sh.best[t] = st->best[t];
-    if (t < kSplitSums) tot_in[t] = sums[t];
-    if (t == 0) {
-      sh.lam = st->lam;
-      sh.a = st->a;
-      sh.bq = st->bq;
-      sh.c = st->c;
-      sh.n = st->n;
-      sh.n_raw = st->n_raw;
-      sh.n_sel = st->n_sel;
-      sh.done = st->done;
-      sh.term = st->term;
-      sh.n_fp = st->n_fp;
-      sh.n_fill = st->n_fill;
-      k_row = st->k;
-    }
+    split_tdist<kCompact>(p, sh, ds, tot_in, k_row, decided, last);
   }
-  if (t == 0) decided = 0;
-  __syncthreads();
-  if (first && kCompact) select_slots(p, r, sh, s, b, rank, C);
-
-  // The decision of the iteration before (every CTA, from the same totals).
-  if ((stage == 0 && !first) || stage == kStageFinish) {
-    if (t == 0 && !sh.done) {
-      if (!tdist) {
-        // Off the t-distribution the counts come with stage 0's sums;
-        // Sigma (sh.a, sh.c) is this rank's own.
-        sh.n_raw = (float)tot_in[kSumValid];
-        sh.n = fmaxf(sh.n_raw, 1.f);
-        sh.n_sel = (float)tot_in[kSumSelected];
-      }
-      finish_lin(p, sh, tot_in, lin_precision(sh, tdist), tdist);
-      irls_step(p, sh, k_row, rank == 0 ? o + kLevelStats : nullptr);
-      ++k_row;
-      decided = 1;
-    }
+  if (stamped) {
     __syncthreads();
-  } else if (stage > 0 && !sh.done) {
-    // Sigma from the stage before's sums: the moment seed after stage 0, a
-    // step's update after a step this row took.
     if (t == 0) {
-      if (stage == 1) {
-        sh.n_sel = (float)tot_in[kSumSelected];
-        seed_sigma(p, sh, tot_in[0], tot_in[1], tot_in[2], tot_in[kSumValid], true,
-                   k_row > 0 && p.warm_iters > 0, sh.best + kBestSigma);
-      } else if (stage - 1 <= sh.n_fp) {
-        sigma_update(p, sh, tot_in);
-      }
-    }
-    __syncthreads();
-  }
-
-  // This launch's pass over the rank's points, for a live row.
-  const bool live = !sh.done && stage != kStageFinish;
-  int parity = 0;
-  if (live && stage == 0) {
-    if (tdist) {
-      if (t == 0) {
-        // The Sigma steps this iteration takes (seed_sigma's rule), for
-        // the caller to launch.
-        const float* seed = sh.best + kBestSigma;
-        const bool warm = k_row > 0 && p.warm_iters > 0 && isfinite(seed[0]) &&
-                          isfinite(seed[1]) && isfinite(seed[2]) && isfinite(seed[3]);
-        sh.n_fp = warm ? p.warm_iters : p.scale_iters;
-      }
-      residual_pass<kCompact>(p, r, sh, s, b, base, n_mine, parity, C, false);
-    } else {
-      linearize_row<true, kCompact>(p, r, sh, s, b, rank, C, parity, false, nullptr, false);
-    }
-  } else if (live && stage <= steps && stage <= sh.n_fp) {
-    sigma_pass<kCompact>(p, r, sh, s, base, n_mine, parity, C);
-  } else if (live && stage == steps + 1) {
-    normal_pass<kCompact, true>(p, r, sh, s, base, n_mine, parity, C, lin_precision(sh, true));
-  }
-  cluster.sync();  // every CTA has read the buffers rank 0 writes below
-
-  if (rank == 0) {
-    // The stage's sums: sh.tot's fields for this stage, zeros elsewhere.
-    if (t < kSplitSums) {
-      double v = 0.0;
-      if (live && stage == 0 && tdist) {
-        v = t < 3 ? sh.tot[t] : t == kSumValid ? sh.tot[3] : t == kSumSelected ? sh.tot[4] : 0.0;
-      } else if (live && stage == 0) {
-        v = t < kNormalSums ? sh.tot[t]
-            : t == kSumValid ? (double)sh.n_raw
-            : t == kSumSelected ? (double)sh.n_sel : 0.0;
-      } else if (live && stage <= steps && stage <= sh.n_fp) {
-        v = t < kScaleSums ? sh.tot[t] : 0.0;
-      } else if (live && stage == steps + 1) {
-        v = t < kNormalSums ? sh.tot[t] : 0.0;
-      }
-      if (t == kSumDone) v = sh.done ? 1.0 : 0.0;
-      if (t == kSumSteps) v = live ? (double)sh.n_fp : 0.0;
-      sums[t] = v;
-    }
-    if (t < 16) {
-      st->T[t] = sh.T[t];
-      st->Tbest[t] = sh.Tbest[t];
-      st->Tinit[t] = sh.Tinit[t];
-    }
-    if (t < kBestSize) st->best[t] = sh.best[t];
-    if (t == 0) {
-      st->lam = sh.lam;
-      st->a = sh.a;
-      st->bq = sh.bq;
-      st->c = sh.c;
-      st->n = sh.n;
-      st->n_raw = sh.n_raw;
-      st->n_sel = sh.n_sel;
-      st->k = k_row;
-      st->done = sh.done;
-      st->term = sh.term;
-      st->n_fp = sh.n_fp;
-      st->n_fill = sh.n_fill;
-    }
-    // A row leaves the level as its decision stops it, or at the finish:
-    // mode (b)'s write-out (the posterior A + mu I into the row only).
-    if (decided && (sh.done || stage == kStageFinish)) {
-      __syncthreads();  // the state is stored before the record takes the prior
-      if (p.mu > 0.f && t == 0)
-        for (int i = 0; i < 6; ++i) sh.best[kBestA + 7 * i] = add(sh.best[kBestA + 7 * i], p.mu);
-      __syncthreads();
-      write_level_row(p, sh, b, k_row, o);
+      p.split_timing[8] = clock64();
+      p.split_timing[1] = (long long)global_ns();
     }
   }
 }
@@ -1778,21 +2569,11 @@ int prepare(Kernel kernel, int C, size_t dyn, cudaLaunchConfig_t* cfg) {
   return 0;
 }
 
+// One launch of C CTAs a row of `threads` for B rows, as clusters of C
+// (`cluster`; the kernel prepared for them first) or as plain CTAs.
 template <typename Kernel>
-int launch(Kernel kernel, Params& p, int B, int C, void* stream, bool split = false) {
-  if (C < 1 || C > kMaxCluster || B < 1 || p.N < 1) return (int)cudaErrorInvalidValue;
-  Plan plan = {(p.N + C - 1) / C, 1, 0, 0, 0};
-  // The split mode keeps its points in device memory (split_points) and
-  // compaction's slot tables in the global table, both from the level's
-  // first launch on: nothing in shared memory across launches.
-  int e = split ? 0 : plan_of((const void*)kernel, p.N, C, p.budget > 0, &plan);
-  if (e) return e;
-  // A slot table the plan keeps out of shared memory needs the global one.
-  if (p.budget > 0 && !plan.slots_shared && !p.slots) return (int)cudaErrorInvalidValue;
-  p.P = plan.P;
-  p.stored = plan.stored;
-  p.slots_shared = plan.slots_shared;
-  p.slot_at = (int64_t)plan.slot_at;
+int launch_grid(Kernel kernel, Params& p, int B, int C, int threads, size_t dyn, bool cluster,
+                void* stream) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1800,16 +2581,50 @@ int launch(Kernel kernel, Params& p, int B, int C, void* stream, bool split = fa
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(C, B, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = plan.dyn;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = dyn;
   cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = prepare(kernel, C, plan.dyn, &cfg);
-  if (e) return e;
+  cfg.attrs = cluster ? attr : nullptr;
+  cfg.numAttrs = cluster ? 1 : 0;
+  if (cluster) {
+    const int e = prepare(kernel, C, dyn, &cfg);
+    if (e) return e;
+  }
   const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, p);
   const cudaError_t last = cudaGetLastError();
   return (int)(launched != cudaSuccess ? launched : last);
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, Params& p, int B, int C, void* stream) {
+  if (C < 1 || C > kMaxCluster || B < 1 || p.N < 1) return (int)cudaErrorInvalidValue;
+  Plan plan;
+  int e = plan_of((const void*)kernel, p.N, C, p.budget > 0, &plan);
+  if (e) return e;
+  // A slot table the plan keeps out of shared memory needs the global one.
+  if (p.budget > 0 && !plan.slots_shared && !p.slots) return (int)cudaErrorInvalidValue;
+  p.P = plan.P;
+  p.stored = plan.stored;
+  p.slots_shared = plan.slots_shared;
+  p.slot_at = (int64_t)plan.slot_at;
+  return launch_grid(kernel, p, B, C, kThreads, plan.dyn, true, stream);
+}
+
+// A split-mode launch: C CTAs a row of `threads`, as a cluster of C (C <=
+// kMaxCluster) or as plain CTAs. The split mode keeps its points in device
+// memory (split_points) and compaction's slot tables in the global table,
+// both from the level's first launch on: nothing in shared memory across
+// launches; each CTA takes P = ceil(N / C) points.
+template <typename Kernel>
+int launch_split(Kernel kernel, Params& p, int B, int C, int threads, bool cluster,
+                 void* stream) {
+  if (C < 1 || C > (cluster ? kMaxCluster : kMaxSplitCtas) || B < 1 || p.N < 1)
+    return (int)cudaErrorInvalidValue;
+  p.P = (p.N + C - 1) / C;
+  p.stored = 1;
+  p.slots_shared = 0;
+  p.slot_at = 0;
+  return launch_grid(kernel, p, B, C, threads, 0, cluster, stream);
 }
 
 Params params(const float* px, const float* py, const float* pz, const float* i1,
@@ -2000,12 +2815,16 @@ extern "C" int dvo_track_level(
 // of reference rows starting at image row row0; N its ref_H W pixels, or
 // its budget slots, slots then the (B, budget) table the level's launches
 // share); the current slabs (6, H, W) whole. state: (B, kSplitStateWords)
-// floats, sums (B, kSplitSums) doubles and points (B C points_bytes(P)
-// bytes, C CTAs a cluster, P = ceil(N / C)), kept by the caller from the
-// level's first launch (stage 0 at iter 0) to its last; stage: 0, 1..steps
-// (the t-distribution's Sigma steps), steps + 1 (its normal equations) or
-// kStageFinish. out, out_i: mode (b)'s rows, written as each row leaves
-// the level. Returns a CUDA error code (0: launched).
+// floats (zeroed before the level's first launch: the ticket), sums (B,
+// kSplitSums) doubles and points (B split_row_bytes(N) bytes), kept by the
+// caller from the level's first launch (stage 0 at iter 0) to its last.
+// C: the cluster size (the other estimators' launches, compaction's first
+// launch); ctas: the t-distribution's plain CTAs a row (at most
+// kMaxSplitCtas). timing: null, or kSplitTimingSlots int64 (the phase
+// stamps); stage: 0, 1..steps (the t-distribution's Sigma steps), steps +
+// 1 (its normal equations) or kStageFinish. out, out_i: mode (b)'s rows,
+// written as each row leaves the level. Returns a CUDA error code (0:
+// launched).
 extern "C" int dvo_track_level_split(
     int B, const float* px, const float* py, const float* pz, const float* i1,
     const uint8_t* selected, const float* rgix, const float* rgiy,
@@ -2018,14 +2837,15 @@ extern "C" int dvo_track_level_split(
     int max_iterations, float precision, float lm_init, float lm_up, float lm_down,
     float lm_max, float mu, int C, float* out, int64_t out_stride, int* out_i,
     int64_t out_i_stride, double loglik_const, int ref_H, int row0, float* state,
-    double* sums, uint8_t* points, int stage, int steps, int iter, void* stream) {
+    double* sums, uint8_t* points, int ctas, long long* timing, int stage, int steps, int iter,
+    void* stream) {
   const bool tdist = estimator == kEstTdist;
   const bool stage_ok = stage == kStageFinish || stage == 0 ||
                         (tdist && stage >= 1 && stage <= steps + 1);
   if (max_iterations < 1 || !ref_rows || ref_H < 1 || row0 < 0 ||
       !refs_ok(ref_rows, ref_table, budget, B, N, ref_H, W) || !codes_ok(estimator, influence) ||
       !(mu >= 0.f) || !state || !sums || !points || steps < 0 || steps + 1 >= kStageFinish ||
-      !stage_ok ||
+      !stage_ok || ctas < 1 || ctas > kMaxSplitCtas ||
       iter < 0 || (budget > 0 && !slots))
     return (int)cudaErrorInvalidValue;
   Params p = params(px, py, pz, i1, selected, rgix, rgiy, rgzx, rgzy, ref_rows,
@@ -2053,9 +2873,16 @@ extern "C" int dvo_track_level_split(
   p.split_steps = steps;
   p.split_iter = iter;
   p.split_points = points;
-  return launch(budget > 0 ? (tdist ? split_stage_kernel<false, true>
-                                    : split_stage_kernel<true, true>)
-                           : (tdist ? split_stage_kernel<false, false>
-                                    : split_stage_kernel<true, false>),
-                p, B, C, stream, true);
+  p.split_timing = timing;
+  if (!tdist)
+    return launch_split(budget > 0 ? split_stage_kernel<true, true> : split_stage_kernel<true, false>,
+                        p, B, C, kThreads, true, stream);
+  // The t-distribution: plain CTAs, but compaction's first launch (its
+  // slot tables, select_slots, on a cluster of C) and the finish (one CTA
+  // a row: no pass).
+  if (budget > 0 && stage == 0 && iter == 0)
+    return launch_split(split_stage_kernel<false, true>, p, B, C, kThreads, true, stream);
+  auto kernel = budget > 0 ? split_stage_kernel<false, true> : split_stage_kernel<false, false>;
+  return launch_split(kernel, p, B, stage == kStageFinish ? 1 : ctas, kSplitThreads, false,
+                      stream);
 }

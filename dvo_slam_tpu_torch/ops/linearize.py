@@ -38,6 +38,8 @@ group, parallel/sharded.py): the level's loop cut where the JAX package
 ``psum``s (``stage_plan``), a stage launch over the rank's band each,
 every stage's partial sums all-reduced over the group between launches,
 and the IRLS decisions taken on the card from the all-reduced totals.
+Under nccl each iteration's stages and all-reduces are one CUDA graph
+replay (``graph_issue``); under gloo they are issued one by one.
 
 ``linearize_batched`` takes a batch of B problems (the JAX package's vmap
 over the tracker): reference points (B, N), poses (B, 4, 4), Sigma seeds
@@ -72,6 +74,7 @@ import ctypes
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from dvo_slam_tpu_torch import _build
@@ -93,6 +96,12 @@ LAUNCHES_BY_BATCH = {}
 # all-reduces of its stage buffer, since the last reset.
 LAUNCHES_TRACK_LEVEL_SPLIT = 0
 COLLECTIVES_SPLIT = 0
+# Under nccl the split route replays a CUDA graph of each iteration's
+# stages and all-reduces: the graphs captured (one a workspace and unit)
+# and replayed since the last reset. A replay's launches and all-reduces
+# count in the two counts above.
+CAPTURES_SPLIT = 0
+REPLAYS_SPLIT = 0
 # Calls of prepare_reference since the last reset (a plain integer): the
 # slab route makes none.
 PREPARE_REFERENCE_CALLS = 0
@@ -123,15 +132,29 @@ _TABLE_STRIDE, _TABLE_PARAMS, _TABLE_DEVICE = 0, 1, 2
 # The split mode's stage buffer (csrc/linearize.cu kSum*, kSplitSums): a
 # row's stage sums in the first columns, then its valid and selected
 # counts, its done flag and the Sigma steps its iteration takes; the
-# state's floats a row (kSplitStateWords); the stage code of a level's
+# state's floats a row (kSplitStateWords) and the word of its CTA ticket
+# (kSplitTicketWord, 0 between launches); the stage code of a level's
 # last launch (kStageFinish).
 _SUM_VALID, _SUM_SELECTED, _SUM_DONE, _SUM_STEPS = 29, 30, 31, 32
 _SPLIT_SUMS = 33
 _SPLIT_STATE_WORDS = 112
+_SPLIT_TICKET_WORD = 10
 _STAGE_FINISH = 1024
+# The split mode's phase-timing buffer (csrc/linearize.cu
+# kSplitTimingSlots): %globaltimer at row 0's rank-0 CTA's start and end,
+# then clock64 at its start and at the end of each phase of _SPLIT_PHASES.
+_SPLIT_TIMING_SLOTS = 9
+_SPLIT_PHASES = ("carry", "decision", "pass", "reduction", "barrier",
+                 "write-out")
 # Bytes of a point the split mode keeps between its launches (csrc/
 # linearize.cu kPointBytes: 9 floats and the valid flag).
 _POINT_BYTES = 37
+# The split mode's t-distribution launches (csrc/linearize.cu
+# kSplitThreads, kMaxSplitCtas, kPartialStride): threads a CTA, CTAs a row
+# at most, doubles of a CTA's partial sums.
+_SPLIT_THREADS = 256
+_MAX_SPLIT_CTAS = 256
+_PARTIAL_STRIDE = 32
 # The kernel's codes of the scale estimators (use_weighting off: "none")
 # and influence functions (csrc/linearize.cu kEst*, kInf*).
 _ESTIMATORS = {"tdist": 0, "unit": 1, "normal": 2, "mad": 3, "none": 4}
@@ -1028,6 +1051,7 @@ class SplitArgs(NamedTuple):
     """One split-route level's launch arguments and buffers."""
 
     args: tuple  # dvo_track_level_split's, up to stage, steps, iter, stream
+    # (the last of them timing: null)
     state: torch.Tensor  # (B, _SPLIT_STATE_WORDS) f32, the rows' carry
     sums: torch.Tensor  # (B, _SPLIT_SUMS) f64, the stage buffer
     points: torch.Tensor  # uint8, the points kept between launches
@@ -1037,16 +1061,17 @@ class SplitArgs(NamedTuple):
     keep: object  # what the pointers point at (alive until the last launch)
 
 
-def split_args(ref, cur_slab, K, T_init, cfg: TrackerConfig, row0: int,
-               out, out_i) -> SplitArgs:
+def split_args(ref, cur_slab, K, T_init, cfg: TrackerConfig,
+               row0: int) -> SplitArgs:
     """The arguments of the split route's launches over a rank's band:
     ``ref`` RefSlabs of B (6, h, W) bands of reference rows starting at
     image row ``row0``, ``cur_slab`` the whole current slabs (6, H, W) or
     (B, 6, H, W); the compaction budget is the band's own
     (``ref_budget(cfg, h, W)``, as ``prepare_reference`` of the band
     compacts); the state, stage buffer, kept points and slot table new
-    tensors on the slab's device; out, out_i as
-    ``track_level_kernels``'."""
+    tensors on the slab's device; the t-distribution's CTAs a row
+    ``split_ctas`` on the slab's card (1 SM off the card, where nothing
+    launches); new outputs in ``track_level_kernels``' layout."""
     if not isinstance(ref, RefSlabs):
         raise ValueError("the split route reads the reference band's slabs "
                          "(RefSlabs)")
@@ -1056,11 +1081,7 @@ def split_args(ref, cur_slab, K, T_init, cfg: TrackerConfig, row0: int,
         raise ValueError(f"the level kernel needs mu >= 0, got {cfg.mu}")
     if row0 < 0:
         raise ValueError(f"a band starts at image row >= 0, not {row0}")
-    rows = ref.rows
-    if isinstance(rows, SlabTable):
-        h = rows.shape[-2]
-    else:
-        h = (rows if isinstance(rows, torch.Tensor) else rows[0]).shape[-2]
+    h = _band_rows(ref)
     K = K.contiguous()
     T_init, T_stride = _rows_of(T_init)
     B, dev = T_init.shape[0], cur_slab.device
@@ -1069,26 +1090,63 @@ def split_args(ref, cur_slab, K, T_init, cfg: TrackerConfig, row0: int,
              if budget else None)
     B, N, refs, scale, table = _kernel_args(ref, cur_slab, K, T_init, cfg,
                                             slots, ref_H=h)
-    out, out_i = _level_outputs(out, out_i, B, cfg, dev)
-    state = torch.empty((B, _SPLIT_STATE_WORDS), dtype=torch.float32,
+    out, out_i = _level_outputs(None, None, B, cfg, dev)
+    # Zeroed: each row's CTA ticket starts the level at 0.
+    state = torch.zeros((B, _SPLIT_STATE_WORDS), dtype=torch.float32,
                         device=dev)
     sums = torch.empty((B, _SPLIT_SUMS), dtype=torch.float64, device=dev)
     points = torch.empty(B * split_points_bytes(N), dtype=torch.uint8,
                          device=dev)
+    sms = _build.sm_count(dev.index) if dev.type == "cuda" else 1
     args = (*refs, T_init.data_ptr(), T_stride, *scale,
             *_loop_args(cfg, N, out, out_i), h, row0, state.data_ptr(),
-            sums.data_ptr(), points.data_ptr())
+            sums.data_ptr(), points.data_ptr(), split_ctas(N, B, sms), None)
     return SplitArgs(args, state, sums, points, slots, out, out_i,
                      (table, K, T_init))
 
 
 def split_points_bytes(N: int) -> int:
-    """Bytes of one row's points the split mode keeps between its launches
-    (csrc/linearize.cu points_bytes): each of the cluster's C CTAs its P =
-    ceil(N / C) points, 37 bytes each, rounded up to 16 bytes a CTA."""
-    C = cluster_size(N)
-    P = -(-N // C)
-    return C * ((_POINT_BYTES * P + 15) // 16 * 16)
+    """Bytes of one row of the split mode's buffer (csrc/linearize.cu
+    split_row_bytes): the N points it keeps between its launches, 37 bytes
+    each (planes of N floats, then the valid flags), rounded up to 16
+    bytes; then the partial sums of up to _MAX_SPLIT_CTAS CTAs."""
+    return ((_POINT_BYTES * N + 15) // 16 * 16
+            + _MAX_SPLIT_CTAS * _PARTIAL_STRIDE * 8)
+
+
+def split_ctas(N: int, B: int, sms: int) -> int:
+    """Plain CTAs a row of the split mode's t-distribution launches (of
+    _SPLIT_THREADS threads, two resident an SM) over N points at B rows on
+    a card of ``sms`` SMs: a point a thread while the B rows' CTAs fit in
+    one wave, else the most that do (at least one, at most
+    _MAX_SPLIT_CTAS); then as few as hold the same points a CTA, so that
+    none is empty. CTA r takes points [r P, min((r + 1) P, N)), P =
+    ceil(N / CTAs)."""
+    ctas = max(1, min(-(-N // _SPLIT_THREADS), (2 * sms) // B,
+                      _MAX_SPLIT_CTAS))
+    return -(-N // -(-N // ctas))
+
+
+
+def split_timing_buffer(device):
+    """A zeroed phase-timing buffer for a split stage launch (put its
+    data pointer in place of the launch's null ``timing`` argument):
+    (_SPLIT_TIMING_SLOTS,) int64."""
+    return torch.zeros((_SPLIT_TIMING_SLOTS,), dtype=torch.int64,
+                       device=device)
+
+
+def split_phase_times(timing):
+    """A split stage launch's phase split from its filled timing buffer
+    (host numpy int64, (_SPLIT_TIMING_SLOTS,)): ({phase of _SPLIT_PHASES:
+    device us}, row 0's rank-0 CTA's device us from its start to its
+    end). clock64 spans are converted by the CTA's %globaltimer span over
+    its clock64 span."""
+    t = np.asarray(timing, np.int64)
+    ns = float(t[1] - t[0])
+    ns_per_clock = ns / max(float(t[8] - t[2]), 1.0)
+    return ({name: float(t[3 + i] - t[2 + i]) * ns_per_clock / 1e3
+             for i, name in enumerate(_SPLIT_PHASES)}, ns / 1e3)
 
 
 def split_verdict(flags, world: int):
@@ -1111,50 +1169,244 @@ def split_verdict(flags, world: int):
     return not live, max(live, default=0)
 
 
+def _split_flags(sums):
+    """A stage 0's all-reduced done flags and Sigma steps, (B, 2), on the
+    host (the split route's one read an iteration)."""
+    return sums[:, _SUM_DONE:_SUM_STEPS + 1].cpu()
+
+
+class _EagerIssue:
+    """Issues a split level's stages one by one: a launch, then the
+    all-reduce of the stage buffer (none after the finish)."""
+
+    def __init__(self, launch, all_reduce, tdist):
+        self.launch, self.all_reduce, self.tdist = launch, all_reduce, tdist
+
+    def stage(self, code, steps, k):
+        self.launch(code, steps, k)
+        if code != _STAGE_FINISH:
+            self.all_reduce()
+
+    def stages(self, steps, k):
+        """Iteration k's stages after its stage 0: the Sigma steps and the
+        normal equations (none off the t-distribution)."""
+        if self.tdist:
+            for j in range(1, steps + 2):
+                self.stage(j, steps, k)
+
+    def unit(self, steps, k):
+        """The loop's repeating unit: iteration k's stages after its stage
+        0, then stage 0 of iteration k + 1 (which first takes iteration
+        k's decision)."""
+        self.stages(steps, k)
+        self.stage(0, steps, k + 1)
+
+
+class _GraphIssue(_EagerIssue):
+    """Issues the repeating unit as one CUDA graph replay: the unit of
+    each Sigma step count (cold and warm) captured once into ``units``
+    (a workspace's, so later calls at its shapes replay it), from the
+    eager unit's launches and all-reduces (``_capture``; the kernel
+    reads its iteration only at stage 0 of iteration 0, which no unit
+    holds, so one unit serves every iteration). The launches and
+    all-reduces of a replay count as issued."""
+
+    def __init__(self, launch, all_reduce, tdist, units, device):
+        super().__init__(launch, all_reduce, tdist)
+        self.units, self.device = units, device
+
+    def unit(self, steps, k):
+        global LAUNCHES_TRACK_LEVEL_SPLIT, COLLECTIVES_SPLIT, REPLAYS_SPLIT
+        if steps not in self.units:
+            before = (LAUNCHES_TRACK_LEVEL_SPLIT, COLLECTIVES_SPLIT)
+            graph = _capture(self.device,
+                             lambda: _EagerIssue.unit(self, steps, k))
+            counts = (LAUNCHES_TRACK_LEVEL_SPLIT - before[0],
+                      COLLECTIVES_SPLIT - before[1])
+            # A capture launches nothing.
+            LAUNCHES_TRACK_LEVEL_SPLIT, COLLECTIVES_SPLIT = before
+            self.units[steps] = (graph, counts)
+        graph, (launches, collectives) = self.units[steps]
+        _replay(graph)
+        LAUNCHES_TRACK_LEVEL_SPLIT += launches
+        COLLECTIVES_SPLIT += collectives
+        REPLAYS_SPLIT += 1
+
+
+def _capture(device, fn):
+    """A CUDA graph of what ``fn`` issues on ``device``: captured on a
+    side stream in thread-local mode (the process group's watchdog thread
+    goes on querying its events meanwhile), ordered after the current
+    stream's work. A failed capture raises."""
+    global CAPTURES_SPLIT
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device):
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
+    CAPTURES_SPLIT += 1
+    return graph
+
+
+def _replay(graph):
+    """One replay of a captured unit on the current stream."""
+    graph.replay()
+
+
+def graph_issue(group) -> bool:
+    """Whether the split route issues each iteration as one CUDA graph
+    replay: under nccl, whose all-reduce runs on the card's stream and is
+    captured with the launches. gloo's goes through the host; its issue
+    stays eager."""
+    import torch.distributed as dist
+
+    return dist.get_backend(group) == "nccl"
+
+
+class _Workspace:
+    """A split level's buffers shared by every call at one key, so that
+    the graphs one call captures serve the next (a graph holds its
+    launches' pointers): the current slabs, intrinsics and initial poses
+    copied in, the reference rows by a device table of row pointers
+    (``SlabTable``), the split args' state, stage buffer, kept points,
+    slot table and outputs, and the captured units by Sigma steps."""
+
+    def __init__(self, cur_slab, cfg, row0, h, B):
+        dev, W = cur_slab.device, cur_slab.shape[-1]
+        self.cur = torch.empty(cur_slab.shape, dtype=torch.float32,
+                               device=dev)
+        self.table = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self.K = torch.empty((4,), dtype=torch.float32, device=dev)
+        self.T = torch.empty((B, 4, 4), dtype=torch.float32, device=dev)
+        self.a = split_args(
+            RefSlabs(SlabTable(self.table, (pyr.NUM_CHANNELS, h, W), None,
+                               0)),
+            self.cur, self.K, self.T, cfg, row0)
+        self.units = {}
+
+    def fill(self, ref, cur_slab, K, T_init):
+        """This call's inputs into the workspace, on the current stream
+        (the row pointers from pinned memory, no host sync), and the rows'
+        carry zeroed (its CTA tickets start the call at 0)."""
+        rows = ref.rows
+        if isinstance(rows, SlabTable):
+            self.table.copy_(rows.table)
+        else:
+            rows = rows.unbind(0) if isinstance(rows, torch.Tensor) else rows
+            ptrs = torch.tensor([r.data_ptr() for r in rows],
+                                dtype=torch.int64,
+                                pin_memory=self.table.is_cuda)
+            self.table.copy_(ptrs, non_blocking=True)
+        self.cur.copy_(cur_slab)
+        self.K.copy_(K)
+        self.T.copy_(T_init)
+        self.a.state.zero_()
+
+
+def _band_rows(ref) -> int:
+    rows = ref.rows
+    if isinstance(rows, SlabTable):
+        return rows.shape[-2]
+    return (rows if isinstance(rows, torch.Tensor) else rows[0]).shape[-2]
+
+
+def split_workspace(ref, cur_slab, T_init, cfg: TrackerConfig, group,
+                    row0: int):
+    """The workspace of a split level's call under ``group`` (see
+    ``_Workspace``): the one made for the same (device, current slab
+    shape, band rows, B, first row, config) before, else a new one, kept
+    with the group (``parallel.group_state``) until it is destroyed
+    (``parallel.destroy``)."""
+    from .. import parallel
+
+    h, B = _band_rows(ref), T_init.shape[0]
+    key = ("split", cur_slab.device, tuple(cur_slab.shape), h, B, row0, cfg)
+    kept = parallel.group_state(group)
+    if key not in kept:
+        kept[key] = _Workspace(cur_slab, cfg, row0, h, B)
+    return kept[key]
+
+
+def _split_loop(issue, cfg: TrackerConfig, flags, world: int):
+    """A split level's loop over ``issue``: stage 0 of iteration 0, then a
+    unit an iteration, each followed by the one read of the done flags
+    (``flags()``, ``split_verdict``), until every row is done; past
+    max_iterations - 1 units the last iteration's stages and the finish,
+    which takes its decision."""
+    steps = cfg.tdist_scale_iters if issue.tdist else 0
+    issue.stage(0, steps, 0)
+    for k in range(cfg.max_iterations - 1):
+        issue.unit(steps, k)
+        done, steps = split_verdict(flags(), world)
+        if done:
+            return
+    issue.stages(steps, cfg.max_iterations - 1)
+    issue.stage(_STAGE_FINISH, steps, cfg.max_iterations)
+
+
 def track_level_split(ref, cur_slab, K, T_init, cfg: TrackerConfig, group,
                       row0: int = 0, out=None, out_i=None):
     """A pyramid level's IRLS loop for B rows on the pixel route on the
     card: the split mode of csrc/linearize.cu over this rank's band
     (``split_args``), its stage buffer all-reduced over the
-    ``torch.distributed`` process group ``group`` after every stage launch
-    (nccl: on the current stream, no host sync; gloo: through the host).
+    ``torch.distributed`` process group ``group`` after every stage launch.
     An iteration is ``stage_plan(cfg)`` stage launches and as many
     all-reduces; stage 0 of every later iteration first takes the one
     before's decision on the card, from the all-reduced totals, the same
     bits on every rank. The host reads the rows' done flags once an
     iteration, after stage 0's all-reduce (``split_verdict``); a level
     ends when every row is done, or after max_iterations with one more
-    launch that takes the last decision. Writes, and returns, mode (b)'s
-    outputs (``track_level_kernels``'). A failed build or launch raises;
-    nothing falls back to the plain route."""
+    launch that takes the last decision.
+
+    The launches run over a workspace kept with the group for the call's
+    shapes (``split_workspace``): the inputs are copied in, the outputs
+    out. The issue (``graph_issue``): under nccl the level's first stage,
+    and its last iteration's stages and finish, are issued eagerly and
+    every other iteration's stages and all-reduces, from the Sigma steps
+    to the next stage 0, by one replay of a CUDA graph (``_GraphIssue``,
+    kept in the workspace): one capture a shape and unit, every later
+    call replays it. Under gloo, whose all-reduce goes through the host,
+    every stage is issued eagerly. Writes, and returns, mode (b)'s
+    outputs (``track_level_kernels``'). A failed build, launch, capture
+    or replay raises; nothing falls back to the eager issue or the plain
+    route."""
     import torch.distributed as dist
 
     world = dist.get_world_size(group)
-    a = split_args(ref, cur_slab, K, T_init, cfg, row0, out, out_i)
     dev = cur_slab.device
-    tdist = stage_plan(cfg).cold > 1
+    if not isinstance(ref, RefSlabs):
+        raise ValueError("the split route reads the reference band's "
+                         "slabs (RefSlabs)")
+    ws = split_workspace(ref, cur_slab, T_init, cfg, group, row0)
+    _check(ref, cur_slab, K, _rows_of(T_init)[0], cfg, ref_H=_band_rows(ref))
+    out, out_i = _level_outputs(out, out_i, T_init.shape[0], cfg, dev)
+    ws.fill(ref, cur_slab, K, T_init)
+    a = ws.a
 
-    def stage(code, steps, k):
-        global LAUNCHES_TRACK_LEVEL_SPLIT, COLLECTIVES_SPLIT
+    def launch(code, steps, k):
+        global LAUNCHES_TRACK_LEVEL_SPLIT
         _build.launch("dvo_track_level_split", dev, (*a.args, code, steps, k))
         LAUNCHES_TRACK_LEVEL_SPLIT += 1
-        if code != _STAGE_FINISH:
-            dist.all_reduce(a.sums, group=group)
-            COLLECTIVES_SPLIT += 1
 
-    steps = cfg.tdist_scale_iters if tdist else 0
-    for k in range(cfg.max_iterations):
-        stage(0, steps, k)
-        if k > 0:
-            done, steps = split_verdict(
-                a.sums[:, _SUM_DONE:_SUM_STEPS + 1].cpu(), world)
-            if done:
-                return a.out, a.out_i
-        if tdist:
-            for j in range(1, steps + 2):
-                stage(j, steps, k)
-    stage(_STAGE_FINISH, steps, cfg.max_iterations)
-    return a.out, a.out_i
+    def all_reduce():
+        global COLLECTIVES_SPLIT
+        dist.all_reduce(a.sums, group=group)
+        COLLECTIVES_SPLIT += 1
+
+    tdist = stage_plan(cfg).cold > 1
+    issue = (_GraphIssue(launch, all_reduce, tdist, ws.units, dev)
+             if graph_issue(group) else _EagerIssue(launch, all_reduce, tdist))
+    _split_loop(issue, cfg, lambda: _split_flags(a.sums), world)
+    out.copy_(a.out)
+    out_i.copy_(a.out_i)
+    return out, out_i
 
 
 def linearize_reference(ref: RefData, cur_slab, K, T, cfg: TrackerConfig,

@@ -78,10 +78,36 @@ def init(rank: int, world_size: int, backend: str, init_method: str,
         timeout=datetime.timedelta(seconds=timeout_s))
 
 
-def _worker(rank, fn, world_size, backend, init_method, device, args,
-            out_dir, timeout_s):
+# What ops keep for a process group until it is destroyed (the split
+# route's workspaces, whose CUDA graphs hold the group's communicator): a
+# dict a group (``group_state``), dropped by ``destroy``.
+_GROUP_STATE = {}
+
+
+def group_state(group) -> dict:
+    """The dict kept for process group ``group`` (None: the default group)
+    until ``destroy`` destroys the group."""
     import torch.distributed as dist
 
+    return _GROUP_STATE.setdefault(
+        dist.group.WORLD if group is None else group, {})
+
+
+def destroy(group=None):
+    """``torch.distributed.destroy_process_group(group)`` (None: the
+    default group and every other), after dropping what ``group_state``
+    kept for it."""
+    import torch.distributed as dist
+
+    if group is None:
+        _GROUP_STATE.clear()
+    else:
+        _GROUP_STATE.pop(group, None)
+    dist.destroy_process_group(group)
+
+
+def _worker(rank, fn, world_size, backend, init_method, device, args,
+            out_dir, timeout_s):
     dev = rank_device(rank, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -92,7 +118,7 @@ def _worker(rank, fn, world_size, backend, init_method, device, args,
     try:
         out = fn(rank, world_size, dev, *args)
     finally:
-        dist.destroy_process_group()
+        destroy()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 

@@ -1341,6 +1341,119 @@ def test_pixel_split_case_on_card(cuda, split_world, case):
         np.testing.assert_allclose(g["valid"], n, rtol=1e-3)
 
 
+@pytest.fixture(scope="module")
+def one_rank_groups():
+    """A 1-rank nccl default group in this process (the split route's
+    graph issue) and a 1-rank gloo group beside it (its eager issue: the
+    same sums, a 1-rank all-reduce leaves them as they are); destroyed
+    after the module's tests that use them."""
+    import torch.distributed as dist
+
+    from dvo_slam_tpu_torch import parallel
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{parallel.free_port()}",
+        rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD, dist.new_group([0], backend="gloo")
+    finally:
+        parallel.destroy()
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("level", [3, 2, 1])
+def test_split_graph_issue_matches_eager(cuda, orbit640, one_rank_groups,
+                                         level, B):
+    """Under nccl the split route replays one CUDA graph an iteration (the
+    Sigma steps, the normal equations and the next stage 0, each with its
+    all-reduce): at 640x480's levels 3 / 2 / 1 and B = 1 and 8 over the
+    top half of the reference rows, three calls in a 1-rank nccl group
+    give the eager issue's bits (a 1-rank gloo group), make its launches
+    and all-reduces, and capture one graph (the default config's one
+    unit) in the first call only; the later calls replay it. The eager
+    issue captures nothing."""
+    nccl, gloo = one_rank_groups
+    cfg = TrackerConfig()
+    refs, curs, Ks, T0 = cases.card_pairs(_pixel_inputs(orbit640, B), cuda)
+    h = refs[level].shape[-2] // 2
+    args = (linearize.RefSlabs(refs[level][:, :, :h].contiguous()),
+            curs[level], Ks[level], T0.contiguous(), cfg)
+
+    def counts():
+        return (linearize.LAUNCHES_TRACK_LEVEL_SPLIT,
+                linearize.COLLECTIVES_SPLIT, linearize.CAPTURES_SPLIT,
+                linearize.REPLAYS_SPLIT)
+
+    before = counts()
+    want = [t.clone() for t in linearize.track_level_split(*args, gloo)]
+    prev = counts()
+    issued = (prev[0] - before[0], prev[1] - before[1])
+    assert prev[2:] == before[2:]
+    for call in range(3):
+        got = linearize.track_level_split(*args, nccl)
+        now = counts()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), call
+        assert (now[0] - prev[0], now[1] - prev[1]) == issued, (call, now)
+        assert now[2] - prev[2] == (1 if call == 0 else 0), (call, now)
+        assert now[3] > prev[3]
+        prev = now
+
+
+@pytest.mark.parametrize("level", [2, 1])
+def test_split_stopped_rows_leave_no_ticket(cuda, orbit640, one_rank_groups,
+                                            level):
+    """Rows whose decision stops them at a stage 0 while the others go
+    on, at B = 8 on more than one CTA a row: half the pairs start at their
+    ground truth (they stop within an iteration or two), half perturbed.
+    After each of three calls at the same shape, under nccl (the graph
+    issue) and under gloo (the eager issue), every row's CTA ticket is back
+    at 0 (a ticket left behind would make a later call's last CTA sum its
+    partials too early), the calls give the first call's bits, and the
+    poses are within 1e-4 of the level kernel over the same band's
+    points."""
+    from dvo_slam_tpu_torch import _build, parallel
+
+    nccl, gloo = one_rank_groups
+    cfg, B = TrackerConfig(), 8
+    inp = _pixel_inputs(orbit640, B)
+    frames, poses = orbit640
+    for b in range(B // 2):
+        inp["T0"][b] = se3_np.inverse(poses[b + 1]) @ poses[b]
+    refs, curs, Ks, T0 = cases.card_pairs(inp, cuda)
+    h = refs[level].shape[-2] // 2
+    band = refs[level][:, :, :h].contiguous()
+    args = (linearize.RefSlabs(band), curs[level], Ks[level],
+            T0.contiguous(), cfg)
+    N = h * refs[level].shape[-1]
+    assert linearize.split_ctas(N, B, _build.sm_count(0)) > 1
+    first = None
+    for group in (gloo, nccl):
+        ws = linearize.split_workspace(args[0], args[1], args[3], cfg,
+                                       group, 0)
+        for call in range(3):
+            got = [t.clone() for t in linearize.track_level_split(*args,
+                                                                  group)]
+            torch.cuda.synchronize()
+            tickets = ws.a.state.view(torch.int32)[
+                :, linearize._SPLIT_TICKET_WORD]
+            assert not tickets.any(), (group, call, tickets.tolist())
+            first = first or got
+            assert all(torch.equal(g, w) for g, w in zip(got, first)), call
+        assert parallel.group_state(group)
+    res = linearize.unpack_level(*first, cfg.max_iterations)
+    its = res.iterations.tolist()
+    assert min(its) < max(its), its  # some rows stopped before others
+    o2, i2 = linearize.track_level_kernels(
+        linearize.prepare_reference(band, Ks[level], cfg), curs[level],
+        Ks[level], T0.contiguous(), cfg)
+    want = linearize.unpack_level(o2, i2, cfg.max_iterations)
+    assert float((res.T - want.T).abs().max()) <= 1e-4
+
+
 # --- the pose-graph kernel (csrc/pose_graph.cu) against the host loop ---
 
 def _chain_graph(n=8, drift=0.02, seed=0, max_v=16, max_e=32, loop=True):

@@ -17,7 +17,13 @@ without a card.
   split route's host loop over a stand-in kernel launches stage plan x
   iterations + 1 stages, all-reduces after each but the last, ends a
   level where every row is done or at max_iterations, and raises on every
-  rank, without hanging, where the ranks' done flags part.
+  rank, without hanging, where the ranks' done flags part; the graph
+  issue (nccl's), its units captured by a recording stand-in for the CUDA
+  graph, issues the same sequence.
+- The graph issue's workspace key, the t-distribution launches' grid
+  plan (split_ctas), the phase-timing reader, and the kernel's reading of
+  its iteration (stage 0 of iteration 0 only, so one unit serves every
+  iteration).
 """
 
 import dataclasses
@@ -184,7 +190,7 @@ def test_split_args_pack_the_band(frac, paired):
     cfg = TrackerConfig(point_budget_fraction=frac)
     h = H // ranks
     band = ref[:, :, h:].contiguous()
-    a = t_lin.split_args(t_lin.RefSlabs(band), cur, K, T, cfg, h, None, None)
+    a = t_lin.split_args(t_lin.RefSlabs(band), cur, K, T, cfg, h)
     names = _c_params("dvo_track_level_split")
     assert len(a.args) + 4 == len(names) == len(
         _build._entry_points()["dvo_track_level_split"][0])
@@ -206,13 +212,17 @@ def test_split_args_pack_the_band(frac, paired):
     assert a.sums.dtype == torch.float64
     assert got["state"] == a.state.data_ptr()
     assert got["sums"] == a.sums.data_ptr()
-    # The kept points: every CTA's P = ceil(N / C) points of 37 bytes,
-    # rounded up to 16 bytes a CTA.
-    C = got["C"]
-    P = -(-got["N"] // C)
+    # The kept points: a row's N points of 37 bytes in planes, rounded up
+    # to 16 bytes, then 256 CTAs' partial sums of 32 doubles; the
+    # t-distribution's CTAs a row (1 SM off the card).
     assert got["points"] == a.points.data_ptr()
     assert a.points.dtype == torch.uint8
-    assert a.points.numel() == B * C * (-(-37 * P // 16) * 16)
+    assert a.points.numel() == B * (-(-37 * got["N"] // 16) * 16
+                                    + 256 * 32 * 8)
+    assert got["ctas"] == t_lin.split_ctas(got["N"], B, 1) == 1
+    assert got["timing"] is None
+    # The ticket of each row's CTAs starts at 0.
+    assert not a.state.any()
     if frac:
         assert a.slots.shape == (B, budget) and a.slots.dtype == torch.int32
         assert got["slots"] == a.slots.data_ptr()
@@ -233,15 +243,15 @@ def test_split_args_refuse_what_the_kernel_does_not_take():
     band = ref[:, :, :12].contiguous()
     pts = t_lin.prepare_reference(band, K, cfg)
     with pytest.raises(ValueError, match="RefSlabs"):
-        t_lin.split_args(pts, cur, K, T, cfg, 0, None, None)
+        t_lin.split_args(pts, cur, K, T, cfg, 0)
     with pytest.raises(ValueError, match="row >= 0"):
-        t_lin.split_args(t_lin.RefSlabs(band), cur, K, T, cfg, -1, None, None)
+        t_lin.split_args(t_lin.RefSlabs(band), cur, K, T, cfg, -1)
     with pytest.raises(ValueError, match="reference slabs"):
         t_lin.split_args(t_lin.RefSlabs(ref[:, :, :12, :20].contiguous()),
-                         cur, K, T, cfg, 0, None, None)
+                         cur, K, T, cfg, 0)
     with pytest.raises(ValueError, match="mu >= 0"):
         t_lin.split_args(t_lin.RefSlabs(band), cur, K, T,
-                         TrackerConfig(mu=-1.0), 0, None, None)
+                         TrackerConfig(mu=-1.0), 0)
 
 
 def test_split_source_constants_match_python():
@@ -254,13 +264,19 @@ def test_split_source_constants_match_python():
             "kSumDone": t_lin._SUM_DONE, "kSumSteps": t_lin._SUM_STEPS,
             "kSplitSums": t_lin._SPLIT_SUMS,
             "kSplitStateWords": t_lin._SPLIT_STATE_WORDS,
+            "kSplitTicketWord": t_lin._SPLIT_TICKET_WORD,
             "kStageFinish": t_lin._STAGE_FINISH,
-            "kNormalSums": 29, "kPointFloats": (t_lin._POINT_BYTES - 1) // 4}
+            "kNormalSums": 29, "kPointFloats": (t_lin._POINT_BYTES - 1) // 4,
+            "kSplitThreads": t_lin._SPLIT_THREADS,
+            "kMaxSplitCtas": t_lin._MAX_SPLIT_CTAS,
+            "kPartialStride": t_lin._PARTIAL_STRIDE,
+            "kSplitTimingSlots": t_lin._SPLIT_TIMING_SLOTS}
     for name, value in want.items():
         m = re.search(rf"\b{name} = (\d+)", text)
         assert m and int(m.group(1)) == value, name
-    # The state's fields: 3 poses, the record, 7 floats and 5 ints.
-    assert 3 * 16 + 50 + 7 + 5 <= t_lin._SPLIT_STATE_WORDS
+    # The state's fields: 3 poses, the record, 7 floats, 6 ints and the
+    # ticket.
+    assert 3 * 16 + 50 + 7 + 6 + 1 <= t_lin._SPLIT_STATE_WORDS
 
 
 def test_split_verdict():
@@ -281,6 +297,7 @@ def test_split_verdict():
 W_, H_ = 32, 16
 SCENARIOS = (
     ({"max_iterations": 6}, (3, 3), 5),  # every row done after 3
+    ({"max_iterations": 6}, (1, 1), 5),  # every row done after 1
     ({"max_iterations": 4}, (9, 9), 5),  # max_iterations, then the finish
     ({"max_iterations": 6, "scale_estimator": "mad",
       "influence": "huber"}, (2, 2), 0),
@@ -377,3 +394,165 @@ def test_split_host_loop_launches_and_stops(cpu_world, s):
     stages = plan.cold + (n_it - 1) * plan.warm
     assert len(want) == stages + 1
     assert got[0]["collectives"] == stages + (n_it < M)
+
+
+def _events(r):
+    """A scenario run's issue as (stage, steps) launches and all-reduces."""
+    return [e if e[0] == "all_reduce" else e[:3] for e in r["events"]]
+
+
+@pytest.mark.parametrize("s", range(len(SCENARIOS)))
+def test_split_graph_issue_sequence(cpu_world, s):
+    """The graph issue's loop (nccl's: the level's first stage eager, a
+    captured unit replayed an iteration, the last iteration's stages and
+    the finish eager), its units captured by a recording stand-in for the
+    CUDA graph, issues the eager issue's sequence of stages, Sigma steps
+    and all-reduces, with the same all-reduce count, and the same error on
+    every rank where the ranks part; it captures one unit a Sigma step
+    count (cold, and warm where tdist_scale_warm_iters differs) and
+    replays one an iteration but the first and the last."""
+    fields, stops, steps = SCENARIOS[s]
+    cfg = TrackerConfig(**fields)
+    for r in cpu_world[1]:
+        eager, graph = r["scenarios"][s], r["graph_scenarios"][s]
+        assert _events(graph) == _events(eager)
+        assert [x[:2] for x in graph["launches"]] == [
+            x[:2] for x in eager["launches"]]
+        assert graph["collectives"] == eager["collectives"]
+        assert (graph["error"] is None) == (eager["error"] is None)
+        if eager["error"] is not None:
+            assert "parted" in graph["error"]
+        assert eager["captures"] == eager["replays"] == 0
+        units = [x for x in eager["launches"] if x[0] == 0 and x[2] > 0]
+        assert graph["replays"] == len(units)
+        tdist = cfg.use_weighting and cfg.scale_estimator == "tdist"
+        warm = cfg.tdist_scale_warm_iters or cfg.tdist_scale_iters
+        want = 1 if not tdist or len(units) < 2 else len(
+            {cfg.tdist_scale_iters, warm})
+        assert graph["captures"] == min(want, len(units))
+
+
+class _Group:
+    """A stand-in process group: a workspace key only."""
+
+
+def test_split_workspace_key(monkeypatch):
+    """The split route's workspace: the same shapes, rows and config under
+    one group give the same one (its graphs serve the call); a new level
+    shape, batch, band, stage plan or group a new one, with its own
+    buffers. It is kept with its group (parallel.group_state) until the
+    group is destroyed (parallel.destroy), and each fill zeroes its
+    rows' carry (the CTA tickets)."""
+    from dvo_slam_tpu_torch import parallel
+
+    ref, cur, K, T = _band_inputs(2, 24, 40, False)
+    cfg, g, g2 = TrackerConfig(), _Group(), _Group()
+    band = t_lin.RefSlabs(ref[:, :, :12].contiguous())
+    destroyed = []
+    monkeypatch.setattr(torch.distributed, "destroy_process_group",
+                        lambda group=None: destroyed.append(group))
+    monkeypatch.setattr(parallel, "_GROUP_STATE", {})
+    ws = t_lin.split_workspace(band, cur, T, cfg, g, 12)
+    assert t_lin.split_workspace(band, cur, T, cfg, g, 12) is ws
+    # The same key from other tensors of the same shapes.
+    again = t_lin.RefSlabs(ref[:, :, 12:].contiguous())
+    assert t_lin.split_workspace(again, cur.clone(), T.clone(), cfg, g,
+                                 12) is ws
+    ref3, cur3, _, T3 = _band_inputs(3, 24, 40, False)
+    ref_w, cur_w, _, _ = _band_inputs(2, 24, 48, False)
+    others = [
+        t_lin.split_workspace(band, cur3, T3, cfg, g, 12),  # B
+        t_lin.split_workspace(t_lin.RefSlabs(ref_w[:, :, :12]
+                                             .contiguous()),
+                              cur_w, T, cfg, g, 12),  # shape
+        t_lin.split_workspace(t_lin.RefSlabs(ref[:, :, :8]
+                                             .contiguous()),
+                              cur, T, cfg, g, 8),  # band
+        t_lin.split_workspace(band, cur, T, TrackerConfig(
+            tdist_scale_warm_iters=2), g, 12),  # stage plan
+        t_lin.split_workspace(band, cur, T, TrackerConfig(
+            scale_estimator="mad", influence="huber"), g, 12),
+        t_lin.split_workspace(band, cur, T, cfg, g2, 12),  # group
+    ]
+    for o in others:
+        assert o is not ws and o.a.sums.data_ptr() != ws.a.sums.data_ptr()
+    assert len(parallel.group_state(g)) == len(others)
+    assert list(parallel.group_state(g2).values()) == [others[-1]]
+    # Its launches read the workspace's buffers: the reference rows by
+    # its device table, the copies of the current slab, K and T.
+    got = dict(zip(_c_params("dvo_track_level_split"), ws.a.args))
+    assert got["ref_table"] == t_lin._TABLE_DEVICE
+    assert got["ref_rows"] == ws.table.data_ptr()
+    assert got["slab"] == ws.cur.data_ptr()
+    assert got["K"] == ws.K.data_ptr()
+    assert got["T_init"] == ws.T.data_ptr()
+    ws.a.state[:, t_lin._SPLIT_TICKET_WORD] = 1.0
+    ws.fill(again, cur, K, T)
+    assert ws.table.tolist() == [again.rows[b].data_ptr()
+                                 for b in range(2)]
+    assert torch.equal(ws.cur, cur) and torch.equal(ws.K, K)
+    assert torch.equal(ws.T, T)
+    assert not ws.a.state.any()
+    # Dropped (with their graphs) as their group is destroyed, before it.
+    parallel.destroy(g)
+    assert destroyed == [g] and g not in parallel._GROUP_STATE
+    assert t_lin.split_workspace(band, cur, T, cfg, g, 12) is not ws
+    assert t_lin.split_workspace(band, cur, T, cfg, g2, 12) is others[-1]
+    parallel.destroy()
+    assert destroyed == [g, None] and not parallel._GROUP_STATE
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.25, 0.5])
+@pytest.mark.parametrize("level", [3, 2, 1])
+def test_split_grid_plan_covers_each_point_once(level, frac):
+    """The t-distribution launches' plain CTAs over a band of 640x480's
+    level (half its rows, or its budget slots): every point in exactly one
+    CTA, no CTA empty, at most 256 a row, one thread a point where the
+    card holds the batch in one wave of two CTAs an SM, and no more than
+    one wave's CTAs otherwise (H100: 132 SMs; and a card a tenth of it)."""
+    W, H = 640 >> level, 480 >> level
+    h = H // 2
+    cfg = TrackerConfig(point_budget_fraction=frac)
+    N = t_lin.ref_budget(cfg, h, W) or h * W
+    for sms in (132, 13):
+        for B in (1, 2, 8, 16, 32):
+            ctas = t_lin.split_ctas(N, B, sms)
+            P = -(-N // ctas)
+            owner = np.full(N, -1)
+            for r in range(ctas):
+                lo, hi = r * P, min((r + 1) * P, N)
+                assert lo < hi, (N, B, ctas)
+                assert (owner[lo:hi] == -1).all()
+                owner[lo:hi] = r
+            assert (owner >= 0).all()
+            assert 1 <= ctas <= t_lin._MAX_SPLIT_CTAS
+            if B * -(-N // t_lin._SPLIT_THREADS) <= 2 * sms:
+                assert P <= t_lin._SPLIT_THREADS
+            assert B * ctas <= max(B, 2 * sms)
+
+
+def test_split_phase_times_reads_the_stamps():
+    """The phase-timing reader: clock64 spans in order (carry, decision,
+    pass, reduction, barrier, write-out), converted by the CTA's
+    %globaltimer span over its clock64 span (here 2 ns a clock)."""
+    t = np.zeros(t_lin._SPLIT_TIMING_SLOTS, np.int64)
+    t[0], t[1] = 1_000_000, 1_000_000 + 2 * 6_000
+    t[2:] = 50_000 + np.cumsum([0, 500, 1_000, 1_500, 2_000, 250, 750])
+    phases, span = t_lin.split_phase_times(t)
+    assert list(phases) == list(t_lin._SPLIT_PHASES)
+    np.testing.assert_allclose(list(phases.values()),
+                               [1.0, 2.0, 3.0, 4.0, 0.5, 1.5])
+    assert span == 12.0
+
+
+def test_split_kernel_reads_its_iteration_only_at_the_first_stage():
+    """dvo_track_level_split's iter reaches the kernel as split_iter, read
+    only for the level's first launch (stage 0 of iteration 0): a unit
+    captured at iteration k replays right at any other."""
+    text = (_build.CSRC / "linearize.cu").read_text()
+    uses = re.findall(r".*\bsplit_iter\b.*", text)
+    reads = [u for u in uses
+             if re.search(r"\bp\.split_iter\b(?!\s*=[^=])", u)]
+    assert reads and all(
+        re.search(r"const bool first = stage == 0 && p\.split_iter == 0;", u)
+        for u in reads), reads

@@ -282,7 +282,7 @@ def run_cpu_pixel_route(rank, world_size, device, inp):
     import torch
     import torch.distributed as dist
 
-    from dvo_slam_tpu_torch import TrackerConfig
+    from dvo_slam_tpu_torch import TrackerConfig, parallel
     from dvo_slam_tpu_torch.models import dense_tracker
     from dvo_slam_tpu_torch.ops import camera
     from dvo_slam_tpu_torch.ops import linearize as lin_ops
@@ -318,40 +318,87 @@ def run_cpu_pixel_route(rank, world_size, device, inp):
     # The host loop over a stand-in kernel, once a scenario of
     # inp["scenarios"] (config fields, each rank's stop, Sigma steps):
     # stage 0 of iteration k > 0 reports every row done once k >= the
-    # rank's stop (the decision of iteration k - 1).
+    # rank's stop (the decision of iteration k - 1; k counted as the
+    # kernel counts it in its carry, by the stage 0 launches so far, not
+    # read from the launch's iteration argument). Each scenario runs
+    # twice: issued eagerly (gloo's issue), then as the graph issue builds
+    # it (lin_ops.graph_issue forced), its units captured by a recording
+    # stand-in for the CUDA graph that issues what it recorded on replay.
+    # Every launch and all-reduce is logged in order as issued.
     real_args, saved_launch = lin_ops.split_args, lin_ops._build.launch
+    saved = (lin_ops.graph_issue, lin_ops._capture, dist.all_reduce)
     band = refs[L - 1][:, :, :refs[L - 1].shape[-2] // world_size].contiguous()
-    out["scenarios"] = []
+    out["scenarios"], out["graph_scenarios"] = [], []
     for fields, stops, steps in inp["scenarios"]:
-        seen = {"launches": []}
+        for graph in (False, True):
+            seen = {"launches": [], "events": [], "captures": 0}
 
-        def capture(*args, **kw):
-            seen["a"] = real_args(*args, **kw)
-            return seen["a"]
+            def capture(*args, seen=seen, **kw):
+                seen["a"] = real_args(*args, **kw)
+                return seen["a"]
 
-        def fake_split(name, dev, args, stop=stops[rank], steps=steps):
-            assert name == "dvo_track_level_split"
-            code, _, k = args[-3:]
-            seen["launches"].append(tuple(args[-3:]))
-            sums = seen["a"].sums
-            sums.zero_()
-            if code == 0:
-                sums[:, lin_ops._SUM_DONE] = float(0 < k and stop <= k)
-                sums[:, lin_ops._SUM_STEPS] = float(steps)
+            def fake_split(name, dev, args, stop=stops[rank], steps=steps,
+                           seen=seen):
+                assert name == "dvo_track_level_split"
+                code = args[-3]
+                seen["launches"].append(tuple(args[-3:]))
+                seen["events"].append(("stage", code, args[-2]))
+                sums = seen["a"].sums
+                sums.zero_()
+                if code == 0:
+                    k = sum(x[0] == 0 for x in seen["launches"]) - 1
+                    sums[:, lin_ops._SUM_DONE] = float(0 < k and stop <= k)
+                    sums[:, lin_ops._SUM_STEPS] = float(steps)
 
-        collectives = lin_ops.COLLECTIVES_SPLIT
-        lin_ops.split_args, lin_ops._build.launch = capture, fake_split
-        try:
-            lin_ops.track_level_split(
-                lin_ops.RefSlabs(band), curs[L - 1], Ks[L - 1], T0,
-                TrackerConfig(**fields), group, row0=rank * band.shape[-2])
-            error = None
-        except RuntimeError as e:
-            error = str(e)
-        finally:
-            lin_ops.split_args, lin_ops._build.launch = real_args, saved_launch
-        out["scenarios"].append({
-            "launches": seen["launches"], "error": error,
-            "collectives": lin_ops.COLLECTIVES_SPLIT - collectives})
+            def all_reduce(t, *args, seen=seen, **kw):
+                seen["events"].append(("all_reduce",))
+                return saved[2](t, *args, **kw)
+
+            def record(device, fn, seen=seen):
+                calls = []
+                launch, reduce = lin_ops._build.launch, dist.all_reduce
+                lin_ops._build.launch = lambda *a: calls.append((True, a))
+                dist.all_reduce = lambda *a, **kw: calls.append((False, a, kw))
+                try:
+                    fn()
+                finally:
+                    lin_ops._build.launch, dist.all_reduce = launch, reduce
+                seen["captures"] += 1
+
+                class Recorded:
+                    def replay(self):
+                        for c in calls:
+                            if c[0]:
+                                lin_ops._build.launch(*c[1])
+                            else:
+                                dist.all_reduce(*c[1], **c[2])
+                return Recorded()
+
+            counts = (lin_ops.COLLECTIVES_SPLIT, lin_ops.REPLAYS_SPLIT)
+            lin_ops.split_args, lin_ops._build.launch = capture, fake_split
+            dist.all_reduce = all_reduce
+            # A new workspace a run (its split_args captured).
+            parallel.group_state(group).clear()
+            if graph:
+                lin_ops.graph_issue = lambda group: True
+                lin_ops._capture = record
+            try:
+                lin_ops.track_level_split(
+                    lin_ops.RefSlabs(band), curs[L - 1], Ks[L - 1], T0,
+                    TrackerConfig(**fields), group,
+                    row0=rank * band.shape[-2])
+                error = None
+            except RuntimeError as e:
+                error = str(e)
+            finally:
+                lin_ops.split_args, lin_ops._build.launch = (real_args,
+                                                             saved_launch)
+                lin_ops.graph_issue, lin_ops._capture, dist.all_reduce = saved
+                parallel.group_state(group).clear()
+            out["graph_scenarios" if graph else "scenarios"].append({
+                "launches": seen["launches"], "events": seen["events"],
+                "error": error, "captures": seen["captures"],
+                "collectives": lin_ops.COLLECTIVES_SPLIT - counts[0],
+                "replays": lin_ops.REPLAYS_SPLIT - counts[1]})
     dist.barrier()
     return out
